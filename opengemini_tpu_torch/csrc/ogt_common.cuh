@@ -1,0 +1,61 @@
+// Shared device helpers for the aggregation kernels (bucket_basic.cu,
+// bucket_selectors.cu, grid_window.cu).
+//
+// The sources expose a plain C interface (no PyTorch headers), are built
+// with nvcc for sm_90a at first use and loaded with ctypes by
+// opengemini_tpu_torch/ops/cuda_segment.py. Every entry point launches on
+// the caller's stream, allocates nothing and returns the cudaError_t of
+// the launch.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ogt {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// min/max that propagate NaN like jnp.min / torch.amin (fmin would drop it).
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+
+template <typename T>
+__device__ __forceinline__ T pos_inf();
+template <>
+__device__ __forceinline__ float pos_inf<float>() { return __int_as_float(0x7f800000); }
+template <>
+__device__ __forceinline__ double pos_inf<double>() {
+  return __longlong_as_double(0x7ff0000000000000LL);
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_nan_min(T x) {
+  for (int o = 16; o > 0; o >>= 1) x = nan_min(x, __shfl_xor_sync(kFullMask, x, o));
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_nan_max(T x) {
+  for (int o = 16; o > 0; o >>= 1) x = nan_max(x, __shfl_xor_sync(kFullMask, x, o));
+  return x;
+}
+
+}  // namespace ogt
+
+// Each source builds into its own shared library, so each carries one copy.
+extern "C" const char* ogt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

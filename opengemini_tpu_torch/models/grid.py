@@ -1,0 +1,451 @@
+"""Regular-grid dense batch: the windows-on-lanes fast path for GROUP BY
+time() over stride-regular data.
+
+The port of ``opengemini_tpu/models/grid.py``. TSBS-shaped data — every
+series sampled on a constant stride — lets windowed aggregation skip the
+segment machinery: samples go into a dense (series_run,
+samples_per_window, num_windows) grid and every per-window statistic is
+one reduce over the middle axis, which the CUDA kernel
+``cuda_segment.grid_window_agg`` does on the card.
+
+GridBatch is SPECULATIVE: add() accumulates raw rows exactly like
+BucketedBatch; the first run() checks regularity (one global stride that
+divides the window, per-series-run constant spacing, bounded density
+waste) and either assembles the grid or delegates to a BucketedBatch
+built from the same rows. Only the layout changes, never the answer.
+``utils.stats.STATS`` records which path engaged
+(executor/grid_batches vs executor/grid_fallbacks).
+
+Contract is the AggBatch/BucketedBatch contract: add(values, rel_ns,
+seg_ids, mask, times_ns, sids=...) + run(spec, num_segments, params) ->
+(values, sel|None, counts), where sel indexes the batch's host_times()
+row order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from opengemini_tpu_torch.models import ragged, templates
+from opengemini_tpu_torch.ops import cuda_segment
+from opengemini_tpu_torch.utils.stats import incr as _incr
+
+# aggregates the grid path serves; others never get routed here
+GRID_AGGS = {"count", "sum", "mean", "min", "max", "spread", "stddev",
+             "first", "last"}
+
+_MIN_S = 8
+_MIN_W = 8
+# hard cap on grid slots and max slots per scanned row (sparse series
+# would explode the dense grid)
+_MAX_GRID_CELLS = 1 << 26
+_MAX_EXPANSION = 8
+# samples-per-window above this would make (S, k, W) degenerate; bucketed
+# split rows handle it better
+_MAX_K = 8192
+# lane (W) axis padding quantum: one constant on the card. Padded lanes
+# are masked off, so the quantum changes no answer.
+_LANE_QUANTUM = 8
+
+
+class GridBatch:
+    accepts_boundaries = True  # coalesced adds forward record breaks
+
+    def __init__(self, dtype, W: int, every_ns: int, device):
+        self.dtype = np.dtype(dtype or templates.compute_dtype())
+        self.W = int(W)
+        self.every_ns = int(every_ns)
+        self.device = device
+        self._vals: list[np.ndarray] = []
+        self._rel: list[np.ndarray] = []
+        self._seg: list[np.ndarray] = []
+        self._mask: list[np.ndarray] = []
+        self._times: list[np.ndarray] = []
+        self._sids: list[np.ndarray | None] = []
+        self._bnds: list[np.ndarray | None] = []
+        self.n = 0
+        self._state = None  # grid state dict after a successful freeze
+        self._fallback = None  # BucketedBatch when the grid refuses
+        self._raw: dict = {}  # lazy per-(row, window) device stats
+
+    def add(self, values, rel_ns, seg_ids, mask, times_ns, sids=None,
+            boundaries=None):
+        """`boundaries` (optional sorted row offsets within this add)
+        marks run breaks inside a coalesced add — per-shard sid numbering
+        is independent, so a stager that concatenates records from
+        different shards must keep equal sid values from fusing into one
+        stride run."""
+        self._vals.append(np.asarray(values, dtype=self.dtype))
+        self._rel.append(np.asarray(rel_ns, dtype=np.int64))
+        self._seg.append(np.asarray(seg_ids, dtype=np.int64))
+        self._mask.append(np.asarray(mask, dtype=np.bool_))
+        self._times.append(np.asarray(times_ns, dtype=np.int64))
+        if sids is None:
+            self._sids.append(None)
+        elif np.isscalar(sids):
+            self._sids.append(
+                np.full(len(self._vals[-1]), sids, dtype=np.int64))
+        else:
+            self._sids.append(np.asarray(sids, dtype=np.int64))
+        self._bnds.append(
+            None if boundaries is None
+            else np.asarray(boundaries, dtype=np.int64))
+        self.n += len(self._vals[-1])
+
+    def layout_name(self) -> str:
+        if self._state is not None:
+            return "grid"
+        if self._fallback is not None:
+            return "grid->bucketed"
+        return "grid (not executed)"
+
+    def host_times(self) -> np.ndarray:
+        return (np.concatenate(self._times) if self._times
+                else np.empty(0, np.int64))
+
+    # -- freeze ----------------------------------------------------------
+
+    def _ensure_fallback(self):
+        if self._fallback is None:
+            fb = ragged.BucketedBatch(self.dtype, self.device)
+            for v, r, s, m, t in zip(self._vals, self._rel, self._seg,
+                                     self._mask, self._times):
+                fb.add(v, r, s, m, t)
+            self._fallback = fb
+
+    def _freeze(self, num_segments: int):
+        """Returns the grid state dict, or None (delegate to bucketed)."""
+        if self._state is not None or self._fallback is not None:
+            return self._state
+        state = self._try_grid(num_segments)
+        if state is None:
+            _incr("executor/grid_fallbacks")
+            self._ensure_fallback()
+        else:
+            _incr("executor/grid_batches")
+            self._state = state
+        return self._state
+
+    def _try_grid(self, num_segments: int):
+        W = self.W
+        if self.n == 0 or W < 1 or num_segments % W:
+            return None
+        if any(s is None for s in self._sids):
+            return None  # no series identity: cannot prove no slot clash
+        rel = np.concatenate(self._rel)
+        seg = np.concatenate(self._seg)
+        sid = np.concatenate(self._sids)
+        n = len(rel)
+        # series runs: sid change or chunk boundary (a run is only
+        # required to be internally constant-stride)
+        boundary = np.zeros(n, dtype=np.bool_)
+        boundary[0] = True
+        boundary[1:] = sid[1:] != sid[:-1]
+        off = 0
+        for v, b in zip(self._vals, self._bnds):
+            if b is not None and len(b):
+                boundary[off + b] = True  # coalesced-add record breaks
+            off += len(v)
+            if off < n:
+                boundary[off] = True
+        d = np.diff(rel)
+        inner = ~boundary[1:]
+        dd = d[inner]
+        if len(dd) and int(dd.min()) <= 0:
+            return None  # duplicate/unsorted times within a run
+        # dt = gcd(all within-run diffs, window): every within-run diff is
+        # a positive multiple of dt, so (window, (rel - w*every)//dt) is
+        # injective per run
+        dt = _stride_gcd(dd, self.every_ns) if len(dd) else self.every_ns
+        if dt <= 0 or self.every_ns % dt:
+            return None
+        k = self.every_ns // dt
+        if k > _MAX_K:
+            return None
+        bnd_idx = np.flatnonzero(boundary)
+        S = len(bnd_idx)
+        S_pad = _pad_rows(S, _MIN_S)
+        W_pad = _pad_lanes(W, _MIN_W)
+        cells = S_pad * k * W_pad  # padded = what actually allocates
+        if cells > _MAX_GRID_CELLS or cells > max(_MAX_EXPANSION * n, 1 << 20):
+            return None
+        w = seg % W
+        r = (rel - w * self.every_ns) // dt
+        if (r < 0).any() or (r >= k).any():
+            return None  # window grid misaligned with the stride grid
+        rid = np.cumsum(boundary) - 1
+        flat = (rid * k + r) * W_pad + w
+        shape = (S_pad, k, W_pad)
+        vt = np.zeros(shape, dtype=self.dtype)
+        mt = np.zeros(shape, dtype=np.bool_)
+        vt.reshape(-1)[flat] = np.concatenate(self._vals)
+        mt.reshape(-1)[flat] = np.concatenate(self._mask)
+        run_gid = (seg[bnd_idx] // W).astype(np.int64)
+        order = np.argsort(run_gid, kind="stable")
+        sg = run_gid[order]
+        gb = np.empty(S, dtype=np.bool_)
+        gb[0] = True
+        gb[1:] = sg[1:] != sg[:-1]
+        starts = np.flatnonzero(gb)
+        return {
+            "k": k, "S": S, "W_pad": W_pad, "shape": shape,
+            "arrays": (vt, mt), "dev": None,
+            # the sample-index grid for the selector group builds lazily
+            # from `flat` — count/sum/mean scans never pay for it
+            "flat": flat, "n": n,
+            "rel": rel,
+            "row_order": order,  # grid rows sorted by gid
+            "gid_starts": starts,  # reduceat starts in row_order
+            "gids_present": sg[starts],
+            "rows_per_gid": np.diff(np.append(starts, S)),
+        }
+
+    # -- execution -------------------------------------------------------
+
+    supports_want_sel = True
+
+    def run(self, spec, num_segments: int, params: tuple = (),
+            want_sel: bool = True):
+        """want_sel=False skips the selector index machinery for min/max
+        (their values come from the basic kernel)."""
+        st = self._freeze(num_segments)
+        if st is None:
+            return self._fallback.run(spec, num_segments, params,
+                                      want_sel=want_sel)
+        name = spec.name
+        if name not in GRID_AGGS:
+            self._ensure_fallback()
+            return self._fallback.run(spec, num_segments, params,
+                                      want_sel=want_sel)
+        G = num_segments // self.W
+        raw = self._raw_stats(
+            need_ssd=(name == "stddev"),
+            need_selectors=name in ("first", "last") or (
+                want_sel and name in ("min", "max")),
+        )
+        order, starts = st["row_order"], st["gid_starts"]
+        gids, W = st["gids_present"], self.W
+
+        cnt_rows = raw["count"][order].astype(np.int64)
+        cnt_g = np.add.reduceat(cnt_rows, starts, axis=0)
+        counts = np.zeros(num_segments, dtype=np.int64)
+        counts.reshape(G, W)[gids] = cnt_g
+
+        out = np.zeros(num_segments, dtype=np.float64)
+        out2d = out.reshape(G, W)
+        sel = None
+        if name == "count":
+            out2d[gids] = cnt_g
+        elif name == "sum":
+            out2d[gids] = np.add.reduceat(raw["sum"][order], starts, axis=0)
+        elif name == "mean":
+            s = np.add.reduceat(raw["sum"][order], starts, axis=0)
+            out2d[gids] = s / np.maximum(cnt_g, 1)
+        elif name == "min":
+            out2d[gids] = np.minimum.reduceat(raw["min"][order], starts, axis=0)
+            if want_sel:
+                sel = self._combine_value_selector(st, raw, "min", num_segments)
+        elif name == "max":
+            out2d[gids] = np.maximum.reduceat(raw["max"][order], starts, axis=0)
+            if want_sel:
+                sel = self._combine_value_selector(st, raw, "max", num_segments)
+        elif name == "spread":
+            mn = np.minimum.reduceat(raw["min"][order], starts, axis=0)
+            mx = np.maximum.reduceat(raw["max"][order], starts, axis=0)
+            out2d[gids] = mx - mn
+        elif name == "stddev":
+            s = np.add.reduceat(raw["sum"][order], starts, axis=0)
+            mean_g = s / np.maximum(cnt_g, 1)
+            # exact k-way variance combine across the gid's series rows:
+            # SSD = sum_i [ssd_i + c_i (mu_i - mu)^2]
+            mean_rep = np.repeat(mean_g, st["rows_per_gid"], axis=0)
+            extra = cnt_rows * (raw["mean"][order] - mean_rep) ** 2
+            ssd = np.add.reduceat(raw["ssd"][order] + extra, starts, axis=0)
+            out2d[gids] = np.sqrt(
+                np.maximum(ssd / np.maximum(cnt_g - 1, 1), 0))
+        elif name in ("first", "last"):
+            vals2d, sel = self._combine_time_selector(st, raw, name,
+                                                      num_segments)
+            out2d[gids] = vals2d
+        return out, sel, counts
+
+    def _device_arrays(self):
+        st = self._state
+        if st["dev"] is None:
+            vt, mt = st["arrays"]
+            st["dev"] = (templates.to_device(vt, self.device),
+                         templates.to_device(mt, self.device))
+        return st["dev"]
+
+    def _device_imat(self) -> torch.Tensor:
+        st = self._state
+        imat = np.zeros(st["shape"], dtype=np.int32)
+        imat.reshape(-1)[st["flat"]] = np.arange(st["n"], dtype=np.int32)
+        return templates.to_device(imat, self.device)
+
+    def _launch(self, kind: str) -> dict:
+        vt, mt = self._device_arrays()
+        if kind == "basic":
+            return cuda_segment.grid_window_agg(vt, mt)
+        if kind == "ssd":
+            return {"ssd": _grid_ssd(vt, mt)}
+        return _grid_selectors(vt, mt, self._device_imat())
+
+    def _raw_stats(self, need_ssd: bool, need_selectors: bool) -> dict:
+        S = self._state["S"]
+
+        def settle(kind):
+            got = self._launch(kind)
+            self._raw.update({k: templates.to_host(t)[:S, : self.W]
+                              for k, t in got.items()})
+
+        if "count" not in self._raw:
+            settle("basic")
+        if need_ssd and "ssd" not in self._raw:
+            settle("ssd")
+        if need_selectors and "sel_first" not in self._raw:
+            settle("selectors")
+        return self._raw
+
+    def _combine_value_selector(self, st, raw, name, num_segments):
+        """Per-segment row index of the selected min/max point. Value ties
+        break by earliest timestamp then row order — the BucketedBatch /
+        ops/segment.py rule."""
+        order, starts = st["row_order"], st["gid_starts"]
+        gids = st["gids_present"]
+        G = num_segments // self.W
+        rel = st["rel"]
+        S = st["S"]
+        v = raw[name][order]
+        red = np.minimum if name == "min" else np.maximum
+        ext = red.reduceat(v, starts, axis=0)
+        ext_rep = np.repeat(ext, st["rows_per_gid"], axis=0)
+        cnt = raw["count"][order]
+        sel_sub = raw["sel_" + name][order]
+        hit = (v == ext_rep) & (cnt > 0)
+        t = np.where(hit, rel[sel_sub], np.iinfo(np.int64).max)
+        tbest = np.repeat(np.minimum.reduceat(t, starts, axis=0),
+                          st["rows_per_gid"], axis=0)
+        hit &= t == tbest
+        rows = np.arange(S, dtype=np.int64)[:, None]
+        idx = np.where(hit, rows, S)
+        pick = np.clip(np.minimum.reduceat(idx, starts, axis=0), 0, S - 1)
+        sel = np.zeros(num_segments, dtype=np.int64)
+        # result[g, w] = sel_sub[pick[g, w], w] — rows align with gids order
+        sel.reshape(G, self.W)[gids] = np.take_along_axis(sel_sub, pick, axis=0)
+        return sel
+
+    def _combine_time_selector(self, st, raw, name, num_segments):
+        """first/last across a gid's series rows: pick by extreme exact
+        timestamp (ties by row order). Returns (values for present gids,
+        sel array)."""
+        order, starts = st["row_order"], st["gid_starts"]
+        gids = st["gids_present"]
+        G = num_segments // self.W
+        rel = st["rel"]
+        S = st["S"]
+        cnt = raw["count"][order]
+        sel_sub = raw["sel_" + name][order]
+        vals_sub = raw[name][order]
+        latest = name == "last"
+        bad = np.iinfo(np.int64).min if latest else np.iinfo(np.int64).max
+        t = np.where(cnt > 0, rel[sel_sub], bad)
+        red = np.maximum if latest else np.minimum
+        tbest = np.repeat(red.reduceat(t, starts, axis=0),
+                          st["rows_per_gid"], axis=0)
+        hit = (cnt > 0) & (t == tbest)
+        # exact-time ties across series rows: larger value wins
+        # (reference FirstReduce/LastReduce tie rule)
+        v_best = np.repeat(np.maximum.reduceat(
+            np.where(hit, vals_sub, -np.inf), starts, axis=0),
+            st["rows_per_gid"], axis=0)
+        hit &= vals_sub == v_best
+        rows = np.arange(S, dtype=np.int64)[:, None]
+        if latest:
+            # time ties pick the LATEST row in scan order — the
+            # ops/segment.py `smax(idx)` rule for last()
+            idx = np.where(hit, rows, -1)
+            pick = np.clip(np.maximum.reduceat(idx, starts, axis=0), 0, S - 1)
+        else:
+            idx = np.where(hit, rows, S)
+            pick = np.clip(np.minimum.reduceat(idx, starts, axis=0), 0, S - 1)
+        vals2d = np.take_along_axis(vals_sub, pick, axis=0)
+        sel = np.zeros(num_segments, dtype=np.int64)
+        sel.reshape(G, self.W)[gids] = np.take_along_axis(sel_sub, pick, axis=0)
+        return vals2d, sel
+
+
+def _grid_ssd(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Two-pass squared deviations per (row, window) around the window
+    mean (the one-pass formula cancels). Plain torch on the device: the
+    JAX package runs this group as XLA, with no TPU kernel."""
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+    vz = torch.where(m, v, zero)
+    cnt = m.sum(dim=1)
+    mean = vz.sum(dim=1) / cnt.clamp(min=1).to(v.dtype)
+    dev = torch.where(m, v - mean[:, None, :], zero)
+    return (dev * dev).sum(dim=1)
+
+
+def _grid_selectors(v: torch.Tensor, m: torch.Tensor,
+                    imat: torch.Tensor) -> dict:
+    """Within-row sample selection for min/max/first/last (plain torch on
+    the device, as the JAX package runs it in XLA). argmin/argmax ties take
+    the lowest k index, the earliest in-row timestamp."""
+    inf = torch.tensor(float("inf"), dtype=v.dtype, device=v.device)
+    k = v.shape[1]
+    mi = m.to(torch.uint8)
+    r_min = torch.argmin(torch.where(m, v, inf), dim=1)
+    r_max = torch.argmin(torch.where(m, -v, inf), dim=1)
+    r_first = torch.argmax(mi, dim=1)
+    r_last = (k - 1) - torch.argmax(torch.flip(mi, dims=(1,)), dim=1)
+
+    def take(mat, ridx):
+        return torch.gather(mat, 1, ridx[:, None, :])[:, 0, :]
+
+    return {
+        "sel_min": take(imat, r_min), "sel_max": take(imat, r_max),
+        "sel_first": take(imat, r_first), "sel_last": take(imat, r_last),
+        "first": take(v, r_first), "last": take(v, r_last),
+    }
+
+
+def _stride_gcd(dd: np.ndarray, every_ns: int) -> int:
+    """gcd of every within-run time diff and the window length;
+    constant-stride data exits via one vectorized modulo pass."""
+    m = int(dd.min())
+    if m <= 0:
+        return 0
+    if not (dd % m).any():  # every diff is a multiple of the smallest
+        return int(np.gcd(m, every_ns))
+    return int(np.gcd(np.gcd.reduce(np.unique(dd)), every_ns))
+
+
+def _pow2_at_least(n: int, floor: int) -> int:
+    p = floor
+    while p < n:
+        p *= 2
+    return p
+
+
+def _pad_lanes(n: int, floor: int) -> int:
+    """Pad the lane (W) axis: the constant quantum below 256 lanes, then
+    128-multiples to 2048, pow2 above (the JAX package's ladder)."""
+    q = _LANE_QUANTUM
+    if n <= floor:
+        return floor
+    if n <= 256:
+        return (n + q - 1) // q * q
+    if n <= 2048:
+        return (n + 127) // 128 * 128
+    return _pow2_at_least(n, 2048)
+
+
+def _pad_rows(n: int, floor: int) -> int:
+    """Pad the row (S) axis in 1.5x steps instead of 2x."""
+    p = floor
+    while p < n:
+        p = (p * 3 + 1) // 2
+        p = (p + 7) // 8 * 8
+    return p

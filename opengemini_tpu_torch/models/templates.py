@@ -1,0 +1,127 @@
+"""Aggregate batches on the device: pad -> tensors -> run -> slice.
+
+The port of ``opengemini_tpu/models/templates.py``. The executor hands
+numpy batches here; ``AggBatch`` pads them, moves them to its device as
+one set of tensors and runs the scatter-form aggregates of
+``ops/segment.py`` there. Padding rows are masked out; padded segments
+are sliced off after the device call. PyTorch runs eagerly, so there is
+no compile cache to key.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from opengemini_tpu_torch.ops import window as winmod
+from opengemini_tpu_torch.ops import segment as seg
+from opengemini_tpu_torch.ops.aggregates import AggSpec
+
+_REL_LO_BITS = 30
+_REL_LO_MASK = (1 << _REL_LO_BITS) - 1
+
+
+def compute_dtype() -> np.dtype:
+    """float64, on the card as on the CPU (the H100 runs f64 natively);
+    the JAX package under x64 computes in the same type."""
+    return np.dtype(np.float64)
+
+
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """Host array -> tensor on `device` (bool stays bool)."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def split_rel_ns(rel_ns: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Exact int64 ns offset -> lexicographic int32 (hi, lo) pair for
+    device-side time ordering."""
+    hi = (rel_ns >> _REL_LO_BITS).astype(np.int32)
+    lo = (rel_ns & _REL_LO_MASK).astype(np.int32)
+    return hi, lo
+
+
+class AggBatch:
+    """A device-ready batch for one field: values, (hi, lo) relative
+    times, segment ids, validity mask — plus a host-only int64 ns time
+    array for exact selector timestamps. Accumulated across shards and
+    series."""
+
+    def __init__(self, dtype, device):
+        self.dtype = np.dtype(dtype or compute_dtype())
+        self.device = torch.device(device)
+        self.values: list[np.ndarray] = []
+        self.rel_hi: list[np.ndarray] = []
+        self.rel_lo: list[np.ndarray] = []
+        self.seg_ids: list[np.ndarray] = []
+        self.mask: list[np.ndarray] = []
+        self.times_ns: list[np.ndarray] = []  # host-side only
+        self.n = 0
+        self._dev = None
+        self._counts_cache: dict[int, np.ndarray] = {}
+
+    def add(self, values, rel_ns, seg_ids, mask, times_ns, sids=None):
+        self.values.append(np.asarray(values, dtype=self.dtype))
+        hi, lo = split_rel_ns(np.asarray(rel_ns, dtype=np.int64))
+        self.rel_hi.append(hi)
+        self.rel_lo.append(lo)
+        self.seg_ids.append(np.asarray(seg_ids, dtype=np.int32))
+        self.mask.append(np.asarray(mask, dtype=np.bool_))
+        self.times_ns.append(np.asarray(times_ns, dtype=np.int64))
+        self.n += len(values)
+
+    def _device_arrays(self):
+        """(values, rel_hi, rel_lo, seg_ids, mask) padded and on the
+        device, built once per batch."""
+        if self._dev is not None:
+            return self._dev
+        npad = winmod.pad_to(max(self.n, 1))
+        values = np.zeros(npad, dtype=self.dtype)
+        rel_hi = np.zeros(npad, dtype=np.int32)
+        rel_lo = np.zeros(npad, dtype=np.int32)
+        seg_ids = np.zeros(npad, dtype=np.int32)
+        mask = np.zeros(npad, dtype=np.bool_)
+        off = 0
+        for v, h, l, s, m in zip(self.values, self.rel_hi, self.rel_lo,
+                                 self.seg_ids, self.mask):
+            k = len(v)
+            values[off: off + k] = v
+            rel_hi[off: off + k] = h
+            rel_lo[off: off + k] = l
+            seg_ids[off: off + k] = s
+            mask[off: off + k] = m
+            off += k
+        self._dev = tuple(to_device(a, self.device)
+                          for a in (values, rel_hi, rel_lo, seg_ids, mask))
+        return self._dev
+
+    def layout_name(self) -> str:
+        return "scatter"
+
+    def host_times(self) -> np.ndarray:
+        return (np.concatenate(self.times_ns) if self.times_ns
+                else np.empty(0, np.int64))
+
+    def counts(self, num_segments: int) -> np.ndarray:
+        """Per-segment valid-row counts (cached per batch)."""
+        got = self._counts_cache.get(num_segments)
+        if got is None:
+            seg_pad = winmod.pad_to(max(num_segments, 1), 256)
+            _v, _h, _l, seg_ids, mask = self._device_arrays()
+            got = to_host(seg.seg_count(seg_ids, seg_pad, mask))[:num_segments]
+            self._counts_cache[num_segments] = got
+        return got
+
+    def run(self, spec: AggSpec, num_segments: int, params: tuple = ()):
+        """Execute one aggregate; returns (values[num_segments],
+        sel_idx[num_segments] | None, counts[num_segments])."""
+        seg_pad = winmod.pad_to(max(num_segments, 1), 256)
+        values, rel_hi, rel_lo, seg_ids, mask = self._device_arrays()
+        out, sel = spec.fn(values, rel_hi, rel_lo, seg_ids, seg_pad, mask,
+                           *params)
+        out_np = to_host(out)[:num_segments]
+        sel_np = to_host(sel)[:num_segments] if sel is not None else None
+        return out_np, sel_np, self.counts(num_segments)

@@ -1,0 +1,594 @@
+"""Statement executor: AST -> scan -> device reduce -> InfluxDB JSON rows.
+
+The port of ``opengemini_tpu/query/executor.py`` for the aggregate
+SELECT path: ``execute`` -> ``_select`` -> ``_select_measurement`` ->
+``_scan_context`` -> ``_select_agg_run`` -> ``_scan_monolithic`` ->
+``_render_agg``, with ``pick_batch`` routing exactly as the JAX package
+does. Besides SELECT with aggregate calls it runs ``CREATE DATABASE``.
+Raw selects, host-path functions, subqueries, joins, SHOW/DDL beyond
+CREATE DATABASE, the result cache, sliced scans, cluster routing and
+auth are not part of this slice and answer a statement error.
+
+The device comes from the engine (``Engine(root, device=...)``) and is
+passed explicitly through ``pick_batch`` to every batch.
+
+Results use the influx wire shape:
+    {"results": [{"statement_id": 0, "series": [
+        {"name": ..., "tags": {...}, "columns": [...], "values": [[...]]}]}]}
+Times in values are int ns; the HTTP layer formats RFC3339/epoch.
+"""
+
+from __future__ import annotations
+
+import re
+import time as _time
+from dataclasses import dataclass
+
+import numpy as np
+
+from opengemini_tpu_torch.models import grid as _grid
+from opengemini_tpu_torch.models import ragged, templates
+from opengemini_tpu_torch.ops import window as winmod
+from opengemini_tpu_torch.query import condition as cond
+from opengemini_tpu_torch.query.qhelpers import (
+    MAX_SELECT_BUCKETS, QueryError, _add_record_to_batches, _apply_fill,
+    _calls_in, _classify_select, _data_time_range,
+    _default_field_name, _eval_output_expr, _expand_call_wildcards,
+    _has_call_wildcard, _needs_string_host_path, _resolve_call,
+    _selector_aux_plan, _strip_expr,
+)
+from opengemini_tpu_torch.record import FieldType, FieldTypeConflict
+from opengemini_tpu_torch.sql import ast
+from opengemini_tpu_torch.sql.parser import parse
+from opengemini_tpu_torch.storage.engine import WriteError
+from opengemini_tpu_torch.utils.stats import incr as _incr
+
+
+@dataclass
+class ScanContext:
+    """Output of the shared select prologue (_scan_context)."""
+
+    sc: object
+    shards: list
+    tmin: int
+    tmax: int
+    schema: dict
+    tag_keys: set
+    group_time: object
+    aligned: int
+    W: int
+    group_tags: list
+    group_keys: list
+    scan_plan: list
+
+
+def pick_batch(schema, agg_names, field: str, dtype, device, grid_ctx=None):
+    """Batch implementation for one field given the aggregate names that
+    will run on it, on `device`. With a GROUP BY time() context
+    (`grid_ctx` = (W, every_ns)), dense-capable aggregates try the
+    regular-grid batch first (models/grid.py, with its own fallback when
+    the data is not constant-stride); otherwise they use the bucketed
+    batch (models/ragged.py); rank-based ones (percentile/median/
+    count_distinct) keep the scatter AggBatch. Int sum/mean stay exact on
+    the host (IntExactBatch)."""
+    if (
+        schema.get(field) == FieldType.INT
+        and all(n in ragged.INT_EXACT_AGGS for n in agg_names)
+        and any(n in ("sum", "mean") for n in agg_names)
+    ):
+        return ragged.IntExactBatch()
+    if (
+        grid_ctx is not None
+        and schema.get(field) in (FieldType.FLOAT, FieldType.INT)
+        and all(n in _grid.GRID_AGGS for n in agg_names)
+    ):
+        return _grid.GridBatch(dtype, grid_ctx[0], grid_ctx[1], device)
+    if all(n in ragged.DENSE_AGGS for n in agg_names):
+        return ragged.BucketedBatch(dtype, device)
+    return templates.AggBatch(dtype, device)
+
+
+class _ScanStager:
+    """Batched column materialization for the per-series scan tail:
+    accumulates per-record column views and flushes ONE contiguous array
+    set per field, preserving the row order of the serial path. Record
+    boundaries are forwarded to batches that want them (GridBatch run
+    detection)."""
+
+    def __init__(self, needed_fields, dtype, batches, aligned):
+        self.needed_fields = needed_fields
+        self.dtype = dtype
+        self.batches = batches
+        self.aligned = aligned
+        self._recs: list[tuple] = []  # [(times, seg, sid)]
+        self._per_field: dict[str, list] = {f: [] for f in needed_fields}
+
+    def add(self, rec, seg, fmask, sid):
+        ri = len(self._recs)
+        self._recs.append((rec.times, seg, sid))
+        for fname in self.needed_fields:
+            col = rec.columns.get(fname)
+            if col is None:
+                continue
+            m = col.valid if fmask is None else (col.valid & fmask)
+            if col.ftype == FieldType.STRING:
+                vals = None  # count-only payload: zeros at flush
+            else:
+                vals = col.values
+            self._per_field[fname].append((ri, vals, m))
+
+    def _gather(self, rec_idx):
+        times = np.concatenate([self._recs[i][0] for i in rec_idx])
+        seg = np.concatenate([self._recs[i][1] for i in rec_idx])
+        sids = np.concatenate([
+            np.full(len(self._recs[i][0]), self._recs[i][2], np.int64)
+            for i in rec_idx])
+        lens = np.asarray(
+            [len(self._recs[i][0]) for i in rec_idx], np.int64)
+        return times, seg, sids, times - self.aligned, np.cumsum(lens)[:-1]
+
+    def flush(self):
+        shared = None
+        all_idx = list(range(len(self._recs)))
+        for fname, entries in self._per_field.items():
+            if not entries:
+                continue
+            batch = self.batches[fname]
+            rec_idx = [e[0] for e in entries]
+            if rec_idx == all_idx:
+                if shared is None:
+                    shared = self._gather(all_idx)
+                times, seg, sids, rel, bounds = shared
+            else:
+                times, seg, sids, rel, bounds = self._gather(rec_idx)
+            mask = np.concatenate([e[2] for e in entries])
+            parts = [
+                np.zeros(len(self._recs[ri][0]), dtype=self.dtype)
+                if v is None else v
+                for ri, v, _m in entries
+            ]
+            vals = parts[0] if len(parts) == 1 else np.concatenate(parts)
+            if not isinstance(batch, ragged.IntExactBatch):
+                vals = vals.astype(self.dtype)
+            if getattr(batch, "accepts_boundaries", False):
+                batch.add(vals, rel, seg, mask, times, sids=sids,
+                          boundaries=bounds)
+            else:
+                batch.add(vals, rel, seg, mask, times, sids=sids)
+            self._per_field[fname] = []
+        self._recs = []
+
+
+class Executor:
+    def __init__(self, engine):
+        self.engine = engine
+        self.device = engine.device
+
+    def execute(self, text: str, db: str = "", now_ns: int | None = None,
+                read_only: bool = False) -> dict:
+        """read_only=True (HTTP GET) rejects mutating statements."""
+        if now_ns is None:
+            now_ns = _time.time_ns()
+        try:
+            stmts = parse(text)
+        except ValueError as e:
+            return {"results": [{"statement_id": 0,
+                                 "error": f"error parsing query: {e}"}]}
+        _incr("executor/queries")
+        results = []
+        for i, stmt in enumerate(stmts):
+            try:
+                if read_only and not isinstance(stmt, ast.SelectStatement):
+                    raise QueryError(
+                        f"{type(stmt).__name__} queries must be sent via POST")
+                res = self.execute_statement(stmt, db, now_ns)
+            except (QueryError, cond.ConditionError, KeyError, ValueError,
+                    re.error, FieldTypeConflict, WriteError) as e:
+                res = {"error": str(e)}
+            res["statement_id"] = i
+            results.append(res)
+        return {"results": results}
+
+    def execute_statement(self, stmt, db: str, now_ns: int) -> dict:
+        if isinstance(stmt, ast.SelectStatement):
+            res = self._select(stmt, db, now_ns)
+            if not stmt.ascending and res.get("series"):
+                # ORDER BY time DESC reverses the series order too
+                res = dict(res, series=list(reversed(res["series"])))
+            return res
+        if isinstance(stmt, ast.CreateDatabase):
+            if stmt.has_rp_clause:
+                raise QueryError(
+                    "CREATE DATABASE ... WITH is not supported by this port yet")
+            self.engine.create_database(stmt.name)
+            return {}
+        raise QueryError(
+            f"{type(stmt).__name__} is not supported by this port yet")
+
+    def _select(self, stmt: ast.SelectStatement, db: str, now_ns: int) -> dict:
+        if stmt.into is not None or stmt.ctes:
+            raise QueryError("SELECT INTO and WITH are not supported by this "
+                             "port yet")
+        n_const = 0
+        for f in stmt.fields:
+            if isinstance(_strip_expr(f.expr), ast.StringLiteral):
+                if not f.alias:
+                    raise QueryError("field must contain at least one variable")
+                n_const += 1
+        if n_const == len(stmt.fields):
+            return {}  # only constants: empty result, no error
+        if len(stmt.sources) != 1:
+            raise QueryError("multiple sources are not supported by this "
+                             "port yet")
+        all_series = []
+        for src in stmt.sources:
+            if not isinstance(src, ast.Measurement):
+                raise QueryError(f"{type(src).__name__} sources are not "
+                                 "supported by this port yet")
+            src_db = src.database or db
+            if not src_db:
+                raise QueryError("database name required")
+            if src_db not in self.engine.databases:
+                raise QueryError(f"database not found: {src_db}")
+            for mst in self._resolve_measurements(src, src_db):
+                all_series.extend(self._select_measurement(
+                    stmt, src_db, src.rp or None, mst, now_ns))
+        if stmt.soffset:
+            all_series = all_series[stmt.soffset:]
+        if stmt.slimit:
+            all_series = all_series[: stmt.slimit]
+        if not all_series:
+            return {}
+        return {"series": all_series}
+
+    def _resolve_measurements(self, src: ast.Measurement, db: str) -> list[str]:
+        if src.name:
+            return [src.name]
+        rx = re.compile(src.regex)
+        names = set()
+        for sh in self.engine.shards_for_range(db, src.rp or None,
+                                               cond.MIN_TIME, cond.MAX_TIME):
+            names.update(m for m in sh.measurements() if rx.search(m))
+        return sorted(names)
+
+    def _measurement_schema(self, db, rp, mst) -> dict:
+        schema: dict = {}
+        for sh in self.engine.shards_for_range(db, rp, cond.MIN_TIME,
+                                               cond.MAX_TIME):
+            schema.update(sh.schema(mst))
+        return schema
+
+    def _select_measurement(self, stmt, db, rp, mst, now_ns) -> list[dict]:
+        if _has_call_wildcard(stmt):
+            stmt = _expand_call_wildcards(
+                stmt, self._measurement_schema(db, rp, mst))
+        kind = _classify_select(stmt)
+        if _selector_aux_plan(stmt) is not None or (
+                kind == "device" and _needs_string_host_path(
+                    stmt, lambda: self._measurement_schema(db, rp, mst))):
+            kind = "host"
+        if kind != "device":
+            raise QueryError(
+                "only aggregate selects (count/sum/mean/min/max/first/last/"
+                "spread/stddev/median/percentile/count(distinct)) over "
+                "fields are supported by this port yet")
+        return self._select_agg_run(stmt, db, rp, mst, now_ns)
+
+    # -- shared scan planning ----------------------------------------------
+
+    def _scan_context(self, stmt, db, rp, mst, now_ns):
+        """Shared prologue: schema/tag keys, WHERE split, shard mapping,
+        data-driven range clamp, window grid, group construction. Returns
+        None when nothing matches."""
+        shards_all = self.engine.shards_for_range(db, rp, cond.MIN_TIME,
+                                                  cond.MAX_TIME)
+        tag_keys: set[str] = set()
+        schema: dict[str, FieldType] = {}
+        for sh in shards_all:
+            tag_keys.update(sh.index.tag_keys(mst))
+            schema.update(sh.schema(mst))
+        if not schema and stmt.group_by_all_tags:
+            raise QueryError("measurement not found")
+        sc = cond.split(stmt.condition, tag_keys, now_ns)
+        tmin, tmax = sc.tmin, sc.tmax
+        explicit_tmin = tmin != cond.MIN_TIME
+        explicit_tmax = tmax != cond.MAX_TIME
+        shards = [sh for sh in shards_all if sh.tmax > tmin and sh.tmin < tmax]
+        if not shards:
+            return None
+        # data-driven clamp of an unbounded range (influx uses epoch 0/now)
+        if not explicit_tmin or not explicit_tmax:
+            dmin, dmax = _data_time_range(shards, mst)
+            if dmin is None:
+                return None
+            if not explicit_tmin:
+                tmin = dmin
+            if not explicit_tmax:
+                tmax = dmax + 1
+        if tmax <= tmin:
+            return None
+        group_time = stmt.group_by_time
+        if group_time:
+            aligned = int(winmod.window_start(tmin, group_time.every_ns,
+                                              group_time.offset_ns))
+            every = group_time.every_ns
+            if not explicit_tmax and stmt.limit and stmt.ascending:
+                want = stmt.offset + stmt.limit
+                tmax = max(tmax, min(now_ns, aligned + want * every))
+            W = winmod.num_windows(tmin, tmax, every, group_time.offset_ns)
+            if W > MAX_SELECT_BUCKETS:
+                raise QueryError(
+                    f"GROUP BY time({every}ns) would create {W} buckets "
+                    f"(max {MAX_SELECT_BUCKETS})")
+        else:
+            # output timestamp of whole-range aggregates: the explicit WHERE
+            # lower bound, else epoch 0
+            aligned = tmin if explicit_tmin else 0
+            W = 1
+        group_tags = self._group_tags(stmt, shards, mst)
+        gid_of: dict[tuple, int] = {}
+        group_keys: list[tuple] = []
+        scan_plan = []  # (shard, sid, gid)
+        for sh in shards:
+            sids = cond.eval_tag_sids(sc.tag_expr, sh.index, mst)
+            if sc.mixed_expr is not None and sids.size:
+                sids = np.intersect1d(
+                    sids, cond.tag_superset_arr(
+                        sc.mixed_expr, sh.index, mst, sc.tag_keys),
+                    assume_unique=True)
+            for sid in sids.tolist():
+                tags = sh.index.tags_of(sid)
+                key = tuple(tags.get(k, "") for k in group_tags)
+                gid = gid_of.get(key)
+                if gid is None:
+                    gid = len(group_keys)
+                    gid_of[key] = gid
+                    group_keys.append(key)
+                scan_plan.append((sh, sid, gid))
+        if not scan_plan:
+            return None
+        return ScanContext(sc, shards, tmin, tmax, schema, tag_keys,
+                           group_time, aligned, W, group_tags, group_keys,
+                           scan_plan)
+
+    # -- aggregate path -----------------------------------------------------
+
+    def _select_agg_run(self, stmt, db, rp, mst, now_ns) -> list[dict]:
+        aggs = []  # (call, spec, params, field_name)
+        for f in stmt.fields:
+            for call in _calls_in(f.expr):
+                spec, params, field_name = _resolve_call(call)
+                aggs.append((call, spec, params, field_name))
+        ctx = self._scan_context(stmt, db, rp, mst, now_ns)
+        if ctx is None:
+            return []
+        sc = ctx.sc
+        tmin, tmax = ctx.tmin, ctx.tmax
+        group_time, aligned, W = ctx.group_time, ctx.aligned, ctx.W
+        schema = ctx.schema
+        num_groups = len(ctx.group_keys)
+        num_segments = num_groups * W
+
+        if any(a[3].lower() == "time" for a in aggs):
+            raise QueryError("aggregates over time are not supported by this "
+                             "port yet")
+        # influx: COUNT/COUNT(DISTINCT ...) over a TAG answers a constant 0
+        tag_count_aggs = [
+            a for a in aggs
+            if a[1].name in ("count", "count_distinct")
+            and a[3] not in schema and a[3] in sc.tag_keys
+        ]
+        aggs = [a for a in aggs if a not in tag_count_aggs]
+
+        needed_fields = sorted({a[3] for a in aggs})
+        read_fields = sorted(set(needed_fields)
+                             | set(cond.row_filter_refs(sc)))
+
+        dtype = templates.compute_dtype()
+        per_field_aggs: dict[str, list] = {}
+        for _call, spec, _params, fname in aggs:
+            per_field_aggs.setdefault(fname, []).append(spec.name)
+        grid_ctx = (W, group_time.every_ns) if group_time else None
+        batches: dict[str, object] = {
+            f: pick_batch(schema, per_field_aggs[f], f, dtype, self.device,
+                          grid_ctx)
+            for f in needed_fields
+        }
+
+        for call, spec, params, field_name in aggs:
+            if schema.get(field_name) == FieldType.STRING and \
+                    spec.name not in ("count", "mean", "stddev"):
+                raise QueryError(
+                    f"{spec.name}() is not supported on string field "
+                    f"{field_name!r}")
+        # selector ordering uses an int32 (hi, lo) split of rel ns
+        if tmax - aligned >= (1 << 61):
+            raise QueryError(
+                "time range too large (over ~73 years) for aggregation")
+
+        rows_scanned = self._scan_monolithic(
+            ctx.scan_plan, [(tmin, tmax)], sc, mst, group_time, tmin, W,
+            needed_fields, read_fields, dtype, aligned, batches)
+        _incr("executor/rows_scanned", rows_scanned)
+
+        agg_results = {}  # id(call) -> (values, sel, counts, spec, fname, times)
+        for call, spec, params, field_name in aggs:
+            batch = batches[field_name]
+            if group_time and getattr(batch, "supports_want_sel", False):
+                # GROUP BY time(): selector timestamps are never consulted
+                # (window start renders instead), so skip the selector
+                # index kernels
+                out, sel, counts = batch.run(spec, num_segments, params,
+                                             want_sel=False)
+            else:
+                out, sel, counts = batch.run(spec, num_segments, params)
+            if spec.name == "percentile" and params:
+                # influx: rank floor(n*q/100+0.5)-1 < 0 yields NO row
+                qv = float(params[0])
+                ok = np.floor(counts * qv / 100.0 + 0.5) >= 1
+                if not ok.all():
+                    counts = np.where(ok, counts, 0)
+            if spec.name == "stddev" and \
+                    schema.get(field_name) == FieldType.STRING:
+                out = np.where(counts > 0, np.nan, out)
+            agg_results[id(call)] = (out, sel, counts, spec, field_name, None)
+        for call, spec, _params, field_name in tag_count_aggs:
+            out = np.zeros(num_segments, np.int64)
+            counts = np.ones(num_segments, np.int64)  # rows render as 0
+            agg_results[id(call)] = (out, None, counts, spec, field_name, None)
+        return self._render_agg(stmt, mst, ctx.group_tags, ctx.group_keys,
+                                aligned, W, agg_results, batches, schema)
+
+    def _scan_monolithic(self, scan_plan, scan_ranges, sc, mst, group_time,
+                         tmin, W, needed_fields, read_fields, dtype, aligned,
+                         batches) -> int:
+        """Decode every series in range into `batches`: one bulk read per
+        shard when many series are scanned, else per-series reads staged
+        into one contiguous add per field. Returns rows scanned."""
+        rows_scanned = 0
+        by_shard: dict[int, tuple] = {}
+        for sh, sid, gid in scan_plan:
+            by_shard.setdefault(id(sh), (sh, []))[1].append((sid, gid))
+        remaining_plan = []
+        for sh, pairs in by_shard.values():
+            if len(pairs) < 64:
+                remaining_plan.extend((sh, sid, gid) for sid, gid in pairs)
+                continue
+            sid_list = np.asarray([p[0] for p in pairs], np.int64)
+            gid_list = np.asarray([p[1] for p in pairs], np.int64)
+            o = np.argsort(sid_list)
+            sid_sorted, gid_sorted = sid_list[o], gid_list[o]
+            for rlo, rhi in scan_ranges:
+                sid_arr, rec = sh.read_series_bulk(
+                    mst, sid_sorted, rlo, rhi, fields=read_fields)
+                if len(rec) == 0:
+                    continue
+                rows_scanned += len(rec)
+                fmask = (cond.eval_row_filter(sc, rec, sid_arr=sid_arr,
+                                              index=sh.index)
+                         if sc.has_row_filter else None)
+                gid_rows = gid_sorted[np.searchsorted(sid_sorted, sid_arr)]
+                if group_time:
+                    widx, _ = winmod.window_index(
+                        rec.times, tmin, group_time.every_ns,
+                        group_time.offset_ns)
+                    seg = (gid_rows * W + widx.astype(np.int64)
+                           ).astype(np.int32)
+                else:
+                    seg = gid_rows.astype(np.int32)
+                _add_record_to_batches(rec, seg, aligned, needed_fields,
+                                       batches, dtype, fmask, sids=sid_arr)
+        stager = (_ScanStager(needed_fields, dtype, batches, aligned)
+                  if remaining_plan else None)
+        for sh, sid, gid in remaining_plan:
+            for rlo, rhi in scan_ranges:
+                rec = sh.read_series(mst, sid, rlo, rhi, fields=read_fields)
+                if len(rec) == 0:
+                    continue
+                rows_scanned += len(rec)
+                fmask = (cond.eval_row_filter(sc, rec,
+                                              tags=sh.index.tags_of(sid))
+                         if sc.has_row_filter else None)
+                if group_time:
+                    widx, _ = winmod.window_index(
+                        rec.times, tmin, group_time.every_ns,
+                        group_time.offset_ns)
+                    seg = (gid * W + widx.astype(np.int64)).astype(np.int32)
+                else:
+                    seg = np.full(len(rec), gid, dtype=np.int32)
+                stager.add(rec, seg, fmask, sid)
+        if stager is not None:
+            stager.flush()
+        return rows_scanned
+
+    def _group_tags(self, stmt, shards, mst) -> list[str]:
+        if stmt.group_by_all_tags:
+            keys: set[str] = set()
+            for sh in shards:
+                keys.update(sh.index.tag_keys(mst))
+            return sorted(keys)
+        return list(stmt.group_by_tags)
+
+    def _render_agg(self, stmt, mst, group_tags, group_keys, aligned, W,
+                    agg_results, batches, schema) -> list[dict]:
+        group_time = stmt.group_by_time
+        every = group_time.every_ns if group_time else 0
+
+        columns = ["time"]
+        col_exprs = []
+        used_names: dict[str, int] = {}
+        for f in stmt.fields:
+            e = _strip_expr(f.expr)
+            if isinstance(e, ast.VarRef) and e.name.lower() == "time":
+                continue  # explicit `time` is always column 0
+            name = f.alias or _default_field_name(f.expr)
+            k = used_names.get(name, 0)
+            used_names[name] = k + 1
+            if k:
+                name = f"{name}_{k}"
+            columns.append(name)
+            col_exprs.append(f.expr)
+
+        # a single selector call without GROUP BY time(): the result time
+        # is the selected point's own timestamp
+        single_selector = None
+        if not group_time and len(col_exprs) == 1:
+            calls = _calls_in(col_exprs[0])
+            if len(calls) == 1:
+                entry = agg_results.get(id(calls[0]))
+                if entry and entry[3].is_selector:
+                    single_selector = entry
+
+        host_times = (
+            batches[single_selector[4]].host_times()
+            if single_selector is not None and single_selector[5] is None
+            else None
+        )
+        count_idx = tuple(
+            i for i, e in enumerate(col_exprs)
+            if isinstance(_strip_expr(e), ast.Call)
+            and _strip_expr(e).name in ("count", "count_distinct")
+        )
+        out_series = []
+        order = sorted(range(len(group_keys)), key=lambda g: group_keys[g])
+        for g in order:
+            key = group_keys[g]
+            rows = []
+            for w in range(W):
+                seg = g * W + w
+                t_out = (aligned + w * every if group_time
+                         else (aligned if aligned else 0))
+                vals = []
+                any_present = False
+                for expr in col_exprs:
+                    v, present = _eval_output_expr(expr, agg_results, seg,
+                                                   schema)
+                    any_present = any_present or present
+                    vals.append(v)
+                if single_selector is not None:
+                    out, sel, counts, spec, fname, times_abs = single_selector
+                    if counts[seg] > 0:
+                        t_out = (int(times_abs[seg]) if times_abs is not None
+                                 else int(host_times[sel[seg]]))
+                rows.append((t_out, vals, any_present))
+            if not any(p for _t, _v, p in rows):
+                # zero matching points in the whole range: no series at all
+                continue
+            rows = _apply_fill(rows, stmt, columns, count_idx)
+            if not stmt.ascending:
+                rows.reverse()
+            if stmt.offset:
+                rows = rows[stmt.offset:]
+            if stmt.limit:
+                rows = rows[: stmt.limit]
+            if not rows:
+                continue
+            series = {
+                "name": mst,
+                "columns": columns,
+                "values": [[t] + v for t, v, _p in rows],
+            }
+            if group_tags:
+                series["tags"] = dict(zip(group_tags, key))
+            out_series.append(series)
+        return out_series

@@ -1,0 +1,190 @@
+"""InfluxDB 1.x-compatible HTTP API, the routes of this slice.
+
+The port of ``opengemini_tpu/server/http.py`` for three routes, on the
+standard library's threading HTTP server:
+  GET/HEAD /ping       204
+  GET/POST /query      InfluxQL, params q/db/epoch/pretty
+  POST     /write      line protocol, params db/rp/precision
+Answers use the JAX server's JSON shapes; other routes answer 404.
+"""
+
+from __future__ import annotations
+
+import gzip
+import json
+import math
+import threading
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from opengemini_tpu_torch import __version__
+from opengemini_tpu_torch.ingest.line_protocol import ParseError
+from opengemini_tpu_torch.query import condition as cond
+from opengemini_tpu_torch.query.executor import Executor
+from opengemini_tpu_torch.record import FieldTypeConflict
+from opengemini_tpu_torch.storage.engine import DatabaseNotFound, WriteError
+
+_EPOCH_DIV = {"ns": 1, "u": 1_000, "µ": 1_000, "ms": 1_000_000,
+              "s": 1_000_000_000, "m": 60_000_000_000,
+              "h": 3_600_000_000_000}
+
+
+class HttpService:
+    """Owns the HTTP listener; one Engine + Executor behind it. Port 0
+    binds a free port (read it back from ``.port``)."""
+
+    def __init__(self, engine, host: str = "127.0.0.1", port: int = 8086):
+        self.engine = engine
+        self.executor = Executor(engine)
+        self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
+        self.port = self.httpd.server_address[1]
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        if self._thread:
+            self._thread.join(timeout=5)
+
+
+def format_result(result: dict, epoch: str | None) -> dict:
+    """Convert internal ns times to the requested epoch, or RFC3339."""
+    for res in result.get("results", []):
+        for series in res.get("series", []):
+            cols = series.get("columns", [])
+            if not cols or cols[0] != "time":
+                continue
+            for row in series.get("values", []):
+                t = row[0]
+                if not isinstance(t, int):
+                    continue
+                if epoch:
+                    row[0] = t // _EPOCH_DIV.get(epoch, 1)
+                else:
+                    row[0] = cond.format_rfc3339(t)
+    return result
+
+
+def _null_nonfinite(obj):
+    """Deep-copy with non-finite floats replaced by None (influx marshals
+    null)."""
+    if isinstance(obj, float):
+        return obj if math.isfinite(obj) else None
+    if isinstance(obj, dict):
+        return {k: _null_nonfinite(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_null_nonfinite(v) for v in obj]
+    return obj
+
+
+def _make_handler(svc: HttpService):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        server_version = "opengemini-tpu-torch/" + __version__
+        disable_nagle_algorithm = True
+
+        def log_message(self, fmt, *args):
+            pass
+
+        def _params(self) -> dict:
+            parsed = urllib.parse.urlparse(self.path)
+            qs = urllib.parse.parse_qs(parsed.query)
+            return {k: v[-1] for k, v in qs.items()}
+
+        def _body(self) -> bytes:
+            length = int(self.headers.get("Content-Length", 0))
+            data = self.rfile.read(length) if length else b""
+            if self.headers.get("Content-Encoding") == "gzip":
+                data = gzip.decompress(data)
+            return data
+
+        def _send(self, code: int, payload: bytes = b"",
+                  ctype: str = "application/json"):
+            self.send_response(code)
+            if payload:
+                self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(payload)))
+            self.send_header("X-Influxdb-Version", "1.8.0-" + __version__)
+            self.end_headers()
+            if payload:
+                self.wfile.write(payload)
+
+        def _send_json(self, code: int, obj: dict, pretty: bool = False):
+            indent = 4 if pretty else None
+            try:
+                data = json.dumps(obj, indent=indent, allow_nan=False) + "\n"
+            except ValueError:
+                data = json.dumps(_null_nonfinite(obj), indent=indent) + "\n"
+            self._send(code, data.encode("utf-8"))
+
+        def do_HEAD(self):
+            if urllib.parse.urlparse(self.path).path == "/ping":
+                self._send(204)
+            else:
+                self._send_json(404, {"error": "not found"})
+
+        def do_GET(self):
+            path = urllib.parse.urlparse(self.path).path
+            if path == "/ping":
+                self._send(204)
+            elif path == "/query":
+                self._handle_query(self._params(), read_only=True)
+            else:
+                self._send_json(404, {"error": "not found"})
+
+        def do_POST(self):
+            path = urllib.parse.urlparse(self.path).path
+            params = self._params()
+            body = self._body()
+            if path == "/query":
+                text = body.decode("utf-8", errors="replace")
+                if text and self.headers.get("Content-Type", "").startswith(
+                        "application/x-www-form-urlencoded"):
+                    for k, v in urllib.parse.parse_qs(text).items():
+                        params.setdefault(k, v[-1])
+                self._handle_query(params)
+            elif path == "/write":
+                self._handle_write(params, body)
+            elif path == "/ping":
+                self._send(204)
+            else:
+                self._send_json(404, {"error": "not found"})
+
+        def _handle_query(self, params: dict, read_only: bool = False):
+            q = params.get("q", "")
+            if not q:
+                self._send_json(400, {"error": "missing required parameter \"q\""})
+                return
+            result = svc.executor.execute(q, db=params.get("db", ""),
+                                          read_only=read_only)
+            result = format_result(result, params.get("epoch"))
+            self._send_json(200, result, params.get("pretty") in ("true", "1"))
+
+        def _handle_write(self, params: dict, body: bytes):
+            db = params.get("db", "")
+            if not db:
+                self._send_json(400, {"error": "database is required"})
+                return
+            precision = params.get("precision", "ns")
+            if precision == "n":
+                precision = "ns"
+            try:
+                svc.engine.write_lines(db, body, precision=precision,
+                                       rp=params.get("rp") or None)
+            except DatabaseNotFound as e:
+                self._send_json(404, {"error": str(e)})
+                return
+            except (ParseError, FieldTypeConflict, ValueError) as e:
+                self._send_json(400, {"error": f"partial write: {e}"})
+                return
+            except WriteError as e:
+                self._send_json(403, {"error": str(e)})
+                return
+            self._send(204)
+
+    return Handler

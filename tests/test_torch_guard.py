@@ -1,0 +1,80 @@
+"""The PyTorch port stands alone: no JAX, nothing of opengemini_tpu, and
+entry points that default to the CUDA card.
+
+The import check runs in a subprocess, because this test process has
+already imported jax (tests/conftest.py)."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import opengemini_tpu_torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules() -> list[str]:
+    names = ["opengemini_tpu_torch"]
+    for info in pkgutil.walk_packages(opengemini_tpu_torch.__path__,
+                                      "opengemini_tpu_torch."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def test_every_module_is_found():
+    mods = _port_modules()
+    for must in ("opengemini_tpu_torch.ops.cuda_segment",
+                 "opengemini_tpu_torch.query.executor",
+                 "opengemini_tpu_torch.server.http",
+                 "opengemini_tpu_torch.convert"):
+        assert must in mods
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
+        "or m == 'opengemini_tpu' or m.startswith('opengemini_tpu.'))\n"
+        "print(repr(bad))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_engine_defaults_to_cuda_and_never_falls_back(tmp_path):
+    from opengemini_tpu_torch.query.executor import Executor
+    from opengemini_tpu_torch.storage.engine import Engine
+
+    if torch.cuda.is_available():
+        eng = Engine(str(tmp_path))
+        assert eng.device.type == "cuda"
+        assert Executor(eng).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Engine(str(tmp_path))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Engine(str(tmp_path), device="cuda")
+    eng = Engine(str(tmp_path), device="cpu")
+    assert eng.device.type == "cpu"
+    assert Executor(eng).device.type == "cpu"
+
+
+def test_compute_dtype_is_float64():
+    import numpy as np
+
+    from opengemini_tpu_torch.models import templates
+
+    assert templates.compute_dtype() == np.dtype(np.float64)
