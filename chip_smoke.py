@@ -6,18 +6,25 @@
 Phases, in order; any failure ends the run with a nonzero exit:
 
 1. Device and build: requires CUDA, prints the card's name and power
-   limit (nvidia-smi), builds the three CUDA kernels from csrc/ (nvcc,
-   sm_90a, one process per source, in parallel).
+   limit (nvidia-smi), builds the six CUDA kernels from csrc/ (nvcc,
+   sm_90a, one process per source) and, at the same time, the repo's
+   native/codecs.cpp and native/seriesindex.cpp and the port's
+   native/lpformat.cpp (g++) into build/.
 2. Kernels against their plain PyTorch versions on the card, on seeded
    data (70% mask density, fully empty rows, value and time ties):
    count/min/max/first/last/sel_* must match exactly, sum/mean/ssd within
-   rtol 1e-10 (summation order).
+   rtol 1e-10 (summation order); widen_packed (widths 1 and 2, odd
+   counts, all 256 byte values), unpack_bits (1, 7, 8 and 8 MiB bytes)
+   and probe_count (random and all-zero masks) exactly.
 3. End to end on a TSBS devops cpu-only deployment (4000 hosts, the 10
    cpu tags, the 10 usage_* fields, one sample every 10 s for 12 h from
    2016-01-01T00:00:00Z): the port's HTTP server on localhost takes
    CREATE DATABASE, the first minute of every host as line protocol on
-   /write and the rest through convert.load_columnar; four queries run
-   5 times each through /query and every answer is checked against a
+   /write and the rest through convert.load_columnar, both logged to the
+   WAL; the flush threshold lies above the data's size, so the queries
+   read the memtable (the script checks that no TSF file was written).
+   Four queries run 5 times each through /query and every answer is
+   checked against a
    numpy oracle (counts, min, max, first, last exact; mean, stddev rtol
    1e-9). The launch counters are read around each query's five runs:
    Q1-Q3 must launch the grid kernel (and raise the grid-batch counter),
@@ -28,6 +35,23 @@ Phases, in order; any failure ends the run with a nonzero exit:
    many of the run's device calls the trace holds no record of.
 4. The kernels again, at the shapes the end-to-end phase gave them:
    checked and timed (CUDA events, median of 20 launches).
+5. Cold scan from disk (TSBS devops cpu + diskio, 4000 hosts, 12 h, the
+   device profile OGT_DEVICE_PROFILE=1): loaded in time order, one hour
+   of every host at a time, the first minute through /write and the rest
+   through convert.load_columnar, under the default 64 MiB flush
+   threshold (the load flushes a file each time the memtable passes it);
+   flush_all, then a restart (a new Engine and HttpService on
+   the same root: meta, series index, TSF files, WAL). C1 (Q1's shape),
+   C2 (Q2's) and C3 (count/min/max of the diskio read_bytes counter
+   GROUP BY time(1m)) run 5 times each plus one traced run; every answer
+   equals the numpy oracle; each must take the fused device decode
+   (executor/grid_decode_fused up, device/decode_fallbacks_total not),
+   C1 and C2 launch unpack_bits and grid_window_agg, C3 widen_packed, and
+   the phase launches probe_count once. Then the next minute of every
+   host goes through /write, the engine restarts without a flush, and
+   count(usage_user) over that minute must be 4000 x 6 (WAL replay). The
+   kernels run again at the shapes this phase gave them, checked and
+   timed.
 
 Output: progress lines, then a {"kernels": [...]} line, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without CUDA (or without
@@ -57,17 +81,34 @@ REGIONS = ("us-east-1", "us-west-1", "us-west-2", "eu-west-1",
 MEAN_RTOL = 1e-9
 KERNEL_RTOL = 1e-10
 N_HOSTS = 4000
+# the cold-scan span: 12 h, uncut (below about 6 h the byte gate keeps C1
+# on the host)
+COLD_HOURS = 12
 # H100 SXM peaks (NVIDIA data sheet): device memory bytes/s and fp64
 # (non-tensor) flop/s
 H100_PEAKS = (3.35e12, 34e12)
 # the kernels' __global__ names in csrc/, as a profiler trace shows them
 PORT_KERNELS = ("bucket_basic_kernel", "bucket_selectors_kernel",
-                "grid_window_kernel")
+                "grid_window_kernel", "widen_kernel", "unpack_bits_kernel",
+                "probe_count_kernel")
 REPLACES = {
     "bucket_stats_basic": "opengemini_tpu/ops/pallas_segment.py:143",
     "bucket_stats_selectors": "opengemini_tpu/ops/pallas_segment.py:274",
     "grid_window_agg": "opengemini_tpu/ops/pallas_segment.py:328",
+    "widen_packed": "opengemini_tpu/ops/pallas_segment.py:360",
+    "unpack_bits": "opengemini_tpu/ops/pallas_segment.py:393",
+    "probe_count": "opengemini_tpu/utils/devobs.py:607",
 }
+# the memtable phase (3) and the cold-scan phase (5) each drive these
+E2E_KERNELS = ("bucket_stats_basic", "bucket_stats_selectors",
+               "grid_window_agg")
+COLD_KERNELS = ("grid_window_agg", "widen_packed", "unpack_bits",
+                "probe_count")
+# TSBS devops diskio (pkg/data/usecases/devops/diskio.go): monotonic
+# counters, each step |N(mean, 1)|
+DISKIO_FIELDS = (("reads", 50), ("writes", 50), ("read_bytes", 100),
+                 ("write_bytes", 100), ("read_time", 5), ("write_time", 5),
+                 ("io_time", 5))
 
 
 def log(msg: str) -> None:
@@ -125,6 +166,15 @@ def bound(name: str, shape, n_valid: int, dev_name: str):
     must move (mask bytes, the masked-in values and times, the outputs)
     over the memory rate and its fp64 operations over the fp64 rate."""
     bw, flops = peaks(dev_name)
+    if name == "widen_packed":
+        cnt, width = shape
+        return cnt * (width + 4) / bw * 1e3, "bytes"
+    if name == "unpack_bits":
+        (nbytes,) = shape
+        return nbytes * (1 + 32) / bw * 1e3, "bytes"
+    if name == "probe_count":
+        rows, cols = shape
+        return rows * (cols + 4) / bw * 1e3, "bytes"
     if name == "grid_window_agg":
         s, k, w = shape
         cells, rows = s * k * w, s * w
@@ -212,11 +262,79 @@ def compare(name: str, got: dict, want: dict) -> float:
     return err
 
 
+def decode_inputs(name: str, shape, seed: int, zero_mask: bool = False):
+    """Seeded inputs of kernels 4-6 on the card: every byte value occurs
+    in a widen input; probe masks are random in {-2..2} (or all zero)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if name == "widen_packed":
+        cnt, width = shape
+        raw = torch.randint(0, 256, (cnt * width,), generator=g,
+                            device="cuda", dtype=torch.uint8)
+        k = min(256, raw.numel())
+        raw[:k] = torch.arange(k, device="cuda", dtype=torch.uint8)
+        return (raw, width, cnt)
+    if name == "unpack_bits":
+        (nbytes,) = shape
+        return (torch.randint(0, 256, (nbytes,), generator=g, device="cuda",
+                              dtype=torch.uint8), nbytes)
+    m = torch.randint(-2, 3, shape, generator=g, device="cuda",
+                      dtype=torch.int8)
+    return (torch.zeros_like(m) if zero_mask else m,)
+
+
+def library_call(name: str, args):
+    """The one PyTorch call that computes a kernel's function, or None:
+    widen_packed is a conversion at width 1 and a uint16 view plus a
+    conversion at width 2; unpack_bits and probe_count have none."""
+    import torch
+
+    if name != "widen_packed":
+        return None
+    raw, width, _cnt = args
+    if width == 1:
+        return lambda: raw.to(torch.int32)
+    return lambda: raw.view(torch.uint16).to(torch.int32)
+
+
+def decode_kernel_case(name: str, shape, seed: int, dev_name: str,
+                       timed: bool, zero_mask: bool = False):
+    """Kernels 4-6 against their plain versions, exactly."""
+    import torch
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+
+    args = decode_inputs(name, shape, seed, zero_mask)
+    run = lambda: getattr(cs, name)(*args)  # noqa: E731
+    plain = lambda: getattr(cs, name + "_plain")(*args)  # noqa: E731
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype
+          and torch.equal(got, want),
+          f"{name}{tuple(shape)} differs from the plain version")
+    err = float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+    b_ms, b_by = bound(name, shape, 0, dev_name)
+    rec = {"shape": list(shape), "max_abs_err": err, "bound_ms": b_ms,
+           "bound_by": b_by}
+    if timed:
+        lib = library_call(name, args)
+        rec["ms"] = time_ms(run)
+        rec["plain_ms"] = time_ms(plain, reps=5)
+        rec["library_ms"] = None if lib is None else time_ms(lib)
+    del args, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
 def kernel_case(name: str, shape, seed: int, dev_name: str, timed: bool):
     import torch
 
     from opengemini_tpu_torch.ops import cuda_segment as cs
 
+    if name in ("widen_packed", "unpack_bits", "probe_count"):
+        return decode_kernel_case(name, shape, seed, dev_name, timed)
     if name == "grid_window_agg":
         x = make_inputs("grid", shape, seed)
         run = lambda: cs.grid_window_agg(x["v"], x["m"])  # noqa: E731
@@ -254,6 +372,11 @@ CHECK_SHAPES = {
     "bucket_stats_selectors": [(131072, 16), (131072, 64), (131072, 256),
                                (32768, 1024)],
     "grid_window_agg": [(4000, 6, 720), (4000, 360, 12)],
+    # odd counts; every byte value occurs (decode_inputs)
+    "widen_packed": [(1, 1), (257, 1), (131071, 1), (1, 2), (257, 2),
+                     (131071, 2), (1_000_001, 2)],
+    "unpack_bits": [(1,), (7,), (8,), (8 << 20,)],
+    "probe_count": [(8, 8), (1000, 37)],
 }
 
 
@@ -268,6 +391,10 @@ def phase_kernels(dev_name: str, seed: int) -> dict:
             log(f"[kernel] {name}{tuple(shape)} ok max_abs_err="
                 f"{rec['max_abs_err']:.3e} ms={rec['ms']:.4f} "
                 f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f}")
+    for shape in CHECK_SHAPES["probe_count"]:  # an all-zero mask counts 0
+        decode_kernel_case("probe_count", shape, seed, dev_name, timed=False,
+                           zero_mask=True)
+        log(f"[kernel] probe_count{shape} all-zero mask ok")
     return results
 
 
@@ -440,6 +567,58 @@ def traced_queries(port: int, queries: dict, trace_path: str) -> dict:
     return out
 
 
+def shape_of(name: str, args) -> tuple:
+    """The shape a kernel wrapper was called at: (cnt, width) for
+    widen_packed, (nbytes,) for unpack_bits, else its first tensor's."""
+    if name == "widen_packed":
+        return (args[2], args[1])
+    if name == "unpack_bits":
+        return (args[1],)
+    return tuple(args[0].shape)
+
+
+class ShapeRecorder:
+    """Wraps every cuda_segment kernel wrapper to record the shapes it is
+    given: `seen` over the whole run, `now` (when a dict) per query."""
+
+    def __init__(self):
+        from opengemini_tpu_torch.ops import cuda_segment as cs
+
+        self.cs = cs
+        self.seen = {k: set() for k in cs.LAUNCHES}
+        self.now = None
+        self.originals = {k: getattr(cs, k) for k in cs.LAUNCHES}
+
+    def _wrap(self, name):
+        original = self.originals[name]
+
+        def wrapped(*args):
+            shape = shape_of(name, args)
+            self.seen[name].add(shape)
+            if self.now is not None:
+                self.now.setdefault(name, set()).add(shape)
+            return original(*args)
+        return wrapped
+
+    def __enter__(self):
+        for k in self.originals:
+            setattr(self.cs, k, self._wrap(k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.originals.items():
+            setattr(self.cs, k, fn)
+
+
+def fresh_root(name: str) -> str:
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", name)
+    shutil.rmtree(root, ignore_errors=True)
+    return root
+
+
 def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
     import numpy as np
     import torch
@@ -464,23 +643,12 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
 
     # from here on the main path runs: every launch counter starts at 0,
     # and each wrapper also records the shapes it is given, per query
-    seen: dict = {k: set() for k in cs.LAUNCHES}
-    shapes_of = {"now": None}
-    originals = {k: getattr(cs, k) for k in cs.LAUNCHES}
-
-    def recorder(name):
-        def wrapped(v, *rest_args):
-            seen[name].add(tuple(v.shape))
-            if shapes_of["now"] is not None:
-                shapes_of["now"].setdefault(name, set()).add(tuple(v.shape))
-            return originals[name](v, *rest_args)
-        return wrapped
-
-    for k in originals:
-        setattr(cs, k, recorder(k))
+    rec = ShapeRecorder().__enter__()
     cs.reset_launches()
-    engine = Engine(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                 "build", "smoke_db"))
+    # a flush threshold above the data's size: the queries read the
+    # memtable
+    root = fresh_root("smoke_db")
+    engine = Engine(root, flush_threshold_bytes=1 << 40)
     check(engine.device.type == "cuda", f"engine on {engine.device}")
     svc = HttpService(engine, port=0)
     svc.start()
@@ -516,7 +684,14 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
         n = convert.load_columnar(engine, "benchmark", {"cpu": table})
         check(n == n_hosts * rest, f"columnar load wrote {n}")
         del table
-        log(f"[e2e] loaded in {time.perf_counter() - t_load:.1f} s")
+        shards = engine.shards_for_range("benchmark", None, 0, 2**62)
+        in_mem = sum(len(sh.mem) for sh in shards)
+        check(in_mem == n_hosts * n_t
+              and not any(sh._files for sh in shards),
+              f"{in_mem} rows in the memtable, TSF files "
+              f"{[len(sh._files) for sh in shards]}")
+        log(f"[e2e] loaded in {time.perf_counter() - t_load:.1f} s "
+            f"(WAL and memtable, no flush)")
 
         where = (f"time >= '2016-01-01T00:00:00Z' AND "
                  f"time < '2016-01-01T{hours:02d}:00:00Z'")
@@ -548,7 +723,7 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
             grid0 = STATS["executor/grid_batches"]
             fb0 = STATS["executor/grid_fallbacks"]
             l0 = dict(cs.LAUNCHES)
-            shapes_of["now"] = {}
+            rec.now = {}
             for _ in range(5):
                 t0 = time.perf_counter()
                 res = query(svc.port, q)
@@ -562,7 +737,7 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
             got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
             per_query[qn] = {
                 "launches": got,
-                "shapes": {k: sorted(v) for k, v in shapes_of["now"].items()}}
+                "shapes": {k: sorted(v) for k, v in rec.now.items()}}
             if qn != "Q4":
                 check(grids > 0 and fbs == 0,
                       f"{qn}: grid_batches +{grids}, fallbacks +{fbs}")
@@ -572,7 +747,7 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
                 f"(runs {', '.join(f'{x:.1f}' for x in lat)}) "
                 f"grid_batches +{grids}; launches in 5 runs "
                 f"{json.dumps(got)} at {json.dumps(per_query[qn]['shapes'])}")
-        shapes_of["now"] = None
+        rec.now = None
         # a sixth run of each query under the profiler: where its time goes
         traced = traced_queries(svc.port, queries,
                                 os.path.join(trace_dir, "queries.json"))
@@ -594,19 +769,23 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
                 f" B; {dev['device_calls']} device calls, "
                 f"{dev['missing']} without a device record; launches "
                 f"{json.dumps(tr['launches'])}")
-        launches = dict(cs.LAUNCHES)
+        launches = {k: cs.LAUNCHES[k] for k in E2E_KERNELS}
         for k, cnt in launches.items():
             check(cnt > 0, f"kernel {k} never launched on the main path")
         peak = torch.cuda.max_memory_allocated()
         log(f"[e2e] launches (5 timed + 1 traced run per query) {launches}; "
             f"device memory peak {peak / 2**20:.1f} MiB; p50 ms "
             f"{json.dumps(p50)}; card {smi_line()}")
-        return {"launches": launches, "shapes": seen, "p50_ms": p50,
+        return {"launches": launches, "shapes": rec.seen, "p50_ms": p50,
                 "per_query": per_query, "traced": traced, "peak_bytes": peak}
     finally:
         svc.stop()
-        for k, fn in originals.items():
-            setattr(cs, k, fn)
+        engine.close()
+        rec.__exit__()
+        # the WAL of this phase holds every row as text: gigabytes
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def verify(qn: str, res: dict, vals, tags, n_hosts: int, n_t: int) -> None:
@@ -659,7 +838,327 @@ def verify(qn: str, res: dict, vals, tags, n_hosts: int, n_t: int) -> None:
             check(close([sd], [x.std(ddof=1)]), f"Q4 host {h}: stddev")
 
 
+# -- phase 5: the cold scan from disk -------------------------------------
+
+
+def make_counters(n_hosts: int, n_t: int, rng):
+    """Per diskio field a (hosts, samples) int64 monotonic counter from 0,
+    each step |N(mean, 1)| rounded (the TSBS diskio model)."""
+    import numpy as np
+
+    out = {}
+    for f, mean in DISKIO_FIELDS:
+        steps = np.abs(np.rint(rng.normal(mean, 1.0, (n_hosts, n_t))))
+        out[f] = np.cumsum(steps.astype(np.int64), axis=1)
+    return out
+
+
+def lp_lines(tags, vals, counters, lo: int, hi: int, n_hosts: int) -> str:
+    """Line protocol of samples [lo, hi) of every host, cpu then diskio."""
+    from opengemini_tpu_torch.ingest.line_protocol import series_key
+
+    lines = []
+    for h in range(n_hosts):
+        cpu, dio = series_key("cpu", tags[h]), series_key("diskio", tags[h])
+        for i in range(lo, hi):
+            t = T0_NS + i * STEP_NS
+            fv = ",".join(f"{f}={float(vals[f][h, i])!r}" for f in FIELDS)
+            lines.append(f"{cpu} {fv} {t}")
+            iv = ",".join(f"{f}={int(counters[f][h, i])}i"
+                          for f, _m in DISKIO_FIELDS)
+            lines.append(f"{dio} {iv} {t}")
+    return "\n".join(lines)
+
+
+def column_tables(tags, vals, counters, lo: int, hi: int, n_hosts: int):
+    """convert.load_columnar tables of samples [lo, hi) of every host."""
+    import numpy as np
+
+    from opengemini_tpu_torch.ingest.line_protocol import series_key
+
+    n = hi - lo
+    times = T0_NS + np.arange(lo, hi, dtype=np.int64) * STEP_NS
+    ones = np.ones(n_hosts * n, dtype=np.bool_)
+    common = {"series": np.repeat(np.arange(n_hosts, dtype=np.int64), n),
+              "times": np.tile(times, n_hosts)}
+
+    def fields(src, names):
+        return {f: (np.ascontiguousarray(src[f][:, lo:hi]).reshape(-1), ones)
+                for f in names}
+
+    return {
+        "cpu": {"series_keys": [series_key("cpu", t) for t in tags],
+                "fields": fields(vals, FIELDS), **common},
+        "diskio": {"series_keys": [series_key("diskio", t) for t in tags],
+                   "fields": fields(counters, [f for f, _m in DISKIO_FIELDS]),
+                   **common},
+    }
+
+
+def verify_cold(qn: str, res: dict, vals, counters, tags, n_hosts: int,
+                n_t: int) -> None:
+    import numpy as np
+
+    if qn in ("C1", "C2"):
+        verify("Q" + qn[1], res, vals, tags, n_hosts, n_t)
+        return
+    (series,) = res.get("series", [None])
+    rows = series["values"]
+    v = counters["read_bytes"][:, :n_t].reshape(n_hosts, n_t // 6, 6)
+    check(len(rows) == n_t // 6, "C3: window count")
+    check([r[0] for r in rows] == [T0_NS + w * 60 * 10**9
+                                   for w in range(n_t // 6)], "C3: times")
+    check(all(r[1] == n_hosts * 6 for r in rows), "C3: counts")
+    check(np.array_equal(np.array([r[2] for r in rows]), v.min(axis=(0, 2))),
+          "C3: min")
+    check(np.array_equal(np.array([r[3] for r in rows]), v.max(axis=(0, 2))),
+          "C3: max")
+
+
+def short_shapes(shapes: dict) -> dict:
+    """Shapes per kernel for a log line: a kernel given many shapes (one
+    per decoded block) shows their count and range."""
+    return {k: v if len(v) <= 4 else f"{len(v)} shapes from {v[0]} to {v[-1]}"
+            for k, v in shapes.items()}
+
+
+def decode_counters() -> dict:
+    from opengemini_tpu_torch.utils.stats import STATS
+
+    keys = ["executor/grid_decode_fused", "executor/grid_decode_fallbacks",
+            "device/decode_fallbacks_total", "devobs/h2d_bytes/device-decode"]
+    keys += [k for k in STATS if k.startswith("device/decode_blocks_")]
+    return {k: STATS[k] for k in keys}
+
+
+def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
+               n_hosts: int = N_HOSTS) -> dict:
+    import numpy as np
+    import torch
+
+    from opengemini_tpu_torch import convert
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.server.http import HttpService
+    from opengemini_tpu_torch.storage.engine import Engine
+    from opengemini_tpu_torch.utils import devobs
+
+    n_t = hours * 360
+    log(f"[cold] TSBS devops cpu + diskio: {n_hosts} hosts x ({len(FIELDS)} "
+        f"+ {len(DISKIO_FIELDS)}) fields x {hours} h at 10 s = "
+        f"{2 * n_hosts * n_t} rows, device profile on")
+    if hours < 12:
+        log(f"[cold] span cut from 12 h to {hours} h")
+    rng = np.random.default_rng(seed + 7)
+    tags = host_tags(n_hosts, rng)
+    vals = make_values(n_hosts, n_t, rng)
+    counters = make_counters(n_hosts, n_t + 6, rng)
+    extra = make_values(n_hosts, 6, rng)  # the minute after the span
+    root = fresh_root("smoke_cold")
+    os.environ["OGT_DEVICE_PROFILE"] = "1"
+    rec = ShapeRecorder().__enter__()
+    svc = None
+    engine = None
+
+    def start():
+        nonlocal engine, svc
+        engine = Engine(root)
+        check(engine.device.type == "cuda", f"engine on {engine.device}")
+        svc = HttpService(engine, port=0)
+        svc.start()
+
+    def restart():
+        # a new process probes the card again; so does a restart here
+        svc.stop()
+        engine.close()
+        devobs.reset()
+        start()
+
+    try:
+        # the load and the restart are the main path too: counts from 0
+        cs.reset_launches()
+        start()
+        status, _ = http(svc.port, "POST", "/query",
+                         {"q": "CREATE DATABASE benchmark"})
+        check(status == 200, "CREATE DATABASE failed")
+        t_load = time.perf_counter()
+        status, _ = http(svc.port, "POST", "/write",
+                         {"db": "benchmark", "precision": "ns"},
+                         lp_lines(tags, vals, counters, 0, 6, n_hosts).encode())
+        check(status == 204, f"/write status {status}")
+        for hr in range(hours):
+            lo = 6 if hr == 0 else hr * 360
+            tables = column_tables(tags, vals, counters, lo, (hr + 1) * 360,
+                                   n_hosts)
+            n = convert.load_columnar(engine, "benchmark", tables)
+            check(n == 2 * n_hosts * ((hr + 1) * 360 - lo),
+                  f"hour {hr}: load wrote {n}")
+        shards = engine.shards_for_range("benchmark", None, 0, 2**62)
+        on_way = sum(len(sh._files) for sh in shards)
+        check(on_way > 0, "no threshold flush during the load")
+        engine.flush_all()
+        files = sum(len(sh._files) for sh in shards)
+        log(f"[cold] loaded in {time.perf_counter() - t_load:.1f} s into "
+            f"{files} TSF files ({on_way} from the "
+            f"{engine.flush_threshold_bytes / 2**20:g} MiB threshold during "
+            f"the load, the rest from flush_all)")
+        t_re = time.perf_counter()
+        restart()
+        log(f"[cold] restarted (meta, series index, TSF, WAL) in "
+            f"{time.perf_counter() - t_re:.1f} s")
+
+        where = f"time >= {T0_NS} AND time < {T0_NS + n_t * STEP_NS}"
+        f5 = FIELDS[:5]
+        queries = {
+            "C1": "SELECT mean(usage_user), max(usage_user), "
+                  f"count(usage_user) FROM cpu WHERE {where} GROUP BY time(1m)",
+            "C2": "SELECT " + ", ".join(f"mean({f})" for f in f5)
+                  + f" FROM cpu WHERE {where} GROUP BY time(1h), hostname",
+            "C3": "SELECT count(read_bytes), min(read_bytes), "
+                  f"max(read_bytes) FROM diskio WHERE {where} GROUP BY time(1m)",
+        }
+        needs = {"C1": ("unpack_bits", "grid_window_agg"),
+                 "C2": ("unpack_bits", "grid_window_agg"),
+                 "C3": ("widen_packed", "grid_window_agg")}
+        torch.cuda.synchronize()
+        p50, per_query = {}, {}
+        for qn, q in queries.items():
+            lat = []
+            c0 = decode_counters()
+            l0 = dict(cs.LAUNCHES)
+            rec.now = {}
+            for _ in range(5):
+                t0 = time.perf_counter()
+                res = query(svc.port, q)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+                verify_cold(qn, res, vals, counters, tags, n_hosts, n_t)
+            p50[qn] = sorted(lat)[2]
+            c1 = decode_counters()
+            d = {k: c1.get(k, 0) - c0.get(k, 0) for k in c1}
+            got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
+            per_query[qn] = {
+                "launches": got, "runs_ms": lat, "counters": d,
+                "shapes": {k: sorted(v) for k, v in rec.now.items()}}
+            check(d["executor/grid_decode_fused"] > 0,
+                  f"{qn}: the fused device decode did not run")
+            check(d["device/decode_fallbacks_total"] == 0
+                  and d["executor/grid_decode_fallbacks"] == 0,
+                  f"{qn}: decode fell back to the host")
+            for k in needs[qn]:
+                check(got[k] > 0, f"{qn}: kernel {k} not launched")
+            blocks = {k.split("_")[2]: v for k, v in d.items()
+                      if k.startswith("device/decode_blocks_") and v}
+            log(f"[cold] {qn} ok p50={p50[qn]:.1f} ms (runs "
+                f"{', '.join(f'{x:.1f}' for x in lat)}); fused "
+                f"+{d['executor/grid_decode_fused']}, blocks by codec "
+                f"{json.dumps(blocks)}, device-decode H2D "
+                f"{d['devobs/h2d_bytes/device-decode'] / 5 / 1e6:.1f} MB per "
+                f"run; launches in 5 runs {json.dumps(got)} at "
+                f"{json.dumps(short_shapes(per_query[qn]['shapes']))}")
+        rec.now = None
+        trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "build", "smoke_trace")
+        os.makedirs(trace_dir, exist_ok=True)
+        traced = traced_queries(svc.port, queries,
+                                os.path.join(trace_dir, "cold.json"))
+        for qn, tr in traced.items():
+            verify_cold(qn, tr.pop("result"), vals, counters, tags, n_hosts,
+                        n_t)
+            dev, wall = tr.get("device"), tr["wall_ms"]
+            check(dev is not None, f"{qn}: no annotation in the trace")
+            if dev["busy_ms"] == 0.0:
+                log(f"[trace] {qn} wall {wall:.1f} ms: the trace holds no "
+                    "device activity (device time not measured)")
+                continue
+            log(f"[trace] {qn} wall {wall:.1f} ms, device busy "
+                f"{dev['busy_ms']:.3f} ms ({100 * dev['busy_ms'] / wall:.3f}% "
+                f"of the wall), kernels {dev['kernel_ms']:.3f} ms "
+                f"({dev['kernels']} kernels: port {dev['port_kernel_ms']:.3f} "
+                f"ms, others {dev['other_kernel_ms']:.3f} ms), host-to-device "
+                f"{dev['h2d_ms']:.3f} ms for {dev['h2d_bytes']} B "
+                f"({dev['h2d_bytes'] / 1e6:.1f} MB"
+                + (f"; Q1's decoded grid in this run {q1_h2d_bytes / 1e6:.1f}"
+                   " MB)" if qn == "C1" and q1_h2d_bytes else ")")
+                + f", device-to-host {dev['d2h_ms']:.3f} ms for "
+                f"{dev['d2h_bytes']} B; {dev['device_calls']} device calls, "
+                f"{dev['missing']} without a device record; launches "
+                f"{json.dumps(tr['launches'])}")
+        # WAL replay: the next minute of every host, then a restart
+        # without a flush
+        nxt = {f: np.concatenate([vals[f], extra[f]], axis=1) for f in FIELDS}
+        status, _ = http(svc.port, "POST", "/write",
+                         {"db": "benchmark", "precision": "ns"},
+                         lp_lines(tags, nxt, counters, n_t, n_t + 6,
+                                  n_hosts).encode())
+        check(status == 204, f"/write status {status}")
+        restart()
+        lo_ns = T0_NS + n_t * STEP_NS
+        res = query(svc.port, f"SELECT count(usage_user) FROM cpu WHERE "
+                              f"time >= {lo_ns} AND time < {lo_ns + 60 * 10**9}")
+        got_n = res["series"][0]["values"][0][1]
+        check(got_n == n_hosts * 6,
+              f"WAL replay: count {got_n} != {n_hosts * 6}")
+        log(f"[cold] WAL replay ok: count(usage_user) over the minute after "
+            f"the span = {got_n} after a restart without a flush")
+        launches = {k: cs.LAUNCHES[k] for k in COLD_KERNELS}
+        for k in COLD_KERNELS:
+            check(launches[k] > 0, f"kernel {k} never launched on the cold path")
+        check(launches["probe_count"] == 1,
+              f"probe_count launched {launches['probe_count']} times, not once")
+        log(f"[cold] launches (load, restart, 5 timed + 1 traced run per "
+            f"query, WAL check) {launches}; p50 ms {json.dumps(p50)}; card "
+            f"{smi_line()}")
+        return {"launches": launches, "shapes": rec.seen, "p50_ms": p50,
+                "per_query": per_query, "traced": traced}
+    finally:
+        os.environ.pop("OGT_DEVICE_PROFILE", None)
+        if svc is not None:
+            svc.stop()
+        if engine is not None:
+            engine.close()
+        rec.__exit__()
+
+
 # -- main ---------------------------------------------------------------------
+
+
+def build_all(verbose: bool = True) -> float:
+    """nvcc for the six kernels and g++ for the three host libraries, all
+    at once; returns the seconds it took."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from opengemini_tpu_torch import native
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        jobs = [pool.submit(cs.build, verbose=verbose),
+                pool.submit(native.build_shared, "codecs.cpp"),
+                pool.submit(native.build_shared, "seriesindex.cpp"),
+                pool.submit(native.build_shared, "lpformat.cpp")]
+        for job in jobs:
+            job.result()
+    return time.perf_counter() - t0
+
+
+def main_path_kernels(name: str, shapes, seed: int, dev_name: str,
+                      limit: int = 6) -> list:
+    """Check every kernel at (up to `limit` of) the shapes a main path
+    gave it, largest bound first, and time them."""
+    ordered = sorted(shapes, key=lambda sh: -bound(name, sh, 0, dev_name)[0])
+    recs = []
+    for j, shape in enumerate(ordered[:limit]):
+        rec = kernel_case(name, shape, seed + j, dev_name, timed=True)
+        recs.append(rec)
+        log(f"[main-path kernel] {name}{tuple(shape)} ok "
+            f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+            f"bound_ms={rec['bound_ms']:.4f}"
+            + (f" library_ms={rec['library_ms']:.4f}"
+               if rec.get("library_ms") is not None else ""))
+    if len(ordered) > limit:
+        log(f"[main-path kernel] {name}: {len(ordered)} shapes, the "
+            f"{limit} largest checked and timed")
+    return recs
 
 
 def main() -> int:
@@ -684,39 +1183,39 @@ def main() -> int:
     smi = smi_line()
     log(f"[device] {dev_name}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    cs.build(verbose=True)
-    log(f"[build] 3 kernels built in {time.perf_counter() - t0:.1f} s "
-        f"into {cs.BUILD_DIR}")
+    log(f"[build] 6 kernels and 3 host libraries built in "
+        f"{build_all():.1f} s into {cs.BUILD_DIR} and build/native")
 
     checked = phase_kernels(dev_name, args.seed)
     e2e = phase_e2e(args.hours, args.seed)
+    recs = {name: main_path_kernels(name, e2e["shapes"][name],
+                                    args.seed + 1000 + 10 * i, dev_name)
+            for i, name in enumerate(E2E_KERNELS)}
+    q1 = e2e["traced"]["Q1"].get("device") or {}
+    cold = phase_cold(COLD_HOURS, args.seed, q1.get("h2d_bytes"))
+    for i, name in enumerate(COLD_KERNELS):
+        recs[name] = recs.get(name, []) + main_path_kernels(
+            name, cold["shapes"][name] - e2e["shapes"].get(name, set()),
+            args.seed + 2000 + 10 * i, dev_name)
 
     kernels = []
-    for i, name in enumerate(cs.LAUNCHES):
-        recs = []
-        for j, shape in enumerate(sorted(e2e["shapes"][name])):
-            rec = kernel_case(name, shape, args.seed + 1000 + 10 * i + j,
-                              dev_name, timed=True)
-            recs.append(rec)
-            log(f"[main-path kernel] {name}{tuple(shape)} ok "
-                f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-                f"bound_ms={rec['bound_ms']:.4f}")
-        top = max(recs, key=lambda r: r["bound_ms"])
+    for name in cs.LAUNCHES:
+        top = max(recs[name], key=lambda r: r["bound_ms"])
+        paths = [p for p in (e2e, cold) if name in p["launches"]]
         kernels.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(cs.source_path(name),
                                       os.path.dirname(os.path.abspath(__file__))),
             "replaces": REPLACES[name],
-            "launches": e2e["launches"][name],
-            "launches_per_query": {qn: pq["launches"][name]
-                                   for qn, pq in e2e["per_query"].items()},
-            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "launches": sum(p["launches"][name] for p in paths),
+            "launches_per_query": {qn: pq["launches"][name] for p in paths
+                                   for qn, pq in p["per_query"].items()},
+            "max_abs_err": max(r["max_abs_err"] for r in recs[name]),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": None,
+            "library_ms": top.get("library_ms"),
             "shape": top["shape"],
-            "main_path_shapes": recs,
+            "main_path_shapes": recs[name],
             "checked_shapes": checked[name],
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -3,7 +3,10 @@
 A database's stored data plays the part a model's weights play: this is
 how data held elsewhere (for example what a JAX-package shard scan
 yields, ``read_series_bulk``) moves into an ``Engine`` of the port,
-through its columnar write path.
+through its columnar write path. The load logs its rows to the shard
+WALs as line-protocol text (ingest/native_lp.LineWriter) before it
+applies them, so they are durable when it returns, and a memtable past
+the engine's flush threshold flushes as after any write.
 
 ``tables`` maps a measurement name to a dict of numpy arrays:
 
@@ -26,7 +29,7 @@ from opengemini_tpu_torch.record import np_to_field_type
 def load_columnar(engine, db: str, tables: dict, rp: str | None = None) -> int:
     """Write every measurement of `tables` into `engine` (database `db`)
     as one columnar batch each. Returns rows written."""
-    n = 0
+    batches = []
     for mst, t in tables.items():
         keys = list(t["series_keys"])
         times = np.asarray(t["times"], dtype=np.int64)
@@ -42,8 +45,7 @@ def load_columnar(engine, db: str, tables: dict, rp: str | None = None) -> int:
                 raise ValueError(f"{mst}.{name}: column length differs")
             cols.append((0, name, np_to_field_type(values.dtype), values,
                          valid))
-        batch = ColumnarBatch(times, ref, keys,
-                              np.zeros(len(keys), dtype=np.int64), [mst],
-                              cols)
-        n += engine.write_columnar(db, batch, rp=rp)
-    return n
+        batches.append(ColumnarBatch(times, ref, keys,
+                                     np.zeros(len(keys), dtype=np.int64),
+                                     [mst], cols))
+    return engine.load_columnar_batches(db, batches, rp=rp)

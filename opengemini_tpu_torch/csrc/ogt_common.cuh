@@ -1,5 +1,6 @@
-// Shared device helpers for the aggregation kernels (bucket_basic.cu,
-// bucket_selectors.cu, grid_window.cu).
+// Shared device helpers for the port's kernels (bucket_basic.cu,
+// bucket_selectors.cu, grid_window.cu, widen_packed.cu, unpack_bits.cu,
+// probe_count.cu).
 //
 // The sources expose a plain C interface (no PyTorch headers), are built
 // with nvcc for sm_90a at first use and loaded with ctypes by

@@ -20,6 +20,14 @@ Contract is the AggBatch/BucketedBatch contract: add(values, rel_ns,
 seg_ids, mask, times_ns, sids=...) + run(spec, num_segments, params) ->
 (values, sel|None, counts), where sel indexes the batch's host_times()
 row order.
+
+``add_encoded`` takes a value column still in its on-disk blocks
+(record.EncodedColumn). When every add of a batch arrives encoded and
+the offload prior routes it to the device, the freeze ships the encoded
+bytes and ops/device_decode.py decodes, scatters and reduces on the card
+(executor/grid_decode_fused); the decoded grid stays there for the ssd
+and selector groups. Otherwise (executor/grid_decode_fallbacks, or a
+host route) the freeze decodes on the host and scatters as before.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ import numpy as np
 import torch
 
 from opengemini_tpu_torch.models import ragged, templates
-from opengemini_tpu_torch.ops import cuda_segment
+from opengemini_tpu_torch.ops import cuda_segment, device_decode
+from opengemini_tpu_torch.query import offload
 from opengemini_tpu_torch.utils.stats import incr as _incr
 
 # aggregates the grid path serves; others never get routed here
@@ -47,6 +56,27 @@ _MAX_K = 8192
 # lane (W) axis padding quantum: one constant on the card. Padded lanes
 # are masked off, so the quantum changes no answer.
 _LANE_QUANTUM = 8
+
+
+class _EncodedVals:
+    """Array-like holder of one add_encoded() value column that is still
+    in its on-disk encoded blocks (record.EncodedColumn): the grid
+    freeze ships the raw payloads to the device decoder; any host
+    consumer — the bucketed fallback, the host scatter — decodes via
+    __array__, the same numbers by construction."""
+
+    __slots__ = ("col",)
+
+    def __init__(self, col):
+        self.col = col
+
+    def __len__(self):
+        return len(self.col)
+
+    def __array__(self, dtype=None, copy=None):
+        v = self.col.values
+        return np.asarray(v, dtype=dtype) if dtype is not None \
+            else np.asarray(v)
 
 
 class GridBatch:
@@ -76,7 +106,22 @@ class GridBatch:
         is independent, so a stager that concatenates records from
         different shards must keep equal sid values from fusing into one
         stride run."""
-        self._vals.append(np.asarray(values, dtype=self.dtype))
+        self._push(np.asarray(values, dtype=self.dtype), rel_ns, seg_ids,
+                   mask, times_ns, sids, boundaries)
+
+    def add_encoded(self, col, rel_ns, seg_ids, mask, times_ns, sids=None,
+                    boundaries=None):
+        """add() taking a still-encoded value column
+        (record.EncodedColumn): when EVERY add of the batch arrives
+        encoded, the freeze can decode on the card; every other path
+        decodes on the host through the column's lazy .values,
+        bit-identically."""
+        self._push(_EncodedVals(col), rel_ns, seg_ids, mask, times_ns,
+                   sids, boundaries)
+
+    def _push(self, vals, rel_ns, seg_ids, mask, times_ns, sids,
+              boundaries):
+        self._vals.append(vals)
         self._rel.append(np.asarray(rel_ns, dtype=np.int64))
         self._seg.append(np.asarray(seg_ids, dtype=np.int64))
         self._mask.append(np.asarray(mask, dtype=np.bool_))
@@ -177,10 +222,9 @@ class GridBatch:
         rid = np.cumsum(boundary) - 1
         flat = (rid * k + r) * W_pad + w
         shape = (S_pad, k, W_pad)
-        vt = np.zeros(shape, dtype=self.dtype)
-        mt = np.zeros(shape, dtype=np.bool_)
-        vt.reshape(-1)[flat] = np.concatenate(self._vals)
-        mt.reshape(-1)[flat] = np.concatenate(self._mask)
+        enc_plan = self._encoded_plan(shape, flat, rel, bnd_idx, dt)
+        arrays = (None if enc_plan is not None
+                  else self._scatter_grid(shape, flat))
         run_gid = (seg[bnd_idx] // W).astype(np.int64)
         order = np.argsort(run_gid, kind="stable")
         sg = run_gid[order]
@@ -190,7 +234,8 @@ class GridBatch:
         starts = np.flatnonzero(gb)
         return {
             "k": k, "S": S, "W_pad": W_pad, "shape": shape,
-            "arrays": (vt, mt), "dev": None,
+            "arrays": arrays, "dev": None,
+            "encoded_plan": enc_plan, "flat_dev": None,
             # the sample-index grid for the selector group builds lazily
             # from `flat` — count/sum/mean scans never pay for it
             "flat": flat, "n": n,
@@ -270,6 +315,40 @@ class GridBatch:
             out2d[gids] = vals2d
         return out, sel, counts
 
+    def _encoded_plan(self, shape, flat, rel, starts, dt):
+        """Fused device-decode plan for a fully-encoded cold scan, or
+        None: every add must still carry its encoded blocks, the offload
+        prior must route the scan to the device (query/offload.py: cold
+        encoded columns go there, decoded ones stay on the host) and the
+        decoder must accept every block. None means the freeze decodes
+        and scatters on the host."""
+        views = []
+        any_decoded = False
+        for v in self._vals:
+            col = getattr(v, "col", None)
+            if col is None:
+                return None
+            any_decoded |= col.is_decoded
+            views.append((col.blocks, col.abs_segments(), col.n_full))
+        if offload.static_route(any_decoded) == "host":
+            return None
+        plan = device_decode.build_grid_plan(
+            views, flat, np.concatenate(self._mask), shape, self.dtype,
+            self.device, rel=rel, starts=starts, every_ns=self.every_ns,
+            dt=dt)
+        if plan is None:
+            _incr("executor/grid_decode_fallbacks")
+        return plan
+
+    def _scatter_grid(self, shape, flat):
+        """Scatter the raw rows into the padded (S_pad, k, W_pad) grid on
+        the host (encoded adds decode through _EncodedVals.__array__)."""
+        vt = np.zeros(shape, dtype=self.dtype)
+        mt = np.zeros(shape, dtype=np.bool_)
+        vt.reshape(-1)[flat] = np.concatenate(self._vals)
+        mt.reshape(-1)[flat] = np.concatenate(self._mask)
+        return vt, mt
+
     def _device_arrays(self):
         st = self._state
         if st["dev"] is None:
@@ -280,11 +359,27 @@ class GridBatch:
 
     def _device_imat(self) -> torch.Tensor:
         st = self._state
+        if st["flat_dev"] is not None:
+            # the fused decode left its scatter slots on the card
+            return device_decode.imat_from_flat(st["flat_dev"], st["shape"])
         imat = np.zeros(st["shape"], dtype=np.int32)
         imat.reshape(-1)[st["flat"]] = np.arange(st["n"], dtype=np.int32)
         return templates.to_device(imat, self.device)
 
     def _launch(self, kind: str) -> dict:
+        st = self._state
+        plan = st["encoded_plan"]
+        if plan is not None:
+            # fused cold path: encoded bytes -> card -> decode -> scatter
+            # -> basic reduce; the decoded grid stays on the card for the
+            # ssd and selector groups (no second transfer)
+            stats, vt, mt, flat_d = device_decode.run_grid_plan(plan)
+            st["encoded_plan"] = None
+            st["dev"] = (vt, mt)
+            st["flat_dev"] = flat_d
+            _incr("executor/grid_decode_fused")
+            if kind == "basic":
+                return stats
         vt, mt = self._device_arrays()
         if kind == "basic":
             return cuda_segment.grid_window_agg(vt, mt)

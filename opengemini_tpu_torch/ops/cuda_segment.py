@@ -1,8 +1,7 @@
-"""Hand-written CUDA kernels for the aggregation hot loop, with their
-plain PyTorch versions.
+"""Hand-written CUDA kernels, with their plain PyTorch versions.
 
-The port of ``opengemini_tpu/ops/pallas_segment.py``. Three kernels
-carry the InfluxQL aggregate path on the card:
+The port of ``opengemini_tpu/ops/pallas_segment.py`` and of the Pallas
+capability probe in ``opengemini_tpu/utils/devobs.py``. Six kernels:
 
   - ``bucket_stats_basic``     — (G, W) bucket rows: count/sum/mean/min/
                                  max/ssd (csrc/bucket_basic.cu)
@@ -12,6 +11,13 @@ carry the InfluxQL aggregate path on the card:
   - ``grid_window_agg``        — (S, K, W) regular grid: count/sum/mean/
                                  min/max per (series, window)
                                  (csrc/grid_window.cu)
+  - ``widen_packed``           — little-endian width-1/2 bytes -> int32,
+                                 the FOR-delta and dictionary-index
+                                 decode (csrc/widen_packed.cu)
+  - ``unpack_bits``            — bytes -> MSB-first int32 bits, the
+                                 gorilla decode (csrc/unpack_bits.cu)
+  - ``probe_count``            — masked row count of an int8 matrix, the
+                                 capability probe (csrc/probe_count.cu)
 
 Dispatch is by the device of the input tensor and nothing else: a CUDA
 tensor launches the kernel (and counts the launch in ``LAUNCHES``), a
@@ -22,7 +28,7 @@ propagates.
 The kernels are built at first use with ``nvcc`` for ``sm_90a``, one
 shared library with a plain C interface per source (no PyTorch headers,
 so each builds in seconds), into ``build/torch_ext/`` at the repository
-root, and loaded with ``ctypes``. All three sources compile in parallel.
+root, and loaded with ``ctypes``. All sources compile in parallel.
 """
 
 from __future__ import annotations
@@ -45,25 +51,35 @@ BUILD_DIR = os.path.join(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# kernel name -> (source file, C symbol prefix)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+def _float_pair(prefix: str, argtypes: list) -> dict:
+    return {f"{prefix}_{suffix}": argtypes for suffix in ("f32", "f64")}
+
+
+# kernel name -> (source file, {C symbol: argtypes}); every entry point
+# takes the stream last and returns the launch's cudaError_t
 _KERNELS = {
-    "bucket_stats_basic": ("bucket_basic.cu", "ogt_bucket_basic"),
-    "bucket_stats_selectors": ("bucket_selectors.cu", "ogt_bucket_selectors"),
-    "grid_window_agg": ("grid_window.cu", "ogt_grid_window_agg"),
+    "bucket_stats_basic": ("bucket_basic.cu", _float_pair(
+        "ogt_bucket_basic", [_P, _P, _LL, _I] + [_P] * 7)),
+    "bucket_stats_selectors": ("bucket_selectors.cu", _float_pair(
+        "ogt_bucket_selectors", [_P] * 5 + [_LL, _I] + [_P] * 7)),
+    "grid_window_agg": ("grid_window.cu", _float_pair(
+        "ogt_grid_window_agg", [_P, _P, _LL, _I, _I] + [_P] * 6)),
+    "widen_packed": ("widen_packed.cu", {
+        "ogt_widen_packed": [_P, _LL, _I, _P, _P]}),
+    "unpack_bits": ("unpack_bits.cu", {
+        "ogt_unpack_bits": [_P, _LL, _P, _P]}),
+    "probe_count": ("probe_count.cu", {
+        "ogt_probe_count": [_P, _LL, _I, _P, _P]}),
 }
 
 # launches of each kernel since the last reset_launches(); only the
 # wrappers' kernel branches add to it
 LAUNCHES = {name: 0 for name in _KERNELS}
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
-_ARGTYPES = {
-    "bucket_stats_basic": [_P, _P, _LL, _I] + [_P] * 7,
-    "bucket_stats_selectors": [_P] * 5 + [_LL, _I] + [_P] * 7,
-    "grid_window_agg": [_P, _P, _LL, _I, _I] + [_P] * 6,
-}
 
 _libs: dict = {}
 _build_lock = threading.Lock()
@@ -133,10 +149,9 @@ def build(names=None, verbose: bool = False) -> dict:
             raise RuntimeError("\n".join(errors))
         for n, out, _tmp, _proc in procs:
             lib = ctypes.CDLL(out)
-            prefix = _KERNELS[n][1]
-            for suffix in ("f32", "f64"):
-                fn = getattr(lib, f"{prefix}_{suffix}")
-                fn.argtypes = _ARGTYPES[n]
+            for symbol, argtypes in _KERNELS[n][1].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             lib.ogt_error_string.argtypes = [ctypes.c_int]
             lib.ogt_error_string.restype = ctypes.c_char_p
@@ -144,12 +159,17 @@ def build(names=None, verbose: bool = False) -> dict:
         return {n: _libs[n] for n in names}
 
 
-def _entry(name: str, dtype: torch.dtype):
+def _entry(name: str, dtype: torch.dtype | None = None):
+    """(library, C entry point) of a kernel; the float kernels pick the
+    entry point of the values' dtype."""
     lib = build([name])[name]
+    symbols = list(_KERNELS[name][1])
+    if len(symbols) == 1:
+        return lib, getattr(lib, symbols[0])
     suffix = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
     if suffix is None:
         raise TypeError(f"{name}: values must be float32 or float64, got {dtype}")
-    return lib, getattr(lib, f"{_KERNELS[name][1]}_{suffix}")
+    return lib, getattr(lib, symbols[0][:-3] + suffix)
 
 
 def _check(name: str, v: torch.Tensor, ints=(), mask=None, dim=2) -> None:
@@ -338,3 +358,94 @@ def grid_window_agg(v: torch.Tensor, m: torch.Tensor) -> dict:
                 cnt.data_ptr(), *(o.data_ptr() for o in outs))
     s, mean, mn, mx = outs
     return {"count": cnt, "sum": s, "mean": mean, "min": mn, "max": mx}
+
+
+# -- packed widen (device decode) -------------------------------------------
+
+
+def _check_bytes(name: str, raw: torch.Tensor, nbytes: int) -> None:
+    if raw.dtype != torch.uint8 or raw.dim() != 1:
+        raise TypeError(f"{name}: expected a 1-D uint8 tensor")
+    if raw.numel() != nbytes:
+        raise ValueError(f"{name}: {raw.numel()} bytes given, {nbytes} expected")
+    if not raw.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+
+
+def widen_packed_plain(raw: torch.Tensor, width: int, cnt: int) -> torch.Tensor:
+    """Plain form of kernel 4 (the TPU _widen_kernel): `cnt` unsigned
+    little-endian `width`-byte values -> int32."""
+    b = raw.reshape(cnt, width).to(torch.int32)
+    acc = b[:, 0].clone()
+    for j in range(1, width):
+        acc |= b[:, j] << (8 * j)
+    return acc
+
+
+def widen_packed(raw: torch.Tensor, width: int, cnt: int) -> torch.Tensor:
+    """Widen `cnt` packed little-endian `width`-byte (1 or 2) unsigned
+    values to int32; the CUDA kernel for a CUDA tensor, the plain version
+    for a CPU tensor."""
+    name = "widen_packed"
+    if width not in (1, 2):
+        raise ValueError(f"{name}: width must be 1 or 2, got {width}")
+    _check_bytes(name, raw, cnt * width)
+    if not _require_cuda_or_cpu(name, raw):
+        return widen_packed_plain(raw, width, cnt)
+    lib, fn = _entry(name)
+    out = torch.empty(cnt, dtype=torch.int32, device=raw.device)
+    with torch.cuda.device(raw.device):
+        _launch(name, fn, lib, raw.data_ptr(), cnt, width, out.data_ptr())
+    return out
+
+
+# -- bit unpack (gorilla device decode) --------------------------------------
+
+
+def unpack_bits_plain(raw: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """Plain form of kernel 5 (the TPU _unpack_bits_kernel): bytes ->
+    (nbytes * 8,) int32 bits, MSB first within each byte."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=raw.device)
+    return ((raw.to(torch.int32)[:, None] >> shifts) & 1).reshape(nbytes * 8)
+
+
+def unpack_bits(raw: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """Unpack `nbytes` bytes into (nbytes * 8,) int32 bits, MSB first per
+    byte (np.unpackbits order); the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    name = "unpack_bits"
+    _check_bytes(name, raw, nbytes)
+    if not _require_cuda_or_cpu(name, raw):
+        return unpack_bits_plain(raw, nbytes)
+    lib, fn = _entry(name)
+    out = torch.empty(nbytes * 8, dtype=torch.int32, device=raw.device)
+    with torch.cuda.device(raw.device):
+        _launch(name, fn, lib, raw.data_ptr(), nbytes, out.data_ptr())
+    return out
+
+
+# -- capability probe ----------------------------------------------------------
+
+
+def probe_count_plain(m: torch.Tensor) -> torch.Tensor:
+    """Plain form of kernel 6 (the TPU probe kernel): masked count of
+    every row of an int8 (R, C) matrix, int32 (R, 1)."""
+    return (m != 0).sum(dim=1, keepdim=True, dtype=torch.int32)
+
+
+def probe_count(m: torch.Tensor) -> torch.Tensor:
+    """Masked row count of an int8 (R, C) matrix into int32 (R, 1); the
+    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    name = "probe_count"
+    if m.dtype != torch.int8 or m.dim() != 2:
+        raise TypeError(f"{name}: expected a 2-D int8 tensor")
+    if not m.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+    if not _require_cuda_or_cpu(name, m):
+        return probe_count_plain(m)
+    lib, fn = _entry(name)
+    rows, cols = m.shape
+    out = torch.empty((rows, 1), dtype=torch.int32, device=m.device)
+    with torch.cuda.device(m.device):
+        _launch(name, fn, lib, m.data_ptr(), rows, cols, out.data_ptr())
+    return out

@@ -37,7 +37,8 @@ from opengemini_tpu_torch.query.qhelpers import (
     _has_call_wildcard, _needs_string_host_path, _resolve_call,
     _selector_aux_plan, _strip_expr,
 )
-from opengemini_tpu_torch.record import FieldType, FieldTypeConflict
+from opengemini_tpu_torch.record import (
+    EncodedColumn, FieldType, FieldTypeConflict, concat_encoded_columns)
 from opengemini_tpu_torch.sql import ast
 from opengemini_tpu_torch.sql.parser import parse
 from opengemini_tpu_torch.storage.engine import WriteError
@@ -113,6 +114,11 @@ class _ScanStager:
             m = col.valid if fmask is None else (col.valid & fmask)
             if col.ftype == FieldType.STRING:
                 vals = None  # count-only payload: zeros at flush
+            elif (isinstance(col, EncodedColumn)
+                    and hasattr(self.batches[fname], "add_encoded")):
+                # still-attached raw blocks: flush composes one encoded
+                # column per field for the grid freeze to route
+                vals = col
             else:
                 vals = col.values
             self._per_field[fname].append((ri, vals, m))
@@ -142,9 +148,21 @@ class _ScanStager:
             else:
                 times, seg, sids, rel, bounds = self._gather(rec_idx)
             mask = np.concatenate([e[2] for e in entries])
+            if all(isinstance(v, EncodedColumn) for _ri, v, _m in entries):
+                # every record kept its raw blocks: compose ONE encoded
+                # row-run view for the whole flush (past the run cap it
+                # takes the copying path below)
+                merged = concat_encoded_columns(
+                    [v for _ri, v, _m in entries], entries[0][1].ftype)
+                if merged is not None:
+                    batch.add_encoded(merged, rel, seg, mask, times,
+                                      sids=sids, boundaries=bounds)
+                    self._per_field[fname] = []
+                    continue
             parts = [
                 np.zeros(len(self._recs[ri][0]), dtype=self.dtype)
-                if v is None else v
+                if v is None
+                else (v.values if isinstance(v, EncodedColumn) else v)
                 for ri, v, _m in entries
             ]
             vals = parts[0] if len(parts) == 1 else np.concatenate(parts)

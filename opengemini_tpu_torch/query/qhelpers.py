@@ -300,9 +300,13 @@ def _linear_fill(col):
     return out
 
 def _data_time_range(shards, mst):
-    """(min, max) ns over the shards' rows (memtables only in this slice)."""
+    """(min, max) ns over the shards' rows: chunk metadata of the files,
+    then the memtables."""
     dmin = dmax = None
     for sh in shards:
+        for _r, c in sh.file_chunks(mst):
+            dmin = c.tmin if dmin is None else min(dmin, c.tmin)
+            dmax = c.tmax if dmax is None else max(dmax, c.tmax)
         m_lo, m_hi = sh.mem_time_range()
         if m_lo is not None:
             dmin = m_lo if dmin is None else min(dmin, m_lo)
@@ -326,6 +330,15 @@ def _add_record_to_batches(rec, seg, aligned, needed_fields, batches, dtype,
         m = col.valid
         if fmask is not None:
             m = m & fmask
+        if (getattr(col, "blocks", None) is not None
+                and hasattr(batch, "add_encoded")):
+            # record.EncodedColumn into a device-decode-capable batch:
+            # keep the raw block payloads attached — the grid freeze can
+            # ship them to the card and decode fused with the window
+            # reduce (ops/device_decode.py); host consumers decode
+            # lazily, bit-identically
+            batch.add_encoded(col, rel, seg, m, rec.times, sids=sids)
+            continue
         if isinstance(batch, ragged.IntExactBatch):
             vals = col.values  # int64 end-to-end, no float cast
         elif col.ftype == FieldType.STRING:

@@ -507,6 +507,144 @@ def _concat_encoded(name, ftype, single, total):
     return merged
 
 
+def concat_records(records: list) -> Record:
+    """Record.concat over many records at once: each column is copied
+    once, where folding concat pairwise copies the growing prefix again
+    for every record (quadratic in the record count — a flush streams a
+    packed chunk every 131072 rows, so a one-file scan has hundreds).
+    Still-encoded columns compose into one encoded view, exactly as the
+    pairwise fold would, and decode past the same run cap."""
+    recs = [r for r in records if len(r)]
+    if len(recs) <= 1:
+        return recs[0] if recs else Record.empty()
+    ftypes: dict[str, FieldType] = {}
+    for r in recs:
+        for k, c in r.columns.items():
+            ftypes.setdefault(k, c.ftype)
+    cols: dict[str, Column] = {}
+    for k, ftype in ftypes.items():
+        parts = [r.columns.get(k) for r in recs]
+        enc = concat_encoded_columns(parts, ftype)
+        if enc is not None:
+            cols[k] = enc
+            continue
+        parts = [c if c is not None else _null_column(ftype, len(r))
+                 for c, r in zip(parts, recs)]
+        cols[k] = Column(ftype, np.concatenate([c.values for c in parts]),
+                         np.concatenate([c.valid for c in parts]))
+    return Record(np.concatenate([r.times for r in recs]), cols)
+
+
+def concat_encoded_columns(cols, ftype):
+    """The pairwise EncodedColumn.concat fold in one step, or None when
+    a part is not an EncodedColumn of `ftype` or the runs pass the cap
+    (the caller then copies decoded values)."""
+    if not all(isinstance(c, EncodedColumn) and c.ftype == ftype
+               for c in cols):
+        return None
+    bases = np.cumsum([0] + [c.n_full for c in cols])
+    segs = np.concatenate([c.abs_segments() + b
+                           for c, b in zip(cols, bases)])
+    if len(segs) > EncodedColumn._SEG_CAP:
+        return None
+    out = EncodedColumn(ftype, [b for c in cols for b in c.blocks],
+                        np.concatenate([c.valid for c in cols]),
+                        cols[0]._decode, segments=segs,
+                        n_full=int(bases[-1]))
+    spans = [c._spans_or_self() for c in cols]
+    if all(sp is not None for sp in spans):
+        out._spans = [(root, off + b) for sp, b in zip(spans, bases)
+                      for root, off in sp]
+    if all(c.is_decoded for c in cols):
+        out._values = np.concatenate([c.values for c in cols])
+    return out
+
+
+def _merge_bulk_encoded(parts, lo_t: int, hi_t: int):
+    """Merge of multi-series parts that share no (sid, time) key — the
+    packed chunks of several flushes, each holding every series for its
+    own stretch of time — that keeps still-encoded columns ENCODED: the
+    merged column is a row-run view, in (sid, time) order, over the
+    concatenation of every part's blocks. The JAX package's merge
+    decodes such parts on the host; here the grid freeze can still ship
+    their blocks to the card. Returns None when no part has an encoded
+    column or two parts share a key (the general merge dedups those)."""
+    if not any(isinstance(c, EncodedColumn)
+               for _s, r in parts for c in r.columns.values()):
+        return None
+    sid_all = np.concatenate([s for s, _r in parts])
+    t_all = np.concatenate([r.times for _s, r in parts])
+    # parts come oldest first, so a stable sort by sid alone already
+    # puts each series' rows in time order when the parts follow each
+    # other in time (a time-ordered load); the full two-key sort is
+    # the general case
+    for sort in (lambda: np.argsort(sid_all, kind="stable"),
+                 lambda: np.lexsort((t_all, sid_all))):
+        order = sort()
+        sid_s, t_s = sid_all[order], t_all[order]
+        ds = np.diff(sid_s)
+        if ((ds > 0) | ((ds == 0) & (np.diff(t_s) > 0))).all():
+            break
+    else:
+        return None
+    keep = (t_s >= lo_t) & (t_s < hi_t)
+    if not keep.all():
+        order, sid_s, t_s = order[keep], sid_s[keep], t_s[keep]
+    ftypes: dict[str, object] = {}
+    for _s, r in parts:
+        for name, col in r.columns.items():
+            ftypes.setdefault(name, col.ftype)
+    cols = {}
+    for name, ftype in ftypes.items():
+        enc = _permute_encoded(name, ftype, parts, order)
+        if enc is not None:
+            cols[name] = enc
+            continue
+        values = _zeroed(ftype, len(sid_all))
+        valid = np.zeros(len(sid_all), dtype=np.bool_)
+        at = 0
+        for _s, r in parts:
+            col = r.columns.get(name)
+            if col is not None:
+                values[at:at + len(r)] = col.values
+                valid[at:at + len(r)] = col.valid
+            at += len(r)
+        cols[name] = Column(ftype, values[order], valid[order])
+    return sid_s, Record(t_s, cols)
+
+
+def _permute_encoded(name, ftype, parts, order):
+    """One column of _merge_bulk_encoded: an EncodedColumn whose view
+    takes the concatenated parts' rows in `order`, or None when a part
+    lacks the column in encoded form or the view would need more runs
+    than one per 64 rows (then copying is cheaper)."""
+    cols = [r.columns.get(name) for _s, r in parts]
+    if not all(isinstance(c, EncodedColumn) and c.ftype == ftype
+               for c in cols):
+        return None
+    bases = np.cumsum([0] + [c.n_full for c in cols])
+    abs_idx = np.concatenate(
+        [c._abs_index() + b for c, b in zip(cols, bases)])[order]
+    if not len(abs_idx):
+        return None
+    brk = np.flatnonzero(np.diff(abs_idx) != 1)
+    if len(brk) + 1 > max(EncodedColumn._SEG_CAP, len(abs_idx) // 64):
+        return None
+    lo = np.concatenate([abs_idx[:1], abs_idx[brk + 1]])
+    hi = np.concatenate([abs_idx[brk], abs_idx[-1:]]) + 1
+    out = EncodedColumn(
+        ftype, [b for c in cols for b in c.blocks],
+        np.concatenate([c.valid for c in cols])[order], cols[0]._decode,
+        segments=np.stack([lo, hi], axis=1), n_full=int(bases[-1]))
+    spans = [c._spans_or_self() for c in cols]
+    if all(sp is not None for sp in spans):
+        out._spans = [(root, off + b) for sp, b in zip(spans, bases)
+                      for root, off in sp]
+    if all(c.is_decoded for c in cols):
+        out._values = np.concatenate([c.values for c in cols])[order]
+    return out
+
+
 def merge_bulk_parts(
     parts: list[tuple[np.ndarray, Record]], lo_t: int, hi_t: int
 ) -> tuple[np.ndarray, Record]:
@@ -534,9 +672,7 @@ def merge_bulk_parts(
     ds = np.diff(s_cat)
     if not len(ds) or (
             (ds > 0) | ((ds == 0) & (np.diff(t_cat) > 0))).all():
-        rec = parts[0][1]
-        for _s, r in parts[1:]:
-            rec = rec.concat(r)
+        rec = concat_records([r for _s, r in parts])
         m = (t_cat >= lo_t) & (t_cat < hi_t)
         if m.all():
             return s_cat, rec
@@ -545,6 +681,9 @@ def merge_bulk_parts(
     fast = _merge_bulk_sorted_fast(parts, lo_t, hi_t)
     if fast is not None:
         return fast
+    enc = _merge_bulk_encoded(parts, lo_t, hi_t)
+    if enc is not None:
+        return enc
     sid_all = np.concatenate([s for s, _r in parts])
     t_all = np.concatenate([r.times for _s, r in parts])
     rank_all = np.concatenate(

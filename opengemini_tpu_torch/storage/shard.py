@@ -1,51 +1,274 @@
-"""Shard: a time-ranged slice of one database/RP — memtable + series index.
+"""Shard: a time-ranged slice of one database/RP — WAL + memtable +
+immutable TSF files + series index.
 
-The port of ``opengemini_tpu/storage/shard.py``, memtable only: it keeps
-the point and columnar write paths (``write_points``, ``write_columnar``
-/ ``_apply_columnar``), the schemas, the series index and the two scan
-reads the executor uses (``read_series``, ``read_series_bulk``). The
-WAL, TSF flush and read, the decoded-column cache, the scan pool and
-file quarantine are not part of this slice, so a shard lives in memory.
+The port of ``opengemini_tpu/storage/shard.py``: the same directory
+layout (``wal.log`` and its rotated segments, ``NNNNNNNN.tsf`` files,
+the mergeset series index under ``seriesidx/``), so either package
+reopens a shard the other wrote. It keeps the point and columnar write
+paths with their WAL logging, WAL replay (with salvage of interior
+damage), the snapshot-and-swap flush into TSF files, and the two scan
+reads the executor uses (``read_series``, ``read_series_bulk``) over
+files, frozen flush snapshots and the live memtable.
+
+Not in this port yet: compaction, delete and downsample rewrites, file
+quarantine, the decoded-column cache and the text-index sidecars.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
 
-from opengemini_tpu_torch.index.inverted import SeriesIndex
-from opengemini_tpu_torch.record import FieldTypeConflict, Record, merge_bulk_parts
-from opengemini_tpu_torch.storage.memtable import MemTable
+from opengemini_tpu_torch.index.mergeset import open_series_index
+from opengemini_tpu_torch.ingest import line_protocol as lp
+from opengemini_tpu_torch.record import (
+    Column, FieldTypeConflict, Record, _zeroed, merge_bulk_parts,
+    merge_sorted_records,
+)
+from opengemini_tpu_torch.storage import scanpool
+from opengemini_tpu_torch.storage.memtable import MemTable, _series_slice
+from opengemini_tpu_torch.storage.tsf import (
+    PACK_MIN_SERIES, PACK_ROWS, TSFReader, TSFWriter,
+)
+from opengemini_tpu_torch.storage.wal import WAL, WALCorruption, frame
+
+
+def _pack_entries(buffer: list) -> tuple[np.ndarray, Record]:
+    """[(sid, rec)] (sid-ascending, per-rec time-sorted) -> one PK-sorted
+    packed block: sid column + union-schema field columns (absent fields
+    pad invalid)."""
+    total = sum(len(rec) for _sid, rec in buffer)
+    sids = np.concatenate(
+        [np.full(len(rec), sid, np.int64) for sid, rec in buffer])
+    times = np.concatenate([rec.times for _sid, rec in buffer])
+    ftypes: dict[str, object] = {}
+    for _sid, rec in buffer:
+        for name, col in rec.columns.items():
+            ftypes.setdefault(name, col.ftype)
+    cols = {}
+    for name, ftype in ftypes.items():
+        # zero-init: garbage in invalid slots would persist into packed
+        # chunks
+        values = _zeroed(ftype, total)
+        valid = np.zeros(total, dtype=np.bool_)
+        at = 0
+        for _sid, rec in buffer:
+            n = len(rec)
+            col = rec.columns.get(name)
+            if col is not None:
+                values[at:at + n] = col.values
+                valid[at:at + n] = col.valid
+            at += n
+        cols[name] = Column(ftype, values, valid)
+    return sids, Record(times, cols)
+
+
+def _sid_entries(rec: Record, uniq, starts, ends):
+    """(sid, per-series Record) views over one (sid, time)-sorted bulk
+    table — the flush path's bridge from memtable tables to chunks."""
+    for sid, lo, hi in zip(uniq, starts, ends):
+        yield int(sid), _series_slice(rec, lo, hi)
+
+
+def _write_measurement_chunks(w: TSFWriter, mst: str, entries,
+                              n_series: int) -> int:
+    """Write one measurement's series records: per-sid chunks at low
+    cardinality, PK-sorted packed chunks once a flush carries >=
+    PACK_MIN_SERIES series. `entries` iterates (sid, rec) in ascending
+    sid order; packed chunks stream out every PACK_ROWS rows (a series
+    never splits across two). Returns rows submitted to the writer."""
+    rows = 0
+    if n_series < PACK_MIN_SERIES:
+        for sid, rec in entries:
+            w.add_chunk(mst, sid, rec)
+            rows += len(rec)
+        return rows
+    buffer: list = []
+    buffered = 0
+    for sid, rec in entries:
+        if len(rec) == 0:
+            continue
+        buffer.append((sid, rec))
+        buffered += len(rec)
+        rows += len(rec)
+        if buffered >= PACK_ROWS:
+            sids, packed = _pack_entries(buffer)
+            w.add_packed_chunk(mst, sids, packed)
+            buffer, buffered = [], 0
+    if buffer:
+        sids, packed = _pack_entries(buffer)
+        w.add_packed_chunk(mst, sids, packed)
+    return rows
+
+
+def _keep_fields(rec: Record, fields) -> Record:
+    if fields is None:
+        return rec
+    return Record(rec.times,
+                  {k: v for k, v in rec.columns.items() if k in fields})
 
 
 class Shard:
-    def __init__(self, tmin: int, tmax: int):
+    def __init__(self, path: str, tmin: int, tmax: int,
+                 sync_wal: bool = False):
+        self.path = path
         self.tmin = tmin  # inclusive ns
         self.tmax = tmax  # exclusive ns
-        self.index = SeriesIndex()
-        # measurement -> field -> FieldType; shared with the memtable
+        os.makedirs(path, exist_ok=True)
+        self.index = open_series_index(path)
+        # measurement -> field -> FieldType; owned here so it survives
+        # memtable generations and is seeded from the files on open
         self.schemas: dict[str, dict] = {}
         self.mem = MemTable(self.schemas)
         self._lock = threading.RLock()
+        # flush serialization. Lock ORDER: _flush_lock before _lock —
+        # flush holds _flush_lock across its off-lock encode and takes
+        # _lock only to freeze and to publish
+        self._flush_lock = threading.RLock()
+        # snapshot-and-swap flush state: (frozen memtable, rotated WAL
+        # segment | None), oldest first. Readers merge frozen snapshots
+        # between the files and the live memtable until the TSF that
+        # holds their rows is published. An immutable tuple replaced on
+        # every change, so a reader snapshots it with one attribute read.
+        self._frozen: tuple[tuple[MemTable, str | None], ...] = ()
+        self._wal_seg_seq = 1
+        # rotated segments found at open (crash between publish and
+        # segment removal) or left by a failed flush: the next
+        # successful flush removes them
+        self._stale_wal_segs: list[str] = []
+        self._files: list[TSFReader] = []
+        self._next_file_seq = 1
+        self._load_files()
+        for r in self._files:
+            for mst in r.measurements():
+                self.schemas.setdefault(mst, {}).update(r.schema(mst))
+        # replay BEFORE opening the live WAL handle: salvage may rewrite
+        # wal.log on disk
+        self._replay_wal()
+        self.wal = WAL(os.path.join(path, "wal.log"), sync=sync_wal)
+
+    def _load_files(self) -> None:
+        # crash leftovers: a .tmp that never reached its os.replace
+        for f in os.listdir(self.path):
+            if f.endswith((".merge", ".tmp")):
+                try:
+                    os.remove(os.path.join(self.path, f))
+                except OSError:
+                    pass
+        names = sorted(f for f in os.listdir(self.path) if f.endswith(".tsf"))
+        for name in names:
+            seq = int(name.split(".")[0])
+            self._next_file_seq = max(self._next_file_seq, seq + 1)
+            full = os.path.join(self.path, name)
+            if os.path.exists(full + ".quar"):
+                continue  # quarantined by the JAX package: not readable
+            self._files.append(TSFReader(full))
+
+    def _replay_wal(self) -> None:
+        wal_path = os.path.join(self.path, "wal.log")
+        # rotated segments first (oldest -> newest), then the live log:
+        # the append order every last-write-wins rank derives from
+        for seg in WAL.segments(wal_path):
+            self._stale_wal_segs.append(seg)
+            seq = seg.rsplit(".", 1)[-1]
+            if seq.isdigit():
+                self._wal_seg_seq = max(self._wal_seg_seq, int(seq) + 1)
+            self._replay_one(seg)
+        self._replay_one(wal_path)
+
+    def _replay_one(self, wal_path: str) -> None:
+        try:
+            for entry in WAL.replay(wal_path):
+                self._replay_entry(entry)
+        except WALCorruption as e:
+            self._recover_wal_corruption(wal_path, e)
+
+    def _recover_wal_corruption(self, wal_path: str, e: WALCorruption) -> None:
+        """Interior WAL damage: re-apply the salvaged suffix (every frame
+        after the damage holds acknowledged rows), keep the damaged log
+        as a quarantine copy, and rewrite a clean log from the decodable
+        frames so the recovered rows stay durable."""
+        import shutil
+
+        for entry in e.salvaged_entries():
+            self._replay_entry(entry)
+        qdir = os.path.join(self.path, "quarantine")
+        os.makedirs(qdir, exist_ok=True)
+        qpath = os.path.join(
+            qdir, os.path.basename(wal_path) + f".corrupt-{e.offset}")
+        if not os.path.exists(qpath):
+            shutil.copy2(wal_path, qpath)
+        tmp = wal_path + ".tmp"
+        with open(tmp, "wb") as f:
+            for kind, payload in (*e.clean_frames, *e.salvaged_frames):
+                f.write(frame(kind, payload))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, wal_path)
+
+    def _replay_entry(self, entry) -> None:
+        if entry[0] == "lines":
+            _, lines, precision, now_ns = entry
+            points = lp.parse_lines(lines, precision, now_ns)
+        else:
+            points = entry[1]
+        for mst, tags, t, fields in points:
+            if self.tmin <= t < self.tmax:
+                sid = self.index.get_or_create(mst, tags)
+                try:
+                    self.mem.write_row(sid, mst, t, fields)
+                except FieldTypeConflict:
+                    continue  # rejected at write time: not replayed either
 
     # -- write path ---------------------------------------------------------
 
-    def write_points(self, points: list) -> int:
-        """Apply pre-parsed (measurement, tags, t_ns, fields) points in
-        this shard's range. Raises FieldTypeConflict before any row
-        applies."""
+    def write_points(self, points: list, raw_lines: bytes, precision: str,
+                     now_ns: int, defer_commit: bool = False):
+        """Apply pre-parsed points in this shard's range; `raw_lines` is the
+        original batch logged for replay (replay re-filters by time
+        range). Returns rows written, or (rows, WAL ticket) with
+        `defer_commit` (the caller then owns `wal.commit`). Raises
+        FieldTypeConflict BEFORE touching the WAL."""
         with self._lock:
             self._check_types(points)
-            return self._apply(points)
+            ticket = self.wal.append_lines(raw_lines, precision, now_ns)
+            n = self._apply(points)
+        if defer_commit:
+            return n, ticket
+        self.wal.commit(ticket)
+        return n
 
-    def write_columnar(self, batch, rows: np.ndarray | None) -> int:
+    def write_points_structured(self, points: list,
+                                defer_commit: bool = False):
+        """Same as write_points, WAL-logged as structured points (kind 2)."""
+        with self._lock:
+            self._check_types(points)
+            ticket = self.wal.append_points(points)
+            n = self._apply(points)
+        if defer_commit:
+            return n, ticket
+        self.wal.commit(ticket)
+        return n
+
+    def write_columnar(self, batch, rows: np.ndarray | None,
+                       raw_lines: bytes, precision: str, now_ns: int,
+                       defer_commit: bool = False):
         """Apply a ColumnarBatch (ingest/native_lp.py). `rows` selects this
-        shard's row indices (None = all rows). Type conflicts raise before
-        any row applies."""
+        shard's row indices (None = all rows); `raw_lines` is their
+        line-protocol text, logged for replay (the bulk load writes it
+        with ingest/native_lp.LineWriter). Returns rows written, or
+        (rows, WAL ticket) with `defer_commit`. Type conflicts raise
+        BEFORE the WAL append."""
         with self._lock:
             self._check_columnar_types(batch, rows)
-            return self._apply_columnar(batch, rows=rows)
+            ticket = self.wal.append_lines(raw_lines, precision, now_ns)
+            n = self._apply_columnar(batch, rows=rows)
+        if defer_commit:
+            return n, ticket
+        self.wal.commit(ticket)
+        return n
 
     def _check_columnar_types(self, batch, rows) -> None:
         pending: dict[tuple[int, str], object] = {}
@@ -65,6 +288,11 @@ class Shard:
         """Map unique series refs -> sids via the series index (new series
         register here). Returns an array indexed by ref."""
         sid_by_ref = np.zeros(len(batch.series_keys), np.int64)
+        if len(refs) > 8:
+            ref_list = [int(r) for r in refs]
+            sid_by_ref[ref_list] = self.index.get_or_create_bulk(
+                [batch.series_keys[r] for r in ref_list])
+            return sid_by_ref
         for ref in refs:
             sid_by_ref[ref] = self.index.get_or_create_by_key(
                 batch.series_keys[int(ref)])
@@ -127,34 +355,164 @@ class Shard:
             n += 1
         return n
 
+    # -- flush --------------------------------------------------------------
+
+    def flush(self) -> None:
+        """Memtable -> new TSF file, then drop the covering WAL segment.
+
+        Snapshot-and-swap: under the shard lock the memtable is FROZEN,
+        the WAL rotates to a fresh segment and a new memtable installs.
+        Encoding and the file write then run OFF the shard lock while
+        readers merge the frozen snapshot between the files and the live
+        memtable. The file is fsynced and atomically renamed BEFORE the
+        rotated segment is removed; a crash anywhere replays the
+        surviving segments over whatever was published, and
+        last-write-wins dedup makes the overlap idempotent."""
+        with self._flush_lock:
+            with self._lock:
+                if len(self.mem) == 0 and not self._frozen:
+                    return
+                self.index.flush()
+                if len(self.mem):
+                    seg = os.path.join(
+                        self.path, f"wal.log.{self._wal_seg_seq:06d}")
+                    self._wal_seg_seq += 1
+                    seg = self.wal.rotate(seg)
+                    self.mem.freeze()
+                    self._frozen = self._frozen + ((self.mem, seg),)
+                    self.mem = MemTable(self.schemas)
+            # one file per frozen snapshot, oldest first (file order =
+            # write order keeps last-write-wins ranking exact)
+            while True:
+                with self._lock:
+                    if not self._frozen:
+                        return
+                    frozen, seg = self._frozen[0]
+                    path = os.path.join(
+                        self.path, f"{self._next_file_seq:08d}.tsf")
+                    self._next_file_seq += 1
+                self._flush_frozen(frozen, seg, path)
+
+    def flush_if_over(self, threshold_bytes: int) -> bool:
+        """Threshold-path flush: writers that all saw the same
+        over-threshold memtable trigger ONE flush; non-blocking while a
+        flush is already in flight."""
+        if not self._flush_lock.acquire(blocking=False):
+            return False
+        try:
+            if self.mem.approx_bytes <= threshold_bytes and not self._frozen:
+                return False
+            self.flush()
+            return True
+        finally:
+            self._flush_lock.release()
+
+    def _flush_frozen(self, frozen: MemTable, seg: str | None,
+                      path: str) -> None:
+        """Encode + write one frozen memtable into `path`, publish it,
+        then remove the WAL segment(s) its rows came from."""
+        w = TSFWriter(path)
+        tsf_rows = 0
+        try:
+            for mst, sid_arr, rec in frozen.measurement_tables():
+                uniq, starts = np.unique(sid_arr, return_index=True)
+                ends = np.append(starts[1:], len(sid_arr))
+                tsf_rows += _write_measurement_chunks(
+                    w, mst, _sid_entries(rec, uniq, starts, ends),
+                    n_series=len(uniq))
+            # post-dedup rows can only SHRINK vs the snapshot's row count;
+            # more means duplicated rows — abort before the file is durable
+            if tsf_rows > frozen.row_count:
+                raise RuntimeError(
+                    f"flush wrote {tsf_rows} rows from a "
+                    f"{frozen.row_count}-row snapshot (duplication)")
+            w.finish()
+        except BaseException:
+            w.abort()
+            raise
+        with self._lock:
+            # publish + un-freeze atomically: a reader sees the rows in
+            # the frozen snapshot or in the new file, never in neither
+            self._files.append(TSFReader(path))
+            self._frozen = self._frozen[1:]
+            if seg is not None:
+                self._stale_wal_segs.append(seg)
+        stale, self._stale_wal_segs = self._stale_wal_segs, []
+        for p in stale:
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+
     # -- read side ----------------------------------------------------------
 
+    def _scan_state(self) -> tuple[list, list]:
+        """(files, memtables oldest -> newest, live last) in ONE lock
+        acquisition, consistent with a concurrent flush publish."""
+        with self._lock:
+            mems = [m for m, _seg in self._frozen]
+            mems.append(self.mem)
+            return list(self._files), mems
+
+    def _mem_parts(self) -> list:
+        return [m for m, _seg in self._frozen] + [self.mem]
+
     def mem_time_range(self) -> tuple[int | None, int | None]:
-        """(min, max) ns of the memtable (None = no rows)."""
-        return self.mem.min_time, self.mem.max_time
+        """(min, max) ns across frozen + live memtables (None = no rows)."""
+        tmin = tmax = None
+        for m in self._mem_parts():
+            if m.min_time is not None:
+                tmin = m.min_time if tmin is None else min(tmin, m.min_time)
+                tmax = m.max_time if tmax is None else max(tmax, m.max_time)
+        return tmin, tmax
 
     def measurements(self) -> list[str]:
-        return sorted(self.index.measurements())
+        msts = set(self.index.measurements())
+        for r in self._files:
+            msts.update(r.measurements())
+        return sorted(msts)
 
     def schema(self, measurement: str) -> dict:
         return dict(self.schemas.get(measurement, {}))
 
+    def file_chunks(self, measurement: str, sids=None, tmin=None, tmax=None):
+        """[(reader, ChunkMeta)] oldest file first — the merge order that
+        makes last-write-wins correct."""
+        return [(r, c) for r in self._files
+                for c in r.chunks(measurement, sids, tmin, tmax)]
+
     def read_series(self, measurement: str, sid: int,
                     tmin: int | None = None, tmax: int | None = None,
                     fields: list[str] | None = None) -> Record:
-        """One series' rows, deduped last-wins, then time-sliced."""
-        mem_rec = self.mem.record_for(sid)
-        if mem_rec is None:
-            return Record.empty()
-        if fields is not None:
-            mem_rec = Record(
-                mem_rec.times,
-                {k: v for k, v in mem_rec.columns.items() if k in fields})
+        """Merged view of one series: immutable chunks (oldest first) +
+        memtables last, deduped last-wins, then time-sliced. Eligible
+        value blocks come back still encoded (record.EncodedColumn), as
+        in read_series_bulk."""
+        files, mems = self._scan_state()
+        chunks = [(r, c) for r in files
+                  for c in r.chunks(measurement, {sid}, tmin, tmax)]
+        n_fields = len(fields) if fields is not None else None
+
+        def decode(r, c):
+            if c.packed:
+                return r.read_packed_sid(measurement, c, sid, fields,
+                                         encoded_ok=True)
+            return r.read_chunk(measurement, c, fields, encoded_ok=True)
+
+        recs = list(scanpool.map_ordered(
+            [lambda r=r, c=c: decode(r, c) for r, c in chunks],
+            [scanpool.est_chunk_bytes(c, n_fields) for _r, c in chunks]))
+        # frozen flush snapshots (oldest first) then the live memtable
+        for m in mems:
+            mem_rec = m.record_for(sid)
+            if mem_rec is not None:
+                recs.append(_keep_fields(mem_rec, fields))
+        merged = merge_sorted_records(recs)
         if tmin is not None or tmax is not None:
             lo = tmin if tmin is not None else -(2**63)
             hi = tmax if tmax is not None else 2**63 - 1
-            mem_rec = mem_rec.slice_time(lo, hi)
-        return mem_rec
+            merged = merged.slice_time(lo, hi)
+        return merged
 
     def read_series_bulk(self, measurement: str, sids: np.ndarray,
                          tmin: int | None = None, tmax: int | None = None,
@@ -162,16 +520,55 @@ class Shard:
                          ) -> tuple[np.ndarray, Record]:
         """Batched multi-series read: (sid_column, record) for every
         requested series, rows grouped by sid and time-sorted within a
-        sid, last-write-wins deduped."""
+        sid, last-write-wins deduped. Packed chunks decode ONCE for all
+        their series; eligible value blocks stay encoded
+        (record.EncodedColumn) so the grid freeze can ship them to the
+        card, and every host consumer decodes them lazily,
+        bit-identically."""
         sids = np.asarray(sorted(int(s) for s in sids), dtype=np.int64)
         lo_t = tmin if tmin is not None else -(2**63)
         hi_t = tmax if tmax is not None else 2**63 - 1
-        parts = []
-        for sid_arr, mem_rec in self.mem.bulk_parts(measurement, sids):
-            if fields is not None:
-                mem_rec = Record(
-                    mem_rec.times,
-                    {k: v for k, v in mem_rec.columns.items()
-                     if k in fields})
-            parts.append((sid_arr, mem_rec))
+        sid_set = set(int(s) for s in sids)
+        files, mems = self._scan_state()
+        n_fields = len(fields) if fields is not None else None
+
+        def decode_packed(r, c):
+            s_arr, rec = r.read_packed_bulk(
+                measurement, c, fields, sid_filter=sids, encoded_ok=True)
+            return (s_arr, rec) if len(rec) else None
+
+        def decode_single(r, c):
+            rec = r.read_chunk(measurement, c, fields, encoded_ok=True)
+            return (np.full(len(rec), c.sid, np.int64), rec)
+
+        # parts MUST stay in file order (oldest first): merge_bulk_parts
+        # ranks later parts as newer for last-write-wins; map_ordered
+        # yields in submission order
+        jobs, ests = [], []
+        for r in files:
+            for c in r.chunks(measurement, None, tmin, tmax):
+                if c.packed:
+                    if not len(sids) or c.smax < sids[0] or c.smin > sids[-1]:
+                        continue
+                    jobs.append(lambda r=r, c=c: decode_packed(r, c))
+                elif c.sid in sid_set:
+                    jobs.append(lambda r=r, c=c: decode_single(r, c))
+                else:
+                    continue
+                ests.append(scanpool.est_chunk_bytes(c, n_fields))
+        parts = [p for p in scanpool.map_ordered(jobs, ests) if p is not None]
+        for m in mems:  # frozen snapshots oldest first, live memtable last
+            for sid_arr, mem_rec in m.bulk_parts(measurement, sids):
+                parts.append((sid_arr, _keep_fields(mem_rec, fields)))
         return merge_bulk_parts(parts, lo_t, hi_t)
+
+    def close(self) -> None:
+        # _flush_lock first: an in-flight flush finishes before handles
+        # close
+        with self._flush_lock, self._lock:
+            self.wal.flush()
+            self.wal.close()
+            self.index.flush()
+            self.index.close()
+            for r in self._files:
+                r.close()

@@ -78,3 +78,49 @@ def test_compute_dtype_is_float64():
     from opengemini_tpu_torch.models import templates
 
     assert templates.compute_dtype() == np.dtype(np.float64)
+
+
+# the modules of the cold-scan slice (and the smoke script that drives
+# them): each imports with jax and the JAX package made unimportable
+BLOCKED_IMPORT_MODULES = [
+    "opengemini_tpu_torch.native",
+    "opengemini_tpu_torch.ingest.native_lp",
+    "opengemini_tpu_torch.storage.encoding",
+    "opengemini_tpu_torch.storage.chunkmeta",
+    "opengemini_tpu_torch.storage.encodepool",
+    "opengemini_tpu_torch.storage.scanpool",
+    "opengemini_tpu_torch.storage.tsf",
+    "opengemini_tpu_torch.storage.wal",
+    "opengemini_tpu_torch.index.mergeset",
+    "opengemini_tpu_torch.storage.shard",
+    "opengemini_tpu_torch.storage.engine",
+    "opengemini_tpu_torch.utils.devobs",
+    "opengemini_tpu_torch.query.offload",
+    "opengemini_tpu_torch.ops.device_decode",
+    "opengemini_tpu_torch.models.grid",
+    "opengemini_tpu_torch.query.executor",
+    "opengemini_tpu_torch.convert",
+    "chip_smoke",
+]
+
+
+@pytest.mark.parametrize("module", BLOCKED_IMPORT_MODULES)
+def test_module_imports_with_jax_blocked(module):
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        top = name.split('.')[0]\n"
+        "        if top in ('jax', 'jaxlib', 'opengemini_tpu'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"importlib.import_module({module!r})\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
