@@ -15,7 +15,15 @@ Phases, in order; any failure ends the run with a nonzero exit:
    count/min/max/first/last/sel_* must match exactly, sum/mean/ssd within
    rtol 1e-10 (summation order); widen_packed (widths 1 and 2, odd
    counts, all 256 byte values), unpack_bits (1, 7, 8 and 8 MiB bytes)
-   and probe_count (random and all-zero masks) exactly.
+   and probe_count (random and all-zero masks) exactly. The segmented
+   forms of widen_packed and unpack_bits exactly, on segment tables of
+   1 and 256 rows with empty and single-value (single-byte) segments at
+   odd source offsets, widths 1 and 2 mixed, and a chunk of eight
+   C1-sized gorilla blocks. Kernel 4 at one segment against the one
+   PyTorch call that computes it, at both widths ((131399, 2) against
+   raw.view(uint16).to(int32), (131071, 1) against raw.to(int32)): the
+   CUDA-event time of each and the host time of a call (1000 calls,
+   not synchronised).
 3. End to end on a TSBS devops cpu-only deployment (4000 hosts, the 10
    cpu tags, the 10 usage_* fields, one sample every 10 s for 12 h from
    2016-01-01T00:00:00Z): the port's HTTP server on localhost takes
@@ -47,11 +55,19 @@ Phases, in order; any failure ends the run with a nonzero exit:
    equals the numpy oracle; each must take the fused device decode
    (executor/grid_decode_fused up, device/decode_fallbacks_total not),
    C1 and C2 launch unpack_bits and grid_window_agg, C3 widen_packed, and
-   the phase launches probe_count once. Then the next minute of every
+   the phase launches probe_count once. Launches per run are exact, in
+   every timed run and in the traced run: widen_packed once in C3 (one
+   launch for all of the plan's FOR-delta blocks), unpack_bits once per
+   gorilla chunk of the plan in C1 (at most 17) and five times that in
+   C2; they print beside the per-block decode's 132, 133 and 665, with
+   each cold query's device kernel count and time in its traced run. The
+   phase's device-memory peak prints and must stay within 6 GiB. Then
+   the next minute of every
    host goes through /write, the engine restarts without a flush, and
    count(usage_user) over that minute must be 4000 x 6 (WAL replay). The
-   kernels run again at the shapes this phase gave them, checked and
-   timed.
+   kernels run again at the shapes this phase gave them (for kernels 4
+   and 5 the segment tables of C3's plan and of C1's and C2's chunks),
+   checked and timed.
 
 Output: progress lines, then a {"kernels": [...]} line, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without CUDA (or without
@@ -104,6 +120,12 @@ E2E_KERNELS = ("bucket_stats_basic", "bucket_stats_selectors",
                "grid_window_agg")
 COLD_KERNELS = ("grid_window_agg", "widen_packed", "unpack_bits",
                 "probe_count")
+# C1's gorilla chunks per run: 17.28 M values in chunks of at most 2^20
+# (ops/device_decode._CHUNK_VALUES) whole blocks of 131072
+MAX_C1_CHUNKS = 17
+# phase 5's device-memory budget: a gorilla chunk's (2^20, 64) gather
+# temporaries, a few at once, beside C2's five grids
+COLD_PEAK_LIMIT = 6 << 30
 # TSBS devops diskio (pkg/data/usecases/devops/diskio.go): monotonic
 # counters, each step |N(mean, 1)|
 DISKIO_FIELDS = (("reads", 50), ("writes", 50), ("read_bytes", 100),
@@ -136,7 +158,8 @@ def smi_line() -> str:
 
 
 def time_ms(fn, reps: int = 20) -> float:
-    """Median of `reps` single launches, each between two CUDA events."""
+    """Median of `reps` single launches, each between two CUDA events:
+    the time a lone call costs, the wrapper's host work included."""
     import torch
 
     fn()  # warm-up
@@ -154,6 +177,24 @@ def time_ms(fn, reps: int = 20) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, reps: int = 50) -> float:
+    """Time per launch of `reps` launches back to back between two CUDA
+    events: where the kernel outlasts its launch, the launches queue up
+    and this is the kernel's own time on the card."""
+    import torch
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def peaks(name: str):
     if "H100" not in name:
         raise CheckFailed(f"no peak rates for {name!r}: the bounds are "
@@ -166,6 +207,11 @@ def bound(name: str, shape, n_valid: int, dev_name: str):
     must move (mask bytes, the masked-in values and times, the outputs)
     over the memory rate and its fp64 operations over the fp64 rate."""
     bw, flops = peaks(dev_name)
+    if is_segmented(shape):  # a segment table: each row's bytes
+        rows = shape[2]
+        if name == "widen_packed":
+            return sum(c * (w + 4) for _s, c, w in rows) / bw * 1e3, "bytes"
+        return sum(33 * n for _s, n in rows) / bw * 1e3, "bytes"
     if name == "widen_packed":
         cnt, width = shape
         return cnt * (width + 4) / bw * 1e3, "bytes"
@@ -264,10 +310,19 @@ def compare(name: str, got: dict, want: dict) -> float:
 
 def decode_inputs(name: str, shape, seed: int, zero_mask: bool = False):
     """Seeded inputs of kernels 4-6 on the card: every byte value occurs
-    in a widen input; probe masks are random in {-2..2} (or all zero)."""
+    in a widen input; probe masks are random in {-2..2} (or all zero).
+    A segmented shape gives a payload of its length and its table."""
+    import numpy as np
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
+    if is_segmented(shape):  # the payload's bytes and the table
+        _tag, nraw, rows = shape
+        raw = torch.randint(0, 256, (nraw,), generator=g, device="cuda",
+                            dtype=torch.uint8)
+        k = min(256, nraw)
+        raw[:k] = torch.arange(k, device="cuda", dtype=torch.uint8)
+        return (raw, np.array(rows, np.int64).reshape(len(rows), -1))
     if name == "widen_packed":
         cnt, width = shape
         raw = torch.randint(0, 256, (cnt * width,), generator=g,
@@ -290,7 +345,7 @@ def library_call(name: str, args):
     conversion at width 2; unpack_bits and probe_count have none."""
     import torch
 
-    if name != "widen_packed":
+    if name != "widen_packed" or len(args) != 3:
         return None
     raw, width, _cnt = args
     if width == 1:
@@ -306,21 +361,23 @@ def decode_kernel_case(name: str, shape, seed: int, dev_name: str,
     from opengemini_tpu_torch.ops import cuda_segment as cs
 
     args = decode_inputs(name, shape, seed, zero_mask)
-    run = lambda: getattr(cs, name)(*args)  # noqa: E731
-    plain = lambda: getattr(cs, name + "_plain")(*args)  # noqa: E731
+    entry = name + "_segments" if is_segmented(shape) else name
+    run = lambda: getattr(cs, entry)(*args)  # noqa: E731
+    plain = lambda: getattr(cs, entry + "_plain")(*args)  # noqa: E731
     got, want = run(), plain()
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype
           and torch.equal(got, want),
-          f"{name}{tuple(shape)} differs from the plain version")
+          f"{name}{shape_label(name, shape)} differs from the plain version")
     err = float((got.double() - want.double()).abs().max()) \
         if got.numel() else 0.0
     b_ms, b_by = bound(name, shape, 0, dev_name)
-    rec = {"shape": list(shape), "max_abs_err": err, "bound_ms": b_ms,
-           "bound_by": b_by}
+    rec = {"shape": shape_json(name, shape), "max_abs_err": err,
+           "bound_ms": b_ms, "bound_by": b_by}
     if timed:
         lib = library_call(name, args)
         rec["ms"] = time_ms(run)
+        rec["device_ms"] = device_ms(run)
         rec["plain_ms"] = time_ms(plain, reps=5)
         rec["library_ms"] = None if lib is None else time_ms(lib)
     del args, got, want
@@ -358,6 +415,7 @@ def kernel_case(name: str, shape, seed: int, dev_name: str, timed: bool):
            "bound_by": b_by}
     if timed:
         rec["ms"] = time_ms(run)
+        rec["device_ms"] = device_ms(run)
         rec["plain_ms"] = time_ms(plain, reps=5)
     del x, got, want
     torch.cuda.empty_cache()
@@ -372,12 +430,75 @@ CHECK_SHAPES = {
     "bucket_stats_selectors": [(131072, 16), (131072, 64), (131072, 256),
                                (32768, 1024)],
     "grid_window_agg": [(4000, 6, 720), (4000, 360, 12)],
-    # odd counts; every byte value occurs (decode_inputs)
+    # odd counts; every byte value occurs (decode_inputs); (131399, 2) is
+    # the largest block of the cold phase's FOR-delta column
     "widen_packed": [(1, 1), (257, 1), (131071, 1), (1, 2), (257, 2),
-                     (131071, 2), (1_000_001, 2)],
+                     (131071, 2), (131399, 2), (1_000_001, 2)],
     "unpack_bits": [(1,), (7,), (8,), (8 << 20,)],
     "probe_count": [(8, 8), (1000, 37)],
 }
+
+
+def segment_tables(name: str, seed: int) -> dict:
+    """Phase 2's segment tables of the segmented kernels 4 and 5, as
+    ("segments", payload bytes, rows) shapes: one segment and 256, empty
+    segments, odd source offsets, widths 1 and 2 mixed (widen), single
+    bytes and a chunk of eight C1-sized gorilla blocks (unpack)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def laid_out(lens, widths=None):
+        """Rows laid out in order, each after an odd gap."""
+        rows, off = [], 1
+        for r, n in enumerate(lens):
+            n = int(n)
+            if widths is None:
+                rows.append((off, n))
+                off += n + 2 * int(rng.integers(0, 8)) + 1
+            else:
+                w = int(widths[r])
+                rows.append((off, n, w))
+                off += n * w + 2 * int(rng.integers(0, 8)) + 1
+        return ("segments", off, tuple(rows))
+
+    if name == "widen_packed":
+        lens = rng.integers(0, 2000, 256)
+        lens[::17] = 0
+        lens[5::23] = 1
+        return {
+            "1 segment": laid_out([131399], [2]),
+            "256 segments, widths 1 and 2, empty and single": laid_out(
+                lens, rng.integers(1, 3, 256)),
+            "empty segments only": laid_out([0, 0, 0], [1, 2, 1]),
+            "widths alternating": laid_out([3, 4, 5, 6, 7, 8, 9],
+                                           [1, 2, 1, 2, 1, 2, 1]),
+        }
+    lens = rng.integers(0, 5000, 256)
+    lens[::13] = 0
+    lens[3::11] = 1
+    return {
+        "1 segment": laid_out([981621]),
+        "256 segments, empty and single": laid_out(lens),
+        "single bytes": laid_out([1] * 200),
+        "empty segments only": laid_out([0, 0]),
+        "C1 chunk (8 blocks)": laid_out(rng.integers(690_000, 700_000, 8)),
+    }
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host time of one call, in microseconds: `calls` calls enqueued
+    back to back (no synchronisation between them) over perf_counter."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def phase_kernels(dev_name: str, seed: int) -> dict:
@@ -390,12 +511,58 @@ def phase_kernels(dev_name: str, seed: int) -> dict:
             results[name].append(rec)
             log(f"[kernel] {name}{tuple(shape)} ok max_abs_err="
                 f"{rec['max_abs_err']:.3e} ms={rec['ms']:.4f} "
-                f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f}")
+                f"plain_ms={rec['plain_ms']:.4f} "
+                f"bound_ms={rec['bound_ms']:.4f}"
+                + (f" library_ms={rec['library_ms']:.4f}"
+                   if rec.get("library_ms") is not None else ""))
     for shape in CHECK_SHAPES["probe_count"]:  # an all-zero mask counts 0
         decode_kernel_case("probe_count", shape, seed, dev_name, timed=False,
                            zero_mask=True)
         log(f"[kernel] probe_count{shape} all-zero mask ok")
+    for i, name in enumerate(ENTRIES):
+        for j, (what, shape) in enumerate(
+                segment_tables(name, seed + 50 + i).items()):
+            rec = decode_kernel_case(name, shape, seed + 500 + 10 * i + j,
+                                     dev_name, timed=True)
+            results[name].append(rec)
+            log(f"[kernel] {name}_segments {what} {tuple(rec['shape'])} ok "
+                f"(exact) ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
+                f"plain_ms={rec['plain_ms']:.4f} "
+                f"bound_ms={rec['bound_ms']:.4f}")
+    results["widen_host"] = widen_against_library(seed)
     return results
+
+
+def widen_against_library(seed: int) -> dict:
+    """Kernel 4 at one segment against the one PyTorch call that computes
+    it, at both widths: CUDA-event ms of single launches and the host
+    time of a call (the wrapper's checks, allocation and launch)."""
+    import torch
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+
+    out = {}
+    for shape in ((131399, 2), (131071, 1)):
+        args = decode_inputs("widen_packed", shape, seed)
+        run = lambda: cs.widen_packed(*args)  # noqa: E731
+        lib = library_call("widen_packed", args)
+        rec = {"shape": list(shape), "ms": time_ms(run),
+               "library_ms": time_ms(lib), "device_ms": device_ms(run),
+               "library_device_ms": device_ms(lib), "host_us": host_us(run),
+               "library_host_us": host_us(lib)}
+        rec["ratio"] = rec["ms"] / rec["library_ms"]
+        out[f"{shape[0]}x{shape[1]}"] = rec
+        call = "raw.to(int32)" if shape[1] == 1 else \
+            "raw.view(uint16).to(int32)"
+        log(f"[kernel] widen_packed{shape} against {call}"
+            f": ms {rec['ms']:.4f} vs {rec['library_ms']:.4f} (ratio "
+            f"{rec['ratio']:.3f}); back to back {rec['device_ms']:.4f} vs "
+            f"{rec['library_device_ms']:.4f} ms; host per call "
+            f"{rec['host_us']:.2f} us vs "
+            f"{rec['library_host_us']:.2f} us (1000 calls, not synced)")
+        del args
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 3: end to end ---------------------------------------------------
@@ -567,14 +734,49 @@ def traced_queries(port: int, queries: dict, trace_path: str) -> dict:
     return out
 
 
-def shape_of(name: str, args) -> tuple:
+# the wrappers of each kernel that a main path may call
+ENTRIES = {"widen_packed": ("widen_packed", "widen_packed_segments"),
+           "unpack_bits": ("unpack_bits", "unpack_bits_segments")}
+
+
+def is_segmented(shape) -> bool:
+    return bool(shape) and shape[0] == "segments"
+
+
+def shape_of(entry: str, args) -> tuple:
     """The shape a kernel wrapper was called at: (cnt, width) for
-    widen_packed, (nbytes,) for unpack_bits, else its first tensor's."""
-    if name == "widen_packed":
+    widen_packed, (nbytes,) for unpack_bits, ("segments", payload bytes,
+    table rows) for their segmented forms, else its first tensor's."""
+    import numpy as np
+
+    if entry.endswith("_segments"):
+        raw, segs = args
+        cols = 3 if entry.startswith("widen") else 2
+        rows = np.asarray(segs, np.int64).reshape(-1, cols).tolist()
+        return ("segments", int(raw.numel()), tuple(map(tuple, rows)))
+    if entry == "widen_packed":
         return (args[2], args[1])
-    if name == "unpack_bits":
+    if entry == "unpack_bits":
         return (args[1],)
     return tuple(args[0].shape)
+
+
+def shape_json(name: str, shape) -> list:
+    """A shape as the output gives it: a segment table as [values (or
+    bytes) in all, rows], widen_packed's with the values of each width."""
+    if not is_segmented(shape):
+        return list(shape)
+    rows = shape[2]
+    if name == "widen_packed":
+        mix = {}
+        for _s, c, w in rows:
+            mix[f"width {w}"] = mix.get(f"width {w}", 0) + c
+        return [sum(c for _s, c, _w in rows), len(rows), mix]
+    return [sum(n for _s, n in rows), len(rows)]
+
+
+def shape_label(name: str, shape) -> str:
+    return str(tuple(shape_json(name, shape)))
 
 
 class ShapeRecorder:
@@ -587,13 +789,14 @@ class ShapeRecorder:
         self.cs = cs
         self.seen = {k: set() for k in cs.LAUNCHES}
         self.now = None
-        self.originals = {k: getattr(cs, k) for k in cs.LAUNCHES}
+        self.originals = {(k, e): getattr(cs, e) for k in cs.LAUNCHES
+                          for e in ENTRIES.get(k, (k,))}
 
-    def _wrap(self, name):
-        original = self.originals[name]
+    def _wrap(self, name, entry):
+        original = self.originals[(name, entry)]
 
         def wrapped(*args):
-            shape = shape_of(name, args)
+            shape = shape_of(entry, args)
             self.seen[name].add(shape)
             if self.now is not None:
                 self.now.setdefault(name, set()).add(shape)
@@ -601,13 +804,13 @@ class ShapeRecorder:
         return wrapped
 
     def __enter__(self):
-        for k in self.originals:
-            setattr(self.cs, k, self._wrap(k))
+        for name, entry in self.originals:
+            setattr(self.cs, entry, self._wrap(name, entry))
         return self
 
     def __exit__(self, *exc):
-        for k, fn in self.originals.items():
-            setattr(self.cs, k, fn)
+        for (_name, entry), fn in self.originals.items():
+            setattr(self.cs, entry, fn)
 
 
 def fresh_root(name: str) -> str:
@@ -922,6 +1125,70 @@ def short_shapes(shapes: dict) -> dict:
             for k, v in shapes.items()}
 
 
+class ChunkCounter:
+    """Counts the gorilla chunks the decode cuts its plans into
+    (device_decode._gorilla_chunks), which sets kernel 5's launches."""
+
+    def __init__(self):
+        from opengemini_tpu_torch.ops import device_decode
+
+        self.dd = device_decode
+        self.original = device_decode._gorilla_chunks
+        self.n = 0
+
+    def __enter__(self):
+        def counted(rows):
+            out = self.original(rows)
+            self.n += len(out)
+            return out
+
+        self.dd._gorilla_chunks = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.dd._gorilla_chunks = self.original
+
+
+def launches_per_run(qn: str, got: dict, n_chunks: int) -> dict:
+    """Kernels 4 and 5's launches in one run of a cold query, from the
+    counts of its 5 timed runs, checked exactly: kernel 4 once per run in
+    C3 (one launch for the plan's every FOR-delta block), kernel 5 once
+    per gorilla chunk in C1 and C2 (C1 at most MAX_C1_CHUNKS, C2's five
+    fields five times C1's)."""
+    per_run = {k: got[k] // 5 for k in ("widen_packed", "unpack_bits")}
+    for k, n in per_run.items():
+        check(got[k] == 5 * n, f"{qn}: {k} launched {got[k]} times in 5 "
+              "runs, not the same count in every run")
+    check(per_run["unpack_bits"] * 5 == n_chunks,
+          f"{qn}: {got['unpack_bits']} unpack launches for {n_chunks} chunks")
+    if qn == "C3":
+        check(per_run == {"widen_packed": 1, "unpack_bits": 0},
+              f"C3: launches per run {per_run}, not one widen")
+    else:
+        check(per_run["widen_packed"] == 0
+              and 0 < per_run["unpack_bits"] <= MAX_C1_CHUNKS
+              * (5 if qn == "C2" else 1),
+              f"{qn}: launches per run {per_run}")
+    return per_run
+
+
+def decode_summary(per_query: dict, traced: dict) -> None:
+    """Kernels 4 and 5's launches per run beside the per-block decode's
+    (PR 2), and each cold query's device kernels in its traced run."""
+    c1 = per_query["C1"]["per_run"]["unpack_bits"]
+    c2 = per_query["C2"]["per_run"]["unpack_bits"]
+    check(c2 == 5 * c1, f"C2 unpack launches per run {c2}, not 5 x {c1}")
+    log(f"[cold] launches per run: widen_packed C3 "
+        f"{per_query['C3']['per_run']['widen_packed']} (per block: 132), "
+        f"unpack_bits C1 {c1} (133), C2 {c2} (665)")
+    for qn, tr in traced.items():
+        dev = tr.get("device") or {}
+        log(f"[cold] {qn} traced run: {dev.get('kernels')} device kernels, "
+            f"{dev.get('kernel_ms', 0.0):.3f} ms (port "
+            f"{dev.get('port_kernel_ms', 0.0):.3f} ms, others "
+            f"{dev.get('other_kernel_ms', 0.0):.3f} ms)")
+
+
 def decode_counters() -> dict:
     from opengemini_tpu_torch.utils.stats import STATS
 
@@ -956,8 +1223,11 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
     root = fresh_root("smoke_cold")
     os.environ["OGT_DEVICE_PROFILE"] = "1"
     rec = ShapeRecorder().__enter__()
+    chunks = ChunkCounter().__enter__()
     svc = None
     engine = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     def start():
         nonlocal engine, svc
@@ -1026,6 +1296,7 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
             c0 = decode_counters()
             l0 = dict(cs.LAUNCHES)
             rec.now = {}
+            chunks.n = 0
             for _ in range(5):
                 t0 = time.perf_counter()
                 res = query(svc.port, q)
@@ -1038,7 +1309,8 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
             got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
             per_query[qn] = {
                 "launches": got, "runs_ms": lat, "counters": d,
-                "shapes": {k: sorted(v) for k, v in rec.now.items()}}
+                "shapes": {k: [shape_json(k, x) for x in sorted(v)]
+                           for k, v in rec.now.items()}}
             check(d["executor/grid_decode_fused"] > 0,
                   f"{qn}: the fused device decode did not run")
             check(d["device/decode_fallbacks_total"] == 0
@@ -1046,6 +1318,8 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
                   f"{qn}: decode fell back to the host")
             for k in needs[qn]:
                 check(got[k] > 0, f"{qn}: kernel {k} not launched")
+            per_query[qn]["per_run"] = per_run = launches_per_run(
+                qn, got, chunks.n)
             blocks = {k.split("_")[2]: v for k, v in d.items()
                       if k.startswith("device/decode_blocks_") and v}
             log(f"[cold] {qn} ok p50={p50[qn]:.1f} ms (runs "
@@ -1083,6 +1357,10 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
                 f"{dev['d2h_bytes']} B; {dev['device_calls']} device calls, "
                 f"{dev['missing']} without a device record; launches "
                 f"{json.dumps(tr['launches'])}")
+            for k, n in per_query[qn]["per_run"].items():
+                check(tr["launches"][k] == n, f"{qn} traced run: {k} "
+                      f"launched {tr['launches'][k]} times, not {n}")
+        decode_summary(per_query, traced)
         # WAL replay: the next minute of every host, then a restart
         # without a flush
         nxt = {f: np.concatenate([vals[f], extra[f]], axis=1) for f in FIELDS}
@@ -1105,11 +1383,14 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
             check(launches[k] > 0, f"kernel {k} never launched on the cold path")
         check(launches["probe_count"] == 1,
               f"probe_count launched {launches['probe_count']} times, not once")
+        peak = torch.cuda.max_memory_allocated()
         log(f"[cold] launches (load, restart, 5 timed + 1 traced run per "
-            f"query, WAL check) {launches}; p50 ms {json.dumps(p50)}; card "
-            f"{smi_line()}")
+            f"query, WAL check) {launches}; device memory peak "
+            f"{peak / 2**20:.1f} MiB (limit {COLD_PEAK_LIMIT / 2**20:.0f}); "
+            f"p50 ms {json.dumps(p50)}; card {smi_line()}")
+        check(peak <= COLD_PEAK_LIMIT, f"phase 5 device memory peak {peak} B")
         return {"launches": launches, "shapes": rec.seen, "p50_ms": p50,
-                "per_query": per_query, "traced": traced}
+                "per_query": per_query, "traced": traced, "peak_bytes": peak}
     finally:
         os.environ.pop("OGT_DEVICE_PROFILE", None)
         if svc is not None:
@@ -1117,6 +1398,7 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
         if engine is not None:
             engine.close()
         rec.__exit__()
+        chunks.__exit__()
 
 
 # -- main ---------------------------------------------------------------------
@@ -1150,9 +1432,11 @@ def main_path_kernels(name: str, shapes, seed: int, dev_name: str,
     for j, shape in enumerate(ordered[:limit]):
         rec = kernel_case(name, shape, seed + j, dev_name, timed=True)
         recs.append(rec)
-        log(f"[main-path kernel] {name}{tuple(shape)} ok "
-            f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-            f"bound_ms={rec['bound_ms']:.4f}"
+        log(f"[main-path kernel] {name}{shape_label(name, shape)} ok "
+            f"ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
+            f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+            f"(device_ms/bound "
+            f"{rec['device_ms'] / max(rec['bound_ms'], 1e-9):.2f})"
             + (f" library_ms={rec['library_ms']:.4f}"
                if rec.get("library_ms") is not None else ""))
     if len(ordered) > limit:
@@ -1211,13 +1495,20 @@ def main() -> int:
             "launches_per_query": {qn: pq["launches"][name] for p in paths
                                    for qn, pq in p["per_query"].items()},
             "max_abs_err": max(r["max_abs_err"] for r in recs[name]),
-            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "ms": top["ms"], "device_ms": top["device_ms"],
+            "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top.get("library_ms"),
             "shape": top["shape"],
             "main_path_shapes": recs[name],
             "checked_shapes": checked[name],
         })
+        if name in ENTRIES:
+            kernels[-1]["launches_per_run"] = {
+                qn: pq["per_run"][name]
+                for qn, pq in cold["per_query"].items()}
+        if name == "widen_packed":
+            kernels[-1]["library_comparison"] = checked["widen_host"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

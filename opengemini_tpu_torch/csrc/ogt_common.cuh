@@ -1,4 +1,4 @@
-// Shared device helpers for the port's kernels (bucket_basic.cu,
+// Shared device and host helpers for the port's kernels (bucket_basic.cu,
 // bucket_selectors.cu, grid_window.cu, widen_packed.cu, unpack_bits.cu,
 // probe_count.cu).
 //
@@ -52,6 +52,38 @@ template <typename T>
 __device__ __forceinline__ T warp_nan_max(T x) {
   for (int o = 16; o > 0; o >>= 1) x = nan_max(x, __shfl_xor_sync(kFullMask, x, o));
   return x;
+}
+
+// Segment of a tile in a segmented launch: the largest r < nseg with
+// tile0[r] <= tile, tile0 non-decreasing with tile0[nseg] past the last
+// tile, so empty segments (tile0[r] == tile0[r + 1]) are never chosen.
+// Every thread of a CTA searches the same tile: uniform reads, which a
+// __grid_constant__ table serves as broadcasts from the constant bank.
+__device__ __forceinline__ int find_segment(const int* tile0, int nseg, int tile) {
+  int lo = 0, hi = nseg;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (tile0[mid] <= tile) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// Grid of a grid-stride launch over `tiles` tiles on the current device:
+// min(tiles, SM count x ctas_per_sm), the SM count read once per device;
+// minus the cudaError_t when the device cannot be queried.
+inline long long capped_grid(long long tiles, int ctas_per_sm) {
+  static int sm_count[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -static_cast<long long>(e);
+  int n = (dev >= 0 && dev < 64) ? sm_count[dev] : 0;
+  if (n == 0) {
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return -static_cast<long long>(e);
+    if (dev >= 0 && dev < 64) sm_count[dev] = n;
+  }
+  const long long cap = static_cast<long long>(n) * ctas_per_sm;
+  return tiles < cap ? tiles : cap;
 }
 
 }  // namespace ogt

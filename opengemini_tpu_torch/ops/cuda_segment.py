@@ -13,9 +13,11 @@ capability probe in ``opengemini_tpu/utils/devobs.py``. Six kernels:
                                  (csrc/grid_window.cu)
   - ``widen_packed``           — little-endian width-1/2 bytes -> int32,
                                  the FOR-delta and dictionary-index
-                                 decode (csrc/widen_packed.cu)
+                                 decode, one launch for a table of
+                                 segments (csrc/widen_packed.cu)
   - ``unpack_bits``            — bytes -> MSB-first int32 bits, the
-                                 gorilla decode (csrc/unpack_bits.cu)
+                                 gorilla decode, one launch for a table
+                                 of segments (csrc/unpack_bits.cu)
   - ``probe_count``            — masked row count of an int8 matrix, the
                                  capability probe (csrc/probe_count.cu)
 
@@ -40,6 +42,7 @@ import shutil
 import subprocess
 import threading
 
+import numpy as np
 import torch
 
 from opengemini_tpu_torch.ops import segment as _seg
@@ -70,9 +73,9 @@ _KERNELS = {
     "grid_window_agg": ("grid_window.cu", _float_pair(
         "ogt_grid_window_agg", [_P, _P, _LL, _I, _I] + [_P] * 6)),
     "widen_packed": ("widen_packed.cu", {
-        "ogt_widen_packed": [_P, _LL, _I, _P, _P]}),
+        "ogt_widen_packed_segments": [_P, _P, _I, _P, _P]}),
     "unpack_bits": ("unpack_bits.cu", {
-        "ogt_unpack_bits": [_P, _LL, _P, _P]}),
+        "ogt_unpack_bits_segments": [_P, _P, _I, _P, _P]}),
     "probe_count": ("probe_count.cu", {
         "ogt_probe_count": [_P, _LL, _I, _P, _P]}),
 }
@@ -83,6 +86,12 @@ LAUNCHES = {name: 0 for name in _KERNELS}
 
 _libs: dict = {}
 _build_lock = threading.Lock()
+# (kernel name, dtype) -> (library, C entry point), filled at first use so
+# that a launch looks nothing up again
+_entries: dict = {}
+# the most rows one segmented launch takes (the kernels' kMaxSegments;
+# ops/device_decode.py's _MAX_BLOCKS caps a plan at the same)
+MAX_SEGMENTS = 256
 
 
 def reset_launches() -> None:
@@ -162,6 +171,14 @@ def build(names=None, verbose: bool = False) -> dict:
 def _entry(name: str, dtype: torch.dtype | None = None):
     """(library, C entry point) of a kernel; the float kernels pick the
     entry point of the values' dtype."""
+    hit = _entries.get((name, dtype))
+    if hit is not None:
+        return hit
+    hit = _entries[(name, dtype)] = _resolve(name, dtype)
+    return hit
+
+
+def _resolve(name: str, dtype: torch.dtype | None):
     lib = build([name])[name]
     symbols = list(_KERNELS[name][1])
     if len(symbols) == 1:
@@ -191,9 +208,16 @@ def _check(name: str, v: torch.Tensor, ints=(), mask=None, dim=2) -> None:
         raise TypeError(f"{name}: mask must be bool")
 
 
-def _launch(name: str, fn, lib, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    code = fn(*args, stream)
+def _launch(name: str, fn, lib, device: torch.device, *args) -> None:
+    """Launch on `device`'s current stream; the device context is
+    entered only when `device` is not the current device (the tensors
+    are on the card, so CUDA is initialised)."""
+    cur = torch._C._cuda_getDevice()
+    if device.index is None or device.index == cur:
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(cur))
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, torch.cuda.current_stream().cuda_stream)
     if code != 0:
         raise RuntimeError(
             f"{name} launch failed: {lib.ogt_error_string(code).decode()}")
@@ -242,9 +266,8 @@ def bucket_stats_basic(v: torch.Tensor, m: torch.Tensor) -> dict:
     g, w = v.shape
     cnt = torch.empty(g, dtype=torch.int32, device=v.device)
     outs = [torch.empty(g, dtype=v.dtype, device=v.device) for _ in range(5)]
-    with torch.cuda.device(v.device):
-        _launch(name, fn, lib, v.data_ptr(), m.data_ptr(), g, w,
-                cnt.data_ptr(), *(o.data_ptr() for o in outs))
+    _launch(name, fn, lib, v.device, v.data_ptr(), m.data_ptr(), g, w,
+            cnt.data_ptr(), *(o.data_ptr() for o in outs))
     s, mean, mn, mx, ssd = outs
     return {"count": cnt, "sum": s, "mean": mean, "min": mn, "max": mx,
             "ssd": ssd}
@@ -326,10 +349,9 @@ def bucket_stats_selectors(v, hi, lo, idx, m) -> dict:
     last = torch.empty(g, dtype=v.dtype, device=v.device)
     sels = [torch.empty(g, dtype=torch.int32, device=v.device)
             for _ in range(4)]
-    with torch.cuda.device(v.device):
-        _launch(name, fn, lib, v.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-                idx.data_ptr(), m.data_ptr(), g, w, first.data_ptr(),
-                last.data_ptr(), *(s.data_ptr() for s in sels))
+    _launch(name, fn, lib, v.device, v.data_ptr(), hi.data_ptr(),
+            lo.data_ptr(), idx.data_ptr(), m.data_ptr(), g, w,
+            first.data_ptr(), last.data_ptr(), *(s.data_ptr() for s in sels))
     sf, sl, smin, smax = sels
     return {"first": first, "last": last, "sel_first": sf, "sel_last": sl,
             "sel_min": smin, "sel_max": smax}
@@ -353,23 +375,73 @@ def grid_window_agg(v: torch.Tensor, m: torch.Tensor) -> dict:
     cnt = torch.empty((s_dim, w), dtype=torch.int32, device=v.device)
     outs = [torch.empty((s_dim, w), dtype=v.dtype, device=v.device)
             for _ in range(4)]
-    with torch.cuda.device(v.device):
-        _launch(name, fn, lib, v.data_ptr(), m.data_ptr(), s_dim, k, w,
-                cnt.data_ptr(), *(o.data_ptr() for o in outs))
+    _launch(name, fn, lib, v.device, v.data_ptr(), m.data_ptr(), s_dim, k, w,
+            cnt.data_ptr(), *(o.data_ptr() for o in outs))
     s, mean, mn, mx = outs
     return {"count": cnt, "sum": s, "mean": mean, "min": mn, "max": mx}
 
 
-# -- packed widen (device decode) -------------------------------------------
+# -- packed widen and bit unpack (device decode) ------------------------------
+#
+# Both kernels take a host table of segments of one 1-D uint8 payload
+# and compute, in one launch, the concatenation in table order of the
+# TPU kernel's function applied to each segment. The table rides in the
+# launch's parameters: no device copy of it. The single-block forms are
+# its one-row case.
 
 
-def _check_bytes(name: str, raw: torch.Tensor, nbytes: int) -> None:
+class _Rows(threading.local):
+    """One table row per thread as ctypes arrays, reused by every call:
+    the single-block forms pass their row without building numpy or
+    ctypes objects (a call is timed against one torch call)."""
+
+    def __init__(self):
+        self.row2 = (_LL * 2)()
+        self.row3 = (_LL * 3)()
+
+
+_rows = _Rows()
+
+
+def _check_raw(name: str, raw: torch.Tensor) -> None:
     if raw.dtype != torch.uint8 or raw.dim() != 1:
         raise TypeError(f"{name}: expected a 1-D uint8 tensor")
-    if raw.numel() != nbytes:
-        raise ValueError(f"{name}: {raw.numel()} bytes given, {nbytes} expected")
     if not raw.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")
+
+
+def _segment_table(name: str, raw: torch.Tensor, segs, cols: int):
+    """A host segment table as checked int64 rows: (src_byte_off, cnt,
+    width) for cols 3, (src_byte_off, nbytes) for cols 2, each inside
+    `raw`, at most MAX_SEGMENTS of them."""
+    table = np.ascontiguousarray(segs, dtype=np.int64).reshape(-1, cols)
+    if len(table) > MAX_SEGMENTS:
+        raise ValueError(f"{name}: {len(table)} segments, at most "
+                         f"{MAX_SEGMENTS} per launch")
+    nbytes = table[:, 1] * table[:, 2] if cols == 3 else table[:, 1]
+    if cols == 3 and not ((table[:, 2] == 1) | (table[:, 2] == 2)).all():
+        raise ValueError(f"{name}: width must be 1 or 2")
+    if (table[:, :2] < 0).any() or (table[:, 0] + nbytes > raw.numel()).any():
+        raise ValueError(f"{name}: a segment lies outside the "
+                         f"{raw.numel()} bytes given")
+    return table
+
+
+def _launch_segments(name: str, raw: torch.Tensor, device, table,
+                     rows: int, n_out: int):
+    """One launch of kernel `name` over a checked host table of `rows`
+    int64 rows (a numpy array or a ctypes array) into a fresh (n_out,)
+    int32 output; no launch (and no count) when it is empty."""
+    out = torch.empty(n_out, dtype=torch.int32, device=device)
+    if n_out:
+        ptr = out.data_ptr()
+        if ptr % 16:
+            raise RuntimeError(f"{name}: output not 16-byte aligned")
+        lib, fn = _entry(name)
+        if isinstance(table, np.ndarray):
+            table = table.ctypes.data
+        _launch(name, fn, lib, device, raw.data_ptr(), table, rows, ptr)
+    return out
 
 
 def widen_packed_plain(raw: torch.Tensor, width: int, cnt: int) -> torch.Tensor:
@@ -382,24 +454,49 @@ def widen_packed_plain(raw: torch.Tensor, width: int, cnt: int) -> torch.Tensor:
     return acc
 
 
+def widen_packed_segments_plain(raw: torch.Tensor, segs) -> torch.Tensor:
+    """Plain form of the segmented kernel 4: widen_packed_plain of each
+    (src_byte_off, cnt, width) row's bytes, concatenated in row order."""
+    table = np.asarray(segs, dtype=np.int64).reshape(-1, 3)
+    parts = [widen_packed_plain(raw[s:s + c * w], w, c)
+             for s, c, w in table.tolist()]
+    if not parts:
+        return torch.zeros(0, dtype=torch.int32, device=raw.device)
+    return torch.cat(parts)
+
+
+def widen_packed_segments(raw: torch.Tensor, segs) -> torch.Tensor:
+    """Widen every (src_byte_off, cnt, width) row of the host table
+    `segs` (width 1 or 2 per row, at most MAX_SEGMENTS rows) of the
+    packed payload `raw` to int32 and concatenate them in row order, in
+    one launch; the CUDA kernel for a CUDA tensor, the plain version for
+    a CPU tensor."""
+    name = "widen_packed"
+    _check_raw(name, raw)
+    table = _segment_table(name, raw, segs, 3)
+    if not _require_cuda_or_cpu(name, raw):
+        return widen_packed_segments_plain(raw, table)
+    return _launch_segments(name, raw, raw.device, table, len(table),
+                            int(table[:, 1].sum()))
+
+
 def widen_packed(raw: torch.Tensor, width: int, cnt: int) -> torch.Tensor:
     """Widen `cnt` packed little-endian `width`-byte (1 or 2) unsigned
-    values to int32; the CUDA kernel for a CUDA tensor, the plain version
-    for a CPU tensor."""
+    values to int32: the one-segment case of widen_packed_segments."""
     name = "widen_packed"
     if width not in (1, 2):
         raise ValueError(f"{name}: width must be 1 or 2, got {width}")
-    _check_bytes(name, raw, cnt * width)
-    if not _require_cuda_or_cpu(name, raw):
-        return widen_packed_plain(raw, width, cnt)
-    lib, fn = _entry(name)
-    out = torch.empty(cnt, dtype=torch.int32, device=raw.device)
-    with torch.cuda.device(raw.device):
-        _launch(name, fn, lib, raw.data_ptr(), cnt, width, out.data_ptr())
-    return out
-
-
-# -- bit unpack (gorilla device decode) --------------------------------------
+    _check_raw(name, raw)
+    if raw.numel() != cnt * width:
+        raise ValueError(f"{name}: {raw.numel()} bytes given, "
+                         f"{cnt * width} expected")
+    if raw.is_cuda:  # first: the host time of this call is what counts
+        row = _rows.row3
+        row[1] = cnt
+        row[2] = width
+        return _launch_segments(name, raw, raw.device, row, 1, cnt)
+    _require_cuda_or_cpu(name, raw)  # raises unless on the CPU
+    return widen_packed_plain(raw, width, cnt)
 
 
 def unpack_bits_plain(raw: torch.Tensor, nbytes: int) -> torch.Tensor:
@@ -409,19 +506,46 @@ def unpack_bits_plain(raw: torch.Tensor, nbytes: int) -> torch.Tensor:
     return ((raw.to(torch.int32)[:, None] >> shifts) & 1).reshape(nbytes * 8)
 
 
+def unpack_bits_segments_plain(raw: torch.Tensor, segs) -> torch.Tensor:
+    """Plain form of the segmented kernel 5: unpack_bits_plain of each
+    (src_byte_off, nbytes) row's bytes, concatenated in row order."""
+    table = np.asarray(segs, dtype=np.int64).reshape(-1, 2)
+    parts = [unpack_bits_plain(raw[s:s + n], n) for s, n in table.tolist()]
+    if not parts:
+        return torch.zeros(0, dtype=torch.int32, device=raw.device)
+    return torch.cat(parts)
+
+
+def unpack_bits_segments(raw: torch.Tensor, segs) -> torch.Tensor:
+    """Unpack every (src_byte_off, nbytes) row of the host table `segs`
+    (at most MAX_SEGMENTS rows) of `raw` into int32 bits, MSB first per
+    byte, concatenated in row order ((8 * sum nbytes,)), in one launch;
+    the CUDA kernel for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    name = "unpack_bits"
+    _check_raw(name, raw)
+    table = _segment_table(name, raw, segs, 2)
+    if not _require_cuda_or_cpu(name, raw):
+        return unpack_bits_segments_plain(raw, table)
+    return _launch_segments(name, raw, raw.device, table, len(table),
+                            8 * int(table[:, 1].sum()))
+
+
 def unpack_bits(raw: torch.Tensor, nbytes: int) -> torch.Tensor:
     """Unpack `nbytes` bytes into (nbytes * 8,) int32 bits, MSB first per
-    byte (np.unpackbits order); the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    byte (np.unpackbits order): the one-segment case of
+    unpack_bits_segments."""
     name = "unpack_bits"
-    _check_bytes(name, raw, nbytes)
-    if not _require_cuda_or_cpu(name, raw):
-        return unpack_bits_plain(raw, nbytes)
-    lib, fn = _entry(name)
-    out = torch.empty(nbytes * 8, dtype=torch.int32, device=raw.device)
-    with torch.cuda.device(raw.device):
-        _launch(name, fn, lib, raw.data_ptr(), nbytes, out.data_ptr())
-    return out
+    _check_raw(name, raw)
+    if raw.numel() != nbytes:
+        raise ValueError(f"{name}: {raw.numel()} bytes given, "
+                         f"{nbytes} expected")
+    if raw.is_cuda:
+        row = _rows.row2
+        row[1] = nbytes
+        return _launch_segments(name, raw, raw.device, row, 1, 8 * nbytes)
+    _require_cuda_or_cpu(name, raw)  # raises unless on the CPU
+    return unpack_bits_plain(raw, nbytes)
 
 
 # -- capability probe ----------------------------------------------------------
@@ -446,6 +570,5 @@ def probe_count(m: torch.Tensor) -> torch.Tensor:
     lib, fn = _entry(name)
     rows, cols = m.shape
     out = torch.empty((rows, 1), dtype=torch.int32, device=m.device)
-    with torch.cuda.device(m.device):
-        _launch(name, fn, lib, m.data_ptr(), rows, cols, out.data_ptr())
+    _launch(name, fn, lib, m.device, m.data_ptr(), rows, cols, out.data_ptr())
     return out

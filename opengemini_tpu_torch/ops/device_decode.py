@@ -15,20 +15,23 @@ host decoders:
 
   const    first + step * iota — no payload
   delta    frame-of-reference deltas at a fixed byte width: widen
-           (kernel 4, ``cuda_segment.widen_packed``, for widths 1 and 2),
-           +step, int64 cumsum, +first
+           (kernel 4, ``cuda_segment.widen_packed_segments``: every
+           width-1/2 block of a plan in one launch), +step, one int64
+           cumsum over the plan, each block's start subtracted, +first
   raw64    little-endian float64 values: an 8-byte reinterpretation
   gorilla  XOR-compressed float64: a host structural scan walks the
            control bits once per block (cached) and emits per-value
-           (bitpos, mbits, shift) vectors; the card unpacks the payload
-           to bits (kernel 5, ``cuda_segment.unpack_bits``), gathers each
-           value's meaningful bits and rebuilds the words with a
-           log-step XOR prefix scan
+           (bitpos, mbits, shift) vectors; the card unpacks a chunk of
+           whole blocks to bits in one launch (kernel 5,
+           ``cuda_segment.unpack_bits_segments``), gathers each value's
+           meaningful bits into bit planes and rebuilds the words with
+           one prefix XOR over the chunk
   varint   delta+zigzag LEB128 int64: terminator bytes mark value ids, a
            segmented shift/or rebuilds each varint, zigzag and a
            wrapping int64 cumsum follow
   strdict  dictionary-coded strings: the min-width index array widens on
-           the card; the table stays on the host
+           the card (in the plan's one widen launch at widths 1 and 2);
+           the table stays on the host
 
 Unsigned 64-bit words are carried in int64: every shift of a set bit is
 a left shift (whose overflow torch defines as the unsigned result), a
@@ -36,9 +39,12 @@ logical right shift masks off the sign fill, and a sum of distinct bits
 that wraps gives the same bit pattern as the uint64 sum.
 
 Kernels 4 and 5 run only where the capability probe (kernel 6,
-utils/devobs.probe) ran and counted right; a failed probe raises. Every other step is plain torch on the device. On a CPU device
-the wrappers take their plain versions, which is how the tests run this
-module against the JAX package.
+utils/devobs.probe) ran and counted right; a failed probe raises. Every
+other step is plain torch on the device, batched over a plan (FOR-delta)
+or a chunk (gorilla) like the kernels, so a decode's launches grow with
+its chunks, not its blocks. On a CPU device the wrappers take their
+plain versions, which is how the tests run this module against the JAX
+package.
 
 Counters (utils.stats.STATS, ``device/...``): decode_blocks_total,
 decode_payload_bytes_total, decode_rows_total, decode_fallbacks_total,
@@ -64,9 +70,25 @@ from opengemini_tpu_torch.storage import encoding
 from opengemini_tpu_torch.utils import devobs
 from opengemini_tpu_torch.utils.stats import incr as _incr
 
-# past this many blocks a plan's per-block launches stop paying for what
-# they save; the host decode handles the long tail
-_MAX_BLOCKS = 256
+# the most blocks a plan decodes on the card: one segmented launch
+# carries every width-1/2 block of a plan in its parameters, and the
+# kernels take at most this many rows (cuda_segment.MAX_SEGMENTS); the
+# host decode handles the long tail
+_MAX_BLOCKS = cuda_segment.MAX_SEGMENTS
+# consecutive gorilla blocks decode in chunks of at most this many values
+# (a chunk ends only at a block boundary): one unpack launch and one
+# batch of gather and scan ops each. The gather's (values, 64)
+# temporaries take 256 B per value as int32 bit indices and 64 B as
+# uint8 bit planes: 256 and 64 MiB at 2^20 values (8 blocks of 131072),
+# a few alive at once
+_CHUNK_VALUES = 1 << 20
+# the prefix XOR scans rows of this many values, one sequential scan per
+# row and bit: long enough rows keep the scan of the row totals short
+_SCAN_ROW = 1024
+# sum of 2^(56 - 7k), k = 0..7: times a word of eight 0/1 bytes it puts
+# byte k's bit at bit 56 + k (the other partial products are distinct
+# powers below bit 56 or past bit 63)
+_GATHER_BITS = 0x0102040810204080
 
 _XFER_SITE = "device-decode"
 _INT64_MAX = (1 << 63) - 1
@@ -487,12 +509,9 @@ def _view_gather(vals_full, viewruns, n_view: int):
 
 
 def _widen(raw, width: int, cnt: int):
-    """(cnt*width,) LE bytes -> (cnt,) int64, matching the host
-    frombuffer(...).astype(int64) exactly (zero-extend below 8 bytes,
-    bit-reinterpretation at 8). Widths 1 and 2 run kernel 4."""
-    if width in (1, 2):
-        devobs.probe(raw.device)
-        return cuda_segment.widen_packed(raw, width, cnt).to(torch.int64)
+    """(cnt*width,) LE bytes -> (cnt,) int64 for widths 4 and 8, matching
+    the host frombuffer(...).astype(int64) exactly (zero-extend at 4,
+    bit-reinterpretation at 8). Widths 1 and 2 go through _widen_group."""
     # clone: a slice of the packed payload may start at any byte, and a
     # dtype view needs an aligned storage offset
     if width == 8:
@@ -500,49 +519,119 @@ def _widen(raw, width: int, cnt: int):
     return raw.clone().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
 
-def _unpack_bits(raw, nbytes: int):
-    """(nbytes,) uint8 -> (nbytes*8,) int32 bits, MSB first per byte:
-    kernel 5."""
-    devobs.probe(raw.device)
-    return cuda_segment.unpack_bits(raw, nbytes)
+def _meta_to_dev(rows, device) -> torch.Tensor:
+    """A small int64 table of per-block host scalars on the card (one
+    copy, counted on the `device-decode` transfer site)."""
+    arr = np.asarray(rows, np.int64)
+    devobs.note_transfer("h2d", _XFER_SITE, arr.nbytes)
+    return _to_dev(arr, device)
 
 
-def _xor_scan(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix XOR (Hillis-Steele, log2(n) steps): torch has no
-    cumulative XOR, and XOR's associativity makes the result
-    bit-identical to the sequential walk."""
-    s = 1
-    n = x.shape[0]
-    while s < n:
-        y = x.clone()
-        y[s:] ^= x[:-s]
-        x = y
-        s *= 2
-    return x
+def _block_ids(counts, total: int):
+    """(total,) block id of every element, blocks of `counts` (device
+    int64) elements in order."""
+    ids = torch.arange(counts.shape[0], dtype=torch.int64,
+                       device=counts.device)
+    return torch.repeat_interleave(ids, counts, output_size=total)
 
 
-def _gorilla_piece(raw, m: int, bitpos, mb_sh, bn: int):
-    """Data-parallel gorilla reconstruction from the payload bytes plus
+def _widen_group(payload, delta_rows, dict_rows):
+    """Every width-1/2 FOR-delta and strdict block of a plan in ONE
+    widen launch (kernel 4, the delta rows first). Returns (the delta
+    blocks' values, each block's leading `first` then its n-1 values, in
+    block order; the strdict indices) as int64.
+
+    FOR-delta per block is first, first + cumsum(d + step); here one
+    int64 cumsum C runs over every block's d + step, and a block's value
+    j >= 1 is first + C[a + j - 1] - C[a - 1] (a the block's first
+    delta): int64 wraps mod 2^64 alike in the per-block and the global
+    form, so the values are bit-identical."""
+    dev = payload.device
+    devobs.probe(dev)
+    w = cuda_segment.widen_packed_segments(
+        payload, [r[:3] for r in delta_rows] + dict_rows).to(torch.int64)
+    tot = sum(r[1] for r in delta_rows)
+    n_blocks = len(delta_rows)
+    if not n_blocks:
+        return None, w
+    meta = _meta_to_dev([[r[3] for r in delta_rows],
+                         [r[4] for r in delta_rows],
+                         [r[1] for r in delta_rows]], dev)
+    first, step, cnt = meta[0], meta[1], meta[2]
+    a = torch.cumsum(cnt, 0) - cnt
+    out = torch.empty(tot + n_blocks, dtype=torch.int64, device=dev)
+    out[a + torch.arange(n_blocks, dtype=torch.int64, device=dev)] = first
+    if tot:
+        blk = _block_ids(cnt, tot)
+        c = torch.cumsum(w[:tot] + step[blk], 0)
+        c_before = torch.cat([c.new_zeros(1), c])[a]
+        pos = torch.arange(tot, dtype=torch.int64, device=dev) + blk + 1
+        out[pos] = c + (first - c_before)[blk]
+    return out, w[tot:]
+
+
+def _prefix_xor(planes: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix XOR of int64 words given as (n, 64) uint8 bit
+    planes (column p = bit p): torch has no cumulative XOR, but bit p of
+    a prefix XOR is the parity of bit p over the prefix, which a uint8
+    cumulative sum keeps (it wraps mod 256). The planes are scanned in
+    rows of _SCAN_ROW values (one sequential scan per row and bit, all
+    in parallel), then each row adds the parity of the rows before it;
+    the parities go back into bytes as sums of distinct bits, so the
+    words are bit-identical to the sequential walk."""
+    n = planes.shape[0]
+    rows = -(-n // _SCAN_ROW)
+    if rows * _SCAN_ROW != n:
+        planes = torch.cat([planes, planes.new_zeros(rows * _SCAN_ROW - n,
+                                                     64)])
+    inner = torch.cumsum(planes.reshape(rows, _SCAN_ROW, 64), 1,
+                         dtype=torch.uint8)
+    last = inner[:, -1, :]
+    before = torch.cumsum(last, 0, dtype=torch.uint8) - last
+    parity = ((inner + before[:, None, :]) & 1).reshape(-1).view(torch.int64)
+    # eight 0/1 bytes -> one byte: the product moves byte k's bit to bit
+    # 56 + k and every other partial product elsewhere, without carries
+    packed = ((parity * _GATHER_BITS) >> 56) & 0xFF
+    return packed.to(torch.uint8).view(torch.int64)[:n]
+
+
+def _gorilla_chunk(payload, rows, aux32, aux8):
+    """Data-parallel gorilla reconstruction of a chunk of whole blocks
+    (rows of (src, nbytes, n, aux offset), consecutive in the aux
+    vectors) from one unpack launch (kernel 5) of their payloads plus
     the host structural scan's vectors. Value i's XOR delta is its mbits
-    meaningful bits, read MSB first from bitpos, shifted left by its
-    trailing-zero count: bit j lands at position shift + mbits - 1 - j
-    (repeats have mbits=0 -> delta 0; value 0 has mbits=64 -> its raw
-    bits). A prefix XOR of the deltas yields every decoded word."""
-    dev = bitpos.device
-    if m == 0:
-        bits = torch.zeros(64, dtype=torch.int32, device=dev)
-    else:
-        bits = torch.cat([_unpack_bits(raw, m),
-                          torch.zeros(64, dtype=torch.int32, device=dev)])
-    j = torch.arange(64, dtype=torch.int64, device=dev)
-    g = bitpos.to(torch.int64)[:, None] + j
-    pair = mb_sh.reshape(bn, 2).to(torch.int64)
+    meaningful bits, read MSB first from bitpos (moved by 8 x its
+    block's byte offset in the chunk's bits), shifted left by its
+    trailing-zero count: bit p of the delta, for shift <= p < shift +
+    mbits, is window bit shift + mbits - 1 - p (repeats have mbits=0 ->
+    delta 0; a block's value 0 has mbits=64 -> its raw bits). The deltas
+    are built as bit planes, which the prefix XOR over the chunk scans
+    directly; then scan[i] ^ scan[start of i's block - 1] (XOR is its
+    own inverse) yields every block's decoded words."""
+    dev = payload.device
+    devobs.probe(dev)
+    bits = cuda_segment.unpack_bits_segments(payload, [r[:2] for r in rows])
+    bits = torch.cat([bits.to(torch.uint8),
+                      torch.zeros(64, dtype=torch.uint8, device=dev)])
+    counts = [r[2] for r in rows]
+    n = sum(counts)
+    a0 = rows[0][3]
+    byte_off = np.cumsum([0] + [r[1] for r in rows[:-1]])
+    meta = _meta_to_dev([8 * byte_off, counts], dev)
+    blk = _block_ids(meta[1], n)
+    pair = aux8[2 * a0:2 * (a0 + n)].reshape(n, 2).to(torch.int32)
     mb, sh = pair[:, 0:1], pair[:, 1:2]
-    pos = sh + mb - 1 - j  # (bn, 64) target bit of window bit j
-    take = j < mb
-    bv = bits[g].to(torch.int64)
-    xor = torch.where(take, bv << pos.clamp(min=0), 0).sum(dim=1)
-    return _xor_scan(xor).view(torch.float64)
+    top = sh + mb  # one past the delta's highest bit
+    high = (aux32[a0:a0 + n, None] + meta[0][blk, None].to(torch.int32)
+            + top - 1)  # the bit that lands on delta bit 0 if it is kept
+    p = torch.arange(64, dtype=torch.int32, device=dev)
+    planes = torch.where((p >= sh) & (p < top),
+                         bits[(high - p).clamp(min=0)], 0)
+    words = _prefix_xor(planes)
+    if len(rows) > 1:
+        start = torch.cumsum(meta[1], 0) - meta[1]
+        words = words ^ torch.cat([words.new_zeros(1), words])[start][blk]
+    return words.view(torch.float64)
 
 
 def _varint_piece(raw, m: int, bn: int):
@@ -569,55 +658,106 @@ def _varint_piece(raw, m: int, bn: int):
     return torch.cumsum(d, 0)
 
 
+def _gorilla_chunks(rows):
+    """Consecutive gorilla rows cut into chunks of at most _CHUNK_VALUES
+    values, each ending at a block boundary (a longer block is a chunk of
+    its own)."""
+    chunks, cur, n = [], [], 0
+    for r in rows:
+        if cur and n + r[2] > _CHUNK_VALUES:
+            chunks.append(cur)
+            cur, n = [], 0
+        cur.append(r)
+        n += r[2]
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
 def _decode(sig, out_dt, payload, scalars, aux32=None, aux8=None):
-    """The per-block decode: (n,) values in `out_dt` on the payload's
-    device. Offsets come from the signature; `scalars` ((B, 2) int64
-    first/step per block) stays on the host, so no launch waits on a
-    device-to-host read."""
-    pieces = []
-    off = 0
-    aoff = 0
+    """The decode of a plan: (n,) values in `out_dt` on the payload's
+    device, in signature order. A host walk of the signature places
+    every block: width-1/2 FOR-delta and strdict blocks go to one
+    segmented widen (_widen_group), gorilla blocks to chunks of one
+    segmented unpack each (_gorilla_chunk), the other codecs decode
+    block by block. Offsets come from the signature; `scalars` ((B, 2)
+    int64 first/step per block) stays on the host apart from the
+    FOR-delta blocks' copy, so no launch waits on a device-to-host
+    read."""
     dev = payload.device
+    delta_rows, dict_rows, gor_rows = [], [], []
+    order = []  # per block: its values, or (group, row) in a batched group
+    off = aoff = 0
     for i, (kind, bn, width) in enumerate(sig):
         if bn == 0:
             continue
         first = int(scalars[i, 0])
         step = int(scalars[i, 1])
         if kind == "const":
-            piece = first + step * torch.arange(bn, dtype=torch.int64,
-                                                device=dev)
+            order.append(first + step * torch.arange(bn, dtype=torch.int64,
+                                                     device=dev))
         elif kind == "delta":
             m = (bn - 1) * width
-            raw = payload[off:off + m]
+            if width in (1, 2):
+                order.append(("delta", len(delta_rows)))
+                delta_rows.append((off, bn - 1, width, first, step))
+            else:
+                d = _widen(payload[off:off + m], width, bn - 1) + step
+                order.append(torch.cat([
+                    torch.full((1,), first, dtype=torch.int64, device=dev),
+                    first + torch.cumsum(d, 0)]))
             off += m
-            d = _widen(raw, width, bn - 1) + step
-            piece = torch.cat([
-                torch.full((1,), first, dtype=torch.int64, device=dev),
-                first + torch.cumsum(d, 0)])
         elif kind == "raw64":
             m = 8 * bn
-            piece = payload[off:off + m].clone().view(torch.float64)
+            order.append(payload[off:off + m].clone().view(torch.float64))
             off += m
         elif kind == "gorilla":
             m = width  # payload byte length rides in the signature
-            raw = payload[off:off + m]
+            order.append(("gorilla", len(gor_rows)))
+            gor_rows.append((off, m, bn, aoff))
             off += m
-            bitpos = aux32[aoff:aoff + bn]
-            mb_sh = aux8[2 * aoff:2 * (aoff + bn)]
             aoff += bn
-            piece = _gorilla_piece(raw, m, bitpos, mb_sh, bn)
         elif kind == "varint":
             m = width
-            raw = payload[off:off + m]
+            order.append(_varint_piece(payload[off:off + m], m, bn))
             off += m
-            piece = _varint_piece(raw, m, bn)
         else:  # strdict: min-width indices, table stays host-side
             m = bn * width
-            raw = payload[off:off + m]
+            if width in (1, 2):
+                order.append(("dict", len(dict_rows)))
+                dict_rows.append((off, bn, width))
+            else:
+                order.append(_widen(payload[off:off + m], width, bn))
             off += m
-            piece = _widen(raw, width, bn)
-        pieces.append(piece.to(out_dt))
-    if not pieces:
+    if not order:
         return torch.zeros(0, dtype=out_dt, device=dev)
-    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
-
+    # (group, row) -> (the group's values, lo, hi) of that block
+    spans = {}
+    if delta_rows or dict_rows:
+        deltas, indices = _widen_group(payload, delta_rows, dict_rows)
+        for group, vals, rows, extra in (("delta", deltas, delta_rows, 1),
+                                         ("dict", indices, dict_rows, 0)):
+            lo = 0
+            for k, r in enumerate(rows):
+                spans[(group, k)] = (vals, lo, lo + r[1] + extra)
+                lo += r[1] + extra
+    k = 0
+    for chunk in _gorilla_chunks(gor_rows):
+        vals = _gorilla_chunk(payload, chunk, aux32, aux8)
+        lo = 0
+        for r in chunk:
+            spans[("gorilla", k)] = (vals, lo, lo + r[2])
+            lo += r[2]
+            k += 1
+    # neighbouring blocks that lie next to each other in one group's
+    # values become one slice
+    runs = []
+    for item in order:
+        src, lo, hi = (spans[item] if isinstance(item, tuple)
+                       else (item, 0, item.shape[0]))
+        if runs and runs[-1][0] is src and runs[-1][2] == lo:
+            runs[-1][2] = hi
+        else:
+            runs.append([src, lo, hi])
+    parts = [src[lo:hi].to(out_dt) for src, lo, hi in runs]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)

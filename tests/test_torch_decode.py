@@ -247,6 +247,98 @@ def test_unpack_plain_matches_numpy_and_jax_path():
         ps.unpack_bits(jax.numpy.asarray(raw), n)
 
 
+def _widen_tables(rng, nraw):
+    """Segment tables (src, cnt, width) over an `nraw`-byte payload: one
+    segment, 256 segments (few distinct shapes, so the Pallas reference
+    compiles few times), empty segments, odd offsets, mixed widths."""
+    yield "one", [(0, 1031, 2)]
+    rows, off = [], 1
+    for r in range(256):
+        cnt, w = ((0, 1), (1, 1), (7, 2), (33, 1))[r % 4]
+        rows.append((off, cnt, w))
+        off += cnt * w + 1  # an odd gap: odd source offsets
+    yield "256", rows
+    yield "empty", [(5, 0, 1), (5, 0, 2), (9, 3, 2), (20, 0, 1)]
+    yield "odd-mixed", [(int(rng.integers(0, 50)) * 2 + 1, int(c), int(w))
+                        for c, w in zip(rng.integers(1, 300, 9),
+                                        rng.integers(1, 3, 9))]
+    yield "reversed", [(900, 40, 2), (3, 41, 1), (0, 1, 1)]
+    assert off < nraw
+
+
+@pytest.mark.parametrize("table", ["one", "256", "empty", "odd-mixed",
+                                   "reversed"])
+def test_widen_segments_plain_matches_pallas_and_numpy(table):
+    rng = np.random.default_rng(21)
+    raw = rng.integers(0, 256, 6000).astype(np.uint8)
+    raw[:256] = np.arange(256)
+    segs = dict(_widen_tables(rng, len(raw)))[table]
+    got = cs.widen_packed_segments(torch.from_numpy(raw), segs).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(
+        got, cs.widen_packed_segments_plain(torch.from_numpy(raw),
+                                            segs).numpy())
+    want_np, want_ps = [], []
+    for src, cnt, w in segs:
+        b = raw[src:src + cnt * w]
+        want_np.append(np.frombuffer(b.tobytes(), {1: np.uint8, 2: "<u2"}[w])
+                       .astype(np.int32))
+        if cnt:
+            want_ps.append(np.asarray(ps._widen_call(
+                jax.numpy.asarray(b), width=w, cnt=cnt, interpret=True)))
+    assert len(got) == sum(c for _s, c, _w in segs)
+    np.testing.assert_array_equal(got, np.concatenate(want_np))
+    np.testing.assert_array_equal(
+        got, np.concatenate(want_ps) if want_ps else np.zeros(0, np.int32))
+
+
+def _unpack_tables(rng, nraw):
+    """Segment tables (src, nbytes): one, 256, empty, single-byte and odd
+    offsets, and a few large segments in an order unlike the payload's."""
+    yield "one", [(0, 100_003)]
+    yield "256", [(3 * r + 1, int(rng.integers(0, 200)))
+                  for r in range(256)]
+    yield "empty", [(0, 0), (7, 0), (9, 1), (nraw, 0)]
+    yield "single-bytes", [(int(s), 1) for s in rng.integers(0, nraw, 40)]
+    yield "chunk", [(50_000, 20_001), (1, 30_000), (90_001, 9_999)]
+
+
+@pytest.mark.parametrize("table", ["one", "256", "empty", "single-bytes",
+                                   "chunk"])
+def test_unpack_segments_plain_matches_numpy_and_jax_path(table):
+    rng = np.random.default_rng(22)
+    raw = rng.integers(0, 256, 100_003).astype(np.uint8)
+    segs = dict(_unpack_tables(rng, len(raw)))[table]
+    got = cs.unpack_bits_segments(torch.from_numpy(raw), segs).numpy()
+    assert got.dtype == np.int32
+    assert len(got) == 8 * sum(n for _s, n in segs)
+    np.testing.assert_array_equal(
+        got, cs.unpack_bits_segments_plain(torch.from_numpy(raw),
+                                           segs).numpy())
+    np.testing.assert_array_equal(got, np.concatenate(
+        [np.unpackbits(raw[s:s + n]) for s, n in segs]))
+    # the jnp path device_decode._unpack_bits takes off the TPU
+    np.testing.assert_array_equal(got, np.concatenate(
+        [np.asarray(jdd._unpack_bits(jax.numpy.asarray(raw[s:s + n]), n))
+         for s, n in segs]))
+
+
+def test_segment_wrappers_check_their_tables():
+    raw = torch.zeros(64, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="width"):
+        cs.widen_packed_segments(raw, [(0, 4, 3)])
+    with pytest.raises(ValueError, match="outside"):
+        cs.widen_packed_segments(raw, [(60, 3, 2)])
+    with pytest.raises(ValueError, match="outside"):
+        cs.unpack_bits_segments(raw, [(-1, 2)])
+    with pytest.raises(ValueError, match="at most"):
+        cs.unpack_bits_segments(raw, [(0, 0)] * (cs.MAX_SEGMENTS + 1))
+    with pytest.raises(TypeError):
+        cs.unpack_bits_segments(raw.to(torch.int32), [(0, 1)])
+    assert cs.widen_packed_segments(raw, []).shape == (0,)
+    assert cs.unpack_bits_segments(raw, np.zeros((0, 2))).shape == (0,)
+
+
 def test_probe_plain_counts_like_the_pallas_probe():
     got = cs.probe_count(torch.ones((8, 8), dtype=torch.int8))
     assert got.dtype == torch.int32 and got.shape == (8, 1)
@@ -431,3 +523,126 @@ def test_concat_records_equals_the_pairwise_fold(monkeypatch):
                                       fold.columns[k].values)
         np.testing.assert_array_equal(got.columns[k].valid,
                                       fold.columns[k].valid)
+
+
+# -- (f) the batched decode: one widen per plan, unpacks per chunk ------------
+
+
+def _gorilla_plan(rng, n_blocks=13):
+    """Float blocks of many gorilla streams (20 to 900 values each),
+    with a const, a raw64 and a varint block between them."""
+    blocks = []
+    for b in range(n_blocks):
+        n = (20, 900, 377, 64, 512)[b % 5]
+        v = np.round(np.cumsum(rng.standard_normal(n)), 1 + b % 3) + 50.0
+        if b % 4 == 1:
+            v[::7] = np.nan
+        blocks.append(tenc.encode_floats(v))
+        if b == 3:
+            blocks.append(tenc.encode_floats(rng.standard_normal(60) * 1e17))
+        if b == 8:
+            blocks.append(tenc.encode_ints(np.arange(0, 90, 3,
+                                                     dtype=np.int64)))
+    kinds = [tenc.device_block(b).kind for b in blocks]
+    assert kinds.count("gorilla") == n_blocks and "raw64" in kinds
+    return blocks
+
+
+def _delta_plan(rng):
+    """Int blocks of FOR deltas at widths 1 and 2 (values near +-2^63 so
+    the cumsum wraps), with a varint and a width-4 block between them."""
+    blocks = []
+    for b in range(11):
+        lo, hi = ((0, 200), (2**14, 2**16))[b % 2]
+        n = (300, 1, 2, 129, 1000)[b % 5]
+        base = (2**63 - 2**19, -2**63, 0)[b % 3]
+        v = np.int64(base) + np.cumsum(
+            rng.integers(lo, hi, n)).astype(np.int64)
+        blocks.append(tenc.encode_ints(v))
+        if b == 4:
+            v = np.cumsum(rng.integers(-3, 4, 200)).astype(np.int64)
+            blocks.append(tenc.encode_ints(v))
+        if b == 6:
+            blocks.append(tenc.encode_ints(np.cumsum(
+                rng.integers(2**28, 2**31, 90)).astype(np.int64)))
+    dbs = [tenc.device_block(b) for b in blocks]
+    assert {(d.kind, d.width) for d in dbs if d.kind == "delta"} >= {
+        ("delta", 1), ("delta", 2), ("delta", 4)}
+    assert any(d.kind == "varint" for d in dbs)
+    return blocks
+
+
+@pytest.mark.parametrize("chunk", ["real", "small"])
+@pytest.mark.parametrize("plan", ["gorilla", "delta"])
+def test_batched_decode_matches_jax_and_host(monkeypatch, plan, chunk):
+    """A plan of many blocks decodes bit-identically to the JAX package
+    and the host decoders, with chunks of the real size and with chunks
+    that split the plan's gorilla blocks."""
+    monkeypatch.setenv("OGT_DEVICE_PROFILE", "1")
+    if chunk == "small":
+        monkeypatch.setattr(tdd, "_CHUNK_VALUES", 1000)
+    rng = np.random.default_rng(31)
+    blocks = _gorilla_plan(rng) if plan == "gorilla" else _delta_plan(rng)
+    got = tdd.decode_to_device(blocks, "cpu").numpy()
+    want = np.asarray(jdd.decode_to_device(blocks))
+    host = np.concatenate([_host(b) for b in blocks])
+    if got.dtype == np.float64:
+        got, want = got.view(np.uint64), want.view(np.uint64)
+        host = np.concatenate([
+            _host(b) if tenc.device_block(b).kind != "const"
+            else _host(b).astype(np.float64).view(np.uint64) for b in blocks])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, host)
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 5000])
+def test_prefix_xor_matches_the_sequential_walk(n):
+    x = np.random.default_rng(n).integers(-2**63, 2**63 - 1, n,
+                                           dtype=np.int64)
+    x[::5] = -1
+    planes = np.unpackbits(x.view(np.uint8).reshape(n, 8), axis=1,
+                           bitorder="little")
+    got = tdd._prefix_xor(torch.from_numpy(planes)).numpy()
+    np.testing.assert_array_equal(got, np.bitwise_xor.accumulate(x))
+
+
+def _count_calls(monkeypatch, name):
+    calls = []
+    original = getattr(cs, name)
+
+    def counted(raw, segs):
+        calls.append(len(np.asarray(segs).reshape(len(segs), -1))
+                     if len(segs) else 0)
+        return original(raw, segs)
+
+    monkeypatch.setattr(cs, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("per_chunk", [1, 3, 4, 100])
+def test_decode_calls_one_segmented_wrapper_per_plan_or_chunk(
+        monkeypatch, per_chunk):
+    """The batching without a card: the decode of a plan calls the widen
+    wrapper once for all its width-1/2 blocks and the unpack wrapper
+    once per chunk of ceil(blocks / blocks-per-chunk)."""
+    monkeypatch.setenv("OGT_DEVICE_PROFILE", "1")
+    rng = np.random.default_rng(32)
+    n, n_blocks = 200, 10
+    gor = [tenc.encode_floats(
+        np.round(np.cumsum(rng.standard_normal(n)), 1) + 50)
+        for _ in range(n_blocks)]
+    assert {tenc.device_block(b).kind for b in gor} == {"gorilla"}
+    deltas = [tenc.encode_ints(np.cumsum(rng.integers(lo, hi, n)).astype(
+        np.int64)) for lo, hi in ((0, 200), (2**14, 2**16))] * 5
+    monkeypatch.setattr(tdd, "_CHUNK_VALUES", per_chunk * n)
+    widen = _count_calls(monkeypatch, "widen_packed_segments")
+    unpack = _count_calls(monkeypatch, "unpack_bits_segments")
+    tdd.decode_to_device(gor, "cpu")
+    assert widen == []
+    # rows per call: whole chunks of per_chunk blocks, then the rest
+    assert unpack == [min(per_chunk, n_blocks - i)
+                      for i in range(0, n_blocks, per_chunk)]
+    assert len(unpack) == -(-n_blocks // per_chunk)
+    del unpack[:]
+    tdd.decode_to_device(deltas, "cpu")
+    assert widen == [len(deltas)] and unpack == []
