@@ -19,7 +19,14 @@ Phases, in order; any failure ends the run with a nonzero exit:
    forms of widen_packed and unpack_bits exactly, on segment tables of
    1 and 256 rows with empty and single-value (single-byte) segments at
    odd source offsets, widths 1 and 2 mixed, and a chunk of eight
-   C1-sized gorilla blocks. Kernel 4 at one segment against the one
+   C1-sized gorilla blocks. Kernels 1-3 on adversarial inputs
+   (adversarial_cases: NaN at the would-be min, max, first and last,
+   masked-in +-inf, ties of -0.0 and 0.0, empty, prefix and padded
+   masks, W in 1, 12, 13, 33, 720, 2048 and K in 1, 2, 361, f32, views
+   one element into their storage), with the same tolerances. Kernels 2
+   and 3 timed at the main path's shapes with the main path's masks, and
+   their lone launch and host time per call with one output buffer
+   against one allocation per output. Kernel 4 at one segment against the one
    PyTorch call that computes it, at both widths ((131399, 2) against
    raw.view(uint16).to(int32), (131071, 1) against raw.to(int32)): the
    CUDA-event time of each and the host time of a call (1000 calls,
@@ -245,37 +252,124 @@ def bound(name: str, shape, n_valid: int, dev_name: str):
 # -- phase 2/4: kernels against their plain versions -----------------------------
 
 
-def make_inputs(kind: str, shape, seed: int):
-    """Seeded inputs on the card: 70% mask density, every 97th row fully
-    empty, integer-valued values (ties) on even rows, few distinct times
-    (time ties) on every third row."""
+def _offset(t):
+    """A contiguous copy of `t` that starts one element into its storage:
+    no longer 16-byte aligned, so the kernels take their scalar path."""
+    import torch
+
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# the main path's layouts at 4000 hosts x 12 h (models/grid.py _pad_rows
+# and _pad_lanes; models/ragged.py pow2 rows of 1024): real rows and
+# lanes of the grids, and samples per host of the bucket rows
+PATH_LAYOUTS = {(5680, 6, 768): (4000, 720), (5680, 360, 16): (4000, 12),
+                (32768, 1024): (4320,)}
+
+
+def _adversarial(v, m, hi=None, lo=None, g=None):
+    """Rows (grid: series) by class r % 11 on top of seeded values: a NaN
+    at the would-be min (1), first (2), last (3) and max (4) of a row,
+    masked-in +inf (5) and -inf (6) among the values, ties of -0.0 and
+    0.0 at the min (7) and at the max (8), rows all +inf (9) or all -inf
+    (10). Grid windows have no time, so classes 2 and 3 put a NaN in a
+    masked-in and in a masked-out cell."""
+    import torch
+
+    inf = float("inf")
+    rows = v.shape[0]
+    cls = torch.arange(rows, device=v.device) % 11
+    sel = lambda c: (cls == c).nonzero()[:, 0]  # noqa: E731
+    rand = torch.rand(v.shape, generator=g, device=v.device)
+    flat_v, flat_m = v.reshape(rows, -1), m.reshape(rows, -1)
+    flat_r = rand.reshape(rows, -1)
+    if hi is not None:
+        key = hi.to(torch.int64) * (1 << 30) + lo.to(torch.int64)
+        big = torch.iinfo(torch.int64).max
+        at = {2: torch.where(m, key, big).argmin(1),
+              3: torch.where(m, key, -big).argmax(1)}
+    else:
+        at = {2: (flat_m & (flat_r < 0.2)).to(torch.uint8).argmax(1),
+              3: (~flat_m).to(torch.uint8).argmax(1)}
+    at[1] = torch.where(flat_m, flat_v, inf).argmin(1)
+    at[4] = torch.where(flat_m, flat_v, -inf).argmax(1)
+    for c, cols in at.items():
+        r = sel(c)
+        flat_v[r, cols[r]] = float("nan")
+    for c, x in ((5, inf), (6, -inf)):
+        r = sel(c)
+        flat_v[r] = torch.where(flat_r[r] < 0.1, x, flat_v[r])
+    zeros = torch.where(flat_r < 0.15, -0.0, 0.0).to(v.dtype)
+    for c, sign in ((7, 1.0), (8, -1.0)):
+        r = sel(c)
+        flat_v[r] = torch.where(flat_r[r] < 0.3, zeros[r], sign * flat_v[r])
+    for c, x in ((9, inf), (10, -inf)):
+        flat_v[sel(c)] = x
+
+
+def make_inputs(kind: str, shape, seed: int, dtype: str = "f64",
+                values: str = "random", mask: str = "random",
+                offset: bool = False):
+    """Seeded inputs on the card. values: "random" (in [0, 100),
+    integer-valued (ties) on even rows) or "adversarial" (NaN, +-inf and
+    +-0 ties by row class, _adversarial); f32 values are whole numbers,
+    so that every sum is exact in any order. mask: "random" (70%
+    density, every 97th row empty), "prefix" (bucket rows: each row a
+    prefix of random length, some empty and some full) or "path" (the
+    main path's layout, PATH_LAYOUTS: a grid's real rows and lanes, a
+    host's samples in rows of W). Buckets get few distinct times (time
+    ties) on every third row. offset: every tensor starts one element
+    into its storage (the scalar edge path)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
-    if kind == "grid":
-        s, k, w = shape
-        v = torch.rand(shape, generator=g, device=dev, dtype=torch.float64) * 100
-        v[::2] = torch.floor(v[::2] / 10)
-        m = torch.rand(shape, generator=g, device=dev) < 0.7
-        m[::97] = False
-        return {"v": v, "m": m}
-    rows, w = shape
+    rows, w = shape[0], shape[-1]
     v = torch.rand(shape, generator=g, device=dev, dtype=torch.float64) * 100
     v[::2] = torch.floor(v[::2] / 10)
+    if dtype == "f32":
+        v = torch.floor(v)
     m = torch.rand(shape, generator=g, device=dev) < 0.7
     m[::97] = False
-    hi = torch.randint(0, 1 << 20, shape, generator=g, device=dev,
-                       dtype=torch.int32)
-    lo = torch.randint(0, 1 << 30, shape, generator=g, device=dev,
-                       dtype=torch.int32)
-    hi[::3] = torch.randint(0, 2, (hi[::3].shape[0], w), generator=g,
-                            device=dev, dtype=torch.int32)
-    lo[::3] = torch.randint(0, 3, (lo[::3].shape[0], w), generator=g,
-                            device=dev, dtype=torch.int32)
-    idx = torch.randint(0, 1 << 30, shape, generator=g, device=dev,
-                        dtype=torch.int32)
-    return {"v": v, "hi": hi, "lo": lo, "idx": idx, "m": m}
+    if mask == "prefix":
+        n = torch.randint(0, w + 1, (rows, 1), generator=g, device=dev)
+        n[::5] = 0
+        n[1::5] = w
+        m = torch.arange(w, device=dev)[None, :] < n
+    elif mask == "path" and kind == "grid":
+        real_rows, real_lanes = PATH_LAYOUTS[tuple(shape)]
+        m = torch.zeros(shape, dtype=torch.bool, device=dev)
+        m[:real_rows, :, :real_lanes] = True
+    elif mask == "path":
+        (per_host,) = PATH_LAYOUTS[tuple(shape)]
+        sub = -(-per_host // w)
+        hosts = min(rows // sub, 4000)
+        n = torch.zeros(rows, dtype=torch.int64, device=dev)
+        lens = torch.tensor([w] * (sub - 1) + [per_host - w * (sub - 1)],
+                            device=dev)
+        n[:hosts * sub] = lens.repeat(hosts)
+        m = torch.arange(w, device=dev)[None, :] < n[:, None]
+    x = {"m": m}
+    if kind == "bucket":
+        hi = torch.randint(0, 1 << 20, shape, generator=g, device=dev,
+                           dtype=torch.int32)
+        lo = torch.randint(0, 1 << 30, shape, generator=g, device=dev,
+                           dtype=torch.int32)
+        hi[::3] = torch.randint(0, 2, (hi[::3].shape[0], w), generator=g,
+                                device=dev, dtype=torch.int32)
+        lo[::3] = torch.randint(0, 3, (lo[::3].shape[0], w), generator=g,
+                                device=dev, dtype=torch.int32)
+        x.update(hi=hi, lo=lo, idx=torch.randint(
+            0, 1 << 30, shape, generator=g, device=dev, dtype=torch.int32))
+    if values == "adversarial":
+        _adversarial(v, m, x.get("hi"), x.get("lo"), g)
+    x["v"] = v.float() if dtype == "f32" else v
+    if offset:
+        x = {k: _offset(t) for k, t in x.items()}
+    return x
 
 
 EXACT = {"count", "min", "max", "first", "last", "sel_first", "sel_last",
@@ -297,9 +391,10 @@ def compare(name: str, got: dict, want: dict) -> float:
             same = torch.equal(a, b) if not a.is_floating_point() else bool(
                 ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
             check(same, f"{name}.{key} differs from the plain version")
-        else:
+        else:  # equal where not finite (inf, NaN), else within rtol
             tol = KERNEL_RTOL * torch.maximum(a.abs(), b.abs()) + 1e-300
-            check(bool(((a - b).abs() <= tol).all()),
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            check(bool((same | ((a - b).abs() <= tol)).all()),
                   f"{name}.{key} beyond rtol {KERNEL_RTOL}")
         if a.numel():
             d = (a.double() - b.double()).abs()
@@ -385,34 +480,33 @@ def decode_kernel_case(name: str, shape, seed: int, dev_name: str,
     return rec
 
 
-def kernel_case(name: str, shape, seed: int, dev_name: str, timed: bool):
+def kernel_case(name: str, shape, seed: int, dev_name: str, timed: bool,
+                **kinds):
+    """Kernels 1-3 against their plain versions on make_inputs(shape,
+    seed, **kinds); timed: lone and back-to-back ms of the kernel, the
+    plain version's ms."""
     import torch
 
     from opengemini_tpu_torch.ops import cuda_segment as cs
 
     if name in ("widen_packed", "unpack_bits", "probe_count"):
         return decode_kernel_case(name, shape, seed, dev_name, timed)
-    if name == "grid_window_agg":
-        x = make_inputs("grid", shape, seed)
-        run = lambda: cs.grid_window_agg(x["v"], x["m"])  # noqa: E731
-        plain = lambda: cs.grid_window_agg_plain(x["v"], x["m"])  # noqa: E731
-    elif name == "bucket_stats_basic":
-        x = make_inputs("bucket", shape, seed)
-        run = lambda: cs.bucket_stats_basic(x["v"], x["m"])  # noqa: E731
-        plain = lambda: cs.bucket_stats_basic_plain(x["v"], x["m"])  # noqa: E731
-    else:
-        x = make_inputs("bucket", shape, seed)
+    x = make_inputs("grid" if name == "grid_window_agg" else "bucket",
+                    shape, seed, **kinds)
+    if name == "bucket_stats_selectors":
         args = (x["v"], x["hi"], x["lo"], x["idx"], x["m"])
-        run = lambda: cs.bucket_stats_selectors(*args)  # noqa: E731
-        plain = lambda: cs.bucket_stats_selectors_plain(*args)  # noqa: E731
+    else:
+        args = (x["v"], x["m"])
+    run = lambda: getattr(cs, name)(*args)  # noqa: E731
+    plain = lambda: getattr(cs, name + "_plain")(*args)  # noqa: E731
     got = run()
     want = plain()
     torch.cuda.synchronize()
-    err = compare(f"{name}{tuple(shape)}", got, want)
+    err = compare(f"{name}{tuple(shape)} {kinds or ''}", got, want)
     n_valid = int(x["m"].sum())
     b_ms, b_by = bound(name, shape, n_valid, dev_name)
     rec = {"shape": list(shape), "max_abs_err": err, "bound_ms": b_ms,
-           "bound_by": b_by}
+           "bound_by": b_by, **kinds}
     if timed:
         rec["ms"] = time_ms(run)
         rec["device_ms"] = device_ms(run)
@@ -486,6 +580,108 @@ def segment_tables(name: str, seed: int) -> dict:
     }
 
 
+def adversarial_cases() -> list:
+    """(kernel, shape, make_inputs kinds) of phase 2's adversarial checks:
+    grids at every W in (1, 12, 13, 33, 720, 2048) and K in (1, 2, 361)
+    with S = 37 (no multiple of a CTA's rows), bucket rows at those W and
+    the ladder's (16, 64, 256, 1024) with G = 1037; f64 and f32 (kernels
+    2 and 3: kernel 1's ssd rounds in f32), aligned and offset views,
+    random, prefix and the main path's padded masks."""
+    adv = {"values": "adversarial"}
+    cases = []
+    for w in (1, 12, 13, 33, 720, 2048):
+        for k in (1, 2, 361):
+            cases += [("grid_window_agg", (37, k, w), adv),
+                      ("grid_window_agg", (37, k, w), {**adv, "dtype": "f32"}),
+                      ("grid_window_agg", (37, k, w), {**adv, "offset": True})]
+    for shape in PATH_LAYOUTS:
+        if len(shape) == 3:
+            cases.append(("grid_window_agg", shape, {**adv, "mask": "path"}))
+    for w in (1, 12, 13, 16, 33, 64, 256, 720, 1024, 2048):
+        for name in ("bucket_stats_basic", "bucket_stats_selectors"):
+            cases += [(name, (1037, w), adv),
+                      (name, (1037, w), {**adv, "mask": "prefix"}),
+                      (name, (1037, w), {**adv, "offset": True})]
+        cases.append(("bucket_stats_selectors", (1037, w),
+                      {**adv, "mask": "prefix", "dtype": "f32"}))
+    for name in ("bucket_stats_basic", "bucket_stats_selectors"):
+        cases.append((name, (32768, 1024), {**adv, "mask": "path"}))
+    return cases
+
+
+# kernels 2 and 3 at the main path's shapes with the main path's masks
+PATH_CASES = (((5680, 6, 768), "grid_window_agg"),
+              ((5680, 360, 16), "grid_window_agg"),
+              ((32768, 1024), "bucket_stats_selectors"))
+
+
+def separate_outputs_call(name: str, args):
+    """The wrapper of kernel 2 or 3 with one allocation per output in
+    place of its one output buffer: the same checks and launch, one
+    torch.empty per output."""
+    import torch
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+
+    v, dev = args[0], args[0].device
+
+    def call():
+        if name == "grid_window_agg":
+            cs._check(name, v, mask=args[1], dim=3)
+        else:
+            cs._check(name, v, ints=args[1:4], mask=args[4])
+        cs._require_cuda_or_cpu(name, v)
+        lib, fn = cs._entry(name, v.dtype)
+        if name == "grid_window_agg":
+            s_dim, k, w = v.shape
+            cnt = torch.empty((s_dim, w), dtype=torch.int32, device=dev)
+            outs = [torch.empty((s_dim, w), dtype=v.dtype, device=dev)
+                    for _ in range(4)]
+            cs._launch(name, fn, lib, dev, v.data_ptr(), args[1].data_ptr(),
+                       s_dim, k, w, cnt.data_ptr(),
+                       *(o.data_ptr() for o in outs))
+            return cnt, outs
+        g, w = v.shape
+        vals = [torch.empty(g, dtype=v.dtype, device=dev) for _ in range(2)]
+        sels = [torch.empty(g, dtype=torch.int32, device=dev)
+                for _ in range(4)]
+        cs._launch(name, fn, lib, dev, *(a.data_ptr() for a in args), g, w,
+                   *(o.data_ptr() for o in vals + sels))
+        return vals, sels
+    return call
+
+
+def one_buffer_against_separate(seed: int) -> dict:
+    """Kernels 2 and 3 at the main path's shapes: lone-launch ms and host
+    us per call of the wrapper (one output buffer) against the same
+    launch with one allocation per output, in turns."""
+    import torch
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+
+    out = {}
+    for i, (shape, name) in enumerate(PATH_CASES):
+        x = make_inputs("grid" if len(shape) == 3 else "bucket", shape,
+                        seed + 450 + i)
+        args = ((x["v"], x["m"]) if name == "grid_window_agg" else
+                (x["v"], x["hi"], x["lo"], x["idx"], x["m"]))
+        one = lambda: getattr(cs, name)(*args)  # noqa: E731
+        sep = separate_outputs_call(name, args)
+        rec = {"shape": list(shape), "ms": time_ms(one),
+               "separate_ms": time_ms(sep), "host_us": host_us(one, 200),
+               "separate_host_us": host_us(sep, 200)}
+        rec["ms_2"], rec["separate_ms_2"] = time_ms(one), time_ms(sep)
+        out[f"{name}{tuple(shape)}"] = rec
+        log(f"[kernel] {name}{tuple(shape)} one output buffer against one "
+            f"allocation per output: lone ms {rec['ms']:.4f} / "
+            f"{rec['ms_2']:.4f} vs {rec['separate_ms']:.4f} / "
+            f"{rec['separate_ms_2']:.4f}; host per call "
+            f"{rec['host_us']:.2f} vs {rec['separate_host_us']:.2f} us")
+        del x, args
+        torch.cuda.empty_cache()
+    return out
+
+
 def host_us(fn, calls: int = 1000) -> float:
     """Host time of one call, in microseconds: `calls` calls enqueued
     back to back (no synchronisation between them) over perf_counter."""
@@ -515,6 +711,21 @@ def phase_kernels(dev_name: str, seed: int) -> dict:
                 f"bound_ms={rec['bound_ms']:.4f}"
                 + (f" library_ms={rec['library_ms']:.4f}"
                    if rec.get("library_ms") is not None else ""))
+    for name, shape, kinds in adversarial_cases():
+        kernel_case(name, shape, seed + 300, dev_name, timed=False, **kinds)
+    log(f"[kernel] kernels 1-3 match their plain versions on "
+        f"{len(adversarial_cases())} adversarial cases (NaN at the would-be "
+        "min, max, first and last; masked-in +-inf; +-0 ties; empty, "
+        "prefix and padded masks; W in 1, 12, 13, 33, 720, 2048; K in 1, "
+        "2, 361; f32; offset views)")
+    for i, (shape, name) in enumerate(PATH_CASES):
+        rec = kernel_case(name, shape, seed + 400 + i, dev_name, timed=True,
+                          mask="path")
+        results[name].append(rec)
+        log(f"[kernel] {name}{tuple(shape)} main-path mask ok ms="
+            f"{rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
+            f"bound_ms={rec['bound_ms']:.4f} (masked-in values only)")
+    results["one_buffer"] = one_buffer_against_separate(seed)
     for shape in CHECK_SHAPES["probe_count"]:  # an all-zero mask counts 0
         decode_kernel_case("probe_count", shape, seed, dev_name, timed=False,
                            zero_mask=True)
@@ -1509,6 +1720,10 @@ def main() -> int:
                 for qn, pq in cold["per_query"].items()}
         if name == "widen_packed":
             kernels[-1]["library_comparison"] = checked["widen_host"]
+        buffers = {k: r for k, r in checked["one_buffer"].items()
+                   if k.startswith(name)}
+        if buffers:
+            kernels[-1]["one_buffer_comparison"] = buffers
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

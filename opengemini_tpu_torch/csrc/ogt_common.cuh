@@ -68,6 +68,11 @@ __device__ __forceinline__ int find_segment(const int* tile0, int nseg, int tile
   return lo;
 }
 
+// Whether p may be read or written as a vector of `bytes` bytes.
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 // Grid of a grid-stride launch over `tiles` tiles on the current device:
 // min(tiles, SM count x ctas_per_sm), the SM count read once per device;
 // minus the cudaError_t when the device cannot be queried.

@@ -335,6 +335,15 @@ def bucket_stats_selectors_plain(v, hi, lo, idx, m) -> dict:
     }
 
 
+def _selector_outputs(dtype: torch.dtype, g: int, device):
+    """Kernel 2's outputs from one allocation: (first, last) of `dtype`
+    and the four int32 selections, (g,) rows of one buffer."""
+    buf = torch.empty((2 + 16 // dtype.itemsize) * g, dtype=dtype,
+                      device=device)
+    return (buf[:2 * g].view(2, g).unbind(0),
+            buf[2 * g:].view(torch.int32).view(4, g).unbind(0))
+
+
 def bucket_stats_selectors(v, hi, lo, idx, m) -> dict:
     """first/last values and first/last/min/max sample indices per row of
     (G, W) bucket rows; the CUDA kernel for a CUDA tensor, the plain
@@ -345,10 +354,7 @@ def bucket_stats_selectors(v, hi, lo, idx, m) -> dict:
         return bucket_stats_selectors_plain(v, hi, lo, idx, m)
     lib, fn = _entry(name, v.dtype)
     g, w = v.shape
-    first = torch.empty(g, dtype=v.dtype, device=v.device)
-    last = torch.empty(g, dtype=v.dtype, device=v.device)
-    sels = [torch.empty(g, dtype=torch.int32, device=v.device)
-            for _ in range(4)]
+    (first, last), sels = _selector_outputs(v.dtype, g, v.device)
     _launch(name, fn, lib, v.device, v.data_ptr(), hi.data_ptr(),
             lo.data_ptr(), idx.data_ptr(), m.data_ptr(), g, w,
             first.data_ptr(), last.data_ptr(), *(s.data_ptr() for s in sels))
@@ -362,6 +368,18 @@ def bucket_stats_selectors(v, hi, lo, idx, m) -> dict:
 grid_window_agg_plain = _seg.grid_window_agg_t  # plain form of kernel 3
 
 
+def _grid_outputs(dtype: torch.dtype, s_dim: int, w: int, device):
+    """Kernel 3's outputs from one allocation: sum, mean, min and max of
+    `dtype`, then the int32 counts, (s_dim, w) each, in one buffer. Each
+    starts 16-byte aligned wherever the kernel's vector path applies (w a
+    multiple of 16 / itemsize)."""
+    n = s_dim * w
+    buf = torch.empty(4 * n + -(-4 * n // dtype.itemsize), dtype=dtype,
+                      device=device)
+    return (buf[:4 * n].view(4, s_dim, w).unbind(0),
+            buf[4 * n:].view(torch.int32)[:n].view(s_dim, w))
+
+
 def grid_window_agg(v: torch.Tensor, m: torch.Tensor) -> dict:
     """count/sum/mean/min/max per (series, window) of an (S, K, W) grid,
     reduced over K; the CUDA kernel for a CUDA tensor, the plain version
@@ -372,9 +390,7 @@ def grid_window_agg(v: torch.Tensor, m: torch.Tensor) -> dict:
         return grid_window_agg_plain(v, m)
     lib, fn = _entry(name, v.dtype)
     s_dim, k, w = v.shape
-    cnt = torch.empty((s_dim, w), dtype=torch.int32, device=v.device)
-    outs = [torch.empty((s_dim, w), dtype=v.dtype, device=v.device)
-            for _ in range(4)]
+    outs, cnt = _grid_outputs(v.dtype, s_dim, w, v.device)
     _launch(name, fn, lib, v.device, v.data_ptr(), m.data_ptr(), s_dim, k, w,
             cnt.data_ptr(), *(o.data_ptr() for o in outs))
     s, mean, mn, mx = outs
