@@ -255,6 +255,15 @@ def bucket_stats_basic_plain(v: torch.Tensor, m: torch.Tensor) -> dict:
     }
 
 
+def _basic_outputs(dtype: torch.dtype, g: int, device):
+    """Kernel 1's outputs from one allocation: sum, mean, min, max and
+    ssd of `dtype`, then the int32 counts, (g,) each, in one buffer."""
+    buf = torch.empty(5 * g + -(-4 * g // dtype.itemsize), dtype=dtype,
+                      device=device)
+    return (buf[:5 * g].view(5, g).unbind(0),
+            buf[5 * g:].view(torch.int32)[:g])
+
+
 def bucket_stats_basic(v: torch.Tensor, m: torch.Tensor) -> dict:
     """count/sum/mean/min/max/ssd per row of (G, W) bucket rows; the CUDA
     kernel for a CUDA tensor, the plain version for a CPU tensor."""
@@ -264,8 +273,7 @@ def bucket_stats_basic(v: torch.Tensor, m: torch.Tensor) -> dict:
         return bucket_stats_basic_plain(v, m)
     lib, fn = _entry(name, v.dtype)
     g, w = v.shape
-    cnt = torch.empty(g, dtype=torch.int32, device=v.device)
-    outs = [torch.empty(g, dtype=v.dtype, device=v.device) for _ in range(5)]
+    outs, cnt = _basic_outputs(v.dtype, g, v.device)
     _launch(name, fn, lib, v.device, v.data_ptr(), m.data_ptr(), g, w,
             cnt.data_ptr(), *(o.data_ptr() for o in outs))
     s, mean, mn, mx, ssd = outs

@@ -7,8 +7,12 @@ ops/segment.grid_window_agg_t).
 
 Inputs are made with numpy from a seed: 70% mask density, fully empty
 rows, integer-valued rows (value ties) and rows with few distinct times
-(time ties). count/min/max and every selector output must match
-exactly; sum/mean/ssd within rtol 1e-12 (summation order).
+(time ties); adversarial rows (NaN, +-inf, +-0 ties) and rows with a
+large common offset. count/min/max and every selector output must
+match exactly; sum/mean/ssd within rtol 1e-12 (summation order). Numpy
+models of kernel 1's order of additions and of kernel 2's one-pass
+merge are held to the plain versions (and kernel 1's also to the Pallas
+kernel), kernel 1's within rtol 1e-10.
 
 The kernels themselves run only on the card: test_kernels_match_plain_on_card
 holds each against its plain version there and skips without CUDA.
@@ -65,7 +69,7 @@ def _t(*arrays):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
 
 
-def _assert_same(got, want, what):
+def _assert_same(got, want, what, rtol=RTOL):
     assert set(got) == set(want), what
     for k in want:
         a = np.asarray(got[k])
@@ -74,7 +78,7 @@ def _assert_same(got, want, what):
         if k in EXACT:
             np.testing.assert_array_equal(a, b, err_msg=f"{what}.{k}")
         else:
-            np.testing.assert_allclose(a, b, rtol=RTOL, atol=0,
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=0,
                                        err_msg=f"{what}.{k}")
 
 
@@ -84,12 +88,49 @@ def _xla(kind):
     return fn
 
 
-@pytest.mark.parametrize("g,w", [(16, 16), (16, 64), (8, 256), (8, 1024)])
-def test_bucket_basic_plain_matches_pallas_and_xla(g, w):
+def _large_offset_rows(g, w, seed):
+    """Values with a large common offset: even rows 1e9 + N(0, 1) (a
+    counter near 1e9), odd rows 1e15 + 256 k for integers k in [0, 10)
+    (an epoch-like gauge). Steps of 256 keep every partial sum of up to
+    2048 values (below 2^61) exact, so the row's mean is the same bits in
+    any order of addition. With steps of 1 the sum rounds (its ulp is 128
+    near 1e18) and the two-pass ssd itself moves with the order far
+    beyond 1e-10: the TPU kernel and the plain version then disagree by
+    as much, whatever kernel 1 does."""
+    rng = np.random.default_rng(seed)
+    v = np.empty((g, w))
+    v[0::2] = 1e9 + rng.standard_normal(v[0::2].shape)
+    v[1::2] = 1e15 + 256.0 * rng.integers(0, 10, size=v[1::2].shape)
+    return v
+
+
+def _one_pass_ssd(v, m):
+    """The one-pass sum of squares kernel 1 does not use: sum x^2 -
+    (sum x)^2 / n, the shifted form at K = 0."""
+    n = m.sum(axis=1)
+    s = np.where(m, v, 0.0).sum(axis=1)
+    return np.where(m, v * v, 0.0).sum(axis=1) - s * s / np.maximum(n, 1)
+
+
+@pytest.mark.parametrize("g,w,values", [
+    pytest.param(g, w, values, id=f"{g}-{w}" + ("" if values == "random"
+                                                 else "-offset"))
+    for values in ("random", "offset")
+    for g, w in ((16, 16), (16, 64), (8, 256), (8, 1024))])
+def test_bucket_basic_plain_matches_pallas_and_xla(g, w, values):
+    """Also on rows with a large common offset (_large_offset_rows),
+    where a one-pass sum of squares misses the tolerance on every row:
+    why kernel 1 keeps the two-pass ssd around the mean."""
     v, hi, lo, idx, m = _bucket(g, w, seed=g * 7 + w)
+    if values == "offset":
+        v = _large_offset_rows(g, w, seed=g + w)
     got = _port(cs.bucket_stats_basic(*_t(v, m)))
     _assert_same(got, _np(ps.bucket_stats_basic(v, hi, lo, idx, m)), "pallas")
     _assert_same(got, _np(_xla("basic")(v, hi, lo, idx, m)), "xla")
+    if values == "offset":
+        rows = m.sum(axis=1) >= 2
+        miss = np.abs(_one_pass_ssd(v, m) - got["ssd"]) > 1e-6 * got["ssd"]
+        assert rows.any() and miss[rows].all()
 
 
 @pytest.mark.parametrize("g,w", [(16, 16), (16, 64), (8, 256), (8, 1024)])
@@ -413,6 +454,146 @@ def test_one_pass_merge_model_equals_plain_selectors(w, split):
                  f"model lanes={lanes} vec={vec}")
 
 
+# -- kernel 1's order of additions, modelled in numpy ---------------------------
+
+
+def _basic_lanes(w, vec=None):
+    """(lanes per row, columns per lane step) as kernel 1's launch picks
+    them for width w: 4 columns a step where w is a multiple of 4 (aligned
+    inputs), else 1; the fewest lanes (a power of two <= 32) that leave a
+    lane at most 32 values."""
+    vec = vec or (4 if w % 4 == 0 else 1)
+    groups, held = w // vec, 32 // vec
+    lanes = 1
+    while lanes < 32 and lanes * held < groups:
+        lanes *= 2
+    return lanes, vec
+
+
+def _nan_min(a, b):
+    """ogt::nan_min: a when a < b or a is NaN, else b."""
+    return a if (a < b or a != a) else b
+
+
+def _nan_max(a, b):
+    return a if (a > b or a != a) else b
+
+
+def _lane_tree(parts, op):
+    """The xor-shuffle tree over len(parts) lanes: at each stride o lane
+    i takes op(its own, lane i ^ o's); lane 0's result."""
+    o = len(parts) // 2
+    while o:
+        parts = [op(parts[i], parts[i ^ o]) for i in range(len(parts))]
+        o //= 2
+    return parts[0]
+
+
+def _basic_model(v, m, lanes, vec):
+    """Kernel 1's arithmetic, one row at a time: lane q folds column
+    groups q, q + lanes, ... of vec columns in order (a group whose mask
+    bytes are all zero is skipped, a masked-out column of any other group
+    adds 0.0), the lane tree reduces count, sum, min and max, the mean is
+    taken in the data type, then each lane folds (x - mean)^2 over the
+    same columns and a second tree sums the ssd."""
+    g, w = v.shape
+    groups = w // vec
+    out = {k: [] for k in ("count", "sum", "mean", "min", "max", "ssd")}
+    for row in range(g):
+        x, on = v[row].tolist(), m[row].tolist()
+        cols = [[c for grp in range(q, groups, lanes)
+                 if any(on[grp * vec:grp * vec + vec])
+                 for c in range(grp * vec, grp * vec + vec)]
+                for q in range(lanes)]
+        parts = []
+        for lane in cols:
+            c, s, mn, mx = 0, 0.0, np.inf, -np.inf
+            for col in lane:
+                c += int(on[col])
+                s += x[col] if on[col] else 0.0
+                if on[col]:
+                    mn, mx = _nan_min(mn, x[col]), _nan_max(mx, x[col])
+            parts.append((c, s, mn, mx))
+        cnt = _lane_tree([p[0] for p in parts], lambda a, b: a + b)
+        total = _lane_tree([p[1] for p in parts], lambda a, b: a + b)
+        mean = total / max(cnt, 1)
+        d2 = []
+        for lane in cols:
+            acc = 0.0
+            for col in lane:
+                d = x[col] - mean
+                acc += d * d if on[col] else 0.0
+            d2.append(acc)
+        out["count"].append(cnt)
+        out["sum"].append(total)
+        out["mean"].append(mean)
+        out["min"].append(_lane_tree([p[2] for p in parts], _nan_min))
+        out["max"].append(_lane_tree([p[3] for p in parts], _nan_max))
+        out["ssd"].append(_lane_tree(d2, lambda a, b: a + b))
+    return {k: np.asarray(x, dtype=np.int32 if k == "count" else v.dtype)
+            for k, x in out.items()}
+
+
+@pytest.mark.parametrize("mask", ["random", "prefix", "empty"])
+@pytest.mark.parametrize("w,split", [
+    (1, "kernel"), (12, "kernel"), (13, "kernel"), (16, "kernel"),
+    (33, "kernel"), (64, "kernel"), (256, "kernel"), (1024, "kernel"),
+    (2048, "kernel"), (16, "scalar"), (64, "scalar"), (256, "scalar"),
+    (1024, "scalar")])
+def test_basic_model_matches_plain_and_pallas(w, split, mask):
+    """Kernel 1's order of additions (lanes from W, V columns a step, the
+    two shuffle trees; "scalar": V = 1, the path of unaligned views) gives
+    the plain version's and the TPU kernel's count/min/max exactly and
+    their sum/mean/ssd within rtol 1e-10, on adversarial rows (NaN, +-inf,
+    +-0 ties, empty rows) and rows with a large common offset."""
+    lanes, vec = _basic_lanes(w, 1 if split == "scalar" else None)
+    if split == "scalar":
+        assert w % 4 == 0  # the vector path's widths, taken one column a step
+    v, hi, lo, idx, m = _bucket_adversarial(
+        15, w, 800 + w, "random" if mask == "empty" else mask)
+    v[11:] = _large_offset_rows(4, w, seed=900 + w)
+    if mask == "empty":
+        m[:] = False
+    got = _basic_model(v, m, lanes, vec)
+    _assert_same(got, _port(cs.bucket_stats_basic_plain(*_t(v, m))),
+                 f"plain lanes={lanes} vec={vec}", rtol=1e-10)
+    _assert_same(got, _np(ps.bucket_stats_basic(v, hi, lo, idx, m)),
+                 f"pallas lanes={lanes} vec={vec}", rtol=1e-10)
+
+
+def test_basic_lanes_hold_every_ladder_width_in_one_batch():
+    """At every width of the bucket ladder (models/ragged.py WIDTHS), on
+    both paths, a lane's columns fit the 32 values kernel 1 holds in
+    registers: the row is read once. Narrow rows share a warp."""
+    for w in (16, 64, 256, 1024):
+        for vec in (4, 1):
+            lanes, _ = _basic_lanes(w, vec)
+            assert -(-(w // vec) // lanes) * vec <= 32, (w, vec)
+    assert [_basic_lanes(w)[0] for w in (16, 64, 256, 1024)] == [1, 2, 8, 32]
+    lanes, vec = _basic_lanes(2048)
+    assert -(-(2048 // vec) // lanes) * vec > 32  # the two-read path
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("rows", [5, 3, 0])
+def test_basic_outputs_are_disjoint_views_of_one_buffer(dtype, rows):
+    """The one allocation behind kernel 1's outputs: sum, mean, min, max,
+    ssd of the dtype and the int32 count, each (rows,), contiguous, in
+    one storage and disjoint."""
+    outs, cnt = cs._basic_outputs(dtype, rows, torch.device("cpu"))
+    views = (*outs, cnt)
+    base = views[0].untyped_storage().data_ptr()
+    spans = sorted((t.data_ptr() - base,
+                    t.data_ptr() - base + rows * t.element_size())
+                   for t in views)
+    assert all(t.untyped_storage().data_ptr() == base for t in views)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= views[0].untyped_storage().nbytes()
+    assert all(t.is_contiguous() for t in views)
+    assert [t.dtype for t in views] == [dtype] * 5 + [torch.int32]
+    assert all(t.shape == (rows,) for t in views)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("rows,w", [(5, 16), (3, 13), (0, 16)])
 def test_wrapper_outputs_are_disjoint_views_of_one_buffer(dtype, rows, w):
@@ -467,6 +648,20 @@ def _assert_card(got, want, what):
                                        err_msg=f"{what}.{k}")
 
 
+def _assert_card_f32_basic(got, want, what):
+    """Kernel 1 against plain in f32 on whole numbers: count, sum, min and
+    max exactly (every sum of whole numbers below 2^24 is exact in any
+    order), mean and ssd within 1e-5 ((x - mean)^2 rounds at each term, in
+    another order, f32 epsilon 1.2e-7)."""
+    for k in want:
+        if k in ("count", "sum", "min", "max"):
+            np.testing.assert_array_equal(got[k], want[k],
+                                          err_msg=f"{what}.{k}")
+        else:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                       err_msg=f"{what}.{k}")
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
@@ -479,9 +674,15 @@ def test_kernels_match_plain_on_card():
                          ((37, 13), "random"), ((37, 2048), "prefix")):
         rows = _bucket_adversarial(g, w, 500 + w, mask)
         buckets += [(rows, False, torch.float64), (rows, True, torch.float64)]
-    f32 = list(_bucket_adversarial(37, 64, 600, "prefix"))
-    f32[0] = np.floor(f32[0])  # whole numbers: f32 sums exact in any order
-    buckets.append((tuple(f32), False, torch.float32))
+    for w in (16, 1024, 2048):  # a large common offset: kernel 1's ssd
+        big = list(_bucket(37, w, seed=550 + w))
+        big[0] = _large_offset_rows(37, w, seed=560 + w)
+        buckets += [(tuple(big), False, torch.float64),
+                    (tuple(big), True, torch.float64)]
+    for w in (64, 1024):
+        f32 = list(_bucket_adversarial(37, w, 600 + w, "prefix"))
+        f32[0] = np.floor(f32[0])  # whole numbers: f32 sums exact in any order
+        buckets.append((tuple(f32), False, torch.float32))
     for rows, offset, dtype in buckets:
         args = _t(*rows)
         args = (args[0].to(dtype),) + args[1:]
@@ -491,11 +692,12 @@ def test_kernels_match_plain_on_card():
                      _port(cs.bucket_stats_selectors_plain(*args)),
                      f"selectors {what}")
         calls["bucket_stats_selectors"] += 1
-        if dtype == torch.float64:
-            _assert_card(_card(cs.bucket_stats_basic(dev[0], dev[4])),
-                         _port(cs.bucket_stats_basic_plain(args[0], args[4])),
-                         f"basic {what}")
-            calls["bucket_stats_basic"] += 1
+        assert_basic = _assert_card if dtype == torch.float64 else \
+            _assert_card_f32_basic
+        assert_basic(_card(cs.bucket_stats_basic(dev[0], dev[4])),
+              _port(cs.bucket_stats_basic_plain(args[0], args[4])),
+              f"basic {what}")
+        calls["bucket_stats_basic"] += 1
     grids = [(_grid(16, 6, 96, seed=22), False, torch.float64)]
     for s_dim, k, w in ((16, 361, 16), (16, 6, 768), (9, 2, 33), (13, 361, 12)):
         cells = _grid_adversarial(s_dim, k, w, 700 + k + w)
