@@ -8,8 +8,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
 1. Device and build: requires CUDA, prints the card's name and power
    limit (nvidia-smi), builds the six CUDA kernels from csrc/ (nvcc,
    sm_90a, one process per source) and, at the same time, the repo's
-   native/codecs.cpp and native/seriesindex.cpp and the port's
-   native/lpformat.cpp (g++) into build/.
+   native/codecs.cpp, native/seriesindex.cpp and native/lineproto.cpp
+   and the port's native/lpformat.cpp (g++) into build/.
 2. Kernels against their plain PyTorch versions on the card, on seeded
    data (70% mask density, fully empty rows, value and time ties):
    count/min/max/first/last/sel_* must match exactly, sum/mean/ssd within
@@ -40,19 +40,33 @@ Phases, in order; any failure ends the run with a nonzero exit:
    cpu tags, the 10 usage_* fields, one sample every 10 s for 12 h from
    2016-01-01T00:00:00Z): the port's HTTP server on localhost takes
    CREATE DATABASE, the first minute of every host as line protocol on
-   /write and the rest through convert.load_columnar, both logged to the
-   WAL; the flush threshold lies above the data's size, so the queries
-   read the memtable (the script checks that no TSF file was written).
-   Four queries run 5 times each through /query and every answer is
-   checked against a
-   numpy oracle (counts, min, max, first, last exact; mean, stddev rtol
-   1e-9). The launch counters are read around each query's five runs:
-   Q1-Q3 must launch the grid kernel (and raise the grid-batch counter),
-   Q4 both bucket kernels. Then a sixth run of each query, all four in
-   one torch.profiler session, each in an annotation: per query the
-   device's busy time (the union of its kernel, copy and memset spans),
-   its kernels' time, its copies each way, over the run's wall, and how
-   many of the run's device calls the trace holds no record of.
+   /write (parsed by the native parser, native/lineproto.cpp, in
+   segments; its points/s print) and the rest through
+   convert.load_columnar, both logged to the WAL; the flush threshold
+   lies above the data's size, so the queries read the memtable (the
+   script checks that no TSF file was written). A bad /write body must
+   answer 400 with errno 2001, module "write" and the X-Ogt-Errno
+   header. Four queries run 5 times each through /query (on one
+   kept-alive HTTP/1.1 connection, as client libraries keep it; every
+   query of the script does) and every answer is checked against a
+   numpy oracle (counts, min, max, first, last
+   exact; mean, stddev rtol 1e-9). The launch counters are read around
+   each query's five runs: Q1-Q3 must launch the grid kernel (and raise
+   the grid-batch counter), Q4 both bucket kernels. The server's
+   /debug/vars query_stages counters are read around them too: each
+   stage's ms over the five requests (parse, the executor's map_shards,
+   scan, colcache, device_compute and render, and the answer's encode),
+   the rest of the request walls (to the answer's last byte) as
+   `other`, and the stage that took the most; the stages must cover 90%
+   of every query's request walls (checked once all phases ran). Q3
+   once more with
+   chunked=true&chunk_size=100 (newline-delimited JSON documents equal
+   to the plain answer's rows), and EXPLAIN ANALYZE of Q1, printed. Then
+   a sixth run of each query, all four in one torch.profiler capture,
+   each in an annotation: per query the device's busy time (the union
+   of its kernel, copy and memset spans), its kernels' time, its copies
+   each way, over the run's wall, and how many of the run's device calls
+   the trace holds no record of.
 4. The kernels again, at the shapes the end-to-end phase gave them:
    checked and timed (CUDA events, median of 20 launches).
 5. Cold scan from disk (TSBS devops cpu + diskio, 4000 hosts, 12 h, the
@@ -61,7 +75,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
    through convert.load_columnar, under the default 64 MiB flush
    threshold (the load flushes a file each time the memtable passes it);
    flush_all, then a restart (a new Engine and HttpService on
-   the same root: meta, series index, TSF files, WAL). C1 (Q1's shape),
+   the same root: meta, series index, TSF files, WAL). The
+   decoded-column cache is off in this phase (its disabled path), so
+   every run decodes. C1 (Q1's shape),
    C2 (Q2's) and C3 (count/min/max of the diskio read_bytes counter
    GROUP BY time(1m)) run 5 times each plus one traced run; every answer
    equals the numpy oracle; each must take the fused device decode
@@ -73,13 +89,36 @@ Phases, in order; any failure ends the run with a nonzero exit:
    gorilla chunk of the plan in C1 (at most 17) and five times that in
    C2; they print beside the per-block decode's 132, 133 and 665, with
    each cold query's device kernel count and time in its traced run. The
-   phase's device-memory peak prints and must stay within 6 GiB. Then
-   the next minute of every
+   phase's device-memory peak prints and must stay within 6 GiB. The
+   stage split prints per query as in phase 3, and EXPLAIN ANALYZE of
+   C1. Then the next minute of every
    host goes through /write, the engine restarts without a flush, and
    count(usage_user) over that minute must be 4000 x 6 (WAL replay). The
    kernels run again at the shapes this phase gave them (for kernels 4
    and 5 the segment tables of C3's plan and of C1's and C2's chunks),
    checked and timed.
+6. The decoded-column cache's device tier, on phase 5's root after a
+   restart (and a flush of the replayed minute): both tiers on (2 GiB
+   host, 1 GiB device), C1 and C3 five times each. The first run fills
+   (a device-tier miss; the fused decode's grid is retained); the four
+   warm runs must each hit the device tier, answer as the oracle,
+   launch kernel 3 on the retained tensors and neither kernel 4 nor 5;
+   their stage split prints. A traced warm run of each must copy at
+   most 1 MiB to the card. Then
+   one row of a new series goes through /write into C1's first window
+   and the engine flushes: the next C1 run must miss and count the row.
+   Device memory within 6 GiB.
+7. Compaction of the same root: Shard.compact_level until it merges
+   nothing, then Shard.compact, each call's wall, the files and bytes
+   on disk before and after; C1 and C3 five times each on the merged
+   file (cache off: the fused decode on every run, no fallback) equal
+   to the oracle (C1 with phase 6's row), with their stage split, then
+   a restart and C3 again. The stage splits of phases 6 and 7 are held
+   to the same 90% as phases 3 and 5.
+
+Launch counters start at 0 before each main path (phases 3, 5, 6, 7)
+and are read after it; the {"kernels": [...]} line sums them, with
+launches_per_phase and launches_per_query.
 
 Output: progress lines, then a {"kernels": [...]} line, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without CUDA (or without
@@ -95,8 +134,10 @@ import os
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.parse
 import urllib.request
+from http.client import HTTPConnection
 
 T0_NS = 1451606400 * 10**9  # 2016-01-01T00:00:00Z
 STEP_NS = 10 * 10**9
@@ -141,6 +182,17 @@ MAX_C1_CHUNKS = 17
 # phase 5's device-memory budget: a gorilla chunk's (2^20, 64) gather
 # temporaries, a few at once, beside C2's five grids
 COLD_PEAK_LIMIT = 6 << 30
+# phase 6's cache budgets (MiB): the host tier holds C1's and C3's decoded
+# chunk columns (times, sids, values; about 0.4 GiB each), the device tier
+# their two (5680, 6, 768) grids of values and mask (236 MB each)
+CC_HOST_MB = 2048
+CC_DEVICE_MB = 1024
+# a warm device-tier run copies nothing to the card; allow for stray
+# scalars
+WARM_H2D_LIMIT = 1 << 20
+# phase 6's new row: a usage_user value of a new series in C1's first
+# window, above every generated one (0..100)
+EXTRA_VALUE = 1000.0
 # TSBS devops diskio (pkg/data/usecases/devops/diskio.go): monotonic
 # counters, each step |N(mean, 1)|
 DISKIO_FIELDS = (("reads", 50), ("writes", 50), ("read_bytes", 100),
@@ -956,13 +1008,136 @@ def http(port: int, method: str, path: str, params: dict, body: bytes = b""):
         return r.status, (json.loads(data) if data else None)
 
 
-def query(port: int, q: str) -> dict:
-    status, doc = http(port, "GET", "/query",
-                       {"db": "benchmark", "q": q, "epoch": "ns"})
+# one HTTP/1.1 connection per server port, kept alive across the
+# queries as a client library keeps it
+_CONNS: dict = {}
+
+
+def stop_server(svc, engine) -> None:
+    """Close this script's connection to `svc`, stop it, close `engine`."""
+    conn = _CONNS.pop(svc.port, None)
+    if conn is not None:
+        conn.close()
+    svc.stop()
+    engine.close()
+
+
+def query_timed(port: int, q: str) -> tuple[dict, float, float]:
+    """(result, request ms, wall ms) of one /query on the kept-alive
+    connection: the request ends with the answer's last byte, the wall
+    after its JSON decode and a synchronize (what a p50 times)."""
+    import torch
+
+    conn = _CONNS.get(port)
+    if conn is None:
+        conn = _CONNS[port] = HTTPConnection("127.0.0.1", port,
+                                             timeout=600)
+    path = "/query?" + urllib.parse.urlencode(
+        {"db": "benchmark", "q": q, "epoch": "ns"})
+    t0 = time.perf_counter()
+    conn.request("GET", path)
+    r = conn.getresponse()
+    status, data = r.status, r.read()
+    t1 = time.perf_counter()
     check(status == 200, f"/query status {status}")
-    res = doc["results"][0]
+    res = json.loads(data)["results"][0]
     check("error" not in res, f"query error: {res.get('error')}")
-    return res
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return res, (t1 - t0) * 1e3, (t2 - t0) * 1e3
+
+
+def query(port: int, q: str) -> dict:
+    return query_timed(port, q)[0]
+
+
+def http_raw(port: int, method: str, path: str, params: dict,
+             body: bytes = b""):
+    """(status, headers, body bytes) of one request, error answers
+    included."""
+    url = f"http://127.0.0.1:{port}{path}?{urllib.parse.urlencode(params)}"
+    req = urllib.request.Request(url, data=body if method == "POST" else None,
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+# a query's stages in order: the SQL parse, the executor's spans
+# (query/executor.py) and the answer's JSON and write (server/http.py)
+STAGES = ("parse", "map_shards", "scan", "colcache", "device_compute",
+          "render", "encode")
+# the stages must cover this share of a query's request wall (to the
+# answer's last byte); the rest is the HTTP transport
+STAGE_COVER = 0.9
+
+
+def stage_ns(port: int) -> dict:
+    """The server's cumulative query stage counters (/debug/vars)."""
+    status, doc = http(port, "GET", "/debug/vars", {})
+    check(status == 200, f"/debug/vars status {status}")
+    return doc.get("query_stages", {})
+
+
+def stage_split(port: int, before: dict, walls: list, qn: str) -> dict:
+    """Each stage's ms over the runs since `before` (the /debug/vars
+    deltas), the rest of their request walls (`walls`) as `other`, the
+    stage that took the most and the share of the walls the stages cover
+    (main() checks every query's share against STAGE_COVER once all
+    phases ran)."""
+    after = stage_ns(port)
+    wall = sum(walls)
+    ms = {st: (after.get(f"{st}_ns", 0) - before.get(f"{st}_ns", 0)) / 1e6
+          for st in STAGES}
+    covered = sum(ms.values())
+    ms["other"] = wall - covered
+    top = max(STAGES, key=ms.get)
+    log(f"[stages] {qn} over {len(walls)} requests ({wall:.1f} ms): "
+        + ", ".join(f"{st} {ms[st]:.1f}" for st in (*STAGES, "other"))
+        + f" ms; most: {top} ({100 * ms[top] / wall:.1f}% of the wall); "
+        f"the stages cover {100 * covered / wall:.1f}%")
+    return dict(ms, wall_ms=wall, most=top, covered=covered / wall)
+
+
+def explain_analyze(port: int, qn: str, q: str) -> list:
+    """EXPLAIN ANALYZE of one query, printed; checks the stage spans."""
+    status, doc = http(port, "GET", "/query", {
+        "db": "benchmark", "q": "EXPLAIN ANALYZE " + q})
+    check(status == 200, f"EXPLAIN ANALYZE {qn} status {status}")
+    res = doc["results"][0]
+    check("error" not in res, f"EXPLAIN ANALYZE {qn}: {res.get('error')}")
+    lines = [row[0] for row in res["series"][0]["values"]]
+    for line in lines:
+        log(f"[explain] {qn} {line}")
+    names = {line.strip().rsplit(": ", 1)[0] for line in lines}
+    for st in ("map_shards", "scan", "device_compute", "render"):
+        check(st in names, f"EXPLAIN ANALYZE {qn}: no {st} span")
+    return lines
+
+
+class Counted:
+    """Counts the calls of module.name (and those that return None)
+    while it is entered."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.original = getattr(module, name)
+        self.calls = self.nones = 0
+
+    def __enter__(self):
+        def counted(*args, **kw):
+            self.calls += 1
+            out = self.original(*args, **kw)
+            self.nones += out is None
+            return out
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.original)
 
 
 def close(a, b, rtol=MEAN_RTOL) -> bool:
@@ -1169,11 +1344,12 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
     import torch
 
     from opengemini_tpu_torch import convert
+    from opengemini_tpu_torch.ingest import line_protocol, native_lp
     from opengemini_tpu_torch.ingest.line_protocol import series_key
     from opengemini_tpu_torch.ops import cuda_segment as cs
     from opengemini_tpu_torch.server.http import HttpService
     from opengemini_tpu_torch.storage.engine import Engine
-    from opengemini_tpu_torch.utils.stats import STATS
+    from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
     n_t = hours * 360
     log(f"[e2e] TSBS cpu-only: {n_hosts} hosts x {len(FIELDS)} fields x "
@@ -1210,11 +1386,36 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
             for i in range(first):
                 fv = ",".join(f"{f}={float(vals[f][h, i])!r}" for f in FIELDS)
                 lines.append(f"{key} {fv} {T0_NS + i * STEP_NS}")
-        status, _ = http(svc.port, "POST", "/write",
-                         {"db": "benchmark", "precision": "ns"},
-                         "\n".join(lines).encode())
-        check(status == 204, f"/write status {status}")
+        body = "\n".join(lines).encode()
         del lines
+        with Counted(native_lp, "parse_columnar") as native, \
+                Counted(line_protocol, "parse_lines") as python:
+            t_write = time.perf_counter()
+            status, _ = http(svc.port, "POST", "/write",
+                             {"db": "benchmark", "precision": "ns"}, body)
+            t_write = time.perf_counter() - t_write
+        check(status == 204, f"/write status {status}")
+        check(native.calls > 0 and native.nones == 0 and python.calls == 0,
+              f"/write parsed by native {native.calls} times ({native.nones} "
+              f"handed back), by Python {python.calls} times")
+        log(f"[e2e] /write: {n_hosts * first} points ({len(body)} B) in "
+            f"{t_write * 1e3:.1f} ms, {n_hosts * first / t_write:.0f} "
+            f"points/s, native parser ({native.calls} segments)")
+        del body
+        # a bad body: 400 with the errno taxonomy, nothing stored
+        bad = (f"cpu,hostname=bad v=4 {T0_NS}\nbad line here\n"
+               f"cpu,hostname=bad v=5 {T0_NS + 1}").encode()
+        status, headers, raw = http_raw(
+            svc.port, "POST", "/write", {"db": "benchmark"}, bad)
+        doc = json.loads(raw)
+        want = {"error": "partial write: line 2: bad field", "errno": 2001,
+                "module": "write"}
+        check(status == 400 and doc == want
+              and headers.get("X-Ogt-Errno") == "2001",
+              f"bad /write: {status} {doc} X-Ogt-Errno "
+              f"{headers.get('X-Ogt-Errno')}")
+        log(f"[e2e] bad /write: {status} {json.dumps(doc)} X-Ogt-Errno "
+            f"{headers.get('X-Ogt-Errno')}")
         # the rest through the columnar bulk load
         rest = n_t - first
         times = (T0_NS + np.arange(first, n_t, dtype=np.int64) * STEP_NS)
@@ -1265,23 +1466,25 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
         p50, per_query = {}, {}
         for qn, q in queries.items():
             lat = []
-            grid0 = STATS["executor/grid_batches"]
-            fb0 = STATS["executor/grid_fallbacks"]
+            grid0 = STATS.counters("executor").get("grid_batches", 0)
+            fb0 = STATS.counters("executor").get("grid_fallbacks", 0)
             l0 = dict(cs.LAUNCHES)
             rec.now = {}
+            st0 = stage_ns(svc.port)
+            requests = []
             for _ in range(5):
-                t0 = time.perf_counter()
-                res = query(svc.port, q)
-                torch.cuda.synchronize()
-                lat.append((time.perf_counter() - t0) * 1e3)
+                res, req_ms, wall_ms = query_timed(svc.port, q)
+                lat.append(wall_ms)
+                requests.append(req_ms)
                 verify(qn, res, vals, tags, n_hosts, n_t)
+            stages = stage_split(svc.port, st0, requests, qn)
             lat.sort()
             p50[qn] = lat[len(lat) // 2]
-            grids = STATS["executor/grid_batches"] - grid0
-            fbs = STATS["executor/grid_fallbacks"] - fb0
+            grids = STATS.counters("executor").get("grid_batches", 0) - grid0
+            fbs = STATS.counters("executor").get("grid_fallbacks", 0) - fb0
             got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
             per_query[qn] = {
-                "launches": got,
+                "launches": got, "stages_ms": stages,
                 "shapes": {k: sorted(v) for k, v in rec.now.items()}}
             if qn != "Q4":
                 check(grids > 0 and fbs == 0,
@@ -1293,6 +1496,22 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
                 f"grid_batches +{grids}; launches in 5 runs "
                 f"{json.dumps(got)} at {json.dumps(per_query[qn]['shapes'])}")
         rec.now = None
+        # a chunked answer: newline-delimited JSON, one document per
+        # chunk of 100 rows, the same rows as the plain answer
+        status, headers, raw = http_raw(svc.port, "GET", "/query", {
+            "db": "benchmark", "q": queries["Q3"], "epoch": "ns",
+            "chunked": "true", "chunk_size": "100"})
+        docs = [json.loads(line) for line in raw.decode().splitlines()]
+        rows = [r for d in docs for sr in d["results"][0]["series"]
+                for r in sr["values"]]
+        plain = query(svc.port, queries["Q3"])["series"][0]["values"]
+        check(status == 200 and headers.get("Transfer-Encoding") == "chunked"
+              and len(docs) == -(-len(plain) // 100) and rows == plain,
+              f"chunked Q3: {status}, {len(docs)} documents, "
+              f"{len(rows)} rows against {len(plain)}")
+        log(f"[e2e] chunked Q3: {len(docs)} documents of at most 100 rows, "
+            f"equal to the plain answer's {len(plain)} rows")
+        explain_analyze(svc.port, "Q1", queries["Q1"])
         # a sixth run of each query under the profiler: where its time goes
         traced = traced_queries(svc.port, queries,
                                 os.path.join(trace_dir, "queries.json"))
@@ -1324,8 +1543,7 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
         return {"launches": launches, "shapes": rec.seen, "p50_ms": p50,
                 "per_query": per_query, "traced": traced, "peak_bytes": peak}
     finally:
-        svc.stop()
-        engine.close()
+        stop_server(svc, engine)
         rec.__exit__()
         # the WAL of this phase holds every row as text: gigabytes
         import shutil
@@ -1333,7 +1551,10 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def verify(qn: str, res: dict, vals, tags, n_hosts: int, n_t: int) -> None:
+def verify(qn: str, res: dict, vals, tags, n_hosts: int, n_t: int,
+           extra: float | None = None) -> None:
+    """Check one answer against the numpy oracle; `extra` is one more
+    usage_user value in Q1's first window (a row of another series)."""
     import numpy as np
 
     series = res.get("series", [])
@@ -1345,12 +1566,18 @@ def verify(qn: str, res: dict, vals, tags, n_hosts: int, n_t: int) -> None:
         times = [r[0] for r in rows]
         check(times == [T0_NS + w * 60 * 10**9 for w in range(n_t // 6)],
               "Q1: window times")
+        want_cnt = np.full(n_t // 6, n_hosts * 6)
+        want_max = v.max(axis=(0, 2))
+        want_sum = v.sum(axis=(0, 2))
+        if extra is not None:
+            want_cnt[0] += 1
+            want_max[0] = max(want_max[0], extra)
+            want_sum[0] += extra
         cnt = np.array([r[3] for r in rows])
-        check((cnt == n_hosts * 6).all(), "Q1: counts")
-        check(np.array_equal(np.array([r[2] for r in rows]),
-                             v.max(axis=(0, 2))), "Q1: max")
-        check(close([r[1] for r in rows], v.sum(axis=(0, 2)) / (n_hosts * 6)),
-              "Q1: mean")
+        check((cnt == want_cnt).all(), "Q1: counts")
+        check(np.array_equal(np.array([r[2] for r in rows]), want_max),
+              "Q1: max")
+        check(close([r[1] for r in rows], want_sum / want_cnt), "Q1: mean")
     elif qn == "Q2":
         check(len(series) == n_hosts, "Q2: one series per host")
         for s in series:
@@ -1441,11 +1668,12 @@ def column_tables(tags, vals, counters, lo: int, hi: int, n_hosts: int):
 
 
 def verify_cold(qn: str, res: dict, vals, counters, tags, n_hosts: int,
-                n_t: int) -> None:
+                n_t: int, extra: float | None = None) -> None:
     import numpy as np
 
     if qn in ("C1", "C2"):
-        verify("Q" + qn[1], res, vals, tags, n_hosts, n_t)
+        verify("Q" + qn[1], res, vals, tags, n_hosts, n_t,
+               extra if qn == "C1" else None)
         return
     (series,) = res.get("series", [None])
     rows = series["values"]
@@ -1532,12 +1760,30 @@ def decode_summary(per_query: dict, traced: dict) -> None:
 
 
 def decode_counters() -> dict:
-    from opengemini_tpu_torch.utils.stats import STATS
+    """The device decode's counters, by "module/name"."""
+    from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
+    snap = STATS.snapshot()
     keys = ["executor/grid_decode_fused", "executor/grid_decode_fallbacks",
             "device/decode_fallbacks_total", "devobs/h2d_bytes/device-decode"]
-    keys += [k for k in STATS if k.startswith("device/decode_blocks_")]
-    return {k: STATS[k] for k in keys}
+    keys += [f"device/{k}" for k in snap.get("device", {})
+             if k.startswith("decode_blocks_")]
+    return {k: snap.get(k.split("/", 1)[0], {}).get(k.split("/", 1)[1], 0)
+            for k in keys}
+
+
+def cold_queries(n_t: int) -> dict:
+    """C1-C3 over the cold phase's span of n_t samples."""
+    where = f"time >= {T0_NS} AND time < {T0_NS + n_t * STEP_NS}"
+    f5 = FIELDS[:5]
+    return {
+        "C1": "SELECT mean(usage_user), max(usage_user), "
+              f"count(usage_user) FROM cpu WHERE {where} GROUP BY time(1m)",
+        "C2": "SELECT " + ", ".join(f"mean({f})" for f in f5)
+              + f" FROM cpu WHERE {where} GROUP BY time(1h), hostname",
+        "C3": "SELECT count(read_bytes), min(read_bytes), "
+              f"max(read_bytes) FROM diskio WHERE {where} GROUP BY time(1m)",
+    }
 
 
 def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
@@ -1548,9 +1794,13 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
     from opengemini_tpu_torch import convert
     from opengemini_tpu_torch.ops import cuda_segment as cs
     from opengemini_tpu_torch.server.http import HttpService
+    from opengemini_tpu_torch.storage import colcache
     from opengemini_tpu_torch.storage.engine import Engine
     from opengemini_tpu_torch.utils import devobs
 
+    # the decoded-column cache off (its bit-identical disabled path): the
+    # launch counts below are those of a decode on every run
+    colcache.GLOBAL.configure(budget_mb=0)
     n_t = hours * 360
     log(f"[cold] TSBS devops cpu + diskio: {n_hosts} hosts x ({len(FIELDS)} "
         f"+ {len(DISKIO_FIELDS)}) fields x {hours} h at 10 s = "
@@ -1580,8 +1830,7 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
 
     def restart():
         # a new process probes the card again; so does a restart here
-        svc.stop()
-        engine.close()
+        stop_server(svc, engine)
         devobs.reset()
         start()
 
@@ -1618,16 +1867,7 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
         log(f"[cold] restarted (meta, series index, TSF, WAL) in "
             f"{time.perf_counter() - t_re:.1f} s")
 
-        where = f"time >= {T0_NS} AND time < {T0_NS + n_t * STEP_NS}"
-        f5 = FIELDS[:5]
-        queries = {
-            "C1": "SELECT mean(usage_user), max(usage_user), "
-                  f"count(usage_user) FROM cpu WHERE {where} GROUP BY time(1m)",
-            "C2": "SELECT " + ", ".join(f"mean({f})" for f in f5)
-                  + f" FROM cpu WHERE {where} GROUP BY time(1h), hostname",
-            "C3": "SELECT count(read_bytes), min(read_bytes), "
-                  f"max(read_bytes) FROM diskio WHERE {where} GROUP BY time(1m)",
-        }
+        queries = cold_queries(n_t)
         needs = {"C1": ("unpack_bits", "grid_window_agg"),
                  "C2": ("unpack_bits", "grid_window_agg"),
                  "C3": ("widen_packed", "grid_window_agg")}
@@ -1639,18 +1879,21 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
             l0 = dict(cs.LAUNCHES)
             rec.now = {}
             chunks.n = 0
+            st0 = stage_ns(svc.port)
+            requests = []
             for _ in range(5):
-                t0 = time.perf_counter()
-                res = query(svc.port, q)
-                torch.cuda.synchronize()
-                lat.append((time.perf_counter() - t0) * 1e3)
+                res, req_ms, wall_ms = query_timed(svc.port, q)
+                lat.append(wall_ms)
+                requests.append(req_ms)
                 verify_cold(qn, res, vals, counters, tags, n_hosts, n_t)
+            stages = stage_split(svc.port, st0, requests, qn)
             p50[qn] = sorted(lat)[2]
             c1 = decode_counters()
             d = {k: c1.get(k, 0) - c0.get(k, 0) for k in c1}
             got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
             per_query[qn] = {
                 "launches": got, "runs_ms": lat, "counters": d,
+                "stages_ms": stages,
                 "shapes": {k: [shape_json(k, x) for x in sorted(v)]
                            for k, v in rec.now.items()}}
             check(d["executor/grid_decode_fused"] > 0,
@@ -1703,6 +1946,7 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
                 check(tr["launches"][k] == n, f"{qn} traced run: {k} "
                       f"launched {tr['launches'][k]} times, not {n}")
         decode_summary(per_query, traced)
+        explain_analyze(svc.port, "C1", queries["C1"])
         # WAL replay: the next minute of every host, then a restart
         # without a flush
         nxt = {f: np.concatenate([vals[f], extra[f]], axis=1) for f in FIELDS}
@@ -1732,22 +1976,271 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
             f"p50 ms {json.dumps(p50)}; card {smi_line()}")
         check(peak <= COLD_PEAK_LIMIT, f"phase 5 device memory peak {peak} B")
         return {"launches": launches, "shapes": rec.seen, "p50_ms": p50,
-                "per_query": per_query, "traced": traced, "peak_bytes": peak}
+                "per_query": per_query, "traced": traced, "peak_bytes": peak,
+                "root": root, "queries": queries, "files": files, "oracle": {
+                    "vals": vals, "counters": counters, "tags": tags,
+                    "n_hosts": n_hosts, "n_t": n_t}}
     finally:
         os.environ.pop("OGT_DEVICE_PROFILE", None)
         if svc is not None:
-            svc.stop()
-        if engine is not None:
-            engine.close()
+            stop_server(svc, engine)
         rec.__exit__()
         chunks.__exit__()
+
+
+# -- phase 6: the decoded-column cache's device tier ------------------------
+
+
+def serve(root: str):
+    """A fresh Engine and HttpService on `root` (a restart)."""
+    from opengemini_tpu_torch.server.http import HttpService
+    from opengemini_tpu_torch.storage.engine import Engine
+    from opengemini_tpu_torch.utils import devobs
+
+    devobs.reset()  # a new process probes the card again
+    engine = Engine(root)
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
+    svc = HttpService(engine, port=0)
+    svc.start()
+    return engine, svc
+
+
+def phase_colcache(cold: dict) -> dict:
+    """C1 and C3 with both tiers of the decoded-column cache on, on phase
+    5's root after a restart: a fill, then warm runs that must hit the
+    device tier, launch kernel 3 on the retained tensors and neither
+    kernel 4 nor 5, and copy nothing to the card; then a write and a
+    flush, after which C1 must miss and count the new row."""
+    import torch
+
+    from opengemini_tpu_torch.ingest.line_protocol import series_key
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.storage import colcache
+
+    o = cold["oracle"]
+    cc = colcache.GLOBAL
+    cc.clear()
+    cc.configure(budget_mb=CC_HOST_MB, device=True,
+                 device_budget_mb=CC_DEVICE_MB)
+    os.environ["OGT_DEVICE_PROFILE"] = "1"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs.reset_launches()
+    engine, svc = serve(cold["root"])
+    try:
+        # the WAL check's minute, replayed into the memtable, goes to a
+        # file: a scan that merges memtable rows decodes on the host
+        engine.flush_all()
+        queries = {qn: cold["queries"][qn] for qn in ("C1", "C3")}
+        decode_k = {"C1": "unpack_bits", "C3": "widen_packed"}
+        per_query = {}
+        for qn, q in queries.items():
+            runs = []
+            for i in range(5):
+                if i == 1:  # the warm runs' stage split
+                    st0 = stage_ns(svc.port)
+                c0, l0 = cc.counters(), dict(cs.LAUNCHES)
+                res, req, ms = query_timed(svc.port, q)
+                verify_cold(qn, res, o["vals"], o["counters"], o["tags"],
+                            o["n_hosts"], o["n_t"])
+                c1 = cc.counters()
+                runs.append({
+                    "ms": ms, "request_ms": req,
+                    "launches": {k: cs.LAUNCHES[k] - l0[k] for k in l0},
+                    "cache": {k: c1[k] - c0[k] for k in (
+                        "device_hits", "device_misses", "hits", "misses")}})
+            fill, warm = runs[0], runs[1:]
+            stages = stage_split(svc.port, st0,
+                                 [r["request_ms"] for r in warm],
+                                 f"{qn} warm, device tier")
+            check(fill["cache"]["device_misses"] == 1
+                  and fill["cache"]["device_hits"] == 0
+                  and fill["launches"][decode_k[qn]] > 0,
+                  f"{qn} fill: {fill}")
+            for r in warm:
+                check(r["cache"]["device_hits"] == 1
+                      and r["cache"]["device_misses"] == 0
+                      and r["launches"]["grid_window_agg"] > 0
+                      and r["launches"]["widen_packed"] == 0
+                      and r["launches"]["unpack_bits"] == 0,
+                      f"{qn} warm run: {r}")
+            lat = sorted(r["ms"] for r in warm)
+            per_query[qn] = {"fill_ms": fill["ms"], "stages_ms": stages,
+                             "warm_ms": [r["ms"] for r in warm],
+                             "warm_p50_ms": (lat[1] + lat[2]) / 2,
+                             "runs": runs}
+            log(f"[colcache] {qn} ok: fill {fill['ms']:.1f} ms (launches "
+                f"{json.dumps(fill['launches'])}), warm "
+                f"{', '.join(f'{r:.1f}' for r in per_query[qn]['warm_ms'])}"
+                f" ms (device hits 4 of 4, host hits "
+                f"{sum(r['cache']['hits'] for r in warm)}, launches "
+                f"{json.dumps(warm[-1]['launches'])} a run)")
+        c = cc.counters()
+        log(f"[colcache] resident: host {c['bytes'] / 2**20:.1f} MiB in "
+            f"{c['entries']} entries, device {c['device_bytes'] / 2**20:.1f}"
+            f" MiB in {c['device_entries']} entries")
+        trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "build", "smoke_trace")
+        traced = traced_queries(svc.port, queries,
+                                os.path.join(trace_dir, "colcache.json"))
+        for qn, tr in traced.items():
+            verify_cold(qn, tr.pop("result"), o["vals"], o["counters"],
+                        o["tags"], o["n_hosts"], o["n_t"])
+            dev = tr.get("device") or {}
+            check(dev.get("h2d_bytes", -1) <= WARM_H2D_LIMIT
+                  and tr["launches"]["grid_window_agg"] > 0
+                  and tr["launches"][decode_k[qn]] == 0,
+                  f"{qn} traced warm run: {dev}, {tr['launches']}")
+            log(f"[colcache] {qn} traced warm run: wall {tr['wall_ms']:.1f} "
+                f"ms, host-to-device {dev['h2d_bytes']} B in "
+                f"{dev['h2d_ms']:.3f} ms, device busy {dev['busy_ms']:.3f} "
+                f"ms, kernels {dev['kernels']} ({dev['kernel_ms']:.3f} ms)")
+        # a write changes the shard's data_version, so the signature: the
+        # next run misses, and its answer holds the new row
+        tags = tuple((k, "host_extra" if k == "hostname" else v)
+                     for k, v in o["tags"][0])
+        line = f"{series_key('cpu', tags)} usage_user={EXTRA_VALUE!r} {T0_NS}"
+        status, _ = http(svc.port, "POST", "/write", {"db": "benchmark"},
+                         line.encode())
+        check(status == 204, f"/write status {status}")
+        engine.flush_all()
+        c0 = cc.counters()
+        res, _req, ms = query_timed(svc.port, queries["C1"])
+        verify_cold("C1", res, o["vals"], o["counters"], o["tags"],
+                    o["n_hosts"], o["n_t"], extra=EXTRA_VALUE)
+        d = cc.counters()["device_misses"] - c0["device_misses"]
+        check(d == 1, f"C1 after a write: device misses +{d}")
+        log(f"[colcache] a write and a flush: C1 missed the device tier and "
+            f"counted the new row ({ms:.1f} ms)")
+        launches = dict(cs.LAUNCHES)
+        check(launches["grid_window_agg"] > 0,
+              "kernel 3 never launched in phase 6")
+        peak = torch.cuda.max_memory_allocated()
+        check(peak <= COLD_PEAK_LIMIT, f"phase 6 device memory peak {peak} B")
+        log(f"[colcache] launches {json.dumps(launches)}; device memory "
+            f"peak {peak / 2**20:.1f} MiB; card {smi_line()}")
+        return {"launches": launches, "per_query": {
+                    qn: {"launches": {k: sum(r["launches"][k]
+                                             for r in pq["runs"])
+                                      for k in cs.LAUNCHES}, **pq}
+                    for qn, pq in per_query.items()},
+                "traced": traced, "peak_bytes": peak}
+    finally:
+        stop_server(svc, engine)
+        cc.configure(budget_mb=0)
+
+
+# -- phase 7: compaction -------------------------------------------------------
+
+
+def disk_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _s, names in os.walk(path) for f in names)
+
+
+def phase_compact(cold: dict) -> dict:
+    """Phase 5's root (with phase 6's flush) compacted: compact_level
+    until it has nothing to merge, then compact; C1 and C3 then decode
+    the merged files on the card and must equal the oracle, also after a
+    restart."""
+    import torch
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.storage import colcache
+
+    o = cold["oracle"]
+    colcache.GLOBAL.configure(budget_mb=0)  # decode on every run
+    os.environ["OGT_DEVICE_PROFILE"] = "1"  # merged blocks stay decodable
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs.reset_launches()
+    engine, svc = serve(cold["root"])
+    try:
+        shards = engine.all_shards()
+        check(len(shards) == 1, f"{len(shards)} shards")
+        (sh,) = shards
+        files0, bytes0 = sh.file_count(), disk_bytes(sh.path)
+        level_ms = []
+        while True:
+            t0 = time.perf_counter()
+            merged = sh.compact_level()
+            if not merged:
+                break
+            level_ms.append((time.perf_counter() - t0) * 1e3)
+        files1 = sh.file_count()
+        t0 = time.perf_counter()
+        full = sh.compact()
+        full_ms = (time.perf_counter() - t0) * 1e3
+        files2, bytes2 = sh.file_count(), disk_bytes(sh.path)
+        check(files2 == 1 and (full or files1 == 1),
+              f"compaction left {files2} files")
+        log(f"[compact] {files0} TSF files (phase 5's {cold['files']}, the "
+            f"rest from phase 6's flushes), {bytes0 / 2**20:.1f} MiB on "
+            f"disk -> compact_level x {len(level_ms)} "
+            f"({', '.join(f'{x:.0f}' for x in level_ms)} ms) -> {files1} "
+            f"files -> compact {full_ms:.0f} ms -> {files2} file, "
+            f"{bytes2 / 2**20:.1f} MiB on disk")
+        per_query = {}
+        for qn in ("C1", "C3"):
+            q = cold["queries"][qn]
+            c0, l0 = decode_counters(), dict(cs.LAUNCHES)
+            st0 = stage_ns(svc.port)
+            lat, requests = [], []
+            for _ in range(5):
+                res, req, ms = query_timed(svc.port, q)
+                verify_cold(qn, res, o["vals"], o["counters"], o["tags"],
+                            o["n_hosts"], o["n_t"], extra=EXTRA_VALUE)
+                lat.append(ms)
+                requests.append(req)
+            stages = stage_split(svc.port, st0, requests, f"{qn} compacted")
+            d = {k: v - c0.get(k, 0) for k, v in decode_counters().items()}
+            got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
+            # the merged blocks decode on the card too (which codecs
+            # the merge chose sets kernels 4 and 5's share)
+            check(d["executor/grid_decode_fused"] == 5
+                  and d["device/decode_fallbacks_total"] == 0
+                  and got["grid_window_agg"] > 0,
+                  f"{qn} after compaction: fused "
+                  f"+{d['executor/grid_decode_fused']}, fallbacks "
+                  f"+{d['device/decode_fallbacks_total']}, launches {got}")
+            blocks = {k.split("_")[2]: v for k, v in d.items()
+                      if k.startswith("device/decode_blocks_") and v}
+            per_query[qn] = {"runs_ms": lat, "p50_ms": sorted(lat)[2],
+                             "launches": got, "blocks": blocks,
+                             "stages_ms": stages}
+            log(f"[compact] {qn} ok p50={sorted(lat)[2]:.1f} ms (runs "
+                f"{', '.join(f'{x:.1f}' for x in lat)}); blocks by codec in 5 "
+                f"runs {json.dumps(blocks)}; launches {json.dumps(got)}")
+        stop_server(svc, engine)
+        svc = None
+        t0 = time.perf_counter()
+        engine, svc = serve(cold["root"])
+        res, _req, _ms = query_timed(svc.port, cold["queries"]["C3"])
+        verify_cold("C3", res, o["vals"], o["counters"], o["tags"],
+                    o["n_hosts"], o["n_t"])
+        log(f"[compact] reopened the compacted root: C3 ok "
+            f"({(time.perf_counter() - t0) * 1e3:.1f} ms with the restart)")
+        launches = dict(cs.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(peak <= COLD_PEAK_LIMIT, f"phase 7 device memory peak {peak} B")
+        log(f"[compact] launches {json.dumps(launches)}; device memory peak "
+            f"{peak / 2**20:.1f} MiB; card {smi_line()}")
+        return {"launches": launches, "per_query": per_query,
+                "files": [files0, files1, files2],
+                "disk_bytes": [bytes0, bytes2],
+                "compact_level_ms": level_ms, "compact_ms": full_ms,
+                "peak_bytes": peak}
+    finally:
+        os.environ.pop("OGT_DEVICE_PROFILE", None)
+        if svc is not None:
+            stop_server(svc, engine)
 
 
 # -- main ---------------------------------------------------------------------
 
 
 def build_all(verbose: bool = True) -> float:
-    """nvcc for the six kernels and g++ for the three host libraries, all
+    """nvcc for the six kernels and g++ for the four host libraries, all
     at once; returns the seconds it took."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1755,11 +2248,12 @@ def build_all(verbose: bool = True) -> float:
     from opengemini_tpu_torch.ops import cuda_segment as cs
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         jobs = [pool.submit(cs.build, verbose=verbose),
                 pool.submit(native.build_shared, "codecs.cpp"),
                 pool.submit(native.build_shared, "seriesindex.cpp"),
-                pool.submit(native.build_shared, "lpformat.cpp")]
+                pool.submit(native.build_shared, "lpformat.cpp"),
+                pool.submit(native.build_shared, "lineproto.cpp")]
         for job in jobs:
             job.result()
     return time.perf_counter() - t0
@@ -1809,7 +2303,7 @@ def main() -> int:
     smi = smi_line()
     log(f"[device] {dev_name}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    log(f"[build] 6 kernels and 3 host libraries built in "
+    log(f"[build] 6 kernels and 4 host libraries built in "
         f"{build_all():.1f} s into {cs.BUILD_DIR} and build/native")
 
     checked = phase_kernels(dev_name, args.seed)
@@ -1823,18 +2317,28 @@ def main() -> int:
         recs[name] = recs.get(name, []) + main_path_kernels(
             name, cold["shapes"][name] - e2e["shapes"].get(name, set()),
             args.seed + 2000 + 10 * i, dev_name)
+    cached = phase_colcache(cold)
+    compacted = phase_compact(cold)
 
     kernels = []
     for name in cs.LAUNCHES:
         top = max(recs[name], key=lambda r: r["bound_ms"])
-        paths = [p for p in (e2e, cold) if name in p["launches"]]
+        paths = [(tag, p) for tag, p in (("", e2e), ("", cold),
+                                          (" cached", cached),
+                                          (" compacted", compacted))
+                 if p["launches"].get(name)]
         kernels.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(cs.source_path(name),
                                       os.path.dirname(os.path.abspath(__file__))),
             "replaces": REPLACES[name],
-            "launches": sum(p["launches"][name] for p in paths),
-            "launches_per_query": {qn: pq["launches"][name] for p in paths
+            "launches": sum(p["launches"][name] for _t, p in paths),
+            "launches_per_phase": {
+                ph: p["launches"].get(name, 0) for ph, p in (
+                    ("3", e2e), ("5", cold), ("6", cached),
+                    ("7", compacted))},
+            "launches_per_query": {qn + tag: pq["launches"][name]
+                                   for tag, p in paths
                                    for qn, pq in p["per_query"].items()},
             "max_abs_err": max(r["max_abs_err"] for r in recs[name]),
             "ms": top["ms"], "device_ms": top["device_ms"],
@@ -1857,6 +2361,13 @@ def main() -> int:
                    if k.startswith(name)}
         if buffers:
             kernels[-1]["one_buffer_comparison"] = buffers
+    short = {qn + tag: pq["stages_ms"]["covered"]
+             for tag, p in (("", e2e), ("", cold), (" cached", cached),
+                            (" compacted", compacted))
+             for qn, pq in p["per_query"].items()
+             if pq["stages_ms"]["covered"] < STAGE_COVER}
+    check(not short, f"the stages cover less than {STAGE_COVER:.0%} of "
+          f"these queries' walls: {short}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -1,27 +1,67 @@
-"""Columnar form of a parsed write: the container the engine's columnar
-write path takes.
+"""The native line-protocol parser and the columnar form of a write.
 
-The port keeps its own copy of ``ColumnarBatch`` from
-``opengemini_tpu/ingest/native_lp.py``; the ctypes line-protocol parser
-that fills it there is not part of this slice (``convert.load_columnar``
-builds batches from numpy arrays, and ``Engine.write_lines`` parses with
-the Python parser). ``LineWriter`` goes the other way: it writes a
-batch's rows back as line-protocol text (native/lpformat.cpp), which is
-what the bulk load logs to the WAL, as the reference's columnar write
-logs the text it parsed.
+The port of ``opengemini_tpu/ingest/native_lp.py``: ``parse_columnar``
+is a ctypes binding over the repository's ``native/lineproto.cpp`` (the
+/write hot path, ``Engine.write_lines``), which parses a body into a
+``ColumnarBatch``: numpy value and validity arrays per (measurement,
+field), a deduplicated table of canonical series keys, and int64
+timestamps, so the storage layer appends whole slabs. The port builds
+the library with g++ into ``build/native/`` at first use
+(``native.load_lineproto``); unlike the reference, which falls back to
+the Python parser when the library is missing, a failed build raises.
+``parse_columnar`` returns None only where the reference's does for a
+built library: a batch the exact Python parser must take (escape
+sequences, '_' digit separators, pathological widths).
+
+``LineWriter`` goes the other way: it writes a batch's rows back as
+line-protocol text (native/lpformat.cpp, the port's own), which is what
+the bulk load (``convert.load_columnar``) logs to the WAL, as a parsed
+write logs the text it parsed.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from opengemini_tpu_torch import native
-from opengemini_tpu_torch.ingest.line_protocol import _esc_key
+from opengemini_tpu_torch.ingest.line_protocol import (
+    PRECISIONS, ParseError, _esc_key,
+)
 from opengemini_tpu_torch.record import FieldType
+
+
+class _LpBatch(ctypes.Structure):
+    """ogt_lp_parse's result (native/lineproto.cpp ``LpBatch``)."""
+
+    _fields_ = [
+        ("n_rows", ctypes.c_int64),
+        ("ts", ctypes.POINTER(ctypes.c_int64)),
+        ("series_ref", ctypes.POINTER(ctypes.c_int32)),
+        ("n_series", ctypes.c_int64),
+        ("skey_off", ctypes.POINTER(ctypes.c_int64)),
+        ("skey_arena", ctypes.POINTER(ctypes.c_char)),
+        ("series_mst", ctypes.POINTER(ctypes.c_int32)),
+        ("n_msts", ctypes.c_int32),
+        ("mst_off", ctypes.POINTER(ctypes.c_int64)),
+        ("mst_arena", ctypes.POINTER(ctypes.c_char)),
+        ("n_cols", ctypes.c_int32),
+        ("col_name_off", ctypes.POINTER(ctypes.c_int64)),
+        ("col_name_arena", ctypes.POINTER(ctypes.c_char)),
+        ("col_mst", ctypes.POINTER(ctypes.c_int32)),
+        ("col_type", ctypes.POINTER(ctypes.c_int8)),
+        ("col_vals", ctypes.POINTER(ctypes.POINTER(ctypes.c_int64))),
+        ("col_valid", ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))),
+        ("str_arena", ctypes.POINTER(ctypes.c_char)),
+        ("str_arena_len", ctypes.c_int64),
+        ("status", ctypes.c_int32),
+        ("err_line", ctypes.c_int64),
+        ("err_msg", ctypes.c_char * 240),
+    ]
 
 
 class ColumnarBatch:
@@ -48,6 +88,128 @@ class ColumnarBatch:
 
     def __len__(self) -> int:
         return len(self.ts)
+
+    def row_mst(self) -> np.ndarray:
+        """Measurement id per row."""
+        return self.series_mst[self.series_ref]
+
+    def to_points(self) -> list:
+        """Rebuild (measurement, tags, t_ns, fields) tuples, the shape
+        the point write path takes."""
+        from opengemini_tpu_torch.index.inverted import parse_series_key
+
+        tag_cache = [None] * len(self.series_keys)
+
+        def series_tuple(ref: int):
+            cached = tag_cache[ref]
+            if cached is None:
+                cached = tag_cache[ref] = parse_series_key(
+                    self.series_keys[ref])
+            return cached
+
+        per_row_fields: list[dict] = [dict() for _ in range(len(self.ts))]
+        row_mst = self.row_mst()
+        for mst_id, name, ftype, values, valid in self.cols:
+            for r in np.flatnonzero(valid & (row_mst == mst_id)):
+                v = values[r]
+                if ftype == FieldType.FLOAT:
+                    v = float(v)
+                elif ftype == FieldType.INT:
+                    v = int(v)
+                elif ftype == FieldType.BOOL:
+                    v = bool(v)
+                per_row_fields[r][name] = (ftype, v)
+        out = []
+        for i in range(len(self.ts)):
+            mst, tags = series_tuple(int(self.series_ref[i]))
+            out.append((mst, tags, int(self.ts[i]), per_row_fields[i]))
+        return out
+
+
+def _offsets_to_strings(arena_ptr, off: np.ndarray) -> list[str]:
+    if len(off) <= 1:
+        return []
+    blob = ctypes.string_at(arena_ptr, int(off[-1])) if off[-1] else b""
+    return [blob[off[i]:off[i + 1]].decode("utf-8", errors="replace")
+            for i in range(len(off) - 1)]
+
+
+def _copy_arr(ptr, n: int, dtype) -> np.ndarray:
+    if n == 0:
+        return np.empty(0, dtype=dtype)
+    itemsize = np.dtype(dtype).itemsize
+    return np.frombuffer(ctypes.string_at(ptr, n * itemsize),
+                         dtype=dtype).copy()
+
+
+def parse_columnar(data: bytes, precision: str = "ns",
+                   now_ns: int | None = None,
+                   max_bytes: int = 512 << 20) -> ColumnarBatch | None:
+    """Parse a line-protocol body natively. Returns None when the body
+    needs the exact Python parser; raises ParseError on malformed input
+    (the messages and line numbers of native/lineproto.cpp), as
+    line_protocol.parse_lines does, and RuntimeError when the library
+    does not build."""
+    lib = native.load_lineproto()
+    mult = PRECISIONS.get(precision)
+    if mult is None:
+        raise ValueError(f"invalid precision {precision!r}")
+    if now_ns is None:
+        now_ns = time.time_ns()
+    if isinstance(data, str):
+        data = data.encode("utf-8")
+    bp = lib.ogt_lp_parse(data, len(data), mult, now_ns, max_bytes)
+    if not bp:
+        return None
+    try:
+        b = bp.contents
+        if b.status == 1:  # needs the exact Python parser
+            return None
+        if b.status == 2:
+            raise ParseError(int(b.err_line),
+                             b.err_msg.decode("utf-8", errors="replace"))
+        n = int(b.n_rows)
+        ts = _copy_arr(b.ts, n, np.int64)
+        series_ref = _copy_arr(b.series_ref, n, np.int32)
+        skey_off = _copy_arr(b.skey_off, int(b.n_series) + 1, np.int64)
+        series_keys = _offsets_to_strings(b.skey_arena, skey_off)
+        series_mst = _copy_arr(b.series_mst, int(b.n_series), np.int32)
+        mst_off = _copy_arr(b.mst_off, int(b.n_msts) + 1, np.int64)
+        measurements = _offsets_to_strings(b.mst_arena, mst_off)
+        name_off = _copy_arr(b.col_name_off, int(b.n_cols) + 1, np.int64)
+        col_names = _offsets_to_strings(b.col_name_arena, name_off)
+        col_mst = _copy_arr(b.col_mst, int(b.n_cols), np.int32)
+        col_type = _copy_arr(b.col_type, int(b.n_cols), np.int8)
+        str_blob = (ctypes.string_at(b.str_arena, int(b.str_arena_len))
+                    if b.str_arena_len else b"")
+        cols = []
+        for c in range(int(b.n_cols)):
+            slots = _copy_arr(b.col_vals[c], n, np.int64)
+            valid = _copy_arr(b.col_valid[c], n, np.uint8).astype(np.bool_)
+            t = int(col_type[c])
+            if t == 1:
+                values = slots.view(np.float64)
+                ftype = FieldType.FLOAT
+            elif t == 2:
+                values = slots
+                ftype = FieldType.INT
+            elif t == 3:
+                values = slots.astype(np.bool_)
+                ftype = FieldType.BOOL
+            else:
+                ftype = FieldType.STRING
+                values = np.empty(n, dtype=object)
+                offs = (slots >> 32).astype(np.int64)
+                lens = (slots & 0xFFFFFFFF).astype(np.int64)
+                for r in np.flatnonzero(valid):
+                    o, ln = int(offs[r]), int(lens[r])
+                    values[r] = str_blob[o:o + ln].decode(
+                        "utf-8", errors="replace")
+            cols.append((int(col_mst[c]), col_names[c], ftype, values, valid))
+        return ColumnarBatch(ts, series_ref, series_keys, series_mst,
+                             measurements, cols)
+    finally:
+        lib.ogt_lp_free(bp)
 
 
 # LineWriter.lines: formatting threads, and the fewest rows worth one

@@ -13,8 +13,8 @@ BucketedBatch; the first run() checks regularity (one global stride that
 divides the window, per-series-run constant spacing, bounded density
 waste) and either assembles the grid or delegates to a BucketedBatch
 built from the same rows. Only the layout changes, never the answer.
-``utils.stats.STATS`` records which path engaged
-(executor/grid_batches vs executor/grid_fallbacks).
+The ``executor`` counters of ``utils.stats.GLOBAL`` record which path
+engaged (grid_batches against grid_fallbacks).
 
 Contract is the AggBatch/BucketedBatch contract: add(values, rel_ns,
 seg_ids, mask, times_ns, sids=...) + run(spec, num_segments, params) ->
@@ -28,6 +28,14 @@ bytes and ops/device_decode.py decodes, scatters and reduces on the card
 (executor/grid_decode_fused); the decoded grid stays there for the ssd
 and selector groups. Otherwise (executor/grid_decode_fallbacks, or a
 host route) the freeze decodes on the host and scatters as before.
+
+With the device tier of the decoded-column cache on
+(storage/colcache.py), the executor stamps a scan signature on the
+batch (``device_cache_token``). The freeze consults the tier first: a
+hit runs kernel 3 on the retained tensors, with no host scatter, no
+decode and no transfer. A miss builds the grid as above and retains it:
+the fused decode's output, or the host grid after one transfer
+(``colcache-fill``).
 """
 
 from __future__ import annotations
@@ -38,7 +46,9 @@ import torch
 from opengemini_tpu_torch.models import ragged, templates
 from opengemini_tpu_torch.ops import cuda_segment, device_decode
 from opengemini_tpu_torch.query import offload
-from opengemini_tpu_torch.utils.stats import incr as _incr
+from opengemini_tpu_torch.storage import colcache
+from opengemini_tpu_torch.utils import devobs
+from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 # aggregates the grid path serves; others never get routed here
 GRID_AGGS = {"count", "sum", "mean", "min", "max", "spread", "stddev",
@@ -98,6 +108,11 @@ class GridBatch:
         self._state = None  # grid state dict after a successful freeze
         self._fallback = None  # BucketedBatch when the grid refuses
         self._raw: dict = {}  # lazy per-(row, window) device stats
+        # scan signature for the decoded-column cache's device tier: the
+        # executor stamps it when the scan is deterministic, and the
+        # grid tensors are then retained and reused across identical
+        # scans
+        self.device_cache_token = None
 
     def add(self, values, rel_ns, seg_ids, mask, times_ns, sids=None,
             boundaries=None):
@@ -165,10 +180,10 @@ class GridBatch:
             return self._state
         state = self._try_grid(num_segments)
         if state is None:
-            _incr("executor/grid_fallbacks")
+            STATS.incr("executor", "grid_fallbacks")
             self._ensure_fallback()
         else:
-            _incr("executor/grid_batches")
+            STATS.incr("executor", "grid_batches")
             self._state = state
         return self._state
 
@@ -222,9 +237,19 @@ class GridBatch:
         rid = np.cumsum(boundary) - 1
         flat = (rid * k + r) * W_pad + w
         shape = (S_pad, k, W_pad)
-        enc_plan = self._encoded_plan(shape, flat, rel, bnd_idx, dt)
-        arrays = (None if enc_plan is not None
-                  else self._scatter_grid(shape, flat))
+        # device tier consult: an identically signed earlier scan holds
+        # the padded grid on the card — skip the host scatter, the
+        # decode and the transfer (the signature embeds every shard's
+        # data_version)
+        dev_entry = None
+        if self.device_cache_token is not None:
+            dev_entry = colcache.GLOBAL.device_get(
+                self.device_cache_token, shape=shape, dtype=str(self.dtype))
+        enc_plan = arrays = None
+        if dev_entry is None:
+            enc_plan = self._encoded_plan(shape, flat, rel, bnd_idx, dt)
+            if enc_plan is None:
+                arrays = self._scatter_grid(shape, flat)
         run_gid = (seg[bnd_idx] // W).astype(np.int64)
         order = np.argsort(run_gid, kind="stable")
         sg = run_gid[order]
@@ -234,7 +259,10 @@ class GridBatch:
         starts = np.flatnonzero(gb)
         return {
             "k": k, "S": S, "W_pad": W_pad, "shape": shape,
-            "arrays": arrays, "dev": None,
+            "arrays": arrays,
+            "dev": (None if dev_entry is None
+                    else (dev_entry["vt"], dev_entry["mt"])),
+            "device_entry": dev_entry,
             "encoded_plan": enc_plan, "flat_dev": None,
             # the sample-index grid for the selector group builds lazily
             # from `flat` — count/sum/mean scans never pay for it
@@ -337,7 +365,7 @@ class GridBatch:
             self.device, rel=rel, starts=starts, every_ns=self.every_ns,
             dt=dt)
         if plan is None:
-            _incr("executor/grid_decode_fallbacks")
+            STATS.incr("executor", "grid_decode_fallbacks")
         return plan
 
     def _scatter_grid(self, shape, flat):
@@ -355,16 +383,42 @@ class GridBatch:
             vt, mt = st["arrays"]
             st["dev"] = (templates.to_device(vt, self.device),
                          templates.to_device(mt, self.device))
+            if self.device_cache_token is not None:
+                # a cold scan with the device tier on: this one transfer
+                # lands in the retained entry, which later kernel groups
+                # of this scan and identically signed scans reuse
+                devobs.note_transfer("h2d", "colcache-fill",
+                                     vt.nbytes + mt.nbytes)
+                self._retain(*st["dev"])
         return st["dev"]
+
+    def _retain(self, vt: torch.Tensor, mt: torch.Tensor) -> None:
+        """Put fresh grid tensors into the device tier; this scan goes on
+        with the entry the tier hands back."""
+        st = self._state
+        ent = colcache.GLOBAL.device_put_grid(
+            self.device_cache_token, vt, mt, shape=st["shape"],
+            dtype=str(self.dtype))
+        st["device_entry"] = ent
+        st["dev"] = (ent["vt"], ent["mt"])
 
     def _device_imat(self) -> torch.Tensor:
         st = self._state
+        ent = st["device_entry"]
+        if ent is not None and ent["imat"] is not None:
+            return ent["imat"]
         if st["flat_dev"] is not None:
             # the fused decode left its scatter slots on the card
-            return device_decode.imat_from_flat(st["flat_dev"], st["shape"])
-        imat = np.zeros(st["shape"], dtype=np.int32)
-        imat.reshape(-1)[st["flat"]] = np.arange(st["n"], dtype=np.int32)
-        return templates.to_device(imat, self.device)
+            imat = device_decode.imat_from_flat(st["flat_dev"], st["shape"])
+        else:
+            imat_np = np.zeros(st["shape"], dtype=np.int32)
+            imat_np.reshape(-1)[st["flat"]] = np.arange(st["n"],
+                                                        dtype=np.int32)
+            imat = templates.to_device(imat_np, self.device)
+        if ent is not None:
+            imat = colcache.GLOBAL.device_add_imat(
+                self.device_cache_token, ent, imat)
+        return imat
 
     def _launch(self, kind: str) -> dict:
         st = self._state
@@ -377,7 +431,9 @@ class GridBatch:
             st["encoded_plan"] = None
             st["dev"] = (vt, mt)
             st["flat_dev"] = flat_d
-            _incr("executor/grid_decode_fused")
+            if self.device_cache_token is not None:
+                self._retain(vt, mt)
+            STATS.incr("executor", "grid_decode_fused")
             if kind == "basic":
                 return stats
         vt, mt = self._device_arrays()

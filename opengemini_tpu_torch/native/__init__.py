@@ -2,7 +2,9 @@
 
 The port of ``opengemini_tpu/native/__init__.py``. The sources are the
 repository's own ``native/*.cpp`` (shared with the JAX package, which
-builds them in place with ``make``) and the port's ``lpformat.cpp``
+builds them in place with ``make``: the codecs, the series index and the
+line-protocol parser, ``lineproto.cpp``, which
+ingest/native_lp.parse_columnar binds) and the port's ``lpformat.cpp``
 beside this file (the line-protocol text the bulk load logs to the WAL,
 ``ingest/native_lp.LineWriter``); the port builds them with ``g++`` at
 first use into ``build/native/`` at the repository root, named by a
@@ -110,6 +112,31 @@ def load_lpformat():
                            ctypes.c_void_p, ctypes.c_int64]
             _LP_LIB = lib
     return _LP_LIB
+
+
+_LINEPROTO_LIB = None
+
+
+def load_lineproto():
+    """The line-protocol parser (native/lineproto.cpp), built at first
+    use; ogt_lp_parse returns an ``ingest.native_lp._LpBatch``."""
+    global _LINEPROTO_LIB
+    if _LINEPROTO_LIB is not None:
+        return _LINEPROTO_LIB
+    with _lib_lock:
+        if _LINEPROTO_LIB is None:
+            from opengemini_tpu_torch.ingest.native_lp import _LpBatch
+
+            lib = ctypes.CDLL(build_shared("lineproto.cpp"))
+            lib.ogt_lp_parse.restype = ctypes.POINTER(_LpBatch)
+            lib.ogt_lp_parse.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64,
+            ]
+            lib.ogt_lp_free.restype = None
+            lib.ogt_lp_free.argtypes = [ctypes.POINTER(_LpBatch)]
+            _LINEPROTO_LIB = lib
+    return _LINEPROTO_LIB
 
 
 # -- native-backed codecs ----------------------------------------------------

@@ -46,7 +46,7 @@ its chunks, not its blocks. On a CPU device the wrappers take their
 plain versions, which is how the tests run this module against the JAX
 package.
 
-Counters (utils.stats.STATS, ``device/...``): decode_blocks_total,
+Counters (utils.stats.GLOBAL, module ``device``): decode_blocks_total,
 decode_payload_bytes_total, decode_rows_total, decode_fallbacks_total,
 and per codec decode_blocks_<codec>_total /
 decode_payload_bytes_<codec>_total. Transfers land on the
@@ -68,7 +68,7 @@ from opengemini_tpu_torch.ops import cuda_segment
 from opengemini_tpu_torch.query import offload
 from opengemini_tpu_torch.storage import encoding
 from opengemini_tpu_torch.utils import devobs
-from opengemini_tpu_torch.utils.stats import incr as _incr
+from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 # the most blocks a plan decodes on the card: one segmented launch
 # carries every width-1/2 block of a plan in its parameters, and the
@@ -228,7 +228,7 @@ def _pack_blocks(dbs):
 def note_fallback(n: int = 1) -> None:
     """Count an eligible-looking encoded scan that ended up on the host
     decode path anyway (ineligible blocks, cost gate)."""
-    _incr("device/decode_fallbacks_total", n)
+    STATS.incr("device", "decode_fallbacks_total", n)
 
 
 def _payload_nbytes(kind: str, n: int, width: int) -> int:
@@ -244,15 +244,15 @@ def _payload_nbytes(kind: str, n: int, width: int) -> int:
 
 
 def _note_decode_stats(sig, rows: int) -> None:
-    _incr("device/decode_blocks_total", len(sig))
+    STATS.incr("device", "decode_blocks_total", len(sig))
     total = 0
     for kind, bn, width in sig:
         nb = _payload_nbytes(kind, bn, width)
         total += nb
-        _incr(f"device/decode_blocks_{kind}_total")
-        _incr(f"device/decode_payload_bytes_{kind}_total", nb)
-    _incr("device/decode_payload_bytes_total", total)
-    _incr("device/decode_rows_total", rows)
+        STATS.incr("device", f"decode_blocks_{kind}_total")
+        STATS.incr("device", f"decode_payload_bytes_{kind}_total", nb)
+    STATS.incr("device", "decode_payload_bytes_total", total)
+    STATS.incr("device", "decode_rows_total", rows)
 
 
 class GridPlan:

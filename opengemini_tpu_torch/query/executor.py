@@ -4,10 +4,23 @@ The port of ``opengemini_tpu/query/executor.py`` for the aggregate
 SELECT path: ``execute`` -> ``_select`` -> ``_select_measurement`` ->
 ``_scan_context`` -> ``_select_agg_run`` -> ``_scan_monolithic`` ->
 ``_render_agg``, with ``pick_batch`` routing exactly as the JAX package
-does. Besides SELECT with aggregate calls it runs ``CREATE DATABASE``.
-Raw selects, host-path functions, subqueries, joins, SHOW/DDL beyond
-CREATE DATABASE, the result cache, sliced scans, cluster routing and
-auth are not part of this slice and answer a statement error.
+does. Besides SELECT with aggregate calls it runs ``CREATE DATABASE``
+and ``EXPLAIN [ANALYZE]`` of such a SELECT. Raw selects, host-path
+functions, subqueries, joins, SHOW/DDL beyond CREATE DATABASE, the
+result cache, sliced scans, cluster routing and auth are not part of
+this slice and answer a statement error.
+
+Every stage of an aggregate SELECT runs in a span (utils/tracing.py):
+``select: <mst>`` around ``map_shards`` (shard mapping and series
+groups), ``scan`` (reads into the batches), ``colcache`` (the
+decoded-column cache's counter deltas over the scan, when the cache is
+on), ``device_compute`` (batch freeze, transfers, kernels and the copy
+back; on a CUDA device it ends with a synchronize, so the device time
+lands here and not in the next stage) and ``render`` (the JSON rows).
+Their times reach ``/debug/vars`` ``query_stages`` for every query, with
+two stages outside the statement's spans: ``parse`` (the SQL text, here)
+and ``encode`` (the answer's JSON, in server/http.py). EXPLAIN ANALYZE
+renders the span tree of one query.
 
 The device comes from the engine (``Engine(root, device=...)``) and is
 passed explicitly through ``pick_batch`` to every batch.
@@ -25,6 +38,7 @@ import time as _time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from opengemini_tpu_torch.models import grid as _grid
 from opengemini_tpu_torch.models import ragged, templates
@@ -35,14 +49,17 @@ from opengemini_tpu_torch.query.qhelpers import (
     _calls_in, _classify_select, _data_time_range,
     _default_field_name, _eval_output_expr, _expand_call_wildcards,
     _has_call_wildcard, _needs_string_host_path, _resolve_call,
-    _selector_aux_plan, _strip_expr,
+    _selector_aux_plan, _series_result, _strip_expr,
 )
 from opengemini_tpu_torch.record import (
     EncodedColumn, FieldType, FieldTypeConflict, concat_encoded_columns)
 from opengemini_tpu_torch.sql import ast
 from opengemini_tpu_torch.sql.parser import parse
+from opengemini_tpu_torch.storage import colcache as colcache_mod
 from opengemini_tpu_torch.storage.engine import WriteError
-from opengemini_tpu_torch.utils.stats import incr as _incr
+from opengemini_tpu_torch.utils import tracing
+from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
+from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 
 @dataclass
@@ -61,6 +78,25 @@ class ScanContext:
     group_tags: list
     group_keys: list
     scan_plan: list
+
+
+def _device_scan_token(db, rp, mst, sc, group_time, group_tags, all_tags,
+                       tmin, tmax, aligned, W, dtype, scan_ranges, shards):
+    """Scan signature for the decoded-column cache's device tier: all
+    that determines a GridBatch's assembled (values, mask) grids — the
+    statement's non-time shape, the resolved time geometry, the scanned
+    ranges and every shard's (path, data_version). data_version moves
+    on every write, not on flush or compaction, whose merged reads are
+    bit-identical. The condition subtrees enter by their dataclass
+    repr, which is deterministic."""
+    sigs = sorted((sh.path, sh.data_version) for sh in shards)
+    return repr((
+        db, rp or "", mst, repr(sc.tag_expr), repr(sc.field_expr),
+        repr(sc.mixed_expr), bool(sc.mixed_series_level),
+        group_time.every_ns, group_time.offset_ns, list(group_tags),
+        bool(all_tags), tmin, tmax, aligned, W, str(dtype),
+        [list(r) for r in scan_ranges], sigs,
+    ))
 
 
 def pick_batch(schema, agg_names, field: str, dtype, device, grid_ctx=None):
@@ -87,6 +123,14 @@ def pick_batch(schema, agg_names, field: str, dtype, device, grid_ctx=None):
     if all(n in ragged.DENSE_AGGS for n in agg_names):
         return ragged.BucketedBatch(dtype, device)
     return templates.AggBatch(dtype, device)
+
+
+def _read_only_ok(stmt) -> bool:
+    """May `stmt` run from a GET? A SELECT, or EXPLAIN of one, without
+    INTO."""
+    if isinstance(stmt, ast.ExplainStatement):
+        stmt = stmt.select
+    return isinstance(stmt, ast.SelectStatement) and stmt.into is None
 
 
 class _ScanStager:
@@ -187,16 +231,41 @@ class Executor:
         """read_only=True (HTTP GET) rejects mutating statements."""
         if now_ns is None:
             now_ns = _time.time_ns()
+        t0 = _time.perf_counter_ns()
         try:
             stmts = parse(text)
         except ValueError as e:
             return {"results": [{"statement_id": 0,
                                  "error": f"error parsing query: {e}"}]}
-        _incr("executor/queries")
+        finally:
+            # a query stage outside the statements' spans, as is
+            # server/http.py's "encode"
+            tracing.record_stage("parse", _time.perf_counter_ns() - t0)
+        STATS.incr("executor", "queries")
+        qid = TRACKER.register(text, db)
+        trace = None
+        try:
+            if tracing.trace_enabled():
+                # per-query span tree (OGT_TRACE=1), activated
+                # thread-locally so _select adopts it
+                trace = tracing.Trace("query")
+                trace.root.add_field("database", db)
+                with tracing.activate(trace):
+                    return self._execute_statements(stmts, db, now_ns,
+                                                    read_only)
+            return self._execute_statements(stmts, db, now_ns, read_only)
+        finally:
+            if trace is not None:
+                trace.finish()
+                tracing.note_finished(qid, trace, {"database": db})
+            TRACKER.unregister(qid)
+
+    def _execute_statements(self, stmts, db: str, now_ns: int,
+                            read_only: bool) -> dict:
         results = []
         for i, stmt in enumerate(stmts):
             try:
-                if read_only and not isinstance(stmt, ast.SelectStatement):
+                if read_only and not _read_only_ok(stmt):
                     raise QueryError(
                         f"{type(stmt).__name__} queries must be sent via POST")
                 res = self.execute_statement(stmt, db, now_ns)
@@ -208,6 +277,8 @@ class Executor:
         return {"results": results}
 
     def execute_statement(self, stmt, db: str, now_ns: int) -> dict:
+        if isinstance(stmt, ast.ExplainStatement):
+            return self._explain(stmt, db, now_ns)
         if isinstance(stmt, ast.SelectStatement):
             res = self._select(stmt, db, now_ns)
             if not stmt.ascending and res.get("series"):
@@ -223,7 +294,57 @@ class Executor:
         raise QueryError(
             f"{type(stmt).__name__} is not supported by this port yet")
 
-    def _select(self, stmt: ast.SelectStatement, db: str, now_ns: int) -> dict:
+    def _explain(self, stmt: ast.ExplainStatement, db: str,
+                 now_ns: int) -> dict:
+        """EXPLAIN [ANALYZE] SELECT. ANALYZE runs the select under its own
+        Trace and answers the rendered span tree; EXPLAIN describes the
+        plan without executing it (with the same checks as _select, so
+        it never hides a missing database)."""
+        sel = stmt.select
+        if stmt.analyze:
+            trace = tracing.Trace("EXPLAIN ANALYZE")
+            with tracing.activate(trace):
+                self._select(sel, db, now_ns, trace=trace)
+            trace.finish()
+            return _series_result("", None, ["EXPLAIN ANALYZE"],
+                                  [[line] for line in trace.render()])
+        lines = []
+        path = {
+            "raw": "RAW SCAN (host merge)",
+            "device": "DEVICE SEGMENTED REDUCTION (jit plan template)",
+            "host": "HOST FUNCTION PIPELINE",
+        }[_classify_select(sel)]
+        for src in sel.sources:
+            if not isinstance(src, ast.Measurement):
+                raise QueryError("subqueries are not supported yet")
+            src_db = src.database or db
+            if not src_db:
+                raise QueryError("database name required")
+            if src_db not in self.engine.databases:
+                raise QueryError(f"database not found: {src_db}")
+            for mst in self._resolve_measurements(src, src_db):
+                ctx = self._scan_context(sel, src_db, src.rp or None, mst,
+                                         now_ns)
+                lines.append(f"QUERY PLAN for {mst}: {path}")
+                if ctx is None:
+                    lines.append("    no matching shards/series")
+                    continue
+                lines.append(f"    shards: {len(ctx.shards)}")
+                lines.append(f"    series: {len(ctx.scan_plan)}")
+                lines.append(
+                    f"    groups: {len(ctx.group_keys)}  windows: {ctx.W}")
+                lines.append(
+                    f"    time range: [{ctx.tmin}, {ctx.tmax})  "
+                    f"segments: {len(ctx.group_keys) * ctx.W}")
+        return _series_result("", None, ["QUERY PLAN"],
+                              [[line] for line in lines])
+
+    def _select(self, stmt: ast.SelectStatement, db: str, now_ns: int,
+                trace=tracing.NOOP) -> dict:
+        if trace is tracing.NOOP:
+            # the per-query tree execute() activated (OGT_TRACE=1);
+            # EXPLAIN ANALYZE passes its own
+            trace = tracing.current()
         if stmt.into is not None or stmt.ctes:
             raise QueryError("SELECT INTO and WITH are not supported by this "
                              "port yet")
@@ -249,8 +370,9 @@ class Executor:
             if src_db not in self.engine.databases:
                 raise QueryError(f"database not found: {src_db}")
             for mst in self._resolve_measurements(src, src_db):
-                all_series.extend(self._select_measurement(
-                    stmt, src_db, src.rp or None, mst, now_ns))
+                with trace.span(f"select: {mst}"):
+                    all_series.extend(self._select_measurement(
+                        stmt, src_db, src.rp or None, mst, now_ns, trace))
         if stmt.soffset:
             all_series = all_series[stmt.soffset:]
         if stmt.slimit:
@@ -276,7 +398,8 @@ class Executor:
             schema.update(sh.schema(mst))
         return schema
 
-    def _select_measurement(self, stmt, db, rp, mst, now_ns) -> list[dict]:
+    def _select_measurement(self, stmt, db, rp, mst, now_ns,
+                            trace=tracing.NOOP) -> list[dict]:
         if _has_call_wildcard(stmt):
             stmt = _expand_call_wildcards(
                 stmt, self._measurement_schema(db, rp, mst))
@@ -290,7 +413,7 @@ class Executor:
                 "only aggregate selects (count/sum/mean/min/max/first/last/"
                 "spread/stddev/median/percentile/count(distinct)) over "
                 "fields are supported by this port yet")
-        return self._select_agg_run(stmt, db, rp, mst, now_ns)
+        return self._select_agg_run(stmt, db, rp, mst, now_ns, trace)
 
     # -- shared scan planning ----------------------------------------------
 
@@ -371,13 +494,20 @@ class Executor:
 
     # -- aggregate path -----------------------------------------------------
 
-    def _select_agg_run(self, stmt, db, rp, mst, now_ns) -> list[dict]:
+    def _select_agg_run(self, stmt, db, rp, mst, now_ns,
+                        trace=tracing.NOOP) -> list[dict]:
         aggs = []  # (call, spec, params, field_name)
         for f in stmt.fields:
             for call in _calls_in(f.expr):
                 spec, params, field_name = _resolve_call(call)
                 aggs.append((call, spec, params, field_name))
-        ctx = self._scan_context(stmt, db, rp, mst, now_ns)
+        with trace.span("map_shards") as sp:
+            ctx = self._scan_context(stmt, db, rp, mst, now_ns)
+            if ctx is not None:
+                sp.add_field("shards", len(ctx.shards))
+                sp.add_field("series", len(ctx.scan_plan))
+                sp.add_field("groups x windows",
+                             f"{len(ctx.group_keys)} x {ctx.W}")
         if ctx is None:
             return []
         sc = ctx.sc
@@ -424,38 +554,85 @@ class Executor:
             raise QueryError(
                 "time range too large (over ~73 years) for aggregation")
 
-        rows_scanned = self._scan_monolithic(
-            ctx.scan_plan, [(tmin, tmax)], sc, mst, group_time, tmin, W,
-            needed_fields, read_fields, dtype, aligned, batches)
-        _incr("executor/rows_scanned", rows_scanned)
+        # the device tier of the decoded-column cache: a deterministic
+        # local GROUP BY time() scan signs its grid buffers so identical
+        # scans reuse them (monolithic scans only; sliced scans, ROADMAP
+        # A4, sign per slice)
+        scan_ranges = [(tmin, tmax)]
+        if group_time is not None and colcache_mod.GLOBAL.device_enabled():
+            token = _device_scan_token(
+                db, rp, mst, sc, group_time, ctx.group_tags,
+                stmt.group_by_all_tags, tmin, tmax, aligned, W, dtype,
+                scan_ranges, ctx.shards)
+            for f, b in batches.items():
+                if hasattr(b, "device_cache_token"):
+                    b.device_cache_token = f"{token}|{f}"
+
+        cc_before = (colcache_mod.GLOBAL.counters()
+                     if colcache_mod.GLOBAL.enabled() else None)
+        with trace.span("scan") as scan_span:
+            rows_scanned = self._scan_monolithic(
+                ctx.scan_plan, scan_ranges, sc, mst, group_time, tmin, W,
+                needed_fields, read_fields, dtype, aligned, batches)
+            scan_span.add_field("rows", rows_scanned)
+        STATS.incr("executor", "rows_scanned", rows_scanned)
+        if cc_before is not None:
+            # the cache's share of the scan: deltas of the process-wide
+            # counters (concurrent queries can bleed in)
+            cc_after = colcache_mod.GLOBAL.counters()
+            with trace.span("colcache") as sp:
+                for key in ("hits", "misses", "device_hits",
+                            "device_misses"):
+                    sp.add_field(key, cc_after[key] - cc_before[key])
+                sp.add_field("time_ms", round(
+                    (cc_after["time_ns"] - cc_before["time_ns"]) / 1e6, 3))
+                sp.add_field("bytes_resident", cc_after["bytes"])
+                sp.add_field("device_bytes", cc_after["device_bytes"])
 
         agg_results = {}  # id(call) -> (values, sel, counts, spec, fname, times)
-        for call, spec, params, field_name in aggs:
-            batch = batches[field_name]
-            if group_time and getattr(batch, "supports_want_sel", False):
-                # GROUP BY time(): selector timestamps are never consulted
-                # (window start renders instead), so skip the selector
-                # index kernels
-                out, sel, counts = batch.run(spec, num_segments, params,
-                                             want_sel=False)
-            else:
-                out, sel, counts = batch.run(spec, num_segments, params)
-            if spec.name == "percentile" and params:
-                # influx: rank floor(n*q/100+0.5)-1 < 0 yields NO row
-                qv = float(params[0])
-                ok = np.floor(counts * qv / 100.0 + 0.5) >= 1
-                if not ok.all():
-                    counts = np.where(ok, counts, 0)
-            if spec.name == "stddev" and \
-                    schema.get(field_name) == FieldType.STRING:
-                out = np.where(counts > 0, np.nan, out)
-            agg_results[id(call)] = (out, sel, counts, spec, field_name, None)
-        for call, spec, _params, field_name in tag_count_aggs:
-            out = np.zeros(num_segments, np.int64)
-            counts = np.ones(num_segments, np.int64)  # rows render as 0
-            agg_results[id(call)] = (out, None, counts, spec, field_name, None)
-        return self._render_agg(stmt, mst, ctx.group_tags, ctx.group_keys,
-                                aligned, W, agg_results, batches, schema)
+        with trace.span("device_compute") as sp:
+            for call, spec, params, field_name in aggs:
+                batch = batches[field_name]
+                if group_time and getattr(batch, "supports_want_sel", False):
+                    # GROUP BY time(): selector timestamps are never
+                    # consulted (window start renders instead), so skip
+                    # the selector index kernels
+                    out, sel, counts = batch.run(spec, num_segments, params,
+                                                 want_sel=False)
+                else:
+                    out, sel, counts = batch.run(spec, num_segments, params)
+                if spec.name == "percentile" and params:
+                    # influx: rank floor(n*q/100+0.5)-1 < 0 yields NO row
+                    qv = float(params[0])
+                    ok = np.floor(counts * qv / 100.0 + 0.5) >= 1
+                    if not ok.all():
+                        counts = np.where(ok, counts, 0)
+                if spec.name == "stddev" and \
+                        schema.get(field_name) == FieldType.STRING:
+                    out = np.where(counts > 0, np.nan, out)
+                agg_results[id(call)] = (out, sel, counts, spec, field_name,
+                                         None)
+            for call, spec, _params, field_name in tag_count_aggs:
+                out = np.zeros(num_segments, np.int64)
+                counts = np.ones(num_segments, np.int64)  # rows render as 0
+                agg_results[id(call)] = (out, None, counts, spec, field_name,
+                                         None)
+            if self.device.type == "cuda":
+                # launches return before the card finishes: end the span
+                # when the device work has, so its time does not land in
+                # render
+                torch.cuda.synchronize(self.device)
+            sp.add_field("aggregates", len(aggs))
+            sp.add_field("segments", num_segments)
+            sp.add_field("batch_rows", {f: b.n for f, b in batches.items()})
+            # which layout ran per field (a GridBatch may have fallen
+            # back, or not run at all)
+            sp.add_field("layouts",
+                         {f: b.layout_name() for f, b in batches.items()})
+        with trace.span("render"):
+            return self._render_agg(stmt, mst, ctx.group_tags,
+                                    ctx.group_keys, aligned, W, agg_results,
+                                    batches, schema)
 
     def _scan_monolithic(self, scan_plan, scan_ranges, sc, mst, group_time,
                          tmin, W, needed_fields, read_fields, dtype, aligned,

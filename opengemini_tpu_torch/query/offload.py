@@ -20,7 +20,7 @@ ported yet.
 
 from __future__ import annotations
 
-from opengemini_tpu_torch.utils.stats import incr as _incr
+from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 
 def static_route(any_decoded: bool) -> str:
@@ -34,5 +34,5 @@ def gate_prior(device_bytes: int, host_bytes: int) -> bool:
     it replaces; a veto is counted (offload/gate_vetoes_total)."""
     ok = int(device_bytes) < int(host_bytes)
     if not ok:
-        _incr("offload/gate_vetoes_total")
+        STATS.incr("offload", "gate_vetoes_total")
     return ok

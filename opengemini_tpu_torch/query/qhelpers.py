@@ -22,6 +22,20 @@ MAX_SELECT_BUCKETS = 1_000_000  # influx max-select-buckets guard
 class QueryError(Exception):
     pass
 
+
+def _series(name, tags, columns, values):
+    s = {"name": name, "columns": columns, "values": values}
+    if tags:
+        s["tags"] = tags
+    if not name:
+        del s["name"]
+    return s
+
+
+def _series_result(name, tags, columns, values) -> dict:
+    return {"series": [_series(name, tags, columns, values)]}
+
+
 def _strip_expr(e):
     while isinstance(e, ast.ParenExpr):
         e = e.expr

@@ -1,11 +1,19 @@
 """InfluxDB 1.x-compatible HTTP API, the routes of this slice.
 
-The port of ``opengemini_tpu/server/http.py`` for three routes, on the
+The port of ``opengemini_tpu/server/http.py`` for four routes, on the
 standard library's threading HTTP server:
-  GET/HEAD /ping       204
-  GET/POST /query      InfluxQL, params q/db/epoch/pretty
-  POST     /write      line protocol, params db/rp/precision
-Answers use the JAX server's JSON shapes; other routes answer 404.
+  GET/HEAD /ping        204
+  GET/POST /query       InfluxQL, params q/db/epoch/pretty/chunked/
+                        chunk_size (chunked: newline-delimited JSON, one
+                        document per series or chunk_size rows, streamed
+                        with Transfer-Encoding: chunked)
+  POST     /write       line protocol, params db/rp/precision
+  GET      /debug/vars  the statistics registry (utils/stats.py), with
+                        the query_stages timings (the executor's, and
+                        "encode": the answer's JSON and its write)
+Answers use the JAX server's JSON shapes, and error answers carry the
+stable errno taxonomy (utils/errno.py: ``errno`` and ``module`` fields,
+``X-Ogt-Errno`` header); other routes answer 404.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ import gzip
 import json
 import math
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -23,6 +32,9 @@ from opengemini_tpu_torch.query import condition as cond
 from opengemini_tpu_torch.query.executor import Executor
 from opengemini_tpu_torch.record import FieldTypeConflict
 from opengemini_tpu_torch.storage.engine import DatabaseNotFound, WriteError
+from opengemini_tpu_torch.utils import errno as _errno
+from opengemini_tpu_torch.utils import tracing
+from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 _EPOCH_DIV = {"ns": 1, "u": 1_000, "µ": 1_000, "ms": 1_000_000,
               "s": 1_000_000_000, "m": 60_000_000_000,
@@ -104,23 +116,75 @@ def _make_handler(svc: HttpService):
             return data
 
         def _send(self, code: int, payload: bytes = b"",
-                  ctype: str = "application/json"):
+                  ctype: str = "application/json",
+                  headers: dict | None = None):
             self.send_response(code)
             if payload:
                 self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(payload)))
             self.send_header("X-Influxdb-Version", "1.8.0-" + __version__)
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             if payload:
                 self.wfile.write(payload)
 
-        def _send_json(self, code: int, obj: dict, pretty: bool = False):
+        def _send_json(self, code: int, obj: dict, pretty: bool = False,
+                       headers: dict | None = None):
             indent = 4 if pretty else None
             try:
                 data = json.dumps(obj, indent=indent, allow_nan=False) + "\n"
             except ValueError:
                 data = json.dumps(_null_nonfinite(obj), indent=indent) + "\n"
-            self._send(code, data.encode("utf-8"))
+            self._send(code, data.encode("utf-8"), headers=headers)
+
+        def _send_err(self, status: int, exc: BaseException,
+                      extra: dict | None = None):
+            """Error answer with the stable errno taxonomy attached: the
+            errno and module fields and the X-Ogt-Errno header."""
+            code, mod = _errno.classify(exc)
+            body = {"error": str(exc), "errno": code,
+                    "module": mod.name.lower()}
+            if extra:
+                body.update(extra)
+            self._send_json(status, body, headers={"X-Ogt-Errno": str(code)})
+
+        def _send_chunked(self, result: dict, chunk_size: int):
+            """Influx chunked answer: newline-delimited JSON documents,
+            one per series (or per chunk_size rows of one), each
+            serialized and written on its own with chunked transfer
+            encoding."""
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.send_header("X-Influxdb-Version", "1.8.0-" + __version__)
+            self.end_headers()
+
+            def emit(doc: dict) -> None:
+                try:
+                    text = json.dumps(doc, allow_nan=False)
+                except ValueError:
+                    text = json.dumps(_null_nonfinite(doc))
+                data = (text + "\n").encode("utf-8")
+                self.wfile.write(f"{len(data):X}\r\n".encode("ascii"))
+                self.wfile.write(data)
+                self.wfile.write(b"\r\n")
+
+            for res in result.get("results", []):
+                base = {k: v for k, v in res.items() if k != "series"}
+                series_list = res.get("series", [])
+                if not series_list:
+                    emit({"results": [base]})
+                    continue
+                for series in series_list:
+                    values = series.get("values", [])
+                    for off in range(0, max(len(values), 1), chunk_size):
+                        part = dict(series)
+                        part["values"] = values[off:off + chunk_size]
+                        if off + chunk_size < len(values):
+                            part["partial"] = True
+                        emit({"results": [dict(base, series=[part])]})
+            self.wfile.write(b"0\r\n\r\n")
 
         def do_HEAD(self):
             if urllib.parse.urlparse(self.path).path == "/ping":
@@ -134,6 +198,13 @@ def _make_handler(svc: HttpService):
                 self._send(204)
             elif path == "/query":
                 self._handle_query(self._params(), read_only=True)
+            elif path == "/debug/vars":
+                snap = {"system": {
+                    "uptime_s": round(time.perf_counter() - STATS.started_pc,
+                                      1),
+                    "version": __version__}}
+                snap.update(STATS.snapshot())
+                self._send_json(200, snap)
             else:
                 self._send_json(404, {"error": "not found"})
 
@@ -162,7 +233,24 @@ def _make_handler(svc: HttpService):
                 return
             result = svc.executor.execute(q, db=params.get("db", ""),
                                           read_only=read_only)
+            t0 = time.perf_counter_ns()
+            try:
+                self._send_result(result, params)
+            finally:
+                # the answer's times, JSON and write: the query stage
+                # after the executor's
+                tracing.record_stage("encode", time.perf_counter_ns() - t0)
+
+        def _send_result(self, result: dict, params: dict):
             result = format_result(result, params.get("epoch"))
+            if params.get("chunked") in ("true", "1"):
+                try:
+                    chunk_size = max(1, int(params.get("chunk_size", 10_000)))
+                except ValueError:
+                    self._send_json(400, {"error": "bad chunk_size"})
+                    return
+                self._send_chunked(result, chunk_size)
+                return
             self._send_json(200, result, params.get("pretty") in ("true", "1"))
 
         def _handle_write(self, params: dict, body: bytes):
@@ -177,13 +265,13 @@ def _make_handler(svc: HttpService):
                 svc.engine.write_lines(db, body, precision=precision,
                                        rp=params.get("rp") or None)
             except DatabaseNotFound as e:
-                self._send_json(404, {"error": str(e)})
+                self._send_err(404, e)
                 return
             except (ParseError, FieldTypeConflict, ValueError) as e:
-                self._send_json(400, {"error": f"partial write: {e}"})
+                self._send_err(400, e, extra={"error": f"partial write: {e}"})
                 return
             except WriteError as e:
-                self._send_json(403, {"error": str(e)})
+                self._send_err(403, e)
                 return
             self._send(204)
 

@@ -7,13 +7,20 @@ out, so either package reopens a root the other wrote:
   <root>/meta.json                        databases and retention policies
   <root>/data/<db>/<rp>/<group_start>/    one shard (storage/shard.py)
 
-Writes: ``write_lines`` (the Python line-protocol parser), ``write_rows``
-(structured points) and ``load_columnar_batches`` (the bulk load behind
+Writes: ``write_lines`` (the native line-protocol parser,
+ingest/native_lp.parse_columnar over native/lineproto.cpp, large bodies
+split at line boundaries and parsed on a thread pool; the Python parser
+only for a body the native one hands back), ``write_rows`` (structured
+points) and ``load_columnar_batches`` (the bulk load behind
 ``convert.load_columnar``, logged as line-protocol text that
 ingest/native_lp.LineWriter writes). Each logs every batch to the shard
 WALs before it applies it and flushes a shard whose memtable passes
 ``flush_threshold_bytes`` (64 MiB by default). No path acknowledges rows
 that neither a WAL nor a TSF file holds.
+
+Not in this port yet: the tag-array write mode (the reference's
+``tag_arrays``, which sends such bodies to the Python parser), and the
+rollup and rule hooks of the write path (ROADMAP A7).
 
 ``Engine(root, device=None)`` holds the device every query on it runs
 on: CUDA unless the caller names another (``device="cpu"`` in the
@@ -26,14 +33,17 @@ import json
 import os
 import threading
 import time as _time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from opengemini_tpu_torch.device import resolve_device
 from opengemini_tpu_torch.ingest import line_protocol as lp
+from opengemini_tpu_torch.ingest import native_lp
 from opengemini_tpu_torch.ingest.native_lp import LineWriter
+from opengemini_tpu_torch.record import FieldTypeConflict
 from opengemini_tpu_torch.storage.shard import Shard
-from opengemini_tpu_torch.utils.stats import incr as _incr
+from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
 NS = 1_000_000_000
 DEFAULT_SHARD_DURATION = 7 * 24 * 3600 * NS  # influx 1w default for infinite RPs
@@ -45,6 +55,47 @@ LOAD_ROWS = 1 << 17
 # duration SINCE THE ZERO TIME, so 7d groups start on Mondays. The offset
 # in ns overflows int64, so alignment uses its residue mod the duration.
 _GO_ZERO_S = -62135596800  # seconds; *NS overflows int64
+
+
+# -- multi-core ingest pool ------------------------------------------------------
+_INGEST_WORKERS = int(os.environ.get("OGT_INGEST_WORKERS", "0")) or (
+    len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+    else (os.cpu_count() or 1))
+_INGEST_SEGMENT_BYTES = 1 << 20  # split target; bodies below 2 MiB stay whole
+_NEEDS_PYTHON_PARSER = object()  # _write_segmented: skip the native re-parse
+_ingest_pool_obj = None
+_ingest_pool_lock = threading.Lock()
+
+
+def _ingest_pool():
+    """The shared parse pool, or None on a one-core host (threads only
+    add overhead when the C parser has one core to release the GIL to)."""
+    global _ingest_pool_obj
+    if _INGEST_WORKERS < 2:
+        return None
+    if _ingest_pool_obj is None:
+        with _ingest_pool_lock:
+            if _ingest_pool_obj is None:
+                _ingest_pool_obj = ThreadPoolExecutor(
+                    max_workers=_INGEST_WORKERS,
+                    thread_name_prefix="ogt-ingest")
+    return _ingest_pool_obj
+
+
+def _split_lp_segments(raw: bytes, n: int) -> list[bytes]:
+    """Split a line-protocol body into at most n segments at line
+    boundaries."""
+    target = max(len(raw) // n, _INGEST_SEGMENT_BYTES)
+    segs, start = [], 0
+    while start < len(raw) and len(segs) < n - 1:
+        cut = raw.find(b"\n", start + target)
+        if cut == -1:
+            break
+        segs.append(raw[start:cut + 1])
+        start = cut + 1
+    if start < len(raw):
+        segs.append(raw[start:])
+    return segs
 
 
 def _check_namespace_name(name: str, what: str) -> None:
@@ -227,18 +278,136 @@ class Engine:
 
     def write_lines(self, db: str, lines: str | bytes, precision: str = "ns",
                     rp: str | None = None, now_ns: int | None = None) -> int:
-        """Parse + route + apply a line-protocol batch with the Python
-        parser; every target shard logs the raw batch to its WAL first
-        (replay re-filters by time range). Returns points written."""
+        """Parse + route + apply a line-protocol batch; every target shard
+        logs the raw batch to its WAL first (replay re-filters by time
+        range). The native parser takes the body (a large one in
+        segments on the ingest pool); the Python parser takes it only
+        when the native one hands it back. Returns points written."""
         rp = self._db_rp(db, rp)
         if now_ns is None:
             now_ns = _time.time_ns()
         raw = lines.encode("utf-8") if isinstance(lines, str) else lines
+        batch = None
+        n = self._write_segmented(db, rp, raw, precision, now_ns)
+        if n is _NEEDS_PYTHON_PARSER:
+            pass  # the segments already showed the body needs it
+        elif n is not None:
+            return n
+        else:
+            batch = native_lp.parse_columnar(raw, precision, now_ns)
+        if batch is not None:
+            if len(batch) == 0:
+                return 0
+            tickets: list = []
+            touched: list = []
+            with self._lock:
+                n = self._write_columnar_locked(db, rp, batch, raw, precision,
+                                                now_ns, tickets, touched)
+            self._commit_and_flush(tickets, touched)
+            _STATS.incr("write", "points", len(batch))
+            return n
         points = lp.parse_lines(lines, precision, now_ns)
         if not points:
             return 0
         return self._write_points(db, rp, points, lambda sh, pts: (
             sh.write_points(pts, raw, precision, now_ns, defer_commit=True)))
+
+    def _write_segmented(self, db: str, rp: str, raw: bytes,
+                         precision: str, now_ns: int):
+        """Multi-core ingest: split a large body at line boundaries, parse
+        the segments concurrently (the native parser releases the GIL),
+        then apply them in order under one engine lock. Returns None when
+        the body is small or the host has one core (the caller parses it
+        whole), or the _NEEDS_PYTHON_PARSER sentinel when a segment
+        showed the body needs the Python parser."""
+        pool = _ingest_pool()
+        if pool is None or len(raw) < 2 * _INGEST_SEGMENT_BYTES:
+            return None
+        segs = _split_lp_segments(raw, _INGEST_WORKERS)
+        if len(segs) < 2:
+            return None
+        errs: list = []
+
+        def parse_one(idx_seg):
+            idx, seg = idx_seg
+            try:
+                return native_lp.parse_columnar(seg, precision, now_ns)
+            except lp.ParseError as e:
+                errs.append((idx, e))
+                return None
+
+        parsed = list(pool.map(parse_one, enumerate(segs)))
+        if errs:
+            # the first bad line of the body, not whichever worker
+            # finished first
+            idx, e = min(errs, key=lambda x: x[0])
+            off = sum(s.count(b"\n") for s in segs[:idx])
+            raise lp.ParseError(off + e.lineno, e.msg)
+        if any(b is None for b in parsed):
+            return _NEEDS_PYTHON_PARSER
+        # cross-segment field types before anything applies: the whole
+        # body is rejected with nothing stored, as a single batch is
+        body_types: dict[tuple[str, str], object] = {}
+        for batch in parsed:
+            for mst_id, name, ftype, _values, valid in batch.cols:
+                if not valid.any():
+                    continue
+                key = (batch.measurements[mst_id], name)
+                have = body_types.get(key)
+                if have is None:
+                    body_types[key] = ftype
+                elif have != ftype:
+                    raise FieldTypeConflict(name, have, ftype)
+        total = 0
+        tickets: list = []
+        touched: list = []
+        with self._lock:
+            # one lock for the whole body, every segment checked against
+            # the live shard schemas before the first applies; routing
+            # runs once per segment and is reused for the apply
+            routed = []
+            for seg, batch in zip(segs, parsed):
+                if len(batch) == 0:
+                    continue
+                route = list(self._route_columnar_locked(db, rp, batch))
+                for shard, rows in route:
+                    shard._check_columnar_types(batch, rows)
+                routed.append((seg, batch, route))
+            for seg, batch, route in routed:
+                _STATS.incr("write", "points", len(batch))
+                for shard, rows in route:
+                    got, t = shard.write_columnar(
+                        batch, rows, seg, precision, now_ns,
+                        defer_commit=True)
+                    total += got
+                    tickets.append((shard, t))
+                    touched.append(shard)
+        self._commit_and_flush(tickets, touched)
+        return total
+
+    def _write_columnar_locked(self, db: str, rp: str, batch, raw: bytes,
+                               precision: str, now_ns: int, tickets: list,
+                               touched: list) -> int:
+        """Route a ColumnarBatch to its time shards and slab-write each.
+        The caller holds the engine lock and finishes the deferred WAL
+        commits (`tickets`) and the threshold flushes (`touched`)
+        off-lock."""
+        n = 0
+        for shard, rows in self._route_columnar_locked(db, rp, batch):
+            got, t = shard.write_columnar(
+                batch, rows, raw, precision, now_ns, defer_commit=True)
+            n += got
+            tickets.append((shard, t))
+            touched.append(shard)
+        return n
+
+    def _commit_and_flush(self, tickets: list, shards) -> None:
+        """Sync-WAL commits, then threshold flushes (each shard once),
+        off the engine lock."""
+        for shard, ticket in tickets:
+            shard.wal.commit(ticket)
+        for shard in {id(sh): sh for sh in shards}.values():
+            shard.flush_if_over(self.flush_threshold_bytes)
 
     def write_rows(self, db: str, points: list, rp: str | None = None) -> int:
         """Structured write path: points are (measurement, tags tuple,
@@ -263,12 +432,8 @@ class Engine:
                 got, ticket = write(shards[key], pts)
                 n += got
                 tickets.append((shards[key], ticket))
-        # sync-WAL commits and threshold flushes run off the engine lock
-        for shard, ticket in tickets:
-            shard.wal.commit(ticket)
-        for shard in shards.values():
-            shard.flush_if_over(self.flush_threshold_bytes)
-        _incr("write/points", n)
+        self._commit_and_flush(tickets, shards.values())
+        _STATS.incr("write", "points", n)
         return n
 
     def _route_columnar_locked(self, db: str, rp: str, batch):
@@ -327,8 +492,12 @@ class Engine:
                     shard.wal.commit(ticket)
                     shard.flush_if_over(self.flush_threshold_bytes)
                     n += got
-        _incr("write/points", n)
+        _STATS.incr("write", "points", n)
         return n
+
+    def all_shards(self) -> list[Shard]:
+        with self._lock:
+            return list(self._shards.values())
 
     def flush_all(self) -> None:
         with self._lock:

@@ -2,7 +2,8 @@
 
 The port of ``opengemini_tpu/storage/scanpool.py``'s ``map_ordered`` and
 ``est_chunk_bytes``, without the query tracker's kill points and the
-resource-governor hook. TSF chunk decodes (zlib, the native codecs,
+resource-governor hook (a job runs bound to its query's id, for the
+tracker's stage attribution only). TSF chunk decodes (zlib, the native codecs,
 numpy) release the GIL, so a scan fans them over a shared worker pool
 and yields the results in submission order: bit-identical to a serial
 decode. One worker per core (at most 16), a 256 MiB in-flight budget of
@@ -16,6 +17,8 @@ import os
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+
+from opengemini_tpu_torch.utils.querytracker import GLOBAL as _TRACKER
 
 
 def _auto_workers() -> int:
@@ -64,6 +67,14 @@ def map_ordered(jobs, est_bytes):
     est = list(est_bytes)
     if len(est) != len(jobs):
         raise ValueError("est_bytes length must match jobs")
+    qid = _TRACKER.current_qid()
+
+    def bound(job):
+        # stage time a job adds (the decoded-column cache's lookups and
+        # fills) goes to the query that submitted it
+        _TRACKER.bind(qid)
+        return job()
+
     pending: deque = deque()
     inflight = 0
     i = 0
@@ -75,7 +86,7 @@ def map_ordered(jobs, est_bytes):
                 or (inflight + est[i] <= INFLIGHT_BYTES
                     and len(pending) < max_pending)
             ):
-                pending.append((p.submit(jobs[i]), est[i]))
+                pending.append((p.submit(bound, jobs[i]), est[i]))
                 inflight += est[i]
                 i += 1
             fut, nb = pending.popleft()

@@ -6,16 +6,25 @@ layout (``wal.log`` and its rotated segments, ``NNNNNNNN.tsf`` files,
 the mergeset series index under ``seriesidx/``), so either package
 reopens a shard the other wrote. It keeps the point and columnar write
 paths with their WAL logging, WAL replay (with salvage of interior
-damage), the snapshot-and-swap flush into TSF files, and the two scan
-reads the executor uses (``read_series``, ``read_series_bulk``) over
-files, frozen flush snapshots and the live memtable.
+damage), the snapshot-and-swap flush into TSF files, the two scan reads
+the executor uses (``read_series``, ``read_series_bulk``) over files,
+frozen flush snapshots and the live memtable, which consult the
+decoded-column cache (storage/colcache.py) before they dispatch a
+decode, and compaction (``compact``, ``compact_level``,
+``compact_out_of_order``): a merge off the shard's locks and a
+revalidated swap of the file set, which drops the retired files' cache
+entries.
 
-Not in this port yet: compaction, delete and downsample rewrites, file
-quarantine, the decoded-column cache and the text-index sidecars.
+Not in this port yet: delete and downsample rewrites, file quarantine
+and the disk-fault hooks (ROADMAP A3.3 and A3.4), and the text-index
+sidecars (``.tidx``; a compaction removes the sidecar of every file it
+replaces, so the JAX package never reads a stale one).
 """
 
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import threading
 
@@ -27,12 +36,16 @@ from opengemini_tpu_torch.record import (
     Column, FieldTypeConflict, Record, _zeroed, merge_bulk_parts,
     merge_sorted_records,
 )
-from opengemini_tpu_torch.storage import scanpool
+from opengemini_tpu_torch.storage import colcache, scanpool
 from opengemini_tpu_torch.storage.memtable import MemTable, _series_slice
 from opengemini_tpu_torch.storage.tsf import (
     PACK_MIN_SERIES, PACK_ROWS, TSFReader, TSFWriter,
 )
 from opengemini_tpu_torch.storage.wal import WAL, WALCorruption, frame
+from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
+
+# process-wide versions: see Shard.data_version and Shard.cache_ns
+_DATA_VERSIONS = itertools.count(1)
 
 
 def _pack_entries(buffer: list) -> tuple[np.ndarray, Record]:
@@ -118,6 +131,17 @@ class Shard:
         self.tmax = tmax  # exclusive ns
         os.makedirs(path, exist_ok=True)
         self.index = open_series_index(path)
+        # logical-content version, drawn from a process-global counter
+        # so a (path, version) pair never repeats: every write bumps it
+        # (the device tier of the decoded-column cache keys on it);
+        # flush and compaction change the layout, not the merged rows,
+        # and keep it
+        self.data_version = next(_DATA_VERSIONS)
+        # decoded-column cache namespace: a process-unique shard id
+        # stamped onto every reader this shard opens, so cache keys
+        # identify (shard, file, chunk) even when a recreated shard
+        # reuses a path
+        self.cache_ns = next(_DATA_VERSIONS)
         # measurement -> field -> FieldType; owned here so it survives
         # memtable generations and is seeded from the files on open
         self.schemas: dict[str, dict] = {}
@@ -164,7 +188,25 @@ class Shard:
             full = os.path.join(self.path, name)
             if os.path.exists(full + ".quar"):
                 continue  # quarantined by the JAX package: not readable
-            self._files.append(TSFReader(full))
+            self._files.append(self._adopt(TSFReader(full)))
+
+    def _adopt(self, reader: TSFReader) -> TSFReader:
+        """Stamp the shard's cache namespace onto a freshly opened
+        reader (a decoded-column cache key component)."""
+        reader.owner_ns = self.cache_ns
+        return reader
+
+    def drop_cached_columns(self) -> int:
+        """Drop every decoded-column cache entry of this shard's current
+        files (the close hook; file-set swaps drop the retired readers'
+        entries at the swap). Returns the entries dropped."""
+        return colcache.GLOBAL.invalidate_gens([r.gen for r in self._files])
+
+    def _note_mutation(self) -> None:
+        """A logical-content change (a write): a new data_version. The
+        reference also logs the changed time range for its incremental
+        result cache, which the port does not have yet (ROADMAP A4)."""
+        self.data_version = next(_DATA_VERSIONS)
 
     def _replay_wal(self) -> None:
         wal_path = os.path.join(self.path, "wal.log")
@@ -333,6 +375,7 @@ class Shard:
             m_ts = ts if all_rows else ts[idx]
             self.mem.write_columnar(mst, m_sids, m_ts, cols)
             n += len(m_ts)
+        self._note_mutation()
         return n
 
     def _check_types(self, points: list) -> None:
@@ -353,6 +396,8 @@ class Shard:
             sid = self.index.get_or_create(mst, tags)
             self.mem.write_row(sid, mst, t, fields)
             n += 1
+        if n:
+            self._note_mutation()
         return n
 
     # -- flush --------------------------------------------------------------
@@ -433,7 +478,7 @@ class Shard:
         with self._lock:
             # publish + un-freeze atomically: a reader sees the rows in
             # the frozen snapshot or in the new file, never in neither
-            self._files.append(TSFReader(path))
+            self._files.append(self._adopt(TSFReader(path)))
             self._frozen = self._frozen[1:]
             if seg is not None:
                 self._stale_wal_segs.append(seg)
@@ -443,6 +488,258 @@ class Shard:
                 os.remove(p)
             except OSError:
                 pass
+
+    # -- compaction -----------------------------------------------------------
+
+    @staticmethod
+    def _merge_readers(readers, w: TSFWriter) -> None:
+        """The merge of compact(), compact_level() and
+        compact_out_of_order(): every series' chunks across `readers`
+        (oldest first, so last-write-wins dedup holds), written merged
+        into `w`; packed chunks again at high cardinality."""
+        per_mst: dict[str, set[int]] = {}
+        for r in readers:
+            for mst in r.measurements():
+                sids = per_mst.setdefault(mst, set())
+                for c in r.chunks(mst):
+                    if c.packed:
+                        sids.update(
+                            int(s) for s in
+                            np.unique(r.read_packed_sids(c, cache=False)))
+                    else:
+                        sids.add(c.sid)
+        batch_sids = 65536  # sids per merge batch: bounds resident rows
+        for mst in sorted(per_mst):
+            sids_sorted = sorted(per_mst[mst])
+            n_series = len(sids_sorted)
+
+            def merged_entries(mst=mst, sids_sorted=sids_sorted):
+                for b0 in range(0, n_series, batch_sids):
+                    batch = np.asarray(sids_sorted[b0:b0 + batch_sids],
+                                       np.int64)
+                    batch_set = set(batch.tolist())
+
+                    # one decode per chunk per batch (cache=False: the
+                    # soon-to-be-retired readers must not pin memory),
+                    # across the scan pool, yielded in file order
+                    def decode(r, c):
+                        if c.packed:
+                            s_arr, rec = r.read_packed_bulk(
+                                mst, c, None, sid_filter=batch, cache=False)
+                            return (s_arr, rec) if len(rec) else None
+                        rec = r.read_chunk(mst, c, cache=False)
+                        return (np.full(len(rec), c.sid, np.int64), rec)
+
+                    jobs, ests = [], []
+                    for r in readers:
+                        for c in r.chunks(mst):
+                            if c.packed:
+                                if c.smax < batch[0] or c.smin > batch[-1]:
+                                    continue
+                            elif c.sid not in batch_set:
+                                continue
+                            jobs.append(lambda r=r, c=c: decode(r, c))
+                            ests.append(scanpool.est_chunk_bytes(c, None))
+                    parts = [p for p in scanpool.map_ordered(jobs, ests)
+                             if p is not None]
+                    sid_arr, rec = merge_bulk_parts(
+                        parts, -(2**63), 2**63 - 1)
+                    uniq, starts = np.unique(sid_arr, return_index=True)
+                    ends = np.append(starts[1:], len(sid_arr))
+                    yield from _sid_entries(rec, uniq, starts, ends)
+
+            _write_measurement_chunks(w, mst, merged_entries(),
+                                      n_series=n_series)
+
+    def file_count(self) -> int:
+        with self._lock:
+            return len(self._files)
+
+    @staticmethod
+    def _find_run(cur: list, run: list) -> int | None:
+        """Position of `run` inside `cur`, matched by reader identity,
+        contiguous and in order, or None when a member vanished. The
+        compaction swap revalidates its snapshot through this."""
+        if not run:
+            return None
+        for j, r in enumerate(cur):
+            if r is run[0]:
+                if (j + len(run) <= len(cur)
+                        and all(cur[j + k] is run[k]
+                                for k in range(1, len(run)))):
+                    return j
+                return None
+        return None
+
+    def _compact_offlock(self, pick, *, full: bool) -> bool:
+        """Snapshot, merge off the locks, revalidated swap: the engine
+        behind compact(), compact_level() and compact_out_of_order().
+
+        `pick(files)` inspects an immutable snapshot and returns the
+        contiguous run (i0, n) to merge, or None. `full=True` writes the
+        run into a file under a fresh sequence number; `full=False`
+        lands it at the run's first path (in place: file order, and with
+        it last-write-wins rank, is kept).
+
+        Locking: the snapshot (and a full merge's sequence number) is
+        taken under `_flush_lock` and `_lock`, in that order; the merge,
+        encode and fsync run with no lock held, so writes, flushes and
+        queries never wait for a compaction. The output's sequence
+        number is reserved before going off-lock, as a flush reserves
+        its path, so a flush that publishes meanwhile takes a higher
+        one and its rows outrank the merged ones on reopen. The swap
+        takes both locks again and finds the run by identity: files
+        published meanwhile stay after the spliced output; a vanished
+        input aborts the merge (output removed, inputs untouched)."""
+        with self._flush_lock, self._lock:
+            files = list(self._files)
+            sel = pick(files)
+            if sel is None:
+                return False
+            i0, n = sel
+            run = files[i0:i0 + n]
+            if full:
+                out_path = os.path.join(
+                    self.path, f"{self._next_file_seq:08d}.tsf")
+                self._next_file_seq += 1
+            else:
+                out_path = run[0].path
+        # merge into a `.merge` temp off both locks: invisible to
+        # queries, swept by _load_files after a crash before the swap
+        tmp = out_path + ".merge"
+        w = TSFWriter(tmp)
+        try:
+            self._merge_readers(run, w)
+            w.finish()  # lands at tmp, fsynced
+        except BaseException:
+            # a damaged input (CorruptFile) aborts here too: the
+            # reference quarantines it and lets the next compaction
+            # proceed without it, which waits for quarantine (ROADMAP
+            # A3.3)
+            w.abort()
+            raise
+        # check the output off-lock before it may replace an input: an
+        # in-place merge overwrites run[0] at the swap, so an unreadable
+        # output must abort here with every input intact
+        try:
+            rv = TSFReader(tmp)
+            try:
+                for loc in rv.data_locs():
+                    rv.verify_block(loc)
+            finally:
+                rv.close()
+        except Exception:  # noqa: BLE001 — any unreadable output aborts
+            _remove_quiet(tmp)
+            _STATS.incr("compact", "output_verify_aborts")
+            return False
+        published = False
+        try:
+            with self._flush_lock, self._lock:
+                j = self._find_run(self._files, run)
+                if j is None:
+                    # an input vanished mid-merge: the next call retries
+                    # over the new set
+                    _STATS.incr("compact", "swap_aborts")
+                    return False
+                os.replace(tmp, out_path)
+                published = True
+                # the JAX package's sidecar of the replaced path would
+                # describe the old file
+                _remove_quiet(_tidx_path(out_path))
+                new_reader = self._adopt(TSFReader(out_path))
+                self._files = (self._files[:j] + [new_reader]
+                               + self._files[j + n:])
+                if full:
+                    _retire_files(run)
+                else:
+                    _retire_files(run[1:])  # the old run[0] keeps its fd
+                    # run[0]'s old reader was replaced in place (same
+                    # path, new generation): its cached columns can
+                    # never hit again and would pin budget
+                    colcache.GLOBAL.invalidate_gens([run[0].gen])
+            _STATS.incr("compact", "offlock_merges")
+            return True
+        finally:
+            if not published:
+                _remove_quiet(tmp)
+
+    def compact(self, max_files: int = 1) -> bool:
+        """Full merge of the immutable files into one file under a fresh
+        sequence number, when there are more than `max_files`. Returns
+        whether a merge happened (False for nothing to do and for a
+        merge the swap aborted)."""
+        def pick(files):
+            if len(files) <= max_files:
+                return None
+            return (0, len(files))
+
+        return self._compact_offlock(pick, full=True)
+
+    @staticmethod
+    def _file_level(path: str) -> int:
+        """Size-tiered level: L0 below 1 MiB, each level 8x larger."""
+        try:
+            size = os.path.getsize(path)
+        except OSError:
+            return 0
+        if size < (1 << 20):
+            return 0
+        return 1 + int(math.log(size / (1 << 20), 8))
+
+    def compact_level(self, fanout: int = 4) -> bool:
+        """Merge one run of `fanout` consecutive same-level files into
+        one, in place at the run's first file (file order, and with it
+        last-write-wins across the other files, is kept): O(run) a call,
+        bounded write amplification."""
+        fanout = max(2, fanout)  # fanout 1 would rewrite a file in place
+
+        def pick(files):
+            if len(files) < fanout:
+                return None
+            levels = [self._file_level(r.path) for r in files]
+            run_start = run_len = 0
+            for i in range(len(levels)):
+                if i > 0 and levels[i] == levels[i - 1]:
+                    run_len += 1
+                else:
+                    run_start, run_len = i, 1
+                if run_len >= fanout:
+                    return (run_start, fanout)
+            return None
+
+        return self._compact_offlock(pick, full=False)
+
+    def has_time_overlap(self) -> bool:
+        """True when the time ranges of two immutable files overlap."""
+        with self._lock:
+            ranges = sorted((r.tmin, r.tmax) for r in self._files
+                            if r.tmin is not None)
+        return any(b_lo <= a_hi for (_a_lo, a_hi), (b_lo, _b_hi)
+                   in zip(ranges, ranges[1:]))
+
+    def compact_out_of_order(self, max_files: int = 4) -> bool:
+        """Merge time-overlapping files whatever their level: the run
+        from the first overlapping file toward its partner, at most
+        `max_files` a call, in place; repeated calls converge to
+        disjoint ranges."""
+        def pick(files):
+            if len(files) < 2:
+                return None
+            ranges = [(r.tmin, r.tmax) for r in files]
+            for i in range(len(ranges)):
+                if ranges[i][0] is None:
+                    continue
+                for j in range(i + 1, len(ranges)):
+                    if ranges[j][0] is None:
+                        continue
+                    if (ranges[j][0] <= ranges[i][1]
+                            and ranges[i][0] <= ranges[j][1]):
+                        # contiguous: an intervening file's rows must
+                        # not change rank against the merged output
+                        return (i, min(j - i + 1, max(2, max_files)))
+            return None
+
+        return self._compact_offlock(pick, full=False)
 
     # -- read side ----------------------------------------------------------
 
@@ -499,9 +796,23 @@ class Shard:
                                          encoded_ok=True)
             return r.read_chunk(measurement, c, fields, encoded_ok=True)
 
-        recs = list(scanpool.map_ordered(
-            [lambda r=r, c=c: decode(r, c) for r, c in chunks],
-            [scanpool.est_chunk_bytes(c, n_fields) for _r, c in chunks]))
+        # decoded-column cache consult before pool dispatch: fully
+        # cached chunks assemble inline and never enter the pool; misses
+        # fill through it, under its in-flight budget
+        recs: list = [None] * len(chunks)
+        jobs, ests, miss_at = [], [], []
+        for i, (r, c) in enumerate(chunks):
+            got = (r.read_packed_sid_if_cached(measurement, c, sid, fields)
+                   if c.packed
+                   else r.read_chunk_if_cached(measurement, c, fields))
+            if got is not None:
+                recs[i] = got
+            else:
+                jobs.append(lambda r=r, c=c: decode(r, c))
+                ests.append(scanpool.est_chunk_bytes(c, n_fields))
+                miss_at.append(i)
+        for i, out in zip(miss_at, scanpool.map_ordered(jobs, ests)):
+            recs[i] = out
         # frozen flush snapshots (oldest first) then the live memtable
         for m in mems:
             mem_rec = m.record_for(sid)
@@ -543,20 +854,36 @@ class Shard:
 
         # parts MUST stay in file order (oldest first): merge_bulk_parts
         # ranks later parts as newer for last-write-wins; map_ordered
-        # yields in submission order
-        jobs, ests = [], []
+        # yields in submission order. Fully cached chunks (the
+        # decoded-column cache) assemble inline and skip the pool;
+        # `slots` keeps file order
+        jobs, ests, slots, miss_at = [], [], [], []
         for r in files:
             for c in r.chunks(measurement, None, tmin, tmax):
                 if c.packed:
                     if not len(sids) or c.smax < sids[0] or c.smin > sids[-1]:
                         continue
+                    got = r.read_packed_bulk_if_cached(
+                        measurement, c, fields, sid_filter=sids)
+                    if got is not None:
+                        slots.append(got if len(got[1]) else None)
+                        continue
                     jobs.append(lambda r=r, c=c: decode_packed(r, c))
                 elif c.sid in sid_set:
+                    got = r.read_chunk_if_cached(measurement, c, fields)
+                    if got is not None:
+                        slots.append(
+                            (np.full(len(got), c.sid, np.int64), got))
+                        continue
                     jobs.append(lambda r=r, c=c: decode_single(r, c))
                 else:
                     continue
+                miss_at.append(len(slots))
+                slots.append(None)
                 ests.append(scanpool.est_chunk_bytes(c, n_fields))
-        parts = [p for p in scanpool.map_ordered(jobs, ests) if p is not None]
+        for i, part in zip(miss_at, scanpool.map_ordered(jobs, ests)):
+            slots[i] = part
+        parts = [p for p in slots if p is not None]
         for m in mems:  # frozen snapshots oldest first, live memtable last
             for sid_arr, mem_rec in m.bulk_parts(measurement, sids):
                 parts.append((sid_arr, _keep_fields(mem_rec, fields)))
@@ -570,5 +897,33 @@ class Shard:
             self.wal.close()
             self.index.flush()
             self.index.close()
+            # release every decoded-column cache entry this shard
+            # pinned (readers in flight keep their arrays)
+            self.drop_cached_columns()
             for r in self._files:
                 r.close()
+
+
+def _remove_quiet(path: str) -> None:
+    try:
+        os.remove(path)
+    except OSError:
+        pass
+
+
+def _tidx_path(tsf_path: str) -> str:
+    """The JAX package's text-index sidecar of a TSF file."""
+    return (tsf_path[:-4] + ".tidx" if tsf_path.endswith(".tsf")
+            else tsf_path + ".tidx")
+
+
+def _retire_files(readers: list) -> None:
+    """Unlink replaced immutable files (and their sidecars) without
+    closing their readers: queries in flight hold (reader, chunk) pairs
+    outside the shard lock, and POSIX keeps unlinked files readable
+    through open fds, which close when the last reader object goes. The
+    retired generations' cache entries drop here too."""
+    colcache.GLOBAL.invalidate_gens([r.gen for r in readers])
+    for r in readers:
+        _remove_quiet(r.path)
+        _remove_quiet(_tidx_path(r.path))

@@ -19,23 +19,32 @@ Chunks are either one series' rows for one flush (time + field columns,
 validity masks, numeric pre-aggregation) or PK-sorted packed
 multi-series blocks (colstore layout, see add_packed_chunk).
 
-Not in this port yet: the decoded-column caches (per-file LRU and the
-process-wide colcache with its device tier) and the disk-fault
-injection hooks; every read decodes from the file.
+Decoded columns are cached: in the process-wide decoded-column cache
+(storage/colcache.py) when it is enabled, keyed by (shard, file
+generation, chunk, series, field), else in a per-file LRU of 16 MiB.
+Bulk one-pass scans (compaction) read with ``cache=False``.
+
+Not in this port yet: the disk-fault injection hooks.
 """
 
 from __future__ import annotations
 
 import bisect
+import itertools
 import json
 import os
 import struct
+import threading
+import time
 import zlib
+from collections import OrderedDict
 
 import numpy as np
 
 from opengemini_tpu_torch.record import Column, EncodedColumn, FieldType, Record
-from opengemini_tpu_torch.storage import chunkmeta, encodepool, encoding
+from opengemini_tpu_torch.storage import (
+    chunkmeta, colcache, encodepool, encoding,
+)
 
 MAGIC = b"OGTSF01\n"   # revision 1: CRC-less blocks (read-only legacy)
 MAGIC2 = b"OGTSF02\n"  # revision 2: per-block crc32 seals (written)
@@ -261,9 +270,23 @@ class TSFWriter:
             os.remove(self._tmp)
 
 
+# process-global file generations: a reader opened over a path that a
+# compaction later rewrites in place gets a fresh number, so a
+# (generation, chunk) cache key never aliases stale decoded data
+_READER_GEN = itertools.count(1)
+
+
 class TSFReader:
     def __init__(self, path: str):
         self.path = path
+        # decoded-column cache identity (storage/colcache.py): gen is the
+        # invalidation handle; owner_ns is stamped by the owning Shard
+        self.gen = next(_READER_GEN)
+        self.owner_ns: int | None = None
+        # the per-file LRU that serves while colcache is disabled
+        self._col_cache: OrderedDict = OrderedDict()
+        self._cache_bytes = 0
+        self._cache_lock = threading.Lock()
         self._f = open(path, "rb")
         self._f.seek(0, os.SEEK_END)
         size = self._f.tell()
@@ -407,42 +430,144 @@ class TSFReader:
     def read_times(self, chunk: ChunkMeta) -> np.ndarray:
         return encoding.decode_ints(self._read(chunk.time_loc))
 
+    # decoded-column caching: hot chunks decode once, not per query.
+    # Safe because TSF files are immutable and no read path mutates
+    # decoded arrays in place. With the process-wide cache enabled
+    # (OGT_COLCACHE_MB > 0) columns live there with explicit
+    # invalidation at every file-set swap; with it disabled, the
+    # per-open-file LRU below serves, bit-identically.
+    _CACHE_BYTES = 16 << 20  # decoded-bytes budget per open file
+
+    @staticmethod
+    def _val_nbytes(val) -> int:
+        if getattr(val, "is_decoded", True) is False:
+            # still-encoded numeric column: one shared accounting rule
+            # (record.EncodedColumn), never firing the lazy decode
+            return val.accounted_nbytes()
+        if isinstance(val, Column):
+            return int(val.values.nbytes if hasattr(val.values, "nbytes")
+                       else len(val.values) * 64) + int(val.valid.nbytes)
+        return int(getattr(val, "nbytes", 64))
+
+    def _colcache_key(self, chunk: ChunkMeta, name):
+        # (shard id, file generation, chunk id, series, field): the sid
+        # is the chunk's own for per-series chunks, None for packed
+        # chunks (whose columns cache whole; a sid's rows are a binary
+        # search over the cached arrays)
+        return (self.owner_ns, self.gen, id(chunk), chunk.sid, name)
+
+    def _cached_col(self, chunk: ChunkMeta, name, decode):
+        """Decode-once lookup of one column of one chunk: `name` is the
+        field name, None for the time column, "\\x00sids" for a packed
+        chunk's sid column."""
+        cc = colcache.GLOBAL
+        if cc.enabled():
+            key = self._colcache_key(chunk, name)
+            got = cc.get(key)
+            if got is not None:
+                return got
+            val = decode()
+            cc.put(key, val)
+            return val
+        key = (id(chunk), name)
+        with self._cache_lock:
+            got = self._col_cache.get(key)
+            if got is not None:
+                self._col_cache.move_to_end(key)
+                return got
+        val = decode()
+        nb = self._val_nbytes(val)
+        if nb > self._CACHE_BYTES:
+            return val  # a single oversized column never enters the cache
+        with self._cache_lock:
+            if key not in self._col_cache:
+                self._col_cache[key] = val
+                self._cache_bytes += nb
+            self._col_cache.move_to_end(key)
+            while self._cache_bytes > self._CACHE_BYTES and self._col_cache:
+                _k, old = self._col_cache.popitem(last=False)
+                self._cache_bytes -= self._val_nbytes(old)
+        return val
+
     def read_chunk(self, measurement: str, chunk: ChunkMeta,
-                   fields: list[str] | None = None,
+                   fields: list[str] | None = None, cache: bool = True,
                    encoded_ok: bool = False) -> Record:
-        """``encoded_ok=True`` (the device-decode bulk scan) returns
-        numeric value columns whose blocks are device-decodable as
-        still-encoded record.EncodedColumn: the CRC seal is verified here
-        as always, the payload decode is deferred to the card (or to the
-        column's lazy host decode). Times and masks always decode on the
-        host (they drive window and run planning)."""
+        """``encoded_ok=True`` (the device-decode scans) returns numeric
+        value columns whose blocks are device-decodable as still-encoded
+        record.EncodedColumn: the CRC seal is verified here as always,
+        the payload decode is deferred to the card (or to the column's
+        lazy host decode). Times and masks always decode on the host
+        (they drive window and run planning)."""
         schema = self.schema(measurement)
-        times = self.read_times(chunk)
+
+        def times_decode():
+            return self.read_times(chunk)
+
+        times = (self._cached_col(chunk, None, times_decode)
+                 if cache else times_decode())
         cols = {}
         names = fields if fields is not None else list(chunk.cols)
         for name in names:
             loc = chunk.cols.get(name)
             if loc is None:
                 continue
-            vbuf = self._read(loc["v"])
-            mbuf = self._read(loc["m"]) if loc["m"] else b""
-            ftype = schema[name]
-            col = None
-            if encoded_ok and ftype in (FieldType.FLOAT, FieldType.INT):
-                db = encoding.device_block(vbuf)
-                if db is not None:
-                    col = EncodedColumn(
-                        ftype, [vbuf], encoding.decode_mask(mbuf, db.n),
-                        encoding.decode_value_blocks)
-            cols[name] = (col if col is not None
-                          else encoding.decode_column(ftype, vbuf, mbuf))
+
+            def decode(loc=loc, name=name):
+                vbuf = self._read(loc["v"])
+                mbuf = self._read(loc["m"]) if loc["m"] else b""
+                ftype = schema[name]
+                if encoded_ok and ftype in (FieldType.FLOAT,
+                                            FieldType.INT):
+                    db = encoding.device_block(vbuf)
+                    if db is not None:
+                        return EncodedColumn(
+                            ftype, [vbuf], encoding.decode_mask(mbuf, db.n),
+                            encoding.decode_value_blocks)
+                return encoding.decode_column(ftype, vbuf, mbuf)
+
+            cols[name] = (self._cached_col(chunk, name, decode)
+                          if cache else decode())
         return Record(times, cols)
+
+    def _chunk_from_cache(self, chunk: ChunkMeta,
+                          fields: list[str] | None) -> Record | None:
+        """The consult-before-dispatch path: a chunk Record assembled
+        purely from cached columns, or None on any miss (the caller then
+        decodes through the scan pool). No IO, no decode."""
+        cc = colcache.GLOBAL
+        if not cc.enabled():
+            return None
+        t0 = time.perf_counter_ns()
+        times = cc.peek(self._colcache_key(chunk, None))
+        if times is None:
+            return None
+        cols = {}
+        names = fields if fields is not None else list(chunk.cols)
+        for name in names:
+            if name not in chunk.cols:
+                continue
+            col = cc.peek(self._colcache_key(chunk, name))
+            if col is None:
+                return None
+            cols[name] = col
+        cc.count_peek(1 + len(cols), time.perf_counter_ns() - t0)
+        return Record(times, cols)
+
+    def read_chunk_if_cached(self, measurement: str, chunk: ChunkMeta,
+                             fields: list[str] | None = None
+                             ) -> Record | None:
+        return self._chunk_from_cache(chunk, fields)
 
     # -- packed (PK-sorted column store) reads ------------------------------
 
-    def read_packed_sids(self, chunk: ChunkMeta) -> np.ndarray:
+    def read_packed_sids(self, chunk: ChunkMeta,
+                         cache: bool = True) -> np.ndarray:
         """The sid column of a packed chunk (non-decreasing int64)."""
-        return encoding.decode_ints(self._read(chunk.sid_loc))
+        def decode():
+            return encoding.decode_ints(self._read(chunk.sid_loc))
+
+        return (self._cached_col(chunk, "\x00sids", decode)
+                if cache else decode())
 
     @staticmethod
     def _sid_row_range(chunk: ChunkMeta, sids: np.ndarray,
@@ -475,33 +600,80 @@ class TSFReader:
         return Record(rec.times[lo:hi], cols)
 
     def read_packed_sid(self, measurement: str, chunk: ChunkMeta, sid: int,
-                        fields: list[str] | None = None,
+                        fields: list[str] | None = None, cache: bool = True,
                         encoded_ok: bool = False) -> Record:
         """One series' rows out of a packed chunk: the sparse PK index
         bounds the candidate row window, a binary search on the sid
         column finds the rows."""
         if sid < chunk.smin or sid > chunk.smax:
             return Record(np.empty(0, np.int64), {})
-        sids = self.read_packed_sids(chunk)
+        sids = self.read_packed_sids(chunk, cache)
         lo, hi = self._sid_row_range(chunk, sids, sid)
         if lo == hi:
             return Record(np.empty(0, np.int64), {})
-        rec = self.read_chunk(measurement, chunk, fields,
+        rec = self.read_chunk(measurement, chunk, fields, cache,
                               encoded_ok=encoded_ok)
+        return self._slice_rows(rec, lo, hi)
+
+    def read_packed_sid_if_cached(self, measurement: str, chunk: ChunkMeta,
+                                  sid: int, fields: list[str] | None = None
+                                  ) -> Record | None:
+        """read_packed_sid served purely from cached columns, or None on
+        any miss. Out-of-span sids answer the empty record directly."""
+        if sid < chunk.smin or sid > chunk.smax:
+            return Record(np.empty(0, np.int64), {})
+        cc = colcache.GLOBAL
+        if not cc.enabled():
+            return None
+        sids = cc.peek(self._colcache_key(chunk, "\x00sids"))
+        if sids is None:
+            return None
+        lo, hi = self._sid_row_range(chunk, sids, sid)
+        if lo == hi:
+            cc.count_peek(1)
+            return Record(np.empty(0, np.int64), {})
+        rec = self._chunk_from_cache(chunk, fields)
+        if rec is None:
+            return None
+        cc.count_peek(1)  # the sid-column peek on top of the record's
         return self._slice_rows(rec, lo, hi)
 
     def read_packed_bulk(self, measurement: str, chunk: ChunkMeta,
                          fields: list[str] | None = None,
                          sid_filter: np.ndarray | None = None,
-                         encoded_ok: bool = False,
+                         cache: bool = True, encoded_ok: bool = False,
                          ) -> tuple[np.ndarray, Record]:
         """(sids, record) of a packed chunk in ONE decode; when
         `sid_filter` (sorted int64 array) is given, rows are masked to
         those series. A filter that drops rows slices the columns, which
         host-decodes the lazy ones (bit-identically)."""
-        sids = self.read_packed_sids(chunk)
-        rec = self.read_chunk(measurement, chunk, fields,
+        sids = self.read_packed_sids(chunk, cache)
+        rec = self.read_chunk(measurement, chunk, fields, cache,
                               encoded_ok=encoded_ok)
+        return self._packed_bulk_filter(sids, rec, sid_filter)
+
+    def read_packed_bulk_if_cached(
+        self, measurement: str, chunk: ChunkMeta,
+        fields: list[str] | None = None,
+        sid_filter: np.ndarray | None = None,
+    ) -> tuple[np.ndarray, Record] | None:
+        """read_packed_bulk served purely from cached columns, or None on
+        any miss (the sid filter applies per call: cached columns stay
+        whole, so every sid set shares one entry)."""
+        cc = colcache.GLOBAL
+        if not cc.enabled():
+            return None
+        sids = cc.peek(self._colcache_key(chunk, "\x00sids"))
+        if sids is None:
+            return None
+        rec = self._chunk_from_cache(chunk, fields)
+        if rec is None:
+            return None
+        cc.count_peek(1)
+        return self._packed_bulk_filter(sids, rec, sid_filter)
+
+    @staticmethod
+    def _packed_bulk_filter(sids, rec, sid_filter):
         if sid_filter is None:
             return sids, rec
         keep = np.isin(sids, sid_filter)
@@ -514,6 +686,29 @@ class TSFReader:
                 for name, col in rec.columns.items()
             },
         )
+
+    # -- whole-file checks (compaction's output self-check) ------------------
+
+    def data_locs(self) -> list[tuple[int, int]]:
+        """Every data block (off, len) of this file in a stable order."""
+        out: list[tuple[int, int]] = []
+        for mst in sorted(self.meta):
+            for c in self.meta[mst][1]:
+                out.append(c.time_loc)
+                if c.sid_loc:
+                    out.append(c.sid_loc)
+                for name in sorted(c.cols):
+                    cc = c.cols[name]
+                    out.append(cc["v"])
+                    if cc["m"]:
+                        out.append(cc["m"])
+        return out
+
+    def verify_block(self, loc: tuple[int, int]) -> int:
+        """Read and CRC-check one block without decoding or caching it;
+        returns the bytes read. Raises CorruptFile on a mismatch."""
+        self._read(loc)
+        return loc[1]
 
 
 class CorruptFile(Exception):

@@ -11,8 +11,8 @@ scan uses:
   ``pallas_supported``). A probe that fails or counts wrong RAISES: the
   port never routes around a kernel that does not work.
 - ``note_transfer`` counts host-to-device bytes and copies per site in
-  ``utils.stats.STATS`` (``devobs/h2d_bytes/<site>``,
-  ``devobs/h2d_copies/<site>``).
+  ``utils.stats.GLOBAL`` (module ``devobs``: ``h2d_bytes/<site>``,
+  ``h2d_copies/<site>``).
 
 The compile inventory, the device-memory ledger and the profiler
 capture of the reference are not ported yet.
@@ -24,7 +24,7 @@ import threading
 
 import torch
 
-from opengemini_tpu_torch.utils.stats import incr as _incr
+from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 _probe_lock = threading.Lock()
 _probed: set[str] = set()
@@ -50,8 +50,8 @@ def probe(device) -> None:
 
 def note_transfer(direction: str, site: str, nbytes: int) -> None:
     """Count one copy of `nbytes` in `direction` ("h2d") at `site`."""
-    _incr(f"devobs/{direction}_bytes/{site}", int(nbytes))
-    _incr(f"devobs/{direction}_copies/{site}")
+    STATS.incr("devobs", f"{direction}_bytes/{site}", int(nbytes))
+    STATS.incr("devobs", f"{direction}_copies/{site}")
 
 
 def reset() -> None:

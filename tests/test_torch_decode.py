@@ -32,7 +32,14 @@ from opengemini_tpu_torch.record import (  # noqa: E402
     Column, EncodedColumn, FieldType, Record, merge_bulk_parts)
 from opengemini_tpu_torch.storage import encoding as tenc  # noqa: E402
 from opengemini_tpu_torch.utils import devobs as tdevobs  # noqa: E402
-from opengemini_tpu_torch.utils.stats import STATS  # noqa: E402
+from opengemini_tpu_torch.utils.stats import GLOBAL as TSTATS  # noqa: E402
+
+
+def _stat(key: str) -> int:
+    """A port counter by its "module/name" key."""
+    module, name = key.split("/", 1)
+    return TSTATS.counters(module).get(name, 0)
+
 
 torch.set_num_threads(1)
 
@@ -406,12 +413,12 @@ def test_cost_gate_refuses_a_transfer_losing_plan(monkeypatch):
     blocks = [tenc.encode_floats(rng.standard_normal(n) * 1e17)]
     assert tenc.device_block(blocks[0]).kind == "raw64"
     views = [(blocks, np.array([[0, n]], np.int64), n)]
-    before = STATS["device/decode_fallbacks_total"]
+    before = _stat("device/decode_fallbacks_total")
     plan = tdd.build_grid_plan(views, rng.permutation(n).astype(np.int64),
                                np.ones(n, bool), (s_pad, k, w_pad),
                                np.float64, "cpu")
     assert plan is None
-    assert STATS["device/decode_fallbacks_total"] == before + 1
+    assert _stat("device/decode_fallbacks_total") == before + 1
 
 
 def test_encoded_merge_of_multi_series_parts_keeps_blocks(monkeypatch):
@@ -478,9 +485,9 @@ def test_cold_scan_takes_the_fused_path(tmp_path, monkeypatch):
          "AND time < %d GROUP BY time(1m)" % (BASE * NS, (BASE + 4000) * NS))
     keys = ("executor/grid_decode_fused", "device/decode_fallbacks_total",
             "devobs/h2d_bytes/device-decode", "executor/grid_batches")
-    before = {k: STATS[k] for k in keys}
+    before = {k: _stat(k) for k in keys}
     got = Executor(te).execute(q, db="db")
-    d = {k: STATS[k] - before[k] for k in keys}
+    d = {k: _stat(k) - before[k] for k in keys}
     assert d["executor/grid_decode_fused"] >= 1
     assert d["device/decode_fallbacks_total"] == 0
     # the grid this scan fills: 70 series rows (padded) x 6 x windows

@@ -24,7 +24,14 @@ from opengemini_tpu_torch import convert
 from opengemini_tpu_torch.query.executor import Executor as TExecutor
 from opengemini_tpu_torch.server.http import HttpService
 from opengemini_tpu_torch.storage.engine import Engine as TEngine
-from opengemini_tpu_torch.utils.stats import STATS as TSTATS
+from opengemini_tpu_torch.utils.stats import GLOBAL as TSTATS
+
+
+def _stat(key: str) -> int:
+    """A port counter by its "module/name" key."""
+    module, name = key.split("/", 1)
+    return TSTATS.counters(module).get(name, 0)
+
 
 torch.set_num_threads(1)
 
@@ -133,17 +140,17 @@ def engines(tmp_path_factory):
 def test_query_matches_jax(engines, qname):
     je, te = engines
     q = QUERIES[qname]
-    before = TSTATS["executor/grid_batches"]
-    fallbacks = TSTATS["executor/grid_fallbacks"]
+    before = _stat("executor/grid_batches")
+    fallbacks = _stat("executor/grid_fallbacks")
     want = JExecutor(je).execute(q, db="db", now_ns=T0)
     got = TExecutor(te).execute(q, db="db", now_ns=T0)
     assert "error" not in got["results"][0], got
     assert got["results"][0].get("series"), got
     _close(got, want)
     if qname in GRID_QUERIES:
-        assert TSTATS["executor/grid_batches"] > before
+        assert _stat("executor/grid_batches") > before
     if qname == "irregular":
-        assert TSTATS["executor/grid_fallbacks"] > fallbacks
+        assert _stat("executor/grid_fallbacks") > fallbacks
 
 
 def test_unsupported_statements_answer_an_error(engines):
@@ -228,3 +235,118 @@ def test_http_write_and_query_round_trip(tmp_path):
         assert err.value.code == 404
     finally:
         svc.stop()
+
+
+# -- the HTTP error taxonomy and chunked answers, against the JAX server --
+
+
+def _raw(port, method, path, params, body=None):
+    """(status, headers, body bytes) of one request, errors included."""
+    url = f"http://127.0.0.1:{port}{path}?{urllib.parse.urlencode(params)}"
+    req = urllib.request.Request(url, data=body, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+@pytest.fixture(scope="module")
+def servers(tmp_path_factory):
+    """A JAX server and a port server over the same 3-host body."""
+    from opengemini_tpu.server.http import HttpService as JHttpService
+
+    root = tmp_path_factory.mktemp("http")
+    body = "\n".join(
+        f"cpu,host=h{h} v={h * 10 + i}.25 {T0 + i * STEP}"
+        for h in range(3) for i in range(5)).encode()
+    je = JEngine(str(root / "jax"))
+    te = TEngine(str(root / "torch"), device="cpu")
+    js, ts = JHttpService(je, "127.0.0.1", 0), HttpService(te, port=0)
+    for e, svc in ((je, js), (te, ts)):
+        e.create_database("d")
+        svc.start()
+        assert _raw(svc.port, "POST", "/write", {"db": "d"}, body)[0] == 204
+    yield js.port, ts.port
+    for e, svc in ((je, js), (te, ts)):
+        svc.stop()
+        e.close()
+
+
+WRITE_ERRORS = {
+    "bad_field": ({"db": "d"}, f"cpu,host=c v=4 {T0}\nbad line here\n"
+                               f"cpu,host=c v=5 {T0 + 1}"),
+    "bad_value": ({"db": "d"}, f"cpu,host=c v=abc {T0}"),
+    "bad_timestamp": ({"db": "d"}, "cpu,host=c v=1 12x"),
+    "int_range": ({"db": "d"}, f"cpu,host=c n=99999999999999999999i {T0}"),
+    "type_conflict": ({"db": "d"}, f"cpu,host=h0 v=3i {T0 + 7 * STEP}"),
+    "db_not_found": ({"db": "nope"}, f"cpu,host=c v=1 {T0}"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WRITE_ERRORS))
+def test_write_errors_carry_the_errno_of_jax(servers, case):
+    params, body = WRITE_ERRORS[case]
+    jport, tport = servers
+    want = _raw(jport, "POST", "/write", params, body.encode())
+    got = _raw(tport, "POST", "/write", params, body.encode())
+    assert got[0] == want[0] and got[0] >= 400
+    assert json.loads(got[2]) == json.loads(want[2])
+    assert "errno" in json.loads(got[2])
+    assert got[1]["X-Ogt-Errno"] == want[1]["X-Ogt-Errno"]
+
+
+CHUNKED_Q = "SELECT count(v), max(v) FROM cpu GROUP BY time(1m), host"
+CHUNKED_WHERE = (" WHERE time >= '2016-01-01T00:00:00Z' AND "
+                 "time < '2016-01-01T00:02:00Z'")
+
+
+@pytest.mark.parametrize("chunk_size", [None, "1", "3"])
+def test_chunked_query_streams_like_jax(servers, chunk_size):
+    q = CHUNKED_Q.replace(" GROUP", CHUNKED_WHERE + " GROUP")
+    params = {"db": "d", "q": q, "chunked": "true"}
+    if chunk_size is not None:
+        params["chunk_size"] = chunk_size
+    jport, tport = servers
+    want = _raw(jport, "GET", "/query", params)
+    got = _raw(tport, "GET", "/query", params)
+    assert got[0] == want[0] == 200
+    assert got[1]["Transfer-Encoding"] == "chunked"
+    docs = [json.loads(line) for line in got[2].decode().splitlines()]
+    want_docs = [json.loads(line) for line in want[2].decode().splitlines()]
+    # one document per series (more at a small chunk_size)
+    assert len(docs) >= 3
+    _close(docs, want_docs)
+    # and the chunks hold the unchunked answer's rows
+    plain = _raw(tport, "GET", "/query", {"db": "d", "q": q})
+    series = json.loads(plain[2])["results"][0]["series"]
+    rows = [r for d in docs for s in d["results"][0]["series"]
+            for r in s["values"]]
+    assert rows == [r for s in series for r in s["values"]]
+
+
+def test_bad_chunk_size_answers_like_jax(servers):
+    params = {"db": "d", "q": CHUNKED_Q, "chunked": "true",
+              "chunk_size": "x"}
+    jport, tport = servers
+    want = _raw(jport, "GET", "/query", params)
+    got = _raw(tport, "GET", "/query", params)
+    assert got[0] == want[0] == 400
+    assert json.loads(got[2]) == json.loads(want[2]) == {
+        "error": "bad chunk_size"}
+
+
+def test_debug_vars_carry_query_stages(servers):
+    _jport, tport = servers
+    q = CHUNKED_Q.replace(" GROUP", CHUNKED_WHERE + " GROUP")
+    before = json.loads(_raw(tport, "GET", "/debug/vars", {})[2])
+    assert _raw(tport, "GET", "/query", {"db": "d", "q": q})[0] == 200
+    after = json.loads(_raw(tport, "GET", "/debug/vars", {})[2])
+    stages = after["query_stages"]
+    old = before.get("query_stages", {})
+    for stage in ("parse", "map_shards", "scan", "device_compute", "render",
+                  "encode"):
+        assert stages[f"{stage}_count"] == old.get(f"{stage}_count", 0) + 1
+        assert stages[f"{stage}_ns"] > old.get(f"{stage}_ns", 0)
+    assert after["write"]["points"] >= 15
+    assert after["system"]["uptime_s"] >= 0

@@ -32,7 +32,8 @@ def test_every_module_is_found():
     for must in ("opengemini_tpu_torch.ops.cuda_segment",
                  "opengemini_tpu_torch.query.executor",
                  "opengemini_tpu_torch.server.http",
-                 "opengemini_tpu_torch.convert"):
+                 "opengemini_tpu_torch.convert",
+                 *SIXTH_SLICE_MODULES):
         assert must in mods
 
 
@@ -102,6 +103,20 @@ BLOCKED_IMPORT_MODULES = [
     "opengemini_tpu_torch.convert",
     "chip_smoke",
 ]
+# the modules of the stage-timing, native-parser, cache and compaction
+# slice
+SIXTH_SLICE_MODULES = [
+    "opengemini_tpu_torch.utils.stats",
+    "opengemini_tpu_torch.utils.tracing",
+    "opengemini_tpu_torch.utils.errno",
+    "opengemini_tpu_torch.utils.querytracker",
+    "opengemini_tpu_torch.storage.colcache",
+    "opengemini_tpu_torch.services",
+    "opengemini_tpu_torch.services.base",
+    "opengemini_tpu_torch.services.compaction",
+    "opengemini_tpu_torch.server.http",
+]
+BLOCKED_IMPORT_MODULES += SIXTH_SLICE_MODULES
 
 
 @pytest.mark.parametrize("module", BLOCKED_IMPORT_MODULES)

@@ -20,7 +20,14 @@ from opengemini_tpu_torch.models import grid as tgrid
 from opengemini_tpu_torch.models import ragged as tragged
 from opengemini_tpu_torch.models import templates as ttemplates
 from opengemini_tpu_torch.ops import aggregates as tagg
-from opengemini_tpu_torch.utils.stats import STATS as TSTATS
+from opengemini_tpu_torch.utils.stats import GLOBAL as TSTATS
+
+
+def _stat(key: str) -> int:
+    """A port counter by its "module/name" key."""
+    module, name = key.split("/", 1)
+    return TSTATS.counters(module).get(name, 0)
+
 
 torch.set_num_threads(1)
 
@@ -112,8 +119,8 @@ def _grid_pair(chunks, W):
 def _grid_counters():
     j = JSTATS.snapshot().get("executor", {})
     return ((j.get("grid_batches", 0), j.get("grid_fallbacks", 0)),
-            (TSTATS["executor/grid_batches"],
-             TSTATS["executor/grid_fallbacks"]))
+            (_stat("executor/grid_batches"),
+             _stat("executor/grid_fallbacks")))
 
 
 @pytest.mark.parametrize("gap", [False, True])

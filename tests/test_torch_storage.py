@@ -39,7 +39,14 @@ from opengemini_tpu_torch.record import Column, FieldType, Record  # noqa: E402
 from opengemini_tpu_torch.storage import chunkmeta, tsf, wal  # noqa: E402
 from opengemini_tpu_torch.storage.engine import Engine  # noqa: E402
 from opengemini_tpu_torch.storage.shard import Shard  # noqa: E402
-from opengemini_tpu_torch.utils.stats import STATS  # noqa: E402
+from opengemini_tpu_torch.utils.stats import GLOBAL as TSTATS  # noqa: E402
+
+
+def _stat(key: str) -> int:
+    """A port counter by its "module/name" key."""
+    module, name = key.split("/", 1)
+    return TSTATS.counters(module).get(name, 0)
+
 
 torch.set_num_threads(1)
 
@@ -467,11 +474,11 @@ def test_cold_scan_over_many_flushes_stays_encoded(tmp_path, monkeypatch):
         for e in (te, je):
             e.write_lines("db", body)
             e.flush_all()
-    before = (STATS["executor/grid_decode_fused"],
-              STATS["device/decode_fallbacks_total"])
+    before = (_stat("executor/grid_decode_fused"),
+              _stat("device/decode_fallbacks_total"))
     got = _answers(Executor(te))
-    assert STATS["executor/grid_decode_fused"] > before[0]
-    assert STATS["device/decode_fallbacks_total"] == before[1]
+    assert _stat("executor/grid_decode_fused") > before[0]
+    assert _stat("device/decode_fallbacks_total") == before[1]
     _close(got, _answers(JExecutor(je)))
     # one host: the per-series reads compose their encoded row runs in
     # the executor's scan stager
