@@ -115,10 +115,29 @@ Phases, in order; any failure ends the run with a nonzero exit:
    to the oracle (C1 with phase 6's row), with their stage split, then
    a restart and C3 again. The stage splits of phases 6 and 7 are held
    to the same 90% as phases 3 and 5.
+8. The host query path and the schema statements, with a budget of
+   its own (HOST_PHASE_S, 180 s). (a) The reference's black-box tables
+   (tests/parity_cases.json, compared by tests/parity_common.py's
+   result_matches) replayed through the port's HttpService, one Engine
+   per case: on the card (Engine(root), the default device), then on
+   the CPU. Each query must match on both or on neither, and the count
+   must equal tests/test_torch_parity.py's (its queries less its XFAIL
+   dict); the launches of kernels 1-3 the device aggregates made print.
+   (b) On phase 7's compacted root, with the decoded-column cache off:
+   the TSBS devops queries as TSBS writes them for InfluxDB (high-cpu-1,
+   a raw select with a field predicate; lastpoint, a raw select over
+   every series; groupby-orderby-limit, which must launch kernel 3),
+   SHOW TAG VALUES of hostname and SHOW SERIES CARDINALITY, each checked
+   against the oracle, run five times (once, with a progress line
+   saying so, when the first run shows five would not fit the budget)
+   with its p50 and its stage split (raw selects: map_shards, scan and
+   render; SHOW: show); then the same root reopened with device="cpu"
+   must give the same five answers. The kernels 1-3 are checked and
+   timed again at the largest new shapes the phase gave them.
 
-Launch counters start at 0 before each main path (phases 3, 5, 6, 7)
+Launch counters start at 0 before each main path (phases 3, 5, 6, 7, 8)
 and are read after it; the {"kernels": [...]} line sums them, with
-launches_per_phase and launches_per_query.
+launches_per_phase, launches_per_query and launches_parity_on_card.
 
 Output: progress lines, then a {"kernels": [...]} line, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without CUDA (or without
@@ -133,6 +152,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.parse
@@ -1068,7 +1088,7 @@ def http_raw(port: int, method: str, path: str, params: dict,
 # a query's stages in order: the SQL parse, the executor's spans
 # (query/executor.py) and the answer's JSON and write (server/http.py)
 STAGES = ("parse", "map_shards", "scan", "colcache", "device_compute",
-          "render", "encode")
+          "host_compute", "show", "render", "encode")
 # the stages must cover this share of a query's request wall (to the
 # answer's last byte); the rest is the HTTP transport
 STAGE_COVER = 0.9
@@ -2236,6 +2256,256 @@ def phase_compact(cold: dict) -> dict:
             stop_server(svc, engine)
 
 
+# -- phase 8: the host query path and the schema statements -------------------
+
+# phase 8's budget of its own (s): a query whose first run shows that five
+# would not fit runs once, and a progress line says so
+HOST_PHASE_S = 180.0
+# held back from that budget for the CPU comparison of the later queries
+HOST_RESERVE_S = 45.0
+PARITY_CASES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "parity_cases.json")
+
+
+def tsbs_queries(n_t: int) -> dict:
+    """TSBS devops queries as its influx dialect writes them
+    (cmd/tsbs_generate_queries/uses/devops), over the cold phase's span."""
+    import datetime as dt
+
+    def rfc(ns: int) -> str:
+        return dt.datetime.fromtimestamp(
+            ns // 10**9, dt.timezone.utc).strftime("%Y-%m-%dT%H:%M:%SZ")
+
+    lo, hi = rfc(T0_NS), rfc(T0_NS + n_t * STEP_NS)
+    return {
+        "high-cpu-1": "SELECT * from cpu where (hostname = 'host_7') and "
+                      f"usage_user > 90.0 and time >= '{lo}' and "
+                      f"time < '{hi}'",
+        "lastpoint": 'SELECT * from cpu group by "hostname" order by time '
+                     "desc limit 1",
+        "groupby-orderby-limit": "SELECT max(usage_user) from cpu WHERE "
+                                 f"time < '{hi}' group by time(1m) ORDER BY "
+                                 "time DESC LIMIT 5",
+        "show-tag-values": 'SHOW TAG VALUES FROM cpu WITH KEY = "hostname"',
+        "show-series-cardinality": "SHOW SERIES CARDINALITY",
+    }
+
+
+def parity_replay(device: str | None) -> dict:
+    """tests/parity_cases.json through the port's HttpService on
+    Engine(root, device=device) (None: the default, the card): {query
+    id: matches}, for every query the reference suite does not skip.
+    tests/parity_common.py is read for its comparison only."""
+    sys.path.insert(0, os.path.dirname(PARITY_CASES))
+    import parity_common as pc
+
+    from opengemini_tpu_torch.server.http import HttpService
+    from opengemini_tpu_torch.storage.engine import Engine
+
+    out = {}
+    for case in pc.load_cases():
+        todo = [(i, q) for i, q in enumerate(case["queries"])
+                if not q.get("skip")]
+        if not todo:
+            continue
+        engine = Engine(fresh_root("smoke_parity"), device=device)
+        svc = HttpService(engine, port=0)
+        # a short poll: a stop returns within 10 ms, not the listener's
+        # default half second, once per case
+        svc._thread = threading.Thread(target=svc.httpd.serve_forever,
+                                       kwargs={"poll_interval": 0.01},
+                                       daemon=True)
+        svc._thread.start()
+        try:
+            db, rp = case.get("db", "db0"), case.get("rp", "rp0")
+            for w in [{}] + case.get("writes", []):
+                wdb, wrp = w.get("db", db), w.get("rp", rp)
+                if wdb not in engine.databases:
+                    engine.create_database(wdb)
+                d = engine.databases[wdb]
+                if wrp not in d.rps:
+                    engine.create_retention_policy(wdb, wrp, 0, default=True)
+                d.default_rp = wrp
+                if w:
+                    status, _ = http(svc.port, "POST", "/write",
+                                     {"db": wdb, "rp": wrp},
+                                     "\n".join(w["lines"]).encode())
+                    check(status == 204, f"{case['name']}: /write {status}")
+            for i, q in todo:
+                params = dict(q.get("params") or {"db": case["db"]})
+                params["q"] = q["command"]
+                status, _h, body = http_raw(svc.port, "POST", "/query",
+                                            params)
+                try:
+                    actual = json.loads(body)
+                except json.JSONDecodeError:
+                    actual = {"error": f"http {status}"}
+                ok, _why = pc.result_matches(q["exp"], actual)
+                out[f"{case['name']}#{i}"] = ok
+        finally:
+            stop_server(svc, engine)
+    return out
+
+
+def expected_parity_count() -> int:
+    """The CPU count tests/test_torch_parity.py holds the port to: the
+    queries the reference does not skip, less its XFAIL dict."""
+    sys.path.insert(0, os.path.dirname(PARITY_CASES))
+    import test_torch_parity as tp
+
+    return sum(1 for c in tp.CASES for q in c["queries"]
+               if not q.get("skip")) - len(tp.XFAIL)
+
+
+def verify_tsbs(qn: str, res: dict, o: dict, n_t: int) -> None:
+    """Phase 8's answers against the cold phase's oracle."""
+    import numpy as np
+
+    n_hosts = o["n_hosts"]
+    series = res.get("series", [])
+    if qn == "high-cpu-1":
+        want = int((o["vals"]["usage_user"][7, :n_t] > 90.0).sum())
+        got = len(series[0]["values"]) if series else 0
+        check(got == want, f"{qn}: {got} rows, the oracle {want}")
+        if series:
+            cols = series[0]["columns"]
+            for row in series[0]["values"]:
+                check(row[cols.index("hostname")] == "host_7"
+                      and row[cols.index("usage_user")] > 90.0, f"{qn}: {row}")
+    elif qn == "lastpoint":
+        # the WAL check's minute holds every host's newest sample
+        check(len(series) == 1 and len(series[0]["values"]) == 1
+              and series[0]["values"][0][0] == T0_NS + (n_t + 5) * STEP_NS,
+              f"{qn}: {json.dumps(series)[:300]}")
+    elif qn == "groupby-orderby-limit":
+        rows = series[0]["values"]
+        v = o["vals"]["usage_user"][:, :n_t].reshape(n_hosts, n_t // 6, 6)
+        mx = v.max(axis=(0, 2))
+        w = n_t // 6
+        check([r[0] for r in rows] == [T0_NS + (w - 1 - k) * 60 * 10**9
+                                       for k in range(5)], f"{qn}: times")
+        check(np.array_equal(np.array([r[1] for r in rows]),
+                             mx[::-1][:5]), f"{qn}: max")
+    elif qn == "show-tag-values":
+        # every host, and phase 6's host_extra
+        check(len(series[0]["values"]) == n_hosts + 1,
+              f"{qn}: {len(series[0]['values'])} values")
+    else:
+        # cpu and diskio series of every host, and phase 6's host_extra
+        rows = series[0]["values"]
+        check(len(rows) == 1 and rows[0][2] == 2 * n_hosts + 1,
+              f"{qn}: {rows}")
+
+
+def phase_host(cold: dict) -> dict:
+    """(a) the parity tables on the card against the CPU; (b) TSBS devops
+    queries and the SHOW statements on phase 7's compacted root, each
+    equal to the port's answer on the same root with device="cpu"."""
+    import torch
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.server.http import HttpService
+    from opengemini_tpu_torch.storage import colcache
+    from opengemini_tpu_torch.storage.engine import Engine
+
+    t_phase = time.perf_counter()
+    colcache.GLOBAL.configure(budget_mb=0)  # decode on every run
+    rec = ShapeRecorder().__enter__()
+    svc = engine = None
+    try:
+        # (a) parity: the card's answers, then the CPU's
+        cs.reset_launches()
+        t0 = time.perf_counter()
+        on_card = parity_replay(None)
+        parity_launches = dict(cs.LAUNCHES)
+        card_s = time.perf_counter() - t0
+        on_cpu = parity_replay("cpu")
+        n_card = sum(on_card.values())
+        n_cpu = sum(on_cpu.values())
+        want = expected_parity_count()
+        differ = sorted(k for k in on_card if on_card[k] != on_cpu.get(k))
+        check(not differ, f"parity differs between the card and the CPU: "
+                          f"{differ[:10]}")
+        check(n_card == n_cpu == want,
+              f"parity: card {n_card}, CPU {n_cpu}, the CPU test {want}")
+        dev_k = {k: parity_launches[k] for k in E2E_KERNELS}
+        check(sum(dev_k.values()) > 0, "parity: no device aggregate launched")
+        log(f"[parity] {n_card} of {len(on_card)} reference queries match on "
+            f"the card ({card_s:.1f} s), the same {n_cpu} on the CPU "
+            f"(tests/test_torch_parity.py: {want}); launches of kernels 1-3 "
+            f"by the device aggregates {json.dumps(dev_k)}")
+
+        # (b) TSBS devops queries on the compacted root
+        o = cold["oracle"]
+        n_t = o["n_t"]
+        queries = tsbs_queries(n_t)
+        engine, svc = serve(cold["root"])
+        per_query, answers = {}, {}
+        for qn, q in queries.items():
+            l0, st0 = dict(cs.LAUNCHES), stage_ns(svc.port)
+            rec.now = {}
+            res, req, ms = query_timed(svc.port, q)
+            verify_tsbs(qn, res, o, n_t)
+            walls, requests = [ms], [req]
+            while len(walls) < 5:
+                # another run, and as long again for the CPU comparison,
+                # must fit what is left beside HOST_RESERVE_S
+                left = HOST_PHASE_S - (time.perf_counter() - t_phase)
+                if left < 2 * walls[-1] / 1e3 + HOST_RESERVE_S:
+                    log(f"[host] {qn}: {len(walls)} run(s) (the last "
+                        f"{walls[-1]:.1f} ms); five would not fit phase "
+                        f"8's {HOST_PHASE_S:.0f} s")
+                    break
+                again, req, ms = query_timed(svc.port, q)
+                check(again == res, f"{qn}: runs differ")
+                walls.append(ms)
+                requests.append(req)
+            stages = stage_split(svc.port, st0, requests, qn)
+            got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
+            lat = sorted(walls)
+            per_query[qn] = {"runs_ms": walls, "p50_ms": lat[len(lat) // 2],
+                             "launches": got, "stages_ms": stages,
+                             "shapes": {k: [shape_json(k, x) for x in
+                                            sorted(v)]
+                                        for k, v in rec.now.items()}}
+            answers[qn] = res
+            log(f"[host] {qn} ok p50={per_query[qn]['p50_ms']:.1f} ms (runs "
+                f"{', '.join(f'{x:.1f}' for x in walls)}); launches "
+                f"{json.dumps({k: v for k, v in got.items() if v})}")
+        check(per_query["groupby-orderby-limit"]["launches"][
+                  "grid_window_agg"] > 0,
+              "groupby-orderby-limit did not launch kernel 3")
+        rec.now = None
+        launches = dict(cs.LAUNCHES)
+        stop_server(svc, engine)
+        svc = None
+        # the same root with device="cpu": the same answers
+        engine = Engine(cold["root"], device="cpu")
+        svc = HttpService(engine, port=0)
+        svc.start()
+        for qn, q in queries.items():
+            res, _req, ms = query_timed(svc.port, q)
+            check(res == answers[qn], f"{qn}: the card's answer differs from "
+                                      "the CPU's")
+            per_query[qn]["cpu_ms"] = ms
+        log(f"[host] the five answers equal the port's on the same root with "
+            f"device=\"cpu\" (cpu ms "
+            f"{json.dumps({qn: round(p['cpu_ms'], 1) for qn, p in per_query.items()})})")
+        wall_s = time.perf_counter() - t_phase
+        log(f"[host] phase 8 took {wall_s:.1f} s (budget "
+            f"{HOST_PHASE_S:.0f} s); launches {json.dumps(launches)}; card "
+            f"{smi_line()}")
+        return {"launches": launches, "per_query": per_query,
+                "parity": {"card": n_card, "cpu": n_cpu, "test": want,
+                           "queries": len(on_card),
+                           "launches": parity_launches},
+                "shapes": rec.seen, "wall_s": wall_s}
+    finally:
+        rec.__exit__()
+        if svc is not None:
+            stop_server(svc, engine)
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -2319,13 +2589,22 @@ def main() -> int:
             args.seed + 2000 + 10 * i, dev_name)
     cached = phase_colcache(cold)
     compacted = phase_compact(cold)
+    hosted = phase_host(cold)
+    seen = {k: e2e["shapes"].get(k, set()) | cold["shapes"].get(k, set())
+            for k in cs.LAUNCHES}
+    for i, name in enumerate(E2E_KERNELS):
+        new = {sh for sh in hosted["shapes"][name] - seen[name]
+               if all(d > 0 for d in sh)}
+        recs[name] = recs.get(name, []) + main_path_kernels(
+            name, new, args.seed + 3000 + 10 * i, dev_name, limit=3)
 
     kernels = []
     for name in cs.LAUNCHES:
         top = max(recs[name], key=lambda r: r["bound_ms"])
         paths = [(tag, p) for tag, p in (("", e2e), ("", cold),
                                           (" cached", cached),
-                                          (" compacted", compacted))
+                                          (" compacted", compacted),
+                                          ("", hosted))
                  if p["launches"].get(name)]
         kernels.append({
             "name": name, "route": "cuda",
@@ -2336,10 +2615,11 @@ def main() -> int:
             "launches_per_phase": {
                 ph: p["launches"].get(name, 0) for ph, p in (
                     ("3", e2e), ("5", cold), ("6", cached),
-                    ("7", compacted))},
+                    ("7", compacted), ("8", hosted))},
             "launches_per_query": {qn + tag: pq["launches"][name]
                                    for tag, p in paths
                                    for qn, pq in p["per_query"].items()},
+            "launches_parity_on_card": hosted["parity"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in recs[name]),
             "ms": top["ms"], "device_ms": top["device_ms"],
             "plain_ms": top["plain_ms"],

@@ -319,6 +319,13 @@ class MergesetIndex:
     def tags_of(self, sid: int) -> dict[str, str]:
         return dict(self.series_entry(sid)[1])
 
+    def iter_series_entries(self):
+        """(measurement, tags) of every live series, by measurement then
+        sid (SHOW SERIES CARDINALITY walks it)."""
+        for m in self.measurements():
+            for sid in sorted(self.series_ids(m)):
+                yield self.series_entry(sid)
+
     def measurements(self) -> list[str]:
         # a measurement whose every series was removed must not list
         out = []

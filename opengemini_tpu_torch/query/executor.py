@@ -1,14 +1,21 @@
 """Statement executor: AST -> scan -> device reduce -> InfluxDB JSON rows.
 
-The port of ``opengemini_tpu/query/executor.py`` for the aggregate
-SELECT path: ``execute`` -> ``_select`` -> ``_select_measurement`` ->
-``_scan_context`` -> ``_select_agg_run`` -> ``_scan_monolithic`` ->
-``_render_agg``, with ``pick_batch`` routing exactly as the JAX package
-does. Besides SELECT with aggregate calls it runs ``CREATE DATABASE``
-and ``EXPLAIN [ANALYZE]`` of such a SELECT. Raw selects, host-path
-functions, subqueries, joins, SHOW/DDL beyond CREATE DATABASE, the
-result cache, sliced scans, cluster routing and auth are not part of
-this slice and answer a statement error.
+The port of ``opengemini_tpu/query/executor.py``: ``execute`` ->
+``execute_statement`` (query/showddl.py, with the SHOW and DDL
+statements) -> ``_select`` -> ``_select_measurement``, which sends each
+SELECT down the path ``qhelpers._classify_select`` names: the raw
+projection and the host functions (query/hostpath.py, numpy on the
+host), or the device aggregates (``_scan_context`` -> ``_select_agg_run``
+-> ``_scan_monolithic`` -> ``_render_agg``, with ``pick_batch`` routing
+exactly as the JAX package does). ``compare()``, several sources of a
+raw select (one merged series), constant columns and aggregates over
+``time`` run as in the reference. EXPLAIN names the same path.
+
+Not in this port yet: subqueries, joins, unions, CTEs, SELECT INTO and
+aggregates over several sources (the reference's subquery rewrite),
+the result cache, sliced scans and the pre-aggregation path (ROADMAP
+A4); cluster routing and auth (ROADMAP A8: the shard list is the local
+one). Each answers a "not supported by this port yet" statement error.
 
 Every stage of an aggregate SELECT runs in a span (utils/tracing.py):
 ``select: <mst>`` around ``map_shards`` (shard mapping and series
@@ -33,6 +40,8 @@ Times in values are int ns; the HTTP layer formats RFC3339/epoch.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import re
 import time as _time
 from dataclasses import dataclass
@@ -44,13 +53,17 @@ from opengemini_tpu_torch.models import grid as _grid
 from opengemini_tpu_torch.models import ragged, templates
 from opengemini_tpu_torch.ops import window as winmod
 from opengemini_tpu_torch.query import condition as cond
+from opengemini_tpu_torch.query.hostpath import HostPathMixin
 from opengemini_tpu_torch.query.qhelpers import (
-    MAX_SELECT_BUCKETS, QueryError, _add_record_to_batches, _apply_fill,
-    _calls_in, _classify_select, _data_time_range,
-    _default_field_name, _eval_output_expr, _expand_call_wildcards,
-    _has_call_wildcard, _needs_string_host_path, _resolve_call,
-    _selector_aux_plan, _series_result, _strip_expr,
+    MAX_SELECT_BUCKETS, NS, QueryError, _add_record_to_batches, _apply_fill,
+    _call_param_value, _calls_in, _classify_select,
+    _data_time_range, _default_field_name, _eval_output_expr,
+    _expand_call_wildcards, _has_call_wildcard, _has_in_subquery,
+    _merge_multi_source,
+    _needs_string_host_path, _resolve_call, _selector_aux_plan,
+    _series_result, _strip_expr,
 )
+from opengemini_tpu_torch.query.showddl import ShowDdlMixin
 from opengemini_tpu_torch.record import (
     EncodedColumn, FieldType, FieldTypeConflict, concat_encoded_columns)
 from opengemini_tpu_torch.sql import ast
@@ -60,6 +73,11 @@ from opengemini_tpu_torch.storage.engine import WriteError
 from opengemini_tpu_torch.utils import tracing
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
+
+
+# table functions (the reference's query/tablefunc.TABLE_FUNCTIONS): a
+# SELECT of one of them answers "not supported by this port yet"
+_TABLE_FUNCTIONS = frozenset({"rca"})
 
 
 @dataclass
@@ -125,12 +143,42 @@ def pick_batch(schema, agg_names, field: str, dtype, device, grid_ctx=None):
     return templates.AggBatch(dtype, device)
 
 
-def _read_only_ok(stmt) -> bool:
-    """May `stmt` run from a GET? A SELECT, or EXPLAIN of one, without
-    INTO."""
+_READONLY_STMTS = (
+    ast.SelectStatement,
+    ast.UnionStatement,
+    ast.ShowDatabases,
+    ast.ShowMeasurements,
+    ast.ShowTagKeys,
+    ast.ShowTagValues,
+    ast.ShowFieldKeys,
+    ast.ShowSeries,
+    ast.ShowRetentionPolicies,
+    ast.ShowContinuousQueries,
+    ast.ShowUsers,
+    ast.ShowGrants,
+    ast.ShowMeasurementCardinality,
+    ast.ShowSeriesCardinality,
+    ast.ShowSeriesExactCardinality,
+    ast.ShowShards,
+    ast.ShowStats,
+    ast.ShowDiagnostics,
+    ast.ShowStreams,
+    ast.ShowSubscriptions,
+    ast.ShowQueries,
+    ast.ShowModels,
+)
+
+
+def _is_readonly(stmt) -> bool:
+    """May `stmt` run from a GET? SELECT without INTO, EXPLAIN of one,
+    and the SHOW statements (influx 1.x requires POST for the rest)."""
     if isinstance(stmt, ast.ExplainStatement):
-        stmt = stmt.select
-    return isinstance(stmt, ast.SelectStatement) and stmt.into is None
+        # EXPLAIN ANALYZE executes the inner select: INTO would mutate
+        return stmt.select is None or stmt.select.into is None
+    if not isinstance(stmt, _READONLY_STMTS):
+        return False
+    return not (isinstance(stmt, ast.SelectStatement)
+                and stmt.into is not None)
 
 
 class _ScanStager:
@@ -140,15 +188,24 @@ class _ScanStager:
     boundaries are forwarded to batches that want them (GridBatch run
     detection)."""
 
-    def __init__(self, needed_fields, dtype, batches, aligned):
+    def __init__(self, needed_fields, dtype, batches, aligned,
+                 time_segs=None, time_vals=None):
         self.needed_fields = needed_fields
         self.dtype = dtype
         self.batches = batches
         self.aligned = aligned
+        # aggregates over `time`: the rows' segments and times, kept
+        # when the caller passes lists for them
+        self.time_segs = time_segs
+        self.time_vals = time_vals
         self._recs: list[tuple] = []  # [(times, seg, sid)]
         self._per_field: dict[str, list] = {f: [] for f in needed_fields}
 
     def add(self, rec, seg, fmask, sid):
+        if self.time_segs is not None:
+            m = fmask if fmask is not None else slice(None)
+            self.time_segs.append(seg[m])
+            self.time_vals.append(rec.times[m])
         ri = len(self._recs)
         self._recs.append((rec.times, seg, sid))
         for fname in self.needed_fields:
@@ -221,7 +278,7 @@ class _ScanStager:
         self._recs = []
 
 
-class Executor:
+class Executor(ShowDdlMixin, HostPathMixin):
     def __init__(self, engine):
         self.engine = engine
         self.device = engine.device
@@ -265,7 +322,7 @@ class Executor:
         results = []
         for i, stmt in enumerate(stmts):
             try:
-                if read_only and not _read_only_ok(stmt):
+                if read_only and not _is_readonly(stmt):
                     raise QueryError(
                         f"{type(stmt).__name__} queries must be sent via POST")
                 res = self.execute_statement(stmt, db, now_ns)
@@ -275,24 +332,6 @@ class Executor:
             res["statement_id"] = i
             results.append(res)
         return {"results": results}
-
-    def execute_statement(self, stmt, db: str, now_ns: int) -> dict:
-        if isinstance(stmt, ast.ExplainStatement):
-            return self._explain(stmt, db, now_ns)
-        if isinstance(stmt, ast.SelectStatement):
-            res = self._select(stmt, db, now_ns)
-            if not stmt.ascending and res.get("series"):
-                # ORDER BY time DESC reverses the series order too
-                res = dict(res, series=list(reversed(res["series"])))
-            return res
-        if isinstance(stmt, ast.CreateDatabase):
-            if stmt.has_rp_clause:
-                raise QueryError(
-                    "CREATE DATABASE ... WITH is not supported by this port yet")
-            self.engine.create_database(stmt.name)
-            return {}
-        raise QueryError(
-            f"{type(stmt).__name__} is not supported by this port yet")
 
     def _explain(self, stmt: ast.ExplainStatement, db: str,
                  now_ns: int) -> dict:
@@ -347,7 +386,18 @@ class Executor:
             trace = tracing.current()
         if stmt.into is not None or stmt.ctes:
             raise QueryError("SELECT INTO and WITH are not supported by this "
-                             "port yet")
+                             "port yet (ROADMAP A4, subqueries)")
+        if stmt.condition is not None and _has_in_subquery(stmt.condition):
+            raise QueryError("IN (subquery) is not supported by this port "
+                             "yet (ROADMAP A4, subqueries)")
+        if len(stmt.fields) == 1:
+            only = _strip_expr(stmt.fields[0].expr)
+            if isinstance(only, ast.Call) and only.name == "compare":
+                return self._select_compare(stmt, only, db, now_ns)
+            if isinstance(only, ast.Call) and only.name in _TABLE_FUNCTIONS:
+                return self._select_table_function(stmt, only, db, now_ns)
+        # constant (string-literal) columns: allowed only WITH an alias
+        # and only beside at least one variable field
         n_const = 0
         for f in stmt.fields:
             if isinstance(_strip_expr(f.expr), ast.StringLiteral):
@@ -356,14 +406,19 @@ class Executor:
                 n_const += 1
         if n_const == len(stmt.fields):
             return {}  # only constants: empty result, no error
-        if len(stmt.sources) != 1:
-            raise QueryError("multiple sources are not supported by this "
-                             "port yet")
+        multi = self._multi_source_plan(stmt, db)
+        if multi == "rewrite":
+            # the reference runs aggregates over several sources on the
+            # union of their rows, through a subquery
+            raise QueryError("aggregates over multiple sources are not "
+                             "supported by this port yet (ROADMAP A4, "
+                             "subqueries)")
         all_series = []
         for src in stmt.sources:
             if not isinstance(src, ast.Measurement):
                 raise QueryError(f"{type(src).__name__} sources are not "
-                                 "supported by this port yet")
+                                 "supported by this port yet (ROADMAP A4, "
+                                 "subqueries and joins)")
             src_db = src.database or db
             if not src_db:
                 raise QueryError("database name required")
@@ -373,6 +428,8 @@ class Executor:
                 with trace.span(f"select: {mst}"):
                     all_series.extend(self._select_measurement(
                         stmt, src_db, src.rp or None, mst, now_ns, trace))
+        if multi == "merge":
+            all_series = _merge_multi_source(all_series, stmt)
         if stmt.soffset:
             all_series = all_series[stmt.soffset:]
         if stmt.slimit:
@@ -380,6 +437,146 @@ class Executor:
         if not all_series:
             return {}
         return {"series": all_series}
+
+    def _multi_source_plan(self, stmt, db: str) -> str | None:
+        """How a multi-source FROM combines: None for one effective
+        source, "merge" for a raw projection (each source runs, and the
+        output series merge by tag set into one named 'm,n'), "rewrite"
+        for aggregates (the union of rows, through a subquery)."""
+        n_effective = 0
+        for s in stmt.sources:
+            if isinstance(s, ast.Measurement) and s.regex:
+                try:
+                    n_effective += len(
+                        self._resolve_measurements(s, s.database or db))
+                except Exception:  # noqa: BLE001 — errors surface later
+                    n_effective += 1
+            else:
+                n_effective += 1
+        if n_effective <= 1:
+            return None
+        if _classify_select(stmt) == "raw":
+            return "merge"
+        if len(stmt.sources) <= 1:
+            # one regex source with aggregates keeps a series per
+            # measurement (influx); only explicit sources union rows
+            return None
+        return "rewrite"
+
+    def _select_compare(self, stmt, call, db: str, now_ns: int) -> dict:
+        """compare(ref, off...): evaluate the source over the WHERE range
+        and over each range shifted back by `off` seconds (or a
+        duration), align rows by (tags, time+off), and emit ref1..refN
+        plus ref1/refK ratio columns (the openGemini compare UDF).
+
+        The reference runs each shifted range as ``SELECT ref FROM
+        (inner) WHERE <range> GROUP BY *``. The port runs the inner
+        select itself with the range ANDed into its condition, as the
+        reference's subquery pushes it down, and keeps the rows inside
+        the range: the same rows, without a subquery."""
+        if len(call.args) < 2:
+            raise QueryError(
+                "invalid number of arguments for compare, expected more "
+                f"than one arguments, got {len(call.args)}")
+        ref_e = _strip_expr(call.args[0])
+        if not isinstance(ref_e, ast.VarRef):
+            raise QueryError("compare() first argument must be a column")
+        ref = ref_e.name
+        offsets = []
+        for a in call.args[1:]:
+            v = _call_param_value(a)
+            # bare integers are seconds; durations come in as ns
+            offsets.append(int(v) * NS if isinstance(v, int) and
+                           not isinstance(_strip_expr(a), ast.DurationLiteral)
+                           else int(v))
+        if not stmt.sources:
+            raise QueryError("compare() requires a FROM source")
+        src = stmt.sources[0]
+        if isinstance(src, ast.SubQuery):
+            inner = src.stmt
+            if not isinstance(inner, ast.SelectStatement):
+                raise QueryError(f"{type(inner).__name__} sources of "
+                                 "compare() are not supported by this port "
+                                 "yet (ROADMAP A4, subqueries)")
+        elif isinstance(src, ast.Measurement):
+            # raw field compare: first(field) over the range
+            inner = ast.SelectStatement(
+                fields=[ast.Field(ast.Call("first", (ast.VarRef(ref),)),
+                                  alias=ref)],
+                sources=[src],
+            )
+        else:
+            raise QueryError("compare() source must be a measurement or subquery")
+        if (_classify_select(inner) == "raw" and not inner.group_by_tags
+                and not inner.group_by_all_tags):
+            # a raw inner select keeps a series per tag set, as the
+            # reference's subquery does
+            inner = copy.copy(inner)
+            inner.group_by_all_tags = True
+
+        sc = cond.split(stmt.condition, set(), now_ns)
+        if sc.tmin == cond.MIN_TIME or sc.tmax == cond.MAX_TIME:
+            raise QueryError("compare() requires an explicit time range")
+
+        runs = []
+        for off in [0] + offsets:
+            lo, hi = sc.tmin - off, sc.tmax - off
+            bound = ast.BinaryExpr(
+                "AND",
+                ast.BinaryExpr(">=", ast.VarRef("time"),
+                               ast.IntegerLiteral(lo)),
+                ast.BinaryExpr("<", ast.VarRef("time"),
+                               ast.IntegerLiteral(hi)),
+            )
+            run_inner = copy.copy(inner)
+            run_inner.condition = (
+                bound if inner.condition is None
+                else ast.BinaryExpr("AND", inner.condition, bound))
+            gt = run_inner.group_by_time
+            if gt is not None and not gt.offset_ns:
+                # openGemini anchors compare() windows at the (shifted)
+                # range start, not the epoch grid; a non-zero user
+                # offset is respected
+                run_inner.group_by_time = dataclasses.replace(
+                    gt, offset_ns=lo % gt.every_ns)
+            res = self._select(run_inner, db, now_ns)
+            data: dict[tuple, dict[int, object]] = {}
+            name = "compare"
+            for ser in res.get("series", []):
+                name = ser.get("name", name)
+                key = tuple(sorted((ser.get("tags") or {}).items()))
+                if ref not in ser["columns"]:
+                    continue  # the outer projection finds no such field
+                ci = ser["columns"].index(ref)
+                for row in ser["values"]:
+                    if row[ci] is not None and lo <= row[0] < hi:
+                        data.setdefault(key, {})[row[0] + off] = row[ci]
+            runs.append((name, data))
+
+        src_name = runs[0][0] if runs else "compare"
+        all_keys = sorted({k for _n, d in runs for k in d})
+        k_runs = len(runs)
+        columns = (["time"] + [f"{ref}{i+1}" for i in range(k_runs)]
+                   + [f"{ref}1/{ref}{i+1}" for i in range(1, k_runs)])
+        out_series = []
+        for key in all_keys:
+            times = sorted({t for _n, d in runs for t in d.get(key, {})})
+            rows = []
+            for t in times:
+                vals = [d.get(key, {}).get(t) for _n, d in runs]
+                ratios = []
+                for i in range(1, k_runs):
+                    a, b = vals[0], vals[i]
+                    ratios.append(
+                        a / b if a is not None and b not in (None, 0) else None)
+                rows.append([t] + vals + ratios)
+            if not rows:
+                continue
+            series = {"name": src_name, "columns": columns, "values": rows}
+            if key:
+                series["tags"] = dict(key)
+            out_series.append(series)
+        return {"series": out_series} if out_series else {}
 
     def _resolve_measurements(self, src: ast.Measurement, db: str) -> list[str]:
         if src.name:
@@ -403,17 +600,26 @@ class Executor:
         if _has_call_wildcard(stmt):
             stmt = _expand_call_wildcards(
                 stmt, self._measurement_schema(db, rp, mst))
+        if len(stmt.fields) == 1:
+            only = _strip_expr(stmt.fields[0].expr)
+            if isinstance(only, ast.Call) and only.name == "percentile_approx":
+                return self._select_percentile_approx(
+                    stmt, db, rp, mst, now_ns, only)
+        aux_plan = _selector_aux_plan(stmt)
+        if aux_plan is not None:
+            return self._select_selector_aux(stmt, db, rp, mst, now_ns,
+                                             aux_plan)
         kind = _classify_select(stmt)
-        if _selector_aux_plan(stmt) is not None or (
-                kind == "device" and _needs_string_host_path(
-                    stmt, lambda: self._measurement_schema(db, rp, mst))):
+        if kind == "device" and _needs_string_host_path(
+                stmt, lambda: self._measurement_schema(db, rp, mst)):
+            # first/last/... over STRING fields: the device batches are
+            # numeric; the host path computes them exactly
             kind = "host"
-        if kind != "device":
-            raise QueryError(
-                "only aggregate selects (count/sum/mean/min/max/first/last/"
-                "spread/stddev/median/percentile/count(distinct)) over "
-                "fields are supported by this port yet")
-        return self._select_agg_run(stmt, db, rp, mst, now_ns, trace)
+        if kind == "raw":
+            return self._select_raw(stmt, db, rp, mst, now_ns)
+        if kind == "device":
+            return self._select_agg_run(stmt, db, rp, mst, now_ns, trace)
+        return self._select_host(stmt, db, rp, mst, now_ns)
 
     # -- shared scan planning ----------------------------------------------
 
@@ -421,6 +627,10 @@ class Executor:
         """Shared prologue: schema/tag keys, WHERE split, shard mapping,
         data-driven range clamp, window grid, group construction. Returns
         None when nothing matches."""
+        if self.engine.is_measurement_dropped(db, mst):
+            return None  # mark-deleted: hidden from SELECT before a purge
+        # the local shards: the port is single-node (the reference's
+        # remote shard proxies are ROADMAP A8)
         shards_all = self.engine.shards_for_range(db, rp, cond.MIN_TIME,
                                                   cond.MAX_TIME)
         tag_keys: set[str] = set()
@@ -470,13 +680,27 @@ class Executor:
         gid_of: dict[tuple, int] = {}
         group_keys: list[tuple] = []
         scan_plan = []  # (shard, sid, gid)
+        # /*+ full_series|specific_series */: the WHERE names whole
+        # series, so mixed tag/field trees are evaluated per series and
+        # skip their row filter
+        hinted = bool({"full_series", "specific_series"}
+                      & set(getattr(stmt, "hints", ())))
+        exact_tags = (
+            cond.exact_series_tags(stmt.condition, tag_keys)
+            if "full_series" in getattr(stmt, "hints", ()) else None
+        ) or None  # no tag equalities: the hint pins nothing
         for sh in shards:
             sids = cond.eval_tag_sids(sc.tag_expr, sh.index, mst)
             if sc.mixed_expr is not None and sids.size:
+                prune = (cond.series_only_arr if hinted
+                         else cond.tag_superset_arr)
                 sids = np.intersect1d(
-                    sids, cond.tag_superset_arr(
-                        sc.mixed_expr, sh.index, mst, sc.tag_keys),
+                    sids, prune(sc.mixed_expr, sh.index, mst, sc.tag_keys),
                     assume_unique=True)
+            if exact_tags is not None and sids.size:
+                keep = [s for s in sids.tolist()
+                        if sh.index.tags_of(s) == exact_tags]
+                sids = np.asarray(keep, np.int64)
             for sid in sids.tolist():
                 tags = sh.index.tags_of(sid)
                 key = tuple(tags.get(k, "") for k in group_tags)
@@ -486,6 +710,8 @@ class Executor:
                     gid_of[key] = gid
                     group_keys.append(key)
                 scan_plan.append((sh, sid, gid))
+        if hinted:
+            sc.mixed_series_level = True  # consumed at the series level
         if not scan_plan:
             return None
         return ScanContext(sc, shards, tmin, tmax, schema, tag_keys,
@@ -517,9 +743,14 @@ class Executor:
         num_groups = len(ctx.group_keys)
         num_segments = num_groups * W
 
-        if any(a[3].lower() == "time" for a in aggs):
-            raise QueryError("aggregates over time are not supported by this "
-                             "port yet")
+        # aggregates over the `time` pseudo-field (count/first/last/min/
+        # max of row timestamps) are computed on the host from the
+        # scanned row times
+        time_aggs = [a for a in aggs if a[3].lower() == "time"]
+        for _c, spec, _p, _f in time_aggs:
+            if spec.name not in ("count", "first", "last", "min", "max"):
+                raise QueryError(f"{spec.name}(time) is not supported")
+        aggs = [a for a in aggs if a[3].lower() != "time"]
         # influx: COUNT/COUNT(DISTINCT ...) over a TAG answers a constant 0
         tag_count_aggs = [
             a for a in aggs
@@ -531,6 +762,8 @@ class Executor:
         needed_fields = sorted({a[3] for a in aggs})
         read_fields = sorted(set(needed_fields)
                              | set(cond.row_filter_refs(sc)))
+        if time_aggs and not read_fields:
+            read_fields = None  # time-only aggregates: read every field
 
         dtype = templates.compute_dtype()
         per_field_aggs: dict[str, list] = {}
@@ -570,10 +803,13 @@ class Executor:
 
         cc_before = (colcache_mod.GLOBAL.counters()
                      if colcache_mod.GLOBAL.enabled() else None)
+        time_segs: list[np.ndarray] | None = [] if time_aggs else None
+        time_vals: list[np.ndarray] = []
         with trace.span("scan") as scan_span:
             rows_scanned = self._scan_monolithic(
                 ctx.scan_plan, scan_ranges, sc, mst, group_time, tmin, W,
-                needed_fields, read_fields, dtype, aligned, batches)
+                needed_fields, read_fields, dtype, aligned, batches,
+                time_segs, time_vals)
             scan_span.add_field("rows", rows_scanned)
         STATS.incr("executor", "rows_scanned", rows_scanned)
         if cc_before is not None:
@@ -617,6 +853,27 @@ class Executor:
                 counts = np.ones(num_segments, np.int64)  # rows render as 0
                 agg_results[id(call)] = (out, None, counts, spec, field_name,
                                          None)
+            if time_aggs:
+                seg_all = (np.concatenate(time_segs) if time_segs
+                           else np.empty(0, np.int32))
+                t_all = (np.concatenate(time_vals) if time_vals
+                         else np.empty(0, np.int64))
+                tcounts = np.bincount(
+                    seg_all, minlength=num_segments).astype(np.int64)
+            for call, spec, _params, _f in time_aggs:
+                if spec.name == "count":
+                    tout = tcounts
+                elif spec.name in ("last", "max"):
+                    tout = np.full(num_segments, np.iinfo(np.int64).min,
+                                   np.int64)
+                    np.maximum.at(tout, seg_all, t_all)
+                else:  # first/min
+                    tout = np.full(num_segments, np.iinfo(np.int64).max,
+                                   np.int64)
+                    np.minimum.at(tout, seg_all, t_all)
+                spec2 = dataclasses.replace(spec, int_output=True)
+                agg_results[id(call)] = (tout, None, tcounts, spec2, "time",
+                                         tout)
             if self.device.type == "cuda":
                 # launches return before the card finishes: end the span
                 # when the device work has, so its time does not land in
@@ -636,10 +893,12 @@ class Executor:
 
     def _scan_monolithic(self, scan_plan, scan_ranges, sc, mst, group_time,
                          tmin, W, needed_fields, read_fields, dtype, aligned,
-                         batches) -> int:
+                         batches, time_segs=None, time_vals=None) -> int:
         """Decode every series in range into `batches`: one bulk read per
         shard when many series are scanned, else per-series reads staged
-        into one contiguous add per field. Returns rows scanned."""
+        into one contiguous add per field. With `time_segs` (aggregates
+        over time) each row's segment and time are kept there and in
+        `time_vals`. Returns rows scanned."""
         rows_scanned = 0
         by_shard: dict[int, tuple] = {}
         for sh, sid, gid in scan_plan:
@@ -671,9 +930,14 @@ class Executor:
                            ).astype(np.int32)
                 else:
                     seg = gid_rows.astype(np.int32)
+                if time_segs is not None:
+                    m = fmask if fmask is not None else slice(None)
+                    time_segs.append(seg[m])
+                    time_vals.append(rec.times[m])
                 _add_record_to_batches(rec, seg, aligned, needed_fields,
                                        batches, dtype, fmask, sids=sid_arr)
-        stager = (_ScanStager(needed_fields, dtype, batches, aligned)
+        stager = (_ScanStager(needed_fields, dtype, batches, aligned,
+                              time_segs, time_vals)
                   if remaining_plan else None)
         for sh, sid, gid in remaining_plan:
             for rlo, rhi in scan_ranges:

@@ -142,6 +142,13 @@ class EncodedColumn(Column):
     def is_decoded(self) -> bool:
         return self._values is not None
 
+    def roots(self) -> list["EncodedColumn"]:
+        """The columns whose block decodes this view's ``.values`` reads:
+        its root columns, or itself. Decoding them first (in any order,
+        on any thread) leaves ``.values`` only slicing."""
+        spans = self._spans_or_self()
+        return [self] if spans is None else [r for r, _off in spans]
+
     def _spans_or_self(self) -> list | None:
         """This column as root spans, or None when it has no root
         provenance (a standalone segmented view decodes its own

@@ -1,12 +1,15 @@
 """InfluxDB 1.x-compatible HTTP API, the routes of this slice.
 
-The port of ``opengemini_tpu/server/http.py`` for four routes, on the
+The port of ``opengemini_tpu/server/http.py`` for five routes, on the
 standard library's threading HTTP server:
   GET/HEAD /ping        204
+  GET      /health      200 {"name", "status": "pass", "version"}
   GET/POST /query       InfluxQL, params q/db/epoch/pretty/chunked/
                         chunk_size (chunked: newline-delimited JSON, one
                         document per series or chunk_size rows, streamed
-                        with Transfer-Encoding: chunked)
+                        with Transfer-Encoding: chunked). A GET runs
+                        SELECT, EXPLAIN and SHOW; other statements need
+                        a POST (query/executor._is_readonly)
   POST     /write       line protocol, params db/rp/precision
   GET      /debug/vars  the statistics registry (utils/stats.py), with
                         the query_stages timings (the executor's, and
@@ -196,6 +199,10 @@ def _make_handler(svc: HttpService):
             path = urllib.parse.urlparse(self.path).path
             if path == "/ping":
                 self._send(204)
+            elif path == "/health":
+                self._send_json(200, {"name": "opengemini-tpu",
+                                      "status": "pass",
+                                      "version": __version__})
             elif path == "/query":
                 self._handle_query(self._params(), read_only=True)
             elif path == "/debug/vars":

@@ -18,9 +18,21 @@ WALs before it applies it and flushes a shard whose memtable passes
 ``flush_threshold_bytes`` (64 MiB by default). No path acknowledges rows
 that neither a WAL nor a TSF file holds.
 
-Not in this port yet: the tag-array write mode (the reference's
-``tag_arrays``, which sends such bodies to the Python parser), and the
-rollup and rule hooks of the write path (ROADMAP A7).
+Metadata: ``create_database``, ``drop_database``, the retention
+policies (``create_``, ``alter_``, ``drop_retention_policy``, with the
+reference's automatic shard durations) and DROP MEASUREMENT's mark
+(``mark_measurement_delete``, kept in meta.json ``dropped_msts`` as the
+reference keeps it). A marked measurement is hidden from SELECT and the
+metadata SHOWs.
+
+Not in this port yet: the purge of marked measurements
+(``purge_dropped_measurements``, which needs the data rewrites of ROADMAP
+A3.4): the reference purges before it accepts a write to a database
+with marks, so the port refuses such a write with an error naming A3.4
+rather than store rows the mark would hide. Also the tag-array write
+mode (the reference's ``tag_arrays``, which sends such bodies to the
+Python parser), and the rollup and rule hooks of the write path
+(ROADMAP A7).
 
 ``Engine(root, device=None)`` holds the device every query on it runs
 on: CUDA unless the caller names another (``device="cpu"`` in the
@@ -31,6 +43,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import threading
 import time as _time
 from concurrent.futures import ThreadPoolExecutor
@@ -137,6 +150,9 @@ class Database:
         self.name = name
         self.rps: dict[str, RetentionPolicy] = {}
         self.default_rp = "autogen"
+        # DROP MEASUREMENT marks (meta.json "dropped_msts"): hidden from
+        # queries until a purge
+        self.dropped_msts: set[str] = set()
         # keys of meta.json this port does not interpret (continuous
         # queries, downsample policies, rollups, ... of a root the JAX
         # package wrote): kept as read and written back unchanged
@@ -187,8 +203,10 @@ class Engine:
             for rpj in dbj.get("rps", []):
                 rp = RetentionPolicy.from_json(rpj)
                 db.rps[rp.name] = rp
+            db.dropped_msts = set(dbj.get("dropped_msts", []))
             db.extra = {k: v for k, v in dbj.items()
-                        if k not in ("name", "default_rp", "rps")}
+                        if k not in ("name", "default_rp", "rps",
+                                     "dropped_msts")}
             self.databases[db.name] = db
         self._meta_extra = {k: v for k, v in j.items() if k != "databases"}
 
@@ -197,7 +215,8 @@ class Engine:
         j.setdefault("obs_shards", [])
         j["databases"] = [
             {"name": db.name, "default_rp": db.default_rp,
-             "rps": [rp.to_json() for rp in db.rps.values()], **db.extra}
+             "rps": [rp.to_json() for rp in db.rps.values()], **db.extra,
+             "dropped_msts": sorted(db.dropped_msts)}
             for db in self.databases.values()
         ]
         tmp = self._meta_path() + ".tmp"
@@ -216,6 +235,98 @@ class Engine:
             db.rps["autogen"] = RetentionPolicy("autogen")
             self.databases[name] = db
             self._save_meta()
+
+    def drop_database(self, name: str) -> None:
+        with self._lock:
+            if name not in self.databases:
+                return
+            for key in [k for k in self._shards if k[0] == name]:
+                shard = self._shards.pop(key)
+                shard.close()
+                shutil.rmtree(shard.path, ignore_errors=True)
+            del self.databases[name]
+            self._save_meta()
+            shutil.rmtree(os.path.join(self.root, "data", name),
+                          ignore_errors=True)
+
+    def drop_retention_policy(self, db: str, name: str) -> None:
+        with self._lock:
+            d = self.databases.get(db)
+            if d is None or name not in d.rps:
+                return
+            del d.rps[name]
+            for key in [k for k in self._shards
+                        if k[0] == db and k[1] == name]:
+                shard = self._shards.pop(key)
+                shard.close()
+                shutil.rmtree(shard.path, ignore_errors=True)
+            if d.default_rp == name:
+                d.default_rp = ("autogen" if "autogen" in d.rps
+                                else next(iter(d.rps), "autogen"))
+            self._save_meta()
+
+    def create_retention_policy(self, db: str, name: str, duration_ns: int,
+                                shard_duration_ns: int | None = None,
+                                default: bool = False) -> None:
+        _check_namespace_name(name, "retention policy")
+        with self._lock:
+            d = self.databases.get(db)
+            if d is None:
+                raise DatabaseNotFound(db)
+            if not shard_duration_ns:  # absent or 0 = auto (influx meta)
+                shard_duration_ns = _auto_shard_duration(duration_ns)
+            d.rps[name] = RetentionPolicy(name, duration_ns, shard_duration_ns)
+            if default:
+                d.default_rp = name
+            self._save_meta()
+
+    def alter_retention_policy(self, db: str, name: str,
+                               duration_ns: int | None = None,
+                               shard_duration_ns: int | None = None,
+                               default: bool = False) -> None:
+        """Change an existing RP in place; None fields stay as they are.
+        A new shard duration applies to shard groups created after the
+        change (influx)."""
+        with self._lock:
+            d = self.databases.get(db)
+            if d is None:
+                raise DatabaseNotFound(db)
+            rp = d.rps.get(name)
+            if rp is None:
+                raise ValueError(f"retention policy not found: {name}")
+            new_dur = rp.duration_ns if duration_ns is None else duration_ns
+            if shard_duration_ns is None:
+                new_sd = rp.shard_duration_ns
+            else:  # explicit 0 = recompute the auto layout (influx meta)
+                new_sd = shard_duration_ns or _auto_shard_duration(new_dur)
+            if new_dur and new_dur < new_sd:
+                # influx rejects this rather than rewrite the shard layout
+                raise ValueError(
+                    "retention policy duration must be greater than the "
+                    "shard duration")
+            rp.duration_ns = new_dur
+            rp.shard_duration_ns = new_sd
+            if default:
+                d.default_rp = name
+            self._save_meta()
+
+    def database_names(self) -> list[str]:
+        return sorted(self.databases)
+
+    def mark_measurement_delete(self, db: str, mst: str) -> None:
+        """DROP MEASUREMENT: mark only. SELECT and the metadata SHOWs
+        hide the measurement at once; its rows and index entries stay
+        until a purge (ROADMAP A3.4)."""
+        d = self.databases.get(db)
+        if d is None:
+            raise DatabaseNotFound(db)
+        with self._lock:
+            d.dropped_msts.add(mst)
+            self._save_meta()
+
+    def is_measurement_dropped(self, db: str, mst: str) -> bool:
+        d = self.databases.get(db)
+        return d is not None and mst in d.dropped_msts
 
     # -- shards -------------------------------------------------------------
 
@@ -274,6 +385,14 @@ class Engine:
         d = self.databases.get(db)
         if d is None:
             raise DatabaseNotFound(db)
+        if d.dropped_msts:
+            # the reference purges the marked measurements before it
+            # accepts the write; without the purge, rows written now
+            # would hide behind the mark
+            raise WriteError(
+                f"database {db!r} has dropped measurements awaiting a "
+                "purge, which is not supported by this port yet "
+                "(ROADMAP A3.4)")
         return rp or d.default_rp
 
     def write_lines(self, db: str, lines: str | bytes, precision: str = "ns",
@@ -499,6 +618,11 @@ class Engine:
         with self._lock:
             return list(self._shards.values())
 
+    def shard_items(self) -> list[tuple[tuple[str, str, int], Shard]]:
+        """[((db, rp, group_start), shard)] in key order."""
+        with self._lock:
+            return sorted(self._shards.items(), key=lambda kv: kv[0])
+
     def flush_all(self) -> None:
         with self._lock:
             shards = list(self._shards.values())
@@ -510,3 +634,15 @@ class Engine:
             for shard in self._shards.values():
                 shard.close()
             self._shards.clear()
+
+
+def _auto_shard_duration(duration_ns: int) -> int:
+    """Influx defaults: RP < 2d -> 1h groups, < 6mo -> 1d, else 7d."""
+    day = 24 * 3600 * NS
+    if duration_ns == 0:
+        return 7 * day
+    if duration_ns < 2 * day:
+        return 3600 * NS
+    if duration_ns < 180 * day:
+        return day
+    return 7 * day

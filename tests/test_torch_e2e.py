@@ -154,11 +154,17 @@ def test_query_matches_jax(engines, qname):
 
 
 def test_unsupported_statements_answer_an_error(engines):
-    _je, te = engines
-    res = TExecutor(te).execute("SELECT usage_user FROM cpu LIMIT 1", db="db")
-    assert "error" in res["results"][0]
-    res = TExecutor(te).execute("SHOW MEASUREMENTS", db="db")
-    assert "error" in res["results"][0]
+    """A statement of a later slice answers a "not supported by this port
+    yet" error; the raw select and SHOW of this slice answer as JAX."""
+    je, te = engines
+    for q in ("SELECT max FROM (SELECT max(usage_user) FROM cpu)",
+              "SHOW QUERIES", "DELETE FROM cpu WHERE hostname = 'host_0'"):
+        res = TExecutor(te).execute(q, db="db")
+        assert "not supported by this port yet" in res["results"][0]["error"]
+    for q in ("SELECT usage_user FROM cpu LIMIT 1", "SHOW MEASUREMENTS"):
+        got = TExecutor(te).execute(q, db="db")
+        assert "error" not in got["results"][0], got
+        assert got == JExecutor(je).execute(q, db="db")
 
 
 def _export_jax(je, db):

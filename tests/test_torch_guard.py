@@ -33,7 +33,7 @@ def test_every_module_is_found():
                  "opengemini_tpu_torch.query.executor",
                  "opengemini_tpu_torch.server.http",
                  "opengemini_tpu_torch.convert",
-                 *SIXTH_SLICE_MODULES):
+                 *SIXTH_SLICE_MODULES, *SEVENTH_SLICE_MODULES):
         assert must in mods
 
 
@@ -117,6 +117,14 @@ SIXTH_SLICE_MODULES = [
     "opengemini_tpu_torch.server.http",
 ]
 BLOCKED_IMPORT_MODULES += SIXTH_SLICE_MODULES
+
+# the host query path and the schema statements
+SEVENTH_SLICE_MODULES = [
+    "opengemini_tpu_torch.query.functions",
+    "opengemini_tpu_torch.query.hostpath",
+    "opengemini_tpu_torch.query.showddl",
+]
+BLOCKED_IMPORT_MODULES += SEVENTH_SLICE_MODULES
 
 
 @pytest.mark.parametrize("module", BLOCKED_IMPORT_MODULES)
