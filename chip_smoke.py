@@ -79,7 +79,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    decoded-column cache is off in this phase (its disabled path), so
    every run decodes. C1 (Q1's shape),
    C2 (Q2's) and C3 (count/min/max of the diskio read_bytes counter
-   GROUP BY time(1m)) run 5 times each plus one traced run; every answer
+   GROUP BY time(1m)) run 5 times each (C2 3 times: COLD_RUNS) plus one
+   traced run; every answer
    equals the numpy oracle; each must take the fused device decode
    (executor/grid_decode_fused up, device/decode_fallbacks_total not),
    C1 and C2 launch unpack_bits and grid_window_agg, C3 widen_packed, and
@@ -134,9 +135,34 @@ Phases, in order; any failure ends the run with a nonzero exit:
    render; SHOW: show); then the same root reopened with device="cpu"
    must give the same five answers. The kernels 1-3 are checked and
    timed again at the largest new shapes the phase gave them.
+9. Subqueries, joins, unions and SELECT INTO, with a budget of its own
+   (SUBQUERY_PHASE_S, 150 s, shortened if the script's 1200 s would
+   not leave AFTER_PHASE9_S after it), on phase 7's compacted root with
+   the decoded-column cache off, over the 12 h span: S1, the mean and
+   max per hour of the per-host 10-minute maxima (a Grafana panel: a
+   FROM subquery whose inner select must take the chunked path, its
+   chunk count printed, and launch kernel 3, and whose outer aggregate
+   must launch a kernel on the spill engine, on the card); J1, an INNER
+   JOIN of per-host mean(usage_user) and max(read_bytes) (two aggregate
+   subqueries) on hostname; U1, a UNION ALL of two raw selects (host_7's
+   cpu, host_9's diskio), each with its own WHERE; I1, SELECT ... INTO
+   cpu_1h of the hourly per-host means (a POST; it writes, so it runs
+   last), then count(usage_user) and host_7's mean read back. Each
+   answer equals the numpy oracle (counts, min and max exact, means
+   rtol 1e-9; phase 6's host_extra row included). Each runs five times
+   (fewer, with a progress line saying so, when the runs would not fit
+   the budget beside the CPU comparison) with its p50, its stage split
+   (the `subquery` and `subquery(chunked)` spans printed beside the
+   stages; they nest, so the 90% check does not apply), the launches
+   per kernel, the rows materialized into spill engines, the launches
+   on them, and the device-memory peak. Then the same root reopened
+   with device="cpu" must give the card's answers to S1, J1, U1 and
+   I1's read-backs (floats within rtol 1e-12). The kernels 1-3 are
+   checked and timed again at the largest new shapes the phase gave
+   them.
 
-Launch counters start at 0 before each main path (phases 3, 5, 6, 7, 8)
-and are read after it; the {"kernels": [...]} line sums them, with
+Launch counters start at 0 before each main path (phases 3, 5, 6, 7, 8,
+9) and are read after it; the {"kernels": [...]} line sums them, with
 launches_per_phase, launches_per_query and launches_parity_on_card.
 
 Output: progress lines, then a {"kernels": [...]} line, the nvidia-smi
@@ -196,6 +222,10 @@ E2E_KERNELS = ("bucket_stats_basic", "bucket_stats_selectors",
                "grid_window_agg")
 COLD_KERNELS = ("grid_window_agg", "widen_packed", "unpack_bits",
                 "probe_count")
+# timed runs of a cold query where not five: C2 takes about 20 s a run
+# after an 80 s first one (NVIDIA H100 80GB HBM3 at 700 W), and three
+# keep the script inside its 1200 s
+COLD_RUNS = {"C2": 3}
 # C1's gorilla chunks per run: 17.28 M values in chunks of at most 2^20
 # (ops/device_decode._CHUNK_VALUES) whole blocks of 131072
 MAX_C1_CHUNKS = 17
@@ -1042,10 +1072,12 @@ def stop_server(svc, engine) -> None:
     engine.close()
 
 
-def query_timed(port: int, q: str) -> tuple[dict, float, float]:
+def query_timed(port: int, q: str, method: str = "GET"
+                ) -> tuple[dict, float, float]:
     """(result, request ms, wall ms) of one /query on the kept-alive
     connection: the request ends with the answer's last byte, the wall
-    after its JSON decode and a synchronize (what a p50 times)."""
+    after its JSON decode and a synchronize (what a p50 times). A
+    statement that writes (SELECT INTO) goes by POST."""
     import torch
 
     conn = _CONNS.get(port)
@@ -1055,7 +1087,7 @@ def query_timed(port: int, q: str) -> tuple[dict, float, float]:
     path = "/query?" + urllib.parse.urlencode(
         {"db": "benchmark", "q": q, "epoch": "ns"})
     t0 = time.perf_counter()
-    conn.request("GET", path)
+    conn.request(method, path)
     r = conn.getresponse()
     status, data = r.status, r.read()
     t1 = time.perf_counter()
@@ -1101,23 +1133,29 @@ def stage_ns(port: int) -> dict:
     return doc.get("query_stages", {})
 
 
-def stage_split(port: int, before: dict, walls: list, qn: str) -> dict:
+def stage_split(port: int, before: dict, walls: list, qn: str,
+                extra: tuple = (), after: dict | None = None) -> dict:
     """Each stage's ms over the runs since `before` (the /debug/vars
-    deltas), the rest of their request walls (`walls`) as `other`, the
-    stage that took the most and the share of the walls the stages cover
-    (main() checks every query's share against STAGE_COVER once all
-    phases ran)."""
-    after = stage_ns(port)
+    deltas to `after`, by default the counters now), the rest of their
+    request walls (`walls`) as `other`, the stage that took the most and
+    the share of the walls the stages cover (main() checks every query's
+    share against STAGE_COVER once all phases ran). The `extra` spans
+    print beside them: they nest around the stages, so they count in no
+    share."""
+    if after is None:
+        after = stage_ns(port)
     wall = sum(walls)
     ms = {st: (after.get(f"{st}_ns", 0) - before.get(f"{st}_ns", 0)) / 1e6
-          for st in STAGES}
-    covered = sum(ms.values())
+          for st in (*STAGES, *extra)}
+    covered = sum(ms[st] for st in STAGES)
     ms["other"] = wall - covered
     top = max(STAGES, key=ms.get)
     log(f"[stages] {qn} over {len(walls)} requests ({wall:.1f} ms): "
         + ", ".join(f"{st} {ms[st]:.1f}" for st in (*STAGES, "other"))
         + f" ms; most: {top} ({100 * ms[top] / wall:.1f}% of the wall); "
-        f"the stages cover {100 * covered / wall:.1f}%")
+        f"the stages cover {100 * covered / wall:.1f}%"
+        + ("; around them " + ", ".join(f"{st} {ms[st]:.1f} ms"
+                                        for st in extra) if extra else ""))
     return dict(ms, wall_ms=wall, most=top, covered=covered / wall)
 
 
@@ -1739,17 +1777,17 @@ class ChunkCounter:
         self.dd._gorilla_chunks = self.original
 
 
-def launches_per_run(qn: str, got: dict, n_chunks: int) -> dict:
+def launches_per_run(qn: str, got: dict, n_chunks: int, runs: int) -> dict:
     """Kernels 4 and 5's launches in one run of a cold query, from the
-    counts of its 5 timed runs, checked exactly: kernel 4 once per run in
-    C3 (one launch for the plan's every FOR-delta block), kernel 5 once
-    per gorilla chunk in C1 and C2 (C1 at most MAX_C1_CHUNKS, C2's five
-    fields five times C1's)."""
-    per_run = {k: got[k] // 5 for k in ("widen_packed", "unpack_bits")}
+    counts of its `runs` timed runs, checked exactly: kernel 4 once per
+    run in C3 (one launch for the plan's every FOR-delta block), kernel 5
+    once per gorilla chunk in C1 and C2 (C1 at most MAX_C1_CHUNKS, C2's
+    five fields five times C1's)."""
+    per_run = {k: got[k] // runs for k in ("widen_packed", "unpack_bits")}
     for k, n in per_run.items():
-        check(got[k] == 5 * n, f"{qn}: {k} launched {got[k]} times in 5 "
-              "runs, not the same count in every run")
-    check(per_run["unpack_bits"] * 5 == n_chunks,
+        check(got[k] == runs * n, f"{qn}: {k} launched {got[k]} times in "
+              f"{runs} runs, not the same count in every run")
+    check(per_run["unpack_bits"] * runs == n_chunks,
           f"{qn}: {got['unpack_bits']} unpack launches for {n_chunks} chunks")
     if qn == "C3":
         check(per_run == {"widen_packed": 1, "unpack_bits": 0},
@@ -1901,13 +1939,14 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
             chunks.n = 0
             st0 = stage_ns(svc.port)
             requests = []
-            for _ in range(5):
+            runs = COLD_RUNS.get(qn, 5)
+            for _ in range(runs):
                 res, req_ms, wall_ms = query_timed(svc.port, q)
                 lat.append(wall_ms)
                 requests.append(req_ms)
                 verify_cold(qn, res, vals, counters, tags, n_hosts, n_t)
             stages = stage_split(svc.port, st0, requests, qn)
-            p50[qn] = sorted(lat)[2]
+            p50[qn] = sorted(lat)[runs // 2]
             c1 = decode_counters()
             d = {k: c1.get(k, 0) - c0.get(k, 0) for k in c1}
             got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
@@ -1924,15 +1963,15 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
             for k in needs[qn]:
                 check(got[k] > 0, f"{qn}: kernel {k} not launched")
             per_query[qn]["per_run"] = per_run = launches_per_run(
-                qn, got, chunks.n)
+                qn, got, chunks.n, runs)
             blocks = {k.split("_")[2]: v for k, v in d.items()
                       if k.startswith("device/decode_blocks_") and v}
             log(f"[cold] {qn} ok p50={p50[qn]:.1f} ms (runs "
                 f"{', '.join(f'{x:.1f}' for x in lat)}); fused "
                 f"+{d['executor/grid_decode_fused']}, blocks by codec "
                 f"{json.dumps(blocks)}, device-decode H2D "
-                f"{d['devobs/h2d_bytes/device-decode'] / 5 / 1e6:.1f} MB per "
-                f"run; launches in 5 runs {json.dumps(got)} at "
+                f"{d['devobs/h2d_bytes/device-decode'] / runs / 1e6:.1f} MB "
+                f"per run; launches in {runs} runs {json.dumps(got)} at "
                 f"{json.dumps(short_shapes(per_query[qn]['shapes']))}")
         rec.now = None
         trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1990,8 +2029,9 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
         check(launches["probe_count"] == 1,
               f"probe_count launched {launches['probe_count']} times, not once")
         peak = torch.cuda.max_memory_allocated()
-        log(f"[cold] launches (load, restart, 5 timed + 1 traced run per "
-            f"query, WAL check) {launches}; device memory peak "
+        log(f"[cold] launches (load, restart, 5 timed (C2 "
+            f"{COLD_RUNS['C2']}) + 1 traced run per query, WAL check) "
+            f"{launches}; device memory peak "
             f"{peak / 2**20:.1f} MiB (limit {COLD_PEAK_LIMIT / 2**20:.0f}); "
             f"p50 ms {json.dumps(p50)}; card {smi_line()}")
         check(peak <= COLD_PEAK_LIMIT, f"phase 5 device memory peak {peak} B")
@@ -2506,6 +2546,323 @@ def phase_host(cold: dict) -> dict:
             stop_server(svc, engine)
 
 
+# -- phase 9: subqueries, joins, unions and SELECT INTO ------------------------
+
+# phase 9's budget of its own (s), as phase 8's: a query whose run shows
+# that five would not fit runs fewer times, and a progress line says so
+SUBQUERY_PHASE_S = 150.0
+# held back from that budget for the CPU comparison: at least this, and
+# 1.5 x the card's first runs of the queries it repeats (the queries are
+# host-bound, so the CPU takes about as long)
+SUBQUERY_RESERVE_S = 30.0
+# the script's time limit, and what phase 9 leaves of it for the checks
+# after it: its runs stop early rather than let the script overrun
+SCRIPT_LIMIT_S = 1200.0
+AFTER_PHASE9_S = 90.0
+# the span stages of a subquery: the inner select, and the inner chunks
+# with their materialization; they nest around the executor's stages
+SUBQUERY_STAGES = ("subquery", "subquery(chunked)")
+
+
+def subquery_queries(n_t: int) -> dict:
+    """Phase 9's statements over the cold phase's span of n_t samples:
+    S1 a dashboard's aggregate of per-host maxima, J1 per-host CPU load
+    beside disk reads, U1 one host's CPU beside another's disk counters,
+    I1 downsampling by hand (it writes, so it runs last)."""
+    w = f"time >= {T0_NS} AND time < {T0_NS + n_t * STEP_NS}"
+    return {
+        "S1": 'SELECT mean("m"), max("m") FROM (SELECT max(usage_user) AS m '
+              f"FROM cpu WHERE {w} GROUP BY time(10m), hostname) "
+              "GROUP BY time(1h)",
+        "J1": "SELECT c.m, d.r FROM (SELECT mean(usage_user) AS m FROM cpu "
+              f"WHERE {w} GROUP BY hostname) AS c INNER JOIN (SELECT "
+              f"max(read_bytes) AS r FROM diskio WHERE {w} GROUP BY "
+              "hostname) AS d ON c.hostname = d.hostname GROUP BY hostname",
+        "U1": "SELECT usage_user, usage_system FROM cpu WHERE hostname = "
+              f"'host_7' AND {w} UNION ALL SELECT reads, writes FROM diskio "
+              f"WHERE hostname = 'host_9' AND {w}",
+        "I1": "SELECT mean(usage_user) AS usage_user INTO cpu_1h FROM cpu "
+              f"WHERE {w} GROUP BY time(1h), hostname",
+    }
+
+
+def i1_readbacks() -> dict:
+    return {"I1 count": "SELECT count(usage_user) FROM cpu_1h",
+            "I1 host_7": "SELECT mean(usage_user) FROM cpu_1h WHERE "
+                         "hostname = 'host_7'"}
+
+
+def verify_subquery(qn: str, res: dict, o: dict) -> None:
+    """Phase 9's answers against the cold phase's oracle (phase 6's
+    host_extra row included: one more cpu series, usage_user only, one
+    row at T0)."""
+    import numpy as np
+
+    n_hosts, n_t = o["n_hosts"], o["n_t"]
+    hours = n_t // 360
+    v = o["vals"]["usage_user"][:, :n_t]
+    series = res.get("series", [])
+    if qn == "S1":
+        m = v.reshape(n_hosts, n_t // 60, 60).max(axis=2)  # 10m maxima
+        hourly = m.reshape(n_hosts, hours, 6)
+        want_sum = hourly.sum(axis=(0, 2))
+        want_cnt = np.full(hours, n_hosts * 6)
+        want_max = hourly.max(axis=(0, 2))
+        want_sum[0] += EXTRA_VALUE
+        want_cnt[0] += 1
+        want_max[0] = max(want_max[0], EXTRA_VALUE)
+        check(len(series) == 1, f"S1: {len(series)} series")
+        rows = series[0]["values"]
+        check([r[0] for r in rows] == [T0_NS + k * 3600 * 10**9
+                                       for k in range(hours)], "S1: times")
+        check(close([r[1] for r in rows], want_sum / want_cnt), "S1: mean")
+        check(np.array_equal(np.array([r[2] for r in rows]), want_max),
+              "S1: max")
+    elif qn == "J1":
+        check(len(series) == n_hosts, f"J1: {len(series)} series")
+        rb = o["counters"]["read_bytes"][:, :n_t]
+        for s in series:
+            h = int(s["tags"]["hostname"].split("_")[1])
+            check(s["columns"] == ["time", "c.m", "d.r"], f"J1: {s['columns']}")
+            (row,) = s["values"]
+            check(close([row[1]], [v[h].mean()]), f"J1 host {h}: mean")
+            check(row[2] == int(rb[h].max()), f"J1 host {h}: max")
+    elif qn == "U1":
+        us = o["vals"]["usage_system"][7, :n_t]
+        dio = o["counters"]
+        times = [T0_NS + i * STEP_NS for i in range(n_t)]
+        want = ([[t, float(a), float(b)]
+                 for t, a, b in zip(times, us, v[7])]
+                + [[t, int(a), int(b)] for t, a, b in
+                   zip(times, dio["writes"][9, :n_t], dio["reads"][9, :n_t])])
+        check(len(series) == 1 and series[0]["name"] == "cpu,diskio"
+              and series[0]["columns"] == ["time", "usage_system",
+                                           "usage_user"], "U1: the series")
+        check(series[0]["values"] == want, "U1: rows")
+    elif qn == "I1":
+        check(series[0]["values"] == [[0, n_hosts * hours + 1]],
+              f"I1: {series[0]['values']}")
+    elif qn == "I1 count":
+        check(series[0]["values"][0][1] == n_hosts * hours + 1,
+              f"I1 count: {series[0]['values']}")
+    else:  # I1 host_7: the mean of host_7's hourly means
+        want = v[7].reshape(hours, 360).mean(axis=1).mean()
+        check(close([series[0]["values"][0][1]], [want]), "I1 host_7")
+
+
+def same_answer(a, b) -> bool:
+    """Equal answers, floats within rtol 1e-12 (the kernels and their
+    plain versions sum in other orders)."""
+    import math
+
+    if isinstance(a, float) and isinstance(b, float):
+        return math.isclose(a, b, rel_tol=1e-12, abs_tol=0)
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(same_answer(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list) and isinstance(b, list):
+        return len(a) == len(b) and all(map(same_answer, a, b))
+    return type(a) is type(b) and a == b
+
+
+class SubqueryProbe:
+    """Wraps the port's subquery steps while entered: the chunk plans,
+    the rows each materialization writes into a spill engine, and the
+    kernel launches of the outer selects on the spill engines."""
+
+    def __init__(self):
+        from opengemini_tpu_torch.ops import cuda_segment as cs
+        from opengemini_tpu_torch.query import subquery as sq
+
+        self.cs, self.sq = cs, sq
+        self.originals = {
+            "plan": sq.SubqueryMixin._plan_subquery_chunks,
+            "outer": sq.SubqueryMixin._run_outer_on,
+            "materialize": sq._materialize_into}
+        self.reset()
+
+    def reset(self):
+        self.chunks, self.rows = [], 0
+        self.outer_launches = {k: 0 for k in self.cs.LAUNCHES}
+
+    def __enter__(self):
+        orig = self.originals
+
+        def plan(ex, *a):
+            out = orig["plan"](ex, *a)
+            if out is not None:
+                self.chunks.append(len(out))
+            return out
+
+        def outer(ex, *a):
+            l0 = dict(self.cs.LAUNCHES)
+            try:
+                return orig["outer"](ex, *a)
+            finally:
+                for k, n in self.cs.LAUNCHES.items():
+                    self.outer_launches[k] += n - l0[k]
+
+        def materialize(tmp_engine, mst, series_list, spent=0):
+            out = orig["materialize"](tmp_engine, mst, series_list, spent)
+            self.rows += out - spent
+            return out
+
+        self.sq.SubqueryMixin._plan_subquery_chunks = plan
+        self.sq.SubqueryMixin._run_outer_on = outer
+        self.sq._materialize_into = materialize
+        return self
+
+    def __exit__(self, *exc):
+        self.sq.SubqueryMixin._plan_subquery_chunks = self.originals["plan"]
+        self.sq.SubqueryMixin._run_outer_on = self.originals["outer"]
+        self.sq._materialize_into = self.originals["materialize"]
+
+
+def phase_subquery(cold: dict, deadline: float) -> dict:
+    """S1, J1, U1 and I1 on phase 7's compacted root (cache off), each
+    against the oracle, then S1, J1, U1 and I1's read-backs on the same
+    root with device="cpu", equal to the card's. Each query runs once,
+    in order, then again while its runs fit the budget beside the CPU
+    comparison (1.5 x the card's first runs of S1, J1 and U1, at least
+    SUBQUERY_RESERVE_S); `deadline` (the perf_counter by which the phase
+    must end) can shorten the budget."""
+    import torch
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.server.http import HttpService
+    from opengemini_tpu_torch.storage import colcache
+    from opengemini_tpu_torch.storage.engine import Engine
+
+    t_phase = time.perf_counter()
+    budget = min(SUBQUERY_PHASE_S, deadline - t_phase)
+    colcache.GLOBAL.configure(budget_mb=0)  # decode on every run
+    o = cold["oracle"]
+    queries = subquery_queries(o["n_t"])
+    rec = ShapeRecorder().__enter__()
+    probe = SubqueryProbe().__enter__()
+    svc = engine = None
+    try:
+        torch.cuda.synchronize()
+        cs.reset_launches()
+        engine, svc = serve(cold["root"])
+        runs = {qn: {"walls": [], "requests": [], "stages": {},
+                     "launches": {k: 0 for k in cs.LAUNCHES},
+                     "outer": {k: 0 for k in cs.LAUNCHES}, "shapes": {},
+                     "peak": 0, "chunks": [], "rows": 0}
+                for qn in queries}
+        answers = {}
+
+        def run(qn: str) -> None:
+            """One timed run of `qn`, added to runs[qn]."""
+            r = runs[qn]
+            l0, st0 = dict(cs.LAUNCHES), stage_ns(svc.port)
+            rec.now = r["shapes"]
+            probe.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res, req, ms = query_timed(svc.port, queries[qn],
+                                       "POST" if qn == "I1" else "GET")
+            if qn in answers:
+                check(same_answer(res, answers[qn]), f"{qn}: runs differ")
+            else:
+                verify_subquery(qn, res, o)
+                answers[qn] = res
+                r["chunks"], r["rows"] = probe.chunks[:1], probe.rows
+            st1 = stage_ns(svc.port)
+            for k in st1:
+                r["stages"][k] = r["stages"].get(k, 0) + st1[k] - st0.get(k, 0)
+            for k in cs.LAUNCHES:
+                r["launches"][k] += cs.LAUNCHES[k] - l0[k]
+                r["outer"][k] += probe.outer_launches[k]
+            r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+            r["walls"].append(ms)
+            r["requests"].append(req)
+
+        for qn in queries:
+            run(qn)
+        reserve = max(SUBQUERY_RESERVE_S, 1.5 * sum(
+            runs[qn]["walls"][0] for qn in ("S1", "J1", "U1")) / 1e3)
+        for qn in queries:  # I1, which writes, stays last
+            walls = runs[qn]["walls"]
+            while len(walls) < 5:
+                left = budget - (time.perf_counter() - t_phase)
+                if left < walls[-1] / 1e3 + reserve:
+                    log(f"[subquery] {qn}: {len(walls)} run(s) (the last "
+                        f"{walls[-1]:.1f} ms); five would not fit phase 9's "
+                        f"{budget:.0f} s beside {reserve:.0f} s for the CPU")
+                    break
+                run(qn)
+        rec.now = None
+        per_query = {}
+        for qn, r in runs.items():
+            n = len(r["walls"])
+            lat = sorted(r["walls"])
+            per_query[qn] = {
+                "runs_ms": r["walls"], "p50_ms": lat[n // 2],
+                "launches": r["launches"],
+                "stages_ms": stage_split(svc.port, {}, r["requests"], qn,
+                                         extra=SUBQUERY_STAGES,
+                                         after=r["stages"]),
+                "peak_bytes": r["peak"], "chunks": r["chunks"],
+                "rows_per_run": r["rows"],
+                "outer_launches": {k: v // n for k, v in r["outer"].items()
+                                   if v},
+                "shapes": {k: [shape_json(k, x) for x in sorted(v)]
+                           for k, v in r["shapes"].items()}}
+            got = {k: v for k, v in r["launches"].items() if v}
+            log(f"[subquery] {qn} ok p50={lat[n // 2]:.1f} ms (runs "
+                f"{', '.join(f'{x:.1f}' for x in r['walls'])}); {r['rows']} "
+                f"rows into the spill engines a run"
+                + (f", {r['chunks'][0]} inner chunks" if r["chunks"] else "")
+                + f"; launches in {n} runs {json.dumps(got)} (a run on the "
+                f"spill engines {json.dumps(per_query[qn]['outer_launches'])})"
+                f"; device memory peak {r['peak'] / 2**20:.1f} MiB")
+        s1 = per_query["S1"]
+        check(s1["chunks"] and s1["chunks"][0] >= 2,
+              f"S1 took no chunked inner path: {s1['chunks']}")
+        inner3 = (s1["launches"]["grid_window_agg"]
+                  - s1["outer_launches"].get("grid_window_agg", 0)
+                  * len(s1["runs_ms"]))
+        check(inner3 > 0, "S1: kernel 3 not launched on the inner chunks")
+        check(sum(s1["outer_launches"].get(k, 0) for k in E2E_KERNELS) > 0,
+              "S1: the outer aggregate launched no kernel on the spill engine")
+        check(sum(per_query["J1"]["launches"][k] for k in E2E_KERNELS) > 0,
+              "J1: its sides launched no kernel")
+        for qn, q in i1_readbacks().items():
+            res, _req, ms = query_timed(svc.port, q)
+            verify_subquery(qn, res, o)
+            answers[qn] = res
+            log(f"[subquery] {qn} ok ({ms:.1f} ms): "
+                f"{json.dumps(res['series'][0]['values'])}")
+        launches = dict(cs.LAUNCHES)
+        stop_server(svc, engine)
+        svc = None
+        # the same root with device="cpu": the same answers
+        engine = Engine(cold["root"], device="cpu")
+        svc = HttpService(engine, port=0)
+        svc.start()
+        cpu_ms = {}
+        for qn, q in {**{k: queries[k] for k in ("S1", "J1", "U1")},
+                      **i1_readbacks()}.items():
+            res, _req, ms = query_timed(svc.port, q)
+            check(same_answer(res, answers[qn]),
+                  f"{qn}: the card's answer differs from the CPU's")
+            cpu_ms[qn] = ms
+        log(f"[subquery] S1, J1, U1 and I1's read-backs equal the port's on "
+            f"the same root with device=\"cpu\" (cpu ms "
+            f"{json.dumps({k: round(v, 1) for k, v in cpu_ms.items()})})")
+        wall_s = time.perf_counter() - t_phase
+        log(f"[subquery] phase 9 took {wall_s:.1f} s (budget {budget:.0f} s);"
+            f" launches {json.dumps(launches)}; card {smi_line()}")
+        return {"launches": launches, "per_query": per_query,
+                "cpu_ms": cpu_ms, "shapes": rec.seen, "wall_s": wall_s}
+    finally:
+        probe.__exit__()
+        rec.__exit__()
+        if svc is not None:
+            stop_server(svc, engine)
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -2576,20 +2933,40 @@ def main() -> int:
     log(f"[build] 6 kernels and 4 host libraries built in "
         f"{build_all():.1f} s into {cs.BUILD_DIR} and build/native")
 
+    laps = [t_start]
+
+    def lap(what: str) -> None:
+        """Print the wall of the step that just ended."""
+        now = time.perf_counter()
+        log(f"[time] {what} took {now - laps[-1]:.1f} s "
+            f"({now - t_start:.1f} s in all)")
+        laps.append(now)
+
+    lap("build")
     checked = phase_kernels(dev_name, args.seed)
+    lap("phase 2")
     e2e = phase_e2e(args.hours, args.seed)
+    lap("phase 3")
     recs = {name: main_path_kernels(name, e2e["shapes"][name],
                                     args.seed + 1000 + 10 * i, dev_name)
             for i, name in enumerate(E2E_KERNELS)}
+    lap("phase 4")
     q1 = e2e["traced"]["Q1"].get("device") or {}
     cold = phase_cold(COLD_HOURS, args.seed, q1.get("h2d_bytes"))
     for i, name in enumerate(COLD_KERNELS):
         recs[name] = recs.get(name, []) + main_path_kernels(
             name, cold["shapes"][name] - e2e["shapes"].get(name, set()),
             args.seed + 2000 + 10 * i, dev_name)
+    lap("phase 5 and its kernels")
     cached = phase_colcache(cold)
+    lap("phase 6")
     compacted = phase_compact(cold)
+    lap("phase 7")
     hosted = phase_host(cold)
+    lap("phase 8")
+    nested = phase_subquery(
+        cold, t_start + SCRIPT_LIMIT_S - AFTER_PHASE9_S)
+    lap("phase 9")
     seen = {k: e2e["shapes"].get(k, set()) | cold["shapes"].get(k, set())
             for k in cs.LAUNCHES}
     for i, name in enumerate(E2E_KERNELS):
@@ -2597,6 +2974,12 @@ def main() -> int:
                if all(d > 0 for d in sh)}
         recs[name] = recs.get(name, []) + main_path_kernels(
             name, new, args.seed + 3000 + 10 * i, dev_name, limit=3)
+        seen[name] |= hosted["shapes"][name]
+        new = {sh for sh in nested["shapes"][name] - seen[name]
+               if all(d > 0 for d in sh)}
+        recs[name] = recs.get(name, []) + main_path_kernels(
+            name, new, args.seed + 4000 + 10 * i, dev_name, limit=3)
+    lap("the kernels at phases 8 and 9's shapes")
 
     kernels = []
     for name in cs.LAUNCHES:
@@ -2604,7 +2987,7 @@ def main() -> int:
         paths = [(tag, p) for tag, p in (("", e2e), ("", cold),
                                           (" cached", cached),
                                           (" compacted", compacted),
-                                          ("", hosted))
+                                          ("", hosted), ("", nested))
                  if p["launches"].get(name)]
         kernels.append({
             "name": name, "route": "cuda",
@@ -2615,7 +2998,7 @@ def main() -> int:
             "launches_per_phase": {
                 ph: p["launches"].get(name, 0) for ph, p in (
                     ("3", e2e), ("5", cold), ("6", cached),
-                    ("7", compacted), ("8", hosted))},
+                    ("7", compacted), ("8", hosted), ("9", nested))},
             "launches_per_query": {qn + tag: pq["launches"][name]
                                    for tag, p in paths
                                    for qn, pq in p["per_query"].items()},

@@ -10,12 +10,14 @@ host), or the device aggregates (``_scan_context`` -> ``_select_agg_run``
 exactly as the JAX package does). ``compare()``, several sources of a
 raw select (one merged series), constant columns and aggregates over
 ``time`` run as in the reference. EXPLAIN names the same path.
+Subqueries (``FROM (SELECT ...)``, query/subquery.py), CTEs (``WITH``),
+``IN (SELECT ...)``, SELECT INTO and aggregates over several sources (a
+``SELECT *`` subquery over all of them) run as in the reference, and so
+do joins and unions (query/join.py).
 
-Not in this port yet: subqueries, joins, unions, CTEs, SELECT INTO and
-aggregates over several sources (the reference's subquery rewrite),
-the result cache, sliced scans and the pre-aggregation path (ROADMAP
-A4); cluster routing and auth (ROADMAP A8: the shard list is the local
-one). Each answers a "not supported by this port yet" statement error.
+Not in this port yet: the result cache, sliced scans and the
+pre-aggregation path (ROADMAP A4.2); cluster routing and auth (ROADMAP
+A8: the shard list is the local one).
 
 Every stage of an aggregate SELECT runs in a span (utils/tracing.py):
 ``select: <mst>`` around ``map_shards`` (shard mapping and series
@@ -43,6 +45,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import re
+import threading
 import time as _time
 from dataclasses import dataclass
 
@@ -64,6 +67,7 @@ from opengemini_tpu_torch.query.qhelpers import (
     _series_result, _strip_expr,
 )
 from opengemini_tpu_torch.query.showddl import ShowDdlMixin
+from opengemini_tpu_torch.query.subquery import SubqueryMixin
 from opengemini_tpu_torch.record import (
     EncodedColumn, FieldType, FieldTypeConflict, concat_encoded_columns)
 from opengemini_tpu_torch.sql import ast
@@ -278,10 +282,12 @@ class _ScanStager:
         self._recs = []
 
 
-class Executor(ShowDdlMixin, HostPathMixin):
+class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
     def __init__(self, engine):
         self.engine = engine
         self.device = engine.device
+        # per-thread stack of the CTE names being expanded (cycle check)
+        self._cte_state = threading.local()
 
     def execute(self, text: str, db: str = "", now_ns: int | None = None,
                 read_only: bool = False) -> dict:
@@ -384,12 +390,9 @@ class Executor(ShowDdlMixin, HostPathMixin):
             # the per-query tree execute() activated (OGT_TRACE=1);
             # EXPLAIN ANALYZE passes its own
             trace = tracing.current()
-        if stmt.into is not None or stmt.ctes:
-            raise QueryError("SELECT INTO and WITH are not supported by this "
-                             "port yet (ROADMAP A4, subqueries)")
-        if stmt.condition is not None and _has_in_subquery(stmt.condition):
-            raise QueryError("IN (subquery) is not supported by this port "
-                             "yet (ROADMAP A4, subqueries)")
+        stmt = self._rewrite_in_subqueries(stmt, db, now_ns)
+        if stmt is None:
+            return {}  # IN (empty subquery result): no rows can match
         if len(stmt.fields) == 1:
             only = _strip_expr(stmt.fields[0].expr)
             if isinstance(only, ast.Call) and only.name == "compare":
@@ -408,17 +411,35 @@ class Executor(ShowDdlMixin, HostPathMixin):
             return {}  # only constants: empty result, no error
         multi = self._multi_source_plan(stmt, db)
         if multi == "rewrite":
-            # the reference runs aggregates over several sources on the
-            # union of their rows, through a subquery
-            raise QueryError("aggregates over multiple sources are not "
-                             "supported by this port yet (ROADMAP A4, "
-                             "subqueries)")
+            # aggregates over several sources run on the UNION of their
+            # rows (reference: count(age) FROM mst,mst1 is one combined
+            # count): the same select over a raw SELECT * subquery that
+            # spans every source
+            inner = ast.SelectStatement(
+                fields=[ast.Field(expr=ast.Wildcard())],
+                sources=list(stmt.sources),
+                ctes=stmt.ctes,
+            )
+            outer = copy.copy(stmt)
+            outer.sources = [ast.SubQuery(inner)]
+            return self._select(outer, db, now_ns, trace)
         all_series = []
         for src in stmt.sources:
-            if not isinstance(src, ast.Measurement):
-                raise QueryError(f"{type(src).__name__} sources are not "
-                                 "supported by this port yet (ROADMAP A4, "
-                                 "subqueries and joins)")
+            if isinstance(src, ast.JoinSource):
+                from opengemini_tpu_torch.query import join as joinmod
+
+                all_series.extend(
+                    joinmod.select_join(self, stmt, src, db, now_ns))
+                continue
+            if (isinstance(src, ast.Measurement) and stmt.ctes
+                    and src.name in stmt.ctes):
+                all_series.extend(
+                    self._select_cte(stmt, src, db, now_ns, trace))
+                continue
+            if isinstance(src, ast.SubQuery):
+                all_series.extend(
+                    self._select_from_subquery(stmt, src, db, now_ns, trace))
+                continue
             src_db = src.database or db
             if not src_db:
                 raise QueryError("database name required")
@@ -434,46 +455,135 @@ class Executor(ShowDdlMixin, HostPathMixin):
             all_series = all_series[stmt.soffset:]
         if stmt.slimit:
             all_series = all_series[: stmt.slimit]
+        if stmt.into is not None:
+            written = self._write_into(stmt.into, db, all_series)
+            return _series_result("result", None, ["time", "written"],
+                                  [[0, written]])
         if not all_series:
             return {}
         return {"series": all_series}
 
     def _multi_source_plan(self, stmt, db: str) -> str | None:
         """How a multi-source FROM combines: None for one effective
-        source, "merge" for a raw projection (each source runs, and the
-        output series merge by tag set into one named 'm,n'), "rewrite"
-        for aggregates (the union of rows, through a subquery)."""
+        source (or joins and CTE names, which combine by their own
+        machinery), "merge" for a raw projection (each source runs, and
+        the output series merge by tag set into one named 'm,n'),
+        "rewrite" for aggregates (the union of rows, through a
+        subquery). A subquery counts as one source."""
+        srcs = stmt.sources
+        if any(isinstance(s, ast.JoinSource) for s in srcs):
+            return None
+        if any(isinstance(s, ast.Measurement) and stmt.ctes
+               and s.name in stmt.ctes for s in srcs):
+            return None
         n_effective = 0
-        for s in stmt.sources:
-            if isinstance(s, ast.Measurement) and s.regex:
-                try:
-                    n_effective += len(
-                        self._resolve_measurements(s, s.database or db))
-                except Exception:  # noqa: BLE001 — errors surface later
-                    n_effective += 1
-            else:
+        for s in srcs:
+            if isinstance(s, ast.SubQuery):
                 n_effective += 1
+            elif isinstance(s, ast.Measurement):
+                if s.regex:
+                    try:
+                        n_effective += len(
+                            self._resolve_measurements(s, s.database or db))
+                    except Exception:  # noqa: BLE001 — errors surface later
+                        n_effective += 1
+                else:
+                    n_effective += 1
         if n_effective <= 1:
             return None
         if _classify_select(stmt) == "raw":
             return "merge"
-        if len(stmt.sources) <= 1:
+        if len(srcs) <= 1:
             # one regex source with aggregates keeps a series per
             # measurement (influx); only explicit sources union rows
             return None
         return "rewrite"
 
+    def _select_cte(self, stmt, src: ast.Measurement, db: str, now_ns: int,
+                    trace=tracing.NOOP) -> list[dict]:
+        """FROM <cte-name>: execute the WITH binding as a subquery, with
+        cycle detection (reference error text: CTE_Query expectations)."""
+        name = src.name
+        active = getattr(self._cte_state, "active", None)
+        if active is None:
+            active = self._cte_state.active = set()
+        if name in active:
+            raise QueryError(
+                f"Unsupported feature: recursive call to itself {name}")
+        active.add(name)
+        try:
+            sub = ast.SubQuery(stmt.ctes[name], alias=src.alias or name)
+            return self._select_from_subquery(stmt, sub, db, now_ns, trace)
+        finally:
+            active.discard(name)
+
+
+    def _rewrite_in_subqueries(self, stmt, db: str, now_ns: int):
+        """Replace `<ref> IN (SELECT ...)` predicates with OR-chains of
+        equalities against the subquery's first output column.  Returns
+        None when an IN set is empty (the predicate can never match)."""
+        if stmt.condition is None or not _has_in_subquery(stmt.condition):
+            return stmt
+        empty = []
+
+        def resolve(e, under_or=False):
+            if isinstance(e, ast.InSubquery):
+                # CTE refs inside the IN-subquery resolve with cycle checks
+                res = self._select(e.stmt, db, now_ns)
+                values = []
+                seen = set()
+                for s in res.get("series", []):
+                    for row in s.get("values", []):
+                        if len(row) < 2 or row[1] is None:
+                            continue
+                        if row[1] not in seen:
+                            seen.add(row[1])
+                            values.append(row[1])
+                if not values:
+                    if under_or:
+                        # an always-false leaf under OR must not erase the
+                        # other branch; no representable false leaf exists
+                        # in the condition machinery yet
+                        raise QueryError(
+                            "IN (empty subquery result) under OR is not supported")
+                    empty.append(True)
+                    return e
+                out = None
+                for v in values:
+                    if isinstance(v, bool):
+                        lit = ast.BooleanLiteral(v)
+                    elif isinstance(v, (int,)):
+                        lit = ast.IntegerLiteral(v)
+                    elif isinstance(v, float):
+                        lit = ast.NumberLiteral(v)
+                    else:
+                        lit = ast.StringLiteral(str(v))
+                    eq = ast.BinaryExpr("=", e.ref, lit)
+                    out = eq if out is None else ast.BinaryExpr("OR", out, eq)
+                return out
+            if isinstance(e, ast.BinaryExpr):
+                sub_or = under_or or e.op.upper() == "OR"
+                return ast.BinaryExpr(
+                    e.op, resolve(e.lhs, sub_or), resolve(e.rhs, sub_or))
+            if isinstance(e, ast.ParenExpr):
+                return ast.ParenExpr(resolve(e.expr, under_or))
+            if isinstance(e, ast.UnaryExpr):
+                return ast.UnaryExpr(e.op, resolve(e.expr, True))
+            return e
+
+        new_cond = resolve(stmt.condition)
+        if empty:
+            return None
+        stmt = copy.copy(stmt)
+        stmt.condition = new_cond
+        return stmt
+
     def _select_compare(self, stmt, call, db: str, now_ns: int) -> dict:
         """compare(ref, off...): evaluate the source over the WHERE range
-        and over each range shifted back by `off` seconds (or a
-        duration), align rows by (tags, time+off), and emit ref1..refN
-        plus ref1/refK ratio columns (the openGemini compare UDF).
-
-        The reference runs each shifted range as ``SELECT ref FROM
-        (inner) WHERE <range> GROUP BY *``. The port runs the inner
-        select itself with the range ANDed into its condition, as the
-        reference's subquery pushes it down, and keeps the rows inside
-        the range: the same rows, without a subquery."""
+        and over each range shifted back by `off` seconds (or a duration),
+        align rows by (tags, time+off), and emit ref1..refN plus
+        ref1/refK ratio columns (reference: openGemini compare UDF,
+        TestServer_Query_Compare_Functions)."""
         if len(call.args) < 2:
             raise QueryError(
                 "invalid number of arguments for compare, expected more "
@@ -494,10 +604,6 @@ class Executor(ShowDdlMixin, HostPathMixin):
         src = stmt.sources[0]
         if isinstance(src, ast.SubQuery):
             inner = src.stmt
-            if not isinstance(inner, ast.SelectStatement):
-                raise QueryError(f"{type(inner).__name__} sources of "
-                                 "compare() are not supported by this port "
-                                 "yet (ROADMAP A4, subqueries)")
         elif isinstance(src, ast.Measurement):
             # raw field compare: first(field) over the range
             inner = ast.SelectStatement(
@@ -505,14 +611,9 @@ class Executor(ShowDdlMixin, HostPathMixin):
                                   alias=ref)],
                 sources=[src],
             )
+            inner.ctes = stmt.ctes
         else:
             raise QueryError("compare() source must be a measurement or subquery")
-        if (_classify_select(inner) == "raw" and not inner.group_by_tags
-                and not inner.group_by_all_tags):
-            # a raw inner select keeps a series per tag set, as the
-            # reference's subquery does
-            inner = copy.copy(inner)
-            inner.group_by_all_tags = True
 
         sc = cond.split(stmt.condition, set(), now_ns)
         if sc.tmin == cond.MIN_TIME or sc.tmax == cond.MAX_TIME:
@@ -520,37 +621,44 @@ class Executor(ShowDdlMixin, HostPathMixin):
 
         runs = []
         for off in [0] + offsets:
-            lo, hi = sc.tmin - off, sc.tmax - off
             bound = ast.BinaryExpr(
                 "AND",
                 ast.BinaryExpr(">=", ast.VarRef("time"),
-                               ast.IntegerLiteral(lo)),
+                               ast.IntegerLiteral(sc.tmin - off)),
                 ast.BinaryExpr("<", ast.VarRef("time"),
-                               ast.IntegerLiteral(hi)),
+                               ast.IntegerLiteral(sc.tmax - off)),
             )
             run_inner = copy.copy(inner)
-            run_inner.condition = (
-                bound if inner.condition is None
-                else ast.BinaryExpr("AND", inner.condition, bound))
-            gt = run_inner.group_by_time
+            gt = getattr(run_inner, "group_by_time", None)
             if gt is not None and not gt.offset_ns:
                 # openGemini anchors compare() windows at the (shifted)
-                # range start, not the epoch grid; a non-zero user
-                # offset is respected
+                # RANGE START, not the epoch grid: the reference output
+                # rows carry tmin-aligned times
+                # (TestServer_Query_Compare_Functions#10). A NON-ZERO
+                # user GROUP BY time offset is respected; an explicit 0s
+                # offset is indistinguishable from the default in the AST
+                # and re-anchors too (InfluxQL treats the forms
+                # identically).
                 run_inner.group_by_time = dataclasses.replace(
-                    gt, offset_ns=lo % gt.every_ns)
-            res = self._select(run_inner, db, now_ns)
+                    gt, offset_ns=(sc.tmin - off) % gt.every_ns)
+            run_stmt = ast.SelectStatement(
+                fields=[ast.Field(ast.VarRef(ref))],
+                sources=[ast.SubQuery(run_inner)],
+                condition=bound,
+                group_by_all_tags=True,
+            )
+            run_stmt.ctes = stmt.ctes
+            res = self._select(run_stmt, db, now_ns)
             data: dict[tuple, dict[int, object]] = {}
             name = "compare"
             for ser in res.get("series", []):
                 name = ser.get("name", name)
                 key = tuple(sorted((ser.get("tags") or {}).items()))
-                if ref not in ser["columns"]:
-                    continue  # the outer projection finds no such field
-                ci = ser["columns"].index(ref)
+                bucket = data.setdefault(key, {})
+                ci = ser["columns"].index(ref) if ref in ser["columns"] else 1
                 for row in ser["values"]:
-                    if row[ci] is not None and lo <= row[0] < hi:
-                        data.setdefault(key, {})[row[0] + off] = row[ci]
+                    if row[ci] is not None:
+                        bucket[row[0] + off] = row[ci]
             runs.append((name, data))
 
         src_name = runs[0][0] if runs else "compare"
@@ -790,7 +898,7 @@ class Executor(ShowDdlMixin, HostPathMixin):
         # the device tier of the decoded-column cache: a deterministic
         # local GROUP BY time() scan signs its grid buffers so identical
         # scans reuse them (monolithic scans only; sliced scans, ROADMAP
-        # A4, sign per slice)
+        # A4.2, sign per slice)
         scan_ranges = [(tmin, tmax)]
         if group_time is not None and colcache_mod.GLOBAL.device_enabled():
             token = _device_scan_token(

@@ -11,7 +11,7 @@ call outside that set evaluates here per (group, window) over
 time-sorted rows.
 
 Not in this port yet: ``percentile_ogsketch`` (it needs
-``query/sketch``, ROADMAP A4) and ``detect`` (it needs
+``query/sketch``, ROADMAP A4.2) and ``detect`` (it needs
 ``services/castor``, ROADMAP A7). Each raises a "not supported by this
 port yet" error.
 """
@@ -194,7 +194,7 @@ def host_agg(name: str, times: np.ndarray, values: np.ndarray, params: tuple):
         return py_value(values[i]), sel_t
     if name == "percentile_ogsketch":
         raise ValueError("percentile_ogsketch() is not supported by this "
-                         "port yet (query/sketch, ROADMAP A4)")
+                         "port yet (query/sketch, ROADMAP A4.2)")
     if name == "count_distinct":
         return int(len(np.unique(values))), None
     if name == "mode":

@@ -16,12 +16,17 @@ reference's answers; its stages are ``map_shards``, ``scan`` and
 ``render``, those of the other host paths ``map_shards`` and
 ``host_compute``.
 
+A raw select over a subquery's spill engine lists the inner select's
+explicit GROUP BY tags as wildcard columns and keeps the inner series
+order when it is not grouped (``_from_subquery`` and ``_subquery_dims``,
+set by query/subquery.py).
+
 Not in this port yet: ``percentile_approx`` (it needs ``query/sketch``,
-ROADMAP A4) and table functions (``query/tablefunc``, ROADMAP A4), which
-answer a "not supported by this port yet" error; the text-index series
-pruning of the raw path (ROADMAP A3.4); fitted ``detect`` models
+ROADMAP A4.2) and table functions (``query/tablefunc``, ROADMAP A4.2),
+which answer a "not supported by this port yet" error; the text-index
+series pruning of the raw path (ROADMAP A3.4); fitted ``detect`` models
 (ROADMAP A7); remote shards (ROADMAP A8: the shard list is the local
-one) and the KILL QUERY cancellation points (the next A4 slice).
+one) and the KILL QUERY cancellation points (ROADMAP A4.2).
 """
 
 from __future__ import annotations
@@ -217,7 +222,7 @@ def _raw_bulk(sh, entries, mst, sc, read_fields, spec, keep, ascending):
 class HostPathMixin:
     def _select_percentile_approx(self, stmt, db, rp, mst, now_ns, call):
         raise QueryError("percentile_approx() is not supported by this port "
-                         "yet (query/sketch, ROADMAP A4)")
+                         "yet (query/sketch, ROADMAP A4.2)")
 
     # -- selector + auxiliary columns (host path) ----------------------------
 
@@ -965,7 +970,7 @@ class HostPathMixin:
 
     def _select_table_function(self, stmt, call, db: str, now_ns: int):
         raise QueryError(f"{call.name}() is not supported by this port yet "
-                         "(query/tablefunc, ROADMAP A4)")
+                         "(query/tablefunc, ROADMAP A4.2)")
 
     def _select_raw(self, stmt, db, rp, mst, now_ns) -> list[dict]:
         trace = tracing.current()
@@ -998,6 +1003,11 @@ class HostPathMixin:
             # series tags dict (influx wildcard semantics)
             if stmt.group_by_all_tags:
                 grouped_tags = tag_keys
+            elif getattr(stmt, "_from_subquery", False):
+                # the inner select's explicit GROUP BY tags are output
+                # dimensions of the subquery: the wildcard lists them
+                grouped_tags = tag_keys - set(
+                    getattr(stmt, "_subquery_dims", ()))
             else:
                 grouped_tags = set(stmt.group_by_tags)
             names: list[tuple] = []  # (output name, kind, payload)
@@ -1153,7 +1163,14 @@ class HostPathMixin:
                 rows.extend(map(list, zip(*py)))
             if not rows:
                 continue
-            rows.sort(key=lambda r: r[0], reverse=not stmt.ascending)
+            if getattr(stmt, "_subquery_dims", None) and not group_tags:
+                # an ungrouped select over a dimensioned subquery keeps
+                # the inner series order (rows per series, ascending in
+                # each; reference SubqueryForLogicalOptimize#5)
+                if not stmt.ascending:
+                    rows.reverse()
+            else:
+                rows.sort(key=lambda r: r[0], reverse=not stmt.ascending)
             series = {"name": mst, "columns": columns, "values": rows}
             if group_tags:
                 series["tags"] = dict(zip(group_tags, key))

@@ -8,8 +8,7 @@ and ``_is_device_call`` are the one place that decides whether a SELECT
 runs raw, on the device or on the host, for the executor and EXPLAIN
 alike. Not in this port yet: the text-index series pruning
 (``_prune_text_sids``, ROADMAP A3.4), the pre-aggregation dedup probes
-(``_series_needs_merged_decode``, ROADMAP A4), the subquery naming
-helper (``_inner_source_name``, ROADMAP A4) and the governor's
+(``_series_needs_merged_decode``, ROADMAP A4.2) and the governor's
 ``estimate_scan_bytes`` (ROADMAP A7).
 """
 
@@ -122,6 +121,38 @@ def _merge_multi_source(all_series: list[dict], stmt) -> list[dict]:
             series["tags"] = g["tags"]
         out.append(series)
     return out
+
+
+def _inner_source_name(stmt, _depth: int = 0) -> str:
+    """Influx keeps the innermost measurement name for subquery output
+    (CTE references resolve to their body's innermost source; a union
+    body names itself after its sorted side names)."""
+    if _depth > 16:
+        return "subquery"
+    if isinstance(stmt, ast.UnionStatement):
+        parts: set[str] = set()
+        for sel in stmt.selects:
+            n = _inner_source_name(sel, _depth + 1)
+            if n != "subquery":
+                parts.update(n.split(","))
+        return ",".join(sorted(parts)) if parts else "subquery"
+    # multiple sources name the output after the sorted union of their
+    # innermost names (reference: "mst,mst1" in TestServer_Query_
+    # MultiMeasurements)
+    parts2: set[str] = set()
+    for src in stmt.sources:
+        if isinstance(src, ast.SubQuery):
+            n = _inner_source_name(src.stmt, _depth + 1)
+        elif isinstance(src, ast.Measurement) and src.name:
+            if stmt.ctes and src.name in stmt.ctes:
+                n = _inner_source_name(stmt.ctes[src.name], _depth + 1)
+            else:
+                n = src.name
+        else:
+            continue
+        if n != "subquery":
+            parts2.update(n.split(","))
+    return ",".join(sorted(parts2)) if parts2 else "subquery"
 
 
 def _series(name, tags, columns, values):

@@ -16,8 +16,9 @@ Every other statement of the reference answers a "not supported by this
 port yet" error naming the ROADMAP item that owns it (``_NOT_PORTED``):
 DELETE and DROP SERIES and the purge of dropped measurements (A3.4);
 continuous queries, streams, downsample, subscriptions and models (A7);
-users, grants and SHOW CLUSTER (A8); SHOW QUERIES, KILL QUERY and
-unions (A4); SHOW STATS and SHOW DIAGNOSTICS (A9).
+users, grants and SHOW CLUSTER (A8); SHOW QUERIES and KILL QUERY
+(A4.2); SHOW STATS and SHOW DIAGNOSTICS (A9). UNION statements run
+through query/join.py's ``execute_union``.
 """
 
 from __future__ import annotations
@@ -73,9 +74,8 @@ _NOT_PORTED = {
     ast.ShowUsers: "A8",
     ast.ShowGrants: "A8",
     ast.ShowCluster: "A8",
-    ast.ShowQueries: "A4",
-    ast.KillQuery: "A4",
-    ast.UnionStatement: "A4",
+    ast.ShowQueries: "A4.2",
+    ast.KillQuery: "A4.2",
     ast.ShowStats: "A9",
     ast.ShowDiagnostics: "A9",
 }
@@ -96,9 +96,15 @@ class ShowDdlMixin:
             res = self._select(stmt, db, now_ns)
             if not stmt.ascending and res.get("series"):
                 # ORDER BY time DESC reverses the SERIES order too, once,
-                # at the statement boundary
+                # at the statement boundary: _select recurses for
+                # subqueries and CTEs and must not reverse twice
                 res = dict(res, series=list(reversed(res["series"])))
             return res
+        if isinstance(stmt, ast.UnionStatement):
+            from opengemini_tpu_torch.query import join as joinmod
+
+            STATS.incr("executor", "selects")
+            return joinmod.execute_union(self, stmt, db, now_ns)
         if isinstance(stmt, ast.ExplainStatement):
             return self._explain(stmt, db, now_ns)
         if isinstance(stmt, _SHOW_STMTS):

@@ -205,7 +205,7 @@ class Shard:
     def _note_mutation(self) -> None:
         """A logical-content change (a write): a new data_version. The
         reference also logs the changed time range for its incremental
-        result cache, which the port does not have yet (ROADMAP A4)."""
+        result cache, which the port does not have yet (ROADMAP A4.2)."""
         self.data_version = next(_DATA_VERSIONS)
 
     def _replay_wal(self) -> None:
@@ -777,6 +777,22 @@ class Shard:
         makes last-write-wins correct."""
         return [(r, c) for r in self._files
                 for c in r.chunks(measurement, sids, tmin, tmax)]
+
+    def approx_rows(self, measurement: str, tmin=None, tmax=None
+                    ) -> tuple[int, int]:
+        """(row count, chunk count) for the measurement in the time range,
+        from chunk metadata and the memtable, without a decode. Chunks
+        that straddle the range's edges count whole, and so do the
+        memtables (they keep no rows per measurement): the subquery's
+        chunk planner needs only the order of magnitude."""
+        rows = 0
+        chunks = 0
+        files, mems = self._scan_state()
+        for r in files:
+            for c in r.chunks(measurement, None, tmin, tmax):
+                rows += c.rows
+                chunks += 1
+        return rows + sum(len(m) for m in mems), chunks
 
     def read_series(self, measurement: str, sid: int,
                     tmin: int | None = None, tmax: int | None = None,

@@ -6,7 +6,7 @@ fill time to the running query): each executing query registers an id
 bound to its thread, and ``add_stage_ns`` adds stage time to it while
 it runs. ``snapshot`` lists the running queries with their stages in ms.
 
-Not in this port yet (ROADMAP A4): SHOW QUERIES, KILL QUERY and the
+Not in this port yet (ROADMAP A4.2): SHOW QUERIES, KILL QUERY and the
 cancellation points, the live span tree per query and the offload
 routes.
 """

@@ -33,7 +33,8 @@ def test_every_module_is_found():
                  "opengemini_tpu_torch.query.executor",
                  "opengemini_tpu_torch.server.http",
                  "opengemini_tpu_torch.convert",
-                 *SIXTH_SLICE_MODULES, *SEVENTH_SLICE_MODULES):
+                 *SIXTH_SLICE_MODULES, *SEVENTH_SLICE_MODULES,
+                 *EIGHTH_SLICE_MODULES):
         assert must in mods
 
 
@@ -125,6 +126,13 @@ SEVENTH_SLICE_MODULES = [
     "opengemini_tpu_torch.query.showddl",
 ]
 BLOCKED_IMPORT_MODULES += SEVENTH_SLICE_MODULES
+
+# subqueries, joins, unions, CTEs and SELECT INTO
+EIGHTH_SLICE_MODULES = [
+    "opengemini_tpu_torch.query.subquery",
+    "opengemini_tpu_torch.query.join",
+]
+BLOCKED_IMPORT_MODULES += EIGHTH_SLICE_MODULES
 
 
 @pytest.mark.parametrize("module", BLOCKED_IMPORT_MODULES)

@@ -6,10 +6,11 @@ transcribed from the reference's server_test.go), the same comparison
 (parity_common.result_matches) and the same one-server-per-case module
 fixture, with the port's ``HttpService`` over ``Engine(root,
 device="cpu")``. Each query the reference suite does not skip is one
-case. The queries the port does not answer yet stay in ``XFAIL`` below,
-each with the ROADMAP item that ports what it needs: each one must fail
-with a statement error saying so (never a wrong answer), and one that
-starts to pass fails the test until it leaves the dict.
+case, and every one of them must match: all 452. A query the port
+could not answer yet would go into ``XFAIL`` below with the ROADMAP
+item that ports what it needs; it must then fail with a statement
+error saying so (never a wrong answer), and one that starts to pass
+fails the test until it leaves the dict. The dict is empty.
 """
 
 from __future__ import annotations
@@ -24,120 +25,10 @@ import parity_common as pc
 
 CASES = pc.load_cases()
 
-_SUBQUERY = "ROADMAP A4, next slice: subqueries (FROM (SELECT ...))"
-_JOIN = "ROADMAP A4, next slice: joins"
-_UNION = "ROADMAP A4, next slice: unions"
-_INTO_CTE = "ROADMAP A4, next slice: SELECT INTO and WITH (CTEs)"
-_MULTI_AGG = ("ROADMAP A4, next slice: aggregates over several sources "
-              "(the reference's subquery rewrite)")
-
-# query id -> why the port does not answer it yet
-XFAIL: dict[str, str] = {
-    "TestServer_CTE_Query#0": _INTO_CTE,
-    "TestServer_CTE_Query#1": _INTO_CTE,
-    "TestServer_CTE_Query#2": _INTO_CTE,
-    "TestServer_CTE_Query#3": _INTO_CTE,
-    "TestServer_CTE_Query#4": _INTO_CTE,
-    "TestServer_CTE_Query#5": _INTO_CTE,
-    "TestServer_FullJoin#0": _JOIN,
-    "TestServer_HashJoin_Table#0": _JOIN,
-    "TestServer_HashJoin_Table#1": _JOIN,
-    "TestServer_HashJoin_Table#2": _JOIN,
-    "TestServer_HashJoin_Table#3": _JOIN,
-    "TestServer_HashJoin_Table#4": _JOIN,
-    "TestServer_HashJoin_Table#5": _JOIN,
-    "TestServer_HashJoin_Table#6": _JOIN,
-    "TestServer_HashJoin_Table#7": _JOIN,
-    "TestServer_Join_Table#0": _JOIN,
-    "TestServer_Join_Table#1": _JOIN,
-    "TestServer_Join_Table#10": _JOIN,
-    "TestServer_Join_Table#11": _JOIN,
-    "TestServer_Join_Table#12": _JOIN,
-    "TestServer_Join_Table#13": _JOIN,
-    "TestServer_Join_Table#14": _JOIN,
-    "TestServer_Join_Table#15": _JOIN,
-    "TestServer_Join_Table#16": _JOIN,
-    "TestServer_Join_Table#17": _JOIN,
-    "TestServer_Join_Table#18": _JOIN,
-    "TestServer_Join_Table#19": _JOIN,
-    "TestServer_Join_Table#2": _JOIN,
-    "TestServer_Join_Table#20": _JOIN,
-    "TestServer_Join_Table#21": _JOIN,
-    "TestServer_Join_Table#22": _JOIN,
-    "TestServer_Join_Table#23": _JOIN,
-    "TestServer_Join_Table#24": _JOIN,
-    "TestServer_Join_Table#25": _JOIN,
-    "TestServer_Join_Table#26": _JOIN,
-    "TestServer_Join_Table#27": _JOIN,
-    "TestServer_Join_Table#28": _JOIN,
-    "TestServer_Join_Table#29": _JOIN,
-    "TestServer_Join_Table#3": _JOIN,
-    "TestServer_Join_Table#30": _JOIN,
-    "TestServer_Join_Table#31": _JOIN,
-    "TestServer_Join_Table#4": _JOIN,
-    "TestServer_Join_Table#5": _JOIN,
-    "TestServer_Join_Table#6": _JOIN,
-    "TestServer_Join_Table#7": _JOIN,
-    "TestServer_Join_Table#8": _JOIN,
-    "TestServer_Join_Table#9": _JOIN,
-    "TestServer_Join_Table_With_Empty_Tag#0": _JOIN,
-    "TestServer_Join_Table_With_Empty_Tag#1": _JOIN,
-    "TestServer_Join_Table_With_Empty_Tag#2": _JOIN,
-    "TestServer_Join_Table_With_Empty_Tag#3": _JOIN,
-    "TestServer_Query_Constant_Column#0": _SUBQUERY,
-    "TestServer_Query_For_BugList#4": _SUBQUERY,
-    "TestServer_Query_MultiMeasurements#3": _MULTI_AGG,
-    "TestServer_Query_MultiMeasurements#4": _MULTI_AGG,
-    "TestServer_Query_MultiMeasurements#5": _MULTI_AGG,
-    "TestServer_Query_MultiMeasurements#6": _MULTI_AGG,
-    "TestServer_Query_MultiMeasurements#7": _SUBQUERY,
-    "TestServer_Query_Null_Aggregate#10": _SUBQUERY,
-    "TestServer_Query_Null_Aggregate#11": _SUBQUERY,
-    "TestServer_Query_Null_Aggregate#12": _SUBQUERY,
-    "TestServer_Query_Null_Aggregate#3": _SUBQUERY,
-    "TestServer_Query_Null_Aggregate#5": _SUBQUERY,
-    "TestServer_Query_Sliding_Window_Aggregate#10": _SUBQUERY,
-    "TestServer_Query_Sliding_Window_Aggregate#11": _SUBQUERY,
-    "TestServer_Query_Sliding_Window_Aggregate#8": _SUBQUERY,
-    "TestServer_Query_Sliding_Window_Aggregate#9": _SUBQUERY,
-    "TestServer_Query_SubqueryForLogicalOptimize#0": _SUBQUERY,
-    "TestServer_Query_SubqueryForLogicalOptimize#1": _SUBQUERY,
-    "TestServer_Query_SubqueryForLogicalOptimize#2": _SUBQUERY,
-    "TestServer_Query_SubqueryForLogicalOptimize#3": _SUBQUERY,
-    "TestServer_Query_SubqueryForLogicalOptimize#4": _SUBQUERY,
-    "TestServer_Query_SubqueryForLogicalOptimize#5": _SUBQUERY,
-    "TestServer_Query_SubqueryForLogicalOptimize#6": _SUBQUERY,
-    "TestServer_Query_SubqueryForLogicalOptimize#7": _SUBQUERY,
-    "TestServer_Query_SubqueryMath#0": _SUBQUERY,
-    "TestServer_Query_SubqueryWithGroupBy#0": _SUBQUERY,
-    "TestServer_Query_SubqueryWithGroupBy#1": _SUBQUERY,
-    "TestServer_Query_SubqueryWithGroupBy#2": _SUBQUERY,
-    "TestServer_SubQuery_Top_Min#0": _SUBQUERY,
-    "TestServer_Union_Table#0": _UNION,
-    "TestServer_Union_Table#1": _UNION,
-    "TestServer_Union_Table#10": _UNION,
-    "TestServer_Union_Table#11": _UNION,
-    "TestServer_Union_Table#13": _UNION,
-    "TestServer_Union_Table#14": _UNION,
-    "TestServer_Union_Table#15": _UNION,
-    "TestServer_Union_Table#16": _UNION,
-    "TestServer_Union_Table#18": _UNION,
-    "TestServer_Union_Table#21": _UNION,
-    "TestServer_Union_Table#22": _UNION,
-    "TestServer_Union_Table#23": _UNION,
-    "TestServer_Union_Table#24": _UNION,
-    "TestServer_Union_Table#25": _UNION,
-    "TestServer_Union_Table#26": _UNION,
-    "TestServer_Union_Table#28": _UNION,
-    "TestServer_Union_Table#29": _UNION,
-    "TestServer_Union_Table#3": _UNION,
-    "TestServer_Union_Table#6": _UNION,
-    "TestServer_Union_Table#7": _UNION,
-    "TestServer_Union_Table#8": _UNION,
-    "TestServer_Union_Table#9": _UNION,
-    "TestServer_top_bottom_nul_column#0": _SUBQUERY,
-    "TestServer_top_bottom_nul_column#1": _SUBQUERY,
-}
+# query id -> the ROADMAP item that ports what the query needs, for a
+# query the port does not answer yet (none since subqueries, joins,
+# unions, CTEs and SELECT INTO were ported)
+XFAIL: dict[str, str] = {}
 
 
 class PortParityServer(pc.ParityServer):
