@@ -46,7 +46,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    lies above the data's size, so the queries read the memtable (the
    script checks that no TSF file was written). A bad /write body must
    answer 400 with errno 2001, module "write" and the X-Ogt-Errno
-   header. Four queries run 5 times each through /query (on one
+   header. Four queries run 5 times each (Q2 3 times: E2E_RUNS) through
+   /query (on one
    kept-alive HTTP/1.1 connection, as client libraries keep it; every
    query of the script does) and every answer is checked against a
    numpy oracle (counts, min, max, first, last
@@ -79,7 +80,7 @@ Phases, in order; any failure ends the run with a nonzero exit:
    decoded-column cache is off in this phase (its disabled path), so
    every run decodes. C1 (Q1's shape),
    C2 (Q2's) and C3 (count/min/max of the diskio read_bytes counter
-   GROUP BY time(1m)) run 5 times each (C2 3 times: COLD_RUNS) plus one
+   GROUP BY time(1m)) run 3 times each (COLD_RUNS) plus one
    traced run; every answer
    equals the numpy oracle; each must take the fused device decode
    (executor/grid_decode_fused up, device/decode_fallbacks_total not),
@@ -111,7 +112,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    Device memory within 6 GiB.
 7. Compaction of the same root: Shard.compact_level until it merges
    nothing, then Shard.compact, each call's wall, the files and bytes
-   on disk before and after; C1 and C3 five times each on the merged
+   on disk before and after; C1 and C3 three times each (COMPACT_RUNS)
+   on the merged
    file (cache off: the fused decode on every run, no fallback) equal
    to the oracle (C1 with phase 6's row), with their stage split, then
    a restart and C3 again. The stage splits of phases 6 and 7 are held
@@ -129,7 +131,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    a raw select with a field predicate; lastpoint, a raw select over
    every series; groupby-orderby-limit, which must launch kernel 3),
    SHOW TAG VALUES of hostname and SHOW SERIES CARDINALITY, each checked
-   against the oracle, run five times (once, with a progress line
+   against the oracle, run five times (lastpoint and
+   groupby-orderby-limit three: HOST_RUNS; once, with a progress line
    saying so, when the first run shows five would not fit the budget)
    with its p50 and its stage split (raw selects: map_shards, scan and
    render; SHOW: show); then the same root reopened with device="cpu"
@@ -161,9 +164,43 @@ Phases, in order; any failure ends the run with a nonzero exit:
    checked and timed again at the largest new shapes the phase gave
    them.
 
-Launch counters start at 0 before each main path (phases 3, 5, 6, 7, 8,
-9) and are read after it; the {"kernels": [...]} line sums them, with
-launches_per_phase, launches_per_query and launches_parity_on_card.
+10. A 24 h dashboard panel, with a budget of its own (DASHBOARD_PHASE_S,
+   180 s), on phase 7's compacted root: (a) day 2 of TSBS devops cpu
+   (hours 12-24 of the same 4000 hosts but the first minute, which
+   phase 5 wrote; the device profile on) loaded hour by hour through
+   convert.load_columnar and flushed, with the
+   decoded-column cache's host tier at its default 256 MiB (the device
+   tier off, as deployed); (b) R0, Grafana's "last 24 hours" panel
+   (mean, max and count of usage_user GROUP BY time(1m)) with the
+   incremental result cache on: a window-aligned sliced scan (34.56 M
+   rows by the chunk metadata, above SLICE_THRESHOLD_ROWS) that must
+   take at least 2 slices and launch kernel 3 once per slice; (c) R1,
+   R0 again, which must scan 0 rows, launch nothing and answer the same;
+   then the next minute of every host through /write and R2, the panel
+   a minute on, which must reuse 1439 cached windows and scan the 24 000
+   rows of the new one (one slice), equal to the oracle and to its
+   cache-off run in one pass (counts and maxima bit for bit, means
+   within rel 1e-12); (d) P1, per-host count and mean over day 2
+   (kernel 1) and percentile_approx(usage_user, 95) per host, within one
+   global bin width of numpy's nearest-rank percentile, with the series
+   each served from chunk metadata printed; (e) K1, a cache-off R0 on a
+   second connection, listed by SHOW QUERIES, killed by KILL QUERY: it
+   must answer "query <qid> killed", leave /debug/queries, give back
+   its device memory, and R0 in one pass (the slice threshold raised
+   for that run) must then equal the oracle and the sliced R0 (counts
+   and maxima bit for bit, means within rel 1e-12; whether they are
+   bit for bit prints). Each run prints its wall, slices, rows scanned,
+   windows from the cache, decoded-column cache hits and misses and
+   resident bytes, launches, stages and device memory peak. The kernels
+   1-3 are checked and timed again at the largest new shapes of phases
+   8, 9 and 10.
+
+The incremental result cache (OGT_RESULT_CACHE) is off in phases 3-9,
+so their repeated runs measure every execution; phase 10 turns it on for
+R0-R2 and P1. Launch counters start at 0 before each main path (phases
+3, 5, 6, 7, 8, 9, 10) and are read after it; the {"kernels": [...]} line
+sums them, with launches_per_phase, launches_per_query and
+launches_parity_on_card.
 
 Output: progress lines, then a {"kernels": [...]} line, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without CUDA (or without
@@ -224,8 +261,13 @@ COLD_KERNELS = ("grid_window_agg", "widen_packed", "unpack_bits",
                 "probe_count")
 # timed runs of a cold query where not five: C2 takes about 20 s a run
 # after an 80 s first one (NVIDIA H100 80GB HBM3 at 700 W), and three
-# keep the script inside its 1200 s
-COLD_RUNS = {"C2": 3}
+# keep the script inside its 1200 s; C1 and C3 run three times too, and
+# so do Q2 (phase 3), phase 7's queries and phase 8's two slowest, so
+# that phase 10 fits the script's time limit
+COLD_RUNS = {"C1": 3, "C2": 3, "C3": 3}
+E2E_RUNS = {"Q2": 3}
+COMPACT_RUNS = 3
+HOST_RUNS = {"lastpoint": 3, "groupby-orderby-limit": 3}
 # C1's gorilla chunks per run: 17.28 M values in chunks of at most 2^20
 # (ops/device_decode._CHUNK_VALUES) whole blocks of 131072
 MAX_C1_CHUNKS = 17
@@ -1530,7 +1572,7 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
             rec.now = {}
             st0 = stage_ns(svc.port)
             requests = []
-            for _ in range(5):
+            for _ in range(E2E_RUNS.get(qn, 5)):
                 res, req_ms, wall_ms = query_timed(svc.port, q)
                 lat.append(wall_ms)
                 requests.append(req_ms)
@@ -1551,7 +1593,7 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
                 check(got[k] > 0, f"{qn}: kernel {k} not launched")
             log(f"[e2e] {qn} ok p50={p50[qn]:.1f} ms "
                 f"(runs {', '.join(f'{x:.1f}' for x in lat)}) "
-                f"grid_batches +{grids}; launches in 5 runs "
+                f"grid_batches +{grids}; launches in {len(lat)} runs "
                 f"{json.dumps(got)} at {json.dumps(per_query[qn]['shapes'])}")
         rec.now = None
         # a chunked answer: newline-delimited JSON, one document per
@@ -2029,8 +2071,8 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
         check(launches["probe_count"] == 1,
               f"probe_count launched {launches['probe_count']} times, not once")
         peak = torch.cuda.max_memory_allocated()
-        log(f"[cold] launches (load, restart, 5 timed (C2 "
-            f"{COLD_RUNS['C2']}) + 1 traced run per query, WAL check) "
+        log(f"[cold] launches (load, restart, {COLD_RUNS} timed runs "
+            f"+ 1 traced run per query, WAL check) "
             f"{launches}; device memory peak "
             f"{peak / 2**20:.1f} MiB (limit {COLD_PEAK_LIMIT / 2**20:.0f}); "
             f"p50 ms {json.dumps(p50)}; card {smi_line()}")
@@ -2039,7 +2081,7 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
                 "per_query": per_query, "traced": traced, "peak_bytes": peak,
                 "root": root, "queries": queries, "files": files, "oracle": {
                     "vals": vals, "counters": counters, "tags": tags,
-                    "n_hosts": n_hosts, "n_t": n_t}}
+                    "extra": extra, "n_hosts": n_hosts, "n_t": n_t}}
     finally:
         os.environ.pop("OGT_DEVICE_PROFILE", None)
         if svc is not None:
@@ -2246,7 +2288,7 @@ def phase_compact(cold: dict) -> dict:
             c0, l0 = decode_counters(), dict(cs.LAUNCHES)
             st0 = stage_ns(svc.port)
             lat, requests = [], []
-            for _ in range(5):
+            for _ in range(COMPACT_RUNS):
                 res, req, ms = query_timed(svc.port, q)
                 verify_cold(qn, res, o["vals"], o["counters"], o["tags"],
                             o["n_hosts"], o["n_t"], extra=EXTRA_VALUE)
@@ -2257,7 +2299,7 @@ def phase_compact(cold: dict) -> dict:
             got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
             # the merged blocks decode on the card too (which codecs
             # the merge chose sets kernels 4 and 5's share)
-            check(d["executor/grid_decode_fused"] == 5
+            check(d["executor/grid_decode_fused"] == COMPACT_RUNS
                   and d["device/decode_fallbacks_total"] == 0
                   and got["grid_window_agg"] > 0,
                   f"{qn} after compaction: fused "
@@ -2265,12 +2307,14 @@ def phase_compact(cold: dict) -> dict:
                   f"+{d['device/decode_fallbacks_total']}, launches {got}")
             blocks = {k.split("_")[2]: v for k, v in d.items()
                       if k.startswith("device/decode_blocks_") and v}
-            per_query[qn] = {"runs_ms": lat, "p50_ms": sorted(lat)[2],
+            p50 = sorted(lat)[len(lat) // 2]
+            per_query[qn] = {"runs_ms": lat, "p50_ms": p50,
                              "launches": got, "blocks": blocks,
                              "stages_ms": stages}
-            log(f"[compact] {qn} ok p50={sorted(lat)[2]:.1f} ms (runs "
-                f"{', '.join(f'{x:.1f}' for x in lat)}); blocks by codec in 5 "
-                f"runs {json.dumps(blocks)}; launches {json.dumps(got)}")
+            log(f"[compact] {qn} ok p50={p50:.1f} ms (runs "
+                f"{', '.join(f'{x:.1f}' for x in lat)}); blocks by codec in "
+                f"{len(lat)} runs {json.dumps(blocks)}; launches "
+                f"{json.dumps(got)}")
         stop_server(svc, engine)
         svc = None
         t0 = time.perf_counter()
@@ -2487,7 +2531,7 @@ def phase_host(cold: dict) -> dict:
             res, req, ms = query_timed(svc.port, q)
             verify_tsbs(qn, res, o, n_t)
             walls, requests = [ms], [req]
-            while len(walls) < 5:
+            while len(walls) < HOST_RUNS.get(qn, 5):
                 # another run, and as long again for the CPU comparison,
                 # must fit what is left beside HOST_RESERVE_S
                 left = HOST_PHASE_S - (time.perf_counter() - t_phase)
@@ -2558,7 +2602,8 @@ SUBQUERY_RESERVE_S = 30.0
 # the script's time limit, and what phase 9 leaves of it for the checks
 # after it: its runs stop early rather than let the script overrun
 SCRIPT_LIMIT_S = 1200.0
-AFTER_PHASE9_S = 90.0
+AFTER_PHASE10_S = 90.0
+AFTER_PHASE9_S = AFTER_PHASE10_S + 180.0  # phase 10's DASHBOARD_PHASE_S
 # the span stages of a subquery: the inner select, and the inner chunks
 # with their materialization; they nest around the executor's stages
 SUBQUERY_STAGES = ("subquery", "subquery(chunked)")
@@ -2863,6 +2908,448 @@ def phase_subquery(cold: dict, deadline: float) -> dict:
             stop_server(svc, engine)
 
 
+# -- phase 10: a 24 h dashboard panel, refreshed --------------------------------
+
+# phase 10's budget: the day-2 load and one run of each statement; it is
+# printed beside the phase's wall
+DASHBOARD_PHASE_S = 180.0
+# the percentile P1 asks for (sketch.py bounds its error by one global
+# bin width of the exact nearest-rank percentile)
+P1_PERCENTILE = 95
+
+
+def rfc3339(ns: int) -> str:
+    from datetime import datetime, timezone
+
+    return datetime.fromtimestamp(ns // 10**9, tz=timezone.utc).strftime(
+        "%Y-%m-%dT%H:%M:%SZ")
+
+
+def panel(lo_ns: int, hi_ns: int) -> str:
+    """The Grafana panel: mean, max and count of usage_user per minute."""
+    return ("SELECT mean(usage_user), max(usage_user), count(usage_user) "
+            f"FROM cpu WHERE time >= '{rfc3339(lo_ns)}' AND "
+            f"time < '{rfc3339(hi_ns)}' GROUP BY time(1m)")
+
+
+def day2_values(o: dict, seed: int, n_more: int):
+    """Day 2 of every cpu field (n_t samples) and the n_more samples
+    after it: its first minute is the one phase 5 wrote through /write
+    (`extra`, already on disk), the rest a random walk on from there."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 10)
+    n_t = o["n_t"]
+    out = {}
+    for f in FIELDS:
+        first = o["extra"][f]
+        steps = rng.normal(0.0, 1.0, (o["n_hosts"], n_t - 6 + n_more))
+        out[f] = np.concatenate([first, np.clip(
+            first[:, -1:] + np.cumsum(steps, axis=1), 0.0, 100.0)], axis=1)
+    return out
+
+
+def cpu_lines(tags, vals, lo: int, hi: int, n_hosts: int, base: int) -> str:
+    """Line protocol of cpu samples [lo, hi) of `vals` for every host,
+    whose sample 0 lies at sample `base` of the data set."""
+    from opengemini_tpu_torch.ingest.line_protocol import series_key
+
+    lines = []
+    for h in range(n_hosts):
+        key = series_key("cpu", tags[h])
+        for i in range(lo, hi):
+            fv = ",".join(f"{f}={float(vals[f][h, i])!r}" for f in FIELDS)
+            lines.append(f"{key} {fv} {T0_NS + (base + i) * STEP_NS}")
+    return "\n".join(lines)
+
+
+def cpu_table(tags, vals, lo: int, hi: int, n_hosts: int, base: int) -> dict:
+    """convert.load_columnar's cpu table of samples [lo, hi) of `vals`,
+    whose sample 0 lies at sample `base` of the data set."""
+    import numpy as np
+
+    from opengemini_tpu_torch.ingest.line_protocol import series_key
+
+    n = hi - lo
+    times = T0_NS + np.arange(base + lo, base + hi, dtype=np.int64) * STEP_NS
+    ones = np.ones(n_hosts * n, dtype=np.bool_)
+    return {"series_keys": [series_key("cpu", t) for t in tags],
+            "series": np.repeat(np.arange(n_hosts, dtype=np.int64), n),
+            "times": np.tile(times, n_hosts),
+            "fields": {f: (np.ascontiguousarray(vals[f][:, lo:hi]).reshape(-1),
+                           ones) for f in FIELDS}}
+
+
+def verify_panel(qn: str, res: dict, usage, w0: int, extra: bool) -> None:
+    """A panel's rows against the oracle: `usage` (hosts, samples) from
+    the first sample of window w0; phase 6's host_extra row in window 0."""
+    import numpy as np
+
+    (series,) = res.get("series", [None])
+    rows = series["values"]
+    W = usage.shape[1] // 6
+    v = usage[:, :W * 6].reshape(usage.shape[0], W, 6)
+    cnt = np.full(W, usage.shape[0] * 6)
+    tot = v.sum(axis=(0, 2))
+    mx = v.max(axis=(0, 2))
+    if extra:
+        cnt[0] += 1
+        tot[0] += EXTRA_VALUE
+        mx[0] = max(mx[0], EXTRA_VALUE)
+    check(len(rows) == W, f"{qn}: {len(rows)} windows, not {W}")
+    check([r[0] for r in rows] == [T0_NS + (w0 + w) * 60 * 10**9
+                                   for w in range(W)], f"{qn}: times")
+    check(close([r[1] for r in rows], tot / cnt), f"{qn}: mean")
+    check(np.array_equal(np.array([r[2] for r in rows]), mx), f"{qn}: max")
+    check([r[3] for r in rows] == cnt.tolist(), f"{qn}: count")
+
+
+def same_bits(a: dict, b: dict) -> tuple[bool, bool]:
+    """(equal with the means at rel 1e-12 and every other value exact,
+    equal bit for bit) of two panel answers."""
+    ra, rb = a["series"][0]["values"], b["series"][0]["values"]
+    if len(ra) != len(rb) or any(x[0] != y[0] or x[2:] != y[2:]
+                                 for x, y in zip(ra, rb)):
+        return False, False
+    return close([x[1] for x in ra], [y[1] for y in rb], 1e-12), ra == rb
+
+
+class DashboardProbe:
+    """While entered: the slice plans of the sliced scans and the slices
+    they scanned, and the series the pre-aggregation and sketch paths
+    served from chunk metadata (their dedup probe said no merge)."""
+
+    def __init__(self):
+        from opengemini_tpu_torch.query import executor as ex
+        from opengemini_tpu_torch.query import hostpath as hp
+
+        self.mods = (ex, hp)
+        self.originals = (ex._plan_scan_slices,
+                          ex._series_needs_merged_decode,
+                          hp._series_needs_merged_decode,
+                          ex.Executor._scan_sliced)
+        self.reset()
+
+    def reset(self):
+        self.slices, self.ran, self.probed, self.from_meta = [], [], 0, 0
+
+    def __enter__(self):
+        ex, hp = self.mods
+        plan0, need0, _, sliced0 = self.originals
+
+        def plan(*a):
+            out = plan0(*a)
+            self.slices.append(len(out) if out else 0)
+            return out
+
+        def need(*a):
+            got = need0(*a)
+            self.probed += 1
+            self.from_meta += not got[0]
+            return got
+
+        def sliced(executor, *a):
+            rows, out = sliced0(executor, *a)
+            self.ran.append(len(out))
+            return rows, out
+
+        ex._plan_scan_slices = plan
+        ex._series_needs_merged_decode = need
+        hp._series_needs_merged_decode = need
+        ex.Executor._scan_sliced = sliced
+        return self
+
+    def __exit__(self, *exc):
+        ex, hp = self.mods
+        (ex._plan_scan_slices, ex._series_needs_merged_decode,
+         hp._series_needs_merged_decode,
+         ex.Executor._scan_sliced) = self.originals
+
+
+def phase_dashboard(cold: dict, seed: int, deadline: float) -> dict:
+    """On phase 7's compacted root (12 h): day 2 of TSBS devops cpu
+    written and flushed, then a Grafana "last 24 hours" panel (R0) with
+    the result cache on: a sliced scan, kernel 3 once per slice; R1, the
+    same panel again, from the cache alone; the next minute written and
+    R2, the panel moved on by a minute, scanning that minute only; P1,
+    per-host count and mean and percentile_approx over day 2; K1, a
+    cache-off R0 killed from a second connection, then R0 again in one
+    pass, equal to the sliced R0. Every answer against the oracle."""
+    import numpy as np
+    import torch
+
+    from opengemini_tpu_torch import convert
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.query import executor as ex
+    from opengemini_tpu_torch.storage import colcache
+    from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
+
+    t_phase = time.perf_counter()
+    o = cold["oracle"]
+    n_hosts, n_t = o["n_hosts"], o["n_t"]
+    span_ns = n_t * STEP_NS
+    # the deployment's decoded-column cache: the host tier at its default
+    # budget, the device tier off
+    cc = colcache.GLOBAL
+    cc.configure(budget_mb=256, device=False)
+    vals2 = day2_values(o, seed, 6)
+    usage = np.concatenate([o["vals"]["usage_user"][:, :n_t],
+                            vals2["usage_user"][:, :n_t]], axis=1)
+    q_day = panel(T0_NS, T0_NS + 2 * span_ns)
+    q_next = panel(T0_NS + 60 * 10**9, T0_NS + 2 * span_ns + 60 * 10**9)
+    w_day2 = (f"time >= {T0_NS + span_ns} AND time < {T0_NS + 2 * span_ns}")
+    q_p1 = ("SELECT count(usage_user), mean(usage_user) FROM cpu WHERE "
+            f"{w_day2} GROUP BY hostname")
+    q_pct = (f"SELECT percentile_approx(usage_user, {P1_PERCENTILE}) FROM cpu "
+             f"WHERE {w_day2} GROUP BY hostname")
+    rec = ShapeRecorder().__enter__()
+    probe = DashboardProbe().__enter__()
+    svc = engine = None
+    per_query: dict = {}
+
+    def executor_stat(name: str) -> int:
+        return STATS.counters("executor").get(name, 0)
+
+    def run(qn: str, q: str, cache: bool, check_launch: bool = True,
+            mono: bool = False) -> dict:
+        """One timed run of `q`, printed with its slices, scan rows,
+        cache counters, launches, stages and memory peak."""
+        os.environ["OGT_RESULT_CACHE"] = "1" if cache else "0"
+        threshold = ex.SLICE_THRESHOLD_ROWS
+        if mono:  # one pass: the threshold raised for this run only
+            ex.SLICE_THRESHOLD_ROWS = 1 << 62
+        probe.reset()
+        l0, st0, c0 = dict(cs.LAUNCHES), stage_ns(svc.port), cc.counters()
+        x0 = {k: executor_stat(k) for k in (
+            "rows_scanned", "inc_cache_windows_reused", "inc_cache_full_hits")}
+        rec.now = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            res, req, ms = query_timed(svc.port, q)
+        finally:
+            ex.SLICE_THRESHOLD_ROWS = threshold
+        c1 = cc.counters()
+        got = {
+            "result": res, "wall_ms": ms,
+            "launches": {k: cs.LAUNCHES[k] - l0[k] for k in l0},
+            "slices_planned": max(probe.slices, default=0),
+            "slices": sum(probe.ran),
+            "from_meta": probe.from_meta, "probed": probe.probed,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "colcache": {k: c1[k] - c0[k] for k in ("hits", "misses")},
+            "colcache_bytes": c1["bytes"],
+            **{k: executor_stat(k) - v for k, v in x0.items()}}
+        got["stages_ms"] = stage_split(svc.port, st0, [req], qn,
+                                       extra=("inc_cache",))
+        got["shapes"] = {k: [shape_json(k, x) for x in sorted(v)]
+                         for k, v in rec.now.items()}
+        rec.now = None
+        launched = {k: v for k, v in got["launches"].items() if v}
+        log(f"[dashboard] {qn} {ms:.1f} ms: {got['slices']} of "
+            f"{got['slices_planned']} planned slices scanned, "
+            f"{got['rows_scanned']} rows scanned, windows from the cache "
+            f"{got['inc_cache_windows_reused']} (full hits "
+            f"{got['inc_cache_full_hits']}), colcache hits/misses "
+            f"{got['colcache']['hits']}/{got['colcache']['misses']} with "
+            f"{got['colcache_bytes'] / 2**20:.1f} MiB resident, launches "
+            f"{json.dumps(launched)}, device memory peak "
+            f"{got['peak_bytes'] / 2**20:.1f} MiB")
+        if check_launch:
+            check(launched, f"{qn}: no kernel launched")
+        per_query[qn] = {k: v for k, v in got.items() if k != "result"}
+        return got
+
+    try:
+        torch.cuda.synchronize()
+        cs.reset_launches()
+        engine, svc = serve(cold["root"])
+        # (a) day 2, hour by hour, then a flush, as phase 5 writes
+        os.environ["OGT_DEVICE_PROFILE"] = "1"
+        t_load = time.perf_counter()
+        # the first minute is on disk since phase 5: no row is written
+        # twice, so no chunk overlaps another and the scans may keep
+        # their blocks encoded for the card
+        for hr in range(n_t // 360):
+            lo, hi = max(hr * 360, 6), (hr + 1) * 360
+            n = convert.load_columnar(engine, "benchmark", {
+                "cpu": cpu_table(o["tags"], vals2, lo, hi, n_hosts, n_t)})
+            check(n == n_hosts * (hi - lo), f"day 2 hour {hr}: wrote {n}")
+        engine.flush_all()
+        os.environ.pop("OGT_DEVICE_PROFILE", None)
+        shards = engine.shards_for_range("benchmark", None, 0, 2**62)
+        files = sum(len(sh._files) for sh in shards)
+        rows, chunks = (sum(x) for x in zip(*(
+            sh.approx_rows("cpu", T0_NS, T0_NS + 2 * span_ns)
+            for sh in shards)))
+        load_s = time.perf_counter() - t_load
+        log(f"[dashboard] day 2: {n_hosts * (n_t - 6)} cpu rows in "
+            f"{load_s:.1f} s (its first minute is phase 5's); "
+            f"{files} TSF files; cpu over 24 h: {rows} rows in {chunks} "
+            "chunks by their metadata")
+
+        # (b) R0: the sliced scan, the cache on (and empty for it)
+        r0 = run("R0", q_day, cache=True)
+        verify_panel("R0", r0["result"], usage, 0, True)
+        check(r0["slices"] >= 2, f"R0 took {r0['slices']} slices")
+        check(r0["launches"]["grid_window_agg"] == r0["slices"],
+              f"R0: kernel 3 launched {r0['launches']['grid_window_agg']} "
+              f"times over {r0['slices']} slices")
+        # (c) R1: the panel again, all from the cache
+        r1 = run("R1", q_day, cache=True, check_launch=False)
+        check(r1["result"] == r0["result"], "R1 differs from R0")
+        check(r1["rows_scanned"] == 0 and r1["inc_cache_full_hits"] == 1,
+              f"R1 scanned {r1['rows_scanned']} rows")
+        check(not any(r1["launches"].values()),
+              f"R1 launched {r1['launches']}")
+        # the next minute of every host, then R2: the panel a minute on
+        minute = {f: vals2[f][:, n_t:] for f in FIELDS}
+        status, _ = http(svc.port, "POST", "/write",
+                         {"db": "benchmark", "precision": "ns"},
+                         cpu_lines(o["tags"], minute, 0, 6, n_hosts,
+                                   2 * n_t).encode())
+        check(status == 204, f"/write status {status}")
+        r2 = run("R2", q_next, cache=True)
+        W = 2 * n_t // 6
+        check(r2["inc_cache_windows_reused"] == W - 1
+              and r2["rows_scanned"] == n_hosts * 6,
+              f"R2 reused {r2['inc_cache_windows_reused']} windows and "
+              f"scanned {r2['rows_scanned']} rows")
+        # one slice holds the new window; its 24 000 rows fill one of
+        # the slice's 83 windows, and the grid may refuse so sparse a
+        # layout for the bucketed batch (kernel 1)
+        check(r2["slices"] == 1 and 0 < sum(r2["launches"].values()) <= 2,
+              f"R2: {r2['slices']} slices, launches {r2['launches']}")
+        verify_panel("R2", r2["result"], np.concatenate(
+            [usage[:, 6:], minute["usage_user"]], axis=1), 1, False)
+        r2_off = run("R2 cache off", q_next, cache=False, mono=True)
+        ok, bitwise = same_bits(r2["result"], r2_off["result"])
+        check(ok, "R2 differs from its cache-off run")
+        per_query["R2"]["bitwise_to_cache_off"] = bitwise
+        log("[dashboard] R2 equals its cache-off run in one pass "
+            + ("bit for bit" if bitwise else "(counts and maxima bit for "
+               "bit, means within rel 1e-12: the cached windows summed in "
+               "R0's slices, the new one in its own batch)"))
+        # (d) P1: per-host count and mean (kernel 1), percentile_approx
+        p1 = run("P1", q_p1, cache=True)
+        series = p1["result"]["series"]
+        check(len(series) == n_hosts, f"P1: {len(series)} series")
+        d2 = vals2["usage_user"][:, :n_t]
+        for s in series:
+            h = int(s["tags"]["hostname"].split("_")[1])
+            (row,) = s["values"]
+            check(row[1] == n_t and close([row[2]], [d2[h].mean()]),
+                  f"P1 host {h}: {row}")
+        check(p1["launches"]["bucket_stats_basic"] > 0,
+              "P1: kernel 1 not launched")
+        pct = run("P1 percentile", q_pct, cache=True, check_launch=False)
+        series = pct["result"]["series"]
+        check(len(series) == n_hosts, f"P1 percentile: {len(series)} series")
+        worst = 0.0
+        for s in series:
+            h = int(s["tags"]["hostname"].split("_")[1])
+            exact = np.percentile(d2[h], P1_PERCENTILE, method="inverted_cdf")
+            # the sketch's bin: 1.0 wide when a host's day is constant
+            # (the random walk held at 0 or 100; sketch.HistSketch._width)
+            span = d2[h].max() - d2[h].min()
+            width = span / 256 if span > 0 else 1.0
+            err = abs(s["values"][0][1] - exact)
+            check(err <= width * (1 + 1e-9),
+                  f"P1 percentile host {h}: {err} > one bin {width}")
+            worst = max(worst, err / width)
+        log(f"[dashboard] P1 served {p1['from_meta']} of {p1['probed']} "
+            f"series from chunk metadata, the percentile "
+            f"{pct['from_meta']} of {pct['probed']}: at {n_hosts} hosts "
+            f"every flush packs (PACK_MIN_SERIES 64), so every series "
+            f"decodes; the percentile's worst error {worst:.3f} of one "
+            "global bin width")
+        # (e) K1: a cache-off R0 killed from a second connection
+        k1 = kill_panel(svc.port, q_day, cc)
+        r0_mono = run("R0 one pass", q_day, cache=False, mono=True)
+        verify_panel("R0 one pass", r0_mono["result"], usage, 0, True)
+        ok, bitwise = same_bits(r0["result"], r0_mono["result"])
+        check(ok, "the sliced R0 differs from the one-pass R0")
+        check(r0_mono["slices"] == 0, "R0 one pass sliced")
+        log(f"[dashboard] sliced R0 equals the one-pass R0 "
+            + ("bit for bit" if bitwise else "(counts and maxima bit for "
+               "bit, means within rel 1e-12)"))
+        per_query["R0"]["bitwise_to_one_pass"] = bitwise
+        launches = dict(cs.LAUNCHES)
+        wall_s = time.perf_counter() - t_phase
+        log(f"[dashboard] phase 10 took {wall_s:.1f} s (budget "
+            f"{DASHBOARD_PHASE_S:.0f} s, {deadline - time.perf_counter():.0f}"
+            f" s left of the script's); launches {json.dumps(launches)}; "
+            f"card {smi_line()}")
+        return {"launches": launches, "per_query": per_query, "kill": k1,
+                "shapes": rec.seen, "wall_s": wall_s, "load_s": load_s,
+                "files": files}
+    finally:
+        os.environ["OGT_RESULT_CACHE"] = "0"
+        os.environ.pop("OGT_DEVICE_PROFILE", None)
+        probe.__exit__()
+        rec.__exit__()
+        if svc is not None:
+            stop_server(svc, engine)
+
+
+def kill_panel(port: int, q: str, cc) -> dict:
+    """K1: `q` with the result cache off on a second connection; poll
+    SHOW QUERIES on this one until it is listed, let it scan, KILL it,
+    and time the KILL to its answer. The device memory it held goes back
+    (less what the device tier keeps), and /debug/queries drops it."""
+    import torch
+
+    os.environ["OGT_RESULT_CACHE"] = "0"
+    torch.cuda.synchronize()
+    mem0, dev0 = torch.cuda.memory_allocated(), cc.counters()["device_bytes"]
+    out = {}
+
+    def victim():
+        conn = HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request("GET", "/query?" + urllib.parse.urlencode(
+            {"db": "benchmark", "q": q, "epoch": "ns"}))
+        out["doc"] = json.loads(conn.getresponse().read())
+        out["t"] = time.perf_counter()
+        conn.close()
+
+    t = threading.Thread(target=victim, daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    qid = None
+    while qid is None and time.perf_counter() - t0 < 60:
+        res = query(port, "SHOW QUERIES")
+        for row in res["series"][0]["values"]:
+            if row[1] == q:
+                qid = row[0]
+        time.sleep(0.05)
+    check(qid is not None, "K1: R0 never listed in SHOW QUERIES")
+    time.sleep(1.0)  # into its scan
+    check(t.is_alive(), "K1: R0 ended before the KILL")
+    t_kill = time.perf_counter()
+    res, _req, _ms = query_timed(port, f"KILL QUERY {qid}", "POST")
+    t.join(timeout=120)
+    check(not t.is_alive(), "K1: R0 did not answer after the KILL")
+    want = {"results": [{"statement_id": 0, "error": f"query {qid} killed"}]}
+    check(out["doc"] == want, f"K1 answered {out['doc']}")
+    kill_ms = (out["t"] - t_kill) * 1e3
+    status, doc = http(port, "GET", "/debug/queries", {})
+    check(status == 200 and not [x for x in doc["queries"]
+                                 if x["query"] == q],
+          f"K1 still in /debug/queries: {doc}")
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    held = cc.counters()["device_bytes"] - dev0
+    check(mem1 <= mem0 + held, f"K1: device memory {mem1} B after the KILL, "
+          f"{mem0} B before (+{held} B in the device tier)")
+    log(f"[dashboard] K1 qid {qid} killed {(t_kill - t0) * 1e3:.1f} ms "
+        f"after it was sent; answered '{out['doc']['results'][0]['error']}'"
+        f" {kill_ms:.1f} ms after the KILL; /debug/queries no longer lists "
+        f"it; device memory {mem0} B before, {mem1} B after")
+    return {"qid": qid, "kill_to_answer_ms": kill_ms,
+            "run_before_kill_ms": (t_kill - t0) * 1e3,
+            "memory_before": mem0, "memory_after": mem1}
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -2925,6 +3412,11 @@ def main() -> int:
         return 2
     from opengemini_tpu_torch.ops import cuda_segment as cs
 
+    # phases 3-9 measure every execution: the incremental result cache
+    # (the reference's switch, read at query time) is off there, and
+    # phase 10 turns it on for its panel
+    os.environ["OGT_RESULT_CACHE"] = "0"
+
     t_start = time.perf_counter()
     dev_name = torch.cuda.get_device_name(0)
     smi = smi_line()
@@ -2967,19 +3459,20 @@ def main() -> int:
     nested = phase_subquery(
         cold, t_start + SCRIPT_LIMIT_S - AFTER_PHASE9_S)
     lap("phase 9")
+    dash = phase_dashboard(cold, args.seed,
+                           t_start + SCRIPT_LIMIT_S - AFTER_PHASE10_S)
+    lap("phase 10")
     seen = {k: e2e["shapes"].get(k, set()) | cold["shapes"].get(k, set())
             for k in cs.LAUNCHES}
     for i, name in enumerate(E2E_KERNELS):
-        new = {sh for sh in hosted["shapes"][name] - seen[name]
-               if all(d > 0 for d in sh)}
-        recs[name] = recs.get(name, []) + main_path_kernels(
-            name, new, args.seed + 3000 + 10 * i, dev_name, limit=3)
-        seen[name] |= hosted["shapes"][name]
-        new = {sh for sh in nested["shapes"][name] - seen[name]
-               if all(d > 0 for d in sh)}
-        recs[name] = recs.get(name, []) + main_path_kernels(
-            name, new, args.seed + 4000 + 10 * i, dev_name, limit=3)
-    lap("the kernels at phases 8 and 9's shapes")
+        for j, later in enumerate((hosted, nested, dash)):
+            new = {sh for sh in later["shapes"][name] - seen[name]
+                   if all(d > 0 for d in sh)}
+            recs[name] = recs.get(name, []) + main_path_kernels(
+                name, new, args.seed + 3000 + 1000 * j + 10 * i, dev_name,
+                limit=3)
+            seen[name] |= later["shapes"][name]
+    lap("the kernels at phases 8, 9 and 10's shapes")
 
     kernels = []
     for name in cs.LAUNCHES:
@@ -2987,7 +3480,8 @@ def main() -> int:
         paths = [(tag, p) for tag, p in (("", e2e), ("", cold),
                                           (" cached", cached),
                                           (" compacted", compacted),
-                                          ("", hosted), ("", nested))
+                                          ("", hosted), ("", nested),
+                                          ("", dash))
                  if p["launches"].get(name)]
         kernels.append({
             "name": name, "route": "cuda",
@@ -2998,7 +3492,8 @@ def main() -> int:
             "launches_per_phase": {
                 ph: p["launches"].get(name, 0) for ph, p in (
                     ("3", e2e), ("5", cold), ("6", cached),
-                    ("7", compacted), ("8", hosted), ("9", nested))},
+                    ("7", compacted), ("8", hosted), ("9", nested),
+                    ("10", dash))},
             "launches_per_query": {qn + tag: pq["launches"][name]
                                    for tag, p in paths
                                    for qn, pq in p["per_query"].items()},

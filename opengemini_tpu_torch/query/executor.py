@@ -15,9 +15,27 @@ Subqueries (``FROM (SELECT ...)``, query/subquery.py), CTEs (``WITH``),
 ``SELECT *`` subquery over all of them) run as in the reference, and so
 do joins and unions (query/join.py).
 
-Not in this port yet: the result cache, sliced scans and the
-pre-aggregation path (ROADMAP A4.2); cluster routing and auth (ROADMAP
-A8: the shard list is the local one).
+A GROUP BY time() aggregate goes through the incremental result cache
+(query/resultcache.py: windows whose shards took no write since they
+were cached are served from it, and only the stale windows are scanned;
+``OGT_RESULT_CACHE=0`` turns it off, read at query time). A scan whose
+chunk metadata estimates ``SLICE_THRESHOLD_ROWS`` rows or more runs in
+window-aligned slices (``_scan_sliced``): each slice decodes into its
+own batches, runs its kernels and frees its device buffers before the
+next slice decodes, and the slices' windows are placed into one answer
+(``_stitch_sliced``: each window is computed in one slice only, so the
+answer is the single scan's; a mean or stddev sums in its slice batch's
+shape and may differ from it in the last bits). A whole-range
+count/sum/mean without a field filter takes the pre-aggregation path
+(``_scan_preagg``): a series whose chunks lie inside the range and need
+no merge adds their stored counts and sums without a decode, and the
+other series take the bulk decode of any scan. Every scan
+unit and device batch dispatch is a KILL QUERY cancellation point
+(utils/querytracker.py).
+
+Not in this port yet: the rollup splice and the governor's scan
+reservation (ROADMAP A7); cluster routing and auth (ROADMAP A8: the
+shard list is the local one).
 
 Every stage of an aggregate SELECT runs in a span (utils/tracing.py):
 ``select: <mst>`` around ``map_shards`` (shard mapping and series
@@ -44,6 +62,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import re
 import threading
 import time as _time
@@ -54,6 +73,7 @@ import torch
 
 from opengemini_tpu_torch.models import grid as _grid
 from opengemini_tpu_torch.models import ragged, templates
+from opengemini_tpu_torch.ops import aggregates as aggmod
 from opengemini_tpu_torch.ops import window as winmod
 from opengemini_tpu_torch.query import condition as cond
 from opengemini_tpu_torch.query.hostpath import HostPathMixin
@@ -64,8 +84,10 @@ from opengemini_tpu_torch.query.qhelpers import (
     _expand_call_wildcards, _has_call_wildcard, _has_in_subquery,
     _merge_multi_source,
     _needs_string_host_path, _resolve_call, _selector_aux_plan,
-    _series_result, _strip_expr,
+    _series_needs_merged_decode, _series_result, _strip_expr,
 )
+from opengemini_tpu_torch.query import resultcache as rcache
+from opengemini_tpu_torch.query import tablefunc as tfmod
 from opengemini_tpu_torch.query.showddl import ShowDdlMixin
 from opengemini_tpu_torch.query.subquery import SubqueryMixin
 from opengemini_tpu_torch.record import (
@@ -75,13 +97,9 @@ from opengemini_tpu_torch.sql.parser import parse
 from opengemini_tpu_torch.storage import colcache as colcache_mod
 from opengemini_tpu_torch.storage.engine import WriteError
 from opengemini_tpu_torch.utils import tracing
-from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
+from opengemini_tpu_torch.utils.querytracker import (
+    GLOBAL as TRACKER, QueryKilled, redact as _redact)
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
-
-
-# table functions (the reference's query/tablefunc.TABLE_FUNCTIONS): a
-# SELECT of one of them answers "not supported by this port yet"
-_TABLE_FUNCTIONS = frozenset({"rca"})
 
 
 @dataclass
@@ -100,6 +118,80 @@ class ScanContext:
     group_tags: list
     group_keys: list
     scan_plan: list
+
+
+# sliced-scan tuning: slice when the estimated scan exceeds this many
+# rows; each slice targets this many rows (bounds the dense grid well
+# under the grid's cell cap). The environment names are the JAX
+# package's, so both packages slice alike under one environment.
+SLICE_THRESHOLD_ROWS = int(os.environ.get("OGTPU_SLICE_THRESHOLD", "0")) \
+    or 24_000_000
+SLICE_TARGET_ROWS = int(os.environ.get("OGTPU_SLICE_TARGET", "0")) \
+    or 2_000_000
+
+
+def _plan_scan_slices(shards, mst, scan_plan, aligned, every_ns, W,
+                      tmin, tmax):
+    """Window-aligned slice plan [(w0, W_s, lo, hi)] covering
+    [tmin, tmax), or None when the scan is small enough to run in one
+    pass. Row counts come from chunk metadata (no decode): a chunk that
+    straddles the range counts whole, so a packed chunk holding its
+    series' whole span counts every row of it."""
+    total_rows = 0
+    total_chunks = 0
+    for sh in shards:
+        r, c = sh.approx_rows(mst, tmin, tmax)
+        total_rows += r
+        total_chunks += c
+    if total_rows < SLICE_THRESHOLD_ROWS:
+        return None
+    rows_per_window = max(total_rows // W, 1)
+    # plain target-based width: the decoded-column cache's host tier
+    # amortizes adjacent slices' re-decodes of a straddling chunk, while
+    # wider slices pay grid assembly and merge costs
+    W_s = max(int(SLICE_TARGET_ROWS // rows_per_window), 1)
+    if W_s >= W:
+        return None
+    n_slices = -(-W // W_s)
+    if total_chunks * n_slices > max(total_rows // 64, 65536):
+        # every slice re-sweeps the chunk metadata: with many tiny
+        # chunks that sweep would dominate the decode it saves
+        return None
+    plan = []
+    w0 = 0
+    while w0 < W:
+        ws = min(W_s, W - w0)
+        lo = aligned + w0 * every_ns
+        hi = aligned + (w0 + ws) * every_ns
+        plan.append((w0, ws, max(lo, tmin), min(hi, tmax)))
+        w0 += ws
+    return plan
+
+
+def _stitch_sliced(sliced_out, call, num_groups, W, num_segments):
+    """Combine the per-slice outputs of one aggregate into the global
+    segment arrays. Window-aligned slices make every (group, window)
+    segment live in exactly one slice, so stitching is pure placement —
+    no cross-slice combine for ANY per-window aggregate. sel is not
+    stitched: selector timestamps are only consulted without GROUP BY
+    time(), and slicing requires GROUP BY time()."""
+    out = counts = None
+    for w0, W_s, outs, _info in sliced_out:
+        got = outs.get(id(call))
+        if got is None:
+            continue  # the slice had no rows of this field
+        o, c = got
+        if out is None:
+            out = np.zeros(num_segments, dtype=o.dtype)
+            counts = np.zeros(num_segments, dtype=c.dtype)
+        out.reshape(num_groups, W)[:, w0:w0 + W_s] = \
+            o.reshape(num_groups, W_s)
+        counts.reshape(num_groups, W)[:, w0:w0 + W_s] = \
+            c.reshape(num_groups, W_s)
+    if out is None:
+        out = np.zeros(num_segments, dtype=np.float64)
+        counts = np.zeros(num_segments, dtype=np.int64)
+    return out, None, counts
 
 
 def _device_scan_token(db, rp, mst, sc, group_time, group_tags, all_tags,
@@ -286,6 +378,8 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
     def __init__(self, engine):
         self.engine = engine
         self.device = engine.device
+        # incremental GROUP BY time() result cache (query/resultcache.py)
+        self._inc_cache = rcache.IncrementalCache()
         # per-thread stack of the CTE names being expanded (cycle check)
         self._cte_state = threading.local()
 
@@ -310,9 +404,12 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
         try:
             if tracing.trace_enabled():
                 # per-query span tree (OGT_TRACE=1), activated
-                # thread-locally so _select adopts it
+                # thread-locally so _select adopts it, and bound to the
+                # running query for /debug/queries and /debug/trace
                 trace = tracing.Trace("query")
+                trace.root.add_field("statement", _redact(text))
                 trace.root.add_field("database", db)
+                TRACKER.set_trace(qid, trace)
                 with tracing.activate(trace):
                     return self._execute_statements(stmts, db, now_ns,
                                                     read_only)
@@ -328,12 +425,16 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
         results = []
         for i, stmt in enumerate(stmts):
             try:
+                # a killed query must not run its REMAINING statements
+                # either (the next one might be destructive DDL)
+                TRACKER.check()
                 if read_only and not _is_readonly(stmt):
                     raise QueryError(
                         f"{type(stmt).__name__} queries must be sent via POST")
                 res = self.execute_statement(stmt, db, now_ns)
             except (QueryError, cond.ConditionError, KeyError, ValueError,
-                    re.error, FieldTypeConflict, WriteError) as e:
+                    re.error, FieldTypeConflict, WriteError,
+                    QueryKilled) as e:
                 res = {"error": str(e)}
             res["statement_id"] = i
             results.append(res)
@@ -397,7 +498,7 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             only = _strip_expr(stmt.fields[0].expr)
             if isinstance(only, ast.Call) and only.name == "compare":
                 return self._select_compare(stmt, only, db, now_ns)
-            if isinstance(only, ast.Call) and only.name in _TABLE_FUNCTIONS:
+            if isinstance(only, ast.Call) and only.name in tfmod.TABLE_FUNCTIONS:
                 return self._select_table_function(stmt, only, db, now_ns)
         # constant (string-literal) columns: allowed only WITH an alias
         # and only beside at least one variable field
@@ -844,11 +945,12 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                              f"{len(ctx.group_keys)} x {ctx.W}")
         if ctx is None:
             return []
-        sc = ctx.sc
+        sc, shards = ctx.sc, ctx.shards
         tmin, tmax = ctx.tmin, ctx.tmax
         group_time, aligned, W = ctx.group_time, ctx.aligned, ctx.W
+        group_keys = ctx.group_keys
         schema = ctx.schema
-        num_groups = len(ctx.group_keys)
+        num_groups = len(group_keys)
         num_segments = num_groups * W
 
         # aggregates over the `time` pseudo-field (count/first/last/min/
@@ -884,6 +986,42 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             for f in needed_fields
         }
 
+        # incremental result cache (reference inc_agg_transform +
+        # lib/resultcache): GROUP BY time() windows whose shards took no
+        # writes since the last execution are served from cached
+        # (value, count) cells; only the stale windows are scanned
+        cache_plan = None
+        if (
+            group_time is not None
+            and W >= 1
+            and aggs  # tag-count-only statements have nothing to cache
+            # OGT_RESULT_CACHE=0 opts out (A/B runs must see every
+            # execution, not one per panel)
+            and os.environ.get("OGT_RESULT_CACHE", "1") not in ("", "0")
+            and not time_aggs
+            and len(group_keys) <= 20_000  # cache growth gate
+            and W <= 16_384  # > _MAX_WINDOWS would evict itself every run
+        ):
+            fp = rcache.fingerprint(
+                db, rp, mst, sc, group_time, ctx.group_tags,
+                stmt.group_by_all_tags,
+                [(spec.name, params, fname)
+                 for _c, spec, params, fname in aggs],
+            )
+            cache_plan = rcache.CachePlan(
+                self._inc_cache, fp, shards, aligned,
+                group_time.every_ns, W, len(aggs), tmin, tmax)
+        # no raw scan at all: every window comes from the result cache
+        no_scan = cache_plan is not None and not cache_plan.scan_ranges
+        scan_ranges = [(tmin, tmax)]
+        if cache_plan is not None and cache_plan.scan_ranges:
+            # disjoint stale runs: a now()-relative dashboard query scans
+            # only its partial edge windows and the written windows
+            scan_ranges = [
+                (max(tmin, lo), min(tmax, hi))
+                for lo, hi in cache_plan.scan_ranges
+            ]
+
         for call, spec, params, field_name in aggs:
             if schema.get(field_name) == FieldType.STRING and \
                     spec.name not in ("count", "mean", "stddev"):
@@ -895,30 +1033,85 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             raise QueryError(
                 "time range too large (over ~73 years) for aggregation")
 
+        # pre-aggregation (reference: immutable/pre_aggregation.go block
+        # skipping): for a whole-range count/sum/mean with no field
+        # filter, chunks wholly inside the range contribute their stored
+        # (count, sum) WITHOUT a decode or a transfer. Safe only when the
+        # series' sources cannot overlap (no memtable rows in range,
+        # non-overlapping, unpacked chunks: _series_needs_merged_decode)
+        pre_eligible = (
+            not group_time
+            and not time_aggs
+            and not sc.has_row_filter
+            and all(spec.name in ("count", "sum", "mean")
+                    for _c, spec, _p, _f in aggs)
+            and all(getattr(sh, "supports_preagg", False) for sh in shards)
+        )
+        # pre-agg accumulators: int64 for INT fields (stored sums are
+        # exact Python ints), float64 otherwise
+        pre_count = (
+            {f: np.zeros(num_segments, np.int64) for f in needed_fields}
+            if pre_eligible else {}
+        )
+        pre_sum = (
+            {f: np.zeros(num_segments, np.int64
+                         if schema.get(f) == FieldType.INT else np.float64)
+             for f in needed_fields}
+            if pre_eligible else {}
+        )
+        sum_fields = {f for _c, spec, _p, f in aggs if spec.name != "count"}
+        pre_used = False
+        sliced_out = None
+
         # the device tier of the decoded-column cache: a deterministic
         # local GROUP BY time() scan signs its grid buffers so identical
-        # scans reuse them (monolithic scans only; sliced scans, ROADMAP
-        # A4.2, sign per slice)
-        scan_ranges = [(tmin, tmax)]
+        # scans reuse them (a sliced scan signs each slice)
+        device_token = None
         if group_time is not None and colcache_mod.GLOBAL.device_enabled():
-            token = _device_scan_token(
+            device_token = _device_scan_token(
                 db, rp, mst, sc, group_time, ctx.group_tags,
                 stmt.group_by_all_tags, tmin, tmax, aligned, W, dtype,
-                scan_ranges, ctx.shards)
+                scan_ranges, shards)
             for f, b in batches.items():
                 if hasattr(b, "device_cache_token"):
-                    b.device_cache_token = f"{token}|{f}"
+                    b.device_cache_token = f"{device_token}|{f}"
+
+        # window-aligned time slicing bounds host and device memory
+        # (reference analogue: the record-plan batch reader streams
+        # chunks, engine/record_plan.go:75)
+        slice_plan = None
+        if (
+            group_time is not None
+            and not time_aggs
+            and not pre_eligible
+            and not no_scan
+            and W >= 8
+        ):
+            slice_plan = _plan_scan_slices(
+                shards, mst, ctx.scan_plan, aligned, group_time.every_ns, W,
+                tmin, tmax)
 
         cc_before = (colcache_mod.GLOBAL.counters()
                      if colcache_mod.GLOBAL.enabled() else None)
         time_segs: list[np.ndarray] | None = [] if time_aggs else None
         time_vals: list[np.ndarray] = []
         with trace.span("scan") as scan_span:
-            rows_scanned = self._scan_monolithic(
-                ctx.scan_plan, scan_ranges, sc, mst, group_time, tmin, W,
-                needed_fields, read_fields, dtype, aligned, batches,
-                time_segs, time_vals)
+            if no_scan:
+                rows_scanned = 0
+            elif slice_plan is not None:
+                rows_scanned, sliced_out = self._scan_sliced(
+                    slice_plan, ctx.scan_plan, scan_ranges, sc, mst,
+                    group_time, needed_fields, read_fields, dtype, schema,
+                    per_field_aggs, aggs, num_groups, device_token)
+            else:
+                rows_scanned, pre_used = self._scan_monolithic(
+                    ctx.scan_plan, scan_ranges, sc, mst, group_time, tmin,
+                    W, needed_fields, read_fields, dtype, aligned, batches,
+                    time_segs, time_vals, pre_eligible, pre_count, pre_sum,
+                    sum_fields, tmax)
             scan_span.add_field("rows", rows_scanned)
+            if slice_plan is not None:
+                scan_span.add_field("slices", len(slice_plan))
         STATS.incr("executor", "rows_scanned", rows_scanned)
         if cc_before is not None:
             # the cache's share of the scan: deltas of the process-wide
@@ -936,8 +1129,23 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
         agg_results = {}  # id(call) -> (values, sel, counts, spec, fname, times)
         with trace.span("device_compute") as sp:
             for call, spec, params, field_name in aggs:
+                TRACKER.check()  # kill between device batch dispatches
                 batch = batches[field_name]
-                if group_time and getattr(batch, "supports_want_sel", False):
+                if no_scan:
+                    # every window served from the cache: no scan, no
+                    # device work
+                    dt = (np.int64 if isinstance(batch, ragged.IntExactBatch)
+                          and spec.name in ("sum", "count") else np.float64)
+                    agg_results[id(call)] = (
+                        np.zeros(num_segments, dt), None,
+                        np.zeros(num_segments, np.int64), spec,
+                        field_name, None)
+                    continue
+                if sliced_out is not None:
+                    out, sel, counts = _stitch_sliced(
+                        sliced_out, call, num_groups, W, num_segments)
+                elif group_time and getattr(batch, "supports_want_sel",
+                                            False):
                     # GROUP BY time(): selector timestamps are never
                     # consulted (window start renders instead), so skip
                     # the selector index kernels
@@ -954,6 +1162,21 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 if spec.name == "stddev" and \
                         schema.get(field_name) == FieldType.STRING:
                     out = np.where(counts > 0, np.nan, out)
+                if pre_used:
+                    # combine the device partials with the pre-agg
+                    # contributions
+                    pc = pre_count[field_name]
+                    ps = pre_sum[field_name]
+                    if spec.name == "count":
+                        out = out + pc
+                    elif spec.name == "sum":
+                        out = out + ps
+                    else:  # mean = (dev_sum + pre_sum) / (dev_cnt + pre_cnt)
+                        dev_sum, _s, _c = batch.run(aggmod.get("sum"),
+                                                    num_segments)
+                        total_c = counts + pc
+                        out = (dev_sum + ps) / np.maximum(total_c, 1)
+                    counts = counts + pc.astype(counts.dtype)
                 agg_results[id(call)] = (out, sel, counts, spec, field_name,
                                          None)
             for call, spec, _params, field_name in tag_count_aggs:
@@ -989,25 +1212,62 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 torch.cuda.synchronize(self.device)
             sp.add_field("aggregates", len(aggs))
             sp.add_field("segments", num_segments)
-            sp.add_field("batch_rows", {f: b.n for f, b in batches.items()})
-            # which layout ran per field (a GridBatch may have fallen
-            # back, or not run at all)
-            sp.add_field("layouts",
-                         {f: b.layout_name() for f, b in batches.items()})
+            if sliced_out is not None:
+                sp.add_field("batch_rows", {
+                    f: sum(info[f][0] for _w0, _ws, _o, info in sliced_out)
+                    for f in needed_fields})
+                sp.add_field("layouts", {
+                    f: "sliced[" + ",".join(sorted(
+                        {info[f][1] for _w0, _ws, _o, info in sliced_out}
+                        or {"empty"})) + "]"
+                    for f in needed_fields})
+            else:
+                sp.add_field("batch_rows",
+                             {f: b.n for f, b in batches.items()})
+                # which layout ran per field (a GridBatch may have
+                # fallen back, or not run at all on a full cache hit)
+                sp.add_field("layouts",
+                             {f: b.layout_name() for f, b in batches.items()})
+        if cache_plan is not None:
+            with trace.span("inc_cache"):
+                group_keys = cache_plan.merge(agg_results, aggs,
+                                              list(group_keys))
         with trace.span("render"):
-            return self._render_agg(stmt, mst, ctx.group_tags,
-                                    ctx.group_keys, aligned, W, agg_results,
-                                    batches, schema)
+            return self._render_agg(stmt, mst, ctx.group_tags, group_keys,
+                                    aligned, W, agg_results, batches, schema)
 
     def _scan_monolithic(self, scan_plan, scan_ranges, sc, mst, group_time,
                          tmin, W, needed_fields, read_fields, dtype, aligned,
-                         batches, time_segs=None, time_vals=None) -> int:
+                         batches, time_segs=None, time_vals=None,
+                         pre_eligible=False, pre_count=None, pre_sum=None,
+                         sum_fields=(), tmax=None) -> tuple[int, bool]:
         """Decode every series in range into `batches`: one bulk read per
         shard when many series are scanned, else per-series reads staged
         into one contiguous add per field. With `time_segs` (aggregates
         over time) each row's segment and time are kept there and in
-        `time_vals`. Returns rows scanned."""
+        `time_vals`. With `pre_eligible` every series tries the
+        pre-aggregation path first, and the series it does not serve
+        (packed or overlapping chunks, memtable rows) take the bulk or
+        staged decode below like any scan. (The reference decodes each
+        of those with its own read_series; at 4000 series, whose chunks
+        are all packed, that decodes every packed chunk once per series
+        it holds: the same answers, at several times the cost.) Returns
+        (rows scanned, whether any series took the pre-agg path)."""
         rows_scanned = 0
+        pre_used = False
+        if pre_eligible:
+            decode_plan = []
+            for sh, sid, gid in scan_plan:
+                TRACKER.check()  # KILL QUERY cancellation point
+                handled, got_rows = self._scan_preagg(
+                    sh, mst, sid, gid, tmin, tmax, needed_fields, batches,
+                    pre_count, pre_sum, dtype, aligned, sum_fields)
+                if handled:
+                    pre_used = True
+                    rows_scanned += got_rows
+                else:
+                    decode_plan.append((sh, sid, gid))
+            scan_plan = decode_plan
         by_shard: dict[int, tuple] = {}
         for sh, sid, gid in scan_plan:
             by_shard.setdefault(id(sh), (sh, []))[1].append((sid, gid))
@@ -1021,6 +1281,7 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             o = np.argsort(sid_list)
             sid_sorted, gid_sorted = sid_list[o], gid_list[o]
             for rlo, rhi in scan_ranges:
+                TRACKER.check()  # KILL QUERY cancellation point
                 sid_arr, rec = sh.read_series_bulk(
                     mst, sid_sorted, rlo, rhi, fields=read_fields)
                 if len(rec) == 0:
@@ -1029,7 +1290,8 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 fmask = (cond.eval_row_filter(sc, rec, sid_arr=sid_arr,
                                               index=sh.index)
                          if sc.has_row_filter else None)
-                gid_rows = gid_sorted[np.searchsorted(sid_sorted, sid_arr)]
+                gid_rows = gid_sorted[np.searchsorted(sid_sorted,
+                                                      sid_arr)]
                 if group_time:
                     widx, _ = winmod.window_index(
                         rec.times, tmin, group_time.every_ns,
@@ -1043,11 +1305,15 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                     time_segs.append(seg[m])
                     time_vals.append(rec.times[m])
                 _add_record_to_batches(rec, seg, aligned, needed_fields,
-                                       batches, dtype, fmask, sids=sid_arr)
+                                       batches, dtype, fmask,
+                                       sids=sid_arr)
+        # per-series tail: stage rows and materialize ONE contiguous
+        # array set per field at the end
         stager = (_ScanStager(needed_fields, dtype, batches, aligned,
                               time_segs, time_vals)
                   if remaining_plan else None)
         for sh, sid, gid in remaining_plan:
+            TRACKER.check()  # KILL QUERY cancellation point
             for rlo, rhi in scan_ranges:
                 rec = sh.read_series(mst, sid, rlo, rhi, fields=read_fields)
                 if len(rec) == 0:
@@ -1066,7 +1332,108 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 stager.add(rec, seg, fmask, sid)
         if stager is not None:
             stager.flush()
-        return rows_scanned
+        return rows_scanned, pre_used
+
+    def _scan_sliced(self, slice_plan, scan_plan, scan_ranges, sc, mst,
+                     group_time, needed_fields, read_fields, dtype, schema,
+                     per_field_aggs, aggs, num_groups, device_token=None
+                     ) -> tuple[int, list]:
+        """Window-aligned sliced scan: each slice decodes into its own
+        batch set, then its aggregates run (a batch's ``run`` returns
+        host arrays, so the slice's kernels finish before the next slice
+        decodes) and the slice's batches, with their device buffers, are
+        dropped. Returns (rows_scanned, [(w0, W_s, {id(call): (out,
+        counts)}, {field: (rows, layout)})]). Overlapping one slice's
+        kernels with the next slice's decode (the reference's
+        ``prefetch``) is not ported."""
+        rows_scanned = 0
+        out = []
+        STATS.incr("executor", "sliced_scans")
+        for (w0, W_s, lo, hi) in slice_plan:
+            TRACKER.check()
+            ranges = [(max(lo, rlo), min(hi, rhi))
+                      for rlo, rhi in scan_ranges
+                      if max(lo, rlo) < min(hi, rhi)]
+            if not ranges:
+                continue
+            sbatches = {
+                f: pick_batch(schema, per_field_aggs[f], f, dtype,
+                              self.device, (W_s, group_time.every_ns))
+                for f in needed_fields
+            }
+            if device_token is not None:
+                # per-slice signature: same scan, distinct window span
+                for f, b in sbatches.items():
+                    if hasattr(b, "device_cache_token"):
+                        b.device_cache_token = f"{device_token}|{f}|{w0}:{W_s}"
+            got, _pre = self._scan_monolithic(
+                scan_plan, ranges, sc, mst, group_time, lo, W_s,
+                needed_fields, read_fields, dtype, lo, sbatches)
+            rows_scanned += got
+            outs = {}
+            for call, spec, params, fname in aggs:
+                b = sbatches[fname]
+                if b.n == 0:
+                    continue
+                TRACKER.check()
+                if getattr(b, "supports_want_sel", False):
+                    o, _sel, c = b.run(spec, num_groups * W_s, params,
+                                       want_sel=False)
+                else:
+                    o, _sel, c = b.run(spec, num_groups * W_s, params)
+                outs[id(call)] = (o, c)
+            info = {f: (b.n, b.layout_name()) for f, b in sbatches.items()}
+            out.append((w0, W_s, outs, info))
+            del sbatches  # the slice's device buffers go before the next
+        return rows_scanned, out
+
+    def _scan_preagg(self, sh, mst, sid, gid, tmin, tmax, needed_fields,
+                     batches, pre_count, pre_sum, dtype, aligned,
+                     sum_fields) -> tuple[bool, int]:
+        """Try the pre-agg path for one series. Returns (handled, rows):
+        handled=False -> the caller decodes the series as usual. No side
+        effects until the whole series validates."""
+        needs_merge, srcs = _series_needs_merged_decode(sh, mst, sid, tmin,
+                                                        tmax)
+        if needs_merge:
+            return False, 0  # dedup required: decode via read_series
+        if not srcs:
+            return True, 0  # nothing in range at all
+        # validate: every fully covered chunk must carry a sum for the
+        # fields that need one (bool/string columns store count-only
+        # pre-agg)
+        contrib: list[tuple[str, int, float | None]] = []
+        full_rows = 0
+        partials = []
+        for r, c in srcs:
+            if tmin <= c.tmin and c.tmax < tmax:
+                for fname in needed_fields:
+                    loc = c.cols.get(fname)
+                    if loc is None:
+                        continue
+                    pre = loc["pre"]
+                    if not pre.count:
+                        continue
+                    if fname in sum_fields and pre.vsum is None:
+                        return False, 0
+                    contrib.append((fname, pre.count, pre.vsum))
+                full_rows += c.rows
+            else:
+                partials.append((r, c))
+        for fname, cnt, vsum in contrib:
+            pre_count[fname][gid] += cnt
+            if vsum is not None:
+                pre_sum[fname][gid] += vsum
+        rows = full_rows
+        for r, c in partials:
+            rec = r.read_chunk(mst, c, needed_fields).slice_time(tmin, tmax)
+            if not len(rec):
+                continue
+            rows += len(rec)
+            seg = np.full(len(rec), gid, dtype=np.int32)
+            _add_record_to_batches(rec, seg, aligned, needed_fields, batches,
+                                   dtype, None, sids=sid)
+        return True, rows
 
     def _group_tags(self, stmt, shards, mst) -> list[str]:
         if stmt.group_by_all_tags:

@@ -8,12 +8,11 @@ host forms) and the multi-row calls (top, bottom, sample, distinct).
 Pure numpy on the host, as in the reference: the device path
 (models/templates.py) runs the hot aggregates, and any SELECT holding a
 call outside that set evaluates here per (group, window) over
-time-sorted rows.
+time-sorted rows. ``percentile_ogsketch`` runs on query/sketch.py's
+centroid sketch.
 
-Not in this port yet: ``percentile_ogsketch`` (it needs
-``query/sketch``, ROADMAP A4.2) and ``detect`` (it needs
-``services/castor``, ROADMAP A7). Each raises a "not supported by this
-port yet" error.
+Not in this port yet: ``detect`` (it needs ``services/castor``, ROADMAP
+A7), which raises a "not supported by this port yet" error.
 """
 
 from __future__ import annotations
@@ -193,8 +192,16 @@ def host_agg(name: str, times: np.ndarray, values: np.ndarray, params: tuple):
             else int(times[i])
         return py_value(values[i]), sel_t
     if name == "percentile_ogsketch":
-        raise ValueError("percentile_ogsketch() is not supported by this "
-                         "port yet (query/sketch, ROADMAP A4.2)")
+        # centroid-sketch quantile (reference percentile_ogsketch,
+        # call_processor.go:41): O(compression) memory per window however
+        # many rows feed it, mergeable across nodes (query/sketch.py)
+        from opengemini_tpu_torch.query.sketch import OGSketch
+
+        q = params[0]
+        sk = OGSketch()
+        sk.insert(np.asarray(values, np.float64))
+        out = sk.quantile(q / 100.0)
+        return (None if math.isnan(out) else float(out)), None
     if name == "count_distinct":
         return int(len(np.unique(values))), None
     if name == "mode":

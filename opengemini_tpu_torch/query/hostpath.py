@@ -21,15 +21,21 @@ explicit GROUP BY tags as wildcard columns and keeps the inner series
 order when it is not grouped (``_from_subquery`` and ``_subquery_dims``,
 set by query/subquery.py).
 
-Not in this port yet: ``percentile_approx`` (it needs ``query/sketch``,
-ROADMAP A4.2) and table functions (``query/tablefunc``, ROADMAP A4.2),
-which answer a "not supported by this port yet" error; the text-index
-series pruning of the raw path (ROADMAP A3.4); fitted ``detect`` models
-(ROADMAP A7); remote shards (ROADMAP A8: the shard list is the local
-one) and the KILL QUERY cancellation points (ROADMAP A4.2).
+``percentile_approx`` answers from query/sketch.py's histogram sketch
+(chunk histograms where a series' chunks allow it, decoded values
+elsewhere), and a table function (``rca``, query/tablefunc.py) runs over
+the raw rows of its measurement. Every read loop is a KILL QUERY
+cancellation point (``TRACKER.check()``).
+
+Not in this port yet: the text-index series pruning of the raw path
+(ROADMAP A3.4); fitted ``detect`` models (ROADMAP A7); remote shards
+(ROADMAP A8: the shard list is the local one).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import json
 
 import numpy as np
 
@@ -39,11 +45,13 @@ from opengemini_tpu_torch.record import EncodedColumn, FieldType
 from opengemini_tpu_torch.sql import ast
 from opengemini_tpu_torch.storage import scanpool
 from opengemini_tpu_torch.utils import tracing
+from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
 from opengemini_tpu_torch.query.qhelpers import (
     QueryError, _apply_fill, _calls_in, _call_param_value,
     _check_host_field_type, _default_field_name, _eval_aux_expr,
     _eval_scalar_cols, _eval_scalar_row, _pyval, _render_cell,
-    _resolve_host_call, _scalar_refs, _selector_pick, _strip_expr,
+    _resolve_host_call, _scalar_refs, _selector_pick, _series,
+    _series_needs_merged_decode, _strip_expr,
 )
 
 
@@ -220,9 +228,144 @@ def _raw_bulk(sh, entries, mst, sc, read_fields, spec, keep, ascending):
 
 
 class HostPathMixin:
-    def _select_percentile_approx(self, stmt, db, rp, mst, now_ns, call):
-        raise QueryError("percentile_approx() is not supported by this port "
-                         "yet (query/sketch, ROADMAP A4.2)")
+    def _select_percentile_approx(self, stmt, db, rp, mst, now_ns, call) -> list[dict]:
+        """percentile_approx(field, q): served from the per-chunk histogram
+        sketches in TSF pre-agg metadata — covered chunks contribute their
+        histograms with NO data decode (reference: OGSketch, persisted).
+        Memtable rows, partially-covered and histogram-less chunks decode
+        and bin exactly, and so does every series whose chunks are packed
+        (``_series_needs_merged_decode``). Error: within one chunk-histogram
+        bin width (chunk_range/32) for sketch-served mass, one global bin
+        width (range/256) for directly-binned rows."""
+        from opengemini_tpu_torch.query.sketch import HistSketch
+
+        if stmt.group_by_time is not None:
+            raise QueryError("percentile_approx() does not support GROUP BY time yet")
+        if len(call.args) != 2:
+            raise QueryError("percentile_approx() takes (field, q)")
+        fld = _strip_expr(call.args[0])
+        if not isinstance(fld, ast.VarRef):
+            raise QueryError("percentile_approx() field must be a field name")
+        qv = float(_call_param_value(call.args[1]))
+        if not (0 <= qv <= 100):
+            raise QueryError("percentile_approx() q must be between 0 and 100")
+        fname = fld.name
+        ctx = self._scan_context(stmt, db, rp, mst, now_ns)
+        if ctx is None:
+            return []
+        if ctx.schema.get(fname) not in (FieldType.FLOAT, FieldType.INT):
+            raise QueryError("percentile_approx() requires a numeric field")
+        if ctx.sc.has_row_filter:
+            raise QueryError("percentile_approx() does not support field filters")
+        tmin, tmax = ctx.tmin, ctx.tmax
+
+        # pass 1: per group, chunk hists (zero decode) or decoded values;
+        # any dedup risk (overlapping chunks / memtable rows) falls the
+        # whole series back to the merged read_series view
+        plans: dict[int, list] = {}  # gid -> [(kind, payload)]
+        bounds: dict[int, list] = {}
+
+        def _add_vals(gid, vals):
+            vals = vals[np.isfinite(vals)]  # nan/inf points never bin
+            if not len(vals):
+                return
+            plans.setdefault(gid, []).append(("values", vals))
+            b = bounds.setdefault(gid, [np.inf, -np.inf])
+            b[0] = min(b[0], float(vals.min()))
+            b[1] = max(b[1], float(vals.max()))
+
+        # the series that need the merged view, read in one bulk read per
+        # shard where there are many (the reference reads each on its
+        # own: the same rows, but a packed chunk decodes once per series
+        # it holds); the sketch then takes them in scan-plan order
+        probes = []
+        merged: dict[int, tuple] = {}
+        for sh, sid, gid in ctx.scan_plan:
+            TRACKER.check()  # KILL QUERY cancellation point
+            needs_merge, srcs = _series_needs_merged_decode(
+                sh, mst, sid, tmin, tmax)
+            probes.append((sh, sid, gid, needs_merge, srcs))
+            if needs_merge:
+                merged.setdefault(id(sh), (sh, []))[1].append(sid)
+        bulk: dict[tuple, np.ndarray] = {}
+        bulk_shards = set()
+        for sh, sids in merged.values():
+            if len(sids) < _BULK_SERIES:
+                continue
+            TRACKER.check()
+            bulk_shards.add(id(sh))
+            sids = np.asarray(sorted(sids), np.int64)
+            sid_arr, rec = sh.read_series_bulk(mst, sids, tmin, tmax,
+                                               fields=[fname])
+            col = rec.columns.get(fname)
+            if col is None or not len(rec):
+                continue
+            vals, valid = col.values, col.valid
+            los = np.searchsorted(sid_arr, sids, side="left")
+            his = np.searchsorted(sid_arr, sids, side="right")
+            for sid, lo, hi in zip(sids.tolist(), los, his):
+                if hi > lo:
+                    bulk[(id(sh), sid)] = vals[lo:hi][valid[lo:hi]].astype(
+                        np.float64)
+
+        for sh, sid, gid, needs_merge, srcs in probes:
+            if needs_merge:
+                if id(sh) in bulk_shards:
+                    got = bulk.get((id(sh), sid))
+                    if got is not None:
+                        _add_vals(gid, got)
+                    continue
+                rec = sh.read_series(mst, sid, tmin, tmax, fields=[fname])
+                col = rec.columns.get(fname)
+                if col is not None and len(rec):
+                    _add_vals(gid, col.values[col.valid].astype(np.float64))
+                continue
+            for r, c in srcs:
+                loc = c.cols.get(fname)
+                pre = loc["pre"] if loc else None
+                covered = tmin <= c.tmin and c.tmax < tmax
+                if covered and pre is not None and pre.count and pre.hist is not None:
+                    plans.setdefault(gid, []).append(("hist", pre))
+                    b = bounds.setdefault(gid, [np.inf, -np.inf])
+                    b[0] = min(b[0], pre.vmin)
+                    b[1] = max(b[1], pre.vmax)
+                else:
+                    rec = r.read_chunk(mst, c, [fname]).slice_time(tmin, tmax)
+                    col = rec.columns.get(fname)
+                    if col is not None and len(rec):
+                        _add_vals(gid, col.values[col.valid].astype(np.float64))
+
+        name = stmt.fields[0].alias or "percentile_approx"
+        out_series = []
+        order = sorted(range(len(ctx.group_keys)), key=lambda g: ctx.group_keys[g])
+        t0 = ctx.aligned if ctx.aligned else 0
+        for g in order:
+            entries = plans.get(g)
+            if not entries:
+                continue
+            lo, hi = bounds[g]
+            sk = HistSketch(lo, hi)
+            for kind, payload in entries:
+                if kind == "hist":
+                    sk.add_chunk_hist(payload.vmin, payload.vmax, payload.hist)
+                else:
+                    sk.add_values(payload)
+            v = sk.percentile(qv)
+            if v is None:
+                continue
+            rows = [[t0, v]]
+            if not stmt.ascending:
+                rows.reverse()
+            rows = rows[stmt.offset :]
+            if stmt.limit:
+                rows = rows[: stmt.limit]
+            if not rows:
+                continue
+            series = {"name": mst, "columns": ["time", name], "values": rows}
+            if ctx.group_tags:
+                series["tags"] = dict(zip(ctx.group_tags, ctx.group_keys[g]))
+            out_series.append(series)
+        return out_series
 
     # -- selector + auxiliary columns (host path) ----------------------------
 
@@ -315,6 +458,7 @@ class HostPathMixin:
             for n in tag_names:
                 tag_cols[n] = []
             for sh, sid in groups[gid]:
+                TRACKER.check()  # KILL QUERY cancellation point
                 rec = sh.read_series(mst, sid, tmin, tmax, fields=read_fields)
                 col = rec.columns.get(sel_field)
                 if col is None or len(rec) == 0:
@@ -464,6 +608,7 @@ class HostPathMixin:
         for key in sorted(groups):
             times_l, topv_l, rowcols_l, tags_l = [], [], [], []
             for sh, sid in groups[key]:
+                TRACKER.check()  # KILL QUERY cancellation point
                 rec = sh.read_series(mst, sid, ctx.tmin, ctx.tmax,
                                      fields=read_fields)
                 col = rec.columns.get(sel_field)
@@ -670,6 +815,7 @@ class HostPathMixin:
                     return got
                 ts_list, vs_list = [], []
                 for sh, sid in groups[key]:
+                    TRACKER.check()  # KILL QUERY cancellation point
                     rec = sh.read_series(
                         mst, sid, tmin, tmax,
                         fields=[fname] + sorted(cond.row_filter_refs(sc)))
@@ -903,6 +1049,7 @@ class HostPathMixin:
         combo_idx: dict[tuple, int] = {}
         filter_fields = [fname] + sorted(cond.row_filter_refs(sc))
         for sh, sid in shard_sids:
+            TRACKER.check()  # KILL QUERY cancellation point
             rec = sh.read_series(mst, sid, tmin, tmax, fields=filter_fields)
             col = rec.columns.get(fname)
             if col is None or len(rec) == 0:
@@ -968,9 +1115,45 @@ class HostPathMixin:
     # -- raw path -----------------------------------------------------------
 
 
-    def _select_table_function(self, stmt, call, db: str, now_ns: int):
-        raise QueryError(f"{call.name}() is not supported by this port yet "
-                         "(query/tablefunc, ROADMAP A4.2)")
+    def _select_table_function(self, stmt, call, db: str, now_ns: int) -> dict:
+        """SELECT <table_function>('<params json>') FROM m WHERE time ...
+        (reference: LogicalTableFunction, logic_plan.go:3863; the one
+        production operator is rca, table_function_factory.go:26). The
+        measurement's raw rows in the time range are the function input;
+        the result is one row holding the output graph as JSON."""
+        from opengemini_tpu_torch.query import tablefunc as tfmod
+
+        if len(call.args) != 1:
+            raise QueryError(f"{call.name}() takes one string argument")
+        arg = _strip_expr(call.args[0])
+        if not isinstance(arg, ast.StringLiteral):
+            raise QueryError(f"{call.name}() parameter must be a quoted string")
+        raw_stmt = dataclasses.replace(
+            stmt, fields=[ast.Field(expr=ast.Wildcard())],
+            group_by_all_tags=True, limit=0, offset=0,
+        )
+        rows: list[dict] = []
+        for src in stmt.sources:
+            if not isinstance(src, ast.Measurement):
+                raise QueryError(f"{call.name}() requires a measurement source")
+            src_db = src.database or db
+            for series in self._select_raw(raw_stmt, src_db, src.rp or None,
+                                           src.name, now_ns):
+                tags = series.get("tags") or {}
+                cols = series["columns"]
+                for vals in series["values"]:
+                    row = dict(tags)
+                    for c, v in zip(cols, vals):
+                        if v is not None:
+                            row[c] = v
+                    rows.append(row)
+        try:
+            graph = tfmod.TABLE_FUNCTIONS[call.name](rows, arg.val)
+        except tfmod.TableFunctionError as e:
+            raise QueryError(str(e)) from None
+        name = stmt.sources[0].name if stmt.sources else call.name
+        return {"series": [_series(name, None, [call.name],
+                                   [[json.dumps(graph, sort_keys=True)]])]}
 
     def _select_raw(self, stmt, db, rp, mst, now_ns) -> list[dict]:
         trace = tracing.current()
@@ -1120,12 +1303,14 @@ class HostPathMixin:
                         (sid, tags))
             parts: dict[tuple, tuple] = {}
             for sh, entries in by_shard.values():
+                TRACKER.check()  # KILL QUERY cancellation point
                 if bulk_ok and len(entries) >= _BULK_SERIES:
                     parts.update(_raw_bulk(sh, entries, mst, sc,
                                            read_fields, spec, keep,
                                            stmt.ascending))
                     continue
                 for sid, tags in entries:
+                    TRACKER.check()  # KILL QUERY cancellation point
                     rec = sh.read_series(mst, sid, sc.tmin, sc.tmax,
                                          fields=read_fields)
                     if len(rec) == 0:

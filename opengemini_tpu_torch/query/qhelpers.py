@@ -6,10 +6,12 @@ and the QueryError type.
 The port of ``opengemini_tpu/query/qhelpers.py``. ``_classify_select``
 and ``_is_device_call`` are the one place that decides whether a SELECT
 runs raw, on the device or on the host, for the executor and EXPLAIN
-alike. Not in this port yet: the text-index series pruning
-(``_prune_text_sids``, ROADMAP A3.4), the pre-aggregation dedup probes
-(``_series_needs_merged_decode``, ROADMAP A4.2) and the governor's
-``estimate_scan_bytes`` (ROADMAP A7).
+alike. ``_series_needs_merged_decode`` is the dedup probe of the
+pre-aggregation and sketch paths: a series whose chunks are packed
+(PACK_MIN_SERIES or more series in one flush), overlap each other or
+meet memtable rows takes the merged decode. Not in this port yet: the
+text-index series pruning (``_prune_text_sids``, ROADMAP A3.4) and the
+governor's ``estimate_scan_bytes`` (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -876,6 +878,29 @@ def _pyval(v, ftype):
     if ftype == FieldType.BOOL:
         return bool(v)
     return v if isinstance(v, str) else str(v)
+
+
+def _series_needs_merged_decode(sh, mst, sid, tmin, tmax):
+    """Dedup-risk check shared by the pre-agg and sketch fast paths: a
+    series needs the merged read_series view when memtable rows overlap
+    the range or its chunks overlap each other (last-write-wins dedup).
+    Returns (needs_merge, chunk_sources)."""
+    if not getattr(sh, "supports_preagg", False):
+        # a shard without chunk metadata: always the merged view
+        # (returning (False, []) would silently drop its data)
+        return True, None
+    if sh.mem_overlaps_range(sid, tmin, tmax):
+        return True, None
+    srcs = sh.file_chunks(mst, {sid}, tmin, tmax)
+    if any(c.packed for _r, c in srcs):
+        # packed chunks hold many series: their pre-agg is chunk-wide, so
+        # per-series fast paths must take the merged decode
+        return True, None
+    metas = sorted((c for _r, c in srcs), key=lambda c: c.tmin)
+    for a, b in zip(metas, metas[1:]):
+        if b.tmin <= a.tmax:
+            return True, None
+    return False, srcs
 
 
 def _data_time_range(shards, mst):

@@ -3,8 +3,9 @@
 The port of ``opengemini_tpu/query/showddl.py`` for the schema and
 metadata statements: the statement dispatch (``execute_statement``),
 SHOW DATABASES, MEASUREMENTS, TAG KEYS, TAG VALUES, FIELD KEYS, SERIES,
-SERIES [EXACT] CARDINALITY, MEASUREMENT CARDINALITY, RETENTION POLICIES
-and SHARDS; CREATE DATABASE (with ``WITH ...``) and DROP DATABASE;
+SERIES [EXACT] CARDINALITY, MEASUREMENT CARDINALITY, RETENTION POLICIES,
+SHARDS and QUERIES (the running queries of utils/querytracker.py), KILL
+QUERY; CREATE DATABASE (with ``WITH ...``) and DROP DATABASE;
 CREATE, ALTER and DROP RETENTION POLICY; CREATE MEASUREMENT (accepted,
 the engine is schema-on-write) and DROP MEASUREMENT (a mark: SELECT and
 the metadata SHOWs hide the measurement, SHOW SERIES keeps its series
@@ -16,8 +17,8 @@ Every other statement of the reference answers a "not supported by this
 port yet" error naming the ROADMAP item that owns it (``_NOT_PORTED``):
 DELETE and DROP SERIES and the purge of dropped measurements (A3.4);
 continuous queries, streams, downsample, subscriptions and models (A7);
-users, grants and SHOW CLUSTER (A8); SHOW QUERIES and KILL QUERY
-(A4.2); SHOW STATS and SHOW DIAGNOSTICS (A9). UNION statements run
+users, grants and SHOW CLUSTER (A8); SHOW STATS and SHOW DIAGNOSTICS
+(A9). UNION statements run
 through query/join.py's ``execute_union``.
 """
 
@@ -34,6 +35,7 @@ from opengemini_tpu_torch.query.qhelpers import (
 from opengemini_tpu_torch.record import FieldType
 from opengemini_tpu_torch.sql import ast
 from opengemini_tpu_torch.utils import tracing
+from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 _MIN_RP_DURATION_NS = 3600 * NS
@@ -74,8 +76,6 @@ _NOT_PORTED = {
     ast.ShowUsers: "A8",
     ast.ShowGrants: "A8",
     ast.ShowCluster: "A8",
-    ast.ShowQueries: "A4.2",
-    ast.KillQuery: "A4.2",
     ast.ShowStats: "A9",
     ast.ShowDiagnostics: "A9",
 }
@@ -145,6 +145,19 @@ class ShowDdlMixin:
         if isinstance(stmt, ast.DropMeasurement):
             # mark + deferred purge (the reference's MarkMeasurementDelete)
             self.engine.mark_measurement_delete(db, stmt.name)
+            return {}
+        if isinstance(stmt, ast.ShowQueries):
+            rows = [
+                [q["qid"], q["query"], q["database"],
+                 f"{q['duration_ms']}ms", q["status"]]
+                for q in TRACKER.snapshot()
+            ]
+            return _series_result(
+                "", None, ["qid", "query", "database", "duration", "status"],
+                rows)
+        if isinstance(stmt, ast.KillQuery):
+            if not TRACKER.kill(stmt.qid):
+                raise QueryError(f"no such query: {stmt.qid}")
             return {}
         item = _NOT_PORTED.get(type(stmt))
         if item is not None:

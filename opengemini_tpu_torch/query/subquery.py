@@ -7,10 +7,11 @@ subquery builders in engine/executor/select.go). The inner result
 materializes into a throw-away ``Engine`` (the spill engine) on the
 caller's device, and the outer select runs on it through the port's own
 ``Executor``, so the inner and the outer aggregates both go through
-``pick_batch`` and the device kernels. Differences from the reference:
-INTO writes locally (the reference routes them to a cluster's shard
-owners, ROADMAP A8), and the chunk loop has no cancellation point yet
-(KILL QUERY, ROADMAP A4.2).
+``pick_batch`` and the device kernels. The chunk loop checks for KILL
+QUERY before each chunk, and a killed query closes and removes its
+spill engine on the way out. One difference from the reference: INTO
+writes locally (the reference routes them to a cluster's shard owners,
+ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from opengemini_tpu_torch.query.qhelpers import (
 from opengemini_tpu_torch.record import FieldType
 from opengemini_tpu_torch.sql import ast
 from opengemini_tpu_torch.utils import tracing
+from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 
@@ -535,6 +537,7 @@ class SubqueryMixin:
                 sp.add_field("chunks", len(chunk_plan))
                 spent = 0
                 for lo, hi in chunk_plan:
+                    TRACKER.check()
                     part = copy.copy(inner)
                     bound = ast.BinaryExpr(
                         "AND",

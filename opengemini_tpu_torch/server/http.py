@@ -1,6 +1,6 @@
 """InfluxDB 1.x-compatible HTTP API, the routes of this slice.
 
-The port of ``opengemini_tpu/server/http.py`` for five routes, on the
+The port of ``opengemini_tpu/server/http.py`` for seven routes, on the
 standard library's threading HTTP server:
   GET/HEAD /ping        204
   GET      /health      200 {"name", "status": "pass", "version"}
@@ -14,6 +14,11 @@ standard library's threading HTTP server:
   GET      /debug/vars  the statistics registry (utils/stats.py), with
                         the query_stages timings (the executor's, and
                         "encode": the answer's JSON and its write)
+  GET      /debug/queries  the running queries (utils/querytracker.py
+                        ``full_snapshot``)
+  GET      /debug/trace the span tree of a query: ?qid= (a running
+                        query's live tree, else the finished-trace
+                        ring), ?trace_id=, or the newest summaries
 Answers use the JAX server's JSON shapes, and error answers carry the
 stable errno taxonomy (utils/errno.py: ``errno`` and ``module`` fields,
 ``X-Ogt-Errno`` header); other routes answer 404.
@@ -37,6 +42,7 @@ from opengemini_tpu_torch.record import FieldTypeConflict
 from opengemini_tpu_torch.storage.engine import DatabaseNotFound, WriteError
 from opengemini_tpu_torch.utils import errno as _errno
 from opengemini_tpu_torch.utils import tracing
+from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 _EPOCH_DIV = {"ns": 1, "u": 1_000, "µ": 1_000, "ms": 1_000_000,
@@ -212,8 +218,50 @@ def _make_handler(svc: HttpService):
                     "version": __version__}}
                 snap.update(STATS.snapshot())
                 self._send_json(200, snap)
+            elif path == "/debug/queries":
+                self._send_json(200, TRACKER.full_snapshot())
+            elif path == "/debug/trace":
+                self._handle_debug_trace(self._params())
             else:
                 self._send_json(404, {"error": "not found"})
+
+        def _handle_debug_trace(self, params: dict) -> None:
+            """?qid= serves one span tree (a RUNNING query's live tree,
+            else the finished-trace ring); ?trace_id= looks up by trace
+            id; bare = newest-first summaries."""
+            qid_s = params.get("qid", "")
+            if qid_s:
+                try:
+                    qid = int(qid_s)
+                except ValueError:
+                    self._send_json(400, {"error": f"bad qid {qid_s!r}"})
+                    return
+                live = TRACKER.trace_of(qid)
+                if live is not None:
+                    self._send_json(200, {
+                        "qid": qid, "status": "running",
+                        "trace_id": live.trace_id,
+                        "trace": live.to_dict()})
+                    return
+                doc = tracing.get_trace(qid=qid)
+                if doc is None:
+                    self._send_json(
+                        404, {"error": f"no trace for qid {qid} "
+                              "(finished long ago, or OGT_TRACE off)"})
+                    return
+                self._send_json(200, dict(doc, status="finished"))
+                return
+            tid = params.get("trace_id", "")
+            if tid:
+                doc = tracing.get_trace(trace_id=tid)
+                if doc is None:
+                    self._send_json(404, {"error": f"no trace {tid!r}"})
+                    return
+                self._send_json(200, dict(doc, status="finished"))
+                return
+            self._send_json(200, {
+                "enabled": tracing.trace_enabled(),
+                "recent": tracing.recent_traces()})
 
         def do_POST(self):
             path = urllib.parse.urlparse(self.path).path

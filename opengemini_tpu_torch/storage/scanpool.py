@@ -1,9 +1,10 @@
 """Parallel chunk-decode pool for the shard scans.
 
 The port of ``opengemini_tpu/storage/scanpool.py``'s ``map_ordered`` and
-``est_chunk_bytes``, without the query tracker's kill points and the
-resource-governor hook (a job runs bound to its query's id, for the
-tracker's stage attribution only). TSF chunk decodes (zlib, the native codecs,
+``est_chunk_bytes``, with the query tracker's kill points (a job runs
+bound to its query's id: a killed query's queued jobs raise instead of
+decoding, and the consumer stops at the next result) and without the
+resource-governor hook (ROADMAP A7). TSF chunk decodes (zlib, the native codecs,
 numpy) release the GIL, so a scan fans them over a shared worker pool
 and yields the results in submission order: bit-identical to a serial
 decode. One worker per core (at most 16), a 256 MiB in-flight budget of
@@ -62,6 +63,7 @@ def map_ordered(jobs, est_bytes):
     p = pool()
     if p is None or len(jobs) < MIN_POOL_JOBS:
         for job in jobs:
+            _TRACKER.check()
             yield job()
         return
     est = list(est_bytes)
@@ -71,8 +73,10 @@ def map_ordered(jobs, est_bytes):
 
     def bound(job):
         # stage time a job adds (the decoded-column cache's lookups and
-        # fills) goes to the query that submitted it
+        # fills) goes to the query that submitted it, and a killed
+        # query stops paying for decodes it would discard
         _TRACKER.bind(qid)
+        _TRACKER.raise_if_killed(qid)
         return job()
 
     pending: deque = deque()
@@ -86,6 +90,7 @@ def map_ordered(jobs, est_bytes):
                 or (inflight + est[i] <= INFLIGHT_BYTES
                     and len(pending) < max_pending)
             ):
+                _TRACKER.check()
                 pending.append((p.submit(bound, jobs[i]), est[i]))
                 inflight += est[i]
                 i += 1
@@ -94,6 +99,7 @@ def map_ordered(jobs, est_bytes):
                 out = fut.result()
             finally:
                 inflight -= nb
+            _TRACKER.check()
             yield out
     finally:
         # consumer abandoned mid-scan: cancel everything not yet running

@@ -15,6 +15,10 @@ decode, and compaction (``compact``, ``compact_level``,
 revalidated swap of the file set, which drops the retired files' cache
 entries.
 
+Every write logs its rows' time range with a new ``data_version``
+(``_note_mutation``; ``changed_since`` answers for a range), which the
+incremental result cache keys on; flush and compaction keep both.
+
 Not in this port yet: delete and downsample rewrites, file quarantine
 and the disk-fault hooks (ROADMAP A3.3 and A3.4), and the text-index
 sidecars (``.tidx``; a compaction removes the sidecar of every file it
@@ -46,6 +50,7 @@ from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
 # process-wide versions: see Shard.data_version and Shard.cache_ns
 _DATA_VERSIONS = itertools.count(1)
+_MUT_LOG_MAX = 512  # bounded mutation history; overflow = assume-changed
 
 
 def _pack_entries(buffer: list) -> tuple[np.ndarray, Record]:
@@ -124,6 +129,8 @@ def _keep_fields(rec: Record, fields) -> Record:
 
 
 class Shard:
+    supports_preagg = True  # chunk metadata is local: pre-agg and sketches
+
     def __init__(self, path: str, tmin: int, tmax: int,
                  sync_wal: bool = False):
         self.path = path
@@ -133,10 +140,14 @@ class Shard:
         self.index = open_series_index(path)
         # logical-content version, drawn from a process-global counter
         # so a (path, version) pair never repeats: every write bumps it
-        # (the device tier of the decoded-column cache keys on it);
-        # flush and compaction change the layout, not the merged rows,
-        # and keep it
+        # (the device tier of the decoded-column cache keys on it), and
+        # the bounded mutation log keeps each write's time range, so the
+        # incremental result cache (query/resultcache.py) drops only the
+        # windows a write touched. Flush and compaction change the
+        # layout, not the merged rows, and bump neither
         self.data_version = next(_DATA_VERSIONS)
+        self._mut_floor = self.data_version  # history unknown at/below
+        self._mutations: list[tuple[int, int, int]] = []
         # decoded-column cache namespace: a process-unique shard id
         # stamped onto every reader this shard opens, so cache keys
         # identify (shard, file, chunk) even when a recreated shard
@@ -202,11 +213,30 @@ class Shard:
         entries at the swap). Returns the entries dropped."""
         return colcache.GLOBAL.invalidate_gens([r.gen for r in self._files])
 
-    def _note_mutation(self) -> None:
-        """A logical-content change (a write): a new data_version. The
-        reference also logs the changed time range for its incremental
-        result cache, which the port does not have yet (ROADMAP A4.2)."""
+    def _note_mutation(self, lo: int, hi: int) -> None:
+        """Record a logical-content change over [lo, hi) ns."""
         self.data_version = next(_DATA_VERSIONS)
+        self._mutations.append((self.data_version, lo, hi))
+        if len(self._mutations) > _MUT_LOG_MAX:
+            drop = len(self._mutations) // 2
+            self._mut_floor = self._mutations[drop - 1][0]
+            # REPLACE, never truncate in place: lockless readers iterate
+            # their own snapshot (a shrinking list would end a reversed()
+            # iterator early and hide recent mutations)
+            self._mutations = self._mutations[drop:]
+
+    def changed_since(self, version: int, lo: int, hi: int) -> bool:
+        """Did any mutation newer than `version` touch [lo, hi)?
+        Conservative: truncated history answers True."""
+        if version < self._mut_floor:
+            return True
+        muts = self._mutations  # snapshot ref (list is replaced, not cut)
+        for v, mlo, mhi in reversed(muts):
+            if v <= version:
+                break
+            if mhi > lo and mlo < hi:
+                return True
+        return False
 
     def _replay_wal(self) -> None:
         wal_path = os.path.join(self.path, "wal.log")
@@ -375,7 +405,7 @@ class Shard:
             m_ts = ts if all_rows else ts[idx]
             self.mem.write_columnar(mst, m_sids, m_ts, cols)
             n += len(m_ts)
-        self._note_mutation()
+        self._note_mutation(int(ts.min()), int(ts.max()) + 1)
         return n
 
     def _check_types(self, points: list) -> None:
@@ -397,7 +427,8 @@ class Shard:
             self.mem.write_row(sid, mst, t, fields)
             n += 1
         if n:
-            self._note_mutation()
+            self._note_mutation(
+                min(p[2] for p in points), max(p[2] for p in points) + 1)
         return n
 
     # -- flush --------------------------------------------------------------
@@ -753,6 +784,17 @@ class Shard:
 
     def _mem_parts(self) -> list:
         return [m for m, _seg in self._frozen] + [self.mem]
+
+    def mem_overlaps_range(self, sid: int, tmin: int, tmax: int) -> bool:
+        """Does ANY in-memory part (frozen snapshots or live memtable)
+        hold rows of `sid` in [tmin, tmax]? Probes each part separately,
+        no merge and no lock, for the per-series pre-aggregation and
+        sketch checks."""
+        for m in self._mem_parts():
+            rec = m.record_for(sid)
+            if rec is not None and len(rec.slice_time(tmin, tmax)):
+                return True
+        return False
 
     def mem_time_range(self) -> tuple[int | None, int | None]:
         """(min, max) ns across frozen + live memtables (None = no rows)."""

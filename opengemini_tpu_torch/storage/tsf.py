@@ -58,9 +58,9 @@ HIST_BINS = 32
 
 class PreAgg:
     """count/min/max/sum of the valid values of one numeric column chunk,
-    plus a small equi-width histogram (persisted per chunk; the port's
-    queries do not read it yet, the JAX package's pre-aggregation path
-    does)."""
+    plus a small equi-width histogram (persisted per chunk: the
+    pre-aggregation path reads count and sum, percentile_approx the
+    histogram)."""
 
     __slots__ = ("count", "vmin", "vmax", "vsum", "hist")
 

@@ -402,6 +402,8 @@ def test_device_tier_hit_launches_no_decode(tmp_path, caches):
         setattr(cs, name, counted)
     mp = pytest.MonkeyPatch()
     mp.setenv("OGT_DEVICE_PROFILE", "1")
+    # the result cache would answer the warm run before the device tier
+    mp.setenv("OGT_RESULT_CACHE", "0")
     try:
         e = PORT.engine(tmp_path)
         e.create_database("db")

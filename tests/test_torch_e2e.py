@@ -155,18 +155,28 @@ def test_query_matches_jax(engines, qname):
 
 def test_unsupported_statements_answer_an_error(engines):
     """A statement of a later slice answers a "not supported by this port
-    yet" error; the raw select, the subquery and SHOW of the ported
-    slices answer as JAX."""
+    yet" error; the raw select, the subquery, percentile_approx and SHOW
+    of the ported slices answer as JAX (SHOW QUERIES lists each package's
+    own running statement: its qid and duration differ)."""
     je, te = engines
-    for q in ("SELECT percentile_approx(usage_user, 50) FROM cpu",
-              "SHOW QUERIES", "DELETE FROM cpu WHERE hostname = 'host_0'"):
+    for q in ("SHOW STATS", "CREATE CONTINUOUS QUERY cq ON db BEGIN SELECT "
+              "mean(usage_user) INTO cpu_1h FROM cpu GROUP BY time(1h) END",
+              "DELETE FROM cpu WHERE hostname = 'host_0'"):
         res = TExecutor(te).execute(q, db="db")
         assert "not supported by this port yet" in res["results"][0]["error"]
     for q in ("SELECT usage_user FROM cpu LIMIT 1", "SHOW MEASUREMENTS",
-              "SELECT max FROM (SELECT max(usage_user) FROM cpu)"):
+              "SELECT max FROM (SELECT max(usage_user) FROM cpu)",
+              "SELECT percentile_approx(usage_user, 50) FROM cpu"):
         got = TExecutor(te).execute(q, db="db")
         assert "error" not in got["results"][0], got
         assert got == JExecutor(je).execute(q, db="db")
+    got = TExecutor(te).execute("SHOW QUERIES", db="db")
+    want = JExecutor(je).execute("SHOW QUERIES", db="db")
+    [gs], [ws] = got["results"][0]["series"], want["results"][0]["series"]
+    assert gs["columns"] == ws["columns"]
+    assert [r[1:3] + r[4:] for r in gs["values"]] == \
+        [r[1:3] + r[4:] for r in ws["values"]] == \
+        [["SHOW QUERIES", "db", "running"]]
 
 
 def _export_jax(je, db):

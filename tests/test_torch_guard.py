@@ -34,7 +34,7 @@ def test_every_module_is_found():
                  "opengemini_tpu_torch.server.http",
                  "opengemini_tpu_torch.convert",
                  *SIXTH_SLICE_MODULES, *SEVENTH_SLICE_MODULES,
-                 *EIGHTH_SLICE_MODULES):
+                 *EIGHTH_SLICE_MODULES, *NINTH_SLICE_MODULES):
         assert must in mods
 
 
@@ -133,6 +133,13 @@ EIGHTH_SLICE_MODULES = [
     "opengemini_tpu_torch.query.join",
 ]
 BLOCKED_IMPORT_MODULES += EIGHTH_SLICE_MODULES
+NINTH_SLICE_MODULES = [
+    "opengemini_tpu_torch.query.resultcache",
+    "opengemini_tpu_torch.query.sketch",
+    "opengemini_tpu_torch.query.tablefunc",
+    "opengemini_tpu_torch.utils.querytracker",
+]
+BLOCKED_IMPORT_MODULES += NINTH_SLICE_MODULES
 
 
 @pytest.mark.parametrize("module", BLOCKED_IMPORT_MODULES)

@@ -117,10 +117,11 @@ HOST_AGG_CASES = [
     ("last", ()), ("spread", ()), ("stddev", ()), ("median", ()),
     ("percentile", (90.0,)), ("percentile", (1.0,)),
     ("count_distinct", ()), ("rate", ()), ("irate", ()), ("absent", ()),
-    ("regr_slope", ()),
+    ("regr_slope", ()), ("percentile_ogsketch", (50.0,)),
+    ("percentile_ogsketch", (99.0,)),
 ]
 # names the port does not run yet: they raise "not supported"
-HOST_AGG_NOT_PORTED = {"percentile_ogsketch"}
+HOST_AGG_NOT_PORTED: set[str] = set()
 MULTI_ROW_NOT_PORTED = {"detect"}
 
 
