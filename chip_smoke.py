@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (opengemini_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--hours H] [--seed S]
+    python3 chip_smoke.py [--hours H] [--seed S] [--phases 3,5,...]
 
 Phases, in order; any failure ends the run with a nonzero exit:
 
 1. Device and build: requires CUDA, prints the card's name and power
    limit (nvidia-smi), builds the six CUDA kernels from csrc/ (nvcc,
    sm_90a, one process per source) and, at the same time, the repo's
-   native/codecs.cpp, native/seriesindex.cpp and native/lineproto.cpp
-   and the port's native/lpformat.cpp (g++) into build/.
+   native/codecs.cpp, native/seriesindex.cpp, native/lineproto.cpp and
+   native/textindex.cpp and the port's native/lpformat.cpp (g++) into
+   build/.
 2. Kernels against their plain PyTorch versions on the card, on seeded
    data (70% mask density, fully empty rows, value and time ties):
    count/min/max/first/last/sel_* must match exactly, sum/mean/ssd within
@@ -46,16 +47,17 @@ Phases, in order; any failure ends the run with a nonzero exit:
    lies above the data's size, so the queries read the memtable (the
    script checks that no TSF file was written). A bad /write body must
    answer 400 with errno 2001, module "write" and the X-Ogt-Errno
-   header. Four queries run 5 times each (Q2 3 times: E2E_RUNS) through
+   header. Four queries run 5 times each (Q1, Q2 and Q4 3 times:
+   E2E_RUNS) through
    /query (on one
    kept-alive HTTP/1.1 connection, as client libraries keep it; every
    query of the script does) and every answer is checked against a
    numpy oracle (counts, min, max, first, last
    exact; mean, stddev rtol 1e-9). The launch counters are read around
-   each query's five runs: Q1-Q3 must launch the grid kernel (and raise
+   each query's runs: Q1-Q3 must launch the grid kernel (and raise
    the grid-batch counter), Q4 both bucket kernels. The server's
    /debug/vars query_stages counters are read around them too: each
-   stage's ms over the five requests (parse, the executor's map_shards,
+   stage's ms over the requests (parse, the executor's map_shards,
    scan, colcache, device_compute and render, and the answer's encode),
    the rest of the request walls (to the answer's last byte) as
    `other`, and the stage that took the most; the stages must cover 90%
@@ -101,9 +103,10 @@ Phases, in order; any failure ends the run with a nonzero exit:
    checked and timed.
 6. The decoded-column cache's device tier, on phase 5's root after a
    restart (and a flush of the replayed minute): both tiers on (2 GiB
-   host, 1 GiB device), C1 and C3 five times each. The first run fills
-   (a device-tier miss; the fused decode's grid is retained); the four
-   warm runs must each hit the device tier, answer as the oracle,
+   host, 1 GiB device), C1 and C3 four times each (CACHE_RUNS). The
+   first run fills (a device-tier miss; the fused decode's grid is
+   retained); the three warm runs must each hit the device tier, answer
+   as the oracle,
    launch kernel 3 on the retained tensors and neither kernel 4 nor 5;
    their stage split prints. A traced warm run of each must copy at
    most 1 MiB to the card. Then
@@ -194,13 +197,48 @@ Phases, in order; any failure ends the run with a nonzero exit:
    resident bytes, launches, stages and device memory peak. The kernels
    1-3 are checked and timed again at the largest new shapes of phases
    8, 9 and 10.
+11. The data lifecycle at TSBS devops width, with a budget of its own
+   (LIFECYCLE_PHASE_S, 120 s), on a root of its own: (a) cpu for 4000
+   hosts, 1 h at 10 s (1.44 M rows) under the device profile through
+   convert.load_columnar, flushed every 20 min (three files), and
+   syslog (tags hostname and severity, a string message from seeded
+   sshd, CRON and kernel templates; the kernel's "Out of memory: Killed
+   process" on 40 hosts, severity err) for 30 min through /write
+   (720 000 lines), flushed; (b) T1, count(message) WHERE match(message,
+   'memory') GROUP BY hostname, whose text-sidecar lookups must leave
+   the 40 OOM hosts' series of the 4000; T2, a raw select of the
+   'killed' lines of severity err in a 20 min range; (c) P0, the
+   per-minute mean/max/count of usage_user over 80 min with the result
+   cache on (kernel 3); D1 (DELETE one host), D2 (DELETE 10 minutes),
+   D3 (DROP SERIES of one syslog host), each a delete rewrite by POST
+   with its wall, files and rows kept, each followed by P0, which must
+   answer the oracle of the rows left (no deleted row from the cache)
+   and launch kernel 3 (after D2 the cached P0 rescans only the emptied
+   windows, with nothing to launch, and a cache-off P0 must launch it
+   and answer the same); (d) D4, DROP MEASUREMENT syslog, then a
+   /write of syslog lines, which purges and is accepted; read back they
+   are the new lines alone; (e) 20 more minutes of cpu in a file of
+   their own; after a restart, a bitflip rule armed on that file
+   through /debug/ctrl?mod=diskfault: P0 (cache off) answers the
+   statement error "file quarantined after media fault: <file>: ..."
+   (HTTP 200, as the reference's /query), the .quar marker exists and
+   /debug/vars lists the file; the rule healed, P0 answers the oracle
+   without that file's rows (kernel 3); a restart keeps it
+   quarantined, and purge_quarantined removes the file, its marker and
+   its sidecar; (f) T1, T2, P0 and D4's read-back on the card, then the
+   root reopened with device="cpu" must give the same answers. Each
+   step prints its wall, stage split, launches (kernels 3-5 apart) and
+   device memory peak. Kernels 1-6 are checked and timed again at the
+   largest new shapes phase 11 gave them.
 
 The incremental result cache (OGT_RESULT_CACHE) is off in phases 3-9,
-so their repeated runs measure every execution; phase 10 turns it on for
-R0-R2 and P1. Launch counters start at 0 before each main path (phases
-3, 5, 6, 7, 8, 9, 10) and are read after it; the {"kernels": [...]} line
-sums them, with launches_per_phase, launches_per_query and
-launches_parity_on_card.
+so their repeated runs measure every execution; phases 10 and 11 turn
+it on for their panels. Launch counters start at 0 before each main
+path (phases 3, 5, 6, 7, 8, 9, 10, 11) and are read after it; the
+{"kernels": [...]} line sums them, with launches_per_phase,
+launches_per_query and launches_parity_on_card. `--phases` runs only
+the named phases after 2 (for a short call that checks one path); the
+default runs all.
 
 Output: progress lines, then a {"kernels": [...]} line, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without CUDA (or without
@@ -262,10 +300,12 @@ COLD_KERNELS = ("grid_window_agg", "widen_packed", "unpack_bits",
 # timed runs of a cold query where not five: C2 takes about 20 s a run
 # after an 80 s first one (NVIDIA H100 80GB HBM3 at 700 W), and three
 # keep the script inside its 1200 s; C1 and C3 run three times too, and
-# so do Q2 (phase 3), phase 7's queries and phase 8's two slowest, so
-# that phase 10 fits the script's time limit
+# so do Q1, Q2 and Q4 (phase 3), phase 7's queries and phase 8's two
+# slowest, and phase 6 runs each query four times (CACHE_RUNS), so that
+# phases 10 and 11 fit the script's time limit
 COLD_RUNS = {"C1": 3, "C2": 3, "C3": 3}
-E2E_RUNS = {"Q2": 3}
+E2E_RUNS = {"Q1": 3, "Q2": 3, "Q4": 3}
+CACHE_RUNS = 4
 COMPACT_RUNS = 3
 HOST_RUNS = {"lastpoint": 3, "groupby-orderby-limit": 3}
 # C1's gorilla chunks per run: 17.28 M values in chunks of at most 2^20
@@ -655,6 +695,21 @@ def decode_kernel_case(name: str, shape, seed: int, dev_name: str,
         rec["plain_ms"] = time_ms(plain, reps=5)
         rec["library_ms"] = None
         lib = library_call(name, args)
+        if (lib is None and name == "widen_packed" and is_segmented(shape)
+                and all(w == 2 for _s, _c, w in shape[2])):
+            # a plan of width-2 segments only: the library call on one
+            # contiguous payload of as many values
+            n = sum(c for _s, c, _w in shape[2])
+            flat = decode_inputs(name, (n, 2), seed + 1)
+            lib = library_call(name, flat)
+            check(torch.equal(lib(), cs.widen_packed_plain(*flat)),
+                  f"{name}({n}, 2): the library call differs from the "
+                  "plain version")
+            rec["library_ms"] = time_ms(lib)
+            rec["library_device_ms"] = device_ms(lib)
+            rec["library_on"] = (f"one contiguous payload of {n} "
+                                 "width-2 values")
+            lib = None
         if lib is not None:  # it computes the same values, then its times
             check(torch.equal(lib().reshape(-1).to(torch.int64),
                               want.reshape(-1).to(torch.int64)),
@@ -2138,7 +2193,7 @@ def phase_colcache(cold: dict) -> dict:
         per_query = {}
         for qn, q in queries.items():
             runs = []
-            for i in range(5):
+            for i in range(CACHE_RUNS):
                 if i == 1:  # the warm runs' stage split
                     st0 = stage_ns(svc.port)
                 c0, l0 = cc.counters(), dict(cs.LAUNCHES)
@@ -2602,7 +2657,8 @@ SUBQUERY_RESERVE_S = 30.0
 # the script's time limit, and what phase 9 leaves of it for the checks
 # after it: its runs stop early rather than let the script overrun
 SCRIPT_LIMIT_S = 1200.0
-AFTER_PHASE10_S = 90.0
+AFTER_PHASE11_S = 60.0
+AFTER_PHASE10_S = AFTER_PHASE11_S + 120.0  # phase 11's LIFECYCLE_PHASE_S
 AFTER_PHASE9_S = AFTER_PHASE10_S + 180.0  # phase 10's DASHBOARD_PHASE_S
 # the span stages of a subquery: the inner select, and the inner chunks
 # with their materialization; they nest around the executor's stages
@@ -3353,8 +3409,452 @@ def kill_panel(port: int, q: str, cc) -> dict:
 # -- main ---------------------------------------------------------------------
 
 
+# -- phase 11: the data lifecycle at TSBS devops width -------------------------
+
+# phase 11's budget: its loads, the four rewrites, the quarantine and
+# the CPU comparison; it is printed beside the phase's wall
+LIFECYCLE_PHASE_S = 120.0
+# cpu: 1 h at 10 s steps, flushed every 20 min (three files), then 20
+# more minutes written after the deletes (the file Q1 quarantines);
+# syslog: 30 min, one line per host every 10 s
+LIFE_CPU_STEPS = 360
+LIFE_LATE_STEPS = 120
+LIFE_FLUSH_STEPS = 120
+LIFE_SYSLOG_STEPS = 180
+# the hosts whose kernel logs "Out of memory: Killed process" (severity
+# err); every other host logs sshd and CRON lines at one of these
+LIFE_OOM_HOSTS = 40
+LIFE_SEVERITIES = ("info", "notice", "warning")
+# a kernel OOM line every this many steps on an OOM host
+LIFE_OOM_EVERY = 6
+LIFE_USERS = ("deploy", "ops", "backup")
+LIFE_D1_HOST = 7   # DELETE FROM cpu WHERE hostname = 'host_7'
+LIFE_D3_HOST = 9   # DROP SERIES FROM syslog WHERE hostname = 'host_9'
+# D2: DELETE FROM cpu WHERE time >= t0 + 30m AND time < t0 + 40m
+LIFE_D2_STEPS = (180, 240)
+# the syslog lines D4's /write sends after DROP MEASUREMENT syslog
+LIFE_D4_HOSTS = 50
+
+
+def syslog_message(h: int, i: int, oom: bool) -> str:
+    """Host h's syslog line at step i (a seeded template set: sshd and
+    CRON on every host, the kernel's OOM kill on the OOM hosts)."""
+    pid = 1000 + (h * 7 + i) % 5
+    if oom and i % LIFE_OOM_EVERY == 3:
+        return (f"kernel: Out of memory: Killed process {20000 + h} (java) "
+                f"total-vm:{8388608 + 4096 * (i % 4)}kB")
+    if i % 3 == 0:
+        return f"CRON[{pid}]: (root) CMD (/usr/lib/sa/sa1 1 1)"
+    user = LIFE_USERS[(h + i) % len(LIFE_USERS)]
+    return (f"sshd[{pid}]: Accepted publickey for {user} from "
+            f"10.{h // 256 % 256}.{h % 256}.{1 + i % 3} port {40000 + h}")
+
+
+def syslog_lines(hosts, sev, oom, lo: int, hi: int, base: int = 0) -> str:
+    """Line protocol of syslog steps [lo, hi) of `hosts`."""
+    out = []
+    for h in hosts:
+        key = f"syslog,hostname=host_{h},severity={sev[h]}"
+        for i in range(lo, hi):
+            msg = syslog_message(h, i, bool(oom[h]))
+            out.append(f'{key} message="{msg}" '
+                       f"{T0_NS + (base + i) * STEP_NS}")
+    return "\n".join(out)
+
+
+def life_panel_oracle(usage, keep) -> dict:
+    """count, mean and max of usage_user per minute over the kept
+    samples: (hosts, steps) arrays, 6 steps a window."""
+    import numpy as np
+
+    n_h, n_s = usage.shape
+    W = n_s // 6
+    u = usage[:, :W * 6].reshape(n_h, W, 6)
+    k = keep[:, :W * 6].reshape(n_h, W, 6)
+    cnt = k.sum(axis=(0, 2))
+    tot = np.where(k, u, 0.0).sum(axis=(0, 2))
+    mx = np.where(k, u, -np.inf).max(axis=(0, 2))
+    return {"count": cnt, "sum": tot, "max": mx}
+
+
+def verify_life_panel(qn: str, res: dict, usage, keep) -> None:
+    """P0's 80 windows against the oracle of the kept samples: counts
+    and maxima exact, means within rel 1e-9; windows with no sample
+    answer null."""
+    import numpy as np
+
+    o = life_panel_oracle(usage, keep)
+    (series,) = res.get("series", [None])
+    rows = series["values"]
+    W = len(o["count"])
+    check(len(rows) == W, f"{qn}: {len(rows)} windows, not {W}")
+    check([r[0] for r in rows] == [T0_NS + w * 60 * 10**9
+                                   for w in range(W)], f"{qn}: times")
+    for w, r in enumerate(rows):
+        c = int(o["count"][w])
+        if c == 0:
+            check(r[1] is None and r[2] is None and r[3] in (0, None),
+                  f"{qn}: window {w} has no sample but answers {r}")
+            continue
+        check(r[3] == c, f"{qn}: window {w} count {r[3]}, not {c}")
+        check(r[2] == float(o["max"][w]), f"{qn}: window {w} max")
+        check(close([r[1]], [o["sum"][w] / c]), f"{qn}: window {w} mean")
+
+
+class TextLookups:
+    """Wraps Shard.text_match_sids to record the series each sidecar
+    lookup left (the pruning set a match() query scans)."""
+
+    def __init__(self):
+        from opengemini_tpu_torch.storage.shard import Shard
+
+        self.cls = Shard
+        self.orig = Shard.text_match_sids
+        self.left: list = []
+
+    def __enter__(self):
+        orig = self.orig
+
+        def lookup(sh, mst, field, token):
+            got = orig(sh, mst, field, token)
+            self.left.append(None if got is None else len(got))
+            return got
+        self.cls.text_match_sids = lookup
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.text_match_sids = self.orig
+
+
+def phase_lifecycle(seed: int, deadline: float) -> dict:
+    """The data lifecycle at TSBS devops width (4000 hosts) on a root of
+    its own: cpu (1 h, the device profile, three flushes) and syslog (30
+    min, a string message); T1/T2 match() with the text sidecars; the
+    panel P0 with the result cache on; the delete rewrites D1-D3, each
+    followed by P0; D4, DROP MEASUREMENT and a write that purges; Q1, a
+    bitflip armed on one cpu file through /debug/ctrl: P0 answers the
+    quarantine error, the file is marked and listed, P0 again without
+    it, a restart keeps it out, the purge removes it; then the root
+    reopened with device="cpu" gives the card's answers."""
+    import numpy as np
+    import torch
+
+    from opengemini_tpu_torch import convert
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.storage import colcache, diskfault
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 11)
+    n_hosts = N_HOSTS
+    n_cpu = LIFE_CPU_STEPS + LIFE_LATE_STEPS
+    tags = host_tags(n_hosts, rng)
+    vals = make_values(n_hosts, n_cpu, rng)
+    usage = vals["usage_user"]
+    keep = np.zeros((n_hosts, n_cpu), np.bool_)  # the oracle's rows
+    oom = np.zeros(n_hosts, np.bool_)
+    oom[rng.choice(n_hosts, LIFE_OOM_HOSTS, replace=False)] = True
+    sev = {h: ("err" if oom[h] else LIFE_SEVERITIES[int(rng.integers(3))])
+           for h in range(n_hosts)}
+    t_lo, t_hi = T0_NS, T0_NS + n_cpu * STEP_NS
+    q_p0 = panel(t_lo, t_hi)
+    q_t1 = ("SELECT count(message) FROM syslog WHERE match(message, "
+            "'memory') GROUP BY hostname")
+    t2_lo, t2_hi = 30, 150  # steps: t0 + 5m .. t0 + 25m
+    q_t2 = ("SELECT hostname, message FROM syslog WHERE match(message, "
+            f"'killed') AND severity = 'err' AND time >= "
+            f"'{rfc3339(T0_NS + t2_lo * STEP_NS)}' AND time < "
+            f"'{rfc3339(T0_NS + t2_hi * STEP_NS)}'")
+    q_d4 = "SELECT count(message) FROM syslog GROUP BY hostname"
+    root = fresh_root("smoke_lifecycle")
+    cc = colcache.GLOBAL
+    cc.configure(budget_mb=256, device=False)  # as deployed
+    rec = ShapeRecorder().__enter__()
+    lookups = TextLookups().__enter__()
+    svc = engine = None
+    per_query: dict = {}
+    steps: dict = {}
+
+    def run(qn: str, q: str, cache: bool = False,
+            check_launch: bool = True) -> dict:
+        """One timed run of `q`, with its launches, stages, sidecar
+        lookups and memory peak printed."""
+        os.environ["OGT_RESULT_CACHE"] = "1" if cache else "0"
+        l0, st0 = dict(cs.LAUNCHES), stage_ns(svc.port)
+        lookups.left.clear()
+        rec.now = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, req, ms = query_timed(svc.port, q)
+        got = {"result": res, "wall_ms": ms,
+               "launches": {k: cs.LAUNCHES[k] - l0[k] for k in l0},
+               "sidecar_left": list(lookups.left),
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        got["stages_ms"] = stage_split(svc.port, st0, [req], qn,
+                                       extra=("inc_cache",))
+        got["shapes"] = {k: [shape_json(k, x) for x in sorted(v)]
+                         for k, v in rec.now.items()}
+        rec.now = None
+        launched = {k: v for k, v in got["launches"].items() if v}
+        log(f"[lifecycle] {qn} {ms:.1f} ms: launches "
+            f"{json.dumps(launched)}, kernels 3-5 "
+            f"{[got['launches'][k] for k in COLD_KERNELS[:3]]}, sidecar "
+            f"lookups left {got['sidecar_left']} series, device memory "
+            f"peak {got['peak_bytes'] / 2**20:.1f} MiB")
+        if check_launch:
+            check(got["launches"]["grid_window_agg"] > 0,
+                  f"{qn}: kernel 3 not launched")
+        per_query[qn] = {k: v for k, v in got.items() if k != "result"}
+        return got
+
+    def files():
+        return sorted(r.path for sh in engine.all_shards()
+                      for r in sh._files)
+
+    def rewrite(dn: str, q: str) -> dict:
+        """One delete statement by POST, timed, with the files before
+        and after, the rows the rewrite kept and the memory peak."""
+        before = files()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        status, doc = http(svc.port, "POST", "/query",
+                           {"db": "benchmark", "q": q})
+        wall = (time.perf_counter() - t0) * 1e3
+        check(status == 200 and "error" not in doc["results"][0],
+              f"{dn}: {status} {doc}")
+        after = files()
+        kept = sum(sh.approx_rows(m)[0] for sh in engine.all_shards()
+                   for m in ("cpu", "syslog"))
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[lifecycle] {dn} ({q}) {wall:.1f} ms: files {len(before)} "
+            f"-> {len(after)}, {kept} rows kept (cpu and syslog, by the "
+            f"chunk metadata), device memory peak {peak / 2**20:.1f} MiB")
+        steps[dn] = {"wall_ms": wall, "files_before": len(before),
+                     "files_after": len(after), "rows_kept": kept,
+                     "peak_bytes": peak}
+        return steps[dn]
+
+    def t1_oracle():
+        return {f"host_{h}": sum(1 for i in range(LIFE_SYSLOG_STEPS)
+                                 if i % LIFE_OOM_EVERY == 3)
+                for h in range(n_hosts) if oom[h]}
+
+    try:
+        torch.cuda.synchronize()
+        cs.reset_launches()
+        engine, svc = serve(root)
+        status, _ = http(svc.port, "POST", "/query",
+                         {"q": "CREATE DATABASE benchmark"})
+        check(status == 200, f"CREATE DATABASE status {status}")
+        # (a) cpu under the device profile, a flush every 20 min; syslog
+        os.environ["OGT_DEVICE_PROFILE"] = "1"
+        t_load = time.perf_counter()
+        for lo in range(0, LIFE_CPU_STEPS, LIFE_FLUSH_STEPS):
+            hi = lo + LIFE_FLUSH_STEPS
+            n = convert.load_columnar(engine, "benchmark", {
+                "cpu": cpu_table(tags, vals, lo, hi, n_hosts, 0)})
+            check(n == n_hosts * (hi - lo), f"cpu {lo}-{hi}: wrote {n}")
+            keep[:, lo:hi] = True
+            engine.flush_all()
+        cpu_s = time.perf_counter() - t_load
+        t_load = time.perf_counter()
+        per = 500  # hosts a /write
+        for h0 in range(0, n_hosts, per):
+            body = syslog_lines(range(h0, min(h0 + per, n_hosts)), sev,
+                                oom, 0, LIFE_SYSLOG_STEPS).encode()
+            status, _ = http(svc.port, "POST", "/write",
+                             {"db": "benchmark", "precision": "ns"}, body)
+            check(status == 204, f"syslog /write status {status}")
+        engine.flush_all()
+        syslog_s = time.perf_counter() - t_load
+        n_files = len(files())
+        check(n_files >= 3, f"{n_files} TSF files after the load")
+        log(f"[lifecycle] loaded {n_hosts * LIFE_CPU_STEPS} cpu rows in "
+            f"{cpu_s:.1f} s (three flushes) and "
+            f"{n_hosts * LIFE_SYSLOG_STEPS} syslog rows by /write in "
+            f"{syslog_s:.1f} s; {n_files} TSF files")
+        steps["load"] = {"cpu_s": cpu_s, "syslog_s": syslog_s,
+                         "files": n_files}
+
+        # (b) T1 and T2: match() pruned by the text sidecars
+        t1 = run("T1", q_t1, check_launch=False)
+        got = {s["tags"]["hostname"]: s["values"][0][1]
+               for s in t1["result"]["series"]}
+        check(got == t1_oracle(), f"T1: {len(got)} hosts, not the oracle's")
+        left = t1["sidecar_left"]
+        check(left and all(x is not None for x in left)
+              and sum(left) == LIFE_OOM_HOSTS,
+              f"T1: the sidecars left {left} series")
+        log(f"[lifecycle] T1: the sidecars left {sum(left)} of "
+            f"{n_hosts} syslog series")
+        t2 = run("T2", q_t2, check_launch=False)
+        want = sorted(
+            [T0_NS + i * STEP_NS, f"host_{h}", syslog_message(h, i, True)]
+            for h in range(n_hosts) if oom[h]
+            for i in range(t2_lo, t2_hi) if i % LIFE_OOM_EVERY == 3)
+        rows = sorted(r for s in t2["result"].get("series", [])
+                      for r in s["values"])
+        check(rows == want, f"T2: {len(rows)} rows, not {len(want)}")
+
+        # (c) P0 with the result cache on, then D1-D3, each followed by
+        # P0: no deleted row from the cache, kernel 3 on the card
+        p0 = run("P0", q_p0, cache=True)
+        verify_life_panel("P0", p0["result"], usage, keep)
+        rewrite("D1", "DELETE FROM cpu WHERE hostname = "
+                f"'host_{LIFE_D1_HOST}'")
+        keep[LIFE_D1_HOST] = False
+        got = run("P0 after D1", q_p0, cache=True)
+        verify_life_panel("P0 after D1", got["result"], usage, keep)
+        d2_lo, d2_hi = (T0_NS + s * STEP_NS for s in LIFE_D2_STEPS)
+        rewrite("D2", f"DELETE FROM cpu WHERE time >= '{rfc3339(d2_lo)}' "
+                f"AND time < '{rfc3339(d2_hi)}'")
+        keep[:, LIFE_D2_STEPS[0]:LIFE_D2_STEPS[1]] = False
+        # the windows D2 touched hold no row now: the cached panel
+        # rescans them alone, with nothing to launch
+        got = run("P0 after D2", q_p0, cache=True, check_launch=False)
+        verify_life_panel("P0 after D2", got["result"], usage, keep)
+        off = run("P0 after D2, cache off", q_p0)
+        check(same_answer(off["result"], got["result"]),
+              "P0 after D2 differs from its cache-off run")
+        rewrite("D3", "DROP SERIES FROM syslog WHERE hostname = "
+                f"'host_{LIFE_D3_HOST}'")
+        got = run("P0 after D3", q_p0, cache=True)
+        verify_life_panel("P0 after D3", got["result"], usage, keep)
+        status, doc = http(svc.port, "GET", "/query", {
+            "db": "benchmark",
+            "q": f"SHOW SERIES FROM syslog WHERE hostname = "
+                 f"'host_{LIFE_D3_HOST}'"})
+        check(status == 200 and not doc["results"][0].get("series"),
+              f"D3: host_{LIFE_D3_HOST} still listed: {doc}")
+
+        # (d) D4: DROP MEASUREMENT syslog, then a /write that purges
+        status, doc = http(svc.port, "POST", "/query", {
+            "db": "benchmark", "q": "DROP MEASUREMENT syslog"})
+        check(status == 200 and "error" not in doc["results"][0],
+              f"DROP MEASUREMENT: {doc}")
+        d4_hosts = range(LIFE_D4_HOSTS)
+        body = syslog_lines(d4_hosts, {h: "err" for h in d4_hosts},
+                            np.ones(n_hosts, np.bool_), 0, 12,
+                            base=LIFE_CPU_STEPS).encode()
+        before = files()
+        t0 = time.perf_counter()
+        status, _ = http(svc.port, "POST", "/write",
+                         {"db": "benchmark", "precision": "ns"}, body)
+        wall = (time.perf_counter() - t0) * 1e3
+        check(status == 204, f"D4 /write status {status}")
+        steps["D4"] = {"wall_ms": wall, "files_before": len(before),
+                       "files_after": len(files())}
+        log(f"[lifecycle] D4: DROP MEASUREMENT syslog, then a /write of "
+            f"{LIFE_D4_HOSTS * 12} lines purged it and was accepted in "
+            f"{wall:.1f} ms; files {len(before)} -> {len(files())}")
+        d4 = run("D4 read-back", q_d4, check_launch=False)
+        got = {s["tags"]["hostname"]: s["values"][0][1]
+               for s in d4["result"]["series"]}
+        check(got == {f"host_{h}": 12 for h in d4_hosts},
+              f"D4 read-back: {len(got)} hosts")
+        engine.flush_all()  # D4's lines in a file of their own
+
+        # (e) Q1: 20 more minutes of cpu in a file of their own, a
+        # bitflip armed on its reads: the quarantine, the retry, a
+        # restart, the purge
+        n = convert.load_columnar(engine, "benchmark", {
+            "cpu": cpu_table(tags, vals, LIFE_CPU_STEPS, n_cpu, n_hosts, 0)})
+        check(n == n_hosts * LIFE_LATE_STEPS, f"late cpu: wrote {n}")
+        engine.flush_all()
+        os.environ.pop("OGT_DEVICE_PROFILE", None)
+        victim = max(files())  # the newest: the late 20 minutes
+        # a restart: the scan must read the file from disk, not from a
+        # cache tier of the process
+        stop_server(svc, engine)
+        engine, svc = serve(root)
+        status, doc = http(svc.port, "POST", "/debug/ctrl", {
+            "mod": "diskfault", "path": victim, "action": "bitflip"})
+        check(status == 200 and doc["rules"] == [
+            {"path": victim, "action": "bitflip"}], f"arming: {doc}")
+        os.environ["OGT_RESULT_CACHE"] = "0"
+        t0 = time.perf_counter()
+        status, _h, body = http_raw(svc.port, "GET", "/query", {
+            "db": "benchmark", "q": q_p0, "epoch": "ns"})
+        q1_ms = (time.perf_counter() - t0) * 1e3
+        doc = json.loads(body)
+        err = doc["results"][0].get("error", "")
+        check(status == 200 and err.startswith(
+            f"file quarantined after media fault: {victim}: "),
+            f"Q1: {status} {body[:300]!r}")
+        check(os.path.exists(victim + ".quar"), "Q1: no .quar marker")
+        status, vars_doc = http(svc.port, "GET", "/debug/vars", {})
+        listed = [f for f in vars_doc["quarantined_files"]
+                  if f["path"] == victim]
+        check(listed and vars_doc["quarantine"]["files_current"] == 1,
+              f"Q1: /debug/vars lists {vars_doc['quarantined_files']}")
+        status, doc = http(svc.port, "POST", "/debug/ctrl",
+                           {"mod": "diskfault", "clear": "1"})
+        check(status == 200 and doc["rules"] == [], f"healing: {doc}")
+        log(f"[lifecycle] Q1: {q1_ms:.1f} ms, HTTP {status}, "
+            f"{err!r}; marker written, /debug/vars lists "
+            f"{listed[0]['why']!r}")
+        keep_q1 = keep.copy()  # the late file's rows stay out
+        got = run("P0 after Q1", q_p0)
+        verify_life_panel("P0 after Q1", got["result"], usage, keep_q1)
+        stop_server(svc, engine)
+        engine, svc = serve(root)
+        q = engine.quarantine_snapshot()
+        check([f["path"] for f in q["files"]] == [victim],
+              f"after the restart: {q}")
+        got = run("P0 after the restart", q_p0)
+        verify_life_panel("P0 after the restart", got["result"], usage,
+                          keep_q1)
+        check(engine.purge_quarantined() == 1, "the purge removed nothing")
+        for p in (victim, victim + ".quar", victim[:-4] + ".tidx"):
+            check(not os.path.exists(p), f"the purge left {p}")
+        steps["Q1"] = {"error": err, "wall_ms": q1_ms}
+
+        # (f) the card's answers, then the same root on the CPU
+        card = {qn: run(qn + " (card)", q, check_launch=False)["result"]
+                for qn, q in (("T1", q_t1), ("T2", q_t2), ("P0", q_p0),
+                              ("D4", q_d4))}
+        check(card["T1"]["series"], "T1 at the end: no series")
+        launches = dict(cs.LAUNCHES)
+        stop_server(svc, engine)
+        svc = engine = None
+        t_cpu = time.perf_counter()
+        from opengemini_tpu_torch.query.executor import Executor
+        from opengemini_tpu_torch.storage.engine import Engine
+
+        cpu_engine = Engine(root, device="cpu")
+        try:
+            ex = Executor(cpu_engine)
+            for qn, q in (("T1", q_t1), ("T2", q_t2), ("P0", q_p0),
+                          ("D4", q_d4)):
+                res = ex.execute(q, db="benchmark")["results"][0]
+                res.pop("statement_id", None)
+                want = dict(card[qn])
+                want.pop("statement_id", None)
+                check(same_answer(res, want),
+                      f"{qn}: the CPU's answer differs from the card's")
+        finally:
+            cpu_engine.close()
+        cpu_s = time.perf_counter() - t_cpu
+        wall_s = time.perf_counter() - t_phase
+        log(f"[lifecycle] the CPU reopen gave the card's T1, T2, P0 and D4 "
+            f"answers in {cpu_s:.1f} s; phase 11 took {wall_s:.1f} s "
+            f"(budget {LIFECYCLE_PHASE_S:.0f} s, "
+            f"{deadline - time.perf_counter():.0f} s left of the script's);"
+            f" launches {json.dumps(launches)}; card {smi_line()}")
+        return {"launches": launches, "per_query": per_query,
+                "steps": steps, "shapes": rec.seen, "wall_s": wall_s}
+    finally:
+        os.environ["OGT_RESULT_CACHE"] = "0"
+        os.environ.pop("OGT_DEVICE_PROFILE", None)
+        diskfault.clear_all()
+        lookups.__exit__()
+        rec.__exit__()
+        if svc is not None:
+            stop_server(svc, engine)
+
+
 def build_all(verbose: bool = True) -> float:
-    """nvcc for the six kernels and g++ for the four host libraries, all
+    """nvcc for the six kernels and g++ for the five host libraries, all
     at once; returns the seconds it took."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3362,12 +3862,13 @@ def build_all(verbose: bool = True) -> float:
     from opengemini_tpu_torch.ops import cuda_segment as cs
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         jobs = [pool.submit(cs.build, verbose=verbose),
                 pool.submit(native.build_shared, "codecs.cpp"),
                 pool.submit(native.build_shared, "seriesindex.cpp"),
                 pool.submit(native.build_shared, "lpformat.cpp"),
-                pool.submit(native.build_shared, "lineproto.cpp")]
+                pool.submit(native.build_shared, "lineproto.cpp"),
+                pool.submit(native.build_shared, "textindex.cpp")]
         for job in jobs:
             job.result()
     return time.perf_counter() - t0
@@ -3401,9 +3902,17 @@ def main() -> int:
                     help="span of the end-to-end data (cut only to fit a "
                          "time limit, never below 3)")
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--phases", default="all",
+                    help="the phases after 2 to run, comma separated "
+                         "(3-11; 6-10 need 5), for a short call that "
+                         "checks one path; default all")
     args = ap.parse_args()
     if args.hours < 3:
         ap.error("--hours may not be cut below 3")
+    wanted = (set(range(3, 12)) if args.phases == "all"
+              else {int(x) for x in args.phases.split(",")})
+    if wanted & set(range(6, 11)) and 5 not in wanted:
+        ap.error("phases 6-10 run on phase 5's root")
 
     import torch
 
@@ -3414,7 +3923,7 @@ def main() -> int:
 
     # phases 3-9 measure every execution: the incremental result cache
     # (the reference's switch, read at query time) is off there, and
-    # phase 10 turns it on for its panel
+    # phases 10 and 11 turn it on for their panels
     os.environ["OGT_RESULT_CACHE"] = "0"
 
     t_start = time.perf_counter()
@@ -3422,7 +3931,7 @@ def main() -> int:
     smi = smi_line()
     log(f"[device] {dev_name}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    log(f"[build] 6 kernels and 4 host libraries built in "
+    log(f"[build] 6 kernels and 5 host libraries built in "
         f"{build_all():.1f} s into {cs.BUILD_DIR} and build/native")
 
     laps = [t_start]
@@ -3437,51 +3946,86 @@ def main() -> int:
     lap("build")
     checked = phase_kernels(dev_name, args.seed)
     lap("phase 2")
-    e2e = phase_e2e(args.hours, args.seed)
-    lap("phase 3")
-    recs = {name: main_path_kernels(name, e2e["shapes"][name],
-                                    args.seed + 1000 + 10 * i, dev_name)
-            for i, name in enumerate(E2E_KERNELS)}
-    lap("phase 4")
-    q1 = e2e["traced"]["Q1"].get("device") or {}
-    cold = phase_cold(COLD_HOURS, args.seed, q1.get("h2d_bytes"))
-    for i, name in enumerate(COLD_KERNELS):
-        recs[name] = recs.get(name, []) + main_path_kernels(
-            name, cold["shapes"][name] - e2e["shapes"].get(name, set()),
-            args.seed + 2000 + 10 * i, dev_name)
-    lap("phase 5 and its kernels")
-    cached = phase_colcache(cold)
-    lap("phase 6")
-    compacted = phase_compact(cold)
-    lap("phase 7")
-    hosted = phase_host(cold)
-    lap("phase 8")
-    nested = phase_subquery(
-        cold, t_start + SCRIPT_LIMIT_S - AFTER_PHASE9_S)
-    lap("phase 9")
-    dash = phase_dashboard(cold, args.seed,
-                           t_start + SCRIPT_LIMIT_S - AFTER_PHASE10_S)
-    lap("phase 10")
-    seen = {k: e2e["shapes"].get(k, set()) | cold["shapes"].get(k, set())
-            for k in cs.LAUNCHES}
-    for i, name in enumerate(E2E_KERNELS):
-        for j, later in enumerate((hosted, nested, dash)):
-            new = {sh for sh in later["shapes"][name] - seen[name]
-                   if all(d > 0 for d in sh)}
-            recs[name] = recs.get(name, []) + main_path_kernels(
+    recs = {name: [] for name in cs.LAUNCHES}
+    # (phase, its result, the tag its queries carry in the output)
+    ran: list = []
+    seen = {k: set() for k in cs.LAUNCHES}
+    q1_h2d = None
+    if 3 in wanted:
+        e2e = phase_e2e(args.hours, args.seed)
+        lap("phase 3")
+        for i, name in enumerate(E2E_KERNELS):
+            recs[name] += main_path_kernels(
+                name, e2e["shapes"][name], args.seed + 1000 + 10 * i,
+                dev_name)
+        lap("phase 4")
+        ran.append(("3", e2e, ""))
+        q1_h2d = (e2e["traced"]["Q1"].get("device") or {}).get("h2d_bytes")
+        for k in seen:
+            seen[k] |= e2e["shapes"].get(k, set())
+    if 5 in wanted:
+        cold = phase_cold(COLD_HOURS, args.seed, q1_h2d)
+        for i, name in enumerate(COLD_KERNELS):
+            recs[name] += main_path_kernels(
+                name, cold["shapes"][name] - seen[name],
+                args.seed + 2000 + 10 * i, dev_name)
+        lap("phase 5 and its kernels")
+        ran.append(("5", cold, ""))
+        for k in seen:
+            seen[k] |= cold["shapes"].get(k, set())
+    later = []
+    life = None
+    if 6 in wanted:
+        ran.append(("6", phase_colcache(cold), " cached"))
+        lap("phase 6")
+    if 7 in wanted:
+        ran.append(("7", phase_compact(cold), " compacted"))
+        lap("phase 7")
+    if 8 in wanted:
+        hosted = phase_host(cold)
+        ran.append(("8", hosted, ""))
+        later.append(hosted)
+        lap("phase 8")
+    if 9 in wanted:
+        nested = phase_subquery(
+            cold, t_start + SCRIPT_LIMIT_S - AFTER_PHASE9_S)
+        ran.append(("9", nested, ""))
+        later.append(nested)
+        lap("phase 9")
+    if 10 in wanted:
+        dash = phase_dashboard(cold, args.seed,
+                               t_start + SCRIPT_LIMIT_S - AFTER_PHASE10_S)
+        ran.append(("10", dash, ""))
+        later.append(dash)
+        lap("phase 10")
+    if 11 in wanted:
+        life = phase_lifecycle(args.seed,
+                               t_start + SCRIPT_LIMIT_S - AFTER_PHASE11_S)
+        ran.append(("11", life, ""))
+        later.append(life)
+        lap("phase 11")
+    # kernels 1-3 at the later phases' new shapes, and kernels 4-6 too
+    # at phase 11's (the decode of its rewritten files)
+    for i, name in enumerate(E2E_KERNELS + COLD_KERNELS[1:]):
+        for j, phase in enumerate(later):
+            if name not in E2E_KERNELS and phase is not life:
+                continue
+            new = {sh for sh in phase["shapes"][name] - seen[name]
+                   if all(d > 0 for d in shape_json(name, sh)
+                          if isinstance(d, int))}
+            recs[name] += main_path_kernels(
                 name, new, args.seed + 3000 + 1000 * j + 10 * i, dev_name,
                 limit=3)
-            seen[name] |= later["shapes"][name]
-    lap("the kernels at phases 8, 9 and 10's shapes")
+            seen[name] |= phase["shapes"][name]
+    lap("the kernels at the later phases' shapes")
 
     kernels = []
+    hosted = next((p for ph, p, _t in ran if ph == "8"), None)
     for name in cs.LAUNCHES:
-        top = max(recs[name], key=lambda r: r["bound_ms"])
-        paths = [(tag, p) for tag, p in (("", e2e), ("", cold),
-                                          (" cached", cached),
-                                          (" compacted", compacted),
-                                          ("", hosted), ("", nested),
-                                          ("", dash))
+        # a kernel no main path of this run gave a shape: its phase 2
+        # checks stand in
+        top = max(recs[name] or checked[name], key=lambda r: r["bound_ms"])
+        paths = [(tag, p) for _ph, p, tag in ran
                  if p["launches"].get(name)]
         kernels.append({
             "name": name, "route": "cuda",
@@ -3489,16 +4033,15 @@ def main() -> int:
                                       os.path.dirname(os.path.abspath(__file__))),
             "replaces": REPLACES[name],
             "launches": sum(p["launches"][name] for _t, p in paths),
-            "launches_per_phase": {
-                ph: p["launches"].get(name, 0) for ph, p in (
-                    ("3", e2e), ("5", cold), ("6", cached),
-                    ("7", compacted), ("8", hosted), ("9", nested),
-                    ("10", dash))},
+            "launches_per_phase": {ph: p["launches"].get(name, 0)
+                                   for ph, p, _t in ran},
             "launches_per_query": {qn + tag: pq["launches"][name]
                                    for tag, p in paths
                                    for qn, pq in p["per_query"].items()},
-            "launches_parity_on_card": hosted["parity"]["launches"][name],
-            "max_abs_err": max(r["max_abs_err"] for r in recs[name]),
+            "launches_parity_on_card": (
+                hosted["parity"]["launches"][name] if hosted else None),
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in recs[name] + checked[name]),
             "ms": top["ms"], "device_ms": top["device_ms"],
             "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -3507,10 +4050,11 @@ def main() -> int:
             "main_path_shapes": recs[name],
             "checked_shapes": checked[name],
         })
-        if name in ENTRIES:
+        cold_run = next((p for ph, p, _t in ran if ph == "5"), None)
+        if name in ENTRIES and cold_run is not None:
             kernels[-1]["launches_per_run"] = {
                 qn: pq["per_run"][name]
-                for qn, pq in cold["per_query"].items()}
+                for qn, pq in cold_run["per_query"].items()}
         if name == "widen_packed":
             kernels[-1]["library_comparison"] = checked["widen_host"]
         if name == "probe_count":
@@ -3520,8 +4064,7 @@ def main() -> int:
         if buffers:
             kernels[-1]["one_buffer_comparison"] = buffers
     short = {qn + tag: pq["stages_ms"]["covered"]
-             for tag, p in (("", e2e), ("", cold), (" cached", cached),
-                            (" compacted", compacted))
+             for ph, p, tag in ran if ph in ("3", "5", "6", "7")
              for qn, pq in p["per_query"].items()
              if pq["stages_ms"]["covered"] < STAGE_COVER}
     check(not short, f"the stages cover less than {STAGE_COVER:.0%} of "
@@ -3533,7 +4076,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

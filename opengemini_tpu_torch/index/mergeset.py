@@ -7,8 +7,9 @@ label tier (index/labels.py is not ported yet): every tag match walks
 the native postings, as the reference's own oracle path does. Sorted
 immutable posting runs on disk plus a WAL-backed memtable live in the
 C++ library; regex matching stays in Python (``re`` semantics) over the
-distinct tag values the library enumerates. The library is built with
-g++ at first use (see ``opengemini_tpu_torch.native``).
+distinct tag values the library enumerates. ``remove_sids`` drops the
+series of a full-series delete (tombstones in the library). The library
+is built with g++ at first use (see ``opengemini_tpu_torch.native``).
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ def load():
                 ("msi_key_of", p, [p, u64, u64p]),
                 ("msi_flush", None, [p]),
                 ("msi_compact", None, [p]),
+                ("msi_remove_sids", None, [p, u64p, u64]),
             ]:
                 fn = getattr(lib, name)
                 fn.restype = res
@@ -335,6 +337,19 @@ class MergesetIndex:
                 if self._lib.msi_has_live(h, mb, len(mb)):
                     out.append(m)
         return sorted(out)
+
+    # -- deletion -------------------------------------------------------------
+
+    def remove_sids(self, sids: set[int]) -> None:
+        """Drop series from the index (a full-series delete)."""
+        if not sids:
+            return
+        arr = (ctypes.c_uint64 * len(sids))(*sorted(sids))
+        with self._native() as h:
+            self._lib.msi_remove_sids(h, arr, len(sids))
+        for sid in sids:
+            self._tags_cache.pop(sid, None)
+        self._key_cache.clear()  # deletes are rare; a full drop is fine
 
 
 def open_series_index(shard_path: str) -> MergesetIndex:

@@ -5,7 +5,9 @@ Reference: the reference splits conditions during plan building
 split is explicit: the AND-tree is walked once, each leaf classified as a
 time bound (-> scan range), a tag comparison (-> inverted-index sid set),
 or a field comparison (-> vectorized numpy row mask applied before device
-transfer).
+transfer). ``match(field, 'token')`` is a field filter
+(native/textindex.match_token); ``conjunctive_match_terms`` names the
+match() terms that may prune series through the shards' text sidecars.
 """
 
 from __future__ import annotations
@@ -503,7 +505,40 @@ def eval_field_expr(expr, record) -> np.ndarray:
             return np.asarray(m, dtype=np.bool_) & col.valid
     if isinstance(expr, ast.BooleanLiteral):
         return np.full(n, expr.val, dtype=np.bool_)
+    if isinstance(expr, ast.Call) and expr.name == "match":
+        # full-text token match over a string field
+        from opengemini_tpu_torch.native.textindex import match_token
+
+        if len(expr.args) != 2:
+            raise ConditionError("match() takes (field, 'token')")
+        fld = _strip(expr.args[0])
+        tok = _strip(expr.args[1])
+        if (not isinstance(fld, ast.VarRef)
+                or not isinstance(tok, ast.StringLiteral)):
+            raise ConditionError("match() takes (field, 'token')")
+        col = record.columns.get(fld.name)
+        if col is None:
+            return np.zeros(n, dtype=np.bool_)
+        return match_token(col.values, col.valid, tok.val)
     raise ConditionError(f"unsupported field filter: {expr}")
+
+
+def conjunctive_match_terms(expr) -> list[tuple[str, str]]:
+    """(field, token) pairs of the match() calls that are top-level
+    conjuncts of the field filter: only those may prune series (a match
+    under an OR constrains nothing on its own)."""
+    expr = _strip(expr)
+    if expr is None:
+        return []
+    if isinstance(expr, ast.BinaryExpr) and expr.op == "AND":
+        return (conjunctive_match_terms(expr.lhs)
+                + conjunctive_match_terms(expr.rhs))
+    if (isinstance(expr, ast.Call) and expr.name == "match"
+            and len(expr.args) == 2):
+        fld, tok = _strip(expr.args[0]), _strip(expr.args[1])
+        if isinstance(fld, ast.VarRef) and isinstance(tok, ast.StringLiteral):
+            return [(fld.name, tok.val)]
+    return []
 
 
 def _literal_value(e):

@@ -31,7 +31,11 @@ count/sum/mean without a field filter takes the pre-aggregation path
 no merge adds their stored counts and sums without a decode, and the
 other series take the bulk decode of any scan. Every scan
 unit and device batch dispatch is a KILL QUERY cancellation point
-(utils/querytracker.py).
+(utils/querytracker.py). Without GROUP BY time, the conjunctive
+``match()`` terms of the WHERE prune the series through the shards'
+text sidecars (qhelpers ``_prune_text_sids``). A scan that meets a
+damaged file fails as a statement error (``FileQuarantined``; the file
+is quarantined, and a retry answers from the others).
 
 Not in this port yet: the rollup splice and the governor's scan
 reservation (ROADMAP A7); cluster routing and auth (ROADMAP A8: the
@@ -82,8 +86,8 @@ from opengemini_tpu_torch.query.qhelpers import (
     _call_param_value, _calls_in, _classify_select,
     _data_time_range, _default_field_name, _eval_output_expr,
     _expand_call_wildcards, _has_call_wildcard, _has_in_subquery,
-    _merge_multi_source,
-    _needs_string_host_path, _resolve_call, _selector_aux_plan,
+    _merge_multi_source, _needs_string_host_path, _prune_text_sids,
+    _resolve_call, _selector_aux_plan,
     _series_needs_merged_decode, _series_result, _strip_expr,
 )
 from opengemini_tpu_torch.query import resultcache as rcache
@@ -96,6 +100,8 @@ from opengemini_tpu_torch.sql import ast
 from opengemini_tpu_torch.sql.parser import parse
 from opengemini_tpu_torch.storage import colcache as colcache_mod
 from opengemini_tpu_torch.storage.engine import WriteError
+from opengemini_tpu_torch.storage.shard import FileQuarantined
+from opengemini_tpu_torch.storage.tsf import CorruptFile
 from opengemini_tpu_torch.utils import tracing
 from opengemini_tpu_torch.utils.querytracker import (
     GLOBAL as TRACKER, QueryKilled, redact as _redact)
@@ -434,7 +440,10 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 res = self.execute_statement(stmt, db, now_ns)
             except (QueryError, cond.ConditionError, KeyError, ValueError,
                     re.error, FieldTypeConflict, WriteError,
-                    QueryKilled) as e:
+                    QueryKilled, FileQuarantined) as e:
+                # FileQuarantined too: the query that found the damage
+                # fails as a statement error (the file is out of the read
+                # set already; a retry answers without it)
                 res = {"error": str(e)}
             res["statement_id"] = i
             results.append(res)
@@ -889,6 +898,11 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
         gid_of: dict[tuple, int] = {}
         group_keys: list[tuple] = []
         scan_plan = []  # (shard, sid, gid)
+        # GROUP BY time emits fill rows even for series with no matching
+        # row, so pruning would change the series set: the text index
+        # prunes un-windowed scans only
+        match_terms = ([] if group_time
+                       else cond.conjunctive_match_terms(sc.field_expr))
         # /*+ full_series|specific_series */: the WHERE names whole
         # series, so mixed tag/field trees are evaluated per series and
         # skip their row filter
@@ -910,6 +924,7 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 keep = [s for s in sids.tolist()
                         if sh.index.tags_of(s) == exact_tags]
                 sids = np.asarray(keep, np.int64)
+            sids = _prune_text_sids(sh, mst, sids, match_terms)
             for sid in sids.tolist():
                 tags = sh.index.tags_of(sid)
                 key = tuple(tags.get(k, "") for k in group_tags)
@@ -1426,7 +1441,13 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 pre_sum[fname][gid] += vsum
         rows = full_rows
         for r, c in partials:
-            rec = r.read_chunk(mst, c, needed_fields).slice_time(tmin, tmax)
+            try:
+                rec = r.read_chunk(
+                    mst, c, needed_fields).slice_time(tmin, tmax)
+            except CorruptFile as e:
+                # media damage on the pre-agg decode: quarantine through
+                # the owning shard (raises FileQuarantined)
+                sh.note_corrupt(e)
             if not len(rec):
                 continue
             rows += len(rec)

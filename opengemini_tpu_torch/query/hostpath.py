@@ -25,11 +25,13 @@ set by query/subquery.py).
 (chunk histograms where a series' chunks allow it, decoded values
 elsewhere), and a table function (``rca``, query/tablefunc.py) runs over
 the raw rows of its measurement. Every read loop is a KILL QUERY
-cancellation point (``TRACKER.check()``).
+cancellation point (``TRACKER.check()``). A raw select's conjunctive
+``match()`` terms prune its series through the shards' text sidecars
+(qhelpers ``_prune_text_sids``); a damaged file met by a chunk read is
+quarantined through its shard (``FileQuarantined``).
 
-Not in this port yet: the text-index series pruning of the raw path
-(ROADMAP A3.4); fitted ``detect`` models (ROADMAP A7); remote shards
-(ROADMAP A8: the shard list is the local one).
+Not in this port yet: fitted ``detect`` models (ROADMAP A7); remote
+shards (ROADMAP A8: the shard list is the local one).
 """
 
 from __future__ import annotations
@@ -44,13 +46,14 @@ from opengemini_tpu_torch.query import functions as fnmod
 from opengemini_tpu_torch.record import EncodedColumn, FieldType
 from opengemini_tpu_torch.sql import ast
 from opengemini_tpu_torch.storage import scanpool
+from opengemini_tpu_torch.storage.tsf import CorruptFile
 from opengemini_tpu_torch.utils import tracing
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
 from opengemini_tpu_torch.query.qhelpers import (
     QueryError, _apply_fill, _calls_in, _call_param_value,
     _check_host_field_type, _default_field_name, _eval_aux_expr,
-    _eval_scalar_cols, _eval_scalar_row, _pyval, _render_cell,
-    _resolve_host_call, _scalar_refs, _selector_pick, _series,
+    _eval_scalar_cols, _eval_scalar_row, _prune_text_sids, _pyval,
+    _render_cell, _resolve_host_call, _scalar_refs, _selector_pick, _series,
     _series_needs_merged_decode, _strip_expr,
 )
 
@@ -330,7 +333,11 @@ class HostPathMixin:
                     b[0] = min(b[0], pre.vmin)
                     b[1] = max(b[1], pre.vmax)
                 else:
-                    rec = r.read_chunk(mst, c, [fname]).slice_time(tmin, tmax)
+                    try:
+                        rec = r.read_chunk(
+                            mst, c, [fname]).slice_time(tmin, tmax)
+                    except CorruptFile as e:
+                        sh.note_corrupt(e)  # raises FileQuarantined
                     col = rec.columns.get(fname)
                     if col is not None and len(rec):
                         _add_vals(gid, col.values[col.valid].astype(np.float64))
@@ -1244,6 +1251,7 @@ class HostPathMixin:
 
             group_tags = self._group_tags(stmt, shards, mst)
             groups: dict[tuple, list] = {}
+            match_terms = cond.conjunctive_match_terms(sc.field_expr)
             hinted = bool({"full_series", "specific_series"}
                           & set(getattr(stmt, "hints", ())))
             exact_tags = (
@@ -1262,6 +1270,7 @@ class HostPathMixin:
                 if exact_tags is not None:
                     sids = {s for s in sids
                             if sh.index.tags_of(s) == exact_tags}
+                sids = _prune_text_sids(sh, mst, sids, match_terms)
                 for sid in sorted(sids):
                     tags = sh.index.tags_of(sid)
                     key = tuple(tags.get(k, "") for k in group_tags)

@@ -9,8 +9,9 @@ runs raw, on the device or on the host, for the executor and EXPLAIN
 alike. ``_series_needs_merged_decode`` is the dedup probe of the
 pre-aggregation and sketch paths: a series whose chunks are packed
 (PACK_MIN_SERIES or more series in one flush), overlap each other or
-meet memtable rows takes the merged decode. Not in this port yet: the
-text-index series pruning (``_prune_text_sids``, ROADMAP A3.4) and the
+meet memtable rows takes the merged decode. ``_prune_text_sids`` cuts a
+select's candidate series to those the shards' text sidecars say may
+match its conjunctive ``match()`` terms. Not in this port yet: the
 governor's ``estimate_scan_bytes`` (ROADMAP A7).
 """
 
@@ -39,6 +40,36 @@ class QueryError(Exception):
 _STRING_OK_HOST = {"count", "count_distinct", "mode", "first", "last",
                    "distinct", "elapsed", "absent",
                    "median"}  # median(string) renders a null row (influx)
+
+
+def _prune_text_sids(sh, mst, sids, match_terms):
+    """Intersect candidate series with the persisted text index for
+    every conjunctive match() term. Conservative: memtable rows are
+    unindexed, so their series always survive; a shard with a file
+    that has no sidecar prunes nothing."""
+    if not match_terms or len(sids) == 0:
+        return sids
+    lookup = getattr(sh, "text_match_sids", None)
+    if lookup is None:
+        return sids
+    # frozen flush snapshots are unindexed like the live memtable
+    mem_sids = sh.mem_sids_for(mst)
+    as_arr = isinstance(sids, np.ndarray)
+    for fld, tok in match_terms:
+        got = lookup(mst, fld, tok)
+        if got is None:
+            return sids  # a file without a sidecar: cannot prune safely
+        keep = got | mem_sids
+        if as_arr:
+            # sorted-array candidates: a membership mask keeps the order
+            mask = np.fromiter((s in keep for s in sids.tolist()),
+                               np.bool_, len(sids))
+            sids = sids[mask]
+        else:
+            sids = sids & keep
+        if len(sids) == 0:
+            break
+    return sids
 
 
 def _check_host_field_type(call_name: str, field: str, schema: dict) -> None:

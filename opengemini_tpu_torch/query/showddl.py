@@ -7,15 +7,16 @@ SERIES [EXACT] CARDINALITY, MEASUREMENT CARDINALITY, RETENTION POLICIES,
 SHARDS and QUERIES (the running queries of utils/querytracker.py), KILL
 QUERY; CREATE DATABASE (with ``WITH ...``) and DROP DATABASE;
 CREATE, ALTER and DROP RETENTION POLICY; CREATE MEASUREMENT (accepted,
-the engine is schema-on-write) and DROP MEASUREMENT (a mark: SELECT and
+the engine is schema-on-write), DROP MEASUREMENT (a mark: SELECT and
 the metadata SHOWs hide the measurement, SHOW SERIES keeps its series
-until a purge, as in the reference).
+until a purge, as in the reference), and DELETE and DROP SERIES (the
+shards' delete rewrite, storage/shard.py ``delete_data``; DROP SERIES
+refuses a time condition, and neither takes a field condition).
 
 The port is single-node, so the reference's raft replication of DDL
 (``_replicate_ddl``, ``_check_fsm_db``) becomes the local engine call.
 Every other statement of the reference answers a "not supported by this
 port yet" error naming the ROADMAP item that owns it (``_NOT_PORTED``):
-DELETE and DROP SERIES and the purge of dropped measurements (A3.4);
 continuous queries, streams, downsample, subscriptions and models (A7);
 users, grants and SHOW CLUSTER (A8); SHOW STATS and SHOW DIAGNOSTICS
 (A9). UNION statements run
@@ -51,8 +52,6 @@ _SHOW_STMTS = (
 
 # statement type -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    ast.DeleteSeries: "A3.4",
-    ast.DropSeries: "A3.4",
     ast.CreateContinuousQuery: "A7",
     ast.DropContinuousQuery: "A7",
     ast.ShowContinuousQueries: "A7",
@@ -146,6 +145,8 @@ class ShowDdlMixin:
             # mark + deferred purge (the reference's MarkMeasurementDelete)
             self.engine.mark_measurement_delete(db, stmt.name)
             return {}
+        if isinstance(stmt, (ast.DeleteSeries, ast.DropSeries)):
+            return self._delete(stmt, db, now_ns)
         if isinstance(stmt, ast.ShowQueries):
             rows = [
                 [q["qid"], q["query"], q["database"],
@@ -164,6 +165,42 @@ class ShowDdlMixin:
             raise QueryError(f"{type(stmt).__name__} is not supported by "
                              f"this port yet (ROADMAP {item})")
         raise QueryError(f"unsupported statement: {type(stmt).__name__}")
+
+    def _delete(self, stmt, db: str, now_ns: int) -> dict:
+        """DELETE FROM m WHERE ... (a time range and tag filters) and
+        DROP SERIES FROM m WHERE ... (whole series)."""
+        if not stmt.measurement:
+            raise QueryError("DELETE/DROP SERIES requires FROM <measurement>")
+        is_drop_series = isinstance(stmt, ast.DropSeries)
+        shards = self._all_shards_db(db)
+        # tag keys of every shard: a shard without the measurement must
+        # not read its tags as fields and fail with earlier shards
+        # already rewritten
+        tag_keys: set[str] = set()
+        for sh in shards:
+            tag_keys.update(sh.index.tag_keys(stmt.measurement))
+        sc = cond.split(stmt.condition, tag_keys, now_ns)
+        if sc.has_row_filter:
+            raise QueryError(
+                "DELETE conditions may only reference time and tags")
+        has_time = sc.tmin != cond.MIN_TIME or sc.tmax != cond.MAX_TIME
+        if is_drop_series and has_time:
+            # influx refuses time bounds here rather than over-delete
+            raise QueryError("DROP SERIES does not support time conditions")
+        for sh in shards:
+            sids = (cond.eval_tag_expr(sc.tag_expr, sh.index,
+                                       stmt.measurement)
+                    if sc.tag_expr is not None else None)
+            if sids is not None and not sids:
+                continue
+            if is_drop_series or not has_time:
+                sh.delete_data(stmt.measurement, sids)
+            else:
+                sh.delete_data(
+                    stmt.measurement, sids,
+                    None if sc.tmin == cond.MIN_TIME else sc.tmin,
+                    None if sc.tmax == cond.MAX_TIME else sc.tmax)
+        return {}
 
     # -- metadata SHOWs -----------------------------------------------------
 

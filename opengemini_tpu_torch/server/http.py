@@ -1,6 +1,6 @@
 """InfluxDB 1.x-compatible HTTP API, the routes of this slice.
 
-The port of ``opengemini_tpu/server/http.py`` for seven routes, on the
+The port of ``opengemini_tpu/server/http.py`` for eight routes, on the
 standard library's threading HTTP server:
   GET/HEAD /ping        204
   GET      /health      200 {"name", "status": "pass", "version"}
@@ -13,7 +13,14 @@ standard library's threading HTTP server:
   POST     /write       line protocol, params db/rp/precision
   GET      /debug/vars  the statistics registry (utils/stats.py), with
                         the query_stages timings (the executor's, and
-                        "encode": the answer's JSON and its write)
+                        "encode": the answer's JSON and its write), and
+                        "quarantined_files": the engine's quarantined
+                        TSF files ({shard, path, why} each)
+  POST     /debug/ctrl  runtime fault levers: mod=failpoint (name,
+                        action; no name lists the armed sites) and
+                        mod=diskfault (path glob, action; action=off
+                        clears one rule, clear=1 heals all, no action
+                        lists the rules and their hits)
   GET      /debug/queries  the running queries (utils/querytracker.py
                         ``full_snapshot``)
   GET      /debug/trace the span tree of a query: ?qid= (a running
@@ -21,7 +28,11 @@ standard library's threading HTTP server:
                         ring), ?trace_id=, or the newest summaries
 Answers use the JAX server's JSON shapes, and error answers carry the
 stable errno taxonomy (utils/errno.py: ``errno`` and ``module`` fields,
-``X-Ogt-Errno`` header); other routes answer 404.
+``X-Ogt-Errno`` header); other routes answer 404. A query whose scan
+meets a damaged file answers as the reference's /query does: the file
+is quarantined and the statement carries the error "file quarantined
+after media fault: <path>: <why>" (query/executor.py); a retry answers
+from the other files.
 """
 
 from __future__ import annotations
@@ -39,8 +50,10 @@ from opengemini_tpu_torch.ingest.line_protocol import ParseError
 from opengemini_tpu_torch.query import condition as cond
 from opengemini_tpu_torch.query.executor import Executor
 from opengemini_tpu_torch.record import FieldTypeConflict
+from opengemini_tpu_torch.storage import diskfault
 from opengemini_tpu_torch.storage.engine import DatabaseNotFound, WriteError
 from opengemini_tpu_torch.utils import errno as _errno
+from opengemini_tpu_torch.utils import failpoint
 from opengemini_tpu_torch.utils import tracing
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
@@ -217,6 +230,8 @@ def _make_handler(svc: HttpService):
                                       1),
                     "version": __version__}}
                 snap.update(STATS.snapshot())
+                snap["quarantined_files"] = (
+                    svc.engine.quarantine_snapshot()["files"])
                 self._send_json(200, snap)
             elif path == "/debug/queries":
                 self._send_json(200, TRACKER.full_snapshot())
@@ -276,10 +291,54 @@ def _make_handler(svc: HttpService):
                 self._handle_query(params)
             elif path == "/write":
                 self._handle_write(params, body)
+            elif path == "/debug/ctrl":
+                self._handle_ctrl(params)
             elif path == "/ping":
                 self._send(204)
             else:
                 self._send_json(404, {"error": "not found"})
+
+        def _handle_ctrl(self, params: dict):
+            """The reference's /debug/ctrl fault levers: failpoints
+            (utils/failpoint.py) and disk-fault rules
+            (storage/diskfault.py)."""
+            mod = params.get("mod", "")
+            if mod == "diskfault":
+                if params.get("clear", "").lower() in ("1", "true", "all"):
+                    diskfault.clear_all()
+                    self._send_json(200, {"status": "ok", "rules": []})
+                    return
+                action = params.get("action", "")
+                if not action:
+                    self._send_json(200, {"rules": diskfault.rules(),
+                                          "hits": diskfault.hits()})
+                    return
+                pat = params.get("path", "*")
+                if action == "off":
+                    diskfault.clear_rule(pat)
+                else:
+                    try:
+                        diskfault.set_rule(pat, action)
+                    except ValueError as e:
+                        self._send_json(400, {"error": str(e)})
+                        return
+                self._send_json(200, {"status": "ok",
+                                      "rules": diskfault.rules()})
+            elif mod == "failpoint":
+                name = params.get("name", "")
+                action = params.get("action", "")
+                if not name:
+                    self._send_json(200, {"active": failpoint.active()})
+                    return
+                if action in ("", "off"):
+                    failpoint.disable(name)
+                else:
+                    failpoint.enable(name, action)
+                self._send_json(200, {"status": "ok", "failpoint": name,
+                                      "action": action or "off"})
+            else:
+                self._send_json(
+                    400, {"error": f"unknown syscontrol mod {mod!r}"})
 
         def _handle_query(self, params: dict, read_only: bool = False):
             q = params.get("q", "")

@@ -23,16 +23,21 @@ policies (``create_``, ``alter_``, ``drop_retention_policy``, with the
 reference's automatic shard durations) and DROP MEASUREMENT's mark
 (``mark_measurement_delete``, kept in meta.json ``dropped_msts`` as the
 reference keeps it). A marked measurement is hidden from SELECT and the
-metadata SHOWs.
+metadata SHOWs until ``purge_dropped_measurements`` deletes its rows
+and series (storage/shard.py ``delete_data``); a write to a database
+with marks purges first, so old rows never resurface under a recreated
+name.
 
-Not in this port yet: the purge of marked measurements
-(``purge_dropped_measurements``, which needs the data rewrites of ROADMAP
-A3.4): the reference purges before it accepts a write to a database
-with marks, so the port refuses such a write with an error naming A3.4
-rather than store rows the mark would hide. Also the tag-array write
-mode (the reference's ``tag_arrays``, which sends such bodies to the
-Python parser), and the rollup and rule hooks of the write path
-(ROADMAP A7).
+Media damage: ``quarantine_snapshot`` lists every shard's quarantined
+files (``/debug/vars`` serves it), ``purge_quarantined`` deletes them,
+and the ``quarantine`` stats provider reports ``files_current``. The
+meta.json save passes the disk-fault hooks (storage/diskfault.py), and
+the write path has the reference's failpoints after the engine lock
+drops (``engine-before-wal-commit``, ``engine-before-threshold-flush``).
+
+Not in this port yet: the tag-array write mode (the reference's
+``tag_arrays``, which sends such bodies to the Python parser), and the
+rollup and rule hooks of the write path (ROADMAP A7).
 
 ``Engine(root, device=None)`` holds the device every query on it runs
 on: CUDA unless the caller names another (``device="cpu"`` in the
@@ -55,7 +60,9 @@ from opengemini_tpu_torch.ingest import line_protocol as lp
 from opengemini_tpu_torch.ingest import native_lp
 from opengemini_tpu_torch.ingest.native_lp import LineWriter
 from opengemini_tpu_torch.record import FieldTypeConflict
+from opengemini_tpu_torch.storage import diskfault
 from opengemini_tpu_torch.storage.shard import Shard
+from opengemini_tpu_torch.utils.failpoint import inject as _fp
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
 NS = 1_000_000_000
@@ -185,6 +192,9 @@ class Engine:
         self._shards: dict[tuple[str, str, int], Shard] = {}
         self._load_meta()
         self._load_shards()
+        # the quarantined-file gauge beside the shards' counters
+        self._quarantine_provider = self._quarantine_gauges
+        _STATS.register_provider("quarantine", self._quarantine_provider)
 
     # -- metadata -----------------------------------------------------------
 
@@ -220,9 +230,15 @@ class Engine:
             for db in self.databases.values()
         ]
         tmp = self._meta_path() + ".tmp"
+        if diskfault.armed():
+            diskfault.check("write", self._meta_path(),
+                            site="meta-save-write")
         with open(tmp, "w", encoding="utf-8") as f:
             json.dump(j, f)
             f.flush()
+            if diskfault.armed():
+                diskfault.on_fsync(self._meta_path(),
+                                   site="meta-save-fsync")
             os.fsync(f.fileno())
         os.replace(tmp, self._meta_path())
 
@@ -316,7 +332,8 @@ class Engine:
     def mark_measurement_delete(self, db: str, mst: str) -> None:
         """DROP MEASUREMENT: mark only. SELECT and the metadata SHOWs
         hide the measurement at once; its rows and index entries stay
-        until a purge (ROADMAP A3.4)."""
+        until purge_dropped_measurements runs (before the next write to
+        the database)."""
         d = self.databases.get(db)
         if d is None:
             raise DatabaseNotFound(db)
@@ -327,6 +344,54 @@ class Engine:
     def is_measurement_dropped(self, db: str, mst: str) -> bool:
         d = self.databases.get(db)
         return d is not None and mst in d.dropped_msts
+
+    def purge_dropped_measurements(self, db: str | None = None) -> int:
+        """Delete the rows and series of mark-dropped measurements (of
+        `db`, or of every database) and clear the marks. Returns the
+        measurements purged."""
+        n = 0
+        with self._lock:
+            for name, d in self.databases.items():
+                if db is not None and name != db:
+                    continue
+                if not d.dropped_msts:
+                    continue
+                for mst in sorted(d.dropped_msts):
+                    for (sdb, _rp, _g), sh in list(self._shards.items()):
+                        if sdb == name:
+                            sh.delete_data(mst)
+                    n += 1
+                d.dropped_msts.clear()
+            if n:
+                self._save_meta()
+        return n
+
+    # -- quarantine -----------------------------------------------------------
+
+    def quarantine_snapshot(self) -> dict:
+        """Every quarantined file across shards: {"files": [{shard,
+        path, why}], "total": n}."""
+        with self._lock:
+            shards = list(self._shards.items())
+        files = []
+        for (db, rp, start), sh in shards:
+            for path, why in sorted(sh.quarantined().items()):
+                files.append({"shard": f"{db}|{rp}|{start}",
+                              "path": path, "why": why})
+        return {"files": files, "total": len(files)}
+
+    def _quarantine_gauges(self) -> dict:
+        with self._lock:
+            shards = list(self._shards.values())
+        n = sum(len(sh.quarantined()) for sh in shards)
+        return {"files_current": n} if n else {}
+
+    def purge_quarantined(self) -> int:
+        """Delete the quarantined files (with their markers and
+        sidecars) of every shard. Returns the files purged."""
+        with self._lock:
+            shards = list(self._shards.values())
+        return sum(sh.purge_quarantined() for sh in shards)
 
     # -- shards -------------------------------------------------------------
 
@@ -386,13 +451,9 @@ class Engine:
         if d is None:
             raise DatabaseNotFound(db)
         if d.dropped_msts:
-            # the reference purges the marked measurements before it
-            # accepts the write; without the purge, rows written now
-            # would hide behind the mark
-            raise WriteError(
-                f"database {db!r} has dropped measurements awaiting a "
-                "purge, which is not supported by this port yet "
-                "(ROADMAP A3.4)")
+            # a marked measurement being rewritten must not resurface its
+            # old rows: purge before accepting the batch
+            self.purge_dropped_measurements(db)
         return rp or d.default_rp
 
     def write_lines(self, db: str, lines: str | bytes, precision: str = "ns",
@@ -523,8 +584,12 @@ class Engine:
     def _commit_and_flush(self, tickets: list, shards) -> None:
         """Sync-WAL commits, then threshold flushes (each shard once),
         off the engine lock."""
+        # the engine lock dropped, rows applied, the ack waits on the
+        # group commit: a kill here must lose no acknowledged row
+        _fp("engine-before-wal-commit")
         for shard, ticket in tickets:
             shard.wal.commit(ticket)
+        _fp("engine-before-threshold-flush")  # engine lock released
         for shard in {id(sh): sh for sh in shards}.values():
             shard.flush_if_over(self.flush_threshold_bytes)
 
@@ -630,6 +695,7 @@ class Engine:
             shard.flush()
 
     def close(self) -> None:
+        _STATS.unregister_provider("quarantine", self._quarantine_provider)
         with self._lock:
             for shard in self._shards.values():
                 shard.close()

@@ -28,6 +28,7 @@ from opengemini_tpu_torch.record import (
     merge_bulk_parts,
     merge_sorted_records,
 )
+from opengemini_tpu_torch.utils.failpoint import inject as _fp
 
 
 def _series_slice(rec: Record, lo: int, hi: int) -> Record:
@@ -97,6 +98,7 @@ class MemTable:
         """Mark immutable (flush snapshot). Any later write is a bug in
         the caller's locking — fail loudly instead of corrupting the
         snapshot a concurrent flush is encoding."""
+        _fp("memtable-freeze")
         self.frozen = True
 
     def _check_mutable(self) -> None:
@@ -206,6 +208,9 @@ class MemTable:
             return cached[1]
         parts = [(s.sids, Record(s.times, s.cols)) for s in slabs[:n]]
         out = merge_bulk_parts(parts, -(2**63), 2**63 - 1)
+        # a site between compute and store: a wait: action here replays
+        # the interleaving the count guard above makes harmless
+        _fp("memtable-consolidate-before-store")
         self._consolidated[measurement] = (n, out)
         return out
 

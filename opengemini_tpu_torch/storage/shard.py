@@ -19,18 +19,42 @@ Every write logs its rows' time range with a new ``data_version``
 (``_note_mutation``; ``changed_since`` answers for a range), which the
 incremental result cache keys on; flush and compaction keep both.
 
-Not in this port yet: delete and downsample rewrites, file quarantine
-and the disk-fault hooks (ROADMAP A3.3 and A3.4), and the text-index
-sidecars (``.tidx``; a compaction removes the sidecar of every file it
-replaces, so the JAX package never reads a stale one).
+The data lifecycle and media damage:
+
+- **Delete rewrite** (``delete_data``): a whole measurement, a set of
+  series or a time range. It flushes, reads every measurement through
+  the bulk read, writes the surviving rows into one file (and its
+  sidecar), swaps the file set, retires the old files and only then bumps
+  the mutation log; a full-series delete also drops the series from the
+  index and an emptied schema.
+- **Quarantine**: a file that fails to open (bad magic, trailer or meta
+  CRC), or whose block CRC fails mid-scan (``note_corrupt``), leaves the
+  read set with a durable ``<file>.tsf.quar`` marker ({"why": ...}), so
+  it stays out across reopens; the scan that found it fails with
+  ``FileQuarantined`` and a retry answers from the other files. A
+  damaged compaction input is quarantined the same way, so the next
+  compaction proceeds. ``purge_quarantined`` deletes the files, markers
+  and sidecars.
+- **Text-index sidecars** (``<file>.tidx``, JSON: measurement -> string
+  field -> token -> sids), written by the flush, compaction and the
+  delete rewrite and removed with their file; ``text_match_sids`` reads
+  them to prune the series a ``match()`` term cannot hit.
+- **Failpoints** (utils/failpoint.py) on the flush, compaction and
+  quarantine steps, under the reference's site names.
+
+Not in this port yet: the downsample rewrite (``rewrite_downsampled``,
+with storage/downsample, ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import itertools
+import json
+import logging
 import math
 import os
 import threading
+import time
 
 import numpy as np
 
@@ -43,9 +67,10 @@ from opengemini_tpu_torch.record import (
 from opengemini_tpu_torch.storage import colcache, scanpool
 from opengemini_tpu_torch.storage.memtable import MemTable, _series_slice
 from opengemini_tpu_torch.storage.tsf import (
-    PACK_MIN_SERIES, PACK_ROWS, TSFReader, TSFWriter,
+    PACK_MIN_SERIES, PACK_ROWS, CorruptFile, TSFReader, TSFWriter,
 )
 from opengemini_tpu_torch.storage.wal import WAL, WALCorruption, frame
+from opengemini_tpu_torch.utils.failpoint import inject as _fp
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
 # process-wide versions: see Shard.data_version and Shard.cache_ns
@@ -90,17 +115,19 @@ def _sid_entries(rec: Record, uniq, starts, ends):
         yield int(sid), _series_slice(rec, lo, hi)
 
 
-def _write_measurement_chunks(w: TSFWriter, mst: str, entries,
-                              n_series: int) -> int:
-    """Write one measurement's series records: per-sid chunks at low
-    cardinality, PK-sorted packed chunks once a flush carries >=
-    PACK_MIN_SERIES series. `entries` iterates (sid, rec) in ascending
-    sid order; packed chunks stream out every PACK_ROWS rows (a series
-    never splits across two). Returns rows submitted to the writer."""
+def _write_measurement_chunks(w: TSFWriter, tidx: "_TextSidecar", mst: str,
+                              entries, n_series: int) -> int:
+    """Write one measurement's series records, and index their string
+    fields into `tidx`: per-sid chunks at low cardinality, PK-sorted
+    packed chunks once a flush carries >= PACK_MIN_SERIES series.
+    `entries` iterates (sid, rec) in ascending sid order; packed chunks
+    stream out every PACK_ROWS rows (a series never splits across two).
+    Returns rows submitted to the writer."""
     rows = 0
     if n_series < PACK_MIN_SERIES:
         for sid, rec in entries:
             w.add_chunk(mst, sid, rec)
+            tidx.add(mst, sid, rec)
             rows += len(rec)
         return rows
     buffer: list = []
@@ -108,6 +135,7 @@ def _write_measurement_chunks(w: TSFWriter, mst: str, entries,
     for sid, rec in entries:
         if len(rec) == 0:
             continue
+        tidx.add(mst, sid, rec)
         buffer.append((sid, rec))
         buffered += len(rec)
         rows += len(rec)
@@ -119,6 +147,19 @@ def _write_measurement_chunks(w: TSFWriter, mst: str, entries,
         sids, packed = _pack_entries(buffer)
         w.add_packed_chunk(mst, sids, packed)
     return rows
+
+
+class FileQuarantined(Exception):
+    """A read hit media damage in an immutable file: the file is
+    quarantined (out of the read set, durable `.quar` marker) and this
+    query failed before any wrong value was produced. The next query
+    over the shard skips the file."""
+
+    def __init__(self, path: str, why: str):
+        super().__init__(
+            f"file quarantined after media fault: {path}: {why}")
+        self.path = path
+        self.why = why
 
 
 def _keep_fields(rec: Record, fields) -> Record:
@@ -174,7 +215,12 @@ class Shard:
         # successful flush removes them
         self._stale_wal_segs: list[str] = []
         self._files: list[TSFReader] = []
+        self._tidx_cache: dict[str, object] = {}  # tsf path -> parsed | None
         self._next_file_seq = 1
+        # media-damaged files pulled out of the read set: path -> why.
+        # The `.quar` markers keep quarantine sticky across reopens; the
+        # file stays on disk until purge_quarantined
+        self._quarantined: dict[str, str] = {}
         self._load_files()
         for r in self._files:
             for mst in r.measurements():
@@ -194,18 +240,119 @@ class Shard:
                     pass
         names = sorted(f for f in os.listdir(self.path) if f.endswith(".tsf"))
         for name in names:
+            # the sequence advances past every file, quarantined or not:
+            # a later flush must never reuse a damaged file's name
             seq = int(name.split(".")[0])
             self._next_file_seq = max(self._next_file_seq, seq + 1)
             full = os.path.join(self.path, name)
-            if os.path.exists(full + ".quar"):
-                continue  # quarantined by the JAX package: not readable
-            self._files.append(self._adopt(TSFReader(full)))
+            marker = _quar_marker(full)
+            if os.path.exists(marker):
+                try:
+                    with open(marker, encoding="utf-8") as f:
+                        why = json.load(f).get("why", "marker present")
+                except (OSError, ValueError):
+                    why = "marker present"
+                self._quarantined[full] = why
+                continue
+            try:
+                reader = TSFReader(full)
+            except CorruptFile as e:
+                # a damaged trailer, meta or magic quarantines this one
+                # file; the shard opens over the rest
+                self._quarantine_path(full, e.why)
+                continue
+            self._files.append(self._adopt(reader))
 
     def _adopt(self, reader: TSFReader) -> TSFReader:
         """Stamp the shard's cache namespace onto a freshly opened
         reader (a decoded-column cache key component)."""
         reader.owner_ns = self.cache_ns
         return reader
+
+    # -- quarantine -----------------------------------------------------------
+
+    def _write_quar_marker(self, path: str, why: str) -> None:
+        """Durable `.quar` marker, written and fsynced off the shard lock
+        and idempotent (concurrent detectors rewrite the same marker)."""
+        _fp("quarantine-before-mark")  # detected, marker not yet durable
+        marker = _quar_marker(path)
+        tmp = marker + ".tmp"
+        try:
+            with open(tmp, "w", encoding="utf-8") as f:
+                # wall-clock record: operator forensics only
+                json.dump({"why": why, "ts": time.time()}, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, marker)
+        except OSError:
+            pass  # the marker is a convenience; in-memory state governs
+
+    def _record_quarantined(self, path: str, why: str) -> None:
+        self._quarantined[path] = why
+        _STATS.incr("quarantine", "tsf_files_total")
+        logging.getLogger("opengemini_tpu_torch.shard").error(
+            "quarantined TSF file %s: %s", path, why)
+
+    def _quarantine_path(self, path: str, why: str) -> None:
+        """Mark and record one file quarantined with no reader to swap
+        out (the open path)."""
+        self._write_quar_marker(path, why)
+        self._record_quarantined(path, why)
+
+    def quarantine_file(self, path: str, why: str) -> bool:
+        """Pull a damaged file out of the read set. True when this call
+        quarantined it (False: already quarantined, or not this shard's
+        file). Queries mid-scan keep their readers (POSIX fds survive);
+        every later scan snapshot excludes the file."""
+        with self._lock:
+            if not any(r.path == path for r in self._files):
+                return False
+        # the marker before the swap, off the shard lock: detection stays
+        # sticky even if the process dies mid-quarantine
+        self._write_quar_marker(path, why)
+        with self._lock:
+            idx = next((i for i, r in enumerate(self._files)
+                        if r.path == path), None)
+            if idx is None:
+                return False  # another detector or a retire won the race
+            reader = self._files[idx]
+            self._record_quarantined(path, why)
+            self._files = self._files[:idx] + self._files[idx + 1:]
+            self._tidx_cache.pop(path, None)
+            colcache.GLOBAL.invalidate_gens([reader.gen])
+            # rows vanished: cached results over the file's range must
+            # not mix with post-quarantine scans
+            lo = reader.tmin if reader.tmin is not None else self.tmin
+            hi = reader.tmax + 1 if reader.tmax is not None else self.tmax
+            self._note_mutation(lo, hi)
+        return True
+
+    def note_corrupt(self, exc: CorruptFile):
+        """Read-path handler: quarantine the damaged file and fail this
+        query with FileQuarantined; a retry proceeds without the file."""
+        self.quarantine_file(exc.path, exc.why)
+        raise FileQuarantined(exc.path, exc.why) from exc
+
+    def quarantined(self) -> dict[str, str]:
+        """{path: why} of this shard's quarantined files."""
+        with self._lock:
+            return dict(self._quarantined)
+
+    def purge_quarantined(self) -> int:
+        """Delete the quarantined files with their markers and sidecars.
+        Returns the files purged."""
+        with self._lock:
+            doomed = list(self._quarantined)
+            self._quarantined.clear()
+        n = 0
+        for path in doomed:
+            for p in (path, _quar_marker(path), _tidx_path(path)):
+                try:
+                    os.remove(p)
+                    n += p == path
+                except OSError:
+                    pass
+        return n
 
     def drop_cached_columns(self) -> int:
         """Drop every decoded-column cache entry of this shard's current
@@ -457,6 +604,9 @@ class Shard:
                     self.mem.freeze()
                     self._frozen = self._frozen + ((self.mem, seg),)
                     self.mem = MemTable(self.schemas)
+                    # frozen and rotated, still under both locks: a kill
+                    # here leaves a segment and a snapshot replay recovers
+                    _fp("shard-flush-after-rotate")
             # one file per frozen snapshot, oldest first (file order =
             # write order keeps last-write-wins ranking exact)
             while True:
@@ -487,14 +637,16 @@ class Shard:
                       path: str) -> None:
         """Encode + write one frozen memtable into `path`, publish it,
         then remove the WAL segment(s) its rows came from."""
+        _fp("shard-flush-before-encode")  # the off-lock encode begins
         w = TSFWriter(path)
+        tidx = _TextSidecar()
         tsf_rows = 0
         try:
             for mst, sid_arr, rec in frozen.measurement_tables():
                 uniq, starts = np.unique(sid_arr, return_index=True)
                 ends = np.append(starts[1:], len(sid_arr))
                 tsf_rows += _write_measurement_chunks(
-                    w, mst, _sid_entries(rec, uniq, starts, ends),
+                    w, tidx, mst, _sid_entries(rec, uniq, starts, ends),
                     n_series=len(uniq))
             # post-dedup rows can only SHRINK vs the snapshot's row count;
             # more means duplicated rows — abort before the file is durable
@@ -502,6 +654,7 @@ class Shard:
                 raise RuntimeError(
                     f"flush wrote {tsf_rows} rows from a "
                     f"{frozen.row_count}-row snapshot (duplication)")
+            _fp("shard-flush-before-publish")
             w.finish()
         except BaseException:
             w.abort()
@@ -509,25 +662,39 @@ class Shard:
         with self._lock:
             # publish + un-freeze atomically: a reader sees the rows in
             # the frozen snapshot or in the new file, never in neither
-            self._files.append(self._adopt(TSFReader(path)))
+            reader = self._adopt(TSFReader(path))
+            self._files.append(reader)
             self._frozen = self._frozen[1:]
             if seg is not None:
                 self._stale_wal_segs.append(seg)
+        _fp("shard-flush-after-publish")
+        # the sidecar after the publish: a sidecar failure must not leave
+        # the snapshot queued (a retry would write its rows into a second
+        # file); the window without one only disables text pruning. Only
+        # while our reader still owns the path: an in-place compaction
+        # that replaced the file wrote the merged sidecar already
+        with self._lock:
+            if any(r is reader for r in self._files):
+                tidx.write(path)
+                self._tidx_cache.pop(path, None)
+        _fp("shard-flush-before-wal-truncate")
         stale, self._stale_wal_segs = self._stale_wal_segs, []
         for p in stale:
             try:
                 os.remove(p)
             except OSError:
                 pass
+        _fp("shard-flush-after-wal-truncate")
 
     # -- compaction -----------------------------------------------------------
 
     @staticmethod
-    def _merge_readers(readers, w: TSFWriter) -> None:
+    def _merge_readers(readers, w: TSFWriter, tidx: "_TextSidecar") -> None:
         """The merge of compact(), compact_level() and
         compact_out_of_order(): every series' chunks across `readers`
         (oldest first, so last-write-wins dedup holds), written merged
-        into `w`; packed chunks again at high cardinality."""
+        into `w` and its text sidecar; packed chunks again at high
+        cardinality."""
         per_mst: dict[str, set[int]] = {}
         for r in readers:
             for mst in r.measurements():
@@ -579,7 +746,7 @@ class Shard:
                     ends = np.append(starts[1:], len(sid_arr))
                     yield from _sid_entries(rec, uniq, starts, ends)
 
-            _write_measurement_chunks(w, mst, merged_entries(),
+            _write_measurement_chunks(w, tidx, mst, merged_entries(),
                                       n_series=n_series)
 
     def file_count(self) -> int:
@@ -639,14 +806,17 @@ class Shard:
         # queries, swept by _load_files after a crash before the swap
         tmp = out_path + ".merge"
         w = TSFWriter(tmp)
+        tidx = _TextSidecar()
         try:
-            self._merge_readers(run, w)
+            self._merge_readers(run, w, tidx)
             w.finish()  # lands at tmp, fsynced
+        except CorruptFile as e:
+            # a damaged input: quarantine it so the next compaction (and
+            # every query) proceeds without it; merging a corrupt block
+            # would launder the damage past its checksum
+            w.abort()
+            self.note_corrupt(e)
         except BaseException:
-            # a damaged input (CorruptFile) aborts here too: the
-            # reference quarantines it and lets the next compaction
-            # proceed without it, which waits for quarantine (ROADMAP
-            # A3.3)
             w.abort()
             raise
         # check the output off-lock before it may replace an input: an
@@ -665,21 +835,24 @@ class Shard:
             return False
         published = False
         try:
+            _fp("compact-before-replace")
             with self._flush_lock, self._lock:
                 j = self._find_run(self._files, run)
                 if j is None:
-                    # an input vanished mid-merge: the next call retries
-                    # over the new set
+                    # an input vanished mid-merge (quarantine, a delete
+                    # rewrite): publishing could resurrect dropped rows;
+                    # the next call retries over the new set
                     _STATS.incr("compact", "swap_aborts")
                     return False
                 os.replace(tmp, out_path)
+                _fp("compact-after-replace")
                 published = True
-                # the JAX package's sidecar of the replaced path would
-                # describe the old file
-                _remove_quiet(_tidx_path(out_path))
+                tidx.write(out_path)
                 new_reader = self._adopt(TSFReader(out_path))
                 self._files = (self._files[:j] + [new_reader]
                                + self._files[j + n:])
+                self._tidx_cache = {}
+                _fp("compact-before-retire")  # new set live, old not gone
                 if full:
                     _retire_files(run)
                 else:
@@ -772,6 +945,105 @@ class Shard:
 
         return self._compact_offlock(pick, full=False)
 
+    # -- delete rewrite -------------------------------------------------------
+
+    def delete_data(self, measurement: str, sids: set[int] | None = None,
+                    tmin: int | None = None,
+                    tmax: int | None = None) -> None:
+        """Delete rows (a whole measurement, whole series, or a time
+        range) by rewriting the immutable files without them. Flushes
+        first, so the memtable takes part; every measurement is read
+        through the bulk read (a packed chunk decodes once, not once per
+        series) and its surviving rows are written into one file, which
+        replaces the whole file set."""
+        # _flush_lock first (the lock order): the inline flush re-enters
+        # it, and holding it for the whole rewrite keeps a concurrent
+        # flush from publishing a pre-rewrite snapshot after the swap
+        with self._flush_lock, self._lock:
+            self.flush()
+            if measurement not in self.measurements():
+                return
+            if sids is not None:
+                sids = set(sids) & self.index.series_ids(measurement)
+                if not sids:
+                    return
+            doomed = (sids if sids is not None
+                      else self.index.series_ids(measurement))
+            lo = tmin if tmin is not None else -(2**62)
+            hi = tmax if tmax is not None else 2**62
+            full_series_delete = tmin is None and tmax is None
+            path = os.path.join(self.path, f"{self._next_file_seq:08d}.tsf")
+            w = TSFWriter(path)
+            tidx = _TextSidecar()
+            wrote = False
+            try:
+                for mst in self.measurements():
+                    rows = self._delete_rewrite_measurement(
+                        w, tidx, mst, doomed if mst == measurement else None,
+                        full_series_delete, lo, hi)
+                    wrote = wrote or rows > 0
+                w.finish()
+            except BaseException:
+                w.abort()
+                raise
+            self._next_file_seq += 1
+            old = self._files
+            if wrote:
+                tidx.write(path)
+                self._files = [self._adopt(TSFReader(path))]
+            else:
+                os.remove(path)
+                self._files = []
+            self._tidx_cache = {}
+            _retire_files(old)
+            # the version bump after the swap: a concurrent query that
+            # scanned the old files must cache under the old version, so
+            # the next execution invalidates it (a bump before the swap
+            # would let pre-delete rows be cached under the new version)
+            self._note_mutation(
+                tmin if tmin is not None else self.tmin,
+                tmax if tmax is not None else self.tmax)
+            if full_series_delete:
+                self.index.remove_sids(set(doomed))
+                if not self.index.series_ids(measurement):
+                    self.schemas.pop(measurement, None)
+
+    def _delete_rewrite_measurement(self, w: TSFWriter, tidx, mst: str,
+                                    doomed, full_series_delete: bool,
+                                    lo: int, hi: int) -> int:
+        """Write one measurement's surviving rows into `w`: the rows in
+        [lo, hi) (all of them for a full-series delete) of the series in
+        `doomed` go; None deletes nothing of `mst`. Returns the rows
+        written."""
+        all_sids = np.asarray(sorted(self.index.series_ids(mst)), np.int64)
+        if not len(all_sids):
+            return 0
+        sid_arr, rec = self.read_series_bulk(mst, all_sids)
+        if not len(rec):
+            return 0
+        if doomed is not None:
+            hit = np.isin(sid_arr, np.fromiter(doomed, np.int64))
+            if not full_series_delete:
+                hit &= (rec.times >= lo) & (rec.times < hi)
+            if hit.any():
+                keep = np.flatnonzero(~hit)
+                sid_arr = sid_arr[keep]
+                rec = Record(rec.times[keep], {
+                    name: Column(col.ftype, col.values[keep],
+                                 col.valid[keep])
+                    for name, col in rec.columns.items()})
+        if not len(rec):
+            return 0
+        # host arrays: the bulk read may hand back still-encoded blocks
+        rec = Record(rec.times, {
+            name: Column(col.ftype, col.values, col.valid)
+            for name, col in rec.columns.items()})
+        uniq, starts = np.unique(sid_arr, return_index=True)
+        ends = np.append(starts[1:], len(sid_arr))
+        return _write_measurement_chunks(
+            w, tidx, mst, _sid_entries(rec, uniq, starts, ends),
+            n_series=len(uniq))
+
     # -- read side ----------------------------------------------------------
 
     def _scan_state(self) -> tuple[list, list]:
@@ -795,6 +1067,14 @@ class Shard:
             if rec is not None and len(rec.slice_time(tmin, tmax)):
                 return True
         return False
+
+    def mem_sids_for(self, measurement: str) -> set[int]:
+        """Series of `measurement` with rows in a memtable (frozen
+        snapshots or the live one): unindexed by the text sidecars."""
+        out: set[int] = set()
+        for m in self._mem_parts():
+            out |= m.sids_for(measurement)
+        return out
 
     def mem_time_range(self) -> tuple[int | None, int | None]:
         """(min, max) ns across frozen + live memtables (None = no rows)."""
@@ -836,6 +1116,45 @@ class Shard:
                 chunks += 1
         return rows + sum(len(m) for m in mems), chunks
 
+    def text_match_sids(self, mst: str, field: str, token: str):
+        """Series whose persisted rows may hold `token` in `field` (a
+        pruning set: rows are still filtered exactly), or None when a
+        file has no sidecar (no pruning possible). Memtable rows are
+        unindexed: callers union the memtable's series."""
+        from opengemini_tpu_torch.native.textindex import query_grams
+
+        if token.isascii():
+            # pure-ASCII terms are whole lowercased tokens in the index
+            grams = [token.lower()]
+        else:
+            # mixed/CJK terms prune on their non-ASCII grams only: an
+            # ASCII fragment may sit inside a longer indexed token
+            grams = [g for g in query_grams(token) if not g.isascii()]
+        out: set[int] = set()
+        # under the shard lock: a compaction swaps the file set and
+        # resets the cache, and a fill outside the lock could re-insert
+        # a retired file's entry
+        with self._lock:
+            for r in self._files:
+                cached = self._tidx_cache.get(r.path, False)
+                if cached is False:
+                    try:
+                        with open(_tidx_path(r.path), encoding="utf-8") as f:
+                            cached = json.load(f)
+                    except (OSError, ValueError):
+                        cached = None
+                    self._tidx_cache[r.path] = cached
+                if cached is None:
+                    return None
+                toks = cached.get(mst, {}).get(field, {})
+                # multi-gram terms (CJK) intersect their grams' postings
+                per_file: set[int] | None = None
+                for g in grams:
+                    got = set(toks.get(g, []))
+                    per_file = got if per_file is None else per_file & got
+                out.update(per_file or ())
+        return out
+
     def read_series(self, measurement: str, sid: int,
                     tmin: int | None = None, tmax: int | None = None,
                     fields: list[str] | None = None) -> Record:
@@ -869,8 +1188,13 @@ class Shard:
                 jobs.append(lambda r=r, c=c: decode(r, c))
                 ests.append(scanpool.est_chunk_bytes(c, n_fields))
                 miss_at.append(i)
-        for i, out in zip(miss_at, scanpool.map_ordered(jobs, ests)):
-            recs[i] = out
+        try:
+            for i, out in zip(miss_at, scanpool.map_ordered(jobs, ests)):
+                recs[i] = out
+        except CorruptFile as e:
+            # media damage mid-scan: quarantine the file and fail this
+            # query cleanly, never return a partial record
+            self.note_corrupt(e)
         # frozen flush snapshots (oldest first) then the live memtable
         for m in mems:
             mem_rec = m.record_for(sid)
@@ -939,8 +1263,11 @@ class Shard:
                 miss_at.append(len(slots))
                 slots.append(None)
                 ests.append(scanpool.est_chunk_bytes(c, n_fields))
-        for i, part in zip(miss_at, scanpool.map_ordered(jobs, ests)):
-            slots[i] = part
+        try:
+            for i, part in zip(miss_at, scanpool.map_ordered(jobs, ests)):
+                slots[i] = part
+        except CorruptFile as e:
+            self.note_corrupt(e)  # see read_series
         parts = [p for p in slots if p is not None]
         for m in mems:  # frozen snapshots oldest first, live memtable last
             for sid_arr, mem_rec in m.bulk_parts(measurement, sids):
@@ -970,9 +1297,52 @@ def _remove_quiet(path: str) -> None:
 
 
 def _tidx_path(tsf_path: str) -> str:
-    """The JAX package's text-index sidecar of a TSF file."""
+    """The text-index sidecar of a TSF file."""
     return (tsf_path[:-4] + ".tidx" if tsf_path.endswith(".tsf")
             else tsf_path + ".tidx")
+
+
+def _quar_marker(tsf_path: str) -> str:
+    """The durable quarantine marker of a damaged TSF file."""
+    return tsf_path + ".quar"
+
+
+class _TextSidecar:
+    """A file's inverted text index over its string fields, built as its
+    chunks are written: measurement -> field -> token -> sids, used to
+    prune series before decode (rows are still filtered exactly)."""
+
+    def __init__(self):
+        self.idx: dict[str, dict[str, dict[str, set]]] = {}
+
+    def add(self, mst: str, sid: int, rec) -> None:
+        from opengemini_tpu_torch.native.textindex import tokenize
+        from opengemini_tpu_torch.record import FieldType
+
+        for name, col in rec.columns.items():
+            if col.ftype != FieldType.STRING:
+                continue
+            toks = self.idx.setdefault(mst, {}).setdefault(name, {})
+            # a series repeats its messages: tokenize each distinct one
+            # once
+            seen: set = set()
+            for v, ok in zip(col.values, col.valid):
+                if ok and isinstance(v, str) and v not in seen:
+                    seen.add(v)
+                    for t in set(tokenize(v)):
+                        toks.setdefault(t, set()).add(sid)
+
+    def write(self, tsf_path: str) -> None:
+        p = _tidx_path(tsf_path)
+        data = {
+            m: {f: {t: sorted(s) for t, s in toks.items()}
+                for f, toks in flds.items()}
+            for m, flds in self.idx.items()
+        }
+        tmp = p + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(data, f)
+        os.replace(tmp, p)  # a crash before this: no sidecar, no pruning
 
 
 def _retire_files(readers: list) -> None:

@@ -24,7 +24,11 @@ Decoded columns are cached: in the process-wide decoded-column cache
 generation, chunk, series, field), else in a per-file LRU of 16 MiB.
 Bulk one-pass scans (compaction) read with ``cache=False``.
 
-Not in this port yet: the disk-fault injection hooks.
+The disk-fault hooks (storage/diskfault.py) sit on the block write, the
+meta write and fsync, and the open's and the blocks' reads. A
+per-measurement sid bloom filter (utils/bloom.py), built from the
+in-memory metadata, rejects a single-series lookup of a series the file
+cannot hold before the chunk lists are touched.
 """
 
 from __future__ import annotations
@@ -43,8 +47,9 @@ import numpy as np
 
 from opengemini_tpu_torch.record import Column, EncodedColumn, FieldType, Record
 from opengemini_tpu_torch.storage import (
-    chunkmeta, colcache, encodepool, encoding,
+    chunkmeta, colcache, diskfault, encodepool, encoding,
 )
+from opengemini_tpu_torch.utils.bloom import BloomFilter
 
 MAGIC = b"OGTSF01\n"   # revision 1: CRC-less blocks (read-only legacy)
 MAGIC2 = b"OGTSF02\n"  # revision 2: per-block crc32 seals (written)
@@ -160,10 +165,19 @@ class TSFWriter:
     def _write_block(self, buf: bytes) -> tuple[int, int]:
         """Seal + write one block: [payload][u32 crc32(payload)], the one
         place every data block passes through. Offsets and lengths cover
-        the sealed bytes; `TSFReader._read` verifies and strips."""
+        the sealed bytes; `TSFReader._read` verifies and strips. The
+        disk-fault hook may tear or corrupt what the media holds; the
+        writer still accounts the full sealed length, as a real torn
+        sector lies to the writer."""
         sealed = buf + _BLOCK_CRC.pack(zlib.crc32(buf))
         off = self._off
-        self._f.write(sealed)
+        out = sealed
+        if diskfault.armed():
+            out = diskfault.on_write(self.path, sealed,
+                                     site="tsf-block-write")
+        self._f.write(out)
+        if len(out) != len(sealed):  # torn write: keep file offsets true
+            self._f.seek(off + len(sealed))
         self._off += len(sealed)
         return (off, len(sealed))
 
@@ -254,11 +268,15 @@ class TSFWriter:
         self._pipe.drain()  # every chunk lands before the meta freezes
         meta_buf = b"BM02" + zlib.compress(chunkmeta.encode_meta(self._meta), 1)
         meta_off = self._off
-        self._f.write(meta_buf
-                      + _TRAILER.pack(meta_off, len(meta_buf),
-                                      zlib.crc32(meta_buf))
-                      + END_MAGIC)
+        tail = (meta_buf
+                + _TRAILER.pack(meta_off, len(meta_buf), zlib.crc32(meta_buf))
+                + END_MAGIC)
+        if diskfault.armed():
+            tail = diskfault.on_write(self.path, tail, site="tsf-meta-write")
+        self._f.write(tail)
         self._f.flush()
+        if diskfault.armed():
+            diskfault.on_fsync(self.path, site="tsf-fsync")
         os.fsync(self._f.fileno())
         self._f.close()
         os.replace(self._tmp, self.path)  # atomic visibility
@@ -288,12 +306,21 @@ class TSFReader:
         self._cache_bytes = 0
         self._cache_lock = threading.Lock()
         self._f = open(path, "rb")
+        try:
+            self._open(path)
+        except BaseException:
+            self._f.close()
+            raise
+
+    def _open(self, path: str) -> None:
         self._f.seek(0, os.SEEK_END)
         size = self._f.tell()
         tail = _TRAILER.size + len(END_MAGIC)
         if size < len(MAGIC) + tail:
             raise CorruptFile(path, "too small")
         head = os.pread(self._f.fileno(), len(MAGIC), 0)
+        if diskfault.armed():
+            head = diskfault.on_read(path, head, site="tsf-open-read")
         if head == MAGIC2:
             self.block_crc = True  # every block carries a crc32 seal
         elif head == MAGIC:
@@ -302,11 +329,15 @@ class TSFReader:
             raise CorruptFile(path, "bad magic")
         self._f.seek(size - tail)
         trailer = self._f.read(tail)
+        if diskfault.armed():
+            trailer = diskfault.on_read(path, trailer, site="tsf-open-read")
         if trailer[-len(END_MAGIC):] != END_MAGIC:
             raise CorruptFile(path, "bad end magic")
         meta_off, meta_len, meta_crc = _TRAILER.unpack(trailer[:_TRAILER.size])
         self._f.seek(meta_off)
         meta_buf = self._f.read(meta_len)
+        if diskfault.armed():
+            meta_buf = diskfault.on_read(path, meta_buf, site="tsf-open-read")
         if zlib.crc32(meta_buf) != meta_crc:
             raise CorruptFile(path, "meta crc mismatch")
         if meta_buf[:4] == b"BM02":
@@ -348,18 +379,23 @@ class TSFReader:
             self.meta[mst] = (schema, chunks)
         # per-(mst, sid) chunk lists: single-series lookups cost O(own
         # chunks); packed chunks are listed apart and filtered by their
-        # [smin, smax] span
+        # [smin, smax] span. The per-measurement sid bloom rejects a
+        # series the per-sid chunks cannot hold in O(k)
         self._sid_chunks: dict[str, dict[int, list[ChunkMeta]]] = {}
         self._packed_chunks: dict[str, list[ChunkMeta]] = {}
+        self._sid_bloom: dict[str, BloomFilter] = {}
         for mst, (_s, chunks) in self.meta.items():
             by_sid: dict[int, list[ChunkMeta]] = {}
             packed: list[ChunkMeta] = []
+            bf = BloomFilter(len(chunks))
             for c in chunks:
                 if c.packed:
                     packed.append(c)
                 else:
+                    bf.add(c.sid)
                     by_sid.setdefault(c.sid, []).append(c)
             self._sid_chunks[mst] = by_sid
+            self._sid_bloom[mst] = bf
             self._packed_chunks[mst] = packed
 
     def close(self) -> None:
@@ -386,8 +422,12 @@ class TSFReader:
             return []
         packed = self._packed_chunks.get(measurement, ())
         if sids is not None and len(sids) == 1:
-            cand = self._sid_chunks.get(measurement, {}).get(
-                next(iter(sids)), ())
+            sid = next(iter(sids))
+            bf = self._sid_bloom.get(measurement)
+            if bf is not None and sid not in bf:
+                cand = ()
+            else:
+                cand = self._sid_chunks.get(measurement, {}).get(sid, ())
         else:
             cand = entry[1]
         out = []
@@ -415,6 +455,8 @@ class TSFReader:
     def _read(self, loc: tuple[int, int]) -> bytes:
         # positioned read: concurrent query threads share this fd
         buf = os.pread(self._f.fileno(), loc[1], loc[0])
+        if diskfault.armed():
+            buf = diskfault.on_read(self.path, buf, site="tsf-block-read")
         if len(buf) != loc[1]:
             raise CorruptFile(
                 self.path,

@@ -29,8 +29,11 @@ Group commit (sync=True): appends return a commit ticket; `commit(t)` —
 called OUTSIDE the shard lock — coalesces concurrent callers into one
 fsync. The first waiter becomes the leader, sleeps a 200 us gather
 window when others are pending (the reference's default; its
-`OGT_WAL_GROUP_COMMIT_US` knob is not ported), flushes, fsyncs and
-wakes everyone it covered.
+`OGT_WAL_GROUP_COMMIT_US` knob is not ported), flushes, fires the
+`wal-before-sync` failpoint once per fsync, fsyncs and wakes everyone it
+covered. The disk-fault hooks (storage/diskfault.py) sit on the appends,
+the fsyncs and the replay read; the failpoints (utils/failpoint.py) after
+an append, before a sync and around the rotation's rename.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ import time
 import zlib
 
 from opengemini_tpu_torch.record import FieldType
+from opengemini_tpu_torch.storage import diskfault
+from opengemini_tpu_torch.utils.failpoint import inject as _fp
 
 _KIND_RAW_LINES = 1
 _KIND_POINTS = 2
@@ -103,7 +108,12 @@ class WAL:
     def _frame(self, kind: int, payload: bytes) -> int:
         """Write one entry; return its commit ticket (0 when sync is off).
         Appends are serialized by the owning shard's lock."""
-        self._f.write(frame(kind, payload))
+        data = frame(kind, payload)
+        if diskfault.armed():  # torn/flipped appends surface at replay
+            data = diskfault.on_write(self.path, data,
+                                      site="wal-append-write")
+        self._f.write(data)
+        _fp("wal-after-append")  # entry framed, not yet fsynced/acked
         if not self.sync:
             return 0
         with self._cond:
@@ -156,6 +166,9 @@ class WAL:
                 with self._cond:
                     target = self._seq  # everything appended so far
                 self._f.flush()
+                _fp("wal-before-sync")  # once per fsync, not per append
+                if diskfault.armed():
+                    diskfault.on_fsync(self.path, site="wal-fsync")
                 os.fsync(self._f.fileno())
                 with self._cond:
                     self._synced = max(self._synced, target)
@@ -178,9 +191,13 @@ class WAL:
                     return None
             except OSError:
                 pass
+            if diskfault.armed():
+                diskfault.on_fsync(self.path, site="wal-fsync")
             os.fsync(self._f.fileno())
             self._f.close()
+            _fp("wal-rotate-before-rename")  # fsynced, still the live log
             os.replace(self.path, seg_path)
+            _fp("wal-rotate-after-rename")  # segment named, no live log yet
             self._f = open(self.path, "wb")
             self._synced = self._seq  # the segment fsync covered them all
             return seg_path
@@ -205,6 +222,8 @@ class WAL:
             while self._syncing:
                 self._cond.wait()
             self._f.flush()
+            if diskfault.armed():
+                diskfault.on_fsync(self.path, site="wal-fsync")
             os.fsync(self._f.fileno())
             self._synced = self._seq
 
@@ -301,6 +320,8 @@ class WAL:
             return
         with open(path, "rb") as f:
             data = f.read()
+        if diskfault.armed():
+            data = diskfault.on_read(path, data, site="wal-replay-read")
         clean, salvaged, corrupt_off = WAL._scan(data)
         for kind, payload in clean:
             if kind in _KINDS:  # forward compat: skip newer-version kinds

@@ -12,13 +12,17 @@ grid_decode_fallbacks), ``write`` (points), ``device`` (the device
 decode's block and byte counts), ``devobs`` (transfer bytes and copies
 per site), ``offload`` (gate vetoes), ``colcache`` (storage/colcache.py),
 ``compact`` and ``compaction`` (storage/shard.py,
-services/compaction.py) and ``query_stages`` (``<stage>_ns`` and
-``<stage>_count`` per query stage). HTTP handler threads share the
+services/compaction.py), ``quarantine`` (the files quarantined, and the
+engines' ``files_current`` gauge) and ``query_stages`` (``<stage>_ns``
+and ``<stage>_count`` per query stage). HTTP handler threads share the
 registry, so every update takes its lock.
 
-Not in this port yet: the gauge providers of the governor and the
-failpoints (their modules are not ported) and the Prometheus text
-export (``/metrics``).
+Gauge providers (``register_provider``) add live sections to every
+snapshot: the failpoints' hit counts (``failpoints``) and each engine's
+quarantine gauge; the providers of one module sum their shared keys.
+
+Not in this port yet: the governor's gauges (utils/governor.py is not
+ported) and the Prometheus text export (``/metrics``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ class Statistics:
         self._lock = threading.Lock()
         self._counters: dict[str, dict[str, int]] = defaultdict(
             lambda: defaultdict(int))
+        self._providers: dict[str, list] = defaultdict(list)
         # uptime is a duration: perf_counter, not the wall clock
         self.started_pc = time.perf_counter()
 
@@ -45,19 +50,59 @@ class Statistics:
         with self._lock:
             self._counters[module][name] = value
 
+    def register_provider(self, module: str, fn) -> None:
+        """Attach a live gauge section to every snapshot(). Providers of
+        one module merge by summing shared keys (several engines in one
+        process report process-wide totals)."""
+        with self._lock:
+            self._providers[module].append(fn)
+
+    def unregister_provider(self, module: str, fn) -> None:
+        with self._lock:
+            fns = self._providers.get(module)
+            if fns and fn in fns:
+                fns.remove(fn)
+            if fns is not None and not fns:
+                del self._providers[module]
+
     def counters(self, module: str) -> dict:
-        """One module's counter section (a copy)."""
+        """One module's raw counter section (a copy): no provider runs."""
         with self._lock:
             return dict(self._counters.get(module, ()))
 
     def snapshot(self) -> dict:
-        """Every section (copies): what /debug/vars serves."""
+        """Every section (copies) with the providers' gauges: what
+        /debug/vars serves."""
         with self._lock:
-            return {m: dict(vals) for m, vals in self._counters.items()}
+            out = {m: dict(vals) for m, vals in self._counters.items()}
+            providers = [(m, fn) for m, fns in self._providers.items()
+                         for fn in fns]
+        for module, fn in providers:  # outside the lock: providers take
+            try:                      # their own locks (shard locks)
+                vals = fn()
+            except Exception:  # noqa: BLE001 — a closed engine's provider
+                continue       # must not break /debug/vars
+            if not vals:
+                continue
+            sect = out.setdefault(module, {})
+            for k, v in vals.items():
+                sect[k] = sect.get(k, 0) + int(v)
+        return out
 
 
 # process-wide registry (the reference's statistics singletons)
 GLOBAL = Statistics()
+
+
+def _failpoint_hits() -> dict:
+    from opengemini_tpu_torch.utils import failpoint
+
+    return failpoint.all_hits()
+
+
+# failpoint hit counts ride every snapshot (/debug/vars): which armed
+# sites actually fired
+GLOBAL.register_provider("failpoints", _failpoint_hits)
 
 
 # -- latency histograms ------------------------------------------------------

@@ -12,6 +12,7 @@ rows, writes and reads never wait for a merge, and writers racing a
 compaction loop lose no row — each held to the JAX package's result.
 """
 
+import json
 import math
 import os
 import threading
@@ -179,9 +180,14 @@ def test_compaction_matches_jax(tmp_path, monkeypatch, op, profile):
 def test_compaction_of_a_jax_root_removes_stale_sidecars(tmp_path):
     """The JAX package writes a text-index sidecar per file; the port's
     in-place merge must not leave the replaced path's old sidecar (it
-    would describe the old file to the JAX package)."""
+    would describe the old file to the JAX package): the merged output's
+    sidecar replaces it, equal to the one the JAX package's own merge of
+    the same files writes, and a retired file's sidecar goes with it."""
     je = _build(tmp_path / "root", JEngine)
     je.close()
+    import shutil
+
+    shutil.copytree(tmp_path / "root", tmp_path / "jax")
     te = TEngine(str(tmp_path / "root"), device="cpu")
     [sh] = te.all_shards()
     assert [n for n in os.listdir(sh.path) if n.endswith(".tidx")], \
@@ -189,12 +195,21 @@ def test_compaction_of_a_jax_root_removes_stale_sidecars(tmp_path):
     inode = {n: os.stat(os.path.join(sh.path, n)).st_ino
              for n in os.listdir(sh.path) if n.endswith(".tsf")}
     assert sh.compact_level(fanout=2)
+    je2 = JEngine(str(tmp_path / "jax"))
+    [jsh] = je2.all_shards()
+    assert jsh.compact_level(fanout=2)
     names = set(os.listdir(sh.path))
     rewritten = [n for n in names if n.endswith(".tsf") and os.stat(
         os.path.join(sh.path, n)).st_ino != inode[n]]
     assert rewritten  # the in-place merge output
-    for n in rewritten + [n for n in inode if n not in names]:
+    for n in rewritten:
+        with open(os.path.join(sh.path, n[:-4] + ".tidx")) as f:
+            got = json.load(f)
+        with open(os.path.join(jsh.path, n[:-4] + ".tidx")) as f:
+            assert got == json.load(f)
+    for n in [n for n in inode if n not in names]:
         assert n[:-4] + ".tidx" not in names
+    je2.close()
     before = _answers(TExecutor(te))
     te.close()
     je2 = JEngine(str(tmp_path / "root"))
@@ -246,8 +261,8 @@ class _Parked:
         else:
             merge = TShard._merge_readers
 
-            def parked(readers, w):
-                merge(readers, w)
+            def parked(readers, w, tidx):
+                merge(readers, w, tidx)
                 reached.set()
                 assert self.go.wait(30)
 

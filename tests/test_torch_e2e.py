@@ -161,7 +161,7 @@ def test_unsupported_statements_answer_an_error(engines):
     je, te = engines
     for q in ("SHOW STATS", "CREATE CONTINUOUS QUERY cq ON db BEGIN SELECT "
               "mean(usage_user) INTO cpu_1h FROM cpu GROUP BY time(1h) END",
-              "DELETE FROM cpu WHERE hostname = 'host_0'"):
+              "SHOW USERS"):
         res = TExecutor(te).execute(q, db="db")
         assert "not supported by this port yet" in res["results"][0]["error"]
     for q in ("SELECT usage_user FROM cpu LIMIT 1", "SHOW MEASUREMENTS",

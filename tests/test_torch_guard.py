@@ -34,7 +34,8 @@ def test_every_module_is_found():
                  "opengemini_tpu_torch.server.http",
                  "opengemini_tpu_torch.convert",
                  *SIXTH_SLICE_MODULES, *SEVENTH_SLICE_MODULES,
-                 *EIGHTH_SLICE_MODULES, *NINTH_SLICE_MODULES):
+                 *EIGHTH_SLICE_MODULES, *NINTH_SLICE_MODULES,
+                 *TENTH_SLICE_MODULES):
         assert must in mods
 
 
@@ -140,6 +141,20 @@ NINTH_SLICE_MODULES = [
     "opengemini_tpu_torch.utils.querytracker",
 ]
 BLOCKED_IMPORT_MODULES += NINTH_SLICE_MODULES
+# the data lifecycle and media damage: failpoints, disk faults, the sid
+# bloom, the text index and the modules the delete rewrite, quarantine
+# and match() pruning changed
+TENTH_SLICE_MODULES = [
+    "opengemini_tpu_torch.utils.failpoint",
+    "opengemini_tpu_torch.storage.diskfault",
+    "opengemini_tpu_torch.utils.bloom",
+    "opengemini_tpu_torch.native.textindex",
+    "opengemini_tpu_torch.storage.shard",
+    "opengemini_tpu_torch.storage.engine",
+    "opengemini_tpu_torch.query.condition",
+    "opengemini_tpu_torch.query.qhelpers",
+]
+BLOCKED_IMPORT_MODULES += TENTH_SLICE_MODULES
 
 
 @pytest.mark.parametrize("module", BLOCKED_IMPORT_MODULES)

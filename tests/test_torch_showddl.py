@@ -174,13 +174,24 @@ def test_ddl_steps_match_jax(tmp_path):
 
 def test_a_write_after_drop_measurement_says_the_purge_is_not_ported(
         tmp_path):
-    te = TEngine(str(tmp_path), device="cpu")
-    te.create_database("db")
-    te.write_lines("db", f"gpu,host=a util=1 {T0}\n")
-    TExecutor(te).execute("DROP MEASUREMENT gpu", db="db")
-    with pytest.raises(Exception, match="ROADMAP A3.4"):
-        te.write_lines("db", f"gpu,host=a util=2 {T0 + NS}\n")
-    te.close()
+    """The purge is ported now: a write after DROP MEASUREMENT purges
+    the marked rows first and is accepted, and the measurement then
+    holds the new row alone, in both packages alike."""
+    got = []
+    for cls, ex_cls, kw in ((JEngine, JExecutor, {}),
+                            (TEngine, TExecutor, {"device": "cpu"})):
+        e = cls(str(tmp_path / cls.__module__.split(".")[0]), **kw)
+        e.create_database("db")
+        e.write_lines("db", f"gpu,host=a util=1 {T0}\n")
+        ex_cls(e).execute("DROP MEASUREMENT gpu", db="db")
+        assert e.write_lines("db", f"gpu,host=a util=2 {T0 + NS}\n") == 1
+        assert not e.databases["db"].dropped_msts
+        got.append([ex_cls(e).execute(q, db="db") for q in (
+            "SELECT * FROM gpu", "SHOW MEASUREMENTS", "SHOW SERIES")])
+        e.close()
+    assert got[1] == got[0]
+    assert got[1][0]["results"][0]["series"][0]["values"] == [
+        [T0 + NS, "a", 2.0]]
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
