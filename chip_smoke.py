@@ -9,7 +9,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    limit (nvidia-smi), builds the six CUDA kernels from csrc/ (nvcc,
    sm_90a, one process per source) and, at the same time, the repo's
    native/codecs.cpp, native/seriesindex.cpp, native/lineproto.cpp and
-   native/textindex.cpp and the port's native/lpformat.cpp (g++) into
+   native/textindex.cpp and the port's native/lpformat.cpp and
+   native/gorillascan.cpp (g++) into
    build/.
 2. Kernels against their plain PyTorch versions on the card, on seeded
    data (70% mask density, fully empty rows, value and time ties):
@@ -135,7 +136,7 @@ Phases, in order; any failure ends the run with a nonzero exit:
    every series; groupby-orderby-limit, which must launch kernel 3),
    SHOW TAG VALUES of hostname and SHOW SERIES CARDINALITY, each checked
    against the oracle, run five times (lastpoint and
-   groupby-orderby-limit three: HOST_RUNS; once, with a progress line
+   groupby-orderby-limit twice: HOST_RUNS; once, with a progress line
    saying so, when the first run shows five would not fit the budget)
    with its p50 and its stage split (raw selects: map_shards, scan and
    render; SHOW: show); then the same root reopened with device="cpu"
@@ -230,11 +231,43 @@ Phases, in order; any failure ends the run with a nonzero exit:
    step prints its wall, stage split, launches (kernels 3-5 apart) and
    device memory peak. Kernels 1-6 are checked and timed again at the
    largest new shapes phase 11 gave them.
+12. The offload planner on the card, with a budget of its own
+   (PLANNER_PHASE_S, 90 s), on phase 7's compacted root with the
+   decoded-column cache off (every run scans; the route is the
+   planner's alone): through /debug/ctrl the planner is cleared and
+   armed at the reference's default knobs (PLANNER_KNOBS) and devobs
+   armed; C3 runs PLANNER_RUNS (8) times. Each run prints the decision
+   ring's record (route, reason, est_ms, uses), the routes
+   /debug/queries showed while it ran, its wall and kernels 4 and 5's
+   launches, and is checked: the answer equals the oracle; a device run
+   launches kernel 4 once, a host run neither 4 nor 5, both kernel 3
+   once; the decision is the one the reference's rules
+   (planner_expected, the ladder of opengemini_tpu/query/offload.py
+   written out) give from the inputs it had (the static route, the
+   samples, the uses, the estimates, the family's measured first-run
+   walls, the pre-warm state), and the chosen route counts one more
+   sample. Then C3 forced to the host and to the device (one answer);
+   both routes' EWMA walls; one run with the device tier on and a 1 s
+   profiler capture from its first grid launch (a second capture
+   answers 409; the trace is read back), after which the ledger lists the tier's owner and
+   stays within torch.cuda.memory_allocated(); /debug/device's
+   inventory (grid_decode_fused at C3's grid with its uses, the six
+   build: entries) and probe; a pre-warm sweep; /api/v2/write of 100
+   lines, read back; readonly (a /write answers 403 with errno 2003, the
+   count stays), disableread (SELECT and EXPLAIN refused, SHOW
+   answered) and flush (one more file); /metrics parsed (parse_metrics),
+   its query GETs and planner counters against the phase's requests and
+   the ring. Kernels 3-5 are checked again at its new shapes.
 
-The incremental result cache (OGT_RESULT_CACHE) is off in phases 3-9,
-so their repeated runs measure every execution; phases 10 and 11 turn
-it on for their panels. Launch counters start at 0 before each main
-path (phases 3, 5, 6, 7, 8, 9, 10, 11) and are read after it; the
+The incremental result cache (OGT_RESULT_CACHE) is off in phases 3-9
+and 12, so their repeated runs measure every execution; phases 10 and
+11 turn it on for their panels. The offload planner is off in phases
+3-11 (each disarms it through /debug/ctrl?mod=offload&arm=0 at its
+start: every route is the static gate's, so their launches per run are
+exact); phase 12 arms it. Phase 5 arms devobs for its transfer
+histogram (the decode's H2D bytes), and phase 12 for the planner's
+walls. Launch counters start at 0 before each main path (phases 3, 5,
+6, 7, 8, 9, 10, 11, 12) and are read after it; the
 {"kernels": [...]} line sums them, with launches_per_phase,
 launches_per_query and launches_parity_on_card. `--phases` runs only
 the named phases after 2 (for a short call that checks one path); the
@@ -297,17 +330,16 @@ E2E_KERNELS = ("bucket_stats_basic", "bucket_stats_selectors",
                "grid_window_agg")
 COLD_KERNELS = ("grid_window_agg", "widen_packed", "unpack_bits",
                 "probe_count")
-# timed runs of a cold query where not five: C2 takes about 20 s a run
-# after an 80 s first one (NVIDIA H100 80GB HBM3 at 700 W), and three
-# keep the script inside its 1200 s; C1 and C3 run three times too, and
-# so do Q1, Q2 and Q4 (phase 3), phase 7's queries and phase 8's two
-# slowest, and phase 6 runs each query four times (CACHE_RUNS), so that
-# phases 10 and 11 fit the script's time limit
-COLD_RUNS = {"C1": 3, "C2": 3, "C3": 3}
-E2E_RUNS = {"Q1": 3, "Q2": 3, "Q4": 3}
+# timed runs of a query where not five: C2 takes about 20 s a run after
+# an 80 s first one (NVIDIA H100 80GB HBM3 at 700 W); C1-C3, Q1, Q2 and
+# Q4 (phase 3), phase 7's queries and phase 8's two slowest run twice
+# (their p50 the faster run: p50_of), and phase 6 runs each query four
+# times (CACHE_RUNS), so that phases 10-12 fit the script's time limit
+COLD_RUNS = {"C1": 2, "C2": 2, "C3": 2}
+E2E_RUNS = {"Q1": 2, "Q2": 2, "Q4": 2}
 CACHE_RUNS = 4
-COMPACT_RUNS = 3
-HOST_RUNS = {"lastpoint": 3, "groupby-orderby-limit": 3}
+COMPACT_RUNS = 2
+HOST_RUNS = {"lastpoint": 2, "groupby-orderby-limit": 2}
 # C1's gorilla chunks per run: 17.28 M values in chunks of at most 2^20
 # (ops/device_decode._CHUNK_VALUES) whole blocks of 131072
 MAX_C1_CHUNKS = 17
@@ -330,6 +362,13 @@ EXTRA_VALUE = 1000.0
 DISKIO_FIELDS = (("reads", 50), ("writes", 50), ("read_bytes", 100),
                  ("write_bytes", 100), ("read_time", 5), ("write_time", 5),
                  ("io_time", 5))
+
+
+def p50_of(walls) -> float:
+    """The median of a query's timed runs; of an even count the lower
+    middle (of two runs the faster, as a first run carries the one-off
+    structural scans)."""
+    return sorted(walls)[(len(walls) - 1) // 2]
 
 
 def log(msg: str) -> None:
@@ -1528,6 +1567,7 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
     check(engine.device.type == "cuda", f"engine on {engine.device}")
     svc = HttpService(engine, port=0)
     svc.start()
+    disarm_planner(svc.port)
     try:
         status, _ = http(svc.port, "POST", "/query",
                          {"q": "CREATE DATABASE benchmark"})
@@ -1633,8 +1673,7 @@ def phase_e2e(hours: int, seed: int, n_hosts: int = N_HOSTS) -> dict:
                 requests.append(req_ms)
                 verify(qn, res, vals, tags, n_hosts, n_t)
             stages = stage_split(svc.port, st0, requests, qn)
-            lat.sort()
-            p50[qn] = lat[len(lat) // 2]
+            p50[qn] = p50_of(lat)
             grids = STATS.counters("executor").get("grid_batches", 0) - grid0
             fbs = STATS.counters("executor").get("grid_fallbacks", 0) - fb0
             got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
@@ -1914,17 +1953,27 @@ def decode_summary(per_query: dict, traced: dict) -> None:
             f"{dev.get('other_kernel_ms', 0.0):.3f} ms)")
 
 
-def decode_counters() -> dict:
-    """The device decode's counters, by "module/name"."""
-    from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
+H2D_DECODE = 'device_h2d_bytes{site="device-decode"}'
 
-    snap = STATS.snapshot()
+
+def decode_counters() -> dict:
+    """The device decode's counters, by "module/name", and the bytes of
+    the armed per-site transfer histogram of the decode (H2D_DECODE;
+    phase 5 arms devobs for it)."""
+    from opengemini_tpu_torch.utils import stats
+
+    snap = stats.GLOBAL.snapshot()
     keys = ["executor/grid_decode_fused", "executor/grid_decode_fallbacks",
-            "device/decode_fallbacks_total", "devobs/h2d_bytes/device-decode"]
+            "device/decode_fallbacks_total"]
     keys += [f"device/{k}" for k in snap.get("device", {})
              if k.startswith("decode_blocks_")]
-    return {k: snap.get(k.split("/", 1)[0], {}).get(k.split("/", 1)[1], 0)
-            for k in keys}
+    out = {k: snap.get(k.split("/", 1)[0], {}).get(k.split("/", 1)[1], 0)
+           for k in keys}
+    out[H2D_DECODE] = sum(
+        h["sum_ns"] for name, labels, h in stats.histograms_snapshot()
+        if name == "device_h2d_bytes" and labels == (("site",
+                                                      "device-decode"),))
+    return out
 
 
 def cold_queries(n_t: int) -> dict:
@@ -1982,11 +2031,17 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
         check(engine.device.type == "cuda", f"engine on {engine.device}")
         svc = HttpService(engine, port=0)
         svc.start()
+        disarm_planner(svc.port)
+        # the decode's transfer histogram (H2D_DECODE) is devobs' armed
+        # accounting
+        status, doc = http(svc.port, "POST", "/debug/ctrl",
+                           {"mod": "devobs", "arm": "1"})
+        check(status == 200 and doc["armed"] is True, "devobs not armed")
 
     def restart():
         # a new process probes the card again; so does a restart here
         stop_server(svc, engine)
-        devobs.reset()
+        devobs.reset_probe()
         start()
 
     try:
@@ -2043,7 +2098,7 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
                 requests.append(req_ms)
                 verify_cold(qn, res, vals, counters, tags, n_hosts, n_t)
             stages = stage_split(svc.port, st0, requests, qn)
-            p50[qn] = sorted(lat)[runs // 2]
+            p50[qn] = p50_of(lat)
             c1 = decode_counters()
             d = {k: c1.get(k, 0) - c0.get(k, 0) for k in c1}
             got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
@@ -2067,7 +2122,7 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
                 f"{', '.join(f'{x:.1f}' for x in lat)}); fused "
                 f"+{d['executor/grid_decode_fused']}, blocks by codec "
                 f"{json.dumps(blocks)}, device-decode H2D "
-                f"{d['devobs/h2d_bytes/device-decode'] / runs / 1e6:.1f} MB "
+                f"{d[H2D_DECODE] / runs / 1e6:.1f} MB "
                 f"per run; launches in {runs} runs {json.dumps(got)} at "
                 f"{json.dumps(short_shapes(per_query[qn]['shapes']))}")
         rec.now = None
@@ -2139,6 +2194,7 @@ def phase_cold(hours: int, seed: int, q1_h2d_bytes: int | None,
                     "extra": extra, "n_hosts": n_hosts, "n_t": n_t}}
     finally:
         os.environ.pop("OGT_DEVICE_PROFILE", None)
+        devobs.set_enabled(False)
         if svc is not None:
             stop_server(svc, engine)
         rec.__exit__()
@@ -2154,7 +2210,7 @@ def serve(root: str):
     from opengemini_tpu_torch.storage.engine import Engine
     from opengemini_tpu_torch.utils import devobs
 
-    devobs.reset()  # a new process probes the card again
+    devobs.reset_probe()  # a new process probes the card again
     engine = Engine(root)
     check(engine.device.type == "cuda", f"engine on {engine.device}")
     svc = HttpService(engine, port=0)
@@ -2184,6 +2240,7 @@ def phase_colcache(cold: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     cs.reset_launches()
     engine, svc = serve(cold["root"])
+    disarm_planner(svc.port)
     try:
         # the WAL check's minute, replayed into the memtable, goes to a
         # file: a scan that merges memtable rows decodes on the host
@@ -2312,6 +2369,7 @@ def phase_compact(cold: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     cs.reset_launches()
     engine, svc = serve(cold["root"])
+    disarm_planner(svc.port)
     try:
         shards = engine.all_shards()
         check(len(shards) == 1, f"{len(shards)} shards")
@@ -2362,7 +2420,7 @@ def phase_compact(cold: dict) -> dict:
                   f"+{d['device/decode_fallbacks_total']}, launches {got}")
             blocks = {k.split("_")[2]: v for k, v in d.items()
                       if k.startswith("device/decode_blocks_") and v}
-            p50 = sorted(lat)[len(lat) // 2]
+            p50 = p50_of(lat)
             per_query[qn] = {"runs_ms": lat, "p50_ms": p50,
                              "launches": got, "blocks": blocks,
                              "stages_ms": stages}
@@ -2455,6 +2513,8 @@ def parity_replay(device: str | None) -> dict:
                                        kwargs={"poll_interval": 0.01},
                                        daemon=True)
         svc._thread.start()
+        if not out:
+            disarm_planner(svc.port)
         try:
             db, rp = case.get("db", "db0"), case.get("rp", "rp0")
             for w in [{}] + case.get("writes", []):
@@ -2579,6 +2639,7 @@ def phase_host(cold: dict) -> dict:
         n_t = o["n_t"]
         queries = tsbs_queries(n_t)
         engine, svc = serve(cold["root"])
+        disarm_planner(svc.port)
         per_query, answers = {}, {}
         for qn, q in queries.items():
             l0, st0 = dict(cs.LAUNCHES), stage_ns(svc.port)
@@ -2601,8 +2662,7 @@ def phase_host(cold: dict) -> dict:
                 requests.append(req)
             stages = stage_split(svc.port, st0, requests, qn)
             got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
-            lat = sorted(walls)
-            per_query[qn] = {"runs_ms": walls, "p50_ms": lat[len(lat) // 2],
+            per_query[qn] = {"runs_ms": walls, "p50_ms": p50_of(walls),
                              "launches": got, "stages_ms": stages,
                              "shapes": {k: [shape_json(k, x) for x in
                                             sorted(v)]
@@ -2657,7 +2717,8 @@ SUBQUERY_RESERVE_S = 30.0
 # the script's time limit, and what phase 9 leaves of it for the checks
 # after it: its runs stop early rather than let the script overrun
 SCRIPT_LIMIT_S = 1200.0
-AFTER_PHASE11_S = 60.0
+AFTER_PHASE12_S = 60.0
+AFTER_PHASE11_S = AFTER_PHASE12_S + 90.0  # phase 12's PLANNER_PHASE_S
 AFTER_PHASE10_S = AFTER_PHASE11_S + 120.0  # phase 11's LIFECYCLE_PHASE_S
 AFTER_PHASE9_S = AFTER_PHASE10_S + 180.0  # phase 10's DASHBOARD_PHASE_S
 # the span stages of a subquery: the inner select, and the inner chunks
@@ -2846,6 +2907,7 @@ def phase_subquery(cold: dict, deadline: float) -> dict:
         torch.cuda.synchronize()
         cs.reset_launches()
         engine, svc = serve(cold["root"])
+        disarm_planner(svc.port)
         runs = {qn: {"walls": [], "requests": [], "stages": {},
                      "launches": {k: 0 for k in cs.LAUNCHES},
                      "outer": {k: 0 for k in cs.LAUNCHES}, "shapes": {},
@@ -2897,9 +2959,9 @@ def phase_subquery(cold: dict, deadline: float) -> dict:
         per_query = {}
         for qn, r in runs.items():
             n = len(r["walls"])
-            lat = sorted(r["walls"])
+            p50 = p50_of(r["walls"])
             per_query[qn] = {
-                "runs_ms": r["walls"], "p50_ms": lat[n // 2],
+                "runs_ms": r["walls"], "p50_ms": p50,
                 "launches": r["launches"],
                 "stages_ms": stage_split(svc.port, {}, r["requests"], qn,
                                          extra=SUBQUERY_STAGES,
@@ -2911,7 +2973,7 @@ def phase_subquery(cold: dict, deadline: float) -> dict:
                 "shapes": {k: [shape_json(k, x) for x in sorted(v)]
                            for k, v in r["shapes"].items()}}
             got = {k: v for k, v in r["launches"].items() if v}
-            log(f"[subquery] {qn} ok p50={lat[n // 2]:.1f} ms (runs "
+            log(f"[subquery] {qn} ok p50={p50:.1f} ms (runs "
                 f"{', '.join(f'{x:.1f}' for x in r['walls'])}); {r['rows']} "
                 f"rows into the spill engines a run"
                 + (f", {r['chunks'][0]} inner chunks" if r["chunks"] else "")
@@ -3220,6 +3282,7 @@ def phase_dashboard(cold: dict, seed: int, deadline: float) -> dict:
         torch.cuda.synchronize()
         cs.reset_launches()
         engine, svc = serve(cold["root"])
+        disarm_planner(svc.port)
         # (a) day 2, hour by hour, then a flush, as phase 5 writes
         os.environ["OGT_DEVICE_PROFILE"] = "1"
         t_load = time.perf_counter()
@@ -3643,6 +3706,7 @@ def phase_lifecycle(seed: int, deadline: float) -> dict:
         torch.cuda.synchronize()
         cs.reset_launches()
         engine, svc = serve(root)
+        disarm_planner(svc.port)
         status, _ = http(svc.port, "POST", "/query",
                          {"q": "CREATE DATABASE benchmark"})
         check(status == 200, f"CREATE DATABASE status {status}")
@@ -3853,8 +3917,538 @@ def phase_lifecycle(seed: int, deadline: float) -> dict:
             stop_server(svc, engine)
 
 
+# -- phase 12: the offload planner on the card ---------------------------------
+
+# phase 12's budget (s): C3 eight times under the planner, forced once
+# each way, one run with the device tier on and a profiler capture
+PLANNER_PHASE_S = 90.0
+PLANNER_RUNS = 8
+# the planner's knobs at the reference's defaults (query/offload.py)
+PLANNER_KNOBS = {"min_samples": 2, "explore_after": 3, "amortize": 4.0}
+P12_LINES = 100
+
+
+def disarm_planner(port: int) -> None:
+    """Phases 3-11 count their launches exactly, so the offload planner is
+    off there (the reference's switch): every route is the static gate's,
+    as before the planner. Only phase 12 arms it."""
+    status, doc = http(port, "POST", "/debug/ctrl",
+                       {"mod": "offload", "arm": "0"})
+    check(status == 200 and doc["enabled"] is False,
+          f"the planner did not disarm: {status}")
+
+
+def planner_expected(static: str, cands, uses: int, counts: dict,
+                     est: dict, comp_s: float, warm: bool,
+                     k: dict = PLANNER_KNOBS) -> tuple[str, str]:
+    """(route, reason) that the reference's decision ladder
+    (opengemini_tpu/query/offload.py Planner.decide, unfrozen, no forced
+    route, no mesh) gives for one decision, written out from its rules:
+    amortize/prewarm for a static device route that never ran here while
+    compiles have measured walls; prior while the static route has fewer
+    than min_samples samples; one explore of an under-sampled candidate
+    once the geometry recurred past explore_after (gated by the
+    amortization of the candidate's compile); else the argmin of the
+    estimates (ties to the static route); an explore or model choice that
+    flips to a device route that never ran here is held on the host for
+    the pre-warmer ("prewarm"). `est` is in
+    seconds (None: not estimable), `comp_s` the family's mean measured
+    first-run wall."""
+    if (static != "host" and "host" in cands and counts.get(static, 0) < 1
+            and comp_s > 0.0 and not warm):
+        per_use = est.get("host")
+        per_use = 1e-3 if per_use is None else per_use
+        if comp_s > k["amortize"] * max(per_use, 1e-9) * uses:
+            return "host", "amortize"
+        return "host", "prewarm"
+    if counts.get(static, 0) < k["min_samples"]:
+        return static, "prior"
+    route = reason = None
+    if uses > k["explore_after"] and est.get(static) is not None:
+        under = sorted((c for c in cands if c != static
+                        and counts.get(c, 0) < k["min_samples"]),
+                       key=lambda c: counts.get(c, 0))
+        if under:
+            first = 0.0 if under[0] == "host" else comp_s
+            if first <= k["amortize"] * max(est[static], 1e-9) * uses:
+                route, reason = under[0], "explore"
+    if route is None:
+        route, reason = static, "model"
+        for c in cands:
+            if est.get(c) is not None and est[c] < est[route]:
+                route = c
+    if (route != "host" and route != static and counts.get(route, 0) == 0
+            and not warm and comp_s > 0.0):
+        return "host", "prewarm"
+    return route, reason
+
+
+def parse_metrics(text: str) -> dict:
+    """The Prometheus text format 0.0.4, checked: each TYPE once and
+    before its samples, samples of a family together, well-formed names,
+    labels and values, histogram buckets cumulative up to +Inf and equal
+    to _count. Returns {family: {"type", "samples": [(name, {labels},
+    value)]}}."""
+    import re
+
+    name_re = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+    sample_re = re.compile(
+        r'^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)(\{(?P<labels>.*)\})? '
+        r'(?P<value>\S+)$')
+    label_re = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    fams: dict = {}
+    cur = None
+    for ln, line in enumerate(text.splitlines(), 1):
+        if not line or line.startswith("# HELP "):
+            continue
+        if line.startswith("# TYPE "):
+            parts = line.split()
+            check(len(parts) == 4 and name_re.match(parts[2])
+                  and parts[3] in ("counter", "gauge", "histogram")
+                  and parts[2] not in fams,
+                  f"/metrics line {ln}: bad TYPE {line!r}")
+            fams[parts[2]] = {"type": parts[3], "samples": []}
+            cur = parts[2]
+            continue
+        m = sample_re.match(line)
+        check(m is not None, f"/metrics line {ln}: bad sample {line!r}")
+        name = m.group("name")
+        fam = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            base = name[:-len(suffix)] if name.endswith(suffix) else None
+            if base and fams.get(base, {}).get("type") == "histogram":
+                fam = base
+        check(fam == cur, f"/metrics line {ln}: {name} outside its family")
+        labels = dict(label_re.findall(m.group("labels") or ""))
+        fams[fam]["samples"].append(
+            (name, labels, float(m.group("value").replace("Inf", "inf"))))
+    for fam, doc in fams.items():
+        if doc["type"] != "histogram":
+            continue
+        series: dict = {}
+        for name, labels, v in doc["samples"]:
+            key = tuple(sorted((a, b) for a, b in labels.items()
+                               if a != "le"))
+            series.setdefault(key, {"b": [], "count": None})
+            if name.endswith("_bucket"):
+                series[key]["b"].append(v)
+            elif name.endswith("_count"):
+                series[key]["count"] = v
+        for key, s in series.items():
+            check(s["b"] == sorted(s["b"]) and s["b"][-1] == s["count"],
+                  f"/metrics: histogram {fam}{key} not cumulative")
+    return fams
+
+
+def phase_planner(cold: dict) -> dict:
+    """The offload planner on the card, on phase 7's compacted root with
+    the decoded-column cache off (every run scans, and the route is the
+    planner's alone): the planner cleared and armed and devobs armed
+    through /debug/ctrl; C3 PLANNER_RUNS times, each decision checked
+    against the reference's rules (planner_expected), each answer against
+    the oracle, and each run's launches against its route (a device run
+    launches kernel 4 once, a host run neither 4 nor 5); C3 forced to the
+    host and to the device; both routes' walls; /debug/device (the
+    inventory, the six kernel builds, the probe, the ledger against the
+    allocator, the device tier's owner); a pre-warm sweep; a profiler
+    capture during one run (a second answers 409); /metrics parsed, with
+    its request and planner counters; /api/v2/write; and the readonly,
+    disableread and flush switches."""
+    import torch
+
+    from opengemini_tpu_torch.models.grid import GridBatch
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.query import offload
+    from opengemini_tpu_torch.storage import colcache
+    from opengemini_tpu_torch.utils import devobs
+    from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
+
+    t_phase = time.perf_counter()
+    o = cold["oracle"]
+    q = cold["queries"]["C3"]
+    colcache.GLOBAL.configure(budget_mb=0, device=False)
+    os.environ["OGT_DEVICE_PROFILE"] = "1"
+    rec = ShapeRecorder().__enter__()
+    cs.reset_launches()
+    engine, svc = serve(cold["root"])
+    # a minute the WAL replayed (phase 5's check, phase 10's /write) goes
+    # to a file: a memtable part in C3's scan would keep it off the
+    # encoded path, and the route would not be the planner's
+    engine.flush_all()
+    port = svc.port
+    gets = {"query": 0}
+    decisions: list = []
+    profiling: dict = {}
+    prof_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "smoke_trace", "planner_profile")
+    noted: list = []
+    real_decide = offload.GLOBAL.decide
+    real_note_route = TRACKER.note_route
+
+    def note_spy(qid, stage, route):
+        """The routes the planner hands the query tracker (what
+        /debug/queries shows while the query runs)."""
+        if qid is not None:
+            noted.append((stage, route))
+        return real_note_route(qid, stage, route)
+
+    def spy(kernel, geometry, candidates, static, stage=None,
+            bytes_hint=None):
+        """The inputs of each decision as the planner holds them just
+        before it: the static route, the geometry's samples and uses,
+        the family's measured first-run walls and the pre-warm state."""
+        geo = offload.geo_key(geometry)
+        snap = next((m for m in offload.GLOBAL.model_snapshot(10**6)
+                     if m["kernel"] == kernel and m["geometry"] == geo),
+                    {"uses": 0, "routes": {}})
+        walls = [g["wall_ms"] for kname, d in devobs.inventory().items()
+                 if kname.startswith(kernel) for g in d["geometries"]
+                 if g["wall_ms"] > 0]
+        decisions.append({
+            "static": static, "cands": tuple(candidates),
+            "uses": snap["uses"],
+            "counts": {r: d["count"] for r, d in snap["routes"].items()},
+            "comp_s": (sum(walls) / len(walls) / 1e3) if walls else 0.0,
+            "warm": offload.geometry_warm(kernel, geometry)})
+        return real_decide(kernel, geometry, candidates, static,
+                           stage=stage, bytes_hint=bytes_hint)
+
+    real_launch = GridBatch._launch
+
+    def launch_spy(self, kind):
+        """Armed for one run: a 1 s profiler capture starts where the
+        routed decode's device work does (the grid's first launch; the
+        seconds before it are the scan and the plan on the host), and a
+        second capture is asked for meanwhile."""
+        if profiling.pop("at_launch", None):
+            for params in ({"seconds": "1", "dir": prof_dir},
+                           {"seconds": "1"}):
+                st, _h, b = http_raw(port, "POST", "/debug/ctrl", dict(
+                    params, mod="devobs", op="profile"))
+                profiling.setdefault("answers", []).append((st, b[:200]))
+        return real_launch(self, kind)
+
+    def ctrl(params: dict) -> dict:
+        status, doc = http(port, "POST", "/debug/ctrl", params)
+        check(status == 200, f"/debug/ctrl {params}: {status}")
+        return doc
+
+    def run_c3(label: str) -> dict:
+        """One C3 run: the answer against the oracle, its wall, launches,
+        the newest decision and the routes /debug/queries showed."""
+        seen_routes: list = []
+        stop = threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                _s, doc = http(port, "GET", "/debug/queries", {})
+                for qd in doc.get("queries", []):
+                    if qd.get("routes"):
+                        seen_routes.append(dict(qd["routes"]))
+                stop.wait(0.05)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        n_dec = len(decisions)
+        n_noted = len(noted)
+        l0 = dict(cs.LAUNCHES)
+        f0 = decode_counters()["executor/grid_decode_fused"]
+        st0 = stage_ns(port)
+        poller.start()
+        try:
+            res, _req_ms, wall = query_timed(port, q)
+        finally:
+            stop.set()
+            poller.join()
+        gets["query"] += 1
+        verify_cold("C3", res, o["vals"], o["counters"], o["tags"],
+                    o["n_hosts"], o["n_t"])
+        got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
+        st1 = stage_ns(port)
+        stages = {k: (st1.get(f"{k}_ns", 0) - st0.get(f"{k}_ns", 0)) / 1e6
+                  for k in ("scan", "device_compute")}
+        fused = decode_counters()["executor/grid_decode_fused"] - f0
+        ring = offload.GLOBAL.decisions()
+        return {"label": label, "wall_ms": wall, "launches": got,
+                "fused": fused, "stages_ms": stages,
+                "answer": res, "decided": len(decisions) - n_dec,
+                "record": ring[0] if ring else None,
+                "noted": noted[n_noted:],
+                "routes": seen_routes[-1] if seen_routes else None}
+
+    offload.GLOBAL.decide = spy
+    TRACKER.note_route = note_spy
+    try:
+        disarm_planner(port)
+        ctrl({"mod": "offload", "clear": "1", "arm": "1"})
+        ctrl({"mod": "devobs", "arm": "1"})
+        ok, why = devobs.cuda_kernels_supported()
+        check(ok, f"the kernel probe failed: {why}")
+
+        def fused_hits() -> dict:
+            return {g["geometry"]: g["hits"] for g in devobs.inventory().get(
+                "grid_decode_fused", {}).get("geometries", [])}
+
+        hits0 = fused_hits()
+        m0 = parse_metrics(http_raw(port, "GET", "/metrics", {})[2].decode())
+
+        def qcount(fams) -> float:
+            return next((v for n, lab, v in
+                         fams["ogt_http_request_seconds"]["samples"]
+                         if n.endswith("_count") and lab.get("route") ==
+                         "query" and lab.get("method") == "GET"), 0.0)
+
+        def check_decision(r: dict) -> tuple[dict, dict]:
+            """The run's one decision against the reference's rules, and
+            its samples: the route it ran before counts one more."""
+            check(r["decided"] == 1, f"C3 {r['label']}: {r['decided']} "
+                  "planner decisions, not one")
+            d, rc = decisions[-1], r["record"]
+            est = {c: (None if v is None else v / 1e3)
+                   for c, v in rc["est_ms"].items()}
+            want = planner_expected(d["static"], d["cands"], d["uses"] + 1,
+                                    d["counts"], est, d["comp_s"], d["warm"])
+            check(rc["uses"] == d["uses"] + 1,
+                  f"C3 {r['label']}: uses {rc['uses']} after {d['uses']}")
+            check((rc["route"], rc["reason"]) == want,
+                  f"C3 {r['label']}: the planner chose {rc['route']} "
+                  f"({rc['reason']}), the reference's rules {want} from "
+                  f"static {d['static']}, samples {d['counts']}, uses "
+                  f"{rc['uses']}, est {rc['est_ms']}, compile "
+                  f"{d['comp_s']:.4f} s, warm {d['warm']}")
+            for m in offload.GLOBAL.model_snapshot(10**6):
+                if m["geometry"] == rc["geometry"]:
+                    n = m["routes"].get(rc["route"], {}).get("count", 0)
+                    check(n == d["counts"].get(rc["route"], 0) + 1,
+                          f"C3 {r['label']}: {n} {rc['route']} samples "
+                          f"after {d['counts']}")
+            return d, rc
+
+        runs = []
+        for i in range(PLANNER_RUNS):
+            r = run_c3(f"run {i + 1}")
+            d, rc = check_decision(r)
+            dec_route = rc["route"]
+            k4, k5 = r["launches"]["widen_packed"], r["launches"]["unpack_bits"]
+            check(r["fused"] == (dec_route == "device"),
+                  f"C3 run {i + 1} on the {dec_route}: fused decodes "
+                  f"+{r['fused']}")
+            if dec_route == "device":
+                check(k4 == 1 and k5 == 0, f"C3 run {i + 1} on the device: "
+                      f"kernels 4 and 5 launched {k4} and {k5} times")
+            else:
+                check(k4 == 0 and k5 == 0, f"C3 run {i + 1} on the host: "
+                      f"kernels 4 and 5 launched {k4} and {k5} times")
+            check(r["launches"]["grid_window_agg"] == 1,
+                  f"C3 run {i + 1}: kernel 3 launched "
+                  f"{r['launches']['grid_window_agg']} times")
+            check(r["noted"] == [("grid_decode", dec_route)]
+                  and r["routes"] in (None, {"grid_decode": dec_route}),
+                  f"C3 run {i + 1}: the tracker noted {r['noted']}, "
+                  f"/debug/queries showed routes {r['routes']}")
+            runs.append(r)
+            log(f"[planner] C3 {r['label']}: {dec_route} ({rc['reason']}, "
+                f"static {d['static']}), uses {rc['uses']}, est_ms "
+                f"{json.dumps(rc['est_ms'])}; /debug/queries routes "
+                f"{json.dumps(r['routes'])}; wall {r['wall_ms']:.1f} ms "
+                f"(scan {r['stages_ms']['scan']:.1f}, device_compute "
+                f"{r['stages_ms']['device_compute']:.1f}); kernel 4 x{k4}, "
+                f"kernel 5 x{k5}")
+        check(any(r["routes"] for r in runs),
+              "/debug/queries never showed a C3 run's routes")
+        geo = runs[0]["record"]["geometry"]
+        forced = {}
+        for route in ("host", "device"):
+            ctrl({"mod": "offload", "force": route})
+            r = run_c3(f"forced {route}")
+            k4 = r["launches"]["widen_packed"]
+            check((k4 == 1) == (route == "device")
+                  and r["fused"] == (route == "device")
+                  and r["launches"]["unpack_bits"] == 0,
+                  f"C3 forced to the {route}: launches {r['launches']}")
+            forced[route] = r
+            log(f"[planner] C3 forced {route}: wall {r['wall_ms']:.1f} ms "
+                f"(scan {r['stages_ms']['scan']:.1f}, device_compute "
+                f"{r['stages_ms']['device_compute']:.1f}), kernel 4 x{k4}")
+        ctrl({"mod": "offload", "force": "none"})
+        check(forced["host"]["answer"] == forced["device"]["answer"],
+              "C3: the forced routes answer differently")
+        model = next(m for m in offload.GLOBAL.model_snapshot(10**6)
+                     if m["geometry"] == geo)
+        log(f"[planner] C3's grid {geo}: walls by route (ms) "
+            f"{json.dumps(model['routes'])} after {model['uses']} uses")
+        by_route = {}
+        for r in runs:
+            by_route.setdefault(r["record"]["route"], []).append(r["wall_ms"])
+
+        # the device tier on for one run, with a profiler capture in it
+        colcache.GLOBAL.configure(budget_mb=CC_HOST_MB, device=True,
+                                  device_budget_mb=CC_DEVICE_MB)
+        profiling["at_launch"] = True
+        GridBatch._launch = launch_spy
+        try:
+            tier = run_c3("device tier on")
+        finally:
+            GridBatch._launch = real_launch
+        check_decision(tier)
+        answers = profiling.get("answers", [])
+        check([a[0] for a in answers] == [200, 409],
+              f"profile answers {answers}")
+        st2 = answers[1][0]
+        _s, dev_doc = http(port, "GET", "/debug/device", {})
+        owners = dev_doc["ledger"]["by_owner"]
+        check("colcache_device" in owners,
+              f"the device tier's owner is not in the ledger: {owners}")
+        ledger_b = devobs.LEDGER.total_bytes()
+        alloc_b = torch.cuda.memory_allocated()
+        check(ledger_b <= alloc_b, f"ledger {ledger_b} B > allocated "
+              f"{alloc_b} B")
+        log(f"[planner] device tier on: C3 {tier['wall_ms']:.1f} ms on the "
+            f"{tier['record']['route']} route; ledger {json.dumps(owners)}, "
+            f"{ledger_b} B of {alloc_b} B allocated")
+        colcache.GLOBAL.configure(budget_mb=0, device=False)
+        colcache.GLOBAL.clear()
+        deadline = time.perf_counter() + 30
+        while True:
+            prof = ctrl({"mod": "devobs"})["profile"]
+            if not prof["active"] or time.perf_counter() > deadline:
+                break
+            time.sleep(0.1)
+        trace = os.path.join(prof_dir, "trace.json")
+        check(not prof["active"] and prof["last"]["ok"]
+              and os.path.getsize(trace) > 0,
+              f"the profiler capture did not finish: {prof}")
+        with open(trace, encoding="utf-8") as f:
+            events = json.load(f).get("traceEvents", [])
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        log(f"[planner] profile: 1 s capture from that run's first grid "
+            f"launch, "
+            f"{os.path.getsize(trace)} B of trace, {len(events)} events, "
+            f"{kernels} device kernels; a second capture meanwhile "
+            f"answered {st2}")
+
+        # /debug/device: the fused site's uses at C3's plan, the builds,
+        # the probe
+        _s, dev_doc = http(port, "GET", "/debug/device", {})
+        inv = devobs.inventory()
+        n_dev = sum(r["fused"] for r in runs + [forced["device"], tier])
+        grew = {g: n - hits0.get(g, 0) for g, n in fused_hits().items()
+                if n != hits0.get(g, 0)}
+        check(len(grew) == 1 and sum(grew.values()) == n_dev,
+              f"grid_decode_fused's uses at C3's plan: {grew}, not the "
+              f"phase's {n_dev} fused decodes at one geometry")
+        fused = [g for g in inv["grid_decode_fused"]["geometries"]
+                 if g["geometry"] in grew]
+        builds = sorted(k for k in dev_doc["jit_cache"]
+                        if k.startswith("build:"))
+        check(len(builds) == 6, f"kernel builds in the inventory: {builds}")
+        check(dev_doc["capabilities"]["cuda_kernels"]["supported"] is True,
+              f"capabilities: {dev_doc['capabilities']}")
+        log(f"[planner] /debug/device: grid_decode_fused at C3's grid "
+            f"{json.dumps(fused)}; builds {builds} (walls ms "
+            f"{[inv[b]['geometries'][0]['wall_ms'] for b in builds]}); "
+            f"probe {json.dumps(dev_doc['capabilities']['cuda_kernels'])}; "
+            f"compiles since start {dev_doc['counters'].get('compiles_total')}")
+        pw = ctrl({"mod": "offload", "op": "prewarm"})["prewarmed"]
+        check(all(r["ok"] for r in pw), f"prewarm: {pw}")
+        log(f"[planner] prewarm: {json.dumps(pw)}")
+
+        # /api/v2/write and the switches
+        body = "\n".join(
+            f"p12,host=host_{k % 10} v={k}i {T0_NS + k * STEP_NS}"
+            for k in range(P12_LINES)).encode()
+        st, _h, b = http_raw(port, "POST", "/api/v2/write",
+                             {"bucket": "benchmark/autogen",
+                              "precision": "ns"}, body)
+        check(st == 204, f"/api/v2/write: {st} {b[:200]!r}")
+
+        def p12_count() -> int:
+            gets["query"] += 1
+            res, _r, _w = query_timed(port, "SELECT count(v) FROM p12")
+            return res["series"][0]["values"][0][1]
+
+        check(p12_count() == P12_LINES, "/api/v2/write: rows not read back")
+        ctrl({"mod": "readonly", "switchon": "true"})
+        st, hdr, b = http_raw(port, "POST", "/write", {"db": "benchmark"},
+                              f"p12,host=x v=1i {T0_NS}".encode())
+        check(st == 403 and hdr.get("X-Ogt-Errno") == "2003",
+              f"readonly /write: {st} {hdr.get('X-Ogt-Errno')} {b!r}")
+        check(p12_count() == P12_LINES, "readonly: the count changed")
+        ctrl({"mod": "readonly", "switchon": "false"})
+        ctrl({"mod": "disableread", "switchon": "true"})
+        for stmt in ("SELECT count(v) FROM p12",
+                     "EXPLAIN SELECT count(v) FROM p12"):
+            gets["query"] += 1
+            st, _h, b = http_raw(port, "GET", "/query",
+                                 {"db": "benchmark", "q": stmt})
+            err = json.loads(b)["results"][0].get("error")
+            check(st == 200 and err == "reads are disabled (syscontrol)",
+                  f"disableread {stmt!r}: {st} {err}")
+        gets["query"] += 1
+        st, _h, b = http_raw(port, "GET", "/query",
+                             {"db": "benchmark", "q": "SHOW MEASUREMENTS"})
+        check(st == 200 and "error" not in json.loads(b)["results"][0],
+              f"disableread SHOW: {st} {b[:200]!r}")
+        ctrl({"mod": "disableread", "switchon": "false"})
+        (sh,) = engine.shards_for_range("benchmark", None, T0_NS, T0_NS + 1)
+        files0 = sh.file_count()
+        ctrl({"mod": "flush"})
+        files1 = sh.file_count()
+        check(files1 == files0 + 1, f"flush: files {files0} -> {files1}")
+        log(f"[planner] /api/v2/write of {P12_LINES} lines read back; "
+            f"readonly: 403 errno 2003, count unchanged; disableread: SELECT "
+            f"and EXPLAIN refused, SHOW answered; flush: files {files0} -> "
+            f"{files1}")
+
+        # /metrics: parsed, the query requests and the planner counters
+        m1 = parse_metrics(http_raw(port, "GET", "/metrics", {})[2].decode())
+        rose = qcount(m1) - qcount(m0)
+        check(rose == gets["query"], f"ogt_http_request_seconds_count "
+              f"(query, GET) rose {rose}, the phase sent {gets['query']}")
+        ring = offload.GLOBAL.decisions()
+        ctr = {n[len("ogt_offload_"):]: s[0][2]
+               for n, s in ((n, d["samples"]) for n, d in m1.items()
+                            if n.startswith("ogt_offload_"))}
+        reasons = {}
+        for rc in ring:
+            reasons[rc["reason"]] = reasons.get(rc["reason"], 0) + 1
+        check(ctr.get("decisions_total") == len(ring)
+              and all(ctr.get(r + "_total") == n for r, n in reasons.items())
+              and ctr.get("route_host_total", 0)
+              + ctr.get("route_device_total", 0) == len(ring),
+              f"planner counters {ctr} against the ring's {len(ring)} "
+              f"decisions {reasons}")
+        log(f"[planner] /metrics: {len(m1)} families parsed; query GETs "
+            f"+{rose:.0f}; planner counters {json.dumps(ctr)}")
+        launches = dict(cs.LAUNCHES)
+        wall_s = time.perf_counter() - t_phase
+        log(f"[planner] phase 12 took {wall_s:.1f} s (budget "
+            f"{PLANNER_PHASE_S:.0f} s); walls by route (ms) "
+            f"{json.dumps(by_route)}; launches {json.dumps(launches)}; card "
+            f"{smi_line()}")
+        per_query = {"C3": {"launches": launches}}
+        return {"launches": launches, "per_query": per_query,
+                "shapes": rec.seen, "runs": [
+                    {k: r[k] for k in ("label", "wall_ms", "launches",
+                                       "record", "routes", "stages_ms")}
+                    for r in runs + list(forced.values()) + [tier]],
+                "model": model, "wall_s": wall_s}
+    finally:
+        if "decide" in vars(offload.GLOBAL):
+            del offload.GLOBAL.decide
+        if "note_route" in vars(TRACKER):
+            del TRACKER.note_route
+        offload.set_force(None)
+        offload.set_enabled(False)
+        devobs.set_enabled(False)
+        colcache.GLOBAL.configure(budget_mb=0, device=False)
+        engine.read_disabled = engine.write_disabled = False
+        os.environ.pop("OGT_DEVICE_PROFILE", None)
+        rec.__exit__()
+        stop_server(svc, engine)
+
+
 def build_all(verbose: bool = True) -> float:
-    """nvcc for the six kernels and g++ for the five host libraries, all
+    """nvcc for the six kernels and g++ for the six host libraries, all
     at once; returns the seconds it took."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3862,13 +4456,14 @@ def build_all(verbose: bool = True) -> float:
     from opengemini_tpu_torch.ops import cuda_segment as cs
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=6) as pool:
+    with ThreadPoolExecutor(max_workers=7) as pool:
         jobs = [pool.submit(cs.build, verbose=verbose),
                 pool.submit(native.build_shared, "codecs.cpp"),
                 pool.submit(native.build_shared, "seriesindex.cpp"),
                 pool.submit(native.build_shared, "lpformat.cpp"),
                 pool.submit(native.build_shared, "lineproto.cpp"),
-                pool.submit(native.build_shared, "textindex.cpp")]
+                pool.submit(native.build_shared, "textindex.cpp"),
+                pool.submit(native.build_shared, "gorillascan.cpp")]
         for job in jobs:
             job.result()
     return time.perf_counter() - t0
@@ -3904,15 +4499,15 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--phases", default="all",
                     help="the phases after 2 to run, comma separated "
-                         "(3-11; 6-10 need 5), for a short call that "
-                         "checks one path; default all")
+                         "(3-12; 6-10 and 12 need 5), for a short call "
+                         "that checks one path; default all")
     args = ap.parse_args()
     if args.hours < 3:
         ap.error("--hours may not be cut below 3")
-    wanted = (set(range(3, 12)) if args.phases == "all"
+    wanted = (set(range(3, 13)) if args.phases == "all"
               else {int(x) for x in args.phases.split(",")})
-    if wanted & set(range(6, 11)) and 5 not in wanted:
-        ap.error("phases 6-10 run on phase 5's root")
+    if wanted & {6, 7, 8, 9, 10, 12} and 5 not in wanted:
+        ap.error("phases 6-10 and 12 run on phase 5's root")
 
     import torch
 
@@ -3931,7 +4526,7 @@ def main() -> int:
     smi = smi_line()
     log(f"[device] {dev_name}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    log(f"[build] 6 kernels and 5 host libraries built in "
+    log(f"[build] 6 kernels and 6 host libraries built in "
         f"{build_all():.1f} s into {cs.BUILD_DIR} and build/native")
 
     laps = [t_start]
@@ -4004,11 +4599,17 @@ def main() -> int:
         ran.append(("11", life, ""))
         later.append(life)
         lap("phase 11")
+    planned = None
+    if 12 in wanted:
+        planned = phase_planner(cold)
+        ran.append(("12", planned, " planner"))
+        later.append(planned)
+        lap("phase 12")
     # kernels 1-3 at the later phases' new shapes, and kernels 4-6 too
-    # at phase 11's (the decode of its rewritten files)
+    # at phase 11's and 12's (the decode of rewritten and compacted files)
     for i, name in enumerate(E2E_KERNELS + COLD_KERNELS[1:]):
         for j, phase in enumerate(later):
-            if name not in E2E_KERNELS and phase is not life:
+            if name not in E2E_KERNELS and phase not in (life, planned):
                 continue
             new = {sh for sh in phase["shapes"][name] - seen[name]
                    if all(d > 0 for d in shape_json(name, sh)

@@ -22,12 +22,20 @@ seg_ids, mask, times_ns, sids=...) + run(spec, num_segments, params) ->
 row order.
 
 ``add_encoded`` takes a value column still in its on-disk blocks
-(record.EncodedColumn). When every add of a batch arrives encoded and
-the offload prior routes it to the device, the freeze ships the encoded
-bytes and ops/device_decode.py decodes, scatters and reduces on the card
+(record.EncodedColumn). When every add of a batch arrives encoded, the
+offload planner (query/offload.py, kernel "grid_decode", geometry
+(shape, dtype)) picks the route: its static prior sends cold encoded
+columns to the device and columns the host already decoded to the host.
+On the device route the freeze ships the encoded bytes and
+ops/device_decode.py decodes, scatters and reduces on the card
 (executor/grid_decode_fused); the decoded grid stays there for the ssd
-and selector groups. Otherwise (executor/grid_decode_fallbacks, or a
-host route) the freeze decodes on the host and scatters as before.
+and selector groups. Otherwise (executor/grid_decode_fallbacks, or the
+host route) the freeze decodes on the host and scatters as before. Both
+routes feed the planner their walls (``observe``): the device route the
+fused run, the host route its decode and scatter plus each kernel
+group's transfer and launch, each up to the card's finishing (the
+fetch that follows waits for it anyway). A host decision the planner
+flags for pre-warming registers the fused site's builder.
 
 With the device tier of the decoded-column cache on
 (storage/colcache.py), the executor stamps a scan signature on the
@@ -39,6 +47,8 @@ the fused decode's output, or the host grid after one transfer
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -245,11 +255,17 @@ class GridBatch:
         if self.device_cache_token is not None:
             dev_entry = colcache.GLOBAL.device_get(
                 self.device_cache_token, shape=shape, dtype=str(self.dtype))
-        enc_plan = arrays = None
+        enc_plan = arrays = host_s = None
         if dev_entry is None:
             enc_plan = self._encoded_plan(shape, flat, rel, bnd_idx, dt)
             if enc_plan is None:
+                # the host route: its decode (through
+                # _EncodedVals.__array__) and scatter wall; each launch
+                # adds its own, so the planner's host samples cover the
+                # span the fused device sample does
+                t0 = time.perf_counter()
                 arrays = self._scatter_grid(shape, flat)
+                host_s = time.perf_counter() - t0
         run_gid = (seg[bnd_idx] // W).astype(np.int64)
         order = np.argsort(run_gid, kind="stable")
         sg = run_gid[order]
@@ -264,6 +280,7 @@ class GridBatch:
                     else (dev_entry["vt"], dev_entry["mt"])),
             "device_entry": dev_entry,
             "encoded_plan": enc_plan, "flat_dev": None,
+            "host_route_s": host_s,
             # the sample-index grid for the selector group builds lazily
             # from `flat` — count/sum/mean scans never pay for it
             "flat": flat, "n": n,
@@ -346,24 +363,44 @@ class GridBatch:
     def _encoded_plan(self, shape, flat, rel, starts, dt):
         """Fused device-decode plan for a fully-encoded cold scan, or
         None: every add must still carry its encoded blocks, the offload
-        prior must route the scan to the device (query/offload.py: cold
-        encoded columns go there, decoded ones stay on the host) and the
-        decoder must accept every block. None means the freeze decodes
-        and scatters on the host."""
+        planner must route the scan to the device and the decoder must
+        accept every block. None means the freeze decodes and scatters
+        on the host."""
         views = []
         any_decoded = False
         for v in self._vals:
             col = getattr(v, "col", None)
             if col is None:
                 return None
+            # a column the host tier already decoded keeps its encoded
+            # blocks: the device route stays a candidate
             any_decoded |= col.is_decoded
             views.append((col.blocks, col.abs_segments(), col.n_full))
-        if offload.static_route(any_decoded) == "host":
+        # THE route of the encoded cold scan: the static prior is the
+        # device on cold encoded columns and the host once they are
+        # decoded, which a cold or disabled planner answers verbatim.
+        # "host" skips the plan (a routing choice, not a decode
+        # fallback)
+        static = "host" if any_decoded else "device"
+        geo = (tuple(shape), str(self.dtype))
+        route = offload.GLOBAL.decide("grid_decode", geo,
+                                      ("host", "device"), static,
+                                      stage="grid_decode")
+        if route == "host" and not offload.wants_prewarm("grid_decode",
+                                                         geo):
             return None
         plan = device_decode.build_grid_plan(
             views, flat, np.concatenate(self._mask), shape, self.dtype,
             self.device, rel=rel, starts=starts, every_ns=self.every_ns,
             dt=dt)
+        if route == "host":
+            # flagged for pre-warming: hand the fused site's first run to
+            # the background pre-warmer (the plan build is host work);
+            # this query still scatters on the host
+            if plan is not None:
+                offload.register_builder("grid_decode", geo,
+                                         device_decode.plan_builder(plan))
+            return None
         if plan is None:
             STATS.incr("executor", "grid_decode_fallbacks")
         return plan
@@ -420,14 +457,27 @@ class GridBatch:
                 self.device_cache_token, ent, imat)
         return imat
 
+    def _wall_now(self) -> float:
+        """perf_counter once the card has finished the work queued so far,
+        while the planner is on (its samples are whole walls, not launch
+        walls; the fetch that follows waits for the card anyway)."""
+        dev = torch.device(self.device)
+        if offload.enabled() and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
     def _launch(self, kind: str) -> dict:
         st = self._state
         plan = st["encoded_plan"]
+        geo = (st["shape"], str(self.dtype))
         if plan is not None:
             # fused cold path: encoded bytes -> card -> decode -> scatter
             # -> basic reduce; the decoded grid stays on the card for the
             # ssd and selector groups (no second transfer)
+            t0 = time.perf_counter()
             stats, vt, mt, flat_d = device_decode.run_grid_plan(plan)
+            offload.GLOBAL.observe("grid_decode", geo, "device",
+                                   self._wall_now() - t0)
             st["encoded_plan"] = None
             st["dev"] = (vt, mt)
             st["flat_dev"] = flat_d
@@ -436,19 +486,31 @@ class GridBatch:
             STATS.incr("executor", "grid_decode_fused")
             if kind == "basic":
                 return stats
+        tw = time.perf_counter()
         vt, mt = self._device_arrays()
-        if kind == "basic":
-            return cuda_segment.grid_window_agg(vt, mt)
-        if kind == "ssd":
-            return {"ssd": _grid_ssd(vt, mt)}
-        return _grid_selectors(vt, mt, self._device_imat())
+        with devobs.first_run("grid_" + kind, geo, vt.device):
+            if kind == "basic":
+                out = cuda_segment.grid_window_agg(vt, mt)
+            elif kind == "ssd":
+                out = {"ssd": _grid_ssd(vt, mt)}
+            else:
+                out = _grid_selectors(vt, mt, self._device_imat())
+        if st["arrays"] is not None or st["host_route_s"] is not None:
+            # a host-route sample per kernel group: the first carries the
+            # decode and scatter wall (freeze), each its own transfer and
+            # launch; together the span the fused device sample covers
+            base = st["host_route_s"]
+            st["host_route_s"] = None
+            offload.GLOBAL.observe("grid_decode", geo, "host",
+                                   (base or 0.0) + (self._wall_now() - tw))
+        return out
 
     def _raw_stats(self, need_ssd: bool, need_selectors: bool) -> dict:
         S = self._state["S"]
 
         def settle(kind):
             got = self._launch(kind)
-            self._raw.update({k: templates.to_host(t)[:S, : self.W]
+            self._raw.update({k: devobs.fetch_np(t)[:S, : self.W]
                               for k, t in got.items()})
 
         if "count" not in self._raw:

@@ -15,7 +15,10 @@ Per bucket, the basic statistics run in the CUDA kernel
 ``cuda_segment.bucket_stats_basic`` and the selector picks in
 ``cuda_segment.bucket_stats_selectors`` (their plain versions on a CPU
 device). Segments live in exactly one bucket; per-bucket results scatter
-back into (num_segments,) outputs on the host.
+back into (num_segments,) outputs on the host. A kernel group's first run
+in the process is its compile (utils/devobs.py: ``bucket_basic``,
+``bucket_selectors``); the mesh-sharded bucket copies (and their ledger
+entries, owner ``bucket_mesh``) come with the device mesh.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 
 from opengemini_tpu_torch.models import templates
 from opengemini_tpu_torch.ops import cuda_segment
+from opengemini_tpu_torch.utils import devobs
 
 _REL_LO_BITS = 30
 _REL_LO_MASK = (1 << _REL_LO_BITS) - 1
@@ -270,12 +274,14 @@ class _Bucket:
         selector kernel runs only for selector queries."""
         v, hi, lo, idx, m = self._device_arrays()
         if "count" not in self._raw:
-            got = cuda_segment.bucket_stats_basic(v, m)
-            self._raw.update({k: templates.to_host(t)[: self.g]
+            with devobs.first_run("bucket_basic", (), v.device):
+                got = cuda_segment.bucket_stats_basic(v, m)
+            self._raw.update({k: devobs.fetch_np(t)[: self.g]
                               for k, t in got.items()})
         if need_selectors and "sel_first" not in self._raw:
-            got = cuda_segment.bucket_stats_selectors(v, hi, lo, idx, m)
-            self._raw.update({k: templates.to_host(t)[: self.g]
+            with devobs.first_run("bucket_selectors", (), v.device):
+                got = cuda_segment.bucket_stats_selectors(v, hi, lo, idx, m)
+            self._raw.update({k: devobs.fetch_np(t)[: self.g]
                               for k, t in got.items()})
         return self._raw
 

@@ -5,7 +5,10 @@ numpy batches here; ``AggBatch`` pads them, moves them to its device as
 one set of tensors and runs the scatter-form aggregates of
 ``ops/segment.py`` there. Padding rows are masked out; padded segments
 are sliced off after the device call. PyTorch runs eagerly, so there is
-no compile cache to key.
+no compile cache to key: an aggregate's first run at (function, padded
+segments, params) in the process is its "compile" (utils/devobs.py,
+``agg_batch``). The padded batch's copy counts on the ``agg-batch``
+transfer site and every result fetch on ``result-fetch``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from opengemini_tpu_torch.ops import window as winmod
 from opengemini_tpu_torch.ops import segment as seg
 from opengemini_tpu_torch.ops.aggregates import AggSpec
+from opengemini_tpu_torch.utils import devobs
 
 _REL_LO_BITS = 30
 _REL_LO_MASK = (1 << _REL_LO_BITS) - 1
@@ -33,7 +37,8 @@ def to_device(arr: np.ndarray, device) -> torch.Tensor:
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """Tensor -> numpy, counted as a result fetch (devobs.fetch_np)."""
+    return devobs.fetch_np(t)
 
 
 def split_rel_ns(rel_ns: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -94,8 +99,10 @@ class AggBatch:
             seg_ids[off: off + k] = s
             mask[off: off + k] = m
             off += k
-        self._dev = tuple(to_device(a, self.device)
-                          for a in (values, rel_hi, rel_lo, seg_ids, mask))
+        padded = (values, rel_hi, rel_lo, seg_ids, mask)
+        devobs.note_transfer("h2d", "agg-batch",
+                             sum(a.nbytes for a in padded))
+        self._dev = tuple(to_device(a, self.device) for a in padded)
         return self._dev
 
     def layout_name(self) -> str:
@@ -111,7 +118,10 @@ class AggBatch:
         if got is None:
             seg_pad = winmod.pad_to(max(num_segments, 1), 256)
             _v, _h, _l, seg_ids, mask = self._device_arrays()
-            got = to_host(seg.seg_count(seg_ids, seg_pad, mask))[:num_segments]
+            with devobs.first_run("agg_batch", ("_count_fn", seg_pad, ()),
+                                  self.device):
+                counts = seg.seg_count(seg_ids, seg_pad, mask)
+            got = to_host(counts)[:num_segments]
             self._counts_cache[num_segments] = got
         return got
 
@@ -120,8 +130,11 @@ class AggBatch:
         sel_idx[num_segments] | None, counts[num_segments])."""
         seg_pad = winmod.pad_to(max(num_segments, 1), 256)
         values, rel_hi, rel_lo, seg_ids, mask = self._device_arrays()
-        out, sel = spec.fn(values, rel_hi, rel_lo, seg_ids, seg_pad, mask,
-                           *params)
+        with devobs.first_run(
+                "agg_batch", (spec.fn.__name__, seg_pad, tuple(params)),
+                self.device):
+            out, sel = spec.fn(values, rel_hi, rel_lo, seg_ids, seg_pad,
+                               mask, *params)
         out_np = to_host(out)[:num_segments]
         sel_np = to_host(sel)[:num_segments] if sel is not None else None
         return out_np, sel_np, self.counts(num_segments)

@@ -6,7 +6,9 @@ builds them in place with ``make``: the codecs, the series index and the
 line-protocol parser, ``lineproto.cpp``, which
 ingest/native_lp.parse_columnar binds) and the port's ``lpformat.cpp``
 beside this file (the line-protocol text the bulk load logs to the WAL,
-``ingest/native_lp.LineWriter``); the port builds them with ``g++`` at
+``ingest/native_lp.LineWriter``, and ``gorillascan.cpp``, the
+structural scan of a gorilla stream that the device decode's host half
+walks, ``gorilla_scan``); the port builds them with ``g++`` at
 first use into ``build/native/`` at the repository root, named by a
 hash of the source and flags, and never writes into ``native/``. A build that fails raises: the port never falls back to
 another codec, because that would change the bytes written to disk and
@@ -112,6 +114,44 @@ def load_lpformat():
                            ctypes.c_void_p, ctypes.c_int64]
             _LP_LIB = lib
     return _LP_LIB
+
+
+_SCAN_LIB = None
+
+
+def load_gorillascan():
+    """The gorilla structural scan (gorillascan.cpp), built at first
+    use."""
+    global _SCAN_LIB
+    if _SCAN_LIB is not None:
+        return _SCAN_LIB
+    with _lib_lock:
+        if _SCAN_LIB is None:
+            lib = ctypes.CDLL(build_shared("gorillascan.cpp"))
+            fn = lib.ogt_gorilla_scan
+            fn.restype = ctypes.c_int64
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                           *[ctypes.c_void_p] * 4]
+            _SCAN_LIB = lib
+    return _SCAN_LIB
+
+
+def gorilla_scan(payload: bytes, n: int):
+    """(bitpos int32, mbits uint8, shift uint8, vals uint64) of one gorilla
+    stream of `n` values, or None when it is malformed
+    (gorillascan.cpp)."""
+    bitpos = np.zeros(n, np.int32)
+    mbits = np.zeros(n, np.uint8)
+    shift = np.zeros(n, np.uint8)
+    vals = np.zeros(n, np.uint64)
+    buf = np.frombuffer(payload, np.uint8) if len(payload) else \
+        np.zeros(1, np.uint8)
+    got = load_gorillascan().ogt_gorilla_scan(
+        buf.ctypes.data, len(payload), n, bitpos.ctypes.data,
+        mbits.ctypes.data, shift.ctypes.data, vals.ctypes.data)
+    if got != 0:
+        return None
+    return bitpos, mbits, shift, vals
 
 
 _LINEPROTO_LIB = None

@@ -41,11 +41,13 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import numpy as np
 import torch
 
 from opengemini_tpu_torch.ops import segment as _seg
+from opengemini_tpu_torch.utils import devobs
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -124,13 +126,18 @@ def _lib_path(src: str) -> str:
 def build(names=None, verbose: bool = False) -> dict:
     """Compile (when not already built) and load the kernels' libraries:
     one nvcc per source, all started together. Returns {name: CDLL}.
-    A compile error raises with nvcc's output."""
+    A compile error raises with nvcc's output. Each library loaded goes
+    into the device compile inventory as ``build:<source stem>``
+    (utils/devobs.py ``note_build``) with its wall: from the start of
+    the parallel builds to its library (0 when it was built already)."""
     names = list(_KERNELS) if names is None else list(names)
     with _build_lock:
         todo = [n for n in names if n not in _libs]
         if not todo:
             return {n: _libs[n] for n in names}
         os.makedirs(BUILD_DIR, exist_ok=True)
+        t0 = time.perf_counter()
+        walls = {}
         procs = []
         for n in todo:
             src = source_path(n)
@@ -148,6 +155,7 @@ def build(names=None, verbose: bool = False) -> dict:
             if proc is None:
                 continue
             log = proc.communicate()[0].decode(errors="replace")
+            walls[n] = time.perf_counter() - t0
             if proc.returncode != 0:
                 errors.append(f"nvcc failed for {n} ({proc.returncode}):\n{log}")
                 continue
@@ -165,6 +173,9 @@ def build(names=None, verbose: bool = False) -> dict:
             lib.ogt_error_string.argtypes = [ctypes.c_int]
             lib.ogt_error_string.restype = ctypes.c_char_p
             _libs[n] = lib
+            devobs.note_build(
+                "build:" + os.path.splitext(_KERNELS[n][0])[0],
+                (NVCC_FLAGS[1].split("code=")[-1],), walls.get(n, 0.0))
         return {n: _libs[n] for n in names}
 
 

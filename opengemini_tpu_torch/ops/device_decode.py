@@ -50,16 +50,28 @@ Counters (utils.stats.GLOBAL, module ``device``): decode_blocks_total,
 decode_payload_bytes_total, decode_rows_total, decode_fallbacks_total,
 and per codec decode_blocks_<codec>_total /
 decode_payload_bytes_<codec>_total. Transfers land on the
-``device-decode`` site of devobs.note_transfer.
+``device-decode`` site of devobs.note_transfer. The fused site's first
+run at a geometry is its "compile" (utils/devobs.py:
+``grid_decode_fused``, ``grid_decode_imat``, ``device_decode``); every
+fused run counts a ``note_use`` and registers the site's pre-warm
+builder (``plan_builder``: a first run on zeros of the plan's shapes).
 
-Not ported: the ``OGT_DEVICE_DECODE`` and ``OGT_DEVICE_DECODE_CODECS``
-triage knobs (the port always decodes every eligible codec on the
-device) and the mesh plans.
+Knobs, read fresh every plan: ``OGT_DEVICE_DECODE`` (0 = every plan
+answers None, so the grid decodes on the host) and
+``OGT_DEVICE_DECODE_CODECS`` (a comma list of the block kinds allowed
+to decode on the card; unset means all). They are routes, not
+fallbacks: a kernel that fails to build or launch raises.
+
+The cost gate is the offload planner's zero-sample prior
+(query/offload.py ``gate_prior``). The mesh-sharded plans come with
+the device mesh.
 """
 
 from __future__ import annotations
 
 import functools
+import os
+import time
 
 import numpy as np
 import torch
@@ -91,6 +103,22 @@ _SCAN_ROW = 1024
 _GATHER_BITS = 0x0102040810204080
 
 _XFER_SITE = "device-decode"
+_ALL_CODECS = ("const", "delta", "raw64", "gorilla", "varint", "strdict")
+
+
+def enabled() -> bool:
+    """The OGT_DEVICE_DECODE knob alone."""
+    return os.environ.get("OGT_DEVICE_DECODE", "1") not in ("", "0")
+
+
+def codecs_enabled() -> frozenset:
+    """The block kinds allowed to decode on the card
+    (OGT_DEVICE_DECODE_CODECS, a comma list; unset or empty means all).
+    Read fresh every plan: pin a suspect codec to the host path live."""
+    raw = os.environ.get("OGT_DEVICE_DECODE_CODECS", "")
+    if not raw.strip():
+        return frozenset(_ALL_CODECS)
+    return frozenset(t.strip().lower() for t in raw.split(",") if t.strip())
 _INT64_MAX = (1 << 63) - 1
 _TORCH_DTYPE = {np.dtype(np.float64): torch.float64,
                 np.dtype(np.int64): torch.int64}
@@ -108,60 +136,12 @@ def _gorilla_scan(payload: bytes, n: int):
     uint8, vals uint64), vals[i] the decoded bit pattern of value i, or
     None when the stream is malformed.
 
-    The walk and its bounds checks are the JAX package's; its bit reader
-    differs: one 128-bit big-endian window per value (zero-padded past
-    the end, never read there) serves the control bits, the header and
-    the meaningful bits, since they span at most 7 + 13 + 64 bits."""
-    nbits = len(payload) * 8
-    if n == 0:
-        return (np.zeros(0, np.int32), np.zeros(0, np.uint8),
-                np.zeros(0, np.uint8), np.zeros(0, np.uint64))
-    if nbits < 64:
-        return None
-    padded = bytes(payload) + bytes(16)
-    from_bytes = int.from_bytes
-    bitpos = [0] * n
-    mbits = [0] * n
-    shift = [0] * n
-    vals = [0] * n
-    acc = from_bytes(padded[:8], "big")
-    vals[0] = acc
-    mbits[0] = 64
-    pos = 64
-    lz = tz = 0
-    for i in range(1, n):
-        if pos + 1 > nbits:
-            return None
-        j = pos >> 3
-        w = from_bytes(padded[j:j + 16], "big")
-        r = 128 - (pos & 7)  # bits of w from pos on
-        if not (w >> (r - 1)) & 1:
-            vals[i] = acc  # repeat of prev: xor = 0, mbits stays 0
-            pos += 1
-            continue
-        if pos + 2 > nbits:
-            return None
-        if (w >> (r - 2)) & 1:
-            if pos + 13 > nbits:
-                return None
-            lz = (w >> (r - 7)) & 31
-            tz = 64 - lz - ((w >> (r - 13)) & 63) - 1
-            if tz < 0:
-                return None
-            head = 13
-        else:
-            head = 2
-        mb = 64 - lz - tz
-        if mb <= 0 or pos + head + mb > nbits:
-            return None
-        bitpos[i] = pos + head
-        mbits[i] = mb
-        shift[i] = tz
-        acc ^= ((w >> (r - head - mb)) & ((1 << mb) - 1)) << tz
-        vals[i] = acc
-        pos += head + mb
-    return (np.array(bitpos, np.int32), np.array(mbits, np.uint8),
-            np.array(shift, np.uint8), np.array(vals, np.uint64))
+    The walk and its bounds checks are the JAX package's, in C++
+    (native/gorillascan.cpp): the walk is one step per value, which in
+    Python dominated a cold query's first run."""
+    from opengemini_tpu_torch import native
+
+    return native.gorilla_scan(payload, n)
 
 
 def _varint_ok(payload: bytes, n: int) -> bool:
@@ -181,13 +161,15 @@ def _varint_ok(payload: bytes, n: int) -> bool:
 def classify(blocks) -> list | None:
     """DeviceBlock views of every raw block buffer, or None when any
     block (or the block count) is not device-decodable — including
-    streams whose host structural validation fails."""
+    kinds excluded by OGT_DEVICE_DECODE_CODECS and streams whose host
+    structural validation fails."""
     if len(blocks) > _MAX_BLOCKS:
         return None
+    allowed = codecs_enabled()
     out = []
     for buf in blocks:
         db = encoding.device_block(buf)
-        if db is None:
+        if db is None or db.kind not in allowed:
             return None
         if db.kind == "gorilla":
             if _gorilla_scan(bytes(db.payload), db.n) is None:
@@ -358,9 +340,11 @@ def build_grid_plan(views, flat, mask, shape, dtype, device, rel=None,
     row order, `flat` the host-computed scatter slots (injective,
     < prod(shape)), `mask` the row validity. `rel`/`starts`/`every_ns`/
     `dt` (the freeze's run layout) enable the per-run scatter rebuild.
-    Returns None when the blocks are not device-decodable or the
-    transfer would not beat the decoded grid — the caller then decodes
-    on the host exactly as before."""
+    Returns None when OGT_DEVICE_DECODE is off, the blocks are not
+    device-decodable or the transfer would not beat the decoded grid —
+    the caller then decodes on the host exactly as before."""
+    if not enabled():
+        return None
     blocks, viewruns, n_view, n_full = combine_views(views)
     dbs = classify(blocks)
     if dbs is None:
@@ -390,9 +374,11 @@ def build_grid_plan(views, flat, mask, shape, dtype, device, rel=None,
                     runmeta, consts, maskbits, n_view, torch.device(device))
     # the offload planner's zero-sample prior: the fused path must shrink
     # the transfer below the decoded grid it replaces (values + mask
-    # bytes per padded cell)
-    if not offload.gate_prior(plan.transfer_nbytes(),
-                              int(np.prod(shape)) * 9):
+    # bytes per padded cell); once the planner holds wall samples of the
+    # device route at this geometry, its decide() owns the choice
+    if not offload.GLOBAL.gate_prior(
+            "grid_decode", geom, plan.transfer_nbytes(),
+            int(np.prod(shape)) * 9):
         note_fallback()
         return None
     return plan
@@ -400,6 +386,13 @@ def build_grid_plan(views, flat, mask, shape, dtype, device, rel=None,
 
 def _to_dev(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _prewarm_geo(geom) -> tuple:
+    """The fused site's inventory and pre-warm key of a plan geometry:
+    (blocks, rows, shape, dtype, affine scatter)."""
+    sig, n, shape, dtype_str, every_ns, _dt = geom
+    return (len(sig), n, shape, dtype_str, every_ns is not None)
 
 
 def run_grid_plan(plan: GridPlan):
@@ -410,35 +403,53 @@ def run_grid_plan(plan: GridPlan):
     the decoded grid buffers, ready for the ssd and selector groups;
     flat is the device-resident scatter-slot vector (imat_from_flat
     builds the selector index grid from it)."""
-    dev = plan.device
-    payload = _to_dev(plan.payload, dev)
-    aux32 = None if plan.aux32 is None else _to_dev(plan.aux32, dev)
-    aux8 = None if plan.aux8 is None else _to_dev(plan.aux8, dev)
-    viewruns = None if plan.viewruns is None else _to_dev(plan.viewruns, dev)
+    t0 = time.perf_counter_ns()
+    inputs = _plan_to_dev(plan)
     # what crosses: every input but the per-block scalars and the window
     # phase, which stay host ints (no launch waits on reading them back)
     devobs.note_transfer("h2d", _XFER_SITE, sum(
         int(a.nbytes) for a in (plan.payload, plan.aux32, plan.aux8,
                                 plan.viewruns, plan.flat, plan.runmeta,
-                                plan.maskbits) if a is not None))
+                                plan.maskbits) if a is not None),
+        (time.perf_counter_ns() - t0) / 1e9)
+    _note_decode_stats(plan.geom[0], plan.n)
+    pw_geo = _prewarm_geo(plan.geom)
+    devobs.note_use("grid_decode_fused", pw_geo)
+    offload.register_builder("grid_decode_fused", pw_geo,
+                             plan_builder(plan))
+    with devobs.first_run("grid_decode_fused", pw_geo, plan.device):
+        return _run_fused(plan, *inputs)
+
+
+def _plan_to_dev(plan: GridPlan) -> tuple:
+    """(payload, aux32, aux8, viewruns, flat, runmeta, maskbits) on the
+    plan's device, None where the plan has none."""
+    return tuple(None if a is None else _to_dev(a, plan.device)
+                 for a in (plan.payload, plan.aux32, plan.aux8,
+                           plan.viewruns, plan.flat, plan.runmeta,
+                           plan.maskbits))
+
+
+def _run_fused(plan: GridPlan, payload, aux32, aux8, viewruns, flat,
+               runmeta, maskbits):
+    dev = plan.device
     sig, n, shape, dtype_str, every_ns, dt = plan.geom
-    _note_decode_stats(sig, n)
     out_dt = _TORCH_DTYPE[np.dtype(dtype_str)]
     vals = _decode(sig, out_dt, payload, plan.scalars, aux32, aux8)
     if viewruns is not None:
         vals = _view_gather(vals, viewruns, n)
-    if plan.flat is not None:
-        flat = _to_dev(plan.flat, dev).to(torch.int64)
+    if flat is not None:
+        flat = flat.to(torch.int64)
     else:
-        flat = _affine_slots(_to_dev(plan.runmeta, dev),
-                             int(plan.consts[0]), n, shape, every_ns, dt)
+        flat = _affine_slots(runmeta, int(plan.consts[0]), n, shape,
+                             every_ns, dt)
     cells = int(np.prod(shape))
     vt = torch.zeros(cells, dtype=out_dt, device=dev)
     vt[flat] = vals
-    if plan.maskbits is not None:
-        bits = _to_dev(plan.maskbits, dev)
+    if maskbits is not None:
         shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
-        mrow = ((bits[:, None] >> shifts) & 1).reshape(-1)[:n].to(torch.bool)
+        mrow = ((maskbits[:, None] >> shifts) & 1).reshape(-1)[:n].to(
+            torch.bool)
     else:
         mrow = torch.ones(n, dtype=torch.bool, device=dev)
     mt = torch.zeros(cells, dtype=torch.bool, device=dev)
@@ -446,6 +457,47 @@ def run_grid_plan(plan: GridPlan):
     vt, mt = vt.reshape(shape), mt.reshape(shape)
     stats = cuda_segment.grid_window_agg(vt, mt)
     return stats, vt, mt, flat
+
+
+def plan_builder(plan: GridPlan):
+    """The fused site's pre-warm builder at `plan`'s geometry: a zero-
+    argument callable that runs the site once on zeros of the plan's
+    shapes — never on the query's data or tensors — unless the site
+    already ran at that geometry. It keeps the array sizes and the view
+    runs (which index the decoded blocks), not the payload. In the
+    zeros, each varint block's bytes end in exactly its value count of
+    terminators and the scatter slots stay inside the grid."""
+    pw_geo = _prewarm_geo(plan.geom)
+    geom, n, device, consts = plan.geom, plan.n, plan.device, plan.consts
+    sizes = {k: None if a is None else a.shape
+             for k, a in (("payload", plan.payload),
+                          ("scalars", plan.scalars), ("aux32", plan.aux32),
+                          ("aux8", plan.aux8), ("flat", plan.flat),
+                          ("runmeta", plan.runmeta),
+                          ("maskbits", plan.maskbits))}
+    viewruns = None if plan.viewruns is None else plan.viewruns.copy()
+
+    def build() -> None:
+        if devobs.has_run("grid_decode_fused", pw_geo):
+            return
+        z = {k: None if sh is None else np.zeros(
+            sh, {"payload": np.uint8, "aux32": np.int32, "aux8": np.uint8,
+                 "flat": np.int32, "maskbits": np.uint8}.get(k, np.int64))
+             for k, sh in sizes.items()}
+        off = 0
+        for kind, bn, width in geom[0]:
+            m = _payload_nbytes(kind, bn, width)
+            if kind == "varint" and bn:
+                z["payload"][off:off + m - bn] = 0x80  # continuation bytes
+            off += m
+        zplan = GridPlan(geom, z["payload"], z["scalars"], z["aux32"],
+                         z["aux8"], viewruns, z["flat"], z["runmeta"],
+                         None if consts is None else np.zeros_like(consts),
+                         z["maskbits"], n, device)
+        with devobs.first_run("grid_decode_fused", pw_geo, device):
+            _run_fused(zplan, *_plan_to_dev(zplan))
+
+    return build
 
 
 def _affine_slots(runmeta, woff: int, n: int, shape, every_ns: int,
@@ -467,10 +519,12 @@ def imat_from_flat(flat_dev: torch.Tensor, shape) -> torch.Tensor:
     device-resident scatter slots a fused decode left behind — no host
     imat build and no full-grid transfer."""
     n = int(flat_dev.shape[0])
-    imat = torch.zeros(int(np.prod(shape)), dtype=torch.int32,
-                       device=flat_dev.device)
-    imat[flat_dev] = torch.arange(n, dtype=torch.int32,
-                                  device=flat_dev.device)
+    with devobs.first_run("grid_decode_imat", (n, tuple(shape)),
+                          flat_dev.device):
+        imat = torch.zeros(int(np.prod(shape)), dtype=torch.int32,
+                           device=flat_dev.device)
+        imat[flat_dev] = torch.arange(n, dtype=torch.int32,
+                                      device=flat_dev.device)
     return imat.reshape(shape)
 
 
@@ -488,10 +542,13 @@ def decode_to_device(blocks, device, dtype=None) -> torch.Tensor:
     sig, payload, scalars, aux32, aux8 = _pack_blocks(dbs)
     devobs.note_transfer("h2d", _XFER_SITE, sum(
         int(a.nbytes) for a in (payload, aux32, aux8) if a is not None))
-    return _decode(
-        sig, _TORCH_DTYPE[out_dtype], _to_dev(payload, device), scalars,
-        None if aux32 is None else _to_dev(aux32, device),
-        None if aux8 is None else _to_dev(aux8, device))
+    with devobs.first_run(
+            "device_decode", (len(sig), sum(b[1] for b in sig),
+                              out_dtype.str), device):
+        return _decode(
+            sig, _TORCH_DTYPE[out_dtype], _to_dev(payload, device),
+            scalars, None if aux32 is None else _to_dev(aux32, device),
+            None if aux8 is None else _to_dev(aux8, device))
 
 
 # -- per-block decode on the device -------------------------------------------

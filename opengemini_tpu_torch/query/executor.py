@@ -47,7 +47,11 @@ groups), ``scan`` (reads into the batches), ``colcache`` (the
 decoded-column cache's counter deltas over the scan, when the cache is
 on), ``device_compute`` (batch freeze, transfers, kernels and the copy
 back; on a CUDA device it ends with a synchronize, so the device time
-lands here and not in the next stage) and ``render`` (the JSON rows).
+lands here and not in the next stage; with devobs armed it carries the
+span's compiles, transfer bytes and compile wall) and ``render`` (the
+JSON rows). A SELECT or EXPLAIN while the engine's reads are switched
+off (``read_disabled``, /debug/ctrl?mod=disableread) answers the
+statement error "reads are disabled (syscontrol)".
 Their times reach ``/debug/vars`` ``query_stages`` for every query, with
 two stages outside the statement's spans: ``parse`` (the SQL text, here)
 and ``encode`` (the answer's JSON, in server/http.py). EXPLAIN ANALYZE
@@ -102,7 +106,7 @@ from opengemini_tpu_torch.storage import colcache as colcache_mod
 from opengemini_tpu_torch.storage.engine import WriteError
 from opengemini_tpu_torch.storage.shard import FileQuarantined
 from opengemini_tpu_torch.storage.tsf import CorruptFile
-from opengemini_tpu_torch.utils import tracing
+from opengemini_tpu_torch.utils import devobs, tracing
 from opengemini_tpu_torch.utils.querytracker import (
     GLOBAL as TRACKER, QueryKilled, redact as _redact)
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
@@ -437,6 +441,9 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 if read_only and not _is_readonly(stmt):
                     raise QueryError(
                         f"{type(stmt).__name__} queries must be sent via POST")
+                if self.engine.read_disabled and isinstance(
+                        stmt, (ast.SelectStatement, ast.ExplainStatement)):
+                    raise QueryError("reads are disabled (syscontrol)")
                 res = self.execute_statement(stmt, db, now_ns)
             except (QueryError, cond.ConditionError, KeyError, ValueError,
                     re.error, FieldTypeConflict, WriteError,
@@ -1142,6 +1149,7 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 sp.add_field("device_bytes", cc_after["device_bytes"])
 
         agg_results = {}  # id(call) -> (values, sel, counts, spec, fname, times)
+        dv_before = devobs.span_snapshot() if devobs.enabled() else None
         with trace.span("device_compute") as sp:
             for call, spec, params, field_name in aggs:
                 TRACKER.check()  # kill between device batch dispatches
@@ -1243,6 +1251,17 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 # fallen back, or not run at all on a full cache hit)
                 sp.add_field("layouts",
                              {f: b.layout_name() for f, b in batches.items()})
+            if dv_before is not None:
+                # devobs deltas (armed): the compiles and transfer bytes
+                # of this span; concurrent queries can bleed in, the
+                # per-query times land in the device_* tracker stages
+                dv_after = devobs.span_snapshot()
+                for key in ("compiles", "h2d_bytes", "d2h_bytes",
+                            "reshard_bytes"):
+                    sp.add_field(key, dv_after[key] - dv_before[key])
+                sp.add_field("compile_wall_ms", round(
+                    dv_after["compile_wall_ms"]
+                    - dv_before["compile_wall_ms"], 3))
         if cache_plan is not None:
             with trace.span("inc_cache"):
                 group_keys = cache_plan.merge(agg_results, aggs,

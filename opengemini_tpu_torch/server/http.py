@@ -1,6 +1,6 @@
-"""InfluxDB 1.x-compatible HTTP API, the routes of this slice.
+"""InfluxDB 1.x-compatible HTTP API, the routes of a single node.
 
-The port of ``opengemini_tpu/server/http.py`` for eight routes, on the
+The port of ``opengemini_tpu/server/http.py`` for these routes, on the
 standard library's threading HTTP server:
   GET/HEAD /ping        204
   GET      /health      200 {"name", "status": "pass", "version"}
@@ -11,16 +11,32 @@ standard library's threading HTTP server:
                         SELECT, EXPLAIN and SHOW; other statements need
                         a POST (query/executor._is_readonly)
   POST     /write       line protocol, params db/rp/precision
+  POST     /api/v2/write  the same, with bucket=<db>[/<rp>]
+  GET      /metrics     every statistics counter, gauge and histogram in
+                        the Prometheus text format (utils/stats.py
+                        ``render_prometheus``), among them
+                        ogt_http_request_seconds per route class and
+                        method (``_route_of``)
   GET      /debug/vars  the statistics registry (utils/stats.py), with
                         the query_stages timings (the executor's, and
                         "encode": the answer's JSON and its write), and
                         "quarantined_files": the engine's quarantined
                         TSF files ({shard, path, why} each)
-  POST     /debug/ctrl  runtime fault levers: mod=failpoint (name,
-                        action; no name lists the armed sites) and
-                        mod=diskfault (path glob, action; action=off
-                        clears one rule, clear=1 heals all, no action
-                        lists the rules and their hits)
+  GET      /debug/device  device telemetry (utils/devobs.py
+                        ``debug_doc``) and the offload planner's model
+                        and decisions (query/offload.py, ``planner``)
+  POST     /debug/ctrl  runtime switches (the reference's syscontrol):
+                        mod=disablewrite|disableread|readonly
+                        (switchon=true|false), mod=flush, mod=devobs
+                        (arm, clear, op=mark_warm|clear_warm|profile
+                        &seconds=&dir=), mod=offload (arm, freeze,
+                        clear, force, host_kernels, min_samples,
+                        explore_after, amortize, ewma, op=prewarm),
+                        mod=failpoint (name, action; no name lists the
+                        armed sites) and mod=diskfault (path glob,
+                        action; action=off clears one rule, clear=1
+                        heals all, no action lists the rules and their
+                        hits)
   GET      /debug/queries  the running queries (utils/querytracker.py
                         ``full_snapshot``)
   GET      /debug/trace the span tree of a query: ?qid= (a running
@@ -28,9 +44,10 @@ standard library's threading HTTP server:
                         ring), ?trace_id=, or the newest summaries
 Answers use the JAX server's JSON shapes, and error answers carry the
 stable errno taxonomy (utils/errno.py: ``errno`` and ``module`` fields,
-``X-Ogt-Errno`` header); other routes answer 404. A query whose scan
-meets a damaged file answers as the reference's /query does: the file
-is quarantined and the statement carries the error "file quarantined
+``X-Ogt-Errno`` header): a write while writes are disabled answers 403
+with errno 2003. Other routes answer 404. A query whose scan meets a
+damaged file answers as the reference's /query does: the file is
+quarantined and the statement carries the error "file quarantined
 after media fault: <path>: <why>" (query/executor.py); a retry answers
 from the other files.
 """
@@ -48,12 +65,15 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from opengemini_tpu_torch import __version__
 from opengemini_tpu_torch.ingest.line_protocol import ParseError
 from opengemini_tpu_torch.query import condition as cond
+from opengemini_tpu_torch.query import offload
 from opengemini_tpu_torch.query.executor import Executor
 from opengemini_tpu_torch.record import FieldTypeConflict
 from opengemini_tpu_torch.storage import diskfault
 from opengemini_tpu_torch.storage.engine import DatabaseNotFound, WriteError
+from opengemini_tpu_torch.utils import devobs
 from opengemini_tpu_torch.utils import errno as _errno
 from opengemini_tpu_torch.utils import failpoint
+from opengemini_tpu_torch.utils import stats as _stats
 from opengemini_tpu_torch.utils import tracing
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
@@ -61,6 +81,31 @@ from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 _EPOCH_DIV = {"ns": 1, "u": 1_000, "µ": 1_000, "ms": 1_000_000,
               "s": 1_000_000_000, "m": 60_000_000_000,
               "h": 3_600_000_000_000}
+
+
+def _route_of(path: str) -> str:
+    """Coarse route class of the HTTP latency histograms: a fixed
+    vocabulary, so /metrics label cardinality stays bounded whatever
+    paths clients probe."""
+    if path in ("/query",):
+        return "query"
+    if path in ("/write", "/api/v2/write"):
+        return "write"
+    if path in ("/api/v1/prom/write", "/api/v1/otlp/metrics"):
+        return "write"
+    if path.startswith("/api/v1/"):
+        return "prom"
+    if path.startswith("/internal/"):
+        return "internal"
+    if path.startswith("/debug/") or path == "/metrics":
+        return "debug"
+    if path.startswith("/raft/") or path.startswith("/cluster/"):
+        return "cluster"
+    if path == "/repo" or path.startswith("/repo/"):
+        return "logstore"
+    if path in ("/ping", "/health"):
+        return "health"
+    return "other"
 
 
 class HttpService:
@@ -215,6 +260,28 @@ def _make_handler(svc: HttpService):
                 self._send_json(404, {"error": "not found"})
 
         def do_GET(self):
+            self._observed("GET", self._do_get)
+
+        def do_POST(self):
+            self._observed("POST", self._do_post)
+
+        def _observed(self, method: str, dispatch) -> None:
+            """The endpoint latency histograms (http_request_seconds by
+            route class and method); one flag read when histograms are
+            off (OGT_TRACE=0)."""
+            if not _stats.obs_enabled():
+                dispatch()
+                return
+            t0 = time.perf_counter_ns()
+            try:
+                dispatch()
+            finally:
+                _stats.observe_ns(
+                    "http_request_seconds", time.perf_counter_ns() - t0,
+                    route=_route_of(urllib.parse.urlparse(self.path).path),
+                    method=method)
+
+        def _do_get(self):
             path = urllib.parse.urlparse(self.path).path
             if path == "/ping":
                 self._send(204)
@@ -233,8 +300,16 @@ def _make_handler(svc: HttpService):
                 snap["quarantined_files"] = (
                     svc.engine.quarantine_snapshot()["files"])
                 self._send_json(200, snap)
+            elif path == "/metrics":
+                self._send(
+                    200, _stats.render_prometheus(__version__).encode("utf-8"),
+                    ctype="text/plain; version=0.0.4; charset=utf-8")
             elif path == "/debug/queries":
                 self._send_json(200, TRACKER.full_snapshot())
+            elif path == "/debug/device":
+                doc = devobs.debug_doc()
+                doc["planner"] = offload.GLOBAL.debug_doc()
+                self._send_json(200, doc)
             elif path == "/debug/trace":
                 self._handle_debug_trace(self._params())
             else:
@@ -278,7 +353,7 @@ def _make_handler(svc: HttpService):
                 "enabled": tracing.trace_enabled(),
                 "recent": tracing.recent_traces()})
 
-        def do_POST(self):
+        def _do_post(self):
             path = urllib.parse.urlparse(self.path).path
             params = self._params()
             body = self._body()
@@ -290,7 +365,11 @@ def _make_handler(svc: HttpService):
                         params.setdefault(k, v[-1])
                 self._handle_query(params)
             elif path == "/write":
-                self._handle_write(params, body)
+                self._handle_write(params, params.get("db", ""),
+                                   params.get("rp") or None, body)
+            elif path == "/api/v2/write":
+                db, _, rp = params.get("bucket", "").partition("/")
+                self._handle_write(params, db, rp or None, body)
             elif path == "/debug/ctrl":
                 self._handle_ctrl(params)
             elif path == "/ping":
@@ -299,31 +378,27 @@ def _make_handler(svc: HttpService):
                 self._send_json(404, {"error": "not found"})
 
         def _handle_ctrl(self, params: dict):
-            """The reference's /debug/ctrl fault levers: failpoints
-            (utils/failpoint.py) and disk-fault rules
-            (storage/diskfault.py)."""
+            """The reference's /debug/ctrl switches: the engine's write
+            and read switches and flush, device telemetry (devobs), the
+            offload planner, failpoints (utils/failpoint.py) and
+            disk-fault rules (storage/diskfault.py)."""
             mod = params.get("mod", "")
-            if mod == "diskfault":
-                if params.get("clear", "").lower() in ("1", "true", "all"):
-                    diskfault.clear_all()
-                    self._send_json(200, {"status": "ok", "rules": []})
-                    return
-                action = params.get("action", "")
-                if not action:
-                    self._send_json(200, {"rules": diskfault.rules(),
-                                          "hits": diskfault.hits()})
-                    return
-                pat = params.get("path", "*")
-                if action == "off":
-                    diskfault.clear_rule(pat)
-                else:
-                    try:
-                        diskfault.set_rule(pat, action)
-                    except ValueError as e:
-                        self._send_json(400, {"error": str(e)})
-                        return
-                self._send_json(200, {"status": "ok",
-                                      "rules": diskfault.rules()})
+            on = params.get("switchon", "").lower() in ("true", "1")
+            if mod in ("disablewrite", "readonly"):
+                svc.engine.write_disabled = on
+            elif mod == "disableread":
+                svc.engine.read_disabled = on
+            elif mod == "flush":
+                svc.engine.flush_all()
+            elif mod == "devobs":
+                self._ctrl_devobs(params)
+                return
+            elif mod == "offload":
+                self._ctrl_offload(params)
+                return
+            elif mod == "diskfault":
+                self._ctrl_diskfault(params)
+                return
             elif mod == "failpoint":
                 name = params.get("name", "")
                 action = params.get("action", "")
@@ -336,9 +411,117 @@ def _make_handler(svc: HttpService):
                     failpoint.enable(name, action)
                 self._send_json(200, {"status": "ok", "failpoint": name,
                                       "action": action or "off"})
+                return
             else:
                 self._send_json(
                     400, {"error": f"unknown syscontrol mod {mod!r}"})
+                return
+            self._send_json(200, {"status": "ok", "mod": mod, "switchon": on})
+
+        def _ctrl_diskfault(self, params: dict):
+            if params.get("clear", "").lower() in ("1", "true", "all"):
+                diskfault.clear_all()
+                self._send_json(200, {"status": "ok", "rules": []})
+                return
+            action = params.get("action", "")
+            if not action:
+                self._send_json(200, {"rules": diskfault.rules(),
+                                      "hits": diskfault.hits()})
+                return
+            pat = params.get("path", "*")
+            if action == "off":
+                diskfault.clear_rule(pat)
+            else:
+                try:
+                    diskfault.set_rule(pat, action)
+                except ValueError as e:
+                    self._send_json(400, {"error": str(e)})
+                    return
+            self._send_json(200, {"status": "ok",
+                                  "rules": diskfault.rules()})
+
+        def _ctrl_devobs(self, params: dict):
+            """Arm/disarm, clear, the recompile tripwire and one
+            torch.profiler capture at a time; no knob = status."""
+            if "arm" in params:
+                devobs.set_enabled(params["arm"] in ("1", "true"))
+            if params.get("clear", "") in ("1", "true"):
+                devobs.reset()
+            op = params.get("op", "")
+            if op == "mark_warm":
+                devobs.mark_warm()
+            elif op == "clear_warm":
+                devobs.clear_warm()
+            elif op == "profile":
+                try:
+                    seconds = float(params.get("seconds", "2"))
+                except ValueError:
+                    self._send_json(400, {
+                        "error": f"bad seconds {params.get('seconds')!r}"})
+                    return
+                try:
+                    started = devobs.start_profile(
+                        seconds, logdir=params.get("dir") or None)
+                except RuntimeError as e:
+                    # a capture is active (or the profiler refused): 409,
+                    # so retry loops back off instead of stacking
+                    self._send_json(409, {"error": str(e)})
+                    return
+                self._send_json(200, {"status": "ok", "profile": started})
+                return
+            elif op:
+                self._send_json(400, {"error": f"unknown devobs op {op!r}"})
+                return
+            self._send_json(200, {
+                "status": "ok",
+                "armed": devobs.enabled(),
+                "compiles_since_warm": devobs.compiles_since_warm(),
+                "ledger_bytes": devobs.LEDGER.total_bytes(),
+                "profile": devobs.profile_status(),
+            })
+
+        def _ctrl_offload(self, params: dict):
+            """Arm, freeze, clear, force and tune the planner, pin the
+            PromQL host-kernels switch, run a pre-warm sweep; no knob =
+            the planner's debug document."""
+            if "arm" in params:
+                offload.set_enabled(params["arm"] in ("1", "true"))
+            if "freeze" in params:
+                offload.GLOBAL.set_frozen(params["freeze"] in ("1", "true"))
+            if params.get("clear", "") in ("1", "true"):
+                offload.GLOBAL.clear()
+            try:
+                if "host_kernels" in params:
+                    offload.set_prom_host_kernels_mode(params["host_kernels"])
+                if "force" in params:
+                    v = params["force"]
+                    offload.set_force(None if v in ("", "none") else v)
+            except ValueError as e:
+                self._send_json(400, {"error": str(e)})
+                return
+            knobs = {}
+            for k, conv in (("min_samples", int), ("explore_after", int),
+                            ("amortize", float), ("ewma", float)):
+                if k in params:
+                    try:
+                        knobs[k] = conv(params[k])
+                    except ValueError:
+                        self._send_json(400,
+                                        {"error": f"bad {k} {params[k]!r}"})
+                        return
+            if knobs:
+                offload.GLOBAL.configure(**knobs)
+            op = params.get("op", "")
+            if op == "prewarm":
+                self._send_json(200, {"status": "ok",
+                                      "prewarmed": offload.prewarm_once()})
+                return
+            if op:
+                self._send_json(400, {"error": f"unknown offload op {op!r}"})
+                return
+            doc = offload.GLOBAL.debug_doc()
+            doc["status"] = "ok"
+            self._send_json(200, doc)
 
         def _handle_query(self, params: dict, read_only: bool = False):
             q = params.get("q", "")
@@ -367,8 +550,7 @@ def _make_handler(svc: HttpService):
                 return
             self._send_json(200, result, params.get("pretty") in ("true", "1"))
 
-        def _handle_write(self, params: dict, body: bytes):
-            db = params.get("db", "")
+        def _handle_write(self, params: dict, db: str, rp, body: bytes):
             if not db:
                 self._send_json(400, {"error": "database is required"})
                 return
@@ -376,8 +558,7 @@ def _make_handler(svc: HttpService):
             if precision == "n":
                 precision = "ns"
             try:
-                svc.engine.write_lines(db, body, precision=precision,
-                                       rp=params.get("rp") or None)
+                svc.engine.write_lines(db, body, precision=precision, rp=rp)
             except DatabaseNotFound as e:
                 self._send_err(404, e)
                 return

@@ -52,9 +52,14 @@ device_bytes, time_ns. Cache time is also attributed to the running
 query (utils/querytracker.py stages) and shown in the executor's
 ``colcache`` span.
 
+Every retained device entry is a row of the device-memory ledger
+(utils/devobs.py ``LEDGER``, owner ``colcache_device``; armed only), kept
+in step with its bytes and dropped with it.
+
 Not in this port yet: the mesh layouts of the device tier (the
-reference reshards retained entries when its device mesh changes;
-ROADMAP A5) and the resource governor's memory ledger.
+reference reshards retained entries when its device mesh changes; they
+come with the device mesh, ROADMAP A8) and the resource governor's
+memory ledger.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ import threading
 import time
 from collections import OrderedDict
 
+from opengemini_tpu_torch.utils import devobs
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as _TRACKER
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
@@ -180,6 +186,8 @@ class ColumnCache:
             self._publish_locked()
 
     def _drop_dev_all_locked(self) -> None:
+        for ent, _nb in self._dev.values():
+            devobs.LEDGER.drop(ent.pop("_ledger", None))
         self._dev.clear()
         self._dev_bytes = 0
 
@@ -317,8 +325,11 @@ class ColumnCache:
                 # same token, other geometry: replace
                 del self._dev[token]
                 self._dev_bytes -= got[1]
+                devobs.LEDGER.drop(got[0].pop("_ledger", None))
             self._dev[token] = (ent, nb)
             self._dev_bytes += nb
+            ent["_ledger"] = devobs.LEDGER.register(
+                "colcache_device", nb, label=str(token)[:120])
             self._evict_dev_locked()
             self._publish_locked()
         return ent
@@ -340,6 +351,7 @@ class ColumnCache:
             nb = got[1] + tensor_nbytes(imat)
             self._dev[token] = (ent, nb)
             self._dev_bytes += tensor_nbytes(imat)
+            devobs.LEDGER.update(ent.get("_ledger"), nb)
             self._evict_dev_locked()
             self._publish_locked()
         return imat
@@ -347,8 +359,9 @@ class ColumnCache:
     def _evict_dev_locked(self) -> None:
         n = 0
         while self._dev_bytes > self._dev_budget and self._dev:
-            _k, (_ent, nb) = self._dev.popitem(last=False)
+            _k, (ent, nb) = self._dev.popitem(last=False)
             self._dev_bytes -= nb
+            devobs.LEDGER.drop(ent.pop("_ledger", None))
             n += 1
         if n:
             _STATS.incr("colcache", "evictions", n)

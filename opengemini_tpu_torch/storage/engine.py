@@ -186,6 +186,10 @@ class Engine:
         self.flush_threshold_bytes = flush_threshold_bytes
         os.makedirs(root, exist_ok=True)
         self._lock = threading.RLock()
+        # syscontrol switches (/debug/ctrl?mod=disablewrite|disableread|
+        # readonly): refuse writes, or SELECT and EXPLAIN
+        self.write_disabled = False
+        self.read_disabled = False
         self.databases: dict[str, Database] = {}
         self._meta_extra: dict = {}
         # (db, rp, group_start) -> Shard
@@ -463,6 +467,8 @@ class Engine:
         range). The native parser takes the body (a large one in
         segments on the ingest pool); the Python parser takes it only
         when the native one hands it back. Returns points written."""
+        if self.write_disabled:
+            raise WriteError("writes are disabled (syscontrol)")
         rp = self._db_rp(db, rp)
         if now_ns is None:
             now_ns = _time.time_ns()
@@ -597,6 +603,8 @@ class Engine:
         """Structured write path: points are (measurement, tags tuple,
         t_ns, {field: (FieldType, value)}), WAL-logged as structured
         entries."""
+        if self.write_disabled:
+            raise WriteError("writes are disabled (syscontrol)")
         rp = self._db_rp(db, rp)
         return self._write_points(db, rp, points, lambda sh, pts: (
             sh.write_points_structured(pts, defer_commit=True)))

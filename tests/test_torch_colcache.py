@@ -412,21 +412,21 @@ def test_device_tier_hit_launches_no_decode(tmp_path, caches):
         e.write_lines("db", "\n".join(rows))
         e.flush_all()
         ex = TExecutor(e)
-        h2d = "h2d_bytes/device-decode"
-        fill0 = TSTATS.counters("devobs").get(h2d, 0)
+        h2d = "h2d_bytes_total"
+        fill0 = TSTATS.counters("device").get(h2d, 0)
         cold = ex.execute(q, db="db")
-        assert TSTATS.counters("devobs").get(h2d, 0) > fill0
+        assert TSTATS.counters("device").get(h2d, 0) > fill0
         assert calls["grid"] >= 1
         before = dict(calls)
         d0 = PORT.cache.counters()["device_hits"]
-        x0 = TSTATS.counters("devobs").get(h2d, 0)
+        x0 = TSTATS.counters("device").get(h2d, 0)
         warm = ex.execute(q, db="db")
         assert warm == cold
         assert PORT.cache.counters()["device_hits"] == d0 + 1
         assert calls["grid"] == before["grid"] + 1
         assert calls["widen"] == before["widen"]
         assert calls["unpack"] == before["unpack"]
-        assert TSTATS.counters("devobs").get(h2d, 0) == x0
+        assert TSTATS.counters("device").get(h2d, 0) == x0
         e.close()
     finally:
         mp.undo()

@@ -219,6 +219,33 @@ def test_gorilla_scan_matches_jax(monkeypatch):
             assert (got is None) == (want is None)
 
 
+@pytest.mark.parametrize("seed", range(6))
+def test_gorilla_scan_matches_jax_on_random_streams(seed):
+    """The native structural scan against the JAX package's walk: random
+    float streams (repeats, small and large XORs, NaN and inf) encoded by
+    the codec, and random bytes read as streams of random lengths
+    (mostly malformed, at the same place in both)."""
+    from opengemini_tpu_torch import native
+
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 3000))
+    vals = np.where(rng.random(n) < 0.3, 1.5,
+                    rng.normal(0, 10.0 ** rng.integers(-3, 9), n))
+    vals[rng.random(n) < 0.01] = np.nan
+    vals[rng.random(n) < 0.01] = np.inf
+    payloads = [(native.gorilla_encode(vals.astype(np.float64)), n)]
+    for _ in range(20):
+        raw = rng.integers(0, 256, int(rng.integers(0, 64)), dtype=np.uint8)
+        payloads.append((raw.tobytes(), int(rng.integers(0, 40))))
+    for payload, m in payloads:
+        got = tdd._gorilla_scan(payload, m)
+        want = jdd._gorilla_scan(payload, m)
+        assert (got is None) == (want is None), (payload, m)
+        if got is not None:
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+
+
 # -- (c) plain versions of kernels 4-6 -----------------------------------------
 
 
@@ -484,14 +511,14 @@ def test_cold_scan_takes_the_fused_path(tmp_path, monkeypatch):
     q = ("SELECT count(vi), min(vi), max(vi) FROM cpu WHERE time >= %d "
          "AND time < %d GROUP BY time(1m)" % (BASE * NS, (BASE + 4000) * NS))
     keys = ("executor/grid_decode_fused", "device/decode_fallbacks_total",
-            "devobs/h2d_bytes/device-decode", "executor/grid_batches")
+            "device/h2d_bytes_total", "executor/grid_batches")
     before = {k: _stat(k) for k in keys}
     got = Executor(te).execute(q, db="db")
     d = {k: _stat(k) - before[k] for k in keys}
     assert d["executor/grid_decode_fused"] >= 1
     assert d["device/decode_fallbacks_total"] == 0
     # the grid this scan fills: 70 series rows (padded) x 6 x windows
-    nbytes = d["devobs/h2d_bytes/device-decode"]
+    nbytes = d["device/h2d_bytes_total"]
     assert 0 < nbytes < 9 * 8400 * 2, nbytes
     want = JExecutor(je).execute(q, db="db")
     assert json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)

@@ -35,7 +35,7 @@ def test_every_module_is_found():
                  "opengemini_tpu_torch.convert",
                  *SIXTH_SLICE_MODULES, *SEVENTH_SLICE_MODULES,
                  *EIGHTH_SLICE_MODULES, *NINTH_SLICE_MODULES,
-                 *TENTH_SLICE_MODULES):
+                 *TENTH_SLICE_MODULES, *ELEVENTH_SLICE_MODULES):
         assert must in mods
 
 
@@ -155,6 +155,22 @@ TENTH_SLICE_MODULES = [
     "opengemini_tpu_torch.query.qhelpers",
 ]
 BLOCKED_IMPORT_MODULES += TENTH_SLICE_MODULES
+# the single-node HTTP surface (/metrics, /api/v2/write, the syscontrol
+# switches) and the offload planner with device observability, with the
+# modules whose sites feed them
+ELEVENTH_SLICE_MODULES = [
+    "opengemini_tpu_torch.utils.stats",
+    "opengemini_tpu_torch.utils.devobs",
+    "opengemini_tpu_torch.query.offload",
+    "opengemini_tpu_torch.server.http",
+    "opengemini_tpu_torch.ops.device_decode",
+    "opengemini_tpu_torch.ops.cuda_segment",
+    "opengemini_tpu_torch.models.grid",
+    "opengemini_tpu_torch.models.templates",
+    "opengemini_tpu_torch.models.ragged",
+    "opengemini_tpu_torch.storage.colcache",
+]
+BLOCKED_IMPORT_MODULES += ELEVENTH_SLICE_MODULES
 
 
 @pytest.mark.parametrize("module", BLOCKED_IMPORT_MODULES)
