@@ -39,9 +39,11 @@ Phases, in order; any failure ends the run with a nonzero exit:
    CUDA-event time of each and the host time of a call (1000 calls, not
    synchronised).
 3. End to end on a TSBS devops cpu-only deployment (4000 hosts, the 10
-   cpu tags, the 10 usage_* fields, one sample every 10 s for 12 h from
-   2016-01-01T00:00:00Z): the port's HTTP server on localhost takes
-   CREATE DATABASE, the first minute of every host as line protocol on
+   cpu tags, the 10 usage_* fields, one sample every 10 s for 6 h from
+   2016-01-01T00:00:00Z; `--hours`, cut from 12 h so that the script
+   with phase 13 stays within 1050 s): the port's HTTP server on
+   localhost takes CREATE DATABASE, the first minute of every host as
+   line protocol on
    /write (parsed by the native parser, native/lineproto.cpp, in
    segments; its points/s print) and the rest through
    convert.load_columnar, both logged to the WAL; the flush threshold
@@ -258,16 +260,50 @@ Phases, in order; any failure ends the run with a nonzero exit:
    answered) and flush (one more file); /metrics parsed (parse_metrics),
    its query GETs and planner counters against the phase's requests and
    the ring. Kernels 3-5 are checked again at its new shapes.
+13. PromQL on the card, with a budget of its own (PROM_PHASE_S, 100 s),
+   on a root of its own (build/prom): TSBS devops as its
+   victoriametrics target loads it, cpu usage_user and diskio
+   read_bytes as the Prometheus metrics cpu_usage_user and
+   diskio_read_bytes with the ten host tags as labels (4000 hosts, 10 s,
+   PROM_HOURS h from 2016-01-01: 5.76 M samples at 2 h, cut from 6 h)
+   through
+   convert.load_columnar under the device profile, flushed and compacted
+   to one file (the load's samples/s print); the next minute of all
+   8000 series through POST /api/v1/prom/write (snappy with literals
+   only, the script's own prompb encoder; samples/s print) into a file
+   of its own, and one POST /api/v1/otlp/metrics (a gauge and a sum for
+   100 hosts). PQ1-PQ7 (prom_queries: the TSBS PromQL query types and
+   the range functions of the tiled and dense paths) on the device
+   route (/debug/ctrl?mod=offload&host_kernels=0, the planner off).
+   First PQ2-PQ4 with the route forced to the device
+   (/debug/ctrl?mod=offload&force=device, which passes the encoded
+   decode's cost gate): the value matrix decodes on the card through
+   decode_rows_matrix, kernel 5 must launch, and the device-decode H2D
+   bytes print beside the padded (S, N) matrix each decode replaces;
+   decode_rows_matrix against materialize_enc bit for bit at PQ3's
+   geometry. Then each PQ 5 times (twice when the first run passes 5 s)
+   with its p50, its stage split (prom_collect, prom_prepare,
+   prom_kernel, render, encode) and launches, the forced answers equal
+   to these; PQ1 (max) and PQ3 (mean) against numpy; every PQ once on
+   the host route (host_kernels=1), the same answers, both walls
+   printed; PQ3 and PQ4 in one torch.profiler capture (the device's busy
+   share); the written minute and the OTLP points read back exactly
+   (PQ6, /api/v1/prom/read of host_7's diskio_read_bytes over the last
+   hour, InfluxQL); /api/v1/labels, /label/hostname/values and
+   /series; then the root reopened with device="cpu" must give the
+   card's answers (max, the instant values and topk exactly, the rest
+   within rel 1e-9). Kernels 4 and 5 are checked and timed at its
+   shapes.
 
-The incremental result cache (OGT_RESULT_CACHE) is off in phases 3-9
-and 12, so their repeated runs measure every execution; phases 10 and
+The incremental result cache (OGT_RESULT_CACHE) is off in phases 3-9,
+12 and 13, so their repeated runs measure every execution; phases 10 and
 11 turn it on for their panels. The offload planner is off in phases
-3-11 (each disarms it through /debug/ctrl?mod=offload&arm=0 at its
-start: every route is the static gate's, so their launches per run are
-exact); phase 12 arms it. Phase 5 arms devobs for its transfer
+3-11 and 13 (each disarms it through /debug/ctrl?mod=offload&arm=0 at
+its start: every route is the static gate's, so their launches per run
+are exact); phase 12 arms it. Phase 5 arms devobs for its transfer
 histogram (the decode's H2D bytes), and phase 12 for the planner's
 walls. Launch counters start at 0 before each main path (phases 3, 5,
-6, 7, 8, 9, 10, 11, 12) and are read after it; the
+6, 7, 8, 9, 10, 11, 12, 13) and are read after it; the
 {"kernels": [...]} line sums them, with launches_per_phase,
 launches_per_query and launches_parity_on_card. `--phases` runs only
 the named phases after 2 (for a short call that checks one path); the
@@ -1406,10 +1442,12 @@ def device_time(events, start: float, end: float) -> dict:
             "device_calls": len(calls), "missing": len(calls - seen)}
 
 
-def traced_queries(port: int, queries: dict, trace_path: str) -> dict:
+def traced_queries(port: int, queries: dict, trace_path: str,
+                   run=None) -> dict:
     """One more run of each query, all in one torch.profiler session (CPU
     and CUDA activity), each inside a user annotation on this thread;
-    returns per query its result, wall ms, launches and device time."""
+    returns per query its result, wall ms, launches and device time.
+    `run(port, q)` makes the request (default: an InfluxQL /query)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1427,7 +1465,7 @@ def traced_queries(port: int, queries: dict, trace_path: str) -> dict:
             l0 = dict(cs.LAUNCHES)
             with record_function(f"smoke/{qn}"):
                 t0 = time.perf_counter()
-                res = query(port, q)
+                res = (run or query)(port, q)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
             out[qn] = {"result": res, "wall_ms": wall, "launches": {
@@ -2717,7 +2755,11 @@ SUBQUERY_RESERVE_S = 30.0
 # the script's time limit, and what phase 9 leaves of it for the checks
 # after it: its runs stop early rather than let the script overrun
 SCRIPT_LIMIT_S = 1200.0
-AFTER_PHASE12_S = 60.0
+# phase 13's budget (s): the load, the seven PQs, both routes, a traced
+# run, the encoded decode, the read-backs and the CPU reopen
+PROM_PHASE_S = 100.0
+AFTER_PHASE13_S = 60.0
+AFTER_PHASE12_S = AFTER_PHASE13_S + PROM_PHASE_S
 AFTER_PHASE11_S = AFTER_PHASE12_S + 90.0  # phase 12's PLANNER_PHASE_S
 AFTER_PHASE10_S = AFTER_PHASE11_S + 120.0  # phase 11's LIFECYCLE_PHASE_S
 AFTER_PHASE9_S = AFTER_PHASE10_S + 180.0  # phase 10's DASHBOARD_PHASE_S
@@ -4447,6 +4489,675 @@ def phase_planner(cold: dict) -> dict:
         stop_server(svc, engine)
 
 
+# -- phase 13: PromQL on the card ---------------------------------------------
+
+# the span of phase 13's data (h), cut from 6 h: the phase took 194.3 s
+# at 6 h and 118.7 s at 3 h on an H100, over its 100 s budget (the cuts
+# are listed in PERF.md)
+PROM_HOURS = 2
+PROM_OTLP_HOSTS = 100
+# runs of each PQ; a PQ whose first run passes PROM_SLOW_MS runs twice
+PROM_RUNS = 5
+PROM_SLOW_MS = 5000.0
+# the remote-written minute: samples per series
+PROM_MINUTE = 6
+PROM_DB = "prom"
+# averages, rates and quantiles across devices and routes (summation
+# order): rel PROM_RTOL, or PROM_ATOL absolute where a mean of the
+# [0, 100] walk falls near 0 (a window's difference of prefix sums over
+# the whole span carries ~1e-11 absolute); maxima, instant values and topk
+# compare exactly
+PROM_RTOL = 1e-9
+PROM_ATOL = 1e-9
+# the PromQL stages: the engine's (promql/engine.py) and the answer's
+# JSON and write (server/http.py)
+PROM_STAGES = ("prom_collect", "prom_prepare", "prom_kernel", "render",
+               "encode")
+
+
+def _pb_varint(v: int) -> bytes:
+    out = bytearray()
+    v &= (1 << 64) - 1
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _pb(fnum: int, payload: bytes) -> bytes:
+    return _pb_varint((fnum << 3) | 2) + _pb_varint(len(payload)) + payload
+
+
+def _pb_fixed64(fnum: int, raw8: bytes) -> bytes:
+    return _pb_varint((fnum << 3) | 1) + raw8
+
+
+def snappy_literal(data: bytes) -> bytes:
+    """Snappy block framing with literals only (the compressed body a
+    remote-write client may send): the length, then literal elements of
+    at most 64 KiB."""
+    out = bytearray(_pb_varint(len(data)))
+    for off in range(0, len(data), 65536):
+        chunk = data[off:off + 65536]
+        n = len(chunk) - 1
+        if n < 60:
+            out.append(n << 2)
+        elif n < 256:
+            out += bytes([60 << 2, n])
+        else:
+            out += bytes([61 << 2]) + n.to_bytes(2, "little")
+        out += chunk
+    return bytes(out)
+
+
+def prompb_write(series) -> bytes:
+    """A prompb WriteRequest: series is [(labels [(name, value)], times
+    in ms, values)]."""
+    import struct
+
+    out = []
+    for labels, t_ms, vals in series:
+        ts = b"".join(_pb(1, _pb(1, n.encode()) + _pb(2, v.encode()))
+                      for n, v in labels)
+        ts += b"".join(
+            _pb(2, _pb_fixed64(1, struct.pack("<d", float(v)))
+                + _pb_varint(2 << 3) + _pb_varint(int(t)))
+            for t, v in zip(t_ms, vals))
+        out.append(_pb(1, ts))
+    return b"".join(out)
+
+
+def prompb_read(start_ms: int, end_ms: int, matchers) -> bytes:
+    """A prompb ReadRequest of one query; matchers are (type, name,
+    value), type 0 = EQ."""
+    q = (_pb_varint(1 << 3) + _pb_varint(start_ms)
+         + _pb_varint(2 << 3) + _pb_varint(end_ms))
+    for mtype, name, value in matchers:
+        q += _pb(3, _pb_varint(1 << 3) + _pb_varint(mtype)
+                 + _pb(2, name.encode()) + _pb(3, value.encode()))
+    return _pb(1, q)
+
+
+def otlp_body(hosts, t_ns: int, gauge, counter) -> bytes:
+    """An OTLP ExportMetricsServiceRequest: a gauge (system_cpu_load)
+    and a sum (system_net_bytes), one point per host, the hostname as a
+    point attribute and service.name as the resource's."""
+    import struct
+
+    def kv(key: str, value: str) -> bytes:
+        return _pb(1, key.encode()) + _pb(2, _pb(1, value.encode()))
+
+    def points(vals) -> bytes:
+        return b"".join(
+            _pb(1, _pb(7, kv("hostname", f"host_{h}"))
+                + _pb_fixed64(3, struct.pack("<Q", t_ns))
+                + _pb_fixed64(4, struct.pack("<d", float(v))))
+            for h, v in zip(hosts, vals))
+
+    metrics = (_pb(2, _pb(1, b"system_cpu_load") + _pb(5, points(gauge)))
+               + _pb(2, _pb(1, b"system_net_bytes") + _pb(7, points(counter))))
+    resource = _pb(1, kv("service.name", "tsbs"))
+    return _pb(1, _pb(1, resource) + _pb(2, metrics))
+
+
+def prom_get(port: int, path: str, params: dict) -> tuple:
+    """(data, request ms, wall ms) of one Prometheus API GET on the
+    kept-alive connection; the answer must be a success."""
+    import torch
+
+    conn = _CONNS.get(port)
+    if conn is None:
+        conn = _CONNS[port] = HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("GET", path + "?" + urllib.parse.urlencode(params))
+    r = conn.getresponse()
+    status, body = r.status, r.read()
+    t1 = time.perf_counter()
+    check(status == 200, f"{path} {params.get('query', '')}: status "
+          f"{status} {body[:300]!r}")
+    doc = json.loads(body)
+    check(doc.get("status") == "success", f"{path}: {doc}")
+    torch.cuda.synchronize()
+    return doc["data"], (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+
+def prom_queries(t_end: float, t_last: float) -> dict:
+    """PQ1-PQ7: (path, params, kind); the range queries end at the last
+    loaded sample (t_end, s), PQ6 asks at the last written one."""
+    def rng_q(q, span_s, step_s):
+        return ("/api/v1/query_range",
+                {"query": q, "start": repr(t_end - span_s),
+                 "end": repr(t_end), "step": str(step_s), "db": PROM_DB})
+
+    six_h = PROM_HOURS * 3600
+    return {
+        "PQ1": rng_q('max by (hostname) (max_over_time(cpu_usage_user'
+                     '{hostname="host_1"}[1m]))', 3600, 60),
+        "PQ2": rng_q("avg by (hostname) (avg_over_time(cpu_usage_user"
+                     "[1h]))", six_h - 3600, 3600),
+        "PQ3": rng_q("avg by (hostname) (avg_over_time(cpu_usage_user"
+                     "[1m]))", six_h - 60, 60),
+        "PQ4": rng_q("sum by (region) (rate(diskio_read_bytes[5m]))",
+                     six_h - 60, 60),
+        "PQ5": rng_q("quantile_over_time(0.99, cpu_usage_user[5m])", 3600,
+                     300),
+        "PQ6": ("/api/v1/query", {"query": "cpu_usage_user",
+                                  "time": repr(t_last), "db": PROM_DB}),
+        "PQ7": ("/api/v1/query", {
+            "query": "topk(10, max_over_time(cpu_usage_user[10m]))",
+            "time": repr(t_end), "db": PROM_DB}),
+    }
+
+
+def prom_series(data: dict) -> dict:
+    """An answer's series by their sorted labels: a list of (t, value
+    string) pairs, or one pair for an instant vector."""
+    out = {}
+    for r in data["result"]:
+        key = tuple(sorted(r["metric"].items()))
+        out[key] = ([tuple(p) for p in r["values"]] if "values" in r
+                    else [tuple(r["value"])])
+    return out
+
+
+def prom_same(qn: str, got: dict, want: dict, exact: bool) -> float:
+    """Equal PromQL answers: the same series and timestamps, the values
+    equal (exact) or within PROM_RTOL or PROM_ATOL (special values
+    equal); returns the largest relative difference."""
+    import numpy as np
+
+    g, w = prom_series(got), prom_series(want)
+    check(g.keys() == w.keys(), f"{qn}: {len(g)} series against "
+          f"{len(w)}, or other labels")
+    worst = 0.0
+    for key, pts in w.items():
+        mine = g[key]
+        if mine == pts:
+            continue
+        check([p[0] for p in mine] == [p[0] for p in pts],
+              f"{qn} {key}: other timestamps")
+        check(not exact, f"{qn} {key}: the values differ")
+        a = np.array([p[1] for p in mine], dtype=np.float64)
+        b = np.array([p[1] for p in pts], dtype=np.float64)
+        ok = np.isclose(a, b, rtol=PROM_RTOL, atol=PROM_ATOL,
+                        equal_nan=True)
+        bad = np.flatnonzero(~ok)
+        check(not bad.size, f"{qn} {key}: {mine[bad[0]] if bad.size else ''}"
+              f" against {pts[bad[0]] if bad.size else ''}")
+        fin = np.isfinite(b) & (b != 0)
+        if fin.any():
+            worst = max(worst, float((np.abs(a - b)[fin]
+                                      / np.abs(b[fin])).max()))
+    return worst
+
+
+# which PQs compare exactly across routes and devices: max, the instant
+# selector and topk's members and maxima
+PROM_EXACT = {"PQ1": True, "PQ2": False, "PQ3": False, "PQ4": False,
+              "PQ5": False, "PQ6": True, "PQ7": True}
+
+
+def prom_oracle(qn: str, data: dict, usage, t0_s: float, t_end: float,
+                n_hosts: int) -> None:
+    """PQ1 and PQ3 against numpy: the max (exactly) and the mean (within
+    PROM_RTOL, PROM_ATOL) of each 1 min window (t - 60 s, t] of the
+    generated random walk."""
+    import numpy as np
+
+    got = prom_series(data)
+    span = 3600 if qn == "PQ1" else PROM_HOURS * 3600 - 60
+    steps = t_end - span + 60.0 * np.arange(span // 60 + 1)
+    hosts = [1] if qn == "PQ1" else list(range(n_hosts))
+    check(len(got) == len(hosts), f"{qn}: {len(got)} series")
+    hi = np.rint((steps - t0_s) / 10.0).astype(np.int64)  # (te - 60, te]
+    win = usage[:, hi[:, None] + np.arange(-5, 1)[None, :]]  # (H, K, 6)
+    for h in hosts:
+        pts = got[(("hostname", f"host_{h}"),)]
+        check([p[0] for p in pts] == steps.tolist(),
+              f"{qn} host_{h}: other steps")
+        v = np.array([p[1] for p in pts], dtype=np.float64)
+        if qn == "PQ1":
+            want = win[h].max(axis=1)
+            check(np.array_equal(v, want), f"PQ1: {v} against {want}")
+        else:
+            want = win[h].mean(axis=1)
+            err = np.abs(v - want)
+            check(bool((err <= np.maximum(PROM_RTOL * np.abs(want),
+                                          PROM_ATOL)).all()),
+                  f"PQ3 host_{h}: off by up to {err.max()!r}")
+
+
+def phase_prom(seed: int, deadline: float, n_hosts: int = N_HOSTS) -> dict:
+    """PromQL on the card, on a root of its own (fresh_root("prom")): TSBS
+    devops as its victoriametrics target loads it (cpu usage_user and
+    diskio read_bytes as the Prometheus metrics cpu_usage_user and
+    diskio_read_bytes, the ten host tags as labels; 4000 hosts at 10 s
+    over PROM_HOURS h from 2016-01-01) through convert.load_columnar under
+    the device profile, flushed to one file (and compacted: a no-op at
+    one file); one more minute of all 8000 series through POST
+    /api/v1/prom/write (snappy, the script's own prompb encoder) into a
+    file of its own, and one POST /api/v1/otlp/metrics (a gauge and a sum
+    for PROM_OTLP_HOSTS hosts). PQ1-PQ7 on the device route (host
+    kernels off, the planner off): first PQ2-PQ4 with the route forced
+    to the device (the cost gate of the encoded decode passes): the rows
+    matrix decodes on the card (kernel 5 must launch), and
+    decode_rows_matrix equals materialize_enc bit for bit at PQ3's
+    geometry; then each PQ PROM_RUNS times (twice past PROM_SLOW_MS)
+    with its stage split and launches, the forced answers equal to
+    these; PQ1 and PQ3 against numpy; each PQ once on the host route
+    (host kernels on), the same answers; PQ3 and PQ4 traced (the
+    device's busy share); /api/v1/labels, /label/hostname/values,
+    /series, /prom/read and an InfluxQL /query read the written minute
+    and the OTLP points back exactly; then the root reopened with
+    device="cpu" gives the card's answers."""
+    import numpy as np
+    import torch
+
+    from opengemini_tpu_torch import convert
+    from opengemini_tpu_torch.ingest import protowire as pw
+    from opengemini_tpu_torch.ingest.line_protocol import series_key
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.ops import device_decode as dd
+    from opengemini_tpu_torch.query import offload
+    from opengemini_tpu_torch.storage import colcache
+    from opengemini_tpu_torch.storage.engine import Engine
+    from opengemini_tpu_torch.server.http import HttpService
+    from opengemini_tpu_torch.utils import devobs
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 13)
+    n_t = PROM_HOURS * 360
+    n_all = n_t + PROM_MINUTE
+    tags = host_tags(n_hosts, rng)
+    start = rng.random((n_hosts, 1)) * 100.0
+    walk = rng.normal(0.0, 1.0, (n_hosts, n_all))
+    walk[:, 0] = 0.0
+    usage = np.clip(start + np.cumsum(walk, axis=1), 0.0, 100.0)
+    reads = np.cumsum(np.abs(np.rint(rng.normal(100.0, 1.0,
+                                                (n_hosts, n_all)))),
+                      axis=1)  # the TSBS read_bytes counter, as floats
+    t0_s = T0_NS / 1e9
+    t_end = t0_s + (n_t - 1) * 10.0  # the last loaded sample
+    t_last = t0_s + (n_all - 1) * 10.0  # the last written one
+    queries = prom_queries(t_end, t_last)
+    root = fresh_root("prom")
+    colcache.GLOBAL.configure(budget_mb=0, device=False)
+    rec = ShapeRecorder().__enter__()
+    svc = engine = None
+    per_query: dict = {}
+    steps: dict = {}
+    try:
+        torch.cuda.synchronize()
+        cs.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        devobs.reset_probe()
+        engine = Engine(root, flush_threshold_bytes=1 << 40)
+        check(engine.device.type == "cuda", f"engine on {engine.device}")
+        svc = HttpService(engine, port=0, prom_db=PROM_DB)
+        svc.start()
+        port = svc.port
+        disarm_planner(port)
+        status, _ = http(port, "POST", "/query",
+                         {"q": f"CREATE DATABASE {PROM_DB}"})
+        check(status == 200, f"CREATE DATABASE status {status}")
+
+        # the load: one columnar batch per metric, one file, compacted
+        os.environ["OGT_DEVICE_PROFILE"] = "1"
+        times = T0_NS + np.arange(n_t, dtype=np.int64) * STEP_NS
+        ones = np.ones(n_hosts * n_t, np.bool_)
+        common = {"series": np.repeat(np.arange(n_hosts, dtype=np.int64),
+                                      n_t),
+                  "times": np.tile(times, n_hosts)}
+        t_load = time.perf_counter()
+        n = convert.load_columnar(engine, PROM_DB, {
+            metric: {"series_keys": [series_key(metric, t) for t in tags],
+                     "fields": {"value": (np.ascontiguousarray(
+                         src[:, :n_t]).reshape(-1), ones)}, **common}
+            for metric, src in (("cpu_usage_user", usage),
+                                ("diskio_read_bytes", reads))})
+        load_s = time.perf_counter() - t_load
+        check(n == 2 * n_hosts * n_t, f"the load wrote {n} samples")
+        t_flush = time.perf_counter()
+        engine.flush_all()
+        for sh in engine.all_shards():
+            while sh.compact_level():
+                pass
+            sh.compact()
+        flush_s = time.perf_counter() - t_flush
+        n_files = sum(len(sh._files) for sh in engine.all_shards())
+        check(n_files == 1, f"{n_files} TSF files after the compaction")
+        log(f"[prom] loaded {n} samples ({n_hosts} hosts x 2 metrics x "
+            f"{PROM_HOURS} h) in {load_s:.1f} s ({n / load_s:.0f} "
+            f"samples/s), flushed and compacted to {n_files} file in "
+            f"{flush_s:.1f} s"
+            + ("; the load passed 60 s: cut the span to 3 h"
+               if load_s > 60 else ""))
+        steps["load"] = {"samples": n, "load_s": load_s,
+                         "flush_s": flush_s}
+
+        # one more minute through remote write, in a file of its own
+        t_ms = (T0_NS // 10**6
+                + np.arange(n_t, n_all, dtype=np.int64) * (STEP_NS // 10**6))
+        series = [([("__name__", metric), *tags[h]], t_ms, src[h, n_t:])
+                  for metric, src in (("cpu_usage_user", usage),
+                                      ("diskio_read_bytes", reads))
+                  for h in range(n_hosts)]
+        body = snappy_literal(prompb_write(series))
+        t_rw = time.perf_counter()
+        status, _h, resp = http_raw(port, "POST", "/api/v1/prom/write",
+                                    {"db": PROM_DB}, body)
+        rw_s = time.perf_counter() - t_rw
+        check(status == 204, f"remote write status {status} {resp[:200]!r}")
+        n_rw = len(series) * PROM_MINUTE
+        log(f"[prom] remote write: {n_rw} samples ({len(body)} B snappy) "
+            f"in {rw_s * 1e3:.1f} ms, {n_rw / rw_s:.0f} samples/s")
+        steps["remote_write"] = {"samples": n_rw, "bytes": len(body),
+                                 "ms": rw_s * 1e3}
+        engine.flush_all()
+        os.environ.pop("OGT_DEVICE_PROFILE", None)
+        otlp_hosts = range(PROM_OTLP_HOSTS)
+        t_otlp = T0_NS + (n_all - 1) * STEP_NS
+        gauge = usage[:PROM_OTLP_HOSTS, -1] / 100.0
+        counter = reads[:PROM_OTLP_HOSTS, -1] * 8
+        status, _h, resp = http_raw(port, "POST", "/api/v1/otlp/metrics",
+                                    {"db": PROM_DB},
+                                    otlp_body(otlp_hosts, t_otlp, gauge,
+                                              counter))
+        check(status == 200, f"OTLP status {status} {resp[:200]!r}")
+
+        # the device route (host kernels off) from here on
+        status, _ = http(port, "POST", "/debug/ctrl",
+                         {"mod": "offload", "host_kernels": "0"})
+        check(status == 200, "host_kernels=0 refused")
+
+        # the encoded decode, the cost gate passed by forcing the device,
+        # first: a host read of the same columns (the instant selector,
+        # the read-backs, the host route) leaves them decoded in the file
+        # reader's cache, and a decoded column takes no device decode
+        status, _ = http(port, "POST", "/debug/ctrl",
+                         {"mod": "devobs", "arm": "1"})
+        status, _ = http(port, "POST", "/debug/ctrl",
+                         {"mod": "offload", "force": "device"})
+        check(status == 200, "force=device refused")
+        seen_rows = []
+        real_rows = dd.decode_rows_matrix
+
+        def rows_spy(enc, shape, dtype, device):
+            out = real_rows(enc, shape, dtype, device)
+            seen_rows.append((enc, shape, out is not None))
+            return out
+
+        dd.decode_rows_matrix = rows_spy
+        decoded = {}
+        enc = shape = None
+        try:
+            for qn in ("PQ2", "PQ3", "PQ4"):  # PQ5 takes the dense kernels
+                path, params = queries[qn]
+                seen_rows.clear()
+                l0, c0 = dict(cs.LAUNCHES), decode_counters()
+                rec.now = {}
+                data, _r, wall_ms = prom_get(port, path, params)
+                d = {k2: v - c0.get(k2, 0)
+                     for k2, v in decode_counters().items()}
+                got = {k2: cs.LAUNCHES[k2] - l0[k2] for k2 in l0}
+                mat = [s[0] * s[1] * 8 for _e, s, ok in seen_rows if ok]
+                if qn == "PQ3" and seen_rows:
+                    enc, shape, _ok = seen_rows[0]
+                decoded[qn] = {
+                    "data": data,
+                    "wall_ms": wall_ms, "launches": got, "counters": d,
+                    "matrix_bytes": sum(mat),
+                    "h2d_bytes": d[H2D_DECODE],
+                    "shapes": {k2: [shape_json(k2, x) for x in sorted(v)]
+                               for k2, v in rec.now.items()}}
+                rec.now = None
+                blocks = {k2.split("_")[2]: v for k2, v in d.items()
+                          if k2.startswith("device/decode_blocks_") and v}
+                log(f"[prom] {qn} forced to the device: {wall_ms:.1f} ms, "
+                    f"{len(mat)} rows matrices decoded on the card, blocks "
+                    f"by codec {json.dumps(blocks)}, device-decode H2D "
+                    f"{d[H2D_DECODE]} B against the padded (S, N) f64 "
+                    f"matrix's {sum(mat)} B; launches "
+                    f"{json.dumps({a: b for a, b in got.items() if b})}")
+            check(sum(r["launches"]["unpack_bits"]
+                      for r in decoded.values()) > 0,
+                  "phase 13: kernel 5 never launched")
+        finally:
+            dd.decode_rows_matrix = real_rows
+        # decode_rows_matrix against the host decode at PQ3's geometry
+        check(enc is not None, "PQ3 built no rows matrix")
+        l_chk = dict(cs.LAUNCHES)
+        dev_mat = dd.decode_rows_matrix(enc, shape, np.float64, "cuda")
+        check(dev_mat is not None, "decode_rows_matrix declined PQ3's rows")
+        host = dd.materialize_enc(enc)  # the series' slices, concatenated
+        mat = np.zeros(shape)
+        off = 0
+        for i, (a, b) in enumerate(enc[3]):
+            mat[i, :b - a] = host[off:off + b - a]
+            off += b - a
+        check(dev_mat.cpu().numpy().tobytes() == mat.tobytes(),
+              "decode_rows_matrix differs from materialize_enc")
+        for k2 in l_chk:  # the check's launches are no main path's
+            cs.LAUNCHES[k2] = l_chk[k2]
+        log(f"[prom] decode_rows_matrix on the card equals materialize_enc "
+            f"bit for bit at PQ3's {shape} ({len(enc[1])} blocks)")
+        status, _ = http(port, "POST", "/debug/ctrl",
+                         {"mod": "offload", "force": "none"})
+        status, _ = http(port, "POST", "/debug/ctrl",
+                         {"mod": "devobs", "arm": "0"})
+        # PQ1-PQ7 on the device route
+        answers = {}
+        for qn, (path, params) in queries.items():
+            l0, c0, st0 = dict(cs.LAUNCHES), decode_counters(), \
+                stage_ns(port)
+            rec.now = {}
+            lat, reqs = [], []
+            runs = PROM_RUNS
+            k = 0
+            while k < runs:
+                data, req_ms, wall_ms = prom_get(port, path, params)
+                lat.append(wall_ms)
+                reqs.append(req_ms)
+                if k == 0 and wall_ms > PROM_SLOW_MS:
+                    runs = 2
+                if k:
+                    check(data == answers[qn],
+                          f"{qn}: run {k + 1} answers otherwise")
+                else:
+                    answers[qn] = data
+                k += 1
+            after = stage_ns(port)
+            wall = sum(reqs)
+            ms = {st: (after.get(f"{st}_ns", 0) - st0.get(f"{st}_ns", 0))
+                  / 1e6 for st in PROM_STAGES}
+            ms["other"] = wall - sum(ms[st] for st in PROM_STAGES)
+            d = {k2: v - c0.get(k2, 0) for k2, v in decode_counters().items()}
+            got = {k2: cs.LAUNCHES[k2] - l0[k2] for k2 in l0}
+            per_query[qn] = {
+                "runs_ms": lat, "p50_ms": p50_of(lat), "launches": got,
+                "stages_ms": ms, "counters": d,
+                "series": len(data["result"]) if isinstance(
+                    data.get("result"), list) else 1,
+                "shapes": {k2: [shape_json(k2, x) for x in sorted(v)]
+                           for k2, v in rec.now.items()}}
+            rec.now = None
+            log(f"[prom] {qn} p50={p50_of(lat):.1f} ms (runs "
+                f"{', '.join(f'{x:.1f}' for x in lat)}), "
+                f"{per_query[qn]['series']} series; stages over {len(reqs)} "
+                f"requests ({wall:.1f} ms): "
+                + ", ".join(f"{st} {ms[st]:.1f}" for st in
+                            (*PROM_STAGES, "other"))
+                + f" ms; launches {json.dumps({a: b for a, b in got.items() if b})}"
+                f"; decode fallbacks +{d['device/decode_fallbacks_total']}")
+        prom_oracle("PQ1", answers["PQ1"], usage, t0_s, t_end, n_hosts)
+        prom_oracle("PQ3", answers["PQ3"], usage, t0_s, t_end, n_hosts)
+        log("[prom] PQ1 (max, exactly) and PQ3 (mean, rel 1e-9) equal the "
+            "numpy oracle")
+        for qn, d in decoded.items():
+            prom_same(qn + " decoded", d.pop("data"), answers[qn], False)
+        log(f"[prom] {', '.join(decoded)} decoded on the card answer as "
+            "their device-route runs")
+
+        # the written minute and the OTLP points, read back
+        pq6 = prom_series(answers["PQ6"])
+        check(len(pq6) == n_hosts, f"PQ6: {len(pq6)} series")
+        for h in range(n_hosts):
+            key = tuple(sorted((*tags[h], ("__name__", "cpu_usage_user"))))
+            check(pq6[key] == [(t_last, repr(float(usage[h, -1])))],
+                  f"PQ6 {key[0]}: {pq6[key]}")
+        rd = prompb_read(int((t_last - 3600) * 1000), int(t_last * 1000),
+                         [(0, "__name__", "diskio_read_bytes"),
+                          (0, "hostname", "host_7")])
+        status, hdr, resp = http_raw(port, "POST", "/api/v1/prom/read",
+                                     {"db": PROM_DB}, snappy_literal(rd))
+        check(status == 200 and hdr.get("Content-Encoding") == "snappy",
+              f"remote read status {status}")
+        samples = []
+        for _f, _w, qres in pw.fields(pw.snappy_uncompress(resp)):
+            for _f2, _w2, ts in pw.fields(qres):
+                for f3, w3, v3 in pw.fields(ts):
+                    if f3 == 2:
+                        kv = {a: (b, c) for a, b, c in pw.fields(v3)}
+                        samples.append((pw.as_int64(kv[2][1]),
+                                        pw.as_double(*kv[1])))
+        lo = n_all - 361  # (t_last - 1 h, t_last], both ends read
+        want = [(int(T0_NS // 10**6 + i * 10_000), float(reads[7, i]))
+                for i in range(lo, n_all)]
+        check(samples == want, f"remote read: {len(samples)} samples, "
+              f"not the {len(want)} written")
+        q_minute = ("SELECT value FROM cpu_usage_user WHERE hostname = "
+                    f"'host_7' AND time >= {T0_NS + n_t * STEP_NS}")
+        status, doc = http(port, "GET", "/query", {
+            "db": PROM_DB, "q": q_minute, "epoch": "ns"})
+        rows = doc["results"][0]["series"][0]["values"]
+        check(rows == [[T0_NS + i * STEP_NS, float(usage[7, i])]
+                       for i in range(n_t, n_all)],
+              f"InfluxQL read of the written minute: {rows[:2]}")
+        status, doc = http(port, "GET", "/query", {
+            "db": PROM_DB, "epoch": "ns",
+            "q": "SELECT gauge FROM system_cpu_load GROUP BY hostname"})
+        got_otlp = {s["tags"]["hostname"]: s["values"]
+                    for s in doc["results"][0]["series"]}
+        check(got_otlp == {f"host_{h}": [[t_otlp, float(gauge[h])]]
+                           for h in otlp_hosts},
+              "OTLP gauge read-back differs")
+        status, doc = http(port, "GET", "/query", {
+            "db": PROM_DB, "epoch": "ns",
+            "q": "SELECT sum(counter) FROM system_net_bytes"})
+        check(doc["results"][0]["series"][0]["values"][0][1]
+              == float(counter.sum()), "OTLP sum read-back differs")
+        labels, _r, _w = prom_get(port, "/api/v1/labels", {"db": PROM_DB})
+        check(set(labels) == {"__name__", "hostname", "service.name",
+                              *(k for k, _v in tags[0])},
+              f"/api/v1/labels: {labels}")
+        hv, _r, lv_ms = prom_get(port, "/api/v1/label/hostname/values",
+                                 {"db": PROM_DB})
+        check(hv == sorted(f"host_{h}" for h in range(n_hosts)),
+              f"/label/hostname/values: {len(hv)}")
+        sel, _r, se_ms = prom_get(port, "/api/v1/series", {
+            "db": PROM_DB, "match[]": 'cpu_usage_user{region="us-west-1"}'})
+        want_sel = sum(1 for t in tags if ("region", "us-west-1") in t)
+        check(len(sel) == want_sel, f"/series: {len(sel)} not {want_sel}")
+        log(f"[prom] read back exactly: PQ6's {n_hosts} written samples, "
+            f"host_7's last hour by /api/v1/prom/read ({len(samples)} "
+            f"samples), the written minute by InfluxQL, the OTLP gauge "
+            f"and sum ({PROM_OTLP_HOSTS} hosts); /labels {len(labels)}, "
+            f"/label/hostname/values {len(hv)} in {lv_ms:.1f} ms, /series "
+            f"{len(sel)} in {se_ms:.1f} ms")
+
+        # each PQ on the host route
+        status, _ = http(port, "POST", "/debug/ctrl",
+                         {"mod": "offload", "host_kernels": "1"})
+        check(status == 200, "host_kernels=1 refused")
+        routes = {}
+        for qn, (path, params) in queries.items():
+            l0 = dict(cs.LAUNCHES)
+            data, _r, wall_ms = prom_get(port, path, params)
+            prom_same(qn + " host route", data, answers[qn], PROM_EXACT[qn])
+            routes[qn] = {"host_ms": wall_ms,
+                          "device_ms": per_query[qn]["p50_ms"],
+                          "host_launches": sum(cs.LAUNCHES[k2] - l0[k2]
+                                               for k2 in l0)}
+        log("[prom] host route (host kernels on) against the device "
+            "route: the same answers; walls (ms) "
+            + ", ".join(f"{qn} host {r['host_ms']:.1f} / device "
+                        f"{r['device_ms']:.1f}" for qn, r in routes.items()))
+        status, _ = http(port, "POST", "/debug/ctrl",
+                         {"mod": "offload", "host_kernels": "0"})
+
+        # PQ3 and PQ4 traced: the device's busy share
+        trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "build", "smoke_trace")
+        os.makedirs(trace_dir, exist_ok=True)
+        traced = traced_queries(
+            port, {qn: queries[qn] for qn in ("PQ3", "PQ4")},
+            os.path.join(trace_dir, "prom.json"),
+            run=lambda p, q: prom_get(p, *q)[0])
+        for qn, tr in traced.items():
+            dv = tr.get("device") or {}
+            check(dv.get("kernels", 0) > 0, f"{qn}: no kernel in the trace")
+            log(f"[trace] {qn} wall {tr['wall_ms']:.1f} ms, device busy "
+                f"{dv['busy_ms']:.3f} ms ({100 * dv['busy_ms'] / tr['wall_ms']:.3f}%"
+                f" of the wall, idle {100 - 100 * dv['busy_ms'] / tr['wall_ms']:.3f}%)"
+                f", {dv['kernels']} kernels {dv['kernel_ms']:.3f} ms, "
+                f"host-to-device {dv['h2d_bytes']} B in {dv['h2d_ms']:.3f}"
+                f" ms, missing {dv['missing']}")
+            per_query[qn]["traced"] = {k2: v for k2, v in tr.items()
+                                       if k2 != "result"}
+
+        launches = dict(cs.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        stop_server(svc, engine)
+        svc = engine = None
+
+        # the same root on the CPU: the card's answers
+        t_cpu = time.perf_counter()
+        offload.set_prom_host_kernels_mode("")
+        from opengemini_tpu_torch.promql.engine import PromEngine
+
+        cpu_engine = Engine(root, device="cpu")
+        try:
+            pe = PromEngine(cpu_engine)
+            worst = {}
+            for qn, (path, params) in queries.items():
+                if path.endswith("query_range"):
+                    data = pe.query_range(
+                        params["query"], float(params["start"]),
+                        float(params["end"]), float(params["step"]), PROM_DB)
+                else:
+                    data = pe.query_instant(params["query"],
+                                            float(params["time"]), PROM_DB)
+                worst[qn] = prom_same(qn + " on the CPU", data, answers[qn],
+                                      PROM_EXACT[qn])
+        finally:
+            cpu_engine.close()
+        cpu_s = time.perf_counter() - t_cpu
+        wall_s = time.perf_counter() - t_phase
+        log(f"[prom] the CPU reopen gave the card's answers in {cpu_s:.1f} "
+            f"s (largest relative difference {json.dumps(worst)}); phase "
+            f"13 took {wall_s:.1f} s (budget {PROM_PHASE_S:.0f} s, "
+            f"{deadline - time.perf_counter():.0f} s left of the "
+            f"script's); launches {json.dumps(launches)}; device memory "
+            f"peak {peak / 2**20:.1f} MiB; card {smi_line()}")
+        for qn, d in decoded.items():
+            per_query[qn + " decoded"] = d
+        return {"launches": launches, "per_query": per_query,
+                "routes": routes, "steps": steps, "shapes": rec.seen,
+                "peak_bytes": peak, "wall_s": wall_s, "cpu_s": cpu_s}
+    finally:
+        os.environ.pop("OGT_DEVICE_PROFILE", None)
+        offload.set_force(None)
+        offload.set_prom_host_kernels_mode("")
+        devobs.set_enabled(False)
+        rec.__exit__()
+        if svc is not None:
+            stop_server(svc, engine)
+
+
 def build_all(verbose: bool = True) -> float:
     """nvcc for the six kernels and g++ for the six host libraries, all
     at once; returns the seconds it took."""
@@ -4493,18 +5204,20 @@ def main_path_kernels(name: str, shapes, seed: int, dev_name: str,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--hours", type=int, default=12,
+    # phase 3's span, cut from 12 h: with phase 13 the script took 987.7
+    # and 1079.4 s on an H100 at 12 h, and it must stay within 1050 s
+    ap.add_argument("--hours", type=int, default=6,
                     help="span of the end-to-end data (cut only to fit a "
                          "time limit, never below 3)")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--phases", default="all",
                     help="the phases after 2 to run, comma separated "
-                         "(3-12; 6-10 and 12 need 5), for a short call "
+                         "(3-13; 6-10 and 12 need 5), for a short call "
                          "that checks one path; default all")
     args = ap.parse_args()
     if args.hours < 3:
         ap.error("--hours may not be cut below 3")
-    wanted = (set(range(3, 13)) if args.phases == "all"
+    wanted = (set(range(3, 14)) if args.phases == "all"
               else {int(x) for x in args.phases.split(",")})
     if wanted & {6, 7, 8, 9, 10, 12} and 5 not in wanted:
         ap.error("phases 6-10 and 12 run on phase 5's root")
@@ -4605,11 +5318,20 @@ def main() -> int:
         ran.append(("12", planned, " planner"))
         later.append(planned)
         lap("phase 12")
+    prom = None
+    if 13 in wanted:
+        prom = phase_prom(args.seed, t_start + SCRIPT_LIMIT_S
+                          - AFTER_PHASE13_S)
+        ran.append(("13", prom, " prom"))
+        later.append(prom)
+        lap("phase 13")
     # kernels 1-3 at the later phases' new shapes, and kernels 4-6 too
-    # at phase 11's and 12's (the decode of rewritten and compacted files)
+    # at phase 11's, 12's and 13's (the decode of rewritten and compacted
+    # files, and PromQL's rows matrices)
     for i, name in enumerate(E2E_KERNELS + COLD_KERNELS[1:]):
         for j, phase in enumerate(later):
-            if name not in E2E_KERNELS and phase not in (life, planned):
+            if name not in E2E_KERNELS and phase not in (life, planned,
+                                                         prom):
                 continue
             new = {sh for sh in phase["shapes"][name] - seen[name]
                    if all(d > 0 for d in shape_json(name, sh)

@@ -2,12 +2,14 @@
 (native/seriesindex.cpp): the on-disk series index both packages keep
 under a shard's ``seriesidx/`` directory.
 
-The port of ``opengemini_tpu/index/mergeset.py`` without the columnar
-label tier (index/labels.py is not ported yet): every tag match walks
-the native postings, as the reference's own oracle path does. Sorted
-immutable posting runs on disk plus a WAL-backed memtable live in the
-C++ library; regex matching stays in Python (``re`` semantics) over the
-distinct tag values the library enumerates. ``remove_sids`` drops the
+The port of ``opengemini_tpu/index/mergeset.py``. Sorted immutable
+posting runs on disk plus a WAL-backed memtable live in the C++
+library; regex matching stays in Python (``re`` semantics) over the
+distinct tag values the library enumerates. The columnar label tier
+(index/labels.py) answers the empty-value, ``!=`` and regex matches
+from its snapshot, keyed on ``label_gen()`` (a per-measurement insert
+generation and an index-wide removal epoch); ``OGT_LABEL_INDEX=0``
+keeps every match on the walk. ``remove_sids`` drops the
 series of a full-series delete (tombstones in the library). The library
 is built with g++ at first use (see ``opengemini_tpu_torch.native``).
 """
@@ -55,6 +57,7 @@ def load():
                 ("msi_enum_field", p, [p, ctypes.c_char, cp, u64,
                                        ctypes.c_uint32, u64p, u64p]),
                 ("msi_key_of", p, [p, u64, u64p]),
+                ("msi_keys_of", p, [p, u64p, u64, u64p]),
                 ("msi_flush", None, [p]),
                 ("msi_compact", None, [p]),
                 ("msi_remove_sids", None, [p, u64p, u64]),
@@ -120,6 +123,13 @@ class MergesetIndex:
         self._tags_cache: dict[int, tuple] = {}
         # series key -> sid: ingest is overwhelmingly repeat series
         self._key_cache: dict[str, int] = {}
+        # label-engine invalidation protocol: per-measurement insert
+        # generation + index-wide removal epoch (index.labels snapshots
+        # and the tag_values cache key off label_gen())
+        self._label_gens: dict[str, int] = {}
+        self._label_epoch = 0
+        # (measurement, key) -> (label_gen, sorted values)
+        self._tagvals_cache: dict[tuple, tuple] = {}
 
     @contextlib.contextmanager
     def _native(self):
@@ -129,6 +139,13 @@ class MergesetIndex:
             if not self._h:
                 raise OSError("series index is closed")
             yield self._h
+
+    def label_gen(self, measurement: str) -> tuple:
+        return (self._label_epoch, self._label_gens.get(measurement, 0))
+
+    def _label_bump(self, measurement: str) -> None:
+        self._label_gens[measurement] = \
+            self._label_gens.get(measurement, 0) + 1
 
     # -- write side ---------------------------------------------------------
 
@@ -150,6 +167,7 @@ class MergesetIndex:
         blob = _pack_series(key, measurement, tags)
         with self._native() as h:
             sid = int(self._lib.msi_insert(h, blob, len(blob), 0))
+        self._label_bump(measurement)
         if len(self._key_cache) >= _TAGS_CACHE_MAX:
             self._key_cache.clear()
         self._key_cache[key] = sid
@@ -189,6 +207,9 @@ class MergesetIndex:
                 for i, sid in zip(idxs, sids):
                     out[i] = int(sid)
                     cache[keys[i]] = int(sid)
+                    # plain keys carry no escapes, so the measurement is
+                    # exactly the prefix before the first comma
+                    self._label_bump(keys[i].split(",", 1)[0])
         return out
 
     def flush(self) -> None:
@@ -240,7 +261,10 @@ class MergesetIndex:
             out |= self._match_eq_raw(measurement, key, v)
         return out
 
-    def match_eq(self, measurement: str, key: str, value: str) -> set[int]:
+    def _match_eq_walk(self, measurement: str, key: str,
+                       value: str) -> set[int]:
+        """The walk over the native postings: the oracle the columnar
+        tier is held to."""
         if value == "":
             # influx: a missing tag equals the empty string; an explicit
             # '' value stored in the index matches too
@@ -249,9 +273,38 @@ class MergesetIndex:
                 self._match_eq_raw(measurement, key, "")
         return self._match_eq_raw(measurement, key, value)
 
-    def match_neq(self, measurement: str, key: str, value: str) -> set[int]:
-        return self.series_ids(measurement) - self.match_eq(
+    def _match_neq_walk(self, measurement: str, key: str,
+                        value: str) -> set[int]:
+        return self.series_ids(measurement) - self._match_eq_walk(
             measurement, key, value)
+
+    def _tier_match(self, op: str, measurement: str, key: str,
+                    value: str) -> set[int] | None:
+        """The columnar tier's answer as a set (the index API's type), or
+        None when the tier is switched off."""
+        from opengemini_tpu_torch.index import labels
+
+        tier = labels.tier_for(self)
+        if tier is None:
+            return None
+        arr = labels.match_tier(tier.snapshot(measurement), op, key, value)
+        return None if arr is None else set(arr.tolist())
+
+    def match_eq(self, measurement: str, key: str, value: str) -> set[int]:
+        if value == "":
+            # the empty-value walk pays one native match per distinct
+            # value (_with_key): one posting-tier mask replaces it
+            got = self._tier_match("=", measurement, key, value)
+            if got is not None:
+                return got
+        return self._match_eq_walk(measurement, key, value)
+
+    def match_neq(self, measurement: str, key: str, value: str) -> set[int]:
+        # the walk rebuilds the full series_ids set to subtract from
+        got = self._tier_match("!=", measurement, key, value)
+        if got is not None:
+            return got
+        return self._match_neq_walk(measurement, key, value)
 
     def _enum(self, kind: bytes, pfx: bytes, idx: int) -> list[str]:
         n = ctypes.c_uint64()
@@ -276,12 +329,33 @@ class MergesetIndex:
     def tag_keys(self, measurement: str) -> list[str]:
         return sorted(self._enum(b"P", _field(measurement.encode()), 1))
 
+    _TAGVALS_CACHE_MAX = 4096
+
     def tag_values(self, measurement: str, key: str) -> list[str]:
+        # generation-keyed cache: a regex walk enumerates the values
+        # twice for an empty-matching selector. Callers get the cached
+        # list itself and never mutate it.
+        gen = self.label_gen(measurement)
+        got = self._tagvals_cache.get((measurement, key))
+        if got is not None and got[0] == gen:
+            return got[1]
         pfx = _field(measurement.encode()) + _field(key.encode())
-        return sorted(self._enum(b"P", pfx, 2))
+        vals = sorted(self._enum(b"P", pfx, 2))
+        if len(self._tagvals_cache) >= self._TAGVALS_CACHE_MAX:
+            self._tagvals_cache.clear()
+        self._tagvals_cache[(measurement, key)] = (gen, vals)
+        return vals
 
     def match_regex(self, measurement: str, key: str, pattern: str,
                     negate: bool = False) -> set[int]:
+        got = self._tier_match("!~" if negate else "=~",
+                               measurement, key, pattern)
+        if got is not None:
+            return got
+        return self._match_regex_walk(measurement, key, pattern, negate)
+
+    def _match_regex_walk(self, measurement: str, key: str, pattern: str,
+                          negate: bool = False) -> set[int]:
         rx = re.compile(pattern)
         hit: set[int] = set()
         empty_matches = bool(rx.search(""))  # missing tag is "" (influx)
@@ -321,6 +395,42 @@ class MergesetIndex:
     def tags_of(self, sid: int) -> dict[str, str]:
         return dict(self.series_entry(sid)[1])
 
+    def entries_bulk(self, sids,
+                     cache: bool = True) -> list[tuple[str, tuple] | None]:
+        """Batch series_entry: one native call for all sids. Missing sids
+        yield None. ``cache=False`` leaves the shared tags cache alone
+        (label-tier builds over many series must not evict the render
+        path's working set)."""
+        sids = [int(s) for s in np.asarray(sids, dtype=np.uint64).tolist()]
+        # answers assemble into a local map first: evicting the shared
+        # cache must never drop answers for sids cached before this call
+        local = {s: self._tags_cache[s] for s in sids
+                 if s in self._tags_cache}
+        missing = [s for s in sids if s not in local]
+        if missing:
+            arr = (ctypes.c_uint64 * len(missing))(*missing)
+            n = ctypes.c_uint64()
+            with self._native() as h:
+                ptr = self._lib.msi_keys_of(h, arr, len(missing),
+                                            ctypes.byref(n))
+            try:
+                raw = ctypes.string_at(ptr, n.value)
+            finally:
+                self._lib.msi_free(ptr)
+            off = 0
+            for sid in missing:
+                (ln,) = struct.unpack_from("<I", raw, off)
+                off += 4
+                if ln:
+                    _key, mst, tags = _unpack_series(raw[off:off + ln])
+                    local[sid] = (mst, tags)
+                off += ln
+            if cache:
+                if len(self._tags_cache) + len(missing) >= _TAGS_CACHE_MAX:
+                    self._tags_cache.clear()
+                self._tags_cache.update(local)
+        return [local.get(s) for s in sids]
+
     def iter_series_entries(self):
         """(measurement, tags) of every live series, by measurement then
         sid (SHOW SERIES CARDINALITY walks it)."""
@@ -350,6 +460,10 @@ class MergesetIndex:
         for sid in sids:
             self._tags_cache.pop(sid, None)
         self._key_cache.clear()  # deletes are rare; a full drop is fine
+        # removals don't know their measurements: the index-wide epoch
+        # invalidates every label-tier snapshot and tag_values entry
+        self._label_epoch += 1
+        self._tagvals_cache.clear()
 
 
 def open_series_index(shard_path: str) -> MergesetIndex:

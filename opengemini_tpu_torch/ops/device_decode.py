@@ -65,6 +65,12 @@ fallbacks: a kernel that fails to build or launch raises.
 The cost gate is the offload planner's zero-sample prior
 (query/offload.py ``gate_prior``). The mesh-sharded plans come with
 the device mesh.
+
+The PromQL tiled kernels take their (series, samples) value matrix from
+``decode_rows_matrix``: the same decode, each series' slice of the
+decoded column laid into a zero-padded row (site ``prom_decode_rows``,
+gated by ``gate_prior("prom_decode_rows", ...)``); ``materialize_enc``
+is its bit-identical host decode.
 """
 
 from __future__ import annotations
@@ -109,6 +115,12 @@ _ALL_CODECS = ("const", "delta", "raw64", "gorilla", "varint", "strdict")
 def enabled() -> bool:
     """The OGT_DEVICE_DECODE knob alone."""
     return os.environ.get("OGT_DEVICE_DECODE", "1") not in ("", "0")
+
+
+def active() -> bool:
+    """Device decode usable in this process: the OGT_DEVICE_DECODE knob
+    (the JAX package also asks for x64 and a backend; torch has both)."""
+    return enabled()
 
 
 def codecs_enabled() -> frozenset:
@@ -818,3 +830,153 @@ def _decode(sig, out_dt, payload, scalars, aux32=None, aux8=None):
             runs.append([src, lo, hi])
     parts = [src[lo:hi].to(out_dt) for src, lo, hi in runs]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+# -- PromQL: the (series, samples) value matrix -------------------------------
+
+
+def materialize_enc(enc) -> np.ndarray:
+    """Host materialization of a (ftype, blocks, segments, slices)
+    encoded-column descriptor into the concatenated f64 sample vector —
+    the bit-identical host decode for consumers that need host values
+    (the dense prom kernels, the host route)."""
+    ftype, blocks, segments, slices = enc
+    d = encoding.decode_value_blocks(ftype, list(blocks)).astype(
+        np.float64)
+    if segments is not None:
+        d = (np.concatenate([d[a:b] for a, b in segments])
+             if len(segments) else d[:0])
+    if not slices:
+        return np.empty(0, np.float64)
+    if len(slices) == 1:
+        lo, hi = slices[0]
+        return d[lo:hi]
+    return np.concatenate([d[lo:hi] for lo, hi in slices])
+
+
+def decode_rows_matrix(enc, shape, dtype, device):
+    """Decode raw blocks ON `device` and lay the per-series sample slices
+    into a zero-padded (S, N) row matrix — the PromQL tiled kernels'
+    value matrix without the padded-f64 transfer (what crosses is the
+    raw payload, the gorilla scan vectors and two ints per series).
+    `enc` is the (ftype, blocks, segments, slices) descriptor (slices in
+    VIEW coordinates). Returns the device matrix, or None when the
+    blocks are not device-decodable or the cost gate keeps the decode on
+    the host (the caller then materializes on the host,
+    bit-identically)."""
+    if not active():
+        return None
+    _ftype, blocks, segments, slices = enc
+    dbs = classify(list(blocks))
+    if dbs is None:
+        note_fallback()
+        return None
+    n_full = sum(b.n for b in dbs)
+    if segments is None:
+        viewruns, n_view = None, n_full
+    else:
+        segments = np.asarray(segments, np.int64).reshape(-1, 2)
+        viewruns = segments
+        n_view = int((segments[:, 1] - segments[:, 0]).sum())
+        if len(segments) and ((segments[:, 0] < 0).any()
+                              or (segments[:, 1] > n_full).any()):
+            note_fallback()
+            return None
+    S, N = shape
+    lo = np.array([s[0] for s in slices], np.int64)
+    ln = np.array([s[1] - s[0] for s in slices], np.int64)
+    if len(slices) != S or (ln > N).any() or (lo < 0).any() \
+            or (lo + ln > n_view).any():
+        note_fallback()
+        return None
+    sig, payload, scalars, aux32, aux8 = _pack_blocks(dbs)
+    host_in = [payload, scalars]
+    if aux32 is not None:
+        host_in.extend((aux32, aux8))
+    host_in.extend((lo, ln))
+    if viewruns is not None:
+        host_in.append(viewruns)
+    # cost gate (the encoded transfer must beat the padded value matrix
+    # it replaces — whole-block payloads can exceed a heavily trimmed
+    # view; raw64 floats have no width compression to amortize it),
+    # serving as the offload planner's zero-sample prior: measured
+    # device samples for this geometry retire the byte rule
+    rows_geo = (len(sig), n_view, (S, N))
+    if not offload.GLOBAL.gate_prior(
+            "prom_decode_rows", rows_geo,
+            sum(int(a.nbytes) for a in host_in),
+            S * N * np.dtype(dtype).itemsize):
+        note_fallback()
+        return None
+    t0 = time.perf_counter_ns()
+    dev = [None if a is None else _to_dev(a, device)
+           for a in (payload, aux32, aux8, lo, ln, viewruns)]
+    # what crosses: every input but the per-block scalars, which stay
+    # host ints (as in the grid plan)
+    devobs.note_transfer("h2d", _XFER_SITE, sum(
+        int(a.nbytes) for a in (payload, aux32, aux8, lo, ln, viewruns)
+        if a is not None), (time.perf_counter_ns() - t0) / 1e9)
+    _note_decode_stats(sig, n_view)
+    devobs.note_use("prom_decode_rows", rows_geo)
+    out_dt = _TORCH_DTYPE[np.dtype(dtype)]
+    offload.register_builder(
+        "prom_decode_rows", rows_geo,
+        _rows_builder(sig, n_view, (S, N), out_dt, device, payload.shape,
+                      scalars.shape, None if aux32 is None else aux32.shape,
+                      viewruns))
+    with devobs.first_run("prom_decode_rows", rows_geo, device):
+        return _rows_matrix(sig, n_view, (S, N), out_dt, dev[0], scalars,
+                            dev[1], dev[2], dev[3], dev[4], dev[5])
+
+
+def _rows_matrix(sig, n: int, shape, out_dt, payload, scalars, aux32, aux8,
+                 lo, ln, viewruns):
+    """The decode of a rows plan, each series' slice laid into its row
+    of a zero-padded (S, N) matrix. The gather index is clamped into the
+    decoded values (rows past a series' length are masked to zero)."""
+    S, N = shape
+    dev = payload.device
+    if n == 0:
+        return torch.zeros((S, N), dtype=out_dt, device=dev)
+    vals = _decode(sig, out_dt, payload, scalars, aux32, aux8)
+    if viewruns is not None:
+        vals = _view_gather(vals, viewruns, n)
+    col = torch.arange(N, dtype=torch.int64, device=dev)[None, :]
+    idx = (lo[:, None] + col).clamp(0, n - 1)
+    m = col < ln[:, None]
+    return torch.where(m, vals[idx], torch.zeros((), dtype=out_dt,
+                                                 device=dev))
+
+
+def _rows_builder(sig, n: int, shape, out_dt, device, payload_shape,
+                  scalars_shape, aux_shape, viewruns):
+    """The rows site's pre-warm builder: a zero-argument callable that
+    runs the site once on zeros of the plan's shapes (each varint
+    block's bytes end in exactly its value count of terminators) unless
+    it already ran at that geometry."""
+    rows_geo = (len(sig), n, shape)
+    viewruns = None if viewruns is None else viewruns.copy()
+
+    def build() -> None:
+        if devobs.has_run("prom_decode_rows", rows_geo):
+            return
+        payload = np.zeros(payload_shape, np.uint8)
+        off = 0
+        for kind, bn, width in sig:
+            m = _payload_nbytes(kind, bn, width)
+            if kind == "varint" and bn:
+                payload[off:off + m - bn] = 0x80  # continuation bytes
+            off += m
+        aux32 = aux8 = None
+        if aux_shape is not None:
+            aux32 = _to_dev(np.zeros(aux_shape, np.int32), device)
+            aux8 = _to_dev(np.zeros(2 * aux_shape[0], np.uint8), device)
+        s_dim = shape[0]
+        zi = _to_dev(np.zeros(s_dim, np.int64), device)
+        with devobs.first_run("prom_decode_rows", rows_geo, device):
+            _rows_matrix(sig, n, shape, out_dt, _to_dev(payload, device),
+                         np.zeros(scalars_shape, np.int64), aux32, aux8,
+                         zi, zi, None if viewruns is None
+                         else _to_dev(viewruns, device))
+
+    return build

@@ -229,3 +229,56 @@ def grid_window_agg_t(values_t, mask_t):
     mx = torch.where(mask_t, values_t, -inf).amax(dim=1)
     mean = s / cnt.clamp(min=1).to(s.dtype)
     return {"sum": s, "count": cnt, "mean": mean, "min": mn, "max": mx}
+
+
+# ---------------------------------------------------------------------------
+# Tiled interval reductions (time-centric batch operators, TiLT
+# arXiv:2301.12030): per-(series, tile) partials answered per window from
+# cumulative tile prefixes. Shared by the PromQL range-vector engine
+# (ops/prom.py TiledPrepared): every window is an exact union of
+# left-open/right-closed time tiles, so these helpers replace per-window
+# sample walks with O(1) prefix lookups. `xp` is one of ops/prom.py's
+# array namespaces: HOST (numpy) or a TorchXP on a device.
+# ---------------------------------------------------------------------------
+
+
+def tile_window_sums(tile_vals, ca, cb, xp):
+    """Per-window sums over contiguous compact-tile ranges [ca, cb) from
+    ONE cumulative pass over the tile partials.
+
+    tile_vals: (S, C) per-(series, tile) partial sums; ca/cb: (S, K) or
+    (1, K) int compact positions (cb exclusive). Returns (S, K)."""
+    s_dim = tile_vals.shape[0]
+    cc = xp.cumsum(tile_vals, axis=1)
+    cc = xp.concatenate(
+        [xp.zeros((s_dim, 1), dtype=tile_vals.dtype), cc], axis=1)
+    return (xp.take_along_axis(cc, cb, axis=1)
+            - xp.take_along_axis(cc, ca, axis=1))
+
+
+def tile_sliding_extreme(tile_vals, win_tiles: int, start_pos,
+                         want_min: bool, xp):
+    """min/max over EXACTLY win_tiles consecutive tiles starting at compact
+    position start_pos (S, K): the fixed-length sliding-extreme trick —
+    block the tile axis at the window length, scan each block prefix-from-
+    left and suffix-from-right, and any length-L range [i, i+L) spans at
+    most two blocks, so its extreme is suffix_at(i) combined with
+    prefix_at(i+L-1). O(C) build, O(1) per window."""
+    s_dim, c_dim = tile_vals.shape
+    fill = xp.extreme_fill(tile_vals.dtype, want_min)
+    ln = max(int(win_tiles), 1)
+    blocks = (c_dim + ln - 1) // ln
+    pad = blocks * ln - c_dim
+    x = xp.concatenate(
+        [tile_vals, xp.full((s_dim, pad), fill, dtype=tile_vals.dtype)],
+        axis=1) if pad else tile_vals
+    x3 = x.reshape(s_dim, blocks, ln)
+    suf = xp.cum_extreme(x3, 2, want_min, reverse=True)
+    pre = xp.cum_extreme(x3, 2, want_min, reverse=False)
+    suf = suf.reshape(s_dim, blocks * ln)
+    pre = pre.reshape(s_dim, blocks * ln)
+    hi = xp.clip(start_pos + (ln - 1), 0, blocks * ln - 1)
+    lo = xp.clip(start_pos, 0, blocks * ln - 1)
+    a = xp.take_along_axis(suf, lo, axis=1)
+    b = xp.take_along_axis(pre, hi, axis=1)
+    return xp.minimum(a, b) if want_min else xp.maximum(a, b)

@@ -292,21 +292,139 @@ def _as_sid_arr(sids) -> np.ndarray:
     return np.fromiter(sorted(sids), np.int64, len(sids))
 
 
-def eval_tag_sids(expr, index, measurement: str) -> np.ndarray:
-    """eval_tag_expr as a sorted int64 sid array."""
-    return _as_sid_arr(eval_tag_expr(expr, index, measurement))
+def eval_tag_sids(expr, index, measurement: str,
+                  device=None) -> np.ndarray:
+    """eval_tag_expr over sorted int64 sid arrays: the columnar label
+    tier (index.labels) answers leaves with posting arrays and AND/OR
+    compose with np.intersect1d/union1d — no per-leaf Python set
+    materialization. With the tier knob-disabled the set walk runs and
+    the result converts; same sids either way. `device` is where a
+    regex leaf's LUT gather may route (None: host only)."""
+    from opengemini_tpu_torch.index import labels as _labels
+
+    tier = _labels.tier_for(index)
+    if tier is None:
+        return _as_sid_arr(eval_tag_expr(expr, index, measurement))
+    return _eval_tag_arr(expr, tier.snapshot(measurement), device)
+
+
+def _eval_tag_arr(expr, snap, device=None) -> np.ndarray:
+    expr = _strip(expr)
+    if expr is None:
+        return snap.sids
+    if isinstance(expr, ast.BinaryExpr):
+        if expr.op == "AND":
+            lhs = _eval_tag_arr(expr.lhs, snap, device)
+            if lhs.size == 0:
+                return lhs
+            return np.intersect1d(lhs, _eval_tag_arr(expr.rhs, snap, device),
+                                  assume_unique=True)
+        if expr.op == "OR":
+            return np.union1d(_eval_tag_arr(expr.lhs, snap, device),
+                              _eval_tag_arr(expr.rhs, snap, device))
+        lhs, rhs = _strip(expr.lhs), _strip(expr.rhs)
+        if isinstance(rhs, ast.VarRef) and not isinstance(lhs, ast.VarRef):
+            lhs, rhs = rhs, lhs
+        if not isinstance(lhs, ast.VarRef):
+            raise ConditionError(f"bad tag condition: {expr}")
+        key = lhs.name
+        if expr.op in ("=", "!=", "<>"):
+            if isinstance(rhs, ast.VarRef):
+                return snap.match_tag_compare(key, rhs.name,
+                                              expr.op == "=")
+            if not isinstance(rhs, ast.StringLiteral):
+                # typed mismatch matches nothing (see eval_tag_expr)
+                return (np.empty(0, np.int64) if expr.op == "="
+                        else snap.sids)
+            if expr.op == "=":
+                return snap.match_eq(key, rhs.val)
+            return snap.match_neq(key, rhs.val)
+        if expr.op in ("=~", "!~"):
+            if not isinstance(rhs, ast.RegexLiteral):
+                raise ConditionError("regex comparison requires a regex")
+            return snap.match_regex(key, rhs.pattern,
+                                    negate=expr.op == "!~", device=device)
+    raise ConditionError(f"unsupported tag filter: {expr}")
 
 
 def tag_superset_arr(expr, index, measurement: str,
-                     tag_keys: set[str]) -> np.ndarray:
-    """tag_superset_sids as a sorted int64 sid array."""
-    return _as_sid_arr(tag_superset_sids(expr, index, measurement, tag_keys))
+                     tag_keys: set[str], device=None) -> np.ndarray:
+    """tag_superset_sids over sorted sid arrays (same widening rules)."""
+    from opengemini_tpu_torch.index import labels as _labels
+
+    tier = _labels.tier_for(index)
+    if tier is None:
+        return _as_sid_arr(
+            tag_superset_sids(expr, index, measurement, tag_keys))
+    return _superset_arr(expr, tier.snapshot(measurement), tag_keys, device)
+
+
+def _superset_arr(expr, snap, tag_keys: set[str],
+                  device=None) -> np.ndarray:
+    expr = _strip(expr)
+    if expr is None:
+        return snap.sids
+    if isinstance(expr, ast.BinaryExpr):
+        if expr.op == "AND":
+            return np.intersect1d(
+                _superset_arr(expr.lhs, snap, tag_keys, device),
+                _superset_arr(expr.rhs, snap, tag_keys, device),
+                assume_unique=True)
+        if expr.op == "OR":
+            return np.union1d(_superset_arr(expr.lhs, snap, tag_keys, device),
+                              _superset_arr(expr.rhs, snap, tag_keys, device))
+    refs = _collect_refs(expr)
+    if refs and refs <= tag_keys and isinstance(expr, ast.BinaryExpr):
+        lhs, rhs = _strip(expr.lhs), _strip(expr.rhs)
+        for side in (lhs, rhs):
+            if isinstance(side, ast.StringLiteral) and side.val == "" \
+                    and expr.op == "=":
+                return snap.sids
+            if isinstance(side, ast.RegexLiteral) and expr.op == "=~" \
+                    and re.search(side.pattern, ""):
+                return snap.sids
+        try:
+            return _eval_tag_arr(expr, snap, device)
+        except ConditionError:
+            return snap.sids
+    return snap.sids
 
 
 def series_only_arr(expr, index, measurement: str,
-                    tag_keys: set[str]) -> np.ndarray:
-    """series_only_sids as a sorted int64 sid array."""
-    return _as_sid_arr(series_only_sids(expr, index, measurement, tag_keys))
+                    tag_keys: set[str], device=None) -> np.ndarray:
+    """series_only_sids over sorted sid arrays (field leaves are empty)."""
+    from opengemini_tpu_torch.index import labels as _labels
+
+    tier = _labels.tier_for(index)
+    if tier is None:
+        return _as_sid_arr(
+            series_only_sids(expr, index, measurement, tag_keys))
+    return _series_only_arr(expr, tier.snapshot(measurement), tag_keys,
+                            device)
+
+
+def _series_only_arr(expr, snap, tag_keys: set[str],
+                     device=None) -> np.ndarray:
+    expr = _strip(expr)
+    if expr is None:
+        return snap.sids
+    if isinstance(expr, ast.BinaryExpr):
+        if expr.op == "AND":
+            return np.intersect1d(
+                _series_only_arr(expr.lhs, snap, tag_keys, device),
+                _series_only_arr(expr.rhs, snap, tag_keys, device),
+                assume_unique=True)
+        if expr.op == "OR":
+            return np.union1d(
+                _series_only_arr(expr.lhs, snap, tag_keys, device),
+                _series_only_arr(expr.rhs, snap, tag_keys, device))
+    refs = _collect_refs(expr)
+    if refs and refs <= tag_keys:
+        try:
+            return _eval_tag_arr(expr, snap, device)
+        except ConditionError:
+            return np.empty(0, np.int64)
+    return np.empty(0, np.int64)  # field leaves identify no series
 
 
 def tag_superset_sids(expr, index, measurement: str, tag_keys: set[str]) -> set[int]:

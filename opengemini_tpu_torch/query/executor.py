@@ -920,12 +920,14 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             if "full_series" in getattr(stmt, "hints", ()) else None
         ) or None  # no tag equalities: the hint pins nothing
         for sh in shards:
-            sids = cond.eval_tag_sids(sc.tag_expr, sh.index, mst)
+            sids = cond.eval_tag_sids(sc.tag_expr, sh.index, mst,
+                                      self.device)
             if sc.mixed_expr is not None and sids.size:
                 prune = (cond.series_only_arr if hinted
                          else cond.tag_superset_arr)
                 sids = np.intersect1d(
-                    sids, prune(sc.mixed_expr, sh.index, mst, sc.tag_keys),
+                    sids, prune(sc.mixed_expr, sh.index, mst, sc.tag_keys,
+                                self.device),
                     assume_unique=True)
             if exact_tags is not None and sids.size:
                 keep = [s for s in sids.tolist()

@@ -42,6 +42,18 @@ standard library's threading HTTP server:
   GET      /debug/trace the span tree of a query: ?qid= (a running
                         query's live tree, else the finished-trace
                         ring), ?trace_id=, or the newest summaries
+  GET/POST /api/v1/query, /api/v1/query_range, /api/v1/labels,
+                        /api/v1/series (repeated match[]),
+                        /api/v1/label/<name>/values: the Prometheus HTTP
+                        API over promql/engine.py (db defaults to
+                        ``prom_db``; a form POST body counts like the
+                        query string); 400 bad_data on a bad query,
+                        422 canceled when KILL QUERY stops it
+  GET/POST /api/v1/rules, /api/v1/alerts: no rule manager runs in the
+                        port yet (ROADMAP A7): empty groups and alerts
+  POST     /api/v1/prom/write  Prometheus remote write (snappy prompb)
+  POST     /api/v1/prom/read   Prometheus remote read (snappy answer)
+  POST     /api/v1/otlp/metrics  OTLP/HTTP metrics (protobuf, gzip ok)
 Answers use the JAX server's JSON shapes, and error answers carry the
 stable errno taxonomy (utils/errno.py: ``errno`` and ``module`` fields,
 ``X-Ogt-Errno`` header): a write while writes are disabled answers 403
@@ -57,6 +69,7 @@ from __future__ import annotations
 import gzip
 import json
 import math
+import re
 import threading
 import time
 import urllib.parse
@@ -64,6 +77,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from opengemini_tpu_torch import __version__
 from opengemini_tpu_torch.ingest.line_protocol import ParseError
+from opengemini_tpu_torch.promql.engine import PromEngine, PromError
+from opengemini_tpu_torch.promql.parser import PromParseError
 from opengemini_tpu_torch.query import condition as cond
 from opengemini_tpu_torch.query import offload
 from opengemini_tpu_torch.query.executor import Executor
@@ -76,6 +91,7 @@ from opengemini_tpu_torch.utils import failpoint
 from opengemini_tpu_torch.utils import stats as _stats
 from opengemini_tpu_torch.utils import tracing
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
+from opengemini_tpu_torch.utils.querytracker import QueryKilled
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 _EPOCH_DIV = {"ns": 1, "u": 1_000, "µ": 1_000, "ms": 1_000_000,
@@ -108,13 +124,43 @@ def _route_of(path: str) -> str:
     return "other"
 
 
+def time_now_s() -> float:
+    # wall clock: PromQL evaluation timestamp, not a duration
+    return time.time()
+
+
+def _prom_time(s: str | None) -> float:
+    """Prom API time param: unix seconds (float) or RFC3339."""
+    if s is None:
+        raise ValueError("missing time parameter")
+    try:
+        return float(s)
+    except ValueError:
+        pass
+    return cond.parse_rfc3339(s) / 1e9
+
+
+def _prom_step(s: str | None) -> float:
+    if s is None:
+        raise ValueError("missing step parameter")
+    try:
+        return float(s)
+    except ValueError:
+        from opengemini_tpu_torch.promql.parser import parse_duration_s
+
+        return parse_duration_s(s)
+
+
 class HttpService:
     """Owns the HTTP listener; one Engine + Executor behind it. Port 0
     binds a free port (read it back from ``.port``)."""
 
-    def __init__(self, engine, host: str = "127.0.0.1", port: int = 8086):
+    def __init__(self, engine, host: str = "127.0.0.1", port: int = 8086,
+                 prom_db: str = "prom"):
         self.engine = engine
         self.executor = Executor(engine)
+        self.prom = PromEngine(engine)
+        self.prom_db = prom_db
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.port = self.httpd.server_address[1]
         self._thread: threading.Thread | None = None
@@ -312,6 +358,9 @@ def _make_handler(svc: HttpService):
                 self._send_json(200, doc)
             elif path == "/debug/trace":
                 self._handle_debug_trace(self._params())
+            elif path.startswith("/api/v1/"):
+                self._form_pairs = ()
+                self._handle_prom(path, self._params())
             else:
                 self._send_json(404, {"error": "not found"})
 
@@ -374,8 +423,272 @@ def _make_handler(svc: HttpService):
                 self._handle_ctrl(params)
             elif path == "/ping":
                 self._send(204)
+            elif path == "/api/v1/prom/write":
+                self._handle_prom_remote_write(params, body)
+            elif path == "/api/v1/prom/read":
+                self._handle_prom_remote_read(params, body)
+            elif path == "/api/v1/otlp/metrics":
+                self._handle_otlp_metrics(params, body)
+            elif path.startswith("/api/v1/"):
+                self._form_pairs = ()
+                text = body.decode("utf-8", errors="replace")
+                if text and self.headers.get("Content-Type", "").startswith(
+                        "application/x-www-form-urlencoded"):
+                    self._form_pairs = urllib.parse.parse_qsl(text)
+                    for k, v in urllib.parse.parse_qs(text).items():
+                        params.setdefault(k, v[-1])
+                self._handle_prom(path, params)
             else:
                 self._send_json(404, {"error": "not found"})
+
+        # -- Prometheus HTTP API, remote write/read, OTLP ------------------
+
+        def _handle_prom(self, path: str, params: dict):
+            """Prometheus HTTP API v1 (reference: handler_prom.go). Auth
+            and the governor's admission are not ported yet (ROADMAP A8,
+            A7)."""
+            db = params.get("db", svc.prom_db)
+            try:
+                if path == "/api/v1/query_range":
+                    data = svc.prom.query_range(
+                        params.get("query", ""),
+                        _prom_time(params.get("start")),
+                        _prom_time(params.get("end")),
+                        _prom_step(params.get("step")),
+                        db,
+                    )
+                elif path == "/api/v1/query":
+                    t = params.get("time")
+                    data = svc.prom.query_instant(
+                        params.get("query", ""),
+                        _prom_time(t) if t else time_now_s(),
+                        db,
+                    )
+                elif path == "/api/v1/labels":
+                    data = self._prom_labels(db)
+                elif path == "/api/v1/series":
+                    data = self._prom_series(db, params)
+                elif (path.startswith("/api/v1/label/")
+                      and path.endswith("/values")):
+                    name = path[len("/api/v1/label/"):-len("/values")]
+                    data = self._prom_label_values(db, name)
+                elif path == "/api/v1/rules":
+                    # no rule manager runs in the port yet (ROADMAP A7):
+                    # the reference's answer without one
+                    data = {"groups": []}
+                elif path == "/api/v1/alerts":
+                    data = {"alerts": []}
+                else:
+                    self._send_json(404, {"status": "error",
+                                          "error": "not found"})
+                    return
+            except QueryKilled as e:
+                # prom queries register with the query tracker, so KILL
+                # QUERY cancels them like any /query statement
+                self._send_json(
+                    422, {"status": "error", "errorType": "canceled",
+                          "error": str(e)})
+                return
+            except (PromError, PromParseError, ValueError, OverflowError,
+                    re.error) as e:
+                self._send_json(
+                    400, {"status": "error", "errorType": "bad_data",
+                          "error": str(e)})
+                return
+            t0 = time.perf_counter_ns()
+            try:
+                self._send_json(200, {"status": "success", "data": data})
+            finally:
+                # the answer's JSON and its write
+                tracing.record_stage("encode", time.perf_counter_ns() - t0)
+
+        def _prom_labels(self, db):
+            names = {"__name__"}
+            for sh in svc.engine.shards_for_range(db, None, -(2**62),
+                                                  2**62):
+                for mst in sh.measurements():
+                    names.update(sh.index.tag_keys(mst))
+            return sorted(names)
+
+        def _prom_series(self, db, params):
+            """/api/v1/series?match[]=selector — label sets of matching
+            series, index-only. match[] may repeat; GET query string and
+            POST form bodies both count."""
+            from opengemini_tpu_torch.promql import parser as prom_parser
+
+            parsed = urllib.parse.urlparse(self.path)
+            matches = [v for k, v in urllib.parse.parse_qsl(parsed.query)
+                       if k == "match[]"]
+            matches += [v for k, v in getattr(self, "_form_pairs", ())
+                        if k == "match[]"]
+            if not matches:
+                raise ValueError("missing match[] parameter")
+            out = []
+            seen = set()
+            for expr_text in matches:
+                expr = prom_parser.parse(expr_text)
+                if not isinstance(expr, prom_parser.VectorSelector):
+                    raise ValueError("match[] must be a vector selector")
+                for labels in svc.prom.series_labels(expr, db):
+                    key = tuple(sorted(labels.items()))
+                    if key not in seen:
+                        seen.add(key)
+                        out.append(labels)
+            return out
+
+        def _prom_label_values(self, db, name):
+            vals = set()
+            for sh in svc.engine.shards_for_range(db, None, -(2**62),
+                                                  2**62):
+                for mst in sh.measurements():
+                    if name == "__name__":
+                        vals.add(mst)
+                    else:
+                        vals.update(sh.index.tag_values(mst, name))
+            return sorted(vals)
+
+        def _maybe_snappy(self, data: bytes) -> bytes:
+            """Remote write/read bodies are snappy block compressed
+            (Content-Encoding: snappy); tolerate raw protobuf too."""
+            from opengemini_tpu_torch.ingest import protowire as pw
+
+            if self.headers.get("Content-Encoding") == "snappy":
+                return pw.snappy_uncompress(data)
+            try:
+                return pw.snappy_uncompress(data)
+            except pw.WireError:
+                return data
+
+        def _write_decoded_points(self, db: str, rp, points) -> bool:
+            try:
+                svc.engine.write_rows(db, points, rp=rp)
+            except DatabaseNotFound as e:
+                self._send_err(404, e)
+                return False
+            except (FieldTypeConflict, ValueError) as e:
+                self._send_err(400, e, extra={"error": f"partial write: {e}"})
+                return False
+            except WriteError as e:
+                self._send_err(403, e)
+                return False
+            return True
+
+        def _handle_prom_remote_write(self, params: dict,
+                                      body: bytes) -> None:
+            """Prometheus remote write: snappy(protobuf WriteRequest)
+            (reference: handler_prom.go:86 servePromWrite)."""
+            from opengemini_tpu_torch.ingest import prom_remote
+            from opengemini_tpu_torch.ingest.protowire import WireError
+
+            db = params.get("db", "")
+            if not db:
+                self._send_json(400, {"error": "database is required"})
+                return
+            try:
+                points = prom_remote.decode_write_request(
+                    self._maybe_snappy(body))
+            except (WireError, UnicodeDecodeError) as e:
+                self._send_json(400, {"error": f"bad remote write body: {e}"})
+                return
+            if self._write_decoded_points(db, params.get("rp") or None,
+                                          points):
+                self._send(204)
+
+        def _handle_prom_remote_read(self, params: dict,
+                                     body: bytes) -> None:
+            """Prometheus remote read: snappy(ReadRequest) ->
+            snappy(ReadResponse) raw samples (reference: handler_prom.go
+            servePromRead)."""
+            from opengemini_tpu_torch.ingest import prom_remote
+            from opengemini_tpu_torch.ingest import protowire as pw
+
+            db = params.get("db", "")
+            if not db:
+                self._send_json(400, {"error": "database is required"})
+                return
+            try:
+                queries = prom_remote.decode_read_request(
+                    self._maybe_snappy(body))
+            except pw.WireError as e:
+                self._send_json(400, {"error": f"bad remote read body: {e}"})
+                return
+            results = self._prom_remote_read_results(db, queries)
+            out = pw.snappy_compress_literal(
+                prom_remote.encode_read_response(results))
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-protobuf")
+            self.send_header("Content-Encoding", "snappy")
+            self.send_header("Content-Length", str(len(out)))
+            self.end_headers()
+            self.wfile.write(out)
+
+        def _prom_remote_read_results(self, db, queries) -> list:
+            from opengemini_tpu_torch.ingest import prom_remote
+            from opengemini_tpu_torch.promql.engine import _match_sids
+            from opengemini_tpu_torch.promql.parser import LabelMatcher
+
+            ms = 1_000_000
+            results = []
+            for q in queries:
+                metric = ""
+                matchers = []
+                for op, name, value in q["matchers"]:
+                    if name == "__name__" and op == "=":
+                        metric = value
+                    else:
+                        matchers.append(LabelMatcher(name, op, value))
+                series_out = []
+                if metric:
+                    tmin = q["start_ms"] * ms
+                    tmax = q["end_ms"] * ms + 1
+                    per_key: dict = {}
+                    for sh in svc.engine.shards_for_range(db, None, tmin,
+                                                          tmax):
+                        for sid in sorted(_match_sids(
+                                sh, metric, matchers, svc.engine.device)):
+                            rec = sh.read_series(
+                                metric, sid, tmin, tmax,
+                                fields=[prom_remote.VALUE_FIELD])
+                            col = rec.columns.get(prom_remote.VALUE_FIELD)
+                            if col is None or not len(rec):
+                                continue
+                            tags = sh.index.tags_of(sid)
+                            key = tuple(sorted(tags.items()))
+                            bucket = per_key.setdefault(key,
+                                                        (dict(tags), []))
+                            v = col.valid
+                            bucket[1].extend(
+                                zip((rec.times[v] // ms).tolist(),
+                                    col.values[v].tolist()))
+                    for key in sorted(per_key):
+                        labels, samples = per_key[key]
+                        labels["__name__"] = metric
+                        series_out.append((labels, sorted(samples)))
+                results.append(series_out)
+            return results
+
+        def _handle_otlp_metrics(self, params: dict, body: bytes) -> None:
+            """OTLP/HTTP metrics export (protobuf body, optional gzip)
+            (reference: handler_otlp.go serveOtlpMetricsWrite)."""
+            from opengemini_tpu_torch.ingest import otlp
+            from opengemini_tpu_torch.ingest.protowire import WireError
+
+            db = params.get("db", "")
+            if not db:
+                self._send_json(400, {"error": "database is required"})
+                return
+            try:
+                points = otlp.decode_metrics_request(body)
+            except (WireError, UnicodeDecodeError) as e:
+                self._send_json(400, {"error": f"bad OTLP body: {e}"})
+                return
+            if self._write_decoded_points(db, params.get("rp") or None,
+                                          points):
+                # an empty ExportMetricsServiceResponse
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-protobuf")
+                self.send_header("Content-Length", "0")
+                self.end_headers()
 
         def _handle_ctrl(self, params: dict):
             """The reference's /debug/ctrl switches: the engine's write

@@ -35,7 +35,8 @@ def test_every_module_is_found():
                  "opengemini_tpu_torch.convert",
                  *SIXTH_SLICE_MODULES, *SEVENTH_SLICE_MODULES,
                  *EIGHTH_SLICE_MODULES, *NINTH_SLICE_MODULES,
-                 *TENTH_SLICE_MODULES, *ELEVENTH_SLICE_MODULES):
+                 *TENTH_SLICE_MODULES, *ELEVENTH_SLICE_MODULES,
+                 *TWELFTH_SLICE_MODULES):
         assert must in mods
 
 
@@ -171,6 +172,24 @@ ELEVENTH_SLICE_MODULES = [
     "opengemini_tpu_torch.storage.colcache",
 ]
 BLOCKED_IMPORT_MODULES += ELEVENTH_SLICE_MODULES
+# PromQL: the parser and engine, the range kernels, the label tier, the
+# remote write/read and OTLP codecs, and the modules they changed
+TWELFTH_SLICE_MODULES = [
+    "opengemini_tpu_torch.promql",
+    "opengemini_tpu_torch.promql.parser",
+    "opengemini_tpu_torch.promql.engine",
+    "opengemini_tpu_torch.ops.prom",
+    "opengemini_tpu_torch.ops.segment",
+    "opengemini_tpu_torch.index.labels",
+    "opengemini_tpu_torch.index.mergeset",
+    "opengemini_tpu_torch.ingest.protowire",
+    "opengemini_tpu_torch.ingest.prom_remote",
+    "opengemini_tpu_torch.ingest.otlp",
+    "opengemini_tpu_torch.query.condition",
+    "opengemini_tpu_torch.ops.device_decode",
+    "opengemini_tpu_torch.server.http",
+]
+BLOCKED_IMPORT_MODULES += TWELFTH_SLICE_MODULES
 
 
 @pytest.mark.parametrize("module", BLOCKED_IMPORT_MODULES)
