@@ -294,16 +294,39 @@ Phases, in order; any failure ends the run with a nonzero exit:
    card's answers (max, the instant values and topk exactly, the rest
    within rel 1e-9). Kernels 4 and 5 are checked and timed at its
    shapes.
+14. The continuous tier on the card, with a budget of its own
+   (CONT_PHASE_S, 60 s), on a root of its own (build/smoke_continuous):
+   TSBS devops cpu at 4000 hosts x 10 fields x 2 h (2.88 M rows) through
+   /write (the port's native line writer formats the bodies) into an RP
+   of 1 h shards; the rollup cpu_1m (usage_user, 1 min, with its sketches)
+   declared through /debug/ctrl?mod=rollup and folded by one governed
+   service tick (its wall and rows); D1, mean and max of usage_user by 5
+   min and host over the span, 3 runs: 21 windows from rollup rows and a
+   raw tail of 15 min through the grid on the card (windows_spliced,
+   rows, launches and the route print; the rollup rows read from the
+   `rollup` span of an EXPLAIN ANALYZE), against the oracle and against
+   the unspliced answer, kernel 3 (or 1-2) checked and timed at the raw
+   tail's shape, its launches there left out of the counts; a late write into a spliced window (D2: re-dirtied, the
+   late point in the answer); CQ cq5 (mean(*) INTO cpu_5m GROUP BY
+   time(5m), * RESAMPLE FOR 15m) ticked at an explicit now and read
+   back; stream s1 (mean, max, count of usage_user by minute and
+   region) over one more written minute, flushed; CREATE DOWNSAMPLE
+   rewriting the aged first shard on the card, the query before and
+   after against the oracle (no stale cache hit); the RP cut to 1 h and
+   one retention tick dropping that shard; the governor (mod=governor,
+   2 slots and a queue of 1) under 8 concurrent dashboards (200s, 503s
+   with Retry-After, its /debug/vars section); and the slow log
+   (mod=obs, /debug/slow). Each step's wall and the memory peak print.
 
 The incremental result cache (OGT_RESULT_CACHE) is off in phases 3-9,
-12 and 13, so their repeated runs measure every execution; phases 10 and
+12, 13 and 14, so their repeated runs measure every execution; phases 10 and
 11 turn it on for their panels. The offload planner is off in phases
-3-11 and 13 (each disarms it through /debug/ctrl?mod=offload&arm=0 at
+3-11, 13 and 14 (each disarms it through /debug/ctrl?mod=offload&arm=0 at
 its start: every route is the static gate's, so their launches per run
 are exact); phase 12 arms it. Phase 5 arms devobs for its transfer
 histogram (the decode's H2D bytes), and phase 12 for the planner's
 walls. Launch counters start at 0 before each main path (phases 3, 5,
-6, 7, 8, 9, 10, 11, 12, 13) and are read after it; the
+6, 7, 8, 9, 10, 11, 12, 13, 14) and are read after it; the
 {"kernels": [...]} line sums them, with launches_per_phase,
 launches_per_query and launches_parity_on_card. `--phases` runs only
 the named phases after 2 (for a short call that checks one path); the
@@ -2758,7 +2781,10 @@ SCRIPT_LIMIT_S = 1200.0
 # phase 13's budget (s): the load, the seven PQs, both routes, a traced
 # run, the encoded decode, the read-backs and the CPU reopen
 PROM_PHASE_S = 100.0
-AFTER_PHASE13_S = 60.0
+# the reserve after phase 14 (the later phases' kernel checks and the
+# output), and phase 14's own budget before it
+AFTER_PHASE14_S = 60.0
+AFTER_PHASE13_S = AFTER_PHASE14_S + 60.0  # phase 14's CONT_PHASE_S
 AFTER_PHASE12_S = AFTER_PHASE13_S + PROM_PHASE_S
 AFTER_PHASE11_S = AFTER_PHASE12_S + 90.0  # phase 12's PLANNER_PHASE_S
 AFTER_PHASE10_S = AFTER_PHASE11_S + 120.0  # phase 11's LIFECYCLE_PHASE_S
@@ -5158,6 +5184,544 @@ def phase_prom(seed: int, deadline: float, n_hosts: int = N_HOSTS) -> dict:
             stop_server(svc, engine)
 
 
+# -- phase 14: the continuous tier on the card --------------------------------
+
+CONT_PHASE_S = 60.0
+CONT_HOURS = 2
+# the rollup's first tick folds up to here: the last 15 minutes of the
+# span stay a raw tail through the grid
+CONT_WM_MIN = 105
+CONT_BODY_STEPS = 60  # samples of every host in one /write body (10 min)
+CONT_DASH_RUNS = 3
+CONT_CONCURRENT = 8
+CONT_LATE = 1000.0  # the late point's value, above every walk's range
+
+
+def _cont_lines(tags, vals, lo: int, hi: int, n_hosts: int) -> bytes:
+    """Line protocol of cpu samples [lo, hi) of every host, time-major,
+    formatted by the port's native line writer."""
+    import numpy as np
+
+    from opengemini_tpu_torch.ingest.line_protocol import series_key
+    from opengemini_tpu_torch.ingest.native_lp import ColumnarBatch, LineWriter
+    from opengemini_tpu_torch.record import FieldType
+
+    n = hi - lo
+    ts = np.repeat(T0_NS + np.arange(lo, hi, dtype=np.int64) * STEP_NS,
+                   n_hosts)
+    ref = np.tile(np.arange(n_hosts, dtype=np.int64), n)
+    ones = np.ones(n * n_hosts, np.bool_)
+    cols = [(0, f, FieldType.FLOAT,
+             np.ascontiguousarray(vals[f][:, lo:hi].T).reshape(-1), ones)
+            for f in FIELDS]
+    batch = ColumnarBatch(ts, ref, [series_key("cpu", t) for t in tags],
+                          np.zeros(n_hosts, np.int64), ["cpu"], cols)
+    return LineWriter(batch).lines(np.arange(len(ts), dtype=np.int64))
+
+
+def _cont_dashboard(lo_min: int, hi_min: int) -> str:
+    return (f"SELECT mean(usage_user), max(usage_user) FROM cpu WHERE "
+            f"time >= {T0_NS + lo_min * 60 * 10**9} AND "
+            f"time < {T0_NS + hi_min * 60 * 10**9} "
+            f"GROUP BY time(5m), hostname")
+
+
+def _cont_verify(qn: str, res: dict, usage, lo_min: int, hi_min: int,
+                 n_hosts: int, late=None) -> None:
+    """A dashboard's rows against the oracle: per host and 5-minute
+    window, mean (rel MEAN_RTOL) and max (exact) of `usage`, with
+    `late` = (host, window, value) added where a late point went."""
+    import numpy as np
+
+    per = 30  # samples of a 5-minute window
+    w0, w1 = lo_min // 5, hi_min // 5
+    series = res.get("series", [])
+    check(len(series) == n_hosts, f"{qn}: {len(series)} series")
+    for s in series:
+        h = int(s["tags"]["hostname"].split("_")[1])
+        check(len(s["values"]) == w1 - w0, f"{qn}: host {h} rows")
+        for t, mean, mx in s["values"]:
+            w = (t - T0_NS) // (300 * 10**9)
+            win = usage[h, w * per:(w + 1) * per]
+            want_sum, want_n, want_max = win.sum(), per, win.max()
+            if late is not None and (h, w) == late[:2]:
+                want_sum += late[2]
+                want_n += 1
+                want_max = max(want_max, late[2])
+            check(close(mean, want_sum / want_n),
+                  f"{qn}: host {h} window {w} mean {mean}")
+            check(mx == float(want_max), f"{qn}: host {h} window {w} max")
+
+
+def _cont_vars(port: int) -> dict:
+    return http(port, "GET", "/debug/vars", {})[1]
+
+
+def _cont_rollup_span(port: int, q: str) -> dict:
+    """The `rollup` span's fields (windows_spliced, rollup_rows) from an
+    EXPLAIN ANALYZE of `q`."""
+    status, doc = http(port, "GET", "/query", {
+        "db": "benchmark", "q": "EXPLAIN ANALYZE " + q})
+    check(status == 200 and "error" not in doc["results"][0],
+          f"EXPLAIN ANALYZE: {status} {doc}")
+    lines = [row[0] for row in doc["results"][0]["series"][0]["values"]]
+    out: dict = {}
+    depth = None
+    for line in lines:
+        ind = len(line) - len(line.lstrip())
+        if line.strip().startswith("rollup: "):
+            depth = ind
+        elif depth is not None and ind > depth:
+            key, _, val = line.strip().partition(": ")
+            out[key] = int(val)
+        elif depth is not None:
+            break
+    return out
+
+
+def phase_continuous(seed: int, deadline: float,
+                     n_hosts: int = N_HOSTS) -> dict:
+    """The data's life over time on the card, on a root of its own
+    (fresh_root("smoke_continuous")): TSBS devops cpu at its full width
+    (n_hosts hosts, 10 float fields, 10 s steps) over CONT_HOURS h in
+    database `benchmark` under an RP of 1 h shards, loaded through
+    /write; the rollup cpu_1m (usage_user, 1 minute, with its sketches)
+    declared through /debug/ctrl?mod=rollup and folded by one governed
+    service tick at an explicit now (watermark CONT_WM_MIN minutes in);
+    the dashboard (mean and max of usage_user by 5 minutes and host over
+    the span) spliced from the rollup rows plus a raw tail through the
+    grid on the card, against the oracle and the unspliced answer; a
+    late write into a spliced window (re-dirtied, answered with the late
+    point); a continuous query (mean(*) INTO cpu_5m GROUP BY time(5m), *
+    RESAMPLE FOR 15m) ticked at an explicit now and read back; a stream
+    (mean, max, count by region, 1 minute) over one more written minute,
+    flushed; a downsample policy rewriting the aged first shard on the
+    card (the query before and after it: no stale cache hit); the RP cut
+    to 1 h and one retention tick dropping that shard; the governor
+    (mod=governor: 2 slots, a queue of 1) under CONT_CONCURRENT
+    concurrent dashboards (200s, 503s with Retry-After, its /debug/vars
+    section); and the slow log (mod=obs, /debug/slow). Each step's wall,
+    the launches of every kernel per step and the memory peak are
+    printed; kernel 3 (or 1-2 where the grid declines) is held to its
+    plain version at the raw tail's shape."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.services.continuous import (
+        ContinuousQueryService,
+    )
+    from opengemini_tpu_torch.services.downsample import DownsampleService
+    from opengemini_tpu_torch.services.retention import RetentionService
+    from opengemini_tpu_torch.services.rollup import RollupService
+    from opengemini_tpu_torch.services.stream import StreamService
+    from opengemini_tpu_torch.storage import colcache
+    from opengemini_tpu_torch.utils.governor import GOVERNOR
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 14)
+    n_t = CONT_HOURS * 360
+    tags = host_tags(n_hosts, rng)
+    vals = make_values(n_hosts, n_t + 6, rng)  # the span and one minute
+    usage = vals["usage_user"]
+    minute = T0_NS + n_t * STEP_NS  # the stream's minute
+    root = fresh_root("smoke_continuous")
+    cc_prev = colcache.GLOBAL.config()
+    colcache.GLOBAL.configure(budget_mb=CC_HOST_MB, device=False)
+    rec = ShapeRecorder().__enter__()
+    svc = engine = None
+    steps: dict = {}
+    per_query: dict = {}
+    walls: dict = {}
+    lap = [time.perf_counter()]
+
+    def step(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = round(now - lap[-1], 3)
+        lap.append(now)
+
+    def launched(l0: dict) -> dict:
+        return {k: cs.LAUNCHES[k] - l0[k] for k in l0}
+
+    try:
+        torch.cuda.synchronize()
+        cs.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        engine, svc = serve(root)
+        port = svc.port
+        disarm_planner(port)
+        status, doc = http(port, "POST", "/query", {
+            "q": "CREATE DATABASE benchmark WITH DURATION 2d "
+                 "SHARD DURATION 1h NAME rp1h"})
+        check(status == 200 and "error" not in doc["results"][0],
+              f"CREATE DATABASE: {doc}")
+
+        # 1. the load through /write
+        n_rows = 0
+        for lo in range(0, n_t, CONT_BODY_STEPS):
+            hi = min(n_t, lo + CONT_BODY_STEPS)
+            body = _cont_lines(tags, vals, lo, hi, n_hosts)
+            status, _ = http(port, "POST", "/write",
+                             {"db": "benchmark", "precision": "ns"}, body)
+            check(status == 204, f"/write status {status}")
+            n_rows += (hi - lo) * n_hosts
+        step("load")
+        check(len(engine.all_shards()) == CONT_HOURS,
+              f"{len(engine.all_shards())} shards for {CONT_HOURS} h")
+        log(f"[continuous] loaded {n_rows} rows ({n_hosts} hosts x "
+            f"{len(FIELDS)} fields x {CONT_HOURS} h) through /write in "
+            f"{walls['load']:.1f} s ({n_rows / walls['load']:.0f} rows/s) "
+            f"into {len(engine.all_shards())} shards of 1 h")
+
+        # 2. the rollup: declared over HTTP, folded by one service tick
+        status, doc = http(port, "POST", "/debug/ctrl", {
+            "mod": "rollup", "op": "declare", "db": "benchmark",
+            "name": "cpu_1m", "measurement": "cpu", "every_s": "60",
+            "fields": "usage_user"})
+        check(status == 200 and "benchmark.cpu_1m" in doc["specs"],
+              f"rollup declare: {status} {doc}")
+        v0 = _cont_vars(port).get("rollup", {})
+        wm_ns = T0_NS + CONT_WM_MIN * 60 * 10**9
+        folded = RollupService(engine, interval_s=3600).handle(
+            now_ns=wm_ns + 60 * 10**9)
+        step("fold")
+        v1 = _cont_vars(port)["rollup"]
+        status, doc = http(port, "POST", "/debug/ctrl",
+                           {"mod": "rollup", "op": "status"})
+        st = doc["specs"]["benchmark.cpu_1m"]
+        check(folded == CONT_WM_MIN and st["watermark_ns"] == wm_ns
+              and st["dirty_windows"] == 0 and st["sketch"],
+              f"the fold: {folded} windows, status {st}")
+        rows_out = v1["rows_folded_out"] - v0.get("rows_folded_out", 0)
+        check(rows_out == n_hosts * CONT_WM_MIN,
+              f"the fold wrote {rows_out} rollup rows")
+        log(f"[continuous] rollup cpu_1m folded {folded} windows in "
+            f"{walls['fold']:.2f} s: {v1['rows_folded_in'] - v0.get('rows_folded_in', 0)}"
+            f" rows in, {rows_out} rollup rows out, watermark "
+            f"{CONT_WM_MIN} min into the span")
+
+        # 3. the dashboard: spliced, a raw tail on the card
+        q = _cont_dashboard(0, CONT_HOURS * 60)
+
+        def dashboard(qn: str, late=None, runs: int = CONT_DASH_RUNS):
+            b = _cont_vars(port)
+            l0 = dict(cs.LAUNCHES)
+            rec.now = {}
+            wall_list = []
+            for _ in range(runs):
+                res, _req, wall = query_timed(port, q)
+                wall_list.append(wall)
+            shapes, rec.now = rec.now, None
+            a = _cont_vars(port)
+            _cont_verify(qn, res, usage, 0, CONT_HOURS * 60, n_hosts, late)
+            got = {
+                "walls_ms": [round(w, 1) for w in wall_list],
+                "p50_ms": p50_of(wall_list),
+                "windows_spliced": (a["rollup"]["splice_windows"]
+                                    - b["rollup"].get("splice_windows", 0))
+                // runs,
+                "raw_windows": (a["rollup"]["splice_raw_windows"]
+                                - b["rollup"].get("splice_raw_windows", 0))
+                // runs,
+                "rollup_rows": None,
+                "raw_rows": (a["executor"]["rows_scanned"]
+                             - b["executor"].get("rows_scanned", 0))
+                // runs,
+                "launches": launched(l0),
+                "shapes": {k: sorted(shape_json(k, s) for s in v)
+                           for k, v in shapes.items()},
+                "rollup_ms": (a["query_stages"].get("rollup_ns", 0)
+                              - b["query_stages"].get("rollup_ns", 0))
+                / 1e6 / runs,
+            }
+            return res, got, shapes
+
+        res, got, tail_shapes = dashboard("D1")
+        step("dashboard")
+        # the unspliced answer: the same query with the splice off
+        engine.rollup_mgr.read_enabled = False
+        raw = query(port, q)
+        engine.rollup_mgr.read_enabled = True
+        check(same_answer(res, raw), "D1: the spliced answer differs "
+              "from the unspliced one")
+        n_w = CONT_HOURS * 12
+        check(got["windows_spliced"] == CONT_WM_MIN // 5
+              and got["raw_windows"] == n_w - CONT_WM_MIN // 5,
+              f"D1 spliced {got['windows_spliced']} raw "
+              f"{got['raw_windows']} windows")
+        check(got["raw_rows"] == n_hosts * (CONT_HOURS * 60 - CONT_WM_MIN)
+              * 6, f"D1 raw tail {got['raw_rows']} rows")
+        kern = {k: v for k, v in got["launches"].items() if v}
+        check(kern, "D1: the raw tail launched no kernel")
+        span = _cont_rollup_span(port, q)
+        got["rollup_rows"] = span.get("rollup_rows")
+        check(span.get("windows_spliced") == got["windows_spliced"]
+              and got["rollup_rows"] == n_hosts * CONT_WM_MIN,
+              f"D1's rollup span {span}")
+        per_query["D1"] = got
+        log(f"[continuous] D1 ok p50={got['p50_ms']:.1f} ms "
+            f"(walls {got['walls_ms']}), windows_spliced "
+            f"{got['windows_spliced']} of {n_w}, rollup rows "
+            f"{got['rollup_rows']}, raw-tail rows {got['raw_rows']}, "
+            f"rollup stage {got['rollup_ms']:.1f} ms, launches "
+            f"{json.dumps(kern)} (route: "
+            f"{'grid' if kern.get('grid_window_agg') else 'bucketed'}), "
+            f"raw-tail shapes {json.dumps(got['shapes'])}; the unspliced "
+            "answer equal")
+        steps["tail_checks"] = []
+        l_chk = dict(cs.LAUNCHES)
+        for name, shapes in tail_shapes.items():
+            for j, shape in enumerate(sorted(shapes)[:2]):
+                r = kernel_case(name, shape, seed + 14000 + j,
+                                torch.cuda.get_device_name(0), timed=True)
+                steps["tail_checks"].append({"name": name, **r})
+                log(f"[continuous] raw-tail kernel {name}"
+                    f"{shape_label(name, shape)} ok max_abs_err "
+                    f"{r['max_abs_err']} ms={r['ms']:.4f} device_ms="
+                    f"{r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                    f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+        for k2 in l_chk:  # the checks' launches are no main path's
+            cs.LAUNCHES[k2] = l_chk[k2]
+        step("tail kernels")
+
+        # 4. a late write into a spliced window
+        late_t = T0_NS + 605 * 10**9  # window 2 (10-15 min), between samples
+        status, _ = http(port, "POST", "/write", {"db": "benchmark"},
+                         f"cpu,{','.join(f'{k}={v}' for k, v in tags[0])} "
+                         f"usage_user={CONT_LATE} {late_t}".encode())
+        check(status == 204, f"late /write status {status}")
+        status, doc = http(port, "POST", "/debug/ctrl",
+                           {"mod": "rollup", "op": "status"})
+        check(doc["specs"]["benchmark.cpu_1m"]["dirty_windows"] == 1,
+              f"the late write dirtied {doc['specs']}")
+        res2, got2, _s = dashboard("D2", late=(0, 2, CONT_LATE), runs=1)
+        check(got2["windows_spliced"] == CONT_WM_MIN // 5 - 1,
+              f"D2 spliced {got2['windows_spliced']} windows")
+        per_query["D2 late"] = got2
+        step("late write")
+        log(f"[continuous] D2 (a late point at 10:05 of host_0) ok: "
+            f"window 2 re-dirtied, windows_spliced "
+            f"{got2['windows_spliced']}, raw-tail rows {got2['raw_rows']}, "
+            f"launches {json.dumps({k: v for k, v in got2['launches'].items() if v})}")
+
+        # 5. a continuous query, one tick at an explicit now
+        status, doc = http(port, "POST", "/query", {
+            "db": "benchmark",
+            "q": "CREATE CONTINUOUS QUERY cq5 ON benchmark RESAMPLE FOR 15m "
+                 "BEGIN SELECT mean(*) INTO cpu_5m FROM cpu "
+                 "GROUP BY time(5m), * END"})
+        check(status == 200 and "error" not in doc["results"][0],
+              f"CREATE CONTINUOUS QUERY: {doc}")
+        l0 = dict(cs.LAUNCHES)
+        ran = ContinuousQueryService(engine, svc.executor,
+                                     interval_s=3600).handle(
+            now_ns=T0_NS + n_t * STEP_NS)
+        cq_launch = launched(l0)
+        check(ran == 1, f"the CQ tick ran {ran} queries")
+        back = query(port, "SELECT mean_usage_user, mean_usage_idle FROM "
+                           "cpu_5m GROUP BY hostname")
+        check(len(back.get("series", [])) == n_hosts,
+              f"cpu_5m: {len(back.get('series', []))} series")
+        for s in back["series"]:
+            h = int(s["tags"]["hostname"].split("_")[1])
+            check(len(s["values"]) == 3, f"cpu_5m host {h} rows")
+            for t, mu, mi in s["values"]:
+                w = (t - T0_NS) // (300 * 10**9)
+                sl = slice(w * 30, (w + 1) * 30)
+                check(close(mu, usage[h, sl].mean())
+                      and close(mi, vals["usage_idle"][h, sl].mean()),
+                      f"cpu_5m host {h} window {w}")
+        kern = {k: v for k, v in cq_launch.items() if v}
+        check(kern, "the CQ launched no kernel")
+        per_query["CQ"] = {"launches": cq_launch}
+        step("cq")
+        log(f"[continuous] CQ cq5 ok: one tick wrote {3 * n_hosts} rows of "
+            f"cpu_5m (3 windows x {n_hosts} hosts x {len(FIELDS)} means), "
+            f"read back against the oracle; launches {json.dumps(kern)} "
+            f"(route: {'grid' if kern.get('grid_window_agg') else 'bucketed'})")
+
+        # 6. a stream over one more written minute
+        streams = StreamService(engine, interval_s=3600)
+        status, doc = http(port, "POST", "/query", {
+            "db": "benchmark",
+            "q": "CREATE STREAM s1 ON SELECT mean(usage_user), "
+                 "max(usage_user), count(usage_user) INTO cpu_s FROM cpu "
+                 "GROUP BY time(1m), region"})
+        check(status == 200 and "error" not in doc["results"][0],
+              f"CREATE STREAM: {doc}")
+        status, _ = http(port, "POST", "/write",
+                         {"db": "benchmark", "precision": "ns"},
+                         _cont_lines(tags, vals, n_t, n_t + 6, n_hosts))
+        check(status == 204, f"the stream minute's /write status {status}")
+        flushed = streams.handle(now_ns=minute + 60 * 10**9)
+        region = np.array([dict(t)["region"] for t in tags])
+        regions = sorted(set(region.tolist()))
+        check(flushed == len(regions), f"the stream flushed {flushed}")
+        cells = query(port, "SELECT * FROM cpu_s GROUP BY region")
+        for s in cells["series"]:
+            sel = usage[region == s["tags"]["region"], n_t:n_t + 6]
+            [[t, count, mx, mean]] = s["values"]
+            check(t == minute and count == sel.size
+                  and mx == float(sel.max()) and close(mean, sel.mean()),
+                  f"cpu_s {s['tags']}: {s['values']}")
+        step("stream")
+        log(f"[continuous] stream s1 ok: {6 * n_hosts} rows folded at "
+            f"ingest into {flushed} cells (one minute x {len(regions)} "
+            "regions), flushed and read back against the oracle")
+
+        # 7. downsample: the aged first shard rewritten on the card
+        status, doc = http(port, "POST", "/query", {
+            "db": "benchmark",
+            "q": "CREATE DOWNSAMPLE ON benchmark.rp1h (float(mean)) WITH "
+                 "TTL 2d SAMPLEINTERVAL 1h TIMEINTERVAL 5m"})
+        check(status == 200 and "error" not in doc["results"][0],
+              f"CREATE DOWNSAMPLE: {doc}")
+        # usage_system: no rollup covers it, so the answer is the raw rows
+        # (a rollup outlives its source's rewrites by design)
+        qd = (f"SELECT count(usage_system), mean(usage_system) FROM cpu "
+              f"WHERE time >= {T0_NS} AND time < {T0_NS + 3600 * 10**9} "
+              f"GROUP BY time(5m)")
+        before = query(port, qd)
+        query(port, qd)  # the host tier holds the columns now
+        cc0 = colcache.GLOBAL.counters()
+        l0 = dict(cs.LAUNCHES)
+        n_ds = DownsampleService(engine, interval_s=3600).handle(
+            now_ns=T0_NS + n_t * STEP_NS)
+        ds_launch = launched(l0)
+        check(n_ds == 1, f"{n_ds} shards downsampled")
+        after = query(port, qd)
+        cc1 = colcache.GLOBAL.counters()
+        system = vals["usage_system"]
+        for w, (b_row, a_row) in enumerate(zip(before["series"][0]["values"],
+                                               after["series"][0]["values"])):
+            sl = system[:, w * 30:(w + 1) * 30]
+            per_host = sl.mean(axis=1)
+            check(b_row[1] == sl.size and close(b_row[2], sl.mean()),
+                  f"before the downsample, window {w}: {b_row}")
+            check(a_row[1] == n_hosts and close(a_row[2], per_host.mean()),
+                  f"after the downsample, window {w}: {a_row} (a stale "
+                  "cache hit?)")
+        check(cc1["invalidations"] > cc0["invalidations"],
+              "the rewrite invalidated no cached column")
+        per_query["downsample"] = {"launches": ds_launch}
+        step("downsample")
+        log(f"[continuous] downsample ok: the first shard rewritten at 5 "
+            f"min ({n_hosts * 12} rows from {n_hosts * 360}), the query "
+            f"before and after against the oracle, "
+            f"{cc1['invalidations'] - cc0['invalidations']} cached columns "
+            f"invalidated; the rewrite's device batches on "
+            f"{engine.device}")
+
+        # 8. retention: the RP cut to 1 h drops the first shard
+        status, doc = http(port, "POST", "/query", {
+            "db": "benchmark",
+            "q": "ALTER RETENTION POLICY rp1h ON benchmark DURATION 1h"})
+        check(status == 200 and "error" not in doc["results"][0],
+              f"ALTER RETENTION POLICY: {doc}")
+        n_before = len(engine.all_shards())
+        RetentionService(engine, interval_s=3600).handle(
+            now_ns=T0_NS + n_t * STEP_NS + 1800 * 10**9)
+        left = sorted(sh.tmin for (db, rp, _g), sh in engine.shard_items()
+                      if rp == "rp1h")
+        check(T0_NS not in left and len(left) == CONT_HOURS,
+              f"retention left shards {left}")
+        cnt = query(port, f"SELECT count(usage_user) FROM cpu WHERE "
+                          f"time >= {T0_NS} AND time < {minute + 60 * 10**9}")
+        want = n_hosts * (n_t - 360 + 6)
+        check(cnt["series"][0]["values"][0][1] == want,
+              f"after retention {cnt['series'][0]['values']} rows, want "
+              f"{want}")
+        step("retention")
+        log(f"[continuous] retention ok: {n_before} -> "
+            f"{len(engine.all_shards())} shards (the first hour dropped), "
+            f"{want} rows left")
+
+        # 9. the governor: 2 slots and a queue of 1 under 8 dashboards
+        status, doc = http(port, "POST", "/debug/ctrl", {
+            "mod": "governor", "budget_mb": str(1 << 16),
+            "max_concurrent": "2", "queue": "1", "timeout_ms": "60000"})
+        check(status == 200 and doc["governor"]["enabled"],
+              f"mod=governor: {doc}")
+        qg = _cont_dashboard(60, CONT_HOURS * 60)
+        go = threading.Barrier(CONT_CONCURRENT)
+        answers: list = []
+
+        def fire():
+            go.wait(30)
+            answers.append(http_raw(port, "GET", "/query", {
+                "db": "benchmark", "q": qg, "epoch": "ns"}))
+
+        threads = [threading.Thread(target=fire)
+                   for _ in range(CONT_CONCURRENT)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        gsec = _cont_vars(port).get("governor", {})
+        codes = sorted(a[0] for a in answers)
+        n_ok, n_shed = codes.count(200), codes.count(503)
+        check(n_ok + n_shed == CONT_CONCURRENT and n_shed >= 1
+              and n_ok >= 2, f"governed dashboards answered {codes}")
+        check(all(int(a[1]["Retry-After"]) >= 1 for a in answers
+                  if a[0] == 503), "a 503 without Retry-After")
+        check(gsec.get("sheds_queue_full", 0) + gsec.get("sheds_timeout", 0)
+              == n_shed, f"the governor's sheds {gsec}")
+        ok_body = next(json.loads(a[2]) for a in answers if a[0] == 200)
+        _cont_verify("G1", ok_body["results"][0], usage, 60,
+                     CONT_HOURS * 60, n_hosts)
+        status, doc = http(port, "POST", "/debug/ctrl",
+                           {"mod": "governor", "budget_mb": "0"})
+        GOVERNOR.reset()
+        step("governor")
+        gkeys = ("admitted", "queued", "sheds_queue_full", "sheds_timeout",
+                 "ledger_memtable_bytes", "ledger_colcache_host_bytes",
+                 "ledger_total_bytes")
+        log(f"[continuous] governor ok: {CONT_CONCURRENT} concurrent "
+            f"dashboards, {n_ok} x 200, {n_shed} x 503 with Retry-After; "
+            f"/debug/vars governor {json.dumps({k: gsec.get(k) for k in gkeys})}")
+        steps["governor"] = {"ok": n_ok, "shed": n_shed,
+                             "vars": {k: gsec.get(k) for k in gkeys}}
+
+        # 10. the slow log
+        status, doc = http(port, "POST", "/debug/ctrl",
+                           {"mod": "obs", "slow_ms": "0", "clear": "1"})
+        check(status == 200 and doc["slow_ms"] == 0.0, f"mod=obs: {doc}")
+        query(port, qg)
+        slow = http(port, "GET", "/debug/slow", {})[1]
+        http(port, "POST", "/debug/ctrl",
+             {"mod": "obs", "slow_ms": "off", "clear": "1"})
+        check(any(r["statement"] == qg for r in slow["records"]),
+              f"/debug/slow: {slow}")
+        srec = next(r for r in slow["records"] if r["statement"] == qg)
+        step("slow log")
+        log(f"[continuous] slow log ok: {slow['captured']} captured, the "
+            f"dashboard at {srec['duration_ms']} ms, stages "
+            f"{json.dumps(srec['stages_ms'])}")
+
+        launches = dict(cs.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        wall_s = time.perf_counter() - t_phase
+        log(f"[continuous] step walls (s) {json.dumps(walls)}; phase 14 "
+            f"took {wall_s:.1f} s (budget {CONT_PHASE_S:.0f} s, "
+            f"{deadline - time.perf_counter():.0f} s left of the "
+            f"script's); launches {json.dumps(launches)}; device memory "
+            f"peak {peak / 2**20:.1f} MiB; card {smi_line()}")
+        steps["walls_s"] = walls
+        return {"launches": launches, "per_query": per_query,
+                "steps": steps, "shapes": rec.seen, "peak_bytes": peak,
+                "wall_s": wall_s}
+    finally:
+        rec.__exit__()
+        colcache.GLOBAL.configure(**cc_prev)
+        if GOVERNOR.enabled():
+            GOVERNOR.configure(budget_mb=0)
+            GOVERNOR.reset()
+        if svc is not None:
+            stop_server(svc, engine)
+
+
 def build_all(verbose: bool = True) -> float:
     """nvcc for the six kernels and g++ for the six host libraries, all
     at once; returns the seconds it took."""
@@ -5212,12 +5776,12 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--phases", default="all",
                     help="the phases after 2 to run, comma separated "
-                         "(3-13; 6-10 and 12 need 5), for a short call "
+                         "(3-14; 6-10 and 12 need 5), for a short call "
                          "that checks one path; default all")
     args = ap.parse_args()
     if args.hours < 3:
         ap.error("--hours may not be cut below 3")
-    wanted = (set(range(3, 14)) if args.phases == "all"
+    wanted = (set(range(3, 15)) if args.phases == "all"
               else {int(x) for x in args.phases.split(",")})
     if wanted & {6, 7, 8, 9, 10, 12} and 5 not in wanted:
         ap.error("phases 6-10 and 12 run on phase 5's root")
@@ -5325,13 +5889,20 @@ def main() -> int:
         ran.append(("13", prom, " prom"))
         later.append(prom)
         lap("phase 13")
+    cont = None
+    if 14 in wanted:
+        cont = phase_continuous(args.seed, t_start + SCRIPT_LIMIT_S
+                                - AFTER_PHASE14_S)
+        ran.append(("14", cont, " continuous"))
+        later.append(cont)
+        lap("phase 14")
     # kernels 1-3 at the later phases' new shapes, and kernels 4-6 too
     # at phase 11's, 12's and 13's (the decode of rewritten and compacted
     # files, and PromQL's rows matrices)
     for i, name in enumerate(E2E_KERNELS + COLD_KERNELS[1:]):
         for j, phase in enumerate(later):
             if name not in E2E_KERNELS and phase not in (life, planned,
-                                                         prom):
+                                                         prom, cont):
                 continue
             new = {sh for sh in phase["shapes"][name] - seen[name]
                    if all(d > 0 for d in shape_json(name, sh)

@@ -223,6 +223,36 @@ def _blob(pieces: list[bytes]) -> tuple[bytes, np.ndarray]:
     return b"".join(pieces), off
 
 
+def _quoted(values, ok: np.ndarray, name: str) -> tuple[bytes, np.ndarray]:
+    """A string column's valid values, each quoted and escaped as a line
+    holds it, as one blob and its offsets (an invalid row's piece is
+    empty). Values that need no escaping and are ASCII, as base64 text
+    is, are joined in one pass; any other column goes value by value."""
+    strs = np.asarray(values, dtype=object)[ok.view(np.bool_)].tolist()
+    try:
+        text = "".join(strs)
+    except TypeError:
+        text = None
+    if (text is not None and text.isascii() and "\n" not in text
+            and "\\" not in text and '"' not in text):
+        off = np.zeros(len(ok) + 1, dtype=np.int64)
+        lens = np.zeros(len(ok), dtype=np.int64)
+        lens[ok.view(np.bool_)] = np.fromiter(
+            map(len, strs), np.int64, len(strs)) + 2
+        np.cumsum(lens, out=off[1:])
+        return ('"' + '""'.join(strs) + '"').encode() if strs else b"", off
+    pieces = []
+    for s, o in zip(values.tolist(), ok.tolist()):
+        if not o:
+            pieces.append(b"")
+            continue
+        if "\n" in s:
+            raise ValueError(f"string field {name!r} holds a newline")
+        pieces.append(('"' + s.replace("\\", "\\\\")
+                       .replace('"', '\\"') + '"').encode())
+    return _blob(pieces)
+
+
 class LineWriter:
     """Line-protocol text of a ColumnarBatch's rows, one line per row in
     ns precision, which ``line_protocol.parse_lines`` reads back to the
@@ -251,17 +281,7 @@ class LineWriter:
                 v = np.ascontiguousarray(values, dtype=np.bool_).view(
                     np.uint8)
             else:
-                pieces = []
-                for s, o in zip(values.tolist(), ok.tolist()):
-                    if not o:
-                        pieces.append(b"")
-                        continue
-                    if "\n" in s:
-                        raise ValueError(
-                            f"string field {name!r} holds a newline")
-                    pieces.append(('"' + s.replace("\\", "\\\\")
-                                   .replace('"', '\\"') + '"').encode())
-                v, off = _blob(pieces)
+                v, off = _quoted(values, ok, name)
                 v = np.frombuffer(v, dtype=np.uint8)
                 self._str_bytes += len(v)
             pre = (_esc_key(name) + "=").encode()

@@ -2,7 +2,7 @@
 
 The port of ``opengemini_tpu/ops/prom.py`` for one device (the
 mesh-sharded tiled kernels come with the device mesh, ROADMAP A8; the
-rule engine's tile partials with the rules, ROADMAP A7). Reference: the
+rule engine's tile partials with the rules, ROADMAP A7.2). Reference: the
 store-side prom cursors + reducers (engine/prom_range_vector_cursor.go,
 prom_function_reducers.go:633) which walk samples per series per step.
 

@@ -15,7 +15,8 @@ tiled kernels on the host (numpy) or on the device (torch) as the
 offload planner routes them, where a CPU engine's static route is the
 host and a CUDA engine's the device; the dense kernels (torch) on the
 engine's device. The mesh paths come with the device mesh (ROADMAP
-A8); the slow-query log and the governor's admission with A7.
+A8). An evaluation is noted in the slow-query log (utils/slowlog.py);
+the governor's admission is taken by the HTTP routes (server/http.py).
 Knobs: OGT_PROM_TILED, OGT_PROM_BULK_SIDS, OGT_PROM_TILE_CELLS and the
 offload planner's host-kernels switch (OGT_PROM_HOST_KERNELS,
 /debug/ctrl?mod=offload&host_kernels=).
@@ -37,6 +38,7 @@ from opengemini_tpu_torch.promql import parser as pp
 from opengemini_tpu_torch.utils import devobs
 from opengemini_tpu_torch.utils import tracing
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
+from opengemini_tpu_torch.utils.slowlog import GLOBAL as SLOWLOG
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 MS = 1_000_000  # ns per ms
@@ -366,11 +368,18 @@ class PromEngine:
     def _tracked(self, text: str, db: str):
         """Register the PromQL evaluation with the running-query registry
         (shows in /debug/queries with per-stage attribution, KILL QUERY
-        cancels it between shard scans). The slow-query log is A7's."""
+        cancels it between shard scans) and note it in the slow-query
+        log."""
+        t0 = _time.perf_counter_ns()
         qid = TRACKER.register(text, db)
         try:
             yield
         finally:
+            dur_ns = _time.perf_counter_ns() - t0
+            if SLOWLOG.enabled():
+                SLOWLOG.note(qid, text, db, dur_ns / 1e6,
+                             stages=TRACKER.stages_of(qid),
+                             extra={"kind": "promql"})
             TRACKER.unregister(qid)
 
     # -- evaluation -------------------------------------------------------

@@ -37,9 +37,18 @@ text sidecars (qhelpers ``_prune_text_sids``). A scan that meets a
 damaged file fails as a statement error (``FileQuarantined``; the file
 is quarantined, and a retry answers from the others).
 
-Not in this port yet: the rollup splice and the governor's scan
-reservation (ROADMAP A7); cluster routing and auth (ROADMAP A8: the
-shard list is the local one).
+Every query takes an admission slot from the resource governor
+(utils/governor.py ``admit``; ``AdmissionRejected`` propagates, and
+/query answers it with 503) and, governed, reserves its scan's estimated
+bytes (qhelpers ``estimate_scan_bytes``); a finished query is noted in
+the slow log (utils/slowlog.py). Both are pass-through while the
+governor and the slow log are off. A GROUP BY time() aggregate over a
+declared rollup is spliced (query/rollupplan.py, a ``rollup`` span and
+stage): its clean windows below the watermark come from rollup rows,
+inside the result cache's stale set, and only the rest is scanned.
+
+Not in this port yet: cluster routing and auth (ROADMAP A8: the shard
+list is the local one).
 
 Every stage of an aggregate SELECT runs in a span (utils/tracing.py):
 ``select: <mst>`` around ``map_shards`` (shard mapping and series
@@ -68,6 +77,7 @@ Times in values are int ns; the HTTP layer formats RFC3339/epoch.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -93,8 +103,10 @@ from opengemini_tpu_torch.query.qhelpers import (
     _merge_multi_source, _needs_string_host_path, _prune_text_sids,
     _resolve_call, _selector_aux_plan,
     _series_needs_merged_decode, _series_result, _strip_expr,
+    estimate_scan_bytes,
 )
 from opengemini_tpu_torch.query import resultcache as rcache
+from opengemini_tpu_torch.query import rollupplan as rplan
 from opengemini_tpu_torch.query import tablefunc as tfmod
 from opengemini_tpu_torch.query.showddl import ShowDdlMixin
 from opengemini_tpu_torch.query.subquery import SubqueryMixin
@@ -107,6 +119,8 @@ from opengemini_tpu_torch.storage.engine import WriteError
 from opengemini_tpu_torch.storage.shard import FileQuarantined
 from opengemini_tpu_torch.storage.tsf import CorruptFile
 from opengemini_tpu_torch.utils import devobs, tracing
+from opengemini_tpu_torch.utils.governor import GOVERNOR
+from opengemini_tpu_torch.utils.slowlog import GLOBAL as SLOWLOG
 from opengemini_tpu_torch.utils.querytracker import (
     GLOBAL as TRACKER, QueryKilled, redact as _redact)
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
@@ -409,9 +423,20 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             # server/http.py's "encode"
             tracing.record_stage("parse", _time.perf_counter_ns() - t0)
         STATS.incr("executor", "queries")
-        qid = TRACKER.register(text, db)
+        # admission control: may raise AdmissionRejected, which /query
+        # answers with 503 and Retry-After (not a statement error).
+        # t1 before admit(): a query that waited in the admission queue
+        # is slow by that wait, and the slow log must see it
+        t1 = _time.perf_counter_ns()
+        token = GOVERNOR.admit()
+        qid = None
         trace = None
         try:
+            qid = TRACKER.register(text, db)
+            if token.waited_ns:
+                # the admission wait is a query stage like any other
+                TRACKER.add_stage_ns(qid, "admission_wait", token.waited_ns)
+                tracing.record_stage("admission_wait", token.waited_ns)
             if tracing.trace_enabled():
                 # per-query span tree (OGT_TRACE=1), activated
                 # thread-locally so _select adopts it, and bound to the
@@ -425,10 +450,17 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                                                     read_only)
             return self._execute_statements(stmts, db, now_ns, read_only)
         finally:
+            dur_ns = _time.perf_counter_ns() - t1
             if trace is not None:
                 trace.finish()
                 tracing.note_finished(qid, trace, {"database": db})
-            TRACKER.unregister(qid)
+            if SLOWLOG.enabled():
+                # before unregister: the stage map lives on the entry
+                SLOWLOG.note(qid, text, db, dur_ns / 1e6, trace=trace,
+                             stages=TRACKER.stages_of(qid))
+            if qid is not None:
+                TRACKER.unregister(qid)
+            token.release()
 
     def _execute_statements(self, stmts, db: str, now_ns: int,
                             read_only: bool) -> dict:
@@ -1035,8 +1067,7 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             cache_plan = rcache.CachePlan(
                 self._inc_cache, fp, shards, aligned,
                 group_time.every_ns, W, len(aggs), tmin, tmax)
-        # no raw scan at all: every window comes from the result cache
-        no_scan = cache_plan is not None and not cache_plan.scan_ranges
+        full_hit = cache_plan is not None and not cache_plan.scan_ranges
         scan_ranges = [(tmin, tmax)]
         if cache_plan is not None and cache_plan.scan_ranges:
             # disjoint stale runs: a now()-relative dashboard query scans
@@ -1045,6 +1076,39 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 (max(tmin, lo), min(tmax, hi))
                 for lo, hi in cache_plan.scan_ranges
             ]
+
+        # the rollup splice (storage/rollup.py, query/rollupplan.py):
+        # windows below the watermark and not dirty come from rollup
+        # cells, and the raw scan shrinks to the live tail and the
+        # re-dirtied windows. Inside the result cache's stale set, so
+        # both compose; nothing runs here while no spec is declared
+        rollup_plan = None
+        if (
+            not full_hit
+            and group_time is not None
+            and aggs
+            and not time_aggs
+            and self.engine.rollup_mgr is not None
+        ):
+            rollup_plan = rplan.try_plan(
+                self.engine.rollup_mgr, db, rp, mst, sc, ctx, aggs,
+                schema, cache_plan, tmin, tmax)
+        if rollup_plan is not None:
+            with trace.span("rollup") as sp:
+                t0_rollup = _time.perf_counter_ns()
+                rollup_plan.fetch()
+                TRACKER.add_stage_ns(
+                    TRACKER.current_qid(), "rollup",
+                    _time.perf_counter_ns() - t0_rollup)
+                sp.add_field("windows_spliced", len(rollup_plan.serve))
+                sp.add_field("rollup_rows", rollup_plan.rows_read)
+            if rollup_plan.serve:
+                scan_ranges = rollup_plan.scan_ranges
+            else:
+                rollup_plan = None
+        # no raw scan at all: every window comes from the result cache
+        # and/or the rollup splice
+        no_scan = full_hit or (rollup_plan is not None and not scan_ranges)
 
         for call, spec, params, field_name in aggs:
             if schema.get(field_name) == FieldType.STRING and \
@@ -1119,7 +1183,18 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                      if colcache_mod.GLOBAL.enabled() else None)
         time_segs: list[np.ndarray] | None = [] if time_aggs else None
         time_vals: list[np.ndarray] = []
-        with trace.span("scan") as scan_span:
+        # the scan's working-set reservation: the chunk-metadata estimate
+        # is charged against the governor's ledger for the scan; one
+        # that would overdraw it kills this query (a statement error)
+        reservation = contextlib.nullcontext()
+        if GOVERNOR.enabled() and not no_scan:
+            est = estimate_scan_bytes(
+                shards, mst, tmin, tmax,
+                len(read_fields) if read_fields is not None
+                else len(schema) or 1)
+            reservation = GOVERNOR.scan_reservation(
+                TRACKER.current_qid(), est)
+        with reservation, trace.span("scan") as scan_span:
             if no_scan:
                 rows_scanned = 0
             elif slice_plan is not None:
@@ -1264,6 +1339,11 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 sp.add_field("compile_wall_ms", round(
                     dv_after["compile_wall_ms"]
                     - dv_before["compile_wall_ms"], 3))
+        if rollup_plan is not None:
+            # before the cache merge: the cache persists the spliced
+            # windows (they sit in its stale set) from these arrays
+            group_keys = rollup_plan.merge(agg_results, aggs,
+                                           list(group_keys))
         if cache_plan is not None:
             with trace.span("inc_cache"):
                 group_keys = cache_plan.merge(agg_results, aggs,

@@ -12,7 +12,7 @@ time-sorted rows. ``percentile_ogsketch`` runs on query/sketch.py's
 centroid sketch.
 
 Not in this port yet: ``detect`` (it needs ``services/castor``, ROADMAP
-A7), which raises a "not supported by this port yet" error.
+A7.2), which raises a "not supported by this port yet" error.
 """
 
 from __future__ import annotations
@@ -355,5 +355,5 @@ def multi_row(name: str, times: np.ndarray, values: np.ndarray, params: tuple,
         return [(None, py_value(uniq[i])) for i in order]
     if name == "detect":
         raise ValueError("detect() is not supported by this port yet "
-                         "(services/castor, ROADMAP A7)")
+                         "(services/castor, ROADMAP A7.2)")
     raise ValueError(f"unsupported multi-row call {name!r}")

@@ -30,7 +30,7 @@ cancellation point (``TRACKER.check()``). A raw select's conjunctive
 (qhelpers ``_prune_text_sids``); a damaged file met by a chunk read is
 quarantined through its shard (``FileQuarantined``).
 
-Not in this port yet: fitted ``detect`` models (ROADMAP A7); remote
+Not in this port yet: fitted ``detect`` models (ROADMAP A7.2); remote
 shards (ROADMAP A8: the shard list is the local one).
 """
 

@@ -11,8 +11,9 @@ pre-aggregation and sketch paths: a series whose chunks are packed
 (PACK_MIN_SERIES or more series in one flush), overlap each other or
 meet memtable rows takes the merged decode. ``_prune_text_sids`` cuts a
 select's candidate series to those the shards' text sidecars say may
-match its conjunctive ``match()`` terms. Not in this port yet: the
-governor's ``estimate_scan_bytes`` (ROADMAP A7).
+match its conjunctive ``match()`` terms. ``estimate_scan_bytes`` is the
+scan reservation the resource governor charges before a scan
+dispatches (utils/governor.py).
 """
 
 from __future__ import annotations
@@ -955,3 +956,20 @@ def _fmt_duration(ns: int) -> str:
     h, rem = divmod(ns // NS, 3600)
     m, s = divmod(rem, 60)
     return f"{h}h{m}m{s}s"
+
+
+def estimate_scan_bytes(shards, mst: str, tmin: int, tmax: int,
+                        n_fields: int | None) -> int:
+    """Estimated decoded working set of a scan, from chunk metadata and
+    memtable row counts alone (no decode): the per-query reservation
+    the resource governor charges against its ledger before the scan
+    dispatches. 9 bytes per cell, as scanpool.est_chunk_bytes."""
+    cols = (n_fields if n_fields else 1) + 2
+    total_rows = 0
+    for sh in shards:
+        approx = getattr(sh, "approx_rows", None)
+        if approx is None:
+            continue
+        r, _c = approx(mst, tmin, tmax)
+        total_rows += r
+    return total_rows * 9 * cols

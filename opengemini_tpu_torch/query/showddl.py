@@ -11,15 +11,18 @@ the engine is schema-on-write), DROP MEASUREMENT (a mark: SELECT and
 the metadata SHOWs hide the measurement, SHOW SERIES keeps its series
 until a purge, as in the reference), and DELETE and DROP SERIES (the
 shards' delete rewrite, storage/shard.py ``delete_data``; DROP SERIES
-refuses a time condition, and neither takes a field condition).
+refuses a time condition, and neither takes a field condition; a
+delete re-dirties the rollup windows it overlaps); CREATE, SHOW and
+DROP CONTINUOUS QUERY, STREAM (validated by services/stream.py) and
+DOWNSAMPLE (the reference's per-type aggregate allow-list, levels and
+TTL checks).
 
 The port is single-node, so the reference's raft replication of DDL
 (``_replicate_ddl``, ``_check_fsm_db``) becomes the local engine call.
 Every other statement of the reference answers a "not supported by this
 port yet" error naming the ROADMAP item that owns it (``_NOT_PORTED``):
-continuous queries, streams, downsample, subscriptions and models (A7);
-users, grants and SHOW CLUSTER (A8); SHOW STATS and SHOW DIAGNOSTICS
-(A9). UNION statements run
+subscriptions and models (A7.2); users, grants and SHOW CLUSTER (A8);
+SHOW STATS and SHOW DIAGNOSTICS (A9). UNION statements run
 through query/join.py's ``execute_union``.
 """
 
@@ -30,11 +33,16 @@ import re
 
 from opengemini_tpu_torch.ingest.line_protocol import series_key
 from opengemini_tpu_torch.query import condition as cond
+from opengemini_tpu_torch.ops import aggregates as aggmod
 from opengemini_tpu_torch.query.qhelpers import (
     NS, QueryError, _fmt_duration, _series, _series_result,
 )
 from opengemini_tpu_torch.record import FieldType
+from opengemini_tpu_torch.services.stream import validate_stream_select
 from opengemini_tpu_torch.sql import ast
+from opengemini_tpu_torch.storage.engine import (
+    ContinuousQuery, DownsamplePolicy, StreamTask,
+)
 from opengemini_tpu_torch.utils import tracing
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
@@ -52,21 +60,12 @@ _SHOW_STMTS = (
 
 # statement type -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    ast.CreateContinuousQuery: "A7",
-    ast.DropContinuousQuery: "A7",
-    ast.ShowContinuousQueries: "A7",
-    ast.CreateStream: "A7",
-    ast.DropStream: "A7",
-    ast.ShowStreams: "A7",
-    ast.CreateDownsample: "A7",
-    ast.DropDownsample: "A7",
-    ast.ShowDownsamples: "A7",
-    ast.CreateSubscription: "A7",
-    ast.DropSubscription: "A7",
-    ast.ShowSubscriptions: "A7",
-    ast.CreateModel: "A7",
-    ast.ShowModels: "A7",
-    ast.DropModel: "A7",
+    ast.CreateSubscription: "A7.2",
+    ast.DropSubscription: "A7.2",
+    ast.ShowSubscriptions: "A7.2",
+    ast.CreateModel: "A7.2",
+    ast.ShowModels: "A7.2",
+    ast.DropModel: "A7.2",
     ast.CreateUser: "A8",
     ast.DropUser: "A8",
     ast.SetPassword: "A8",
@@ -89,6 +88,19 @@ def _check_rp_min_duration(duration_ns: int | None) -> None:
 
 
 class ShowDdlMixin:
+    # the aggregates the downsample rewrite can run per field type:
+    # integers stay on the exact host int64 path (sum/min/max/first/
+    # last) or give a float (mean/stddev/median); count, count_distinct,
+    # spread and percentile would fail at rewrite time for INT fields,
+    # and percentile lacks its parameter in every path
+    _DOWNSAMPLE_AGGS = {
+        "float": {"sum", "count", "mean", "min", "max", "first", "last",
+                  "spread", "stddev", "median"},
+        "integer": {"sum", "mean", "min", "max", "first", "last",
+                    "stddev", "median"},
+        "boolean": {"first", "last"},
+    }
+
     def execute_statement(self, stmt, db: str, now_ns: int) -> dict:
         if isinstance(stmt, ast.SelectStatement):
             STATS.incr("executor", "selects")
@@ -160,6 +172,49 @@ class ShowDdlMixin:
             if not TRACKER.kill(stmt.qid):
                 raise QueryError(f"no such query: {stmt.qid}")
             return {}
+        if isinstance(stmt, ast.CreateContinuousQuery):
+            tgt = stmt.database or db
+            self.engine.create_continuous_query(tgt, ContinuousQuery(
+                stmt.name, stmt.select_text,
+                stmt.resample_every_ns, stmt.resample_for_ns))
+            return {}
+        if isinstance(stmt, ast.DropContinuousQuery):
+            self.engine.drop_continuous_query(stmt.database or db, stmt.name)
+            return {}
+        if isinstance(stmt, ast.ShowContinuousQueries):
+            series = []
+            for name in sorted(self.engine.databases):
+                d = self.engine.databases[name]
+                rows = [[cq.name, cq.select_text]
+                        for cq in d.continuous_queries.values()]
+                series.append(_series(name, None, ["name", "query"], rows))
+            return {"series": series} if series else {}
+        if isinstance(stmt, ast.CreateStream):
+            try:
+                validate_stream_select(stmt.select)
+            except ValueError as e:
+                raise QueryError(str(e)) from None
+            self.engine.create_stream(db, StreamTask(
+                stmt.name, stmt.select_text, stmt.delay_ns))
+            return {}
+        if isinstance(stmt, ast.DropStream):
+            self.engine.drop_stream(db, stmt.name)
+            return {}
+        if isinstance(stmt, ast.ShowStreams):
+            series = []
+            for name in sorted(self.engine.databases):
+                d = self.engine.databases[name]
+                rows = [[st.name, st.select_text] for st in d.streams.values()]
+                series.append(_series(name, None, ["name", "query"], rows))
+            return {"series": series} if series else {}
+        if isinstance(stmt, ast.CreateDownsample):
+            return self._create_downsample(stmt, db)
+        if isinstance(stmt, ast.DropDownsample):
+            self.engine.drop_downsample_policies(stmt.database or db,
+                                                 stmt.rp or None)
+            return {}
+        if isinstance(stmt, ast.ShowDownsamples):
+            return self._show_downsamples(stmt, db)
         item = _NOT_PORTED.get(type(stmt))
         if item is not None:
             raise QueryError(f"{type(stmt).__name__} is not supported by "
@@ -200,7 +255,79 @@ class ShowDdlMixin:
                     stmt.measurement, sids,
                     None if sc.tmin == cond.MIN_TIME else sc.tmin,
                     None if sc.tmax == cond.MAX_TIME else sc.tmax)
+        if self.engine.rollup_mgr is not None:
+            # re-dirty the deleted span so maintenance re-folds it (and
+            # zero-fills the series it emptied): a clean-looking rollup
+            # window must never serve deleted rows
+            self.engine.rollup_mgr.note_delete(
+                db, stmt.measurement,
+                None if not has_time or sc.tmin == cond.MIN_TIME else sc.tmin,
+                None if not has_time or sc.tmax == cond.MAX_TIME else sc.tmax)
         return {}
+
+    def _create_downsample(self, stmt, db: str) -> dict:
+        """CREATE DOWNSAMPLE: level i rewrites the shards older than
+        SAMPLEINTERVAL[i] at TIMEINTERVAL[i] resolution."""
+        tgt = stmt.database or db
+        if not stmt.rp:
+            raise QueryError("CREATE DOWNSAMPLE requires ON [db.]rp")
+        samples, times = stmt.sample_intervals, stmt.time_intervals
+        if len(samples) != len(times):
+            raise QueryError(
+                "SAMPLEINTERVAL and TIMEINTERVAL must have the same "
+                f"number of levels ({len(samples)} vs {len(times)})")
+        for i in range(len(samples)):
+            if times[i] <= 0 or samples[i] <= 0:
+                raise QueryError("downsample intervals must be positive")
+            if times[i] >= samples[i]:
+                raise QueryError(
+                    f"TIMEINTERVAL {_fmt_duration(times[i])} must be finer "
+                    f"than SAMPLEINTERVAL {_fmt_duration(samples[i])}")
+            if i and (samples[i] <= samples[i - 1]
+                      or times[i] <= times[i - 1]):
+                raise QueryError("downsample levels must be ascending")
+        if stmt.ttl_ns and samples and stmt.ttl_ns < samples[-1]:
+            raise QueryError("TTL must cover the last SAMPLEINTERVAL")
+        for tname, agg in stmt.type_aggs.items():
+            allowed = self._DOWNSAMPLE_AGGS.get(tname)
+            if allowed is None:
+                raise QueryError(f"unknown downsample field type: {tname!r}")
+            if agg not in allowed:
+                raise QueryError(
+                    f"downsample aggregate {agg!r} is not supported for "
+                    f"{tname} fields (one of: {', '.join(sorted(allowed))})")
+            aggmod.get(agg)  # registry sanity; the allow-list is a subset
+        d = self.engine.databases.get(tgt)
+        if d is None:
+            raise QueryError(f"database not found: {tgt}")
+        if stmt.rp not in d.rps:
+            raise QueryError(f"retention policy not found: {tgt}.{stmt.rp}")
+        if d.downsample.get(stmt.rp):
+            raise QueryError(f"downsample already exists on {tgt}.{stmt.rp}")
+        policies = [
+            DownsamplePolicy(samples[i], times[i], dict(stmt.type_aggs))
+            for i in range(len(samples))
+        ]
+        self.engine.set_downsample_policies(tgt, stmt.rp, policies,
+                                            ttl_ns=stmt.ttl_ns)
+        return {}
+
+    def _show_downsamples(self, stmt, db: str) -> dict:
+        tgt = stmt.database or db
+        d = self.engine.databases.get(tgt)
+        if d is None:
+            raise QueryError(f"database not found: {tgt}")
+        rows = []
+        for rp in sorted(d.downsample):
+            for p in d.downsample[rp]:
+                aggs = ",".join(f"{t}({a})"
+                                for t, a in sorted(p.field_aggs.items()))
+                rows.append([rp, aggs, _fmt_duration(p.age_ns),
+                             _fmt_duration(p.every_ns)])
+        series = _series(tgt, None,
+                         ["rpName", "aggs", "sampleInterval", "timeInterval"],
+                         rows)
+        return {"series": [series]}
 
     # -- metadata SHOWs -----------------------------------------------------
 

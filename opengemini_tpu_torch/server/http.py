@@ -33,10 +33,16 @@ standard library's threading HTTP server:
                         clear, force, host_kernels, min_samples,
                         explore_after, amortize, ewma, op=prewarm),
                         mod=failpoint (name, action; no name lists the
-                        armed sites) and mod=diskfault (path glob,
+                        armed sites), mod=diskfault (path glob,
                         action; action=off clears one rule, clear=1
                         heals all, no action lists the rules and their
-                        hits)
+                        hits), mod=governor (budget_mb, max_concurrent,
+                        queue, timeout_ms, hiwat_pct, lowat_pct,
+                        overdraft_pct, bg_pause_pct, bg_max_pause_s,
+                        bp_cache_ms; none = status), mod=rollup
+                        (op=status|flush|invalidate|declare|drop) and
+                        mod=obs (trace, hist, slow_ms, slow_max, clear)
+  GET      /debug/slow  the slow-query log (utils/slowlog.py)
   GET      /debug/queries  the running queries (utils/querytracker.py
                         ``full_snapshot``)
   GET      /debug/trace the span tree of a query: ?qid= (a running
@@ -50,10 +56,16 @@ standard library's threading HTTP server:
                         query string); 400 bad_data on a bad query,
                         422 canceled when KILL QUERY stops it
   GET/POST /api/v1/rules, /api/v1/alerts: no rule manager runs in the
-                        port yet (ROADMAP A7): empty groups and alerts
+                        port yet (ROADMAP A7.2): empty groups and alerts
   POST     /api/v1/prom/write  Prometheus remote write (snappy prompb)
   POST     /api/v1/prom/read   Prometheus remote read (snappy answer)
   POST     /api/v1/otlp/metrics  OTLP/HTTP metrics (protobuf, gzip ok)
+The resource governor (utils/governor.py) sheds /query, the PromQL
+query routes and remote read with 503 and ``Retry-After`` when its
+admission queue is full or its wait deadline passes, and /write,
+/api/v2/write, remote write and OTLP with 429 and ``Retry-After`` while
+the memtable and WAL backlog is over its high watermark; all of it is
+pass-through while the governor is disabled.
 Answers use the JAX server's JSON shapes, and error answers carry the
 stable errno taxonomy (utils/errno.py: ``errno`` and ``module`` fields,
 ``X-Ogt-Errno`` header): a write while writes are disabled answers 403
@@ -84,14 +96,19 @@ from opengemini_tpu_torch.query import offload
 from opengemini_tpu_torch.query.executor import Executor
 from opengemini_tpu_torch.record import FieldTypeConflict
 from opengemini_tpu_torch.storage import diskfault
+from opengemini_tpu_torch.storage.engine import NS as _NS
 from opengemini_tpu_torch.storage.engine import DatabaseNotFound, WriteError
+from opengemini_tpu_torch.storage.rollup import RollupSpec
+from opengemini_tpu_torch.storage.rollup import enabled_by_env as rollup_enabled_by_env
 from opengemini_tpu_torch.utils import devobs
 from opengemini_tpu_torch.utils import errno as _errno
 from opengemini_tpu_torch.utils import failpoint
 from opengemini_tpu_torch.utils import stats as _stats
 from opengemini_tpu_torch.utils import tracing
+from opengemini_tpu_torch.utils.governor import GOVERNOR, AdmissionRejected
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
 from opengemini_tpu_torch.utils.querytracker import QueryKilled
+from opengemini_tpu_torch.utils.slowlog import GLOBAL as SLOWLOG
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 _EPOCH_DIV = {"ns": 1, "u": 1_000, "µ": 1_000, "ms": 1_000_000,
@@ -358,6 +375,8 @@ def _make_handler(svc: HttpService):
                 self._send_json(200, doc)
             elif path == "/debug/trace":
                 self._handle_debug_trace(self._params())
+            elif path == "/debug/slow":
+                self._send_json(200, SLOWLOG.snapshot())
             elif path.startswith("/api/v1/"):
                 self._form_pairs = ()
                 self._handle_prom(path, self._params())
@@ -444,26 +463,28 @@ def _make_handler(svc: HttpService):
         # -- Prometheus HTTP API, remote write/read, OTLP ------------------
 
         def _handle_prom(self, path: str, params: dict):
-            """Prometheus HTTP API v1 (reference: handler_prom.go). Auth
-            and the governor's admission are not ported yet (ROADMAP A8,
-            A7)."""
+            """Prometheus HTTP API v1 (reference: handler_prom.go). The
+            query routes take an admission slot like /query; auth is not
+            ported yet (ROADMAP A8)."""
             db = params.get("db", svc.prom_db)
             try:
                 if path == "/api/v1/query_range":
-                    data = svc.prom.query_range(
-                        params.get("query", ""),
-                        _prom_time(params.get("start")),
-                        _prom_time(params.get("end")),
-                        _prom_step(params.get("step")),
-                        db,
-                    )
+                    with GOVERNOR.admitted():
+                        data = svc.prom.query_range(
+                            params.get("query", ""),
+                            _prom_time(params.get("start")),
+                            _prom_time(params.get("end")),
+                            _prom_step(params.get("step")),
+                            db,
+                        )
                 elif path == "/api/v1/query":
                     t = params.get("time")
-                    data = svc.prom.query_instant(
-                        params.get("query", ""),
-                        _prom_time(t) if t else time_now_s(),
-                        db,
-                    )
+                    with GOVERNOR.admitted():
+                        data = svc.prom.query_instant(
+                            params.get("query", ""),
+                            _prom_time(t) if t else time_now_s(),
+                            db,
+                        )
                 elif path == "/api/v1/labels":
                     data = self._prom_labels(db)
                 elif path == "/api/v1/series":
@@ -473,8 +494,8 @@ def _make_handler(svc: HttpService):
                     name = path[len("/api/v1/label/"):-len("/values")]
                     data = self._prom_label_values(db, name)
                 elif path == "/api/v1/rules":
-                    # no rule manager runs in the port yet (ROADMAP A7):
-                    # the reference's answer without one
+                    # no rule manager runs in the port yet (ROADMAP
+                    # A7.2): the reference's answer without one
                     data = {"groups": []}
                 elif path == "/api/v1/alerts":
                     data = {"alerts": []}
@@ -482,6 +503,12 @@ def _make_handler(svc: HttpService):
                     self._send_json(404, {"status": "error",
                                           "error": "not found"})
                     return
+            except AdmissionRejected as e:
+                self._send_json(
+                    503, {"status": "error", "errorType": "unavailable",
+                          "error": str(e)},
+                    headers={"Retry-After": str(e.retry_after_s)})
+                return
             except QueryKilled as e:
                 # prom queries register with the query tracker, so KILL
                 # QUERY cancels them like any /query statement
@@ -584,6 +611,8 @@ def _make_handler(svc: HttpService):
             if not db:
                 self._send_json(400, {"error": "database is required"})
                 return
+            if self._shed_write_if_backpressured():
+                return
             try:
                 points = prom_remote.decode_write_request(
                     self._maybe_snappy(body))
@@ -612,7 +641,16 @@ def _make_handler(svc: HttpService):
             except pw.WireError as e:
                 self._send_json(400, {"error": f"bad remote read body: {e}"})
                 return
-            results = self._prom_remote_read_results(db, queries)
+            try:
+                # remote read materializes whole matched series: an
+                # interactive read that takes an admission slot
+                with GOVERNOR.admitted():
+                    results = self._prom_remote_read_results(db, queries)
+            except AdmissionRejected as e:
+                self._send_json(
+                    503, {"error": str(e)},
+                    headers={"Retry-After": str(e.retry_after_s)})
+                return
             out = pw.snappy_compress_literal(
                 prom_remote.encode_read_response(results))
             self.send_response(200)
@@ -677,6 +715,8 @@ def _make_handler(svc: HttpService):
             if not db:
                 self._send_json(400, {"error": "database is required"})
                 return
+            if self._shed_write_if_backpressured():
+                return
             try:
                 points = otlp.decode_metrics_request(body)
             except (WireError, UnicodeDecodeError) as e:
@@ -712,6 +752,15 @@ def _make_handler(svc: HttpService):
             elif mod == "diskfault":
                 self._ctrl_diskfault(params)
                 return
+            elif mod == "governor":
+                self._ctrl_governor(params)
+                return
+            elif mod == "rollup":
+                self._ctrl_rollup(params)
+                return
+            elif mod == "obs":
+                self._ctrl_obs(params)
+                return
             elif mod == "failpoint":
                 name = params.get("name", "")
                 action = params.get("action", "")
@@ -730,6 +779,118 @@ def _make_handler(svc: HttpService):
                     400, {"error": f"unknown syscontrol mod {mod!r}"})
                 return
             self._send_json(200, {"status": "ok", "mod": mod, "switchon": on})
+
+        def _ctrl_governor(self, params: dict):
+            """Runtime tuning of the resource governor: each knob changes
+            only when passed; no knob = status; budget_mb=0 disables."""
+            knobs = {}
+            for key in ("budget_mb", "max_concurrent", "queue",
+                        "timeout_ms", "hiwat_pct", "lowat_pct",
+                        "overdraft_pct", "bg_pause_pct",
+                        "bg_max_pause_s", "bp_cache_ms"):
+                if key in params:
+                    try:
+                        # the anti-starvation bound is a duration:
+                        # fractional seconds mean something
+                        knobs[key] = (float(params[key])
+                                      if key == "bg_max_pause_s"
+                                      else int(params[key]))
+                    except ValueError:
+                        self._send_json(
+                            400, {"error": f"bad {key}={params[key]!r}"})
+                        return
+            if knobs:
+                GOVERNOR.configure(**knobs)
+            self._send_json(200, {"status": "ok",
+                                  "governor": GOVERNOR.describe()})
+
+        def _ctrl_rollup(self, params: dict):
+            """Materialized-rollup operations (storage/rollup.py):
+            (none)/status per-spec watermark and dirty windows;
+            op=flush runs maintenance now; op=invalidate re-dirties
+            [from, to) (everything when unset); op=declare declares a
+            spec (db, name, measurement, every_s | every_ns, [fields,
+            sketch, delay_s, rp]); op=drop drops one (db, name)."""
+            op = params.get("op", "")
+            mgr = svc.engine.rollup_mgr
+            out = {"status": "ok", "enabled": rollup_enabled_by_env()}
+            try:
+                if op == "declare":
+                    every_ns = (
+                        int(params["every_ns"]) if "every_ns" in params
+                        else int(float(params["every_s"]) * _NS))
+                    fields = (params["fields"].split(",")
+                              if params.get("fields") else None)
+                    delay_ns = (int(float(params["delay_s"]) * _NS)
+                                if "delay_s" in params else None)
+                    spec = RollupSpec(
+                        params["name"], params["measurement"], every_ns,
+                        rp=params.get("rp") or None, fields=fields,
+                        sketch=params.get("sketch", "1") not in
+                        ("0", "false"),
+                        delay_ns=delay_ns)
+                    svc.engine.create_rollup(params["db"], spec)
+                    mgr = svc.engine.rollup_mgr
+                elif op == "drop":
+                    svc.engine.drop_rollup(params["db"], params["name"])
+                elif op == "flush":
+                    if mgr is not None:
+                        out["folded"] = mgr.maintain()
+                elif op == "invalidate":
+                    if mgr is not None:
+                        out["invalidated"] = mgr.invalidate(
+                            params["db"], params.get("name") or None,
+                            int(params["from"]) if "from" in params
+                            else None,
+                            int(params["to"]) if "to" in params else None)
+                elif op and op != "status":
+                    self._send_json(
+                        400, {"error": f"unknown rollup op {op!r}"})
+                    return
+            except KeyError as e:
+                self._send_json(
+                    400, {"error": f"missing parameter {e.args[0]!r}"})
+                return
+            except (ValueError, WriteError) as e:
+                self._send_json(400, {"error": str(e)})
+                return
+            out["specs"] = mgr.status() if mgr is not None else {}
+            self._send_json(200, out)
+
+        def _ctrl_obs(self, params: dict):
+            """Observability tuning: trace capture on/off, histogram
+            arming, the slow-query threshold and ring bound; no knob =
+            status."""
+            try:
+                if "trace" in params:
+                    tracing.set_trace_enabled(
+                        params["trace"] in ("1", "true"))
+                if "hist" in params:
+                    _stats.set_obs_enabled(params["hist"] in ("1", "true"))
+                if "slow_ms" in params:
+                    v = params["slow_ms"]
+                    # slow_ms= (empty) or slow_ms=off disables
+                    SLOWLOG.configure(
+                        slow_ms=None if v in ("", "off", "none")
+                        else float(v))
+                if "slow_max" in params:
+                    SLOWLOG.configure(
+                        slow_max=max(1, int(params["slow_max"])))
+            except ValueError as e:
+                self._send_json(400, {"error": str(e)})
+                return
+            if params.get("clear", "") in ("1", "true"):
+                SLOWLOG.clear()
+                tracing.clear_recent()
+            slow = SLOWLOG.snapshot()
+            self._send_json(200, {
+                "status": "ok",
+                "trace": tracing.trace_enabled(),
+                "hist": _stats.obs_enabled(),
+                "slow_ms": slow["threshold_ms"],
+                "slow_max": slow["max_records"],
+                "slow_captured": slow["captured"],
+            })
 
         def _ctrl_diskfault(self, params: dict):
             if params.get("clear", "").lower() in ("1", "true", "all"):
@@ -841,8 +1002,16 @@ def _make_handler(svc: HttpService):
             if not q:
                 self._send_json(400, {"error": "missing required parameter \"q\""})
                 return
-            result = svc.executor.execute(q, db=params.get("db", ""),
-                                          read_only=read_only)
+            try:
+                result = svc.executor.execute(q, db=params.get("db", ""),
+                                              read_only=read_only)
+            except AdmissionRejected as e:
+                # an admission shed: 503 with Retry-After, so clients back
+                # off instead of retrying into the same overload
+                self._send_json(
+                    503, {"error": str(e)},
+                    headers={"Retry-After": str(e.retry_after_s)})
+                return
             t0 = time.perf_counter_ns()
             try:
                 self._send_result(result, params)
@@ -863,9 +1032,25 @@ def _make_handler(svc: HttpService):
                 return
             self._send_json(200, result, params.get("pretty") in ("true", "1"))
 
+        def _shed_write_if_backpressured(self) -> bool:
+            """Write-path backpressure: while the memtable and WAL backlog
+            is over the governor's high watermark, answer 429 with
+            Retry-After (the body was read already). True when shed."""
+            retry_after = GOVERNOR.write_backpressure()
+            if retry_after is None:
+                return False
+            self._send_json(
+                429,
+                {"error": "write backpressure: memtable+WAL backlog over "
+                          "the high watermark; retry later"},
+                headers={"Retry-After": str(retry_after)})
+            return True
+
         def _handle_write(self, params: dict, db: str, rp, body: bytes):
             if not db:
                 self._send_json(400, {"error": "database is required"})
+                return
+            if self._shed_write_if_backpressured():
                 return
             precision = params.get("precision", "ns")
             if precision == "n":

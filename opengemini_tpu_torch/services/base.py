@@ -2,11 +2,14 @@
 
 The port of ``opengemini_tpu/services/base.py``: a service is a ticker
 loop with a start/stop lifecycle; a tick's error is logged with its
-errno tag (utils/errno.py), never fatal to the process.
-
-Not in this port yet: the resource governor's throttling of background
-services (the reference's ``governed`` services pause under interactive
-load; ROADMAP A7). Every tick here runs ungated.
+errno tag (utils/errno.py), never fatal to the process. A ``governed``
+service (compaction, downsample, rollup, continuous queries, streams)
+takes a low-priority token from the resource governor for each timed
+tick and pauses while interactive occupancy is high or an IO alarm is
+recent (utils/governor.py ``acquire_background``; pass-through while
+the governor is disabled); ``stop()`` ends a paused tick. ``tick()``
+runs one iteration at once and ungated (a manual trigger, and the
+tests' deterministic ticks).
 """
 
 from __future__ import annotations
@@ -15,12 +18,16 @@ import logging
 import threading
 
 from opengemini_tpu_torch.utils import errno as _errno
+from opengemini_tpu_torch.utils.governor import GOVERNOR
 
 logger = logging.getLogger("opengemini_tpu_torch.services")
 
 
 class Service:
     name = "service"
+    # watchdog services (iodetector) stay ungoverned: pausing them under
+    # load would blind them exactly when they matter
+    governed = False
 
     def __init__(self, interval_s: float):
         self.interval_s = interval_s
@@ -44,10 +51,26 @@ class Service:
             self._thread.join(timeout=10)
             self._thread = None
 
+    def tick(self) -> None:
+        """Run one iteration synchronously, ungated."""
+        self.handle()
+
+    def _governed_tick(self) -> None:
+        if not self.governed:
+            self.handle()
+            return
+        token = GOVERNOR.acquire_background(self.name, stop=self._stop)
+        if token is None:
+            return  # stopping while paused: skip the tick
+        try:
+            self.handle()
+        finally:
+            token.release()
+
     def _run(self) -> None:
         while not self._stop.wait(self.interval_s):
             try:
-                self.handle()
+                self._governed_tick()
             except Exception as e:  # noqa: BLE001 — service loops never die
                 try:
                     note = _errno.tag(e)

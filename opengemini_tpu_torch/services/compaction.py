@@ -7,7 +7,8 @@ merges of time-overlapping files (``compact_out_of_order``), and backs
 both with a full merge once a shard holds more than 8 x fanout files.
 Every merge swaps the shard's file set, which drops the retired files'
 decoded-column cache entries (storage/shard.py), so a manual
-``compact()`` and a tick are covered alike.
+``compact()`` and a tick are covered alike. Ticks are governed: they
+pause under interactive load and IO alarms (services/base.py).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
 class CompactionService(Service):
     name = "compaction"
+    governed = True
 
     def __init__(self, engine, interval_s: float = 600.0, max_files: int = 4):
         super().__init__(interval_s)

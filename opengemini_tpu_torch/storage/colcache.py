@@ -58,8 +58,9 @@ in step with its bytes and dropped with it.
 
 Not in this port yet: the mesh layouts of the device tier (the
 reference reshards retained entries when its device mesh changes; they
-come with the device mesh, ROADMAP A8) and the resource governor's
-memory ledger.
+come with the device mesh, ROADMAP A8). Both tiers' resident bytes are
+components of the resource governor's memory ledger (``colcache_host``,
+``colcache_device``; utils/governor.py).
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ import time
 from collections import OrderedDict
 
 from opengemini_tpu_torch.utils import devobs
+from opengemini_tpu_torch.utils.governor import GOVERNOR
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as _TRACKER
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
@@ -382,6 +384,11 @@ class ColumnCache:
             snap.setdefault(k, 0)
         return snap
 
+    def ledger_bytes(self) -> int:
+        """Host-tier resident bytes (the governor's ledger)."""
+        with self._lock:
+            return self._host_bytes
+
     def device_ledger_bytes(self) -> int:
         """Device-tier resident bytes."""
         with self._lock:
@@ -399,3 +406,7 @@ class ColumnCache:
 
 # process-wide cache
 GLOBAL = ColumnCache()
+
+# both tiers join the resource governor's unified memory ledger
+GOVERNOR.register_component("colcache_host", GLOBAL.ledger_bytes)
+GOVERNOR.register_component("colcache_device", GLOBAL.device_ledger_bytes)

@@ -1,7 +1,8 @@
 """Parallel chunk-encode pool: the ordered encode pipe TSFWriter drains.
 
-The port of ``opengemini_tpu/storage/encodepool.py`` without the
-resource-governor hook. Column encodes (zlib, the native gorilla and
+The port of ``opengemini_tpu/storage/encodepool.py``, with the
+in-flight byte gauge the resource governor's ledger reads
+(``encodepool``, utils/governor.py). Column encodes (zlib, the native gorilla and
 varint codecs, numpy packing) release the GIL, so a flush fans them over
 a shared thread pool:
 
@@ -25,6 +26,8 @@ import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
+from opengemini_tpu_torch.utils.governor import GOVERNOR, InflightGauge
+
 
 def _auto_workers() -> int:
     if hasattr(os, "sched_getaffinity"):
@@ -39,6 +42,16 @@ INFLIGHT_BYTES = 256 << 20
 
 _pool: ThreadPoolExecutor | None = None
 _pool_lock = threading.Lock()
+
+# encode-input bytes in flight across every open pipe: the resource
+# governor's ledger component "encodepool"
+_inflight = InflightGauge()
+_note_inflight = _inflight.note
+
+
+def total_inflight_bytes() -> int:
+    """Estimated encode-input bytes in flight across all pipes."""
+    return _inflight.total()
 
 
 def enabled() -> bool:
@@ -85,6 +98,7 @@ class OrderedEncodePipe:
             self._drain_one()
         self._pending.append((self._p.submit(job), est_bytes))
         self._inflight += est_bytes
+        _note_inflight(est_bytes)
 
     def _drain_one(self) -> None:
         fut, nb = self._pending.popleft()
@@ -92,6 +106,7 @@ class OrderedEncodePipe:
             out = fut.result()  # worker exceptions surface on the writer thread
         finally:
             self._inflight -= nb
+            _note_inflight(-nb)
         self._consume(out)
 
     def drain(self) -> None:
@@ -105,4 +120,8 @@ class OrderedEncodePipe:
         for fut, _nb in self._pending:
             fut.cancel()
         self._pending.clear()
+        _note_inflight(-self._inflight)
         self._inflight = 0
+
+
+GOVERNOR.register_component("encodepool", total_inflight_bytes)

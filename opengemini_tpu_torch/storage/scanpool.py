@@ -3,8 +3,9 @@
 The port of ``opengemini_tpu/storage/scanpool.py``'s ``map_ordered`` and
 ``est_chunk_bytes``, with the query tracker's kill points (a job runs
 bound to its query's id: a killed query's queued jobs raise instead of
-decoding, and the consumer stops at the next result) and without the
-resource-governor hook (ROADMAP A7). TSF chunk decodes (zlib, the native codecs,
+decoding, and the consumer stops at the next result) and with the
+in-flight byte gauge the resource governor's ledger reads
+(``scanpool``, utils/governor.py). TSF chunk decodes (zlib, the native codecs,
 numpy) release the GIL, so a scan fans them over a shared worker pool
 and yields the results in submission order: bit-identical to a serial
 decode. One worker per core (at most 16), a 256 MiB in-flight budget of
@@ -19,6 +20,7 @@ import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
+from opengemini_tpu_torch.utils.governor import GOVERNOR, InflightGauge
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as _TRACKER
 
 
@@ -37,6 +39,16 @@ MIN_POOL_JOBS = 4
 
 _pool: ThreadPoolExecutor | None = None
 _pool_lock = threading.Lock()
+
+# decoded bytes in flight across every scan: the resource governor's
+# ledger component "scanpool"
+_inflight = InflightGauge()
+_note_inflight = _inflight.note
+
+
+def total_inflight_bytes() -> int:
+    """Estimated decoded bytes in flight across all scans."""
+    return _inflight.total()
 
 
 def pool() -> ThreadPoolExecutor | None:
@@ -93,18 +105,21 @@ def map_ordered(jobs, est_bytes):
                 _TRACKER.check()
                 pending.append((p.submit(bound, jobs[i]), est[i]))
                 inflight += est[i]
+                _note_inflight(est[i])
                 i += 1
             fut, nb = pending.popleft()
             try:
                 out = fut.result()
             finally:
                 inflight -= nb
+                _note_inflight(-nb)
             _TRACKER.check()
             yield out
     finally:
         # consumer abandoned mid-scan: cancel everything not yet running
-        for fut, _nb in pending:
+        for fut, nb in pending:
             fut.cancel()
+            _note_inflight(-nb)
 
 
 def est_chunk_bytes(chunk, n_fields: int | None) -> int:
@@ -113,3 +128,6 @@ def est_chunk_bytes(chunk, n_fields: int | None) -> int:
     the time (and sid, when packed) arrays."""
     cols = (n_fields if n_fields is not None else max(len(chunk.cols), 1)) + 2
     return chunk.rows * 9 * cols
+
+
+GOVERNOR.register_component("scanpool", total_inflight_bytes)

@@ -41,9 +41,11 @@ The data lifecycle and media damage:
   them to prune the series a ``match()`` term cannot hit.
 - **Failpoints** (utils/failpoint.py) on the flush, compaction and
   quarantine steps, under the reference's site names.
-
-Not in this port yet: the downsample rewrite (``rewrite_downsampled``,
-with storage/downsample, ROADMAP A7).
+- **Downsample rewrite** (``rewrite_downsampled``, storage/
+  downsample.py): the shard's rows at a coarser resolution, swapped in
+  like the delete rewrite.
+- **Backlog** (``mem_backlog_bytes``): the memtables and the live WAL,
+  the resource governor's write watermark input.
 """
 
 from __future__ import annotations
@@ -945,6 +947,58 @@ class Shard:
 
         return self._compact_offlock(pick, full=False)
 
+    # -- downsample rewrite ---------------------------------------------------
+
+    def rewrite_downsampled(self, every_ns: int, field_aggs: dict | None = None,
+                            device=None) -> int:
+        """Rewrite this shard at `every_ns` resolution (storage/
+        downsample.py; its device batches run on `device`). Returns rows
+        written. Flushes first, so the memtable takes part, and replaces
+        the whole file set with one new file at the end, as the delete
+        rewrite does (the retired files leave the decoded-column cache)."""
+        from opengemini_tpu_torch.storage.downsample import downsample_records
+
+        # _flush_lock first (the lock order): see delete_data
+        with self._flush_lock, self._lock:
+            self.flush()
+            path = os.path.join(self.path, f"{self._next_file_seq:08d}.tsf")
+            w = TSFWriter(path)
+            tidx = _TextSidecar()  # stays empty: the output has no strings
+            rows = 0
+            # schemas change only once the new file is durable: a failed
+            # rewrite must not leave them ahead of the (still raw) data
+            staged_schemas: dict[str, dict] = {}
+            try:
+                for mst in self.measurements():
+                    per_sid: dict[int, Record] = {}
+                    for sid in sorted(self.index.series_ids(mst)):
+                        rec = self.read_series(mst, sid)
+                        if len(rec):
+                            per_sid[sid] = rec
+                    out, new_schema = downsample_records(
+                        per_sid, self.schema(mst), self.tmin, self.tmax,
+                        every_ns, field_aggs, device=device)
+                    staged_schemas[mst] = new_schema
+                    # the flush's layout: packed chunks from
+                    # PACK_MIN_SERIES series on, per-series chunks below
+                    rows += _write_measurement_chunks(
+                        w, tidx, mst, ((sid, out[sid]) for sid in sorted(out)),
+                        n_series=len(out))
+                w.finish()
+            except BaseException:
+                w.abort()
+                raise
+            tidx.write(path)
+            self.schemas.update(staged_schemas)
+            self._next_file_seq += 1
+            old = self._files
+            self._files = [self._adopt(TSFReader(path))]
+            self._tidx_cache = {}
+            _retire_files(old)
+            # after the swap, as in delete_data
+            self._note_mutation(self.tmin, self.tmax)
+            return rows
+
     # -- delete rewrite -------------------------------------------------------
 
     def delete_data(self, measurement: str, sids: set[int] | None = None,
@@ -1084,6 +1138,14 @@ class Shard:
                 tmin = m.min_time if tmin is None else min(tmin, m.min_time)
                 tmax = m.max_time if tmax is None else max(tmax, m.max_time)
         return tmin, tmax
+
+    def mem_backlog_bytes(self) -> int:
+        """Unflushed resident bytes: the live and frozen memtables plus
+        the live WAL log. No lock (one tuple read and int reads): the
+        resource governor polls it on every governed /write
+        (utils/governor.py; the engine sums it over its shards)."""
+        return (sum(m.backlog_bytes for m in self._mem_parts())
+                + self.wal.backlog_bytes)
 
     def measurements(self) -> list[str]:
         msts = set(self.index.measurements())

@@ -104,6 +104,14 @@ class WAL:
         self._seq = 0
         self._synced = 0
         self._syncing = False
+        # the live log's byte backlog (the resource governor's write
+        # watermark, utils/governor.py): bytes framed since the last
+        # rotate, seeded from the size on disk so a reopened shard's
+        # unflushed log counts against the budget
+        try:
+            self.backlog_bytes = os.path.getsize(path)
+        except OSError:
+            self.backlog_bytes = 0
 
     def _frame(self, kind: int, payload: bytes) -> int:
         """Write one entry; return its commit ticket (0 when sync is off).
@@ -113,6 +121,7 @@ class WAL:
             data = diskfault.on_write(self.path, data,
                                       site="wal-append-write")
         self._f.write(data)
+        self.backlog_bytes += len(data)
         _fp("wal-after-append")  # entry framed, not yet fsynced/acked
         if not self.sync:
             return 0
@@ -200,6 +209,7 @@ class WAL:
             _fp("wal-rotate-after-rename")  # segment named, no live log yet
             self._f = open(self.path, "wb")
             self._synced = self._seq  # the segment fsync covered them all
+            self.backlog_bytes = 0  # the frozen memtable carries them now
             return seg_path
 
     @staticmethod

@@ -8,8 +8,9 @@ QUERY marks one killed and execution aborts at the next cancellation
 point (scan loops check between series, slices, subquery chunks and
 device batch dispatches). A check runs on the host only: a kernel
 already launched finishes, and the query stops before the next one.
-The durability and admission hooks stay unset until the port has a
-durability ledger and a governor (ROADMAP A7, A8).
+The resource governor (utils/governor.py) sets the admission hook at
+import; the durability hook stays unset until the port has a durability
+ledger (ROADMAP A7.2).
 """
 
 from __future__ import annotations

@@ -22,8 +22,9 @@ registry, so every update takes its lock.
 Gauge providers (``register_provider``) add live sections to every
 snapshot: the failpoints' hit counts (``failpoints``), each engine's
 quarantine gauge and the ledger's gauges (``device``); the providers of
-one module sum their shared keys. The governor's provider answers {}
-until the governor is ported.
+one module sum their shared keys. The resource governor's provider
+(``governor``) answers {} while the governor is disabled, so an
+ungoverned /debug/vars has no such section.
 
 ``render_prometheus`` exports every counter and gauge section and every
 histogram in the Prometheus text format 0.0.4 under ``ogt_*`` names
@@ -117,10 +118,11 @@ GLOBAL.register_provider("failpoints", _failpoint_hits)
 
 
 def _governor_gauges() -> dict:
-    """The resource governor's ledger and admission gauges. The governor
-    (utils/governor.py, ROADMAP A7) is not ported yet, so this answers
-    {} and the section stays out of every snapshot until it is."""
-    return {}
+    """The resource governor's ledger and admission gauges
+    (utils/governor.py); {} while it is disabled."""
+    from opengemini_tpu_torch.utils import governor
+
+    return governor.GOVERNOR.gauges()
 
 
 GLOBAL.register_provider("governor", _governor_gauges)

@@ -191,6 +191,12 @@ def get_trace(qid=None, trace_id: str | None = None) -> dict | None:
     return None
 
 
+def clear_recent() -> None:
+    """Forget the kept traces (/debug/ctrl?mod=obs&clear=1)."""
+    with _RECENT_LOCK:
+        _RECENT.clear()
+
+
 # -- cumulative stage statistics ---------------------------------------------
 
 

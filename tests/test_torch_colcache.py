@@ -10,12 +10,14 @@ an eviction gives the tier's memory back.
 """
 
 import threading
+import time
 
 import numpy as np
 import pytest
 import torch
 
 import opengemini_tpu.ingest.line_protocol as jlp
+from opengemini_tpu import native as jnative
 import opengemini_tpu_torch.ingest.line_protocol as tlp
 from opengemini_tpu.query.executor import Executor as JExecutor
 from opengemini_tpu.storage import colcache as jcolcache
@@ -67,6 +69,23 @@ class Pkg:
 
     def engine(self, path):
         return self.engine_cls(str(path / self.name), **self.engine_kw)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_codecs():
+    """The JAX package writes native gorilla/varint blocks only when its
+    codec library loads, and it remembers a failed load for the rest of
+    the process: one attempt made while another process was still
+    building the library leaves it on its zlib fallback, while the port
+    (its own copy of the codecs) writes gorilla blocks, and the two
+    caches then account different bytes for the same rows. Build and
+    reload the library before any scenario, as the reference's own tests
+    do."""
+    for _ in range(10):
+        if jnative.load() is not None or jnative.build():
+            return
+        time.sleep(0.5)  # another process may be mid-build
+    pytest.fail("g++ build of native/codecs.cpp failed")
 
 
 JAX = Pkg("jax", JShard, jlp, jcolcache.GLOBAL, JEngine, JExecutor,

@@ -155,18 +155,20 @@ def test_query_matches_jax(engines, qname):
 
 def test_unsupported_statements_answer_an_error(engines):
     """A statement of a later slice answers a "not supported by this port
-    yet" error; the raw select, the subquery, percentile_approx and SHOW
-    of the ported slices answer as JAX (SHOW QUERIES lists each package's
-    own running statement: its qid and duration differ)."""
+    yet" error; the raw select, the subquery, percentile_approx, SHOW and
+    the continuous-query DDL of the ported slices answer as JAX (SHOW
+    QUERIES lists each package's own running statement: its qid and
+    duration differ)."""
     je, te = engines
-    for q in ("SHOW STATS", "CREATE CONTINUOUS QUERY cq ON db BEGIN SELECT "
-              "mean(usage_user) INTO cpu_1h FROM cpu GROUP BY time(1h) END",
-              "SHOW USERS"):
+    for q in ("SHOW STATS", "SHOW SUBSCRIPTIONS", "SHOW USERS"):
         res = TExecutor(te).execute(q, db="db")
         assert "not supported by this port yet" in res["results"][0]["error"]
     for q in ("SELECT usage_user FROM cpu LIMIT 1", "SHOW MEASUREMENTS",
               "SELECT max FROM (SELECT max(usage_user) FROM cpu)",
-              "SELECT percentile_approx(usage_user, 50) FROM cpu"):
+              "SELECT percentile_approx(usage_user, 50) FROM cpu",
+              "CREATE CONTINUOUS QUERY cq ON db BEGIN SELECT "
+              "mean(usage_user) INTO cpu_1h FROM cpu GROUP BY time(1h) END",
+              "SHOW CONTINUOUS QUERIES"):
         got = TExecutor(te).execute(q, db="db")
         assert "error" not in got["results"][0], got
         assert got == JExecutor(je).execute(q, db="db")

@@ -36,7 +36,7 @@ def test_every_module_is_found():
                  *SIXTH_SLICE_MODULES, *SEVENTH_SLICE_MODULES,
                  *EIGHTH_SLICE_MODULES, *NINTH_SLICE_MODULES,
                  *TENTH_SLICE_MODULES, *ELEVENTH_SLICE_MODULES,
-                 *TWELFTH_SLICE_MODULES):
+                 *TWELFTH_SLICE_MODULES, *THIRTEENTH_SLICE_MODULES):
         assert must in mods
 
 
@@ -190,6 +190,22 @@ TWELFTH_SLICE_MODULES = [
     "opengemini_tpu_torch.server.http",
 ]
 BLOCKED_IMPORT_MODULES += TWELFTH_SLICE_MODULES
+
+# the continuous tier under the resource governor and the slow log
+THIRTEENTH_SLICE_MODULES = [
+    "opengemini_tpu_torch.utils.slowlog",
+    "opengemini_tpu_torch.utils.governor",
+    "opengemini_tpu_torch.services.iodetector",
+    "opengemini_tpu_torch.services.retention",
+    "opengemini_tpu_torch.services.downsample",
+    "opengemini_tpu_torch.services.rollup",
+    "opengemini_tpu_torch.services.continuous",
+    "opengemini_tpu_torch.services.stream",
+    "opengemini_tpu_torch.storage.downsample",
+    "opengemini_tpu_torch.storage.rollup",
+    "opengemini_tpu_torch.query.rollupplan",
+]
+BLOCKED_IMPORT_MODULES += THIRTEENTH_SLICE_MODULES
 
 
 @pytest.mark.parametrize("module", BLOCKED_IMPORT_MODULES)

@@ -15,6 +15,7 @@ requests. Every other answer must be equal: status, JSON body and the
 import glob
 import json
 import os
+import time
 import urllib.error
 import urllib.parse
 import urllib.request
@@ -24,9 +25,11 @@ import torch
 
 from opengemini_tpu.server.http import HttpService as JHttpService
 from opengemini_tpu.storage.engine import Engine as JEngine
+from opengemini_tpu.utils import stats as jstats
 from opengemini_tpu_torch.server.http import HttpService as THttpService
 from opengemini_tpu_torch.server.http import _route_of
 from opengemini_tpu_torch.storage.engine import Engine as TEngine
+from opengemini_tpu_torch.utils import stats as tstats
 
 from test_observability import parse_prometheus_strict
 
@@ -96,10 +99,37 @@ def _http_counts(fams):
             if n.endswith("_count")}
 
 
-def test_metrics_parse_and_count_requests_like_jax(services):
+def _settle():
+    """A request's latency is observed after its answer is written: give
+    the server threads of the requests just answered time to record
+    theirs before a scrape."""
+    time.sleep(0.25)
+
+
+@pytest.fixture
+def fresh_histograms():
+    """Both packages' histograms are process globals, and an earlier
+    test in the process may have made a series in one package only. Each
+    registry is set aside for the test, so both start empty, and put back
+    after it."""
+    saved = []
+    for mod in (jstats, tstats):
+        with mod._HIST_LOCK:
+            saved.append(dict(mod._HISTOGRAMS))
+            mod._HISTOGRAMS.clear()
+    yield
+    for mod, hists in zip((jstats, tstats), saved):
+        with mod._HIST_LOCK:
+            mod._HISTOGRAMS.clear()
+            mod._HISTOGRAMS.update(hists)
+
+
+def test_metrics_parse_and_count_requests_like_jax(fresh_histograms,
+                                                    services):
     (js, _je), (ts, _te) = services
     scrapes = {}
     for name, svc in (("jax", js), ("torch", ts)):
+        _settle()
         st, body, _e = _req(svc.port, "GET", "/metrics")
         assert st == 200
         before = _http_counts(parse_prometheus_strict(body.decode()))
@@ -114,6 +144,7 @@ def test_metrics_parse_and_count_requests_like_jax(services):
         _req(svc.port, "GET", "/ping")
         _req(svc.port, "GET", "/debug/vars")
         _req(svc.port, "GET", "/nope")
+        _settle()
         st, body, _e = _req(svc.port, "GET", "/metrics")
         fams = parse_prometheus_strict(body.decode())
         after = _http_counts(fams)

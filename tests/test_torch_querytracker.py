@@ -346,7 +346,11 @@ def test_kill_over_http_and_debug_queries(tmp_path, monkeypatch):
             base + "/debug/queries").read())
         [mine] = [x for x in listed["queries"] if x["query"] == q]
         assert mine["status"] == "running" and mine["database"] == "db"
-        assert listed["durability"] == {} and listed["admission"] == {}
+        # no durability ledger yet; the governor's admission section is
+        # there, disabled (pass-through), as the reference serves it
+        assert listed["durability"] == {}
+        assert listed["admission"]["enabled"] is False
+        assert listed["admission"]["queue"] == []
         kill = urllib.request.urlopen(urllib.request.Request(
             base + "/query", data=urllib.parse.urlencode(
                 {"q": f"KILL QUERY {mine['qid']}"}).encode(),

@@ -352,7 +352,7 @@ def test_threshold_flush_and_meta_keys(tmp_path):
     je.create_database("db")
     je.close()
     meta = json.loads((tmp_path / "meta.json").read_text())
-    meta["databases"][0]["cqs"] = [{"name": "kept"}]
+    meta["databases"][0]["subscriptions"] = [{"name": "kept"}]
     (tmp_path / "meta.json").write_text(json.dumps(meta))
     te = Engine(str(tmp_path), device="cpu", flush_threshold_bytes=1 << 10)
     te.create_database("db2")
@@ -362,7 +362,7 @@ def test_threshold_flush_and_meta_keys(tmp_path):
     assert len(sh.mem) == 0 and len(sh._files) == 1
     te.close()
     meta = json.loads((tmp_path / "meta.json").read_text())
-    assert meta["databases"][0]["cqs"] == [{"name": "kept"}]
+    assert meta["databases"][0]["subscriptions"] == [{"name": "kept"}]
     assert [d["name"] for d in meta["databases"]] == ["db", "db2"]
 
 
@@ -457,6 +457,41 @@ def test_line_writer_round_trips_through_both_parsers():
                         or (math.isnan(got) and math.isnan(v))
                 else:
                     assert got == v
+
+
+@pytest.mark.parametrize("kind", ["base64", "escaped", "non_ascii",
+                                  "empty", "newline"])
+def test_line_writer_string_column_one_pass(kind):
+    """A string column's quoted blob, built in one pass where no value
+    needs escaping, equals the value-by-value blob; other columns take
+    the value-by-value path, which rejects a newline."""
+    import base64
+
+    from opengemini_tpu_torch.ingest import native_lp
+
+    rng = np.random.default_rng(31)
+    n = 300
+    vals = {
+        "base64": [base64.b64encode(rng.bytes(int(k))).decode()
+                   for k in rng.integers(0, 70, n)],
+        "escaped": ['a"b\\c' * int(k) for k in rng.integers(0, 3, n)],
+        "non_ascii": ["\u00e9t\u00e9" * int(k) for k in rng.integers(0, 3, n)],
+        "empty": [""] * n,
+        "newline": ["a\nb"] * n,
+    }[kind]
+    values = np.array(vals + [None], dtype=object)
+    ok = np.r_[rng.random(n) < 0.7, False].astype(np.bool_)
+    ok[0] = True
+    if kind == "newline":
+        with pytest.raises(ValueError, match="holds a newline"):
+            native_lp._quoted(values, ok.view(np.uint8), "s")
+        return
+    want = native_lp._blob([
+        ('"' + v.replace("\\", "\\\\").replace('"', '\\"')
+         + '"').encode() if o else b"" for v, o in zip(values, ok)])
+    blob, off = native_lp._quoted(values, ok.view(np.uint8), "s")
+    assert blob == want[0]
+    assert off.tolist() == want[1].tolist()
 
 
 def test_cold_scan_over_many_flushes_stays_encoded(tmp_path, monkeypatch):
