@@ -39,9 +39,10 @@ Phases, in order; any failure ends the run with a nonzero exit:
    CUDA-event time of each and the host time of a call (1000 calls, not
    synchronised).
 3. End to end on a TSBS devops cpu-only deployment (4000 hosts, the 10
-   cpu tags, the 10 usage_* fields, one sample every 10 s for 6 h from
-   2016-01-01T00:00:00Z; `--hours`, cut from 12 h so that the script
-   with phase 13 stays within 1050 s): the port's HTTP server on
+   cpu tags, the 10 usage_* fields, one sample every 10 s for 4 h from
+   2016-01-01T00:00:00Z; `--hours`, cut from 12 h to 6 h so that the
+   script with phase 13 stays within 1050 s, and to 4 h for phase 15):
+   the port's HTTP server on
    localhost takes CREATE DATABASE, the first minute of every host as
    line protocol on
    /write (parsed by the native parser, native/lineproto.cpp, in
@@ -85,8 +86,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    decoded-column cache is off in this phase (its disabled path), so
    every run decodes. C1 (Q1's shape),
    C2 (Q2's) and C3 (count/min/max of the diskio read_bytes counter
-   GROUP BY time(1m)) run 3 times each (COLD_RUNS) plus one
-   traced run; every answer
+   GROUP BY time(1m)) run twice each, C2 once (COLD_RUNS, cut for phase
+   15), plus one traced run; every answer
    equals the numpy oracle; each must take the fused device decode
    (executor/grid_decode_fused up, device/decode_fallbacks_total not),
    C1 and C2 launch unpack_bits and grid_window_agg, C3 widen_packed, and
@@ -118,8 +119,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    Device memory within 6 GiB.
 7. Compaction of the same root: Shard.compact_level until it merges
    nothing, then Shard.compact, each call's wall, the files and bytes
-   on disk before and after; C1 and C3 three times each (COMPACT_RUNS)
-   on the merged
+   on disk before and after; C1 and C3 twice each (COMPACT_RUNS) on
+   the merged
    file (cache off: the fused decode on every run, no fallback) equal
    to the oracle (C1 with phase 6's row), with their stage split, then
    a restart and C3 again. The stage splits of phases 6 and 7 are held
@@ -281,7 +282,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
    decode_rows_matrix, kernel 5 must launch, and the device-decode H2D
    bytes print beside the padded (S, N) matrix each decode replaces;
    decode_rows_matrix against materialize_enc bit for bit at PQ3's
-   geometry. Then each PQ 5 times (twice when the first run passes 5 s)
+   geometry. Then each PQ 5 times (twice when the first run passes 5 s,
+   3 times, with a line saying so, when under 90 s are left before
+   the phase's deadline)
    with its p50, its stage split (prom_collect, prom_prepare,
    prom_kernel, render, encode) and launches, the forced answers equal
    to these; PQ1 (max) and PQ3 (mean) against numpy; every PQ once on
@@ -317,20 +320,63 @@ Phases, in order; any failure ends the run with a nonzero exit:
    2 slots and a queue of 1) under 8 concurrent dashboards (200s, 503s
    with Retry-After, its /debug/vars section); and the slow log
    (mod=obs, /debug/slow). Each step's wall and the memory peak print.
+15. The PromQL rule tier on the card, with a budget of its own
+   (RULES_PHASE_S, 60 s), on phase 13's root reopened (build/prom), the
+   decoded-column cache's host tier at its deployed 256 MiB: one rule
+   group (60 s) declared through /debug/ctrl?mod=rules with four rules
+   (RULES): F1, topk(10, rate(diskio_read_bytes[5m])), the fallback leg
+   through the port's PromEngine, declared first and ticked alone with
+   the route forced to the device (its decode launches kernel 5); then
+   R1, sum by (region) (increase(diskio_read_bytes[1h])), R2, avg by
+   (hostname) (avg_over_time(cpu_usage_user[5m])) (4000 series written
+   back) and A1, max_over_time(cpu_usage_user[5m]) > 90 for 120 s, all
+   three tiled (a 60 s lattice, 65 tiles covered per tick); a cold
+   tick at an explicit now inside the loaded span, then 10 ticks a
+   minute apart past the span's end, the next minute of all 8000 series
+   through /api/v1/prom/write before each, and a late sample into the
+   last folded tile before the sixth. Every tick prints its wall, the
+   tiles folded against those covered, the rows collected and the
+   fallback evaluations, and is verified bit for bit against a
+   from-scratch evaluation (verify_last_tick, outside the timed tick):
+   the cold tick folds 65 tiles, an incremental one 2 (the new tile of
+   each selector), the late one 4; R1, R2 and F1 read back by name
+   (last_over_time(name[1s]) at the tick) equal the tick's results
+   exactly, and at the cold and the late tick (RULES_EXPR_TICKS) their
+   expressions evaluated anew (rel 1e-9), A1's series equal numpy's max
+   exactly and its alerts a numpy run of the state machine (pending,
+   then firing after for_s), /api/v1/rules lists the four rules. A flush
+   and a restart (a new Engine, HttpService and RuleManager) reload the
+   group, watermark and alert state; the first tick after it refolds,
+   verifies and fires only what numpy says. Then castor (CREATE MODEL
+   on host_7's per-minute mean, an InfluxQL aggregate on the card, and
+   detect() at threshold 1.5 with the model and with 'mad', against
+   numpy), a subscription forwarding one minute of cpu for every host
+   to a sink on localhost (exactly those lines), the scrub (a full
+   pass verifying every block byte, then a bitflip rule
+   quarantining exactly the subscription's flushed file), a monitor
+   tick read back from _internal, /debug/ctrl?mod=durability (ok, none
+   missing), and the root on the CPU recomputing the card's last tick
+   from scratch (R1, R2 and A1 bit for bit, F1 within rel 1e-12). Each
+   step's wall and the memory peak print.
 
 The incremental result cache (OGT_RESULT_CACHE) is off in phases 3-9,
-12, 13 and 14, so their repeated runs measure every execution; phases 10 and
-11 turn it on for their panels. The offload planner is off in phases
-3-11, 13 and 14 (each disarms it through /debug/ctrl?mod=offload&arm=0 at
-its start: every route is the static gate's, so their launches per run
-are exact); phase 12 arms it. Phase 5 arms devobs for its transfer
-histogram (the decode's H2D bytes), and phase 12 for the planner's
-walls. Launch counters start at 0 before each main path (phases 3, 5,
-6, 7, 8, 9, 10, 11, 12, 13, 14) and are read after it; the
-{"kernels": [...]} line sums them, with launches_per_phase,
-launches_per_query and launches_parity_on_card. `--phases` runs only
-the named phases after 2 (for a short call that checks one path); the
-default runs all.
+12, 13, 14 and 15, so their repeated runs measure every execution;
+phases 10 and 11 turn it on for their panels. The offload planner is
+off in phases 3-11 and 13-15 (each disarms it through
+/debug/ctrl?mod=offload&arm=0 at its start: every route is the static
+gate's, so their launches per run are exact); phase 12 arms it. Phase 5
+arms devobs for its transfer histogram (the decode's H2D bytes), and
+phase 12 for the planner's walls. Launch counters start at 0 before
+each main path (phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15) and are
+read after it; the {"kernels": [...]} line sums them, with
+launches_per_phase, launches_per_query and launches_parity_on_card.
+`--phases` runs only the named phases after 2 (for a short call that
+checks one path; 15 needs 13); the default runs all.
+
+Cuts made to keep the whole script within 1050 s (listed in PERF.md):
+phase 3's span 12 h -> 6 h -> 4 h, phase 13's span 6 h -> 2 h, C2's
+timed runs 3 -> 2 -> 1, phase 7's C1 and C3 3 -> 2, phase 8's lastpoint
+and groupby-orderby-limit 5 -> 2.
 
 Output: progress lines, then a {"kernels": [...]} line, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without CUDA (or without
@@ -390,11 +436,12 @@ E2E_KERNELS = ("bucket_stats_basic", "bucket_stats_selectors",
 COLD_KERNELS = ("grid_window_agg", "widen_packed", "unpack_bits",
                 "probe_count")
 # timed runs of a query where not five: C2 takes about 20 s a run after
-# an 80 s first one (NVIDIA H100 80GB HBM3 at 700 W); C1-C3, Q1, Q2 and
+# an 80 s first one (NVIDIA H100 80GB HBM3 at 700 W); C1, C3, Q1, Q2 and
 # Q4 (phase 3), phase 7's queries and phase 8's two slowest run twice
-# (their p50 the faster run: p50_of), and phase 6 runs each query four
-# times (CACHE_RUNS), so that phases 10-12 fit the script's time limit
-COLD_RUNS = {"C1": 2, "C2": 2, "C3": 2}
+# (their p50 the faster run: p50_of), C2 once (cut from 2 so that the
+# script with phase 15 stays within 1050 s), and phase 6 runs each
+# query four times (CACHE_RUNS)
+COLD_RUNS = {"C1": 2, "C2": 1, "C3": 2}
 E2E_RUNS = {"Q1": 2, "Q2": 2, "Q4": 2}
 CACHE_RUNS = 4
 COMPACT_RUNS = 2
@@ -1312,10 +1359,11 @@ def http_raw(port: int, method: str, path: str, params: dict,
         return e.code, e.headers, e.read()
 
 
-# a query's stages in order: the SQL parse, the executor's spans
+# a query's stages in order: the HTTP request's headers and parameters,
+# the SQL parse, the executor's spans and its aggregate plan
 # (query/executor.py) and the answer's JSON and write (server/http.py)
-STAGES = ("parse", "map_shards", "scan", "colcache", "device_compute",
-          "host_compute", "show", "render", "encode")
+STAGES = ("request", "parse", "map_shards", "plan", "scan", "colcache",
+          "device_compute", "host_compute", "show", "render", "encode")
 # the stages must cover this share of a query's request wall (to the
 # answer's last byte); the rest is the HTTP transport
 STAGE_COVER = 0.9
@@ -2781,9 +2829,10 @@ SCRIPT_LIMIT_S = 1200.0
 # phase 13's budget (s): the load, the seven PQs, both routes, a traced
 # run, the encoded decode, the read-backs and the CPU reopen
 PROM_PHASE_S = 100.0
-# the reserve after phase 14 (the later phases' kernel checks and the
-# output), and phase 14's own budget before it
-AFTER_PHASE14_S = 60.0
+# the reserve after phase 15 (the later phases' kernel checks and the
+# output), and the budgets of phases 15 and 14 before it
+AFTER_PHASE15_S = 60.0
+AFTER_PHASE14_S = AFTER_PHASE15_S + 60.0  # phase 15's RULES_PHASE_S
 AFTER_PHASE13_S = AFTER_PHASE14_S + 60.0  # phase 14's CONT_PHASE_S
 AFTER_PHASE12_S = AFTER_PHASE13_S + PROM_PHASE_S
 AFTER_PHASE11_S = AFTER_PHASE12_S + 90.0  # phase 12's PLANNER_PHASE_S
@@ -4522,8 +4571,13 @@ def phase_planner(cold: dict) -> dict:
 # are listed in PERF.md)
 PROM_HOURS = 2
 PROM_OTLP_HOSTS = 100
-# runs of each PQ; a PQ whose first run passes PROM_SLOW_MS runs twice
+# runs of each PQ; a PQ whose first run passes PROM_SLOW_MS runs twice.
+# PROM_SHORT_RUNS when fewer than PROM_ROOM_S seconds are left before the
+# phase's deadline as the PQs start (a slow machine: the script's 1200 s
+# comes first)
 PROM_RUNS = 5
+PROM_SHORT_RUNS = 3
+PROM_ROOM_S = 90.0
 PROM_SLOW_MS = 5000.0
 # the remote-written minute: samples per series
 PROM_MINUTE = 6
@@ -4772,7 +4826,8 @@ def phase_prom(seed: int, deadline: float, n_hosts: int = N_HOSTS) -> dict:
     to the device (the cost gate of the encoded decode passes): the rows
     matrix decodes on the card (kernel 5 must launch), and
     decode_rows_matrix equals materialize_enc bit for bit at PQ3's
-    geometry; then each PQ PROM_RUNS times (twice past PROM_SLOW_MS)
+    geometry; then each PQ PROM_RUNS times (twice past PROM_SLOW_MS,
+    PROM_SHORT_RUNS when the deadline leaves under PROM_ROOM_S)
     with its stage split and launches, the forced answers equal to
     these; PQ1 and PQ3 against numpy; each PQ once on the host route
     (host kernels on), the same answers; PQ3 and PQ4 traced (the
@@ -4977,12 +5032,19 @@ def phase_prom(seed: int, deadline: float, n_hosts: int = N_HOSTS) -> dict:
                          {"mod": "devobs", "arm": "0"})
         # PQ1-PQ7 on the device route
         answers = {}
+        pq_runs = PROM_RUNS
+        room = deadline - time.perf_counter()
+        if room < PROM_ROOM_S:
+            pq_runs = PROM_SHORT_RUNS
+            log(f"[prom] {room:.0f} s left of the phase's deadline, under "
+                f"{PROM_ROOM_S:.0f}: each PQ runs {pq_runs} times, not "
+                f"{PROM_RUNS}")
         for qn, (path, params) in queries.items():
             l0, c0, st0 = dict(cs.LAUNCHES), decode_counters(), \
                 stage_ns(port)
             rec.now = {}
             lat, reqs = [], []
-            runs = PROM_RUNS
+            runs = pq_runs
             k = 0
             while k < runs:
                 data, req_ms, wall_ms = prom_get(port, path, params)
@@ -5173,7 +5235,10 @@ def phase_prom(seed: int, deadline: float, n_hosts: int = N_HOSTS) -> dict:
             per_query[qn + " decoded"] = d
         return {"launches": launches, "per_query": per_query,
                 "routes": routes, "steps": steps, "shapes": rec.seen,
-                "peak_bytes": peak, "wall_s": wall_s, "cpu_s": cpu_s}
+                "peak_bytes": peak, "wall_s": wall_s, "cpu_s": cpu_s,
+                "root": root,
+                "data": {"tags": tags, "usage": usage, "reads": reads,
+                         "n_hosts": n_hosts, "n_all": n_all}}
     finally:
         os.environ.pop("OGT_DEVICE_PROFILE", None)
         offload.set_force(None)
@@ -5722,6 +5787,749 @@ def phase_continuous(seed: int, deadline: float,
             stop_server(svc, engine)
 
 
+# -- phase 15: the rule tier on the card ---------------------------------------
+
+RULES_PHASE_S = 60.0
+RULES_GROUP = "fleet"
+# incremental ticks after the cold one, a minute apart; the cold tick's
+# eval time (minutes after T0) lies inside phase 13's span. The fallback
+# rule ticks alone a minute before it, first after the engine opens: its
+# window reads the compacted file alone, as one still-encoded column (a
+# host read would leave it decoded), so the forced device decode
+# launches kernel 5
+RULES_TICKS = 10
+RULES_TE0_MIN = 119
+# the tick before which a late sample lands in an already folded tile
+RULES_LATE_TICK = 6
+RULES_LATE_HOST = 5
+RULES_RTOL = 1e-9
+RULES_CPU_RTOL = 1e-12
+# the ticks whose recorded R1, R2 and F1 are also held to their
+# expressions evaluated anew (every tick's to its own results): the cold
+# tick and the late one, so that the phase fits its budget
+RULES_EXPR_TICKS = (0, RULES_LATE_TICK)
+# detect()'s threshold in the castor step: low enough that host_7's
+# walk has rows beyond it
+RULES_DETECT_THR = 1.5
+# (short name, kind, rule name, expression, for_s)
+RULES = (
+    ("R1", "record", "region:diskio_read_bytes:increase1h",
+     "sum by (region) (increase(diskio_read_bytes[1h]))", 0),
+    ("R2", "record", "hostname:cpu_usage_user:avg5m",
+     "avg by (hostname) (avg_over_time(cpu_usage_user[5m]))", 0),
+    ("A1", "alert", "CpuHot", "max_over_time(cpu_usage_user[5m]) > 90", 120),
+    ("F1", "record", "diskio_read_bytes:rate5m:top10",
+     "topk(10, rate(diskio_read_bytes[5m]))", 0),
+)
+# the tiles the windows cover per tick: R1's 60 on diskio, the 5 that
+# R2 and A1 share on cpu (one selector)
+RULES_COVERED = 65
+
+
+class CollectProbe:
+    """Counts the rows a rule manager's collections return (the storage
+    scans of its tile folds and of its verify leg)."""
+
+    def __init__(self, mgr):
+        self.rows = 0
+        real = mgr._collect
+
+        def counted(*args):
+            got = real(*args)
+            self.rows += int(len(got[1]))
+            return got
+
+        mgr._collect = counted
+
+
+def _rule_series(data: dict) -> dict:
+    """An instant vector's {labels without __name__: value}."""
+    return {tuple(sorted((k, v) for k, v in r["metric"].items()
+                         if k != "__name__")): float(r["value"][1])
+            for r in data["result"]}
+
+
+def _rules_same(what: str, got: dict, want: dict, rtol: float) -> float:
+    import math
+
+    check(got.keys() == want.keys(), f"{what}: {len(got)} series against "
+          f"{len(want)}, or other labels")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        check(math.isclose(g, w, rel_tol=rtol, abs_tol=0)
+              or (math.isnan(g) and math.isnan(w)),
+              f"{what} {k[:1]}: {g!r} against {w!r}")
+        if w:
+            worst = max(worst, abs(g - w) / abs(w))
+    return worst
+
+
+def phase_rules(prom: dict, seed: int, deadline: float) -> dict:
+    """The PromQL rule tier on the card, on phase 13's root reopened
+    (build/prom: TSBS devops cpu_usage_user and diskio_read_bytes, 4000
+    hosts at 10 s): one rule group of a 60 s interval declared through
+    /debug/ctrl?mod=rules (RULES: F1 a topk of rates, the fallback leg
+    through the port's PromEngine, declared first and ticked alone with
+    the route forced to the device, so that its decode launches kernel
+    5; then R1 a regional sum of increase over 1 h, R2 the per-host mean
+    over 5 min, 4000 series written back, A1 an alert on max_over_time
+    > 90 for 120 s, all three tiled); a cold tick at an explicit now
+    inside the loaded span, then RULES_TICKS ticks a minute apart past
+    the span's end with
+    the next minute of all 8000 series remote-written before each, and
+    a late sample into an already folded tile before RULES_LATE_TICK.
+    Each tick verifies bit for bit against a from-scratch evaluation
+    (verify_last_tick, outside the timed tick), folds only its new tile
+    (and the re-dirtied one) per selector, and is read back: R1, R2 and
+    F1 by name against the tick's results exactly, and at
+    RULES_EXPR_TICKS against their expressions (rel RULES_RTOL), A1's
+    series against numpy's max exactly, its alerts (pending, then firing
+    after for_s) against a numpy run of the state machine,
+    /api/v1/rules.
+    Then a restart (the group, watermark and alert state reload; the
+    next tick fires only what numpy says and verifies); castor (CREATE
+    MODEL on host_7's per-minute mean, an InfluxQL aggregate on the
+    card, and detect() with it and with 'mad', against numpy); a
+    subscription forwarding one minute of cpu for every host to a sink
+    on localhost; the scrub (a full pass, then a bitflip rule
+    quarantining exactly the subscription's flushed file); a monitor
+    tick read back from _internal; /debug/ctrl?mod=durability; and the
+    root on the CPU recomputing the card's last tick from scratch (tiled
+    rules bit for bit, F1 within RULES_CPU_RTOL)."""
+    import math
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.promql.rules import RuleManager
+    from opengemini_tpu_torch.query import offload
+    from opengemini_tpu_torch.server.http import HttpService
+    from opengemini_tpu_torch.services.monitor import MonitorService
+    from opengemini_tpu_torch.services.subscriber import SubscriberManager
+    from opengemini_tpu_torch.storage import colcache, diskfault
+    from opengemini_tpu_torch.storage.engine import Engine
+    from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
+
+    t_phase = time.perf_counter()
+    root = prom["root"]
+    d = prom["data"]
+    tags, n_hosts, n_all = d["tags"], d["n_hosts"], d["n_all"]
+    rng = np.random.default_rng(seed + 15)
+    n_more = 6 * RULES_TICKS
+    walk = np.clip(d["usage"][:, -1:] + np.cumsum(
+        rng.normal(0.0, 1.0, (n_hosts, n_more)), axis=1), 0.0, 100.0)
+    usage = np.concatenate([d["usage"], walk], axis=1)
+    reads = np.concatenate([d["reads"], d["reads"][:, -1:] + np.cumsum(
+        np.abs(np.rint(rng.normal(100.0, 1.0, (n_hosts, n_more)))),
+        axis=1)], axis=1)
+    t0_s = T0_NS / 1e9
+    names = {short: name for short, _k, name, _e, _f in RULES}
+    exprs = {short: expr for short, _k, _n, expr, _f in RULES}
+    te0 = t0_s + RULES_TE0_MIN * 60.0
+    tes = [te0 + 60.0 * k for k in range(RULES_TICKS + 3)]
+    hostnames = [dict(t)["hostname"] for t in tags]
+    # the late sample: host RULES_LATE_HOST, 25 s before the eval time
+    # of the tick before (in the tile it folded last), above every walk.
+    # A write marks its samples' tiles and the next one dirty, and the
+    # next is the new tile of RULES_LATE_TICK
+    late_t = tes[RULES_LATE_TICK - 1] - 25.0
+    i_late = int((late_t - t0_s) // 10)
+    late_cpu = 99.5
+    late_read = float((reads[RULES_LATE_HOST, i_late]
+                       + reads[RULES_LATE_HOST, i_late + 1]) / 2)
+    written = {"n": n_all, "late": False}
+
+    def cpu_window(te: float) -> dict:
+        """numpy's max_over_time(cpu_usage_user[5m]) > 90 at te over the
+        samples written so far: {hostname: max}."""
+        lo = int(math.floor((te - 300.0 - t0_s) / 10.0)) + 1
+        hi = min(int(math.floor((te - t0_s) / 10.0)), written["n"] - 1)
+        win = usage[:, lo:hi + 1].max(axis=1)
+        if written["late"] and te - 300.0 < late_t <= te:
+            win[RULES_LATE_HOST] = max(win[RULES_LATE_HOST], late_cpu)
+        return {hostnames[h]: float(win[h]) for h in np.flatnonzero(win > 90)}
+
+    sim = {"alerts": {}, "fires": 0}
+
+    def sim_advance(te: float, active: dict) -> int:
+        """The alert state machine over numpy's active set; returns the
+        fires of this tick."""
+        fired = 0
+        for h in active:
+            ent = sim["alerts"].setdefault(h, [te, None])
+            if ent[1] is None and te - ent[0] >= 120.0:
+                ent[1] = te
+                fired += 1
+        for h in [h for h in sim["alerts"] if h not in active]:
+            del sim["alerts"][h]
+        sim["fires"] += fired
+        return fired
+
+    # the minute's remote-write body, as prompb_write encodes it, with
+    # each series' labels encoded once for every minute
+    metrics = (("cpu_usage_user", usage), ("diskio_read_bytes", reads))
+    label_bytes = [b"".join(_pb(1, _pb(1, n.encode()) + _pb(2, v.encode()))
+                            for n, v in (("__name__", metric), *tags[h]))
+                   for metric, _src in metrics for h in range(n_hosts)]
+
+    def minute_body(k: int) -> bytes:
+        lo = n_all + 6 * (k - 1)
+        t_ms = (T0_NS // 10**6
+                + np.arange(lo, lo + 6, dtype=np.int64) * (STEP_NS // 10**6))
+        heads = []  # (Sample field header, value tag) and the timestamp
+        for t in t_ms.tolist():
+            tail = _pb_varint(2 << 3) + _pb_varint(t)
+            heads.append((_pb_varint((2 << 3) | 2) + _pb_varint(9 + len(tail))
+                          + _pb_varint((1 << 3) | 1), tail))
+        out = []
+        for (_metric, src), base in zip(metrics, range(0, 2 * n_hosts,
+                                                       n_hosts)):
+            raw = np.ascontiguousarray(src[:, lo:lo + 6],
+                                       dtype="<f8").tobytes()
+            for h in range(n_hosts):
+                off = 48 * h
+                out.append(_pb(1, label_bytes[base + h] + b"".join(
+                    head + raw[off + 8 * j:off + 8 * j + 8] + tail
+                    for j, (head, tail) in enumerate(heads))))
+        return snappy_literal(b"".join(out))
+
+    cc_prev = colcache.GLOBAL.config()
+    rc_prev = os.environ.get("OGT_RESULT_CACHE")
+    os.environ["OGT_RESULT_CACHE"] = "0"
+    os.environ.pop("OGT_RULES_VERIFY", None)  # verified outside the tick
+    # the decoded-column cache's host tier at its deployed default: the
+    # verify leg and the read-backs re-read the hour the folds read
+    colcache.GLOBAL.configure(budget_mb=256, device=False)
+    rec = ShapeRecorder().__enter__()
+    svc = engine = mgr = subs = sink = None
+    per_query: dict = {}
+    steps: dict = {}
+    walls: dict = {}
+    laps = [time.perf_counter()]
+
+    def step(what: str) -> None:
+        now = time.perf_counter()
+        walls[what] = now - laps[-1]
+        laps.append(now)
+
+    try:
+        torch.cuda.synchronize()
+        cs.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        engine = Engine(root)
+        check(engine.device.type == "cuda", f"engine on {engine.device}")
+        svc = HttpService(engine, port=0, prom_db=PROM_DB)
+        svc.start()
+        port = svc.port
+        disarm_planner(port)
+        status, _ = http(port, "POST", "/debug/ctrl",
+                         {"mod": "offload", "host_kernels": "0"})
+        check(status == 200, "host_kernels=0 refused")
+        step("open")
+
+        def declare(shorts) -> dict:
+            for short, kind, name, expr, for_s in RULES:
+                if short not in shorts:
+                    continue
+                params = {"mod": "rules", "op": "declare", "db": PROM_DB,
+                          "group": RULES_GROUP, "interval_s": "60",
+                          ("record" if kind == "record" else "alert"): name,
+                          "expr": expr}
+                if for_s:
+                    params["for_s"] = str(for_s)
+                status, doc = http(port, "POST", "/debug/ctrl", params)
+                check(status == 200, f"declare {short}: {status} {doc}")
+            return doc["groups"][f"{PROM_DB}.{RULES_GROUP}"]
+
+        # (a) the group, declared through /debug/ctrl: the fallback
+        # rule first
+        declare(("F1",))
+        mgr = engine.rules_hook
+        check(mgr is not None and svc.rules_manager is mgr,
+              "no rule manager after the declare")
+        probe = CollectProbe(mgr)
+        ticks = []
+        covered = {"n": 0}
+
+        def do_tick(k: int, te: float, tag: str) -> dict:
+            g = mgr.groups_for(PROM_DB)[0]
+            c0 = dict(STATS.counters("rules"))
+            l0 = dict(cs.LAUNCHES)
+            r0 = probe.rows
+            rec.now = {}
+            t_a = time.perf_counter()
+            status, doc = http(port, "POST", "/debug/ctrl", {
+                "mod": "rules", "op": "tick", "db": PROM_DB,
+                "now_ns": str(int(round(te * 1e9)) + 30 * 10**9)})
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t_a) * 1e3
+            check(status == 200 and doc["ticked"] == 1,
+                  f"tick {k}: {status} {doc}")
+            c1 = STATS.counters("rules")
+            launches = {n: cs.LAUNCHES[n] - l0[n] for n in l0}
+            rows = probe.rows - r0
+            folded = c1.get("tiles_folded", 0) - c0.get("tiles_folded", 0)
+            fallbacks = (c1.get("fallback_evals", 0)
+                         - c0.get("fallback_evals", 0))
+            shapes = rec.now
+            rec.now = None
+            t_v = time.perf_counter()
+            check(mgr.verify_last_tick(g), f"tick {k}: nothing to verify")
+            verify_ms = (time.perf_counter() - t_v) * 1e3
+            check(g.last_eval_ns == int(round(te * 1e9)),
+                  f"tick {k}: watermark {g.last_eval_ns}")
+            out = {"te": te, "wall_ms": wall_ms,
+                   "tick_ms": g.last_tick_ms, "verify_ms": verify_ms,
+                   "tiles_folded": folded, "tiles_covered": covered["n"],
+                   "rows": rows, "fallback_evals": fallbacks,
+                   "launches": launches,
+                   "shapes": {n: [shape_json(n, x) for x in sorted(v)]
+                              for n, v in shapes.items()}}
+            log(f"[rules] tick {k}{tag} at T0+{(te - t0_s) / 60:.0f} min: "
+                f"{wall_ms:.1f} ms ({g.last_tick_ms:.1f} ms in the "
+                f"manager), tiles folded {folded} of the {covered['n']} "
+                f"the windows cover, {rows} rows collected, {fallbacks} "
+                f"fallback evaluation(s), verified bit for bit against a "
+                f"from-scratch evaluation in {verify_ms:.1f} ms; launches "
+                f"{json.dumps({a: b for a, b in launches.items() if b})}")
+            return out
+
+        def read_back(k: int, te: float, shorts=("R1", "R2", "F1")) -> dict:
+            """R1, R2 and F1 by name against the tick's results exactly
+            (and at RULES_EXPR_TICKS against their expressions), A1
+            against numpy, the alerts against the state machine."""
+            g = mgr.groups_for(PROM_DB)[0]
+            worst = {}
+            t_r = time.perf_counter()
+            for short in shorts:
+                # by name over the last second: the rule's write at te
+                # alone (F1's top ten of earlier ticks stay within the
+                # instant selector's 5 min lookback)
+                mine, _r, _w = prom_get(port, "/api/v1/query", {
+                    "query": f"last_over_time({names[short]}[1s])",
+                    "time": repr(te), "db": PROM_DB})
+                got = _rule_series(mine)
+                check(len(got) == {"R1": len(set(
+                    dict(t)["region"] for t in tags)), "R2": n_hosts,
+                    "F1": 10}[short], f"tick {k} {short}: {len(got)} series")
+                _rules_same(f"tick {k} {short}", got,
+                            g.last_results[names[short]], 0.0)
+                if k in RULES_EXPR_TICKS or k < 0:
+                    want, _r, _w = prom_get(port, "/api/v1/query", {
+                        "query": exprs[short], "time": repr(te),
+                        "db": PROM_DB})
+                    worst[short] = _rules_same(
+                        f"tick {k} {short}", got, _rule_series(want),
+                        RULES_RTOL)
+            read_ms = (time.perf_counter() - t_r) * 1e3
+            if "R1" not in shorts:
+                return {"worst_rel": worst, "read_ms": read_ms}
+            active = cpu_window(te)
+            a1 = {dict(key)["hostname"]: v
+                  for key, v in g.last_results[names["A1"]].items()}
+            check(a1 == active, f"tick {k} A1: {len(a1)} series against "
+                  f"numpy's {len(active)}, or other maxima")
+            fired = sim_advance(te, active)
+            alerts = http(port, "GET", "/api/v1/alerts", {})[1]["data"]
+            states = {a["labels"]["hostname"]: (a["state"], a["activeAt"])
+                      for a in alerts["alerts"]}
+            want_states = {h: ("firing" if e[1] is not None else "pending",
+                               e[0]) for h, e in sim["alerts"].items()}
+            check(states == want_states, f"tick {k}: alerts differ from "
+                  "the state machine's")
+            check(g.fires.get(names["A1"], 0) == sim["fires"],
+                  f"tick {k}: {g.fires} fires against {sim['fires']}")
+            n_fire = sum(1 for s_, _a in states.values() if s_ == "firing")
+            return {"worst_rel": worst, "read_ms": read_ms,
+                    "a1_series": len(a1), "pending": len(states) - n_fire,
+                    "firing": n_fire, "fired": fired}
+
+        # (c) the fallback alone, the route forced to the device
+        status, _ = http(port, "POST", "/debug/ctrl",
+                         {"mod": "offload", "force": "device"})
+        check(status == 200, "force=device refused")
+        t = do_tick(-1, tes[0] - 60.0, " (the fallback alone, forced to "
+                    "the device)")
+        http(port, "POST", "/debug/ctrl", {"mod": "offload", "force": "none"})
+        check(t["tiles_folded"] == 0 and t["fallback_evals"] == 1,
+              f"the fallback tick: {t}")
+        check(t["launches"]["unpack_bits"] > 0,
+              "phase 15: kernel 5 never launched in the forced fallback")
+        t.update(read_back(-1, tes[0] - 60.0, ("F1",)))
+        ticks.append(t)
+        step("fallback tick")
+
+        # (a) the tiled rules join the group
+        gst = declare(("R1", "R2", "A1"))
+        tiled = {r["name"]: r["tiled"] for r in gst["rules"]}
+        check(tiled == {names["R1"]: True, names["R2"]: True,
+                        names["A1"]: True, names["F1"]: False},
+              f"tiled shapes {tiled}")
+        check(gst["g_ms"] == 60_000, f"lattice {gst['g_ms']} ms")
+        covered["n"] = RULES_COVERED
+        step("declare")
+        log(f"[rules] declared {PROM_DB}.{RULES_GROUP} (60 s, lattice "
+            f"{gst['g_ms']} ms): " + ", ".join(
+                f"{s} {n} ({'tiled' if tiled[n] else 'fallback'})"
+                for s, n in names.items()))
+
+        # (b) the cold tick
+        t = do_tick(0, tes[0], " (cold)")
+        check(t["tiles_folded"] == RULES_COVERED,
+              f"the cold tick folded {t['tiles_folded']} tiles")
+        check(t["fallback_evals"] == 1, "the cold tick: no fallback leg")
+        t.update(read_back(0, tes[0]))
+        check(t["firing"] == 0 and t["pending"] == t["a1_series"] > 0,
+              f"the cold tick's alerts: {t['pending']} pending, "
+              f"{t['firing']} firing")
+        ticks.append(t)
+        step("cold tick")
+
+        for k in range(1, RULES_TICKS + 1):
+            body = minute_body(k)
+            t_w = time.perf_counter()
+            status, _h, resp = http_raw(port, "POST", "/api/v1/prom/write",
+                                        {"db": PROM_DB}, body)
+            check(status == 204, f"minute {k}: status {status} {resp[:200]!r}")
+            written["n"] += 6
+            write_ms = (time.perf_counter() - t_w) * 1e3
+            redirty = 0
+            if k == RULES_LATE_TICK:
+                t_ms = int(round(late_t * 1000))
+                body = snappy_literal(prompb_write([
+                    ([("__name__", "cpu_usage_user"), *tags[RULES_LATE_HOST]],
+                     [t_ms], [late_cpu]),
+                    ([("__name__", "diskio_read_bytes"),
+                      *tags[RULES_LATE_HOST]], [t_ms], [late_read])]))
+                status, _h, _resp = http_raw(port, "POST",
+                                             "/api/v1/prom/write",
+                                             {"db": PROM_DB}, body)
+                check(status == 204, f"the late sample: {status}")
+                written["late"] = True
+                redirty = 2
+            t = do_tick(k, tes[k], " (a late sample re-dirtied a folded "
+                        "tile)" if redirty else "")
+            t["write_ms"] = write_ms
+            check(t["tiles_folded"] == 2 + redirty,
+                  f"tick {k} folded {t['tiles_folded']} tiles, not the new "
+                  f"one{' and the re-dirtied one' if redirty else ''} of "
+                  "each selector")
+            check(t["fallback_evals"] == 1, f"tick {k}: no fallback leg")
+            t.update(read_back(k, tes[k]))
+            ticks.append(t)
+        check(any(t.get("firing") for t in ticks), "A1 never reached firing")
+        first_fire = next(k for k, t in enumerate(ticks[1:]) if t["firing"])
+        check(first_fire >= 2, f"A1 fired at tick {first_fire}, before its "
+              "for_s")
+        rules_doc = http(port, "GET", "/api/v1/rules", {})[1]["data"]
+        [grp] = rules_doc["groups"]
+        check([r["name"] for r in grp["rules"]] == [
+            names[x] for x in ("F1", "R1", "R2", "A1")]
+              and all(r["health"] == "ok" for r in grp["rules"])
+              and grp["lastEvaluation"] == tes[RULES_TICKS],
+              f"/api/v1/rules: {json.dumps(grp)[:300]}")
+        step("ticks")
+        incr = [t["wall_ms"] for t in ticks[2:]]
+        log(f"[rules] {RULES_TICKS} incremental ticks: p50 "
+            f"{p50_of(incr):.1f} ms against the cold tick's "
+            f"{ticks[1]['wall_ms']:.1f} ms (the minute's remote write p50 "
+            f"{p50_of([t['write_ms'] for t in ticks[2:]]):.1f} ms, the "
+            f"verify p50 {p50_of([t['verify_ms'] for t in ticks[2:]]):.1f}"
+            f" ms, the read-backs p50 "
+            f"{p50_of([t['read_ms'] for t in ticks[2:]]):.1f} ms); R1, R2 "
+            f"and F1 read back by name equal each tick's results exactly, "
+            f"and their expressions at ticks {list(RULES_EXPR_TICKS)} "
+            f"(largest relative difference "
+            f"{max(max(t['worst_rel'].values(), default=0.0) for t in ticks):.3g}), A1 "
+            f"equals numpy's max exactly at every tick, pending at tick 0 "
+            f"and firing from tick {first_fire} ({sim['fires']} fires); "
+            f"/api/v1/rules lists the four rules, health ok, last "
+            f"evaluation T0+{(tes[RULES_TICKS] - t0_s) / 60:.0f} min")
+
+        # (e) a flush, then a restart on the same root
+        status, _ = http(port, "POST", "/debug/ctrl", {"mod": "flush"})
+        check(status == 200, "mod=flush refused")
+        g = mgr.groups_for(PROM_DB)[0]
+        before = {"last_eval_ns": g.last_eval_ns, "alerts": json.loads(
+            json.dumps(g.alerts)), "fires": dict(g.fires)}
+        mgr.close()
+        stop_server(svc, engine)
+        svc = engine = mgr = None
+        engine = Engine(root)
+        svc = HttpService(engine, port=0, prom_db=PROM_DB)
+        svc.start()
+        port = svc.port
+        # the rule service's builder builds the manager at start, as
+        # the server does beside its services
+        mgr = svc.rules_manager = RuleManager(engine, prom=svc.prom)
+        probe = CollectProbe(mgr)
+        g = mgr.groups_for(PROM_DB)[0]
+        check(g.last_eval_ns == before["last_eval_ns"]
+              and g.alerts == before["alerts"]
+              and g.fires == before["fires"],
+              "the group, watermark or alert state did not reload")
+        http(port, "POST", "/debug/ctrl", {"mod": "offload",
+                                           "host_kernels": "0"})
+        k = RULES_TICKS + 1
+        firing_before = {h: e[1] for h, e in sim["alerts"].items()
+                         if e[1] is not None}
+        t = do_tick(k, tes[k], " (after the restart: tiles refold)")
+        check(t["tiles_folded"] == RULES_COVERED,
+              f"the first tick after the restart folded {t['tiles_folded']}")
+        t.update(read_back(k, tes[k]))
+        for key, ent in g.alerts.get(names["A1"], {}).items():
+            h = ent["labels"]["hostname"]
+            if h in firing_before:
+                check(ent["fired_at_ns"] == int(round(
+                    firing_before[h] * 1e9)), f"{h} re-fired")
+        ticks.append(t)
+        card_last = {"e_tile": g.last_e_tile, "te": tes[k],
+                     "results": {n: dict(v) for n, v in
+                                 g.last_results.items()}}
+        step("restart")
+        log(f"[rules] restart: the group, watermark and {len(before['alerts'].get(names['A1'], {}))} "
+            f"alert states reloaded; tick {k} refolded {t['tiles_folded']} "
+            f"tiles, verified, fired {t['fired']} (numpy's count; no "
+            f"re-fire of the {len(firing_before)} firing)")
+
+        # (f) castor: a model fitted on host_7's per-minute means
+        span = (f"time >= {T0_NS} AND time < "
+                f"{T0_NS + (n_all - 6) * STEP_NS}")
+        l0 = dict(cs.LAUNCHES)
+        rec.now = {}
+        status, doc = http(port, "POST", "/query", {
+            "db": PROM_DB, "q": "CREATE MODEL host7 WITH ALGORITHM 'mad' "
+            "FROM (SELECT mean(value) FROM cpu_usage_user WHERE hostname = "
+            f"'host_7' AND {span} GROUP BY time(1m))"})
+        check(status == 200 and "error" not in doc["results"][0],
+              f"CREATE MODEL: {doc}")
+        fit_launches = {n: cs.LAUNCHES[n] - l0[n] for n in l0}
+        fit_shapes = rec.now
+        rec.now = None
+        check(sum(fit_launches[n] for n in E2E_KERNELS) > 0,
+              f"the model's aggregate launched {fit_launches}")
+        model = engine.models.get("host7")
+        means = usage[7, :n_all - 6].reshape(-1, 6).mean(axis=1)
+        med = float(np.median(means))
+        mad = float(np.median(np.abs(means - med)))
+        check(model["trained_rows"] == len(means)
+              and math.isclose(model["params"]["median"], med,
+                               rel_tol=RULES_RTOL)
+              and math.isclose(model["params"]["mad"], mad,
+                               rel_tol=RULES_RTOL),
+              f"the model {model['params']} against numpy's {med}, {mad}")
+        raw = usage[7, :n_all - 6]
+        raw_t = T0_NS + np.arange(n_all - 6, dtype=np.int64) * STEP_NS
+        p = model["params"]
+        want = {"host7": raw_t[np.abs(raw - p["median"])
+                               / (1.4826 * p["mad"]) > RULES_DETECT_THR]}
+        m_raw = float(np.median(raw))
+        mad_raw = float(np.median(np.abs(raw - m_raw)))
+        want["mad"] = raw_t[np.abs(raw - m_raw) / (1.4826 * mad_raw)
+                            > RULES_DETECT_THR]
+        detected = {}
+        for alg in ("host7", "mad"):
+            status, doc = http(port, "GET", "/query", {
+                "db": PROM_DB, "epoch": "ns",
+                "q": f"SELECT detect(value, '{alg}', {RULES_DETECT_THR}) "
+                f"FROM cpu_usage_user WHERE hostname = 'host_7' AND {span}"})
+            series = doc["results"][0].get("series", [])
+            got = [r[0] for r in series[0]["values"]] if series else []
+            check(got == want[alg].tolist() and got,
+                  f"detect(value, '{alg}'): {len(got)} rows against "
+                  f"numpy's {len(want[alg])}")
+            detected[alg] = len(got)
+        per_query["castor"] = {"launches": fit_launches, "shapes": {
+            n: [shape_json(n, x) for x in sorted(v)]
+            for n, v in fit_shapes.items()}}
+        step("castor")
+        log(f"[rules] castor: CREATE MODEL host7 (mad) on host_7's "
+            f"{len(means)} per-minute means (launches "
+            f"{json.dumps({a: b for a, b in fit_launches.items() if b})}), "
+            f"median and MAD equal numpy's; detect() flagged "
+            f"{detected['host7']} rows with the model and {detected['mad']} "
+            f"with 'mad' (threshold {RULES_DETECT_THR}), numpy's rows "
+            "exactly")
+
+        # (f) a subscription to a sink on localhost
+        received = []
+
+        class Sink(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                received.append(self.rfile.read(n))
+                self.send_response(204)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        sink = ThreadingHTTPServer(("127.0.0.1", 0), Sink)
+        threading.Thread(target=sink.serve_forever, daemon=True).start()
+        subs = SubscriberManager(engine)
+        status, _ = http(port, "POST", "/query",
+                         {"q": "CREATE DATABASE tsbs"})
+        status, doc = http(port, "POST", "/query", {
+            "db": "tsbs", "q": "CREATE SUBSCRIPTION s1 ON tsbs DESTINATIONS "
+            f"ALL 'http://127.0.0.1:{sink.server_address[1]}'"})
+        check(status == 200 and "error" not in doc["results"][0],
+              f"CREATE SUBSCRIPTION: {doc}")
+        vals = make_values(n_hosts, 6, rng)
+        base = n_all + n_more + 6
+        body = cpu_lines(tags, vals, 0, 6, n_hosts, base)
+        t_s = time.perf_counter()
+        status, _h, resp = http_raw(port, "POST", "/write", {"db": "tsbs"},
+                                    body.encode())
+        check(status == 204, f"/write to tsbs: {status} {resp[:200]!r}")
+
+        sent = sorted(body.split("\n"))
+        got: list = []
+        t_end = time.perf_counter() + 60
+        while len(got) < len(sent) and time.perf_counter() < t_end:
+            time.sleep(0.05)
+            got = sorted(ln for b in list(received)
+                         for ln in b.decode().split("\n"))
+        sub_ms = (time.perf_counter() - t_s) * 1e3
+        check(got == sent, f"the sink received {len(got)} lines of the "
+              f"{len(sent)} written, or others")
+        status, doc = http(port, "POST", "/query",
+                           {"db": "tsbs", "q": "DROP SUBSCRIPTION s1 ON tsbs"})
+        check(not engine.databases["tsbs"].subscriptions,
+              "the subscription outlived its DROP")
+        subs.stop()
+        subs = None
+        sink.shutdown()
+        sink.server_close()
+        sink = None
+        step("subscriber")
+        log(f"[rules] subscription: the sink received exactly the "
+            f"{len(sent)} written lines ({len(received)} POSTs, "
+            f"{sum(len(b) for b in received)} B) {sub_ms:.0f} ms after the "
+            f"/write; dropped")
+
+        # (f) the scrub: a full pass, then a bitflip quarantines one file
+        status, _ = http(port, "POST", "/debug/ctrl", {"mod": "flush"})
+        files = [r for sh in engine.all_shards() for r in sh._files]
+        total = sum(loc[1] for r in files for loc in r.data_locs())
+        t_s = time.perf_counter()
+        status, doc = http(port, "POST", "/debug/ctrl", {
+            "mod": "scrub", "op": "tick", "mb": "1000000"})
+        scrub_ms = (time.perf_counter() - t_s) * 1e3
+        check(status == 200 and doc["verified_bytes"] == total
+              and doc["quarantine"]["total"] == 0
+              and doc["scrub"]["passes"] == 1,
+              f"the scrub pass verified {doc.get('verified_bytes')} B of "
+              f"{total}: {doc.get('quarantine')}")
+        [victim] = [r.path for sh in engine.shards_for_range(
+            "tsbs", None, 0, 2**62) for r in sh._files]
+        status, _ = http(port, "POST", "/debug/ctrl", {
+            "mod": "diskfault", "path": victim, "action": "bitflip:9"})
+        check(status == 200, "the bitflip rule was refused")
+        status, doc2 = http(port, "POST", "/debug/ctrl", {
+            "mod": "scrub", "op": "tick"})
+        http(port, "POST", "/debug/ctrl", {"mod": "diskfault", "clear": "1"})
+        quar = [f["path"] for f in doc2["quarantine"]["files"]]
+        check(quar == [victim], f"the scrub quarantined {quar}, not "
+              f"{victim}")
+        step("scrub")
+        log(f"[rules] scrub: one pass verified {total} B in {len(files)} "
+            f"files ({scrub_ms:.0f} ms), nothing quarantined; with a "
+            f"bitflip rule on the subscription's file the next pass "
+            f"quarantined exactly {os.path.relpath(victim, root)}")
+
+        # (f) the monitor and the durability ledger
+        mon = MonitorService(engine, interval_s=3600, hostname="smoke")
+        mon.handle()
+        want_ticks = STATS.counters("rules")["ticks"]
+        status, doc = http(port, "GET", "/query", {
+            "db": "_internal", "q": "SELECT last(ticks) FROM rules"})
+        got_ticks = doc["results"][0]["series"][0]["values"][0][1]
+        check(got_ticks == want_ticks, f"_internal rules.ticks {got_ticks} "
+              f"against {want_ticks}")
+        status, doc = http(port, "GET", "/query", {
+            "db": "_internal", "q": "SHOW MEASUREMENTS"})
+        msts = {r[0] for r in doc["results"][0]["series"][0]["values"]}
+        check({"rules", "durability", "scrub"} <= msts,
+              f"_internal measurements {sorted(msts)}")
+        status, dur = http(port, "POST", "/debug/ctrl",
+                           {"mod": "durability"})
+        tot = dur["durability"]["totals"]
+        check(dur["status"] == "ok" and tot["missing"] == 0
+              and not dur["violations"], f"durability {dur['status']} "
+              f"{tot}")
+        step("monitor and durability")
+        log(f"[rules] monitor: {len(msts)} _internal measurements, "
+            f"rules.ticks {got_ticks}; durability ok: "
+            f"{json.dumps(tot)}")
+
+        launches = dict(cs.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        mgr.close()
+        stop_server(svc, engine)
+        svc = engine = mgr = None
+
+        # (g) the same root on the CPU
+        cpu_engine = Engine(root, device="cpu")
+        cmgr = None
+        try:
+            cmgr = RuleManager(cpu_engine)
+            g = cmgr.groups_for(PROM_DB)[0]
+            check(g.last_eval_ns == int(round(card_last["te"] * 1e9)),
+                  "the CPU reopen lost the watermark")
+            cmgr._verify(g, card_last["e_tile"], card_last["results"])
+            f1 = next(r for r in g.rules if r.name == names["F1"])
+            f1_cpu = cmgr._eval_fallback(g, f1, int(round(
+                card_last["te"] * 1e9)))
+            worst_f1 = _rules_same("F1 on the CPU", f1_cpu,
+                                   card_last["results"][names["F1"]],
+                                   RULES_CPU_RTOL)
+        finally:
+            if cmgr is not None:
+                cmgr.close()
+            cpu_engine.close()
+        step("cpu reopen")
+        wall_s = time.perf_counter() - t_phase
+        log(f"[rules] the CPU reopen recomputed the card's last tick from "
+            f"scratch: R1, R2 and A1 bit for bit, F1 within {worst_f1:.3g}"
+            f"; step walls (s) "
+            f"{json.dumps({a: round(b, 3) for a, b in walls.items()})}; "
+            f"phase 15 took {wall_s:.1f} s (budget {RULES_PHASE_S:.0f} s, "
+            f"{deadline - time.perf_counter():.0f} s left of the script's); "
+            f"launches {json.dumps(launches)}; device memory peak "
+            f"{peak / 2**20:.1f} MiB; card {smi_line()}")
+        for k, t in enumerate(ticks):
+            per_query[f"T{k - 1}"] = t
+        steps["walls_s"] = walls
+        steps["fires"] = sim["fires"]
+        return {"launches": launches, "per_query": per_query,
+                "steps": steps, "shapes": rec.seen, "peak_bytes": peak,
+                "wall_s": wall_s}
+    finally:
+        rec.__exit__()
+        offload.set_force(None)
+        offload.set_prom_host_kernels_mode("")
+        diskfault.clear_all()
+        colcache.GLOBAL.configure(**cc_prev)
+        if rc_prev is None:
+            os.environ.pop("OGT_RESULT_CACHE", None)
+        else:
+            os.environ["OGT_RESULT_CACHE"] = rc_prev
+        if subs is not None:
+            subs.stop()
+        if sink is not None:
+            sink.shutdown()
+            sink.server_close()
+        if mgr is not None:
+            mgr.close()
+        if svc is not None:
+            stop_server(svc, engine)
+
+
 def build_all(verbose: bool = True) -> float:
     """nvcc for the six kernels and g++ for the six host libraries, all
     at once; returns the seconds it took."""
@@ -5769,22 +6577,25 @@ def main_path_kernels(name: str, shapes, seed: int, dev_name: str,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     # phase 3's span, cut from 12 h: with phase 13 the script took 987.7
-    # and 1079.4 s on an H100 at 12 h, and it must stay within 1050 s
-    ap.add_argument("--hours", type=int, default=6,
+    # and 1079.4 s on an H100 at 12 h, and 1100.2 and 1004.3 s at 6 h
+    # with phase 14; 4 h with phase 15
+    ap.add_argument("--hours", type=int, default=4,
                     help="span of the end-to-end data (cut only to fit a "
                          "time limit, never below 3)")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--phases", default="all",
                     help="the phases after 2 to run, comma separated "
-                         "(3-14; 6-10 and 12 need 5), for a short call "
-                         "that checks one path; default all")
+                         "(3-15; 6-10 and 12 need 5, 15 needs 13), for a "
+                         "short call that checks one path; default all")
     args = ap.parse_args()
     if args.hours < 3:
         ap.error("--hours may not be cut below 3")
-    wanted = (set(range(3, 15)) if args.phases == "all"
+    wanted = (set(range(3, 16)) if args.phases == "all"
               else {int(x) for x in args.phases.split(",")})
     if wanted & {6, 7, 8, 9, 10, 12} and 5 not in wanted:
         ap.error("phases 6-10 and 12 run on phase 5's root")
+    if 15 in wanted and 13 not in wanted:
+        ap.error("phase 15 runs on phase 13's root")
 
     import torch
 
@@ -5896,13 +6707,20 @@ def main() -> int:
         ran.append(("14", cont, " continuous"))
         later.append(cont)
         lap("phase 14")
+    ruled = None
+    if 15 in wanted:
+        ruled = phase_rules(prom, args.seed, t_start + SCRIPT_LIMIT_S
+                            - AFTER_PHASE15_S)
+        ran.append(("15", ruled, " rules"))
+        later.append(ruled)
+        lap("phase 15")
     # kernels 1-3 at the later phases' new shapes, and kernels 4-6 too
-    # at phase 11's, 12's and 13's (the decode of rewritten and compacted
-    # files, and PromQL's rows matrices)
+    # at phase 11's, 12's, 13's, 14's and 15's (the decode of rewritten
+    # and compacted files, and PromQL's rows matrices)
     for i, name in enumerate(E2E_KERNELS + COLD_KERNELS[1:]):
         for j, phase in enumerate(later):
-            if name not in E2E_KERNELS and phase not in (life, planned,
-                                                         prom, cont):
+            if name not in E2E_KERNELS and not any(
+                    phase is x for x in (life, planned, prom, cont, ruled)):
                 continue
             new = {sh for sh in phase["shapes"][name] - seen[name]
                    if all(d > 0 for d in shape_json(name, sh)

@@ -17,13 +17,25 @@ Schema (prompb, stable since prometheus 2.x):
 Mapping (reference handler_prom_util.go timeSeries2Rows): __name__ label
 is the measurement, remaining labels are tags, the sample value lands in
 the float field `value`, timestamps convert ms -> ns.
+
+``decode_series`` reads a WriteRequest once; its series go to the
+engine as points (``series_points``, the structured write path) or as
+one ingest/native_lp ``ColumnarBatch`` (``series_batch``: the engine's
+columnar write path, slab writes with the WAL entry as line protocol).
+``series_batch`` answers None, and the caller takes the points, where a
+value is not finite or a series key does not read back from its line
+as the same key (an empty label value, which line protocol drops; a
+character it escapes; a newline; a leading ``#``).
 """
 
 from __future__ import annotations
 
 import struct
 
+import numpy as np
+
 from opengemini_tpu_torch.ingest import protowire as pw
+from opengemini_tpu_torch.ingest.line_protocol import series_key
 from opengemini_tpu_torch.record import FieldType
 
 DEFAULT_MEASUREMENT = "prom_metric_not_specified"
@@ -41,26 +53,53 @@ def _decode_label(buf: bytes) -> tuple[str, str]:
     return name, value
 
 
-def decode_write_request(body: bytes) -> list:
-    """-> engine points [(measurement, tags_tuple, t_ns, {field: (type, v)})]."""
-    points = []
+_DOUBLE = struct.Struct("<d")
+
+
+def _sample(val: bytes):
+    """(t_ms, v) of a Sample, or None when it lacks either field. The
+    encoding every client writes (value, then timestamp) takes a direct
+    path; any other layout, and any error, the field walk."""
+    if len(val) > 10 and val[0] == 0x09 and val[9] == 0x10:
+        try:
+            t_ms, off = pw.read_varint(val, 10)
+        except pw.WireError:
+            off = -1
+        if off == len(val):
+            return pw.as_int64(t_ms), _DOUBLE.unpack_from(val, 1)[0]
+    v = t_ms = None
+    for f3, wt3, sval in pw.fields(val):
+        if f3 == 1:
+            v = pw.as_double(wt3, sval)
+        elif f3 == 2:
+            t_ms = pw.as_int64(sval)
+    if v is None or t_ms is None:
+        return None
+    return t_ms, v
+
+
+def decode_series(body: bytes) -> list:
+    """-> [(measurement, tags_tuple, [(t_ms, v)])], one per TimeSeries
+    in request order."""
+    out = []
+    # a label's bytes -> (name, value) for this request: its series
+    # share most of their labels
+    seen: dict[bytes, tuple] = {}
     for fnum, _wt, ts_buf in pw.fields(body):
         if fnum != 1:
             continue
         labels = []
         samples = []
-        for f2, wt2, val in pw.fields(ts_buf):
+        for f2, _wt2, val in pw.fields(ts_buf):
             if f2 == 1:
-                labels.append(_decode_label(val))
+                lab = seen.get(val)
+                if lab is None:
+                    lab = seen[val] = _decode_label(val)
+                labels.append(lab)
             elif f2 == 2:
-                v = t_ms = None
-                for f3, wt3, sval in pw.fields(val):
-                    if f3 == 1:
-                        v = pw.as_double(wt3, sval)
-                    elif f3 == 2:
-                        t_ms = pw.as_int64(sval)
-                if v is not None and t_ms is not None:
-                    samples.append((t_ms, v))
+                got = _sample(val)
+                if got is not None:
+                    samples.append(got)
         mst = DEFAULT_MEASUREMENT
         tags = []
         for name, value in labels:
@@ -68,12 +107,81 @@ def decode_write_request(body: bytes) -> list:
                 mst = value
             else:
                 tags.append((name, value))
-        tags_t = tuple(sorted(tags))
-        for t_ms, v in samples:
-            points.append(
-                (mst, tags_t, t_ms * MS, {VALUE_FIELD: (FieldType.FLOAT, v)})
-            )
-    return points
+        out.append((mst, tuple(sorted(tags)), samples))
+    return out
+
+
+def series_points(series) -> list:
+    """-> engine points [(measurement, tags_tuple, t_ns, {field: (type,
+    v)})]."""
+    return [(mst, tags_t, t_ms * MS, {VALUE_FIELD: (FieldType.FLOAT, v)})
+            for mst, tags_t, samples in series for t_ms, v in samples]
+
+
+def decode_write_request(body: bytes) -> list:
+    """-> engine points [(measurement, tags_tuple, t_ns, {field: (type, v)})]."""
+    return series_points(decode_series(body))
+
+
+def series_batch(series):
+    """The series as one ColumnarBatch (rows in request order, the float
+    field `value`), or None when a value is not finite or a series key
+    does not read back from line protocol as itself."""
+    from opengemini_tpu_torch.ingest import native_lp
+
+    keys: list[str] = []
+    key_ref: dict[str, int] = {}
+    msts: list[str] = []
+    mst_id: dict[str, int] = {}
+    series_mst: list[int] = []
+    refs: list[int] = []
+    t_ms: list[int] = []
+    vals: list[float] = []
+    for mst, tags_t, samples in series:
+        if not samples:
+            continue
+        key = series_key(mst, tags_t)
+        r = key_ref.get(key)
+        if r is None:
+            r = key_ref[key] = len(keys)
+            keys.append(key)
+            m = mst_id.get(mst)
+            if m is None:
+                m = mst_id[mst] = len(msts)
+                msts.append(mst)
+            series_mst.append(m)
+        for t, v in samples:
+            refs.append(r)
+            t_ms.append(t)
+            vals.append(v)
+    values = np.asarray(vals, dtype=np.float64)
+    if not np.isfinite(values).all() or not _keys_read_back(keys):
+        return None
+    ref = np.asarray(refs, dtype=np.int64)
+    smst = np.asarray(series_mst, dtype=np.int64)
+    row_mst = smst[ref] if len(ref) else np.empty(0, np.int64)
+    cols = [(m, VALUE_FIELD, FieldType.FLOAT, values, row_mst == m)
+            for m in range(len(msts))]
+    return native_lp.ColumnarBatch(np.asarray(t_ms, dtype=np.int64) * MS,
+                                   ref, keys, smst, msts, cols)
+
+
+def _keys_read_back(keys: list) -> bool:
+    """Whether one line per key parses back to exactly these keys (the
+    WAL replay reads the batch's line-protocol entry). The native parser
+    is the line parser's equal (storage/engine.py logs a /write body
+    it parsed natively, and its replay parses it in Python)."""
+    from opengemini_tpu_torch.ingest import line_protocol as lp
+    from opengemini_tpu_torch.ingest import native_lp
+
+    if not keys:
+        return True
+    text = "".join(k + " value=0 0\n" for k in keys).encode()
+    try:
+        got = native_lp.parse_columnar(text, "ns", 0)
+    except lp.ParseError:
+        return False
+    return got is not None and got.series_keys == keys
 
 
 def decode_read_request(body: bytes) -> list[dict]:

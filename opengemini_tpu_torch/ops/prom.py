@@ -1,8 +1,9 @@
 """PromQL range-vector functions: tiled interval reductions + dense kernels.
 
 The port of ``opengemini_tpu/ops/prom.py`` for one device (the
-mesh-sharded tiled kernels come with the device mesh, ROADMAP A8; the
-rule engine's tile partials with the rules, ROADMAP A7.2). Reference: the
+mesh-sharded tiled kernels come with the device mesh, ROADMAP A8), with
+the rule engine's tile partials (bottom of the module: host numpy
+float64, as the reference keeps them). Reference: the
 store-side prom cursors + reducers (engine/prom_range_vector_cursor.go,
 prom_function_reducers.go:633) which walk samples per series per step.
 
@@ -1215,3 +1216,237 @@ def prepare_tiled(plan: TilePlan, t_ms_all, v_all, lens, dtype=np.float64,
                              device=device)
     except TileBudgetExceeded:
         return None
+
+
+# -- incremental tile-state tier (promql/rules.py) ----------------------------
+#
+# The continuous rule engine maintains PER-TILE partials as durable-ish
+# STATE between ticks instead of recomputing them per query: each tile of
+# the group's ms lattice carries one mergeable record per series, the
+# ingest path dirties tiles, and a tick refolds only the dirtied tiles
+# (fold_tile_partials) before answering every rule window from a
+# left-to-right merge of its covering tiles (merge_tile_partials +
+# partials_answer).  The record is the TiLT partial (arXiv:2301.12030)
+# the batch engine above computes transiently, plus the boundary-pair
+# inputs (first/last sample) that let cross-tile merges reconstruct the
+# straddling reset/change corrections exactly.
+#
+# All arithmetic here is HOST numpy float64 on purpose: the rule engine's
+# acceptance contract is BITWISE identity between the incremental leg
+# (merge cached + refolded tiles) and the from-scratch leg (fold every
+# tile off one full-window scan, merge identically), which holds only
+# under a deterministic reduction order.  Device/mesh routing still
+# happens per group — for the matcher probe (label tier) and for the
+# full-rescan fallback leg, which evaluates through the ordinary planner-
+# routed engine kernels.
+
+# field -> fill value for an EMPTY (series, tile) cell; merge order is
+# the tuple order
+TILE_PARTIAL_FIELDS = (
+    ("n", 0.0), ("sum", 0.0), ("sumsq", 0.0),
+    ("mn", np.inf), ("mx", -np.inf),
+    ("t_first", 0.0), ("v_first", 0.0), ("t_last", 0.0), ("v_last", 0.0),
+    ("drop", 0.0), ("changes", 0.0), ("resets", 0.0),
+)
+
+# range-vector functions the partial record answers exactly (everything
+# else takes the rule engine's full-rescan fallback through the engine)
+PARTIAL_RATE_FUNCS = frozenset({"rate", "increase", "delta"})
+PARTIAL_OVER_TIME = frozenset({
+    "sum", "count", "avg", "min", "max", "stddev", "stdvar", "last",
+    "present"})
+PARTIAL_PAIR_FUNCS = frozenset({"changes", "resets"})
+
+
+def empty_tile_partials(n_series: int) -> dict:
+    """One tile's record columns for `n_series` series, all empty."""
+    return {f: np.full(n_series, fill, np.float64)
+            for f, fill in TILE_PARTIAL_FIELDS}
+
+
+def fold_tile_partials(t_ms_all, v_all, lens, anchor_ms: int, g_ms: int,
+                       lo_tile: int, hi_tile: int) -> dict[int, dict]:
+    """Fold run-encoded samples into per-tile partial records.
+
+    Input is the engine's run-encoded collection (concatenated int64 ms
+    timestamps + float64 values with per-series lengths, ascending per
+    series); only samples landing in lattice tiles [lo_tile, hi_tile)
+    contribute.  Returns {tile_idx: {field: (S,) float64}} holding ONLY
+    tiles that received at least one sample — absent means empty, so the
+    caller can overlay the result onto cached state.
+
+    Pair quantities (drop/changes/resets) count sample pairs fully INSIDE
+    one tile; pairs straddling tiles are reconstructed at merge time from
+    (v_last, v_first) of consecutive non-empty tiles, which is exact
+    because tiles partition the time axis and samples are time-ordered.
+    """
+    from opengemini_tpu_torch.ops.window import tile_index
+
+    lens = np.asarray(lens, np.int64)
+    S = len(lens)
+    t_ms_all = np.asarray(t_ms_all, np.int64)
+    v_all = np.asarray(v_all, np.float64)
+    if t_ms_all.size == 0:
+        return {}
+    tid = tile_index(t_ms_all, anchor_ms, g_ms)
+    rows = np.repeat(np.arange(S, dtype=np.int64), lens)
+    keep = (tid >= lo_tile) & (tid < hi_tile)
+    span = hi_tile - lo_tile
+    # rows are blockwise-ascending and t (hence tid) ascends per series,
+    # so key is globally non-decreasing: segment reductions are plain
+    # reduceat over change points — no sort, no hashing
+    key = rows * span + (tid - lo_tile)
+    # pair columns BEFORE masking: a pair exists when sample i-1 and i
+    # share a (series, tile) cell
+    same = np.zeros(len(key), bool)
+    if len(key) > 1:
+        same[1:] = key[1:] == key[:-1]
+    prev_v = np.empty_like(v_all)
+    prev_v[0] = 0.0
+    prev_v[1:] = v_all[:-1]
+    p_reset = same & (v_all < prev_v)
+    p_drop = np.where(p_reset, prev_v, 0.0)
+    p_change = (same & (v_all != prev_v)).astype(np.float64)
+    if not keep.all():
+        key = key[keep]
+        t_k = t_ms_all[keep]
+        v_k = v_all[keep]
+        p_drop = p_drop[keep]
+        p_change = p_change[keep]
+        p_resets = p_reset[keep].astype(np.float64)
+    else:
+        t_k = t_ms_all
+        v_k = v_all
+        p_resets = p_reset.astype(np.float64)
+    if key.size == 0:
+        return {}
+    starts = np.flatnonzero(np.diff(key)) + 1
+    starts = np.concatenate([[0], starts])
+    seg_key = key[starts]
+    seg_n = np.diff(np.concatenate([starts, [key.size]]))
+    seg_sum = np.add.reduceat(v_k, starts)
+    seg_sumsq = np.add.reduceat(v_k * v_k, starts)
+    seg_mn = np.minimum.reduceat(v_k, starts)
+    seg_mx = np.maximum.reduceat(v_k, starts)
+    seg_drop = np.add.reduceat(p_drop, starts)
+    seg_changes = np.add.reduceat(p_change, starts)
+    seg_resets = np.add.reduceat(p_resets, starts)
+    ends = starts + seg_n - 1
+    out: dict[int, dict] = {}
+    seg_row = seg_key // span
+    seg_tile = seg_key % span + lo_tile
+    for tile in np.unique(seg_tile):
+        sel = seg_tile == tile
+        r = seg_row[sel]
+        rec = empty_tile_partials(S)
+        rec["n"][r] = seg_n[sel]
+        rec["sum"][r] = seg_sum[sel]
+        rec["sumsq"][r] = seg_sumsq[sel]
+        rec["mn"][r] = seg_mn[sel]
+        rec["mx"][r] = seg_mx[sel]
+        rec["t_first"][r] = t_k[starts[sel]]
+        rec["v_first"][r] = v_k[starts[sel]]
+        rec["t_last"][r] = t_k[ends[sel]]
+        rec["v_last"][r] = v_k[ends[sel]]
+        rec["drop"][r] = seg_drop[sel]
+        rec["changes"][r] = seg_changes[sel]
+        rec["resets"][r] = seg_resets[sel]
+        out[int(tile)] = rec
+    return out
+
+
+def merge_tile_partials(tiles: list[dict | None], n_series: int) -> dict:
+    """Left-to-right merge of per-tile records into one window record.
+
+    `tiles` lists the window's covering tiles in time order (None =
+    empty tile).  Boundary pairs between consecutive NON-EMPTY tiles add
+    the straddling reset/change corrections the per-tile fold could not
+    see.  Deterministic (same tile order -> same bits), which is the
+    incremental-vs-rescan identity contract."""
+    m = empty_tile_partials(n_series)
+    for rec in tiles:
+        if rec is None:
+            continue
+        t_has = rec["n"] > 0
+        if not t_has.any():
+            continue
+        m_has = m["n"] > 0
+        both = m_has & t_has
+        bd_reset = both & (rec["v_first"] < m["v_last"])
+        m["drop"] += np.where(bd_reset, m["v_last"], 0.0) \
+            + np.where(t_has, rec["drop"], 0.0)
+        m["resets"] += bd_reset + np.where(t_has, rec["resets"], 0.0)
+        m["changes"] += (both & (rec["v_first"] != m["v_last"])) \
+            + np.where(t_has, rec["changes"], 0.0)
+        m["n"] += np.where(t_has, rec["n"], 0.0)
+        m["sum"] += np.where(t_has, rec["sum"], 0.0)
+        m["sumsq"] += np.where(t_has, rec["sumsq"], 0.0)
+        m["mn"] = np.where(t_has, np.minimum(m["mn"], rec["mn"]), m["mn"])
+        m["mx"] = np.where(t_has, np.maximum(m["mx"], rec["mx"]), m["mx"])
+        first = t_has & ~m_has
+        m["t_first"] = np.where(first, rec["t_first"], m["t_first"])
+        m["v_first"] = np.where(first, rec["v_first"], m["v_first"])
+        m["t_last"] = np.where(t_has, rec["t_last"], m["t_last"])
+        m["v_last"] = np.where(t_has, rec["v_last"], m["v_last"])
+    return m
+
+
+def partials_answer(m: dict, func: str, ws_ms: int, we_ms: int):
+    """(values, valid) for one rule window from a merged record.
+
+    Same semantics as the batch kernels above: extrapolatedRate with the
+    1.1x-average-interval clamp and counter zero-crossing for
+    rate/increase/delta, pair counts for changes/resets, moment algebra
+    for the *_over_time forms (stddev/stdvar from sum/sumsq — adequate
+    for monitoring magnitudes; the engine's per-query centered form is
+    not reachable from mergeable per-tile state)."""
+    n = m["n"]
+    has1 = n >= 1
+    if func == "count":
+        return np.where(has1, n, 0.0), has1
+    if func == "present":
+        return np.where(has1, 1.0, 0.0), has1
+    if func == "last":
+        return m["v_last"], has1
+    if func == "sum":
+        return np.where(has1, m["sum"], 0.0), has1
+    if func == "avg":
+        return m["sum"] / np.maximum(n, 1.0), has1
+    if func == "min":
+        return m["mn"], has1
+    if func == "max":
+        return m["mx"], has1
+    if func in ("stddev", "stdvar"):
+        denom = np.maximum(n, 1.0)
+        mean = m["sum"] / denom
+        var = np.maximum(m["sumsq"] / denom - mean * mean, 0.0)
+        return (var if func == "stdvar" else np.sqrt(var)), has1
+    if func in ("changes", "resets"):
+        out = m["changes"] if func == "changes" else m["resets"]
+        return np.where(has1, out, 0.0), has1
+    if func in PARTIAL_RATE_FUNCS:
+        is_counter = func in ("rate", "increase")
+        valid = n >= 2
+        delta = m["v_last"] - m["v_first"]
+        if is_counter:
+            delta = delta + m["drop"]
+        # int64 ms differences -> exact float seconds (the batch path's
+        # base-relative precision argument, with the window start as base)
+        sampled = (m["t_last"] - m["t_first"]) / 1000.0
+        sampled = np.where(sampled <= 0, 1.0, sampled)
+        avg_int = sampled / np.maximum(n - 1, 1.0)
+        d2s = (m["t_first"] - ws_ms) / 1000.0
+        d2e = (we_ms - m["t_last"]) / 1000.0
+        thr = avg_int * 1.1
+        d2s = np.where(d2s > thr, avg_int / 2, d2s)
+        d2e = np.where(d2e > thr, avg_int / 2, d2e)
+        if is_counter:
+            dz = np.where((delta > 0) & (m["v_first"] >= 0),
+                          sampled * (m["v_first"] / np.maximum(delta, 1e-30)),
+                          np.inf)
+            d2s = np.minimum(d2s, dz)
+        out = delta * ((sampled + d2s + d2e) / sampled)
+        if func == "rate":
+            out = out / ((we_ms - ws_ms) / 1000.0)
+        return out, valid
+    raise ValueError(f"unsupported partials func {func!r}")

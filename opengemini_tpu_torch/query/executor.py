@@ -62,9 +62,11 @@ JSON rows). A SELECT or EXPLAIN while the engine's reads are switched
 off (``read_disabled``, /debug/ctrl?mod=disableread) answers the
 statement error "reads are disabled (syscontrol)".
 Their times reach ``/debug/vars`` ``query_stages`` for every query, with
-two stages outside the statement's spans: ``parse`` (the SQL text, here)
-and ``encode`` (the answer's JSON, in server/http.py). EXPLAIN ANALYZE
-renders the span tree of one query.
+stages that no span draws: ``request`` (the HTTP request's headers and
+parameters, in server/http.py), ``parse`` (the SQL text, here), ``plan``
+(an aggregate's batches, cache, rollup and slice plans between
+``map_shards`` and ``scan``) and ``encode`` (the answer's JSON, in
+server/http.py). EXPLAIN ANALYZE renders the span tree of one query.
 
 The device comes from the engine (``Engine(root, device=...)``) and is
 passed explicitly through ``pick_batch`` to every batch.
@@ -1001,6 +1003,10 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                              f"{len(ctx.group_keys)} x {ctx.W}")
         if ctx is None:
             return []
+        # the "plan" stage: from here to the scan, less the rollup splice
+        # (a span of its own): batches, cache, rollup and slice plans
+        t_plan = _time.perf_counter_ns()
+        rollup_ns = 0
         sc, shards = ctx.sc, ctx.shards
         tmin, tmax = ctx.tmin, ctx.tmax
         group_time, aligned, W = ctx.group_time, ctx.aligned, ctx.W
@@ -1097,9 +1103,9 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             with trace.span("rollup") as sp:
                 t0_rollup = _time.perf_counter_ns()
                 rollup_plan.fetch()
+                rollup_ns = _time.perf_counter_ns() - t0_rollup
                 TRACKER.add_stage_ns(
-                    TRACKER.current_qid(), "rollup",
-                    _time.perf_counter_ns() - t0_rollup)
+                    TRACKER.current_qid(), "rollup", rollup_ns)
                 sp.add_field("windows_spliced", len(rollup_plan.serve))
                 sp.add_field("rollup_rows", rollup_plan.rows_read)
             if rollup_plan.serve:
@@ -1194,6 +1200,8 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 else len(schema) or 1)
             reservation = GOVERNOR.scan_reservation(
                 TRACKER.current_qid(), est)
+        tracing.record_stage(
+            "plan", _time.perf_counter_ns() - t_plan - rollup_ns)
         with reservation, trace.span("scan") as scan_span:
             if no_scan:
                 rows_scanned = 0

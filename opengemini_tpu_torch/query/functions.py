@@ -9,10 +9,8 @@ Pure numpy on the host, as in the reference: the device path
 (models/templates.py) runs the hot aggregates, and any SELECT holding a
 call outside that set evaluates here per (group, window) over
 time-sorted rows. ``percentile_ogsketch`` runs on query/sketch.py's
-centroid sketch.
-
-Not in this port yet: ``detect`` (it needs ``services/castor``, ROADMAP
-A7.2), which raises a "not supported by this port yet" error.
+centroid sketch, and ``detect`` on services/castor.py's detectors (a
+built-in algorithm, a loaded UDF, or a fitted model by its name).
 """
 
 from __future__ import annotations
@@ -354,6 +352,23 @@ def multi_row(name: str, times: np.ndarray, values: np.ndarray, params: tuple,
         order = np.argsort(idx)
         return [(None, py_value(uniq[i])) for i in order]
     if name == "detect":
-        raise ValueError("detect() is not supported by this port yet "
-                         "(services/castor, ROADMAP A7.2)")
+        from opengemini_tpu_torch.services.castor import detect as _detect
+        from opengemini_tpu_torch.services.castor import (
+            detect_fitted as _fitted,
+        )
+
+        algorithm = str(params[0]) if params else "mad"
+        threshold = float(params[1]) if len(params) > 1 else None
+        model = models.get(algorithm) if models is not None else None
+        if model is not None:
+            # a fitted model by this name: score against its training
+            # baseline; an explicit query threshold overrides its own
+            mask = _fitted(model, np.asarray(values, dtype=np.float64),
+                           threshold)
+        else:
+            mask = _detect(np.asarray(values, dtype=np.float64), algorithm,
+                           threshold)
+        return [
+            (int(times[i]), py_value(values[i])) for i in np.nonzero(mask)[0]
+        ]
     raise ValueError(f"unsupported multi-row call {name!r}")

@@ -28,10 +28,12 @@ the raw rows of its measurement. Every read loop is a KILL QUERY
 cancellation point (``TRACKER.check()``). A raw select's conjunctive
 ``match()`` terms prune its series through the shards' text sidecars
 (qhelpers ``_prune_text_sids``); a damaged file met by a chunk read is
-quarantined through its shard (``FileQuarantined``).
+quarantined through its shard (``FileQuarantined``). ``detect(field,
+'<name>')`` reads a fitted model of that name once per query (the
+engine's model store, services/castor.py).
 
-Not in this port yet: fitted ``detect`` models (ROADMAP A7.2); remote
-shards (ROADMAP A8: the shard list is the local one).
+Not in this port yet: remote shards (ROADMAP A8: the shard list is the
+local one).
 """
 
 from __future__ import annotations
@@ -812,6 +814,13 @@ class HostPathMixin:
                 plans.append((name, kind, call_name, field, params, inner))
                 outputs.append((name, len(plans) - 1))
 
+        fitted_models = None
+        if multi_plan is not None and multi_plan[1] == "detect" \
+                and multi_plan[3]:
+            # one artifact read per query, not per group or window
+            doc = self.engine.models.get(str(multi_plan[3][0]))
+            if doc is not None:
+                fitted_models = {str(multi_plan[3][0]): doc}
         out_series = []
         for key in sorted(groups):
             rows_by_field: dict[str, tuple[np.ndarray, np.ndarray]] = {}
@@ -874,7 +883,8 @@ class HostPathMixin:
                 rows = []
                 for wt, sl in window_slices(t):
                     for rt, rv in fnmod.multi_row(
-                            call_name, t[sl], v[sl], params):
+                            call_name, t[sl], v[sl], params,
+                            models=fitted_models):
                         rows.append([rt if rt is not None else wt, rv])
                 if not stmt.ascending:
                     rows.reverse()

@@ -15,14 +15,18 @@ refuses a time condition, and neither takes a field condition; a
 delete re-dirties the rollup windows it overlaps); CREATE, SHOW and
 DROP CONTINUOUS QUERY, STREAM (validated by services/stream.py) and
 DOWNSAMPLE (the reference's per-type aggregate allow-list, levels and
-TTL checks).
+TTL checks); CREATE, SHOW and DROP SUBSCRIPTION (http(s) destinations
+only; services/subscriber.py forwards the writes) and MODEL (CREATE
+MODEL fits services/castor.py's detector on its SELECT's values and
+keeps it in the engine's model store; ``detect(field, '<model>')``
+scores against it).
 
 The port is single-node, so the reference's raft replication of DDL
 (``_replicate_ddl``, ``_check_fsm_db``) becomes the local engine call.
 Every other statement of the reference answers a "not supported by this
 port yet" error naming the ROADMAP item that owns it (``_NOT_PORTED``):
-subscriptions and models (A7.2); users, grants and SHOW CLUSTER (A8);
-SHOW STATS and SHOW DIAGNOSTICS (A9). UNION statements run
+users, grants and SHOW CLUSTER (A8); SHOW STATS and SHOW DIAGNOSTICS
+(A9). UNION statements run
 through query/join.py's ``execute_union``.
 """
 
@@ -31,6 +35,8 @@ from __future__ import annotations
 import os
 import re
 
+import numpy as np
+
 from opengemini_tpu_torch.ingest.line_protocol import series_key
 from opengemini_tpu_torch.query import condition as cond
 from opengemini_tpu_torch.ops import aggregates as aggmod
@@ -38,7 +44,9 @@ from opengemini_tpu_torch.query.qhelpers import (
     NS, QueryError, _fmt_duration, _series, _series_result,
 )
 from opengemini_tpu_torch.record import FieldType
+from opengemini_tpu_torch.services import castor
 from opengemini_tpu_torch.services.stream import validate_stream_select
+from opengemini_tpu_torch.services.subscriber import Subscription
 from opengemini_tpu_torch.sql import ast
 from opengemini_tpu_torch.storage.engine import (
     ContinuousQuery, DownsamplePolicy, StreamTask,
@@ -60,12 +68,6 @@ _SHOW_STMTS = (
 
 # statement type -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    ast.CreateSubscription: "A7.2",
-    ast.DropSubscription: "A7.2",
-    ast.ShowSubscriptions: "A7.2",
-    ast.CreateModel: "A7.2",
-    ast.ShowModels: "A7.2",
-    ast.DropModel: "A7.2",
     ast.CreateUser: "A8",
     ast.DropUser: "A8",
     ast.SetPassword: "A8",
@@ -215,11 +217,89 @@ class ShowDdlMixin:
             return {}
         if isinstance(stmt, ast.ShowDownsamples):
             return self._show_downsamples(stmt, db)
+        if isinstance(stmt, ast.CreateSubscription):
+            if not stmt.destinations:
+                raise QueryError(
+                    "subscription requires at least one destination")
+            for dest in stmt.destinations:
+                if not dest.startswith(("http://", "https://")):
+                    raise QueryError(
+                        "subscription destination must be an http(s) "
+                        f"URL: {dest!r}")
+            self.engine.create_subscription(
+                stmt.database or db,
+                Subscription(stmt.name, stmt.mode, stmt.destinations))
+            return {}
+        if isinstance(stmt, ast.DropSubscription):
+            self.engine.drop_subscription(stmt.database or db, stmt.name)
+            return {}
+        if isinstance(stmt, ast.ShowSubscriptions):
+            series = []
+            for name in sorted(self.engine.databases):
+                d = self.engine.databases[name]
+                rows = [[s.name, s.mode, ", ".join(s.destinations)]
+                        for s in d.subscriptions.values()]
+                series.append(_series(name, None,
+                                      ["name", "mode", "destinations"], rows))
+            return {"series": series} if series else {}
+        if isinstance(stmt, (ast.CreateModel, ast.ShowModels, ast.DropModel)):
+            return self._model_ddl(stmt, db, now_ns)
         item = _NOT_PORTED.get(type(stmt))
         if item is not None:
             raise QueryError(f"{type(stmt).__name__} is not supported by "
                              f"this port yet (ROADMAP {item})")
         raise QueryError(f"unsupported statement: {type(stmt).__name__}")
+
+    def _model_ddl(self, stmt, db: str, now_ns: int) -> dict:
+        """CREATE MODEL fits a detector on its SELECT's numeric values
+        (services/castor.py ``fit``) and saves the artifact; SHOW MODELS
+        lists them; DROP MODEL removes one."""
+        if isinstance(stmt, ast.CreateModel):
+            if stmt.name.lower() in castor.ALGORITHMS:
+                raise QueryError(
+                    f"model name {stmt.name!r} shadows a built-in algorithm")
+            if stmt.name.lower() in castor._UDFS:
+                raise QueryError(
+                    f"model name {stmt.name!r} shadows a loaded UDF")
+            if (not stmt.name or "/" in stmt.name
+                    or stmt.name.startswith(".")):
+                raise QueryError(f"bad model name {stmt.name!r}")
+            res = self._select(stmt.select, db, now_ns)
+            vals: list[float] = []
+            for series in res.get("series", []):
+                for row in series.get("values", []):
+                    for v in row[1:]:
+                        if isinstance(v, (int, float)) and not isinstance(
+                                v, bool):
+                            vals.append(float(v))
+            try:
+                doc = castor.fit(stmt.algorithm, np.asarray(vals),
+                                 stmt.threshold)
+            except ValueError as e:
+                raise QueryError(str(e)) from e
+            doc["name"] = stmt.name
+            doc["source"] = stmt.select_text
+            self.engine.models.save(stmt.name, doc)
+            return {}
+        if isinstance(stmt, ast.ShowModels):
+            rows = []
+            for name in self.engine.models.names():
+                m = self.engine.models.get(name) or {}
+                rows.append([
+                    name, m.get("algorithm", ""), m.get("threshold"),
+                    m.get("trained_rows", 0),
+                    cond.format_rfc3339(int(m.get("fitted_at", 0)) * NS),
+                ])
+            if not rows:
+                return {}
+            return _series_result(
+                "models", None,
+                ["name", "algorithm", "threshold", "trainedRows", "fittedAt"],
+                rows)
+        if stmt.name not in self.engine.models.names():
+            raise QueryError(f"model not found: {stmt.name}")
+        self.engine.models.drop(stmt.name)
+        return {}
 
     def _delete(self, stmt, db: str, now_ns: int) -> dict:
         """DELETE FROM m WHERE ... (a time range and tag filters) and

@@ -367,6 +367,9 @@ class RecordBuilder:
     def __init__(self) -> None:
         self._times: list[int] = []
         self._cols: dict[str, tuple[FieldType, list, list]] = {}
+        # the sorted, deduped record of the rows so far (sorted_record),
+        # kept until the next append: repeated reads build it once
+        self._sorted: Record | None = None
 
     def __len__(self) -> int:
         return len(self._times)
@@ -379,6 +382,7 @@ class RecordBuilder:
             col = self._cols.get(name)
             if col is not None and col[0] != ftype:
                 raise FieldTypeConflict(name, col[0], ftype)
+        self._sorted = None
         row_i = len(self._times)
         self._times.append(t)
         for name, (ftype, value) in fields.items():
@@ -405,6 +409,14 @@ class RecordBuilder:
             values[idx_arr] = np.asarray(vals, dtype=ftype.np_dtype)
             cols[name] = Column(ftype, values, valid)
         return Record(times, cols)
+
+    def sorted_record(self) -> Record:
+        """build(), time-sorted and deduped last-write-wins; the same
+        object until the next append (readers never write into a
+        record's arrays)."""
+        if self._sorted is None:
+            self._sorted = self.build().sort_by_time().dedup_last_wins()
+        return self._sorted
 
 
 class FieldTypeConflict(Exception):

@@ -18,8 +18,10 @@ standard library's threading HTTP server:
                         ogt_http_request_seconds per route class and
                         method (``_route_of``)
   GET      /debug/vars  the statistics registry (utils/stats.py), with
-                        the query_stages timings (the executor's, and
-                        "encode": the answer's JSON and its write), and
+                        the query_stages timings ("request": the
+                        request's headers and parameters, the
+                        executor's, and "encode": the answer's JSON and
+                        its write), and
                         "quarantined_files": the engine's quarantined
                         TSF files ({shard, path, why} each)
   GET      /debug/device  device telemetry (utils/devobs.py
@@ -40,11 +42,20 @@ standard library's threading HTTP server:
                         queue, timeout_ms, hiwat_pct, lowat_pct,
                         overdraft_pct, bg_pause_pct, bg_max_pause_s,
                         bp_cache_ms; none = status), mod=rollup
-                        (op=status|flush|invalidate|declare|drop) and
-                        mod=obs (trace, hist, slow_ms, slow_max, clear)
+                        (op=status|flush|invalidate|declare|drop),
+                        mod=rules (op=status|declare|drop|tick: the
+                        PromQL rule engine, promql/rules.py, built at
+                        the first declare unless OGT_RULES=0),
+                        mod=scrub (op=tick|purge, mb, interval_s: the
+                        integrity scrub, services/scrub.py, with the
+                        quarantined files), mod=durability (the
+                        engine's acknowledged-against-durable ledger and
+                        its violations) and mod=obs (trace, hist,
+                        slow_ms, slow_max, clear)
   GET      /debug/slow  the slow-query log (utils/slowlog.py)
   GET      /debug/queries  the running queries (utils/querytracker.py
-                        ``full_snapshot``)
+                        ``full_snapshot``) with the engine's durability
+                        ledger
   GET      /debug/trace the span tree of a query: ?qid= (a running
                         query's live tree, else the finished-trace
                         ring), ?trace_id=, or the newest summaries
@@ -55,8 +66,9 @@ standard library's threading HTTP server:
                         ``prom_db``; a form POST body counts like the
                         query string); 400 bad_data on a bad query,
                         422 canceled when KILL QUERY stops it
-  GET/POST /api/v1/rules, /api/v1/alerts: no rule manager runs in the
-                        port yet (ROADMAP A7.2): empty groups and alerts
+  GET/POST /api/v1/rules, /api/v1/alerts: the rule manager's groups
+                        and pending or firing alerts (promql/rules.py;
+                        empty while no manager runs)
   POST     /api/v1/prom/write  Prometheus remote write (snappy prompb)
   POST     /api/v1/prom/read   Prometheus remote read (snappy answer)
   POST     /api/v1/otlp/metrics  OTLP/HTTP metrics (protobuf, gzip ok)
@@ -178,6 +190,14 @@ class HttpService:
         self.executor = Executor(engine)
         self.prom = PromEngine(engine)
         self.prom_db = prom_db
+        # the rule manager (promql/rules.py) and the integrity scrub
+        # (services/scrub.py): set by whoever starts them, or at the first
+        # /debug/ctrl declare or scrub call
+        self.rules_manager = None
+        self.scrub_service = None
+        # SHOW QUERIES and /debug/queries pair the running queries with
+        # the engine's acknowledged-against-durable ledger
+        TRACKER.set_durability_provider(engine.durability_snapshot)
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.port = self.httpd.server_address[1]
         self._thread: threading.Thread | None = None
@@ -232,6 +252,12 @@ def _make_handler(svc: HttpService):
 
         def log_message(self, fmt, *args):
             pass
+
+        def parse_request(self):
+            # the request line has arrived: a /query's "request" stage
+            # runs from here to the executor (headers, route, parameters)
+            self._t_request = time.perf_counter_ns()
+            return super().parse_request()
 
         def _params(self) -> dict:
             parsed = urllib.parse.urlparse(self.path)
@@ -494,11 +520,14 @@ def _make_handler(svc: HttpService):
                     name = path[len("/api/v1/label/"):-len("/values")]
                     data = self._prom_label_values(db, name)
                 elif path == "/api/v1/rules":
-                    # no rule manager runs in the port yet (ROADMAP
-                    # A7.2): the reference's answer without one
-                    data = {"groups": []}
+                    # empty groups, not 404, while no manager runs
+                    mgr = svc.engine.rules_hook
+                    data = (mgr.rules_api() if mgr is not None
+                            else {"groups": []})
                 elif path == "/api/v1/alerts":
-                    data = {"alerts": []}
+                    mgr = svc.engine.rules_hook
+                    data = (mgr.alerts_api() if mgr is not None
+                            else {"alerts": []})
                 else:
                     self._send_json(404, {"status": "error",
                                           "error": "not found"})
@@ -587,8 +616,13 @@ def _make_handler(svc: HttpService):
                 return data
 
         def _write_decoded_points(self, db: str, rp, points) -> bool:
+            """Write decoded points (or a ColumnarBatch: the engine's
+            columnar path) and answer the error, if any."""
             try:
-                svc.engine.write_rows(db, points, rp=rp)
+                if isinstance(points, list):
+                    svc.engine.write_rows(db, points, rp=rp)
+                else:
+                    svc.engine.write_batch(db, points, rp=rp)
             except DatabaseNotFound as e:
                 self._send_err(404, e)
                 return False
@@ -614,11 +648,14 @@ def _make_handler(svc: HttpService):
             if self._shed_write_if_backpressured():
                 return
             try:
-                points = prom_remote.decode_write_request(
-                    self._maybe_snappy(body))
+                series = prom_remote.decode_series(self._maybe_snappy(body))
             except (WireError, UnicodeDecodeError) as e:
                 self._send_json(400, {"error": f"bad remote write body: {e}"})
                 return
+            # the columnar path; the points where a value or a key has no
+            # line-protocol form
+            points = (prom_remote.series_batch(series)
+                      or prom_remote.series_points(series))
             if self._write_decoded_points(db, params.get("rp") or None,
                                           points):
                 self._send(204)
@@ -733,8 +770,9 @@ def _make_handler(svc: HttpService):
         def _handle_ctrl(self, params: dict):
             """The reference's /debug/ctrl switches: the engine's write
             and read switches and flush, device telemetry (devobs), the
-            offload planner, failpoints (utils/failpoint.py) and
-            disk-fault rules (storage/diskfault.py)."""
+            offload planner, failpoints (utils/failpoint.py), disk-fault
+            rules (storage/diskfault.py), the rule engine, the integrity
+            scrub and the durability ledger."""
             mod = params.get("mod", "")
             on = params.get("switchon", "").lower() in ("true", "1")
             if mod in ("disablewrite", "readonly"):
@@ -743,6 +781,21 @@ def _make_handler(svc: HttpService):
                 svc.engine.read_disabled = on
             elif mod == "flush":
                 svc.engine.flush_all()
+            elif mod == "durability":
+                # one snapshot drives both fields, so the violations
+                # always match the ledger reported beside them
+                snap = svc.engine.durability_snapshot()
+                violations = svc.engine.durability_check(snap)
+                self._send_json(200, {
+                    "status": "ok" if not violations else "violated",
+                    "violations": violations, "durability": snap})
+                return
+            elif mod == "scrub":
+                self._ctrl_scrub(params)
+                return
+            elif mod == "rules":
+                self._ctrl_rules(params)
+                return
             elif mod == "devobs":
                 self._ctrl_devobs(params)
                 return
@@ -855,6 +908,120 @@ def _make_handler(svc: HttpService):
                 self._send_json(400, {"error": str(e)})
                 return
             out["specs"] = mgr.status() if mgr is not None else {}
+            self._send_json(200, out)
+
+        def _ctrl_scrub(self, params: dict):
+            """Integrity-scrub control (services/scrub.py): status and
+            the quarantined files; op=tick sweeps once now, op=purge
+            deletes the quarantined files, mb= and interval_s= set the
+            pace. Without a scrub service of its own the server builds
+            one for these calls."""
+            from opengemini_tpu_torch.services.scrub import ScrubService
+
+            scrub = svc.scrub_service
+            if scrub is None:
+                scrub = svc.scrub_service = ScrubService(svc.engine, 3600.0)
+            # both knobs parse before either applies: a bad second one
+            # rejects the whole request
+            staged = []
+            for key, conv, attr in (("mb", int, "mb_per_tick"),
+                                    ("interval_s", float, "interval_s")):
+                if key in params:
+                    try:
+                        val = conv(params[key])
+                        if val <= 0:
+                            raise ValueError(f"{key} must be > 0")
+                    except ValueError as e:
+                        self._send_json(400, {"error": str(e)})
+                        return
+                    staged.append((attr, val))
+            for attr, val in staged:
+                setattr(scrub, attr, val)
+            out = {"status": "ok"}
+            op = params.get("op", "")
+            if op == "tick":
+                out["verified_bytes"] = scrub.tick_now()
+            elif op == "purge":
+                out["purged_files"] = svc.engine.purge_quarantined()
+            elif op:
+                self._send_json(400, {"error": f"unknown op {op!r}"})
+                return
+            out["scrub"] = scrub.status()
+            out["quarantine"] = svc.engine.quarantine_snapshot()
+            self._send_json(200, out)
+
+        def _ctrl_rules(self, params: dict):
+            """The rule engine (promql/rules.py): (none)/status per-group
+            watermark, alerts and tiles; op=declare a group (db, group,
+            [interval_s, lateness_s]) and/or one rule (record=<name> |
+            alert=<name>, expr, [for_s, labels, annotations as JSON]);
+            op=drop a rule (db, group, name) or a group (db, group);
+            op=tick evaluates the due groups now ([now_ns, db]). The
+            manager is built at the first declare, unless OGT_RULES=0."""
+            from opengemini_tpu_torch.promql.rules import (
+                Rule, RuleError, RuleManager, enabled_by_env,
+            )
+
+            op = params.get("op", "")
+            mgr = svc.engine.rules_hook
+            out = {"status": "ok", "enabled": enabled_by_env()}
+            try:
+                if op == "declare":
+                    if mgr is None and enabled_by_env():
+                        mgr = svc.rules_manager = RuleManager(
+                            svc.engine, prom=svc.prom)
+                    if mgr is None:
+                        self._send_json(
+                            400, {"error": "rules disabled (OGT_RULES=0)"})
+                        return
+                    interval_s = (float(params["interval_s"])
+                                  if "interval_s" in params else None)
+                    lateness_s = (float(params["lateness_s"])
+                                  if "lateness_s" in params else None)
+                    if "record" in params or "alert" in params:
+                        kind = ("recording" if "record" in params
+                                else "alerting")
+                        name = params.get("record") or params["alert"]
+                        rule = Rule(
+                            name, params["expr"], kind,
+                            labels=(json.loads(params["labels"])
+                                    if params.get("labels") else None),
+                            for_s=float(params.get("for_s", 0.0)),
+                            annotations=(json.loads(params["annotations"])
+                                         if params.get("annotations")
+                                         else None))
+                        mgr.add_rule(params["db"], params["group"], rule,
+                                     interval_s, lateness_s)
+                    else:
+                        mgr.declare_group(params["db"], params["group"],
+                                          interval_s, lateness_s)
+                elif op == "drop":
+                    if mgr is None:
+                        self._send_json(400, {"error": "no rule manager"})
+                        return
+                    if params.get("name"):
+                        mgr.drop_rule(params["db"], params["group"],
+                                      params["name"])
+                    else:
+                        mgr.drop_group(params["db"], params["group"])
+                elif op == "tick":
+                    if mgr is not None:
+                        out["ticked"] = mgr.tick(
+                            int(params["now_ns"]) if "now_ns" in params
+                            else None,
+                            db=params.get("db") or None)
+                elif op and op != "status":
+                    self._send_json(
+                        400, {"error": f"unknown rules op {op!r}"})
+                    return
+            except KeyError as e:
+                self._send_json(
+                    400, {"error": f"missing parameter {e.args[0]!r}"})
+                return
+            except (RuleError, ValueError, WriteError) as e:
+                self._send_json(400, {"error": str(e)})
+                return
+            out["groups"] = mgr.status() if mgr is not None else {}
             self._send_json(200, out)
 
         def _ctrl_obs(self, params: dict):
@@ -1002,6 +1169,10 @@ def _make_handler(svc: HttpService):
             if not q:
                 self._send_json(400, {"error": "missing required parameter \"q\""})
                 return
+            # the HTTP request's read and decode: the query stage before
+            # the executor's "parse"
+            tracing.record_stage("request",
+                                 time.perf_counter_ns() - self._t_request)
             try:
                 result = svc.executor.execute(q, db=params.get("db", ""),
                                               read_only=read_only)

@@ -46,14 +46,30 @@ rollups (``create_rollup``; storage/rollup.py's manager exists only
 while a spec is declared and ``OGT_ROLLUP`` is not 0, and every write
 path marks its late windows dirty before the rows apply). meta.json
 keeps them under the reference's keys (``cqs``, ``downsample``,
-``streams``, ``rollups``); ``subscriptions`` and any other key this
-port does not interpret are kept as read and written back unchanged.
-The memtable and WAL backlog is the resource governor's ``memtable``
-ledger component (utils/governor.py).
+``streams``, ``rollups``, ``subscriptions``: services/subscriber.py's
+``Subscription``s, which ``create_``/``drop_subscription`` change); any
+key this port does not interpret is kept as read and written back
+unchanged. The memtable and WAL backlog is the resource governor's
+``memtable`` ledger component (utils/governor.py).
+
+The rule engine (promql/rules.py) sets ``rules_hook`` while it runs
+(None keeps every write path as it is: one attribute check): every
+write path marks the tiles its rows touch before they apply and
+releases the mark once they are readable, as for rollups. DROP DATABASE
+removes the database's rule state. ``models`` is the fitted
+anomaly-detection models' store (services/castor.py ``ModelStore``,
+``<root>/models/``).
+
+The durability ledger: ``durability_snapshot`` sums every shard's
+acknowledged-against-durable row counts (storage/shard.py
+``DurabilityLedger``), ``durability_check`` lists the clean shards that
+do not conserve rows, and the ``durability`` stats provider serves the
+totals. A shard directory that hierarchical storage moved to the cold
+tier (a symlink) is removed with its cold copy.
 
 Not in this port yet: the tag-array write mode (the reference's
-``tag_arrays``, which sends such bodies to the Python parser), the
-rule hook of the write path and the durability ledger (ROADMAP A7.2).
+``tag_arrays``, which sends such bodies to the Python parser; ROADMAP
+A9).
 
 ``Engine(root, device=None)`` holds the device every query on it runs
 on: CUDA unless the caller names another (``device="cpu"`` in the
@@ -81,6 +97,7 @@ from opengemini_tpu_torch.storage import diskfault
 from opengemini_tpu_torch.storage.shard import Shard
 from opengemini_tpu_torch.utils.failpoint import inject as _fp
 from opengemini_tpu_torch.utils.governor import GOVERNOR
+from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
 NS = 1_000_000_000
@@ -233,7 +250,7 @@ class StreamTask:
 
 # the keys of a database's meta.json entry this port interprets
 _DB_KEYS = ("name", "default_rp", "rps", "cqs", "downsample", "streams",
-            "dropped_msts", "rollups")
+            "subscriptions", "dropped_msts", "rollups")
 
 
 class Database:
@@ -245,14 +262,15 @@ class Database:
         # rp name -> [DownsamplePolicy]
         self.downsample: dict[str, list[DownsamplePolicy]] = {}
         self.streams: dict[str, StreamTask] = {}
+        # services/subscriber.Subscription by name
+        self.subscriptions: dict[str, object] = {}
         # declared rollups (storage/rollup.RollupSpec)
         self.rollups: dict[str, object] = {}
         # DROP MEASUREMENT marks (meta.json "dropped_msts"): hidden from
         # queries until a purge
         self.dropped_msts: set[str] = set()
-        # keys of meta.json this port does not interpret (subscriptions,
-        # ... of a root the JAX package wrote): kept as read and written
-        # back unchanged
+        # keys of meta.json this port does not interpret: kept as read
+        # and written back unchanged
         self.extra: dict = {}
 
 
@@ -286,12 +304,19 @@ class Engine:
         # (db, rp, group_start) -> Shard
         self._shards: dict[tuple[str, str, int], Shard] = {}
         self._load_meta()
+        self._models = None  # lazy ModelStore (services/castor.py)
         self._load_shards()
         # the rollup manager (storage/rollup.py): built only when a spec
         # is declared and OGT_ROLLUP is not 0; None keeps every write
         # and query path as it is (one attribute check)
         self.rollup_mgr = None
         self._maybe_init_rollups()
+        # the rule engine (promql/rules.py) sets this while it runs;
+        # None keeps every write path as it is (one attribute check)
+        self.rules_hook = None
+        # the acknowledged-against-durable gauges (/debug/vars)
+        self._durability_provider = self._durability_gauges
+        _STATS.register_provider("durability", self._durability_provider)
         # the quarantined-file gauge beside the shards' counters
         self._quarantine_provider = self._quarantine_gauges
         _STATS.register_provider("quarantine", self._quarantine_provider)
@@ -301,6 +326,16 @@ class Engine:
         GOVERNOR.register_component("memtable", self._governor_provider)
 
     # -- metadata -----------------------------------------------------------
+
+    @property
+    def models(self):
+        """Fitted anomaly-detection models (services/castor.py), kept
+        under <root>/models/."""
+        if self._models is None:
+            from opengemini_tpu_torch.services.castor import ModelStore
+
+            self._models = ModelStore(os.path.join(self.root, "models"))
+        return self._models
 
     def _meta_path(self) -> str:
         return os.path.join(self.root, "meta.json")
@@ -326,6 +361,14 @@ class Engine:
             for sj in dbj.get("streams", []):
                 st = StreamTask.from_json(sj)
                 db.streams[st.name] = st
+            if dbj.get("subscriptions"):
+                from opengemini_tpu_torch.services.subscriber import (
+                    Subscription,
+                )
+
+                for sj in dbj["subscriptions"]:
+                    sub = Subscription.from_json(sj)
+                    db.subscriptions[sub.name] = sub
             db.dropped_msts = set(dbj.get("dropped_msts", []))
             if dbj.get("rollups"):
                 from opengemini_tpu_torch.storage.rollup import RollupSpec
@@ -340,8 +383,8 @@ class Engine:
     def _save_meta(self) -> None:
         j = dict(self._meta_extra)
         j.setdefault("obs_shards", [])
-        # the reference's layout, key for key; the uninterpreted keys
-        # (subscriptions first, in its place) are written back as read
+        # the reference's layout, key for key; the uninterpreted keys are
+        # written back as read
         j["databases"] = [
             {"name": db.name, "default_rp": db.default_rp,
              "rps": [rp.to_json() for rp in db.rps.values()],
@@ -349,10 +392,11 @@ class Engine:
              "downsample": {rp: [p.to_json() for p in pols]
                             for rp, pols in db.downsample.items()},
              "streams": [st.to_json() for st in db.streams.values()],
-             "subscriptions": db.extra.get("subscriptions", []),
+             "subscriptions": [s.to_json()
+                               for s in db.subscriptions.values()],
              "dropped_msts": sorted(db.dropped_msts),
              "rollups": [r.to_json() for r in db.rollups.values()],
-             **{k: v for k, v in db.extra.items() if k != "subscriptions"}}
+             **db.extra}
             for db in self.databases.values()
         ]
         tmp = self._meta_path() + ".tmp"
@@ -385,7 +429,7 @@ class Engine:
             for key in [k for k in self._shards if k[0] == name]:
                 shard = self._shards.pop(key)
                 shard.close()
-                shutil.rmtree(shard.path, ignore_errors=True)
+                _remove_shard_dir(shard.path)  # follows cold-tier links
             del self.databases[name]
             self._save_meta()
             shutil.rmtree(os.path.join(self.root, "data", name),
@@ -398,10 +442,13 @@ class Engine:
             else:
                 shutil.rmtree(os.path.join(self.root, "rollup", name),
                               ignore_errors=True)
-            # the rule engine's state directory (ROADMAP A7.2) goes too,
-            # as the reference removes it
-            shutil.rmtree(os.path.join(self.root, "rules", name),
-                          ignore_errors=True)
+            # the same hazard for rule groups: a recreated database
+            # must not inherit their watermarks and alert state
+            if self.rules_hook is not None:
+                self.rules_hook.drop_db_state(name)
+            else:
+                shutil.rmtree(os.path.join(self.root, "rules", name),
+                              ignore_errors=True)
 
     def drop_retention_policy(self, db: str, name: str) -> None:
         with self._lock:
@@ -414,7 +461,7 @@ class Engine:
                         if k[0] == db and k[1] == name]:
                 shard = self._shards.pop(key)
                 shard.close()
-                shutil.rmtree(shard.path, ignore_errors=True)
+                _remove_shard_dir(shard.path)
             if d.default_rp == name:
                 d.default_rp = ("autogen" if "autogen" in d.rps
                                 else next(iter(d.rps), "autogen"))
@@ -631,33 +678,44 @@ class Engine:
         else:
             batch = native_lp.parse_columnar(raw, precision, now_ns)
         if batch is not None:
-            if len(batch) == 0:
-                return 0
-            # pre-apply: a late write's dirty mark is durable before its
-            # rows are (storage/rollup.py); write_done releases the
-            # in-flight fold floor
-            rtok = (self.rollup_mgr.note_write_columnar(db, rp, batch)
-                    if self.rollup_mgr is not None else None)
-            try:
-                tickets: list = []
-                touched: list = []
-                with self._lock:
-                    n = self._write_columnar_locked(
-                        db, rp, batch, raw, precision, now_ns, tickets,
-                        touched)
-                self._commit_and_flush(tickets, touched)
-                _STATS.incr("write", "points", len(batch))
-                if self._write_observers:
-                    self._notify_write(db, rp, batch.to_points())
-                return n
-            finally:
-                if rtok is not None:
-                    self.rollup_mgr.write_done(rtok)
+            return self._write_batch(db, rp, batch, raw, precision, now_ns)
         points = lp.parse_lines(lines, precision, now_ns)
         if not points:
             return 0
         return self._write_points(db, rp, points, lambda sh, pts: (
             sh.write_points(pts, raw, precision, now_ns, defer_commit=True)))
+
+    def _write_batch(self, db: str, rp: str, batch, raw: bytes,
+                     precision: str, now_ns: int) -> int:
+        """Apply one ColumnarBatch whose WAL entry is the line-protocol
+        text `raw`: routed and slab-written under one engine lock, then
+        the WAL commits and threshold flushes off it."""
+        if len(batch) == 0:
+            return 0
+        # pre-apply: a late write's dirty mark is durable before its
+        # rows are (storage/rollup.py); write_done releases the
+        # in-flight fold floor
+        rtok = (self.rollup_mgr.note_write_columnar(db, rp, batch)
+                if self.rollup_mgr is not None else None)
+        utok = None
+        try:
+            if self.rules_hook is not None:
+                utok = self.rules_hook.note_write_columnar(db, rp, batch)
+            tickets: list = []
+            touched: list = []
+            with self._lock:
+                n = self._write_columnar_locked(
+                    db, rp, batch, raw, precision, now_ns, tickets, touched)
+            self._commit_and_flush(tickets, touched)
+            _STATS.incr("write", "points", len(batch))
+            if self._write_observers:
+                self._notify_write(db, rp, batch.to_points())
+            return n
+        finally:
+            if rtok is not None:
+                self.rollup_mgr.write_done(rtok)
+            if utok is not None:
+                self.rules_hook.write_done(utok)
 
     def _write_segmented(self, db: str, rp: str, raw: bytes,
                          precision: str, now_ns: int):
@@ -709,6 +767,7 @@ class Engine:
         tickets: list = []
         touched: list = []
         rtoks = []
+        utoks = []
         try:
             if self.rollup_mgr is not None:
                 # inside the try: a mark failing for batch k still
@@ -718,6 +777,12 @@ class Engine:
                         t = self.rollup_mgr.note_write_columnar(db, rp, batch)
                         if t is not None:
                             rtoks.append(t)
+            if self.rules_hook is not None:
+                for batch in parsed:
+                    if len(batch):
+                        t = self.rules_hook.note_write_columnar(db, rp, batch)
+                        if t is not None:
+                            utoks.append(t)
             with self._lock:
                 # one lock for the whole body, every segment checked
                 # against the live shard schemas before the first
@@ -751,6 +816,8 @@ class Engine:
         finally:
             for t in rtoks:
                 self.rollup_mgr.write_done(t)
+            for t in utoks:
+                self.rules_hook.write_done(t)
 
     def _write_columnar_locked(self, db: str, rp: str, batch, raw: bytes,
                                precision: str, now_ns: int, tickets: list,
@@ -793,7 +860,10 @@ class Engine:
     def _write_points(self, db: str, rp: str, points: list, write) -> int:
         rtok = (self.rollup_mgr.note_write_points(db, rp, points)
                 if self.rollup_mgr is not None else None)
+        utok = None
         try:
+            if self.rules_hook is not None:
+                utok = self.rules_hook.note_write_points(db, rp, points)
             tickets = []
             with self._lock:
                 # group points by target shard (time routing)
@@ -815,6 +885,8 @@ class Engine:
         finally:
             if rtok is not None:
                 self.rollup_mgr.write_done(rtok)
+            if utok is not None:
+                self.rules_hook.write_done(utok)
 
     def _route_columnar_locked(self, db: str, rp: str, batch):
         """Yield (shard, rows) for a ColumnarBatch (vectorized Go-Truncate
@@ -834,6 +906,18 @@ class Engine:
             shard = self._get_or_create_shard(db, rp, int(g))
             rows = None if len(uniq) == 1 else np.flatnonzero(groups == g)
             yield shard, rows
+
+    def write_batch(self, db: str, batch, rp: str | None = None) -> int:
+        """One decoded ColumnarBatch (ingest/native_lp.py; the
+        remote-write route's, ingest/prom_remote.py ``series_batch``) as
+        write_lines applies a parsed body, its WAL entry the batch's
+        line-protocol text (ingest/native_lp.py ``LineWriter``). Every
+        row must have a field."""
+        if self.write_disabled:
+            raise WriteError("writes are disabled (syscontrol)")
+        rp = self._db_rp(db, rp)
+        raw = LineWriter(batch).lines(np.arange(len(batch), dtype=np.int64))
+        return self._write_batch(db, rp, batch, raw, "ns", _time.time_ns())
 
     def load_columnar_batches(self, db: str, batches,
                               rp: str | None = None) -> int:
@@ -860,7 +944,10 @@ class Engine:
             writer = LineWriter(batch)
             rtok = (self.rollup_mgr.note_write_columnar(db, rp, batch)
                     if self.rollup_mgr is not None else None)
+            utok = None
             try:
+                if self.rules_hook is not None:
+                    utok = self.rules_hook.note_write_columnar(db, rp, batch)
                 for shard, rows in routed:
                     rows = np.flatnonzero(has_field) if rows is None else (
                         rows[has_field[rows]])
@@ -878,6 +965,8 @@ class Engine:
             finally:
                 if rtok is not None:
                     self.rollup_mgr.write_done(rtok)
+                if utok is not None:
+                    self.rules_hook.write_done(utok)
             if self._write_observers:
                 self._notify_write(db, rp, batch.to_points())
         _STATS.incr("write", "points", n)
@@ -917,6 +1006,21 @@ class Engine:
             d = self.databases.get(db)
             if d and name in d.streams:
                 del d.streams[name]
+                self._save_meta()
+
+    def create_subscription(self, db: str, sub) -> None:
+        with self._lock:
+            d = self.databases.get(db)
+            if d is None:
+                raise DatabaseNotFound(db)
+            d.subscriptions[sub.name] = sub
+            self._save_meta()
+
+    def drop_subscription(self, db: str, name: str) -> None:
+        with self._lock:
+            d = self.databases.get(db)
+            if d and name in d.subscriptions:
+                del d.subscriptions[name]
                 self._save_meta()
 
     def add_write_observer(self, fn) -> None:
@@ -1022,7 +1126,7 @@ class Engine:
                 shard = self._shards[key]
                 if shard.tmax <= now_ns - rp_meta.duration_ns:
                     shard.close()
-                    shutil.rmtree(shard.path, ignore_errors=True)
+                    _remove_shard_dir(shard.path)
                     del self._shards[key]
                     dropped.append(key)
             if dropped:
@@ -1125,15 +1229,70 @@ class Engine:
         for shard in shards:
             shard.flush()
 
+    # -- the durability ledger ----------------------------------------------
+
+    def durability_snapshot(self) -> dict:
+        """Every shard's acknowledged-against-durable ledger and their
+        totals (storage/shard.py DurabilityLedger). Per shard, `missing`
+        > 0 means acknowledged rows are in neither a memtable nor a
+        published file, < 0 a snapshot published twice; the total sums
+        absolute values, so a loss on one shard never cancels a double
+        publish on another."""
+        with self._lock:
+            shards = list(self._shards.items())
+        agg = {"acked": 0, "replayed": 0, "published": 0, "tsf_rows": 0,
+               "mem_rows": 0, "missing": 0, "dirty_shards": 0,
+               "shards": len(shards)}
+        per_shard = {}
+        for (db, rp, start), sh in shards:
+            snap = sh.ledger_snapshot()
+            per_shard[f"{db}|{rp}|{start}"] = snap
+            for k in ("acked", "replayed", "published", "tsf_rows",
+                      "mem_rows"):
+                agg[k] += snap[k]
+            agg["missing"] += abs(snap["missing"])
+            agg["dirty_shards"] += 1 if snap["dirty"] else 0
+        return {"totals": agg, "shards": per_shard}
+
+    def durability_check(self, snapshot: dict | None = None) -> list[dict]:
+        """The clean shards whose ledger does not conserve rows (acked +
+        replayed == published + in memory); empty when healthy. Pass a
+        durability_snapshot() to check exactly the state reported."""
+        snap = snapshot if snapshot is not None else self.durability_snapshot()
+        return [{"shard": key, **s} for key, s in snap["shards"].items()
+                if not s["dirty"] and s["missing"] != 0]
+
+    def _durability_gauges(self) -> dict:
+        return self.durability_snapshot()["totals"]
+
     def close(self) -> None:
+        _STATS.unregister_provider("durability", self._durability_provider)
         _STATS.unregister_provider("quarantine", self._quarantine_provider)
         if self.rollup_mgr is not None:
             self.rollup_mgr.close()
         GOVERNOR.unregister_component("memtable", self._governor_provider)
+        # the HTTP layer may have pointed the query tracker at this
+        # engine's ledger: a closed engine must neither serve frozen
+        # durability state nor stay pinned in memory
+        TRACKER.detach_durability_provider(self.durability_snapshot)
         with self._lock:
             for shard in self._shards.values():
                 shard.close()
             self._shards.clear()
+
+
+def _remove_shard_dir(path: str) -> None:
+    """Delete a shard directory, following a cold-tier symlink
+    (services/hierarchical.py): the cold copy goes too, then the link,
+    so expired tiered data neither leaks nor comes back at a restart."""
+    if os.path.islink(path):
+        shutil.rmtree(os.path.realpath(path), ignore_errors=True)
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+    else:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 def _downsample_level(shard_path: str) -> int:

@@ -187,7 +187,7 @@ class MemTable:
         b = self._builders.pop(sid)
         if len(b) == 0:
             return
-        rec = b.build().sort_by_time().dedup_last_wins()
+        rec = b.sorted_record()
         mst = self._sid_mst[sid]
         slab = _Slab(mst, np.full(len(rec), sid, np.int64), rec.times,
                      dict(rec.columns))
@@ -284,14 +284,14 @@ class MemTable:
             for sid, b in self._builders.items():
                 if (self._sid_mst.get(sid) == measurement and len(b)
                         and (sid_set is None or sid in sid_set)):
-                    rec = b.build().sort_by_time().dedup_last_wins()
+                    rec = b.sorted_record()
                     parts.append((np.full(len(rec), sid, np.int64), rec))
         return parts
 
     def record_for(self, sid: int) -> Record | None:
         srec = self._slab_record(sid)
         b = self._builders.get(sid)
-        brec = (b.build().sort_by_time().dedup_last_wins()
+        brec = (b.sorted_record()
                 if b is not None and len(b) else None)
         if srec is None:
             return brec

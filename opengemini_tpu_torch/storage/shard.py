@@ -46,6 +46,11 @@ The data lifecycle and media damage:
   like the delete rewrite.
 - **Backlog** (``mem_backlog_bytes``): the memtables and the live WAL,
   the resource governor's write watermark input.
+- **Durability ledger** (``DurabilityLedger``, ``ledger_snapshot``):
+  the rows the shard accepted (acknowledged, or replayed from the WAL
+  at open) against the rows in its memtables and published files,
+  counted where the reference counts them: at the apply, under the
+  shard lock, and at the flush's publish.
 """
 
 from __future__ import annotations
@@ -171,6 +176,49 @@ def _keep_fields(rec: Record, fields) -> Record:
                   {k: v for k, v in rec.columns.items() if k in fields})
 
 
+class DurabilityLedger:
+    """Acknowledged rows against durable rows for one shard.
+
+    Every row the shard accepted (acknowledged when the write call
+    returns, or re-applied by the WAL replay at open) is either still in
+    an in-memory part (the live memtable or a frozen flush snapshot) or
+    went into exactly one published TSF file. `published` counts rows as
+    the memtable counted them (frozen.row_count, before dedup), so
+
+        acked + replayed == published + rows in the memory parts
+
+    holds whenever the shard lock is held: a dropped snapshot shows as a
+    positive `missing`, one published twice as a negative one.
+    `tsf_rows` counts the rows the flush wrote (after last-write-wins
+    dedup): `published - tsf_rows` is duplicate-timestamp collapse.
+    Every change happens under the shard lock; `dirty` marks a shard
+    whose content a delete or downsample rewrote (the counts no longer
+    reconcile)."""
+
+    __slots__ = ("acked", "replayed", "published", "tsf_rows", "dirty")
+
+    def __init__(self):
+        self.acked = 0
+        self.replayed = 0
+        self.published = 0
+        self.tsf_rows = 0
+        self.dirty = False
+
+    def snapshot(self, mem_rows: int) -> dict:
+        missing = self.acked + self.replayed - self.published - mem_rows
+        return {
+            "acked": self.acked,
+            "replayed": self.replayed,
+            "published": self.published,
+            "tsf_rows": self.tsf_rows,
+            "mem_rows": mem_rows,
+            "dirty": self.dirty,
+            # >0: acknowledged rows vanished; <0: a snapshot published
+            # twice
+            "missing": 0 if self.dirty else missing,
+        }
+
+
 class Shard:
     supports_preagg = True  # chunk metadata is local: pre-agg and sketches
 
@@ -223,6 +271,7 @@ class Shard:
         # The `.quar` markers keep quarantine sticky across reopens; the
         # file stays on disk until purge_quarantined
         self._quarantined: dict[str, str] = {}
+        self.ledger = DurabilityLedger()
         self._load_files()
         for r in self._files:
             for mst in r.measurements():
@@ -435,6 +484,7 @@ class Shard:
             points = lp.parse_lines(lines, precision, now_ns)
         else:
             points = entry[1]
+        replayed = 0
         for mst, tags, t, fields in points:
             if self.tmin <= t < self.tmax:
                 sid = self.index.get_or_create(mst, tags)
@@ -442,6 +492,10 @@ class Shard:
                     self.mem.write_row(sid, mst, t, fields)
                 except FieldTypeConflict:
                     continue  # rejected at write time: not replayed either
+                replayed += 1
+        # rows acknowledged before the restart: the ledger's replayed
+        # count, one credit per entry
+        self.ledger.replayed += replayed
 
     # -- write path ---------------------------------------------------------
 
@@ -555,6 +609,9 @@ class Shard:
             self.mem.write_columnar(mst, m_sids, m_ts, cols)
             n += len(m_ts)
         self._note_mutation(int(ts.min()), int(ts.max()) + 1)
+        # under the shard lock, as the rows enter the memtable: the
+        # durability gauges read the ledgers, never counters of their own
+        self.ledger.acked += n
         return n
 
     def _check_types(self, points: list) -> None:
@@ -578,6 +635,7 @@ class Shard:
         if n:
             self._note_mutation(
                 min(p[2] for p in points), max(p[2] for p in points) + 1)
+            self.ledger.acked += n
         return n
 
     # -- flush --------------------------------------------------------------
@@ -669,6 +727,10 @@ class Shard:
             self._frozen = self._frozen[1:]
             if seg is not None:
                 self._stale_wal_segs.append(seg)
+            # the snapshot's rows moved from the memory parts into a
+            # published file, in the same lock hold as the swap
+            self.ledger.published += frozen.row_count
+            self.ledger.tsf_rows += tsf_rows
         _fp("shard-flush-after-publish")
         # the sidecar after the publish: a sidecar failure must not leave
         # the snapshot queued (a retry would write its rows into a second
@@ -997,6 +1059,7 @@ class Shard:
             _retire_files(old)
             # after the swap, as in delete_data
             self._note_mutation(self.tmin, self.tmax)
+            self.ledger.dirty = True  # content rebased: no reconciling
             return rows
 
     # -- delete rewrite -------------------------------------------------------
@@ -1050,6 +1113,7 @@ class Shard:
                 self._files = []
             self._tidx_cache = {}
             _retire_files(old)
+            self.ledger.dirty = True  # rows dropped: accounting rebased
             # the version bump after the swap: a concurrent query that
             # scanned the old files must cache under the old version, so
             # the next execution invalidates it (a bump before the swap
@@ -1110,6 +1174,14 @@ class Shard:
 
     def _mem_parts(self) -> list:
         return [m for m, _seg in self._frozen] + [self.mem]
+
+    def ledger_snapshot(self) -> dict:
+        """The durability ledger's counts with the memory parts' rows,
+        taken under the shard lock: a concurrent write or publish never
+        shows half applied."""
+        with self._lock:
+            mem_rows = sum(len(m) for m in self._mem_parts())
+            return self.ledger.snapshot(mem_rows)
 
     def mem_overlaps_range(self, sid: int, tmin: int, tmax: int) -> bool:
         """Does ANY in-memory part (frozen snapshots or live memtable)

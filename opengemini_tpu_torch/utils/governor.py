@@ -43,9 +43,9 @@ governor-shed, governor-overdraft-kill, governor-backpressure-on,
 governor-backpressure-off. Gauges and counters ride /debug/vars (the
 ``governor`` stats provider), an admission section rides
 /debug/queries (the query tracker's provider), and the admission wait
-lands in the ``admission_wait`` query stage. The shed-burst diagnostic
-hook has no subscriber until the sherlock service is ported (ROADMAP
-A7.2).
+lands in the ``admission_wait`` query stage. A burst of sheds or kills
+fires the diagnostic hook, rate-limited, off-thread: the sherlock
+service (services/sherlock.py) subscribes its dump to it while it runs.
 """
 
 from __future__ import annotations

@@ -9,8 +9,9 @@ point (scan loops check between series, slices, subquery chunks and
 device batch dispatches). A check runs on the host only: a kernel
 already launched finishes, and the query stops before the next one.
 The resource governor (utils/governor.py) sets the admission hook at
-import; the durability hook stays unset until the port has a durability
-ledger (ROADMAP A7.2).
+import; the HTTP service (server/http.py) points the durability hook at
+its engine's ledger (storage/engine.py ``durability_snapshot``), and a
+closed engine detaches it.
 """
 
 from __future__ import annotations

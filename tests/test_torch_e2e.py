@@ -10,6 +10,7 @@ port.
 
 import json
 import math
+import time
 import urllib.parse
 import urllib.request
 
@@ -160,7 +161,7 @@ def test_unsupported_statements_answer_an_error(engines):
     QUERIES lists each package's own running statement: its qid and
     duration differ)."""
     je, te = engines
-    for q in ("SHOW STATS", "SHOW SUBSCRIPTIONS", "SHOW USERS"):
+    for q in ("SHOW STATS", "SHOW DIAGNOSTICS", "SHOW USERS"):
         res = TExecutor(te).execute(q, db="db")
         assert "not supported by this port yet" in res["results"][0]["error"]
     for q in ("SELECT usage_user FROM cpu LIMIT 1", "SHOW MEASUREMENTS",
@@ -168,7 +169,8 @@ def test_unsupported_statements_answer_an_error(engines):
               "SELECT percentile_approx(usage_user, 50) FROM cpu",
               "CREATE CONTINUOUS QUERY cq ON db BEGIN SELECT "
               "mean(usage_user) INTO cpu_1h FROM cpu GROUP BY time(1h) END",
-              "SHOW CONTINUOUS QUERIES"):
+              "SHOW CONTINUOUS QUERIES", "SHOW SUBSCRIPTIONS",
+              "SELECT detect(usage_user, 'mad') FROM cpu"):
         got = TExecutor(te).execute(q, db="db")
         assert "error" not in got["results"][0], got
         assert got == JExecutor(je).execute(q, db="db")
@@ -364,9 +366,26 @@ def test_debug_vars_carry_query_stages(servers):
     after = json.loads(_raw(tport, "GET", "/debug/vars", {})[2])
     stages = after["query_stages"]
     old = before.get("query_stages", {})
-    for stage in ("parse", "map_shards", "scan", "device_compute", "render",
-                  "encode"):
+    for stage in ("request", "parse", "map_shards", "plan", "scan",
+                  "device_compute", "render", "encode"):
         assert stages[f"{stage}_count"] == old.get(f"{stage}_count", 0) + 1
         assert stages[f"{stage}_ns"] > old.get(f"{stage}_ns", 0)
     assert after["write"]["points"] >= 15
     assert after["system"]["uptime_s"] >= 0
+
+
+@pytest.mark.parametrize("method", ["GET", "POST"])
+def test_request_stage_times_each_query_request(servers, method):
+    """The port's "request" stage: one count per /query (GET or POST)
+    that reaches the executor, its time within the request's wall."""
+    _jport, tport = servers
+    q = CHUNKED_Q.replace(" GROUP", CHUNKED_WHERE + " GROUP")
+    before = json.loads(_raw(tport, "GET", "/debug/vars", {})[2])
+    t0 = time.perf_counter_ns()
+    assert _raw(tport, method, "/query", {"db": "d", "q": q})[0] == 200
+    wall_ns = time.perf_counter_ns() - t0
+    old = before.get("query_stages", {})
+    stages = json.loads(_raw(tport, "GET", "/debug/vars", {})[2])[
+        "query_stages"]
+    assert stages["request_count"] == old.get("request_count", 0) + 1
+    assert 0 < stages["request_ns"] - old.get("request_ns", 0) < wall_ns

@@ -14,9 +14,11 @@ reference's hysteresis, background throttling (pause, anti-starvation,
 stop, IO alarm, the governed service's background class), the
 pass-through (a disabled governor is inert, and answers are
 bit-identical with it on and off), /debug/vars, /debug/queries and
-/debug/ctrl?mod=governor, the shed-burst hook, and the quick overload
-soak against the port's server. The cluster surfaces (/internal/*) are
-ROADMAP A8's and the sherlock dump A7.2's, so their cases are not here.
+/debug/ctrl?mod=governor, the shed-burst hook (with the sherlock
+service's dump subscribed to it: the governor's ledger, the slow log
+and the thread stacks on disk), and the quick overload soak against the
+port's server. The cluster surfaces (/internal/*) are ROADMAP A8's, so
+their cases are not here.
 
 Both governors are process globals: the ``governed`` fixture configures
 both and restores their configuration and state after each test.
@@ -762,3 +764,109 @@ def test_overload_soak_quick(tmp_path):
         gov.reset()
         svc.stop()
         eng.close()
+
+
+# -- the sherlock dump ---------------------------------------------------------
+
+def _sherlock(p):
+    if p is JAX:
+        from opengemini_tpu.services import sherlock
+    else:
+        from opengemini_tpu_torch.services import sherlock
+    return sherlock
+
+
+def _stats(p):
+    if p is JAX:
+        from opengemini_tpu.utils.stats import GLOBAL
+    else:
+        from opengemini_tpu_torch.utils.stats import GLOBAL
+    return GLOBAL
+
+
+def _dump_sections(text: str) -> list:
+    return [ln for ln in text.splitlines() if ln.startswith("== ")]
+
+
+def test_sherlock_dump_carries_governor_ledger(governed, engines):
+    sections = []
+    for p in PKGS:
+        svc = _sherlock(p).SherlockService(engines[p.name], cooldown_s=0.0)
+        try:
+            before = _stats(p).counters("sherlock").get("sherlock_dumps", 0)
+            path = svc.diagnose("governor shed/kill burst (test)")
+            assert path is not None
+            with open(path, encoding="utf-8") as f:
+                text = f.read()
+            assert "== governor ==" in text
+            assert "ledger" in text
+            assert "thread stacks" in text
+            assert text.startswith("sherlock dump — trigger: governor "
+                                   "shed/kill burst (test)\n")
+            assert _stats(p).counters("sherlock")["sherlock_dumps"] \
+                == before + 1
+            sections.append(_dump_sections(text))
+        finally:
+            svc.stop()  # detaches the governor hook
+    assert sections[1] == sections[0]
+
+
+def test_shed_burst_fires_the_sherlock_dump(governed, engines):
+    """A started sherlock service subscribes its dump to the governor's
+    burst hook: a burst of sheds writes one dump, and a stopped service
+    is detached again."""
+    for p in PKGS:
+        gov = p.gov
+        gov.configure(max_concurrent=1, queue=0, timeout_ms=50)
+        prev_burst = gov._burst_n
+        gov._burst_n = 5
+        svc = _sherlock(p).SherlockService(engines[p.name], interval_s=3600,
+                                           cooldown_s=0.0)
+        svc.start()
+        try:
+            assert gov._hook == svc.diagnose
+            release = _hold_slot(gov)
+            for _ in range(8):
+                t = threading.Thread(
+                    target=lambda gov=gov, p=p: pytest.raises(
+                        p.gov_mod.AdmissionRejected, gov.admit),
+                    daemon=True)
+                t.start()
+                t.join(timeout=5)
+            release()
+            for _ in range(200):
+                if svc.dumps:
+                    break
+                time.sleep(0.01)
+            assert svc.dumps >= 1
+            out = os.path.join(engines[p.name].root, "sherlock")
+            [name, *_more] = sorted(os.listdir(out))
+            with open(os.path.join(out, name), encoding="utf-8") as f:
+                assert "governor shed/kill burst" in f.readline()
+        finally:
+            svc.stop()
+            gov._burst_n = prev_burst
+        assert gov._hook is None
+
+
+def test_sherlock_dump_embeds_the_slow_log(governed, engines):
+    from opengemini_tpu.utils import slowlog as jslow
+    from opengemini_tpu_torch.utils import slowlog as tslow
+
+    for p in PKGS:
+        slow = jslow.GLOBAL if p is JAX else tslow.GLOBAL
+        prev = slow.snapshot()
+        slow.configure(slow_ms=0.0)
+        try:
+            e = engines[p.name]
+            e.write_lines("db", "m v=1 1700000000000000000")
+            p.executor_cls(e).execute("SELECT count(v) FROM m", db="db")
+            assert slow.snapshot()["records"]
+            svc = _sherlock(p).SherlockService(e, cooldown_s=0.0)
+            with open(svc.diagnose("test"), encoding="utf-8") as f:
+                text = f.read()
+            assert "== slow queries ==" in text
+            assert "SELECT count(v) FROM m" in text
+        finally:
+            slow.configure(slow_ms=prev["threshold_ms"])
+            slow.clear()

@@ -36,7 +36,8 @@ def test_every_module_is_found():
                  *SIXTH_SLICE_MODULES, *SEVENTH_SLICE_MODULES,
                  *EIGHTH_SLICE_MODULES, *NINTH_SLICE_MODULES,
                  *TENTH_SLICE_MODULES, *ELEVENTH_SLICE_MODULES,
-                 *TWELFTH_SLICE_MODULES, *THIRTEENTH_SLICE_MODULES):
+                 *TWELFTH_SLICE_MODULES, *THIRTEENTH_SLICE_MODULES,
+                 *FOURTEENTH_SLICE_MODULES):
         assert must in mods
 
 
@@ -206,6 +207,32 @@ THIRTEENTH_SLICE_MODULES = [
     "opengemini_tpu_torch.query.rollupplan",
 ]
 BLOCKED_IMPORT_MODULES += THIRTEENTH_SLICE_MODULES
+
+# the rule engine and the operations tier: castor, subscriptions, the
+# scrub, sherlock, the monitor, hierarchical storage, the durability
+# ledger, and the modules they changed
+FOURTEENTH_SLICE_MODULES = [
+    "opengemini_tpu_torch.promql.rules",
+    "opengemini_tpu_torch.services.rules",
+    "opengemini_tpu_torch.services.castor",
+    "opengemini_tpu_torch.services.subscriber",
+    "opengemini_tpu_torch.services.scrub",
+    "opengemini_tpu_torch.services.sherlock",
+    "opengemini_tpu_torch.services.monitor",
+    "opengemini_tpu_torch.services.hierarchical",
+    "opengemini_tpu_torch.ops.prom",
+    "opengemini_tpu_torch.storage.shard",
+    "opengemini_tpu_torch.storage.engine",
+    "opengemini_tpu_torch.query.functions",
+    "opengemini_tpu_torch.query.hostpath",
+    "opengemini_tpu_torch.query.showddl",
+    "opengemini_tpu_torch.server.http",
+    "opengemini_tpu_torch.utils.querytracker",
+    "opengemini_tpu_torch.utils.governor",
+]
+BLOCKED_IMPORT_MODULES += FOURTEENTH_SLICE_MODULES
+# the script that times a query's request outside its stages
+BLOCKED_IMPORT_MODULES += ["stage_timeline"]
 
 
 @pytest.mark.parametrize("module", BLOCKED_IMPORT_MODULES)

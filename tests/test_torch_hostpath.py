@@ -122,7 +122,7 @@ HOST_AGG_CASES = [
 ]
 # names the port does not run yet: they raise "not supported"
 HOST_AGG_NOT_PORTED: set[str] = set()
-MULTI_ROW_NOT_PORTED = {"detect"}
+MULTI_ROW_NOT_PORTED: set[str] = set()
 
 
 def test_host_agg_cases_cover_every_name():
@@ -144,7 +144,8 @@ def test_host_agg_matches_jax(name, params, dtype):
 
 @pytest.mark.parametrize("name,params", [
     ("top", (3,)), ("top", (200,)), ("bottom", (4,)), ("sample", (5,)),
-    ("distinct", ()),
+    ("distinct", ()), ("detect", ()), ("detect", ("sigma", 1.0)),
+    ("detect", ("iqr",)), ("detect", ("stl", 2.0)),
 ])
 @pytest.mark.parametrize("dtype", [np.float64, np.int64])
 def test_multi_row_matches_jax(name, params, dtype):

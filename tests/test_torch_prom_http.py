@@ -366,3 +366,67 @@ def test_kill_query_cancels_promql(services, monkeypatch, path, params):
     assert got[0] == 422 and got[1]["errorType"] == "canceled"
     # the next run answers in full
     _both(services, "GET", path, params=params)
+
+
+def _series_with(kind):
+    base = [({"__name__": "rw", "job": "api", "instance": f"i{i}"},
+             [(BASE * 1000 + 15_000 * k, float(k * (i + 1)) + 0.25)
+              for k in range(12)]) for i in range(3)]
+    if kind == "nan":  # no line-protocol form: the points path
+        base[1][1][4] = (base[1][1][4][0], float("nan"))
+        base[2][1][5] = (base[2][1][5][0], float("inf"))
+    elif kind == "newline":  # a label value with a newline: the points
+        base[0][0]["instance"] = "i0\nx"
+    elif kind == "empty_label":  # line protocol drops an empty tag value:
+        base[0][0]["job"] = ""   # the points keep the series as sent
+    elif kind == "escaped":  # separators and quotes in a label value
+        base[1][0]["instance"] = 'i1 a,b=c"d\\'
+    elif kind == "duplicates":  # one timestamp twice: the last one wins
+        base[0][1].append((base[0][1][3][0], 99.0))
+    return base
+
+
+@pytest.mark.parametrize("kind", ["finite", "nan", "newline", "empty_label",
+                                  "escaped", "duplicates", "conflict"])
+def test_remote_write_survives_a_restart(tmp_path, kind):
+    """The port's columnar remote-write path (and its fallback to the
+    points for a value or label with no line-protocol form) answers as
+    the JAX package before and after a restart that replays the WAL, and
+    a field-type conflict answers the same 400."""
+    body = tpw.snappy_compress_literal(write_request(
+        _series_with(kind)))
+    hdr = {"Content-Encoding": "snappy"}
+    qs = [("/query", [("db", "db"), ("epoch", "ns"),
+                      ("q", "SELECT count(value), sum(value), last(value) "
+                            "FROM rw GROUP BY *")]),
+          ("/api/v1/query", [("db", "db"), ("query", "rw"),
+                             ("time", str(BASE + 200))]),
+          ("/api/v1/query", [("db", "db"), ("query", "count_over_time(rw[5m])"),
+                             ("time", str(BASE + 200))])]
+    outs = []
+    for name, eng_cls, svc_cls, kw in (
+            ("j", JEngine, JHttpService, {}),
+            ("t", TEngine, THttpService, {"device": "cpu"})):
+        root = str(tmp_path / name)
+        e = eng_cls(root, **kw)
+        e.create_database("db")
+        if kind == "conflict":
+            e.write_lines("db", f"rw,job=api,instance=i0 value=1i {BASE * NS}")
+        svc = svc_cls(e, "127.0.0.1", 0) if name == "j" else \
+            svc_cls(e, port=0)
+        svc.start()
+        got = [_answer(_req(svc.port, "POST", "/api/v1/prom/write", body,
+                            hdr, [("db", "db")]))]
+        got += [_answer(_req(svc.port, "GET", p, params=q)) for p, q in qs]
+        svc.stop()
+        e.close()
+        e = eng_cls(root, **kw)  # the WAL replays
+        svc = svc_cls(e, "127.0.0.1", 0) if name == "j" else \
+            svc_cls(e, port=0)
+        svc.start()
+        got += [_answer(_req(svc.port, "GET", p, params=q)) for p, q in qs]
+        svc.stop()
+        e.close()
+        outs.append(got)
+    assert outs[1] == outs[0]
+    assert outs[1][0][0] == (400 if kind == "conflict" else 204)

@@ -346,9 +346,13 @@ def test_kill_over_http_and_debug_queries(tmp_path, monkeypatch):
             base + "/debug/queries").read())
         [mine] = [x for x in listed["queries"] if x["query"] == q]
         assert mine["status"] == "running" and mine["database"] == "db"
-        # no durability ledger yet; the governor's admission section is
-        # there, disabled (pass-through), as the reference serves it
-        assert listed["durability"] == {}
+        # the engine's durability ledger (the 400 acknowledged rows, in
+        # the memtable) and the governor's admission section, disabled
+        # (pass-through), as the reference serves them
+        assert listed["durability"] == json.loads(json.dumps(
+            te.durability_snapshot()))
+        assert listed["durability"]["totals"]["acked"] == 400
+        assert listed["durability"]["totals"]["missing"] == 0
         assert listed["admission"]["enabled"] is False
         assert listed["admission"]["queue"] == []
         kill = urllib.request.urlopen(urllib.request.Request(

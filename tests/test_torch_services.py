@@ -12,10 +12,17 @@ answers, errors, policies and ``meta.json`` equal the JAX package's
 (counts, extremes and first/last exact; means and sums at rel 1e-12).
 The downsampled int sum above 2^24 (and one above 2^53) must be exact,
 and a failing CQ must not starve the others. Besides: a root written by
-either package with CQs, streams, downsample policies and retention
-policies reopens in the other with the same metadata and answers, and
-an uninterpreted key of ``meta.json`` (``subscriptions``) is kept as
-read.
+either package with CQs, streams, downsample policies, retention
+policies and subscriptions reopens in the other with the same metadata
+and answers, and writes ``meta.json`` back as read.
+
+The reference's TestMonitorService, TestHierarchicalService,
+TestHierarchicalRegressions and TestSherlock cases run the same way:
+the monitor's ``_internal`` and ``_monitor`` points (each package's own
+statistics, so the measurements and renamed gauges are compared, not
+the counts), a shard moved to the cold tier (a symlink; reads, writes
+and in-flight readers keep working, retention removes the cold copy
+too) and the sherlock watermarks, cooldown and failed-dump retry.
 """
 
 from __future__ import annotations
@@ -679,7 +686,7 @@ class TestCrossPackageMeta:
         finally:
             env.e.close()
         meta0 = json.loads((root / "meta.json").read_text())
-        # a key neither package's continuous tier writes is kept as read
+        # a subscription either package reads and writes back
         meta0["databases"][0]["subscriptions"] = [
             {"name": "sub0", "mode": "ALL",
              "destinations": ["http://127.0.0.1:1"]}]
@@ -699,3 +706,215 @@ class TestCrossPackageMeta:
             e2.close()
         meta1 = json.loads((root / "meta.json").read_text())
         assert meta1 == meta0
+
+
+# -- monitor, hierarchical storage, sherlock ---------------------------------
+
+def _svc_mod(env, name):
+    import importlib
+
+    pkg = "opengemini_tpu" if env.p is JAX else "opengemini_tpu_torch"
+    return importlib.import_module(f"{pkg}.services.{name}")
+
+
+class TestMonitorService:
+    def test_stats_pushed_to_internal(self, tmp_path):
+        def scenario(env):
+            mon = _svc_mod(env, "monitor")
+            mon.STATS.incr("executor", "queries", 5)
+            svc = mon.MonitorService(env.e, interval_s=3600, hostname="n1")
+            svc.tick()
+            res = env.ex.execute("SELECT last(queries) FROM executor",
+                                 db="_internal", now_ns=None)
+            v = res["results"][0]["series"][0]["values"][0][1]
+            assert v >= 5
+            tags = env.ex.execute("SHOW TAG VALUES FROM executor WITH KEY "
+                                  "= hostname", db="_internal")
+            msts = env.ex.execute("SHOW MEASUREMENTS", db="_monitor")
+            names = {r[0] for r in msts["results"][0]["series"][0]["values"]}
+            assert "ogt" in names
+            fields = env.ex.execute("SHOW FIELD KEYS FROM ogt",
+                                    db="_monitor")
+            keys = {r[0] for r in fields["results"][0]["series"][0]["values"]}
+            assert "ogt_executor_queries" in keys
+            # the stats each package keeps differ: the shape is compared
+            return tags, sorted(env.e.databases), "ogt_executor_queries"
+
+        both(tmp_path, scenario)
+
+    def test_empty_snapshot_writes_nothing(self, tmp_path, monkeypatch):
+        def scenario(env):
+            mon = _svc_mod(env, "monitor")
+            monkeypatch.setattr(mon.STATS, "snapshot", lambda: {})
+            mon.MonitorService(env.e, interval_s=3600).tick()
+            monkeypatch.undo()
+            return sorted(env.e.databases)
+
+        assert both(tmp_path, scenario) == ["db"]
+
+
+WEEK_NS = WEEK * NS
+
+
+class TestHierarchicalService:
+    def test_cold_move_keeps_shard_usable(self, tmp_path):
+        import os
+
+        def scenario(env):
+            hier = _svc_mod(env, "hierarchical")
+            env.e.write_lines("db", f"m v=1 {BASE * NS}\nm v=3 "
+                                    f"{(BASE + 1) * NS}")
+            env.e.flush_all()
+            cold = str(env.root / "cold")
+            svc = hier.HierarchicalService(env.e, cold, age_ns=1,
+                                           interval_s=3600)
+            assert svc.handle(now_ns=BASE * NS + 2 * WEEK_NS) == 1
+            [shard] = env.e.all_shards()
+            assert os.path.islink(shard.path)
+            out = [env.q("SELECT sum(v) FROM m")]
+            assert vals(out[0])[0][1] == 4.0
+            env.e.write_lines("db", f"m v=10 {(BASE + 2) * NS}")
+            out.append(env.q("SELECT sum(v) FROM m"))
+            assert vals(out[1])[0][1] == 14.0
+            assert svc.handle(now_ns=BASE * NS + 2 * WEEK_NS) == 0
+            env.e.flush_all()
+            out.append(sorted(os.listdir(os.readlink(shard.path))))
+            return out
+
+        both(tmp_path, scenario)
+
+    def test_relative_cold_dir_absolutized(self, tmp_path, monkeypatch):
+        import os
+
+        def scenario(env):
+            hier = _svc_mod(env, "hierarchical")
+            env.e.write_lines("db", f"m v=1 {BASE * NS}")
+            env.e.flush_all()
+            monkeypatch.chdir(env.root)
+            svc = hier.HierarchicalService(env.e, "cold-rel", age_ns=1,
+                                           interval_s=3600)
+            assert svc.handle(now_ns=BASE * NS + 2 * WEEK_NS) == 1
+            [shard] = env.e.all_shards()
+            target = os.readlink(shard.path)
+            assert os.path.isabs(target) and os.path.isdir(target)
+            return env.q("SELECT count(v) FROM m")
+
+        assert vals(both(tmp_path, scenario))[0][1] == 1
+
+    def test_inflight_readers_survive_tiering(self, tmp_path):
+        def scenario(env):
+            hier = _svc_mod(env, "hierarchical")
+            env.e.write_lines("db", f"m v=7 {BASE * NS}")
+            env.e.flush_all()
+            [shard] = env.e.all_shards()
+            sid = shard.index.get_or_create("m", ())
+            pairs = shard.file_chunks("m", {sid})
+            svc = hier.HierarchicalService(env.e, str(env.root / "cold"),
+                                           age_ns=1)
+            assert svc.handle(now_ns=BASE * NS + 2 * WEEK_NS) == 1
+            got = [r.read_chunk("m", c).columns["v"].values.tolist()
+                   for r, c in pairs]
+            assert got == [[7.0]]
+            return got
+
+        both(tmp_path, scenario)
+
+    def test_retention_removes_cold_copy(self, tmp_path):
+        import os
+
+        def scenario(env):
+            hier = _svc_mod(env, "hierarchical")
+            env.e.create_retention_policy("db", "short",
+                                          duration_ns=24 * 3600 * NS,
+                                          default=True)
+            env.e.write_lines("db", f"m v=1 {BASE * NS}")
+            env.e.flush_all()
+            cold = str(env.root / "cold")
+            svc = hier.HierarchicalService(env.e, cold, age_ns=1)
+            assert svc.handle(now_ns=BASE * NS + WEEK_NS) == 1
+            dropped = env.e.drop_expired_shards(
+                now_ns=BASE * NS + 10 * WEEK_NS)
+            assert len(dropped) == 1
+            # neither the symlink nor the cold copy remains
+            assert not [f for _r, _d, fs in os.walk(cold) for f in fs]
+            data_dir = os.path.join(env.e.root, "data", "db", "short")
+            assert not os.path.exists(data_dir) or not os.listdir(data_dir)
+            return dropped
+
+        both(tmp_path, scenario)
+
+    def test_drop_database_removes_cold_copy(self, tmp_path):
+        import os
+
+        def scenario(env):
+            hier = _svc_mod(env, "hierarchical")
+            env.e.write_lines("db", f"m v=1 {BASE * NS}")
+            env.e.flush_all()
+            cold = str(env.root / "cold")
+            assert hier.HierarchicalService(env.e, cold, age_ns=1).handle(
+                now_ns=BASE * NS + 2 * WEEK_NS) == 1
+            env.e.drop_database("db")
+            return [f for _r, _d, fs in os.walk(cold) for f in fs]
+
+        assert both(tmp_path, scenario) == []
+
+
+class TestSherlock:
+    def test_below_watermark_no_dump(self, tmp_path):
+        def scenario(env):
+            sh = _svc_mod(env, "sherlock")
+            svc = sh.SherlockService(env.e, mem_mb_watermark=10**6,
+                                     thread_watermark=10**6)
+            return svc.handle(), svc.dumps
+
+        assert both(tmp_path, scenario) == (None, 0)
+
+    @pytest.mark.parametrize("trigger", ["rss", "threads"])
+    def test_watermark_dump_and_cooldown(self, tmp_path, trigger):
+        import os
+
+        def scenario(env):
+            sh = _svc_mod(env, "sherlock")
+            kw = ({"mem_mb_watermark": 0.001} if trigger == "rss"
+                  else {"thread_watermark": 0})
+            svc = sh.SherlockService(env.e, cooldown_s=600, **kw)
+            path = svc.handle()
+            assert path and os.path.exists(path)
+            with open(path) as f:
+                content = f.read()
+            assert "thread stacks" in content
+            assert f"trigger: {trigger}" in content
+            # the cooldown suppresses the next dump
+            assert svc.handle() is None
+            return svc.dumps, os.path.dirname(path) == os.path.join(
+                env.e.root, "sherlock")
+
+        assert both(tmp_path, scenario) == (1, True)
+
+    def test_first_dump_immediate_despite_cooldown(self, tmp_path):
+        def scenario(env):
+            sh = _svc_mod(env, "sherlock")
+            svc = sh.SherlockService(env.e, mem_mb_watermark=0.001,
+                                     cooldown_s=10**9)
+            return svc.handle() is not None
+
+        assert both(tmp_path, scenario) is True
+
+    def test_failed_dump_does_not_burn_cooldown(self, tmp_path, monkeypatch):
+        def scenario(env):
+            sh = _svc_mod(env, "sherlock")
+            svc = sh.SherlockService(env.e, mem_mb_watermark=0.001,
+                                     cooldown_s=600)
+
+            def boom(*a):
+                raise OSError("disk full")
+
+            monkeypatch.setattr(svc, "_dump", boom)
+            with pytest.raises(OSError):
+                svc.handle()
+            assert svc.dumps == 0
+            monkeypatch.undo()
+            assert svc.handle() is not None  # retried at once
+            return svc.dumps
+
+        assert both(tmp_path, scenario) == 1

@@ -347,12 +347,15 @@ def test_restart_replays_the_wal(tmp_path, profile):
 
 def test_threshold_flush_and_meta_keys(tmp_path):
     """A write past flush_threshold_bytes flushes the shard; meta.json
-    keys the port does not interpret survive its save."""
+    keys the port does not interpret survive its save, and so do the
+    subscriptions it reads."""
     je = JEngine(str(tmp_path))
     je.create_database("db")
     je.close()
     meta = json.loads((tmp_path / "meta.json").read_text())
-    meta["databases"][0]["subscriptions"] = [{"name": "kept"}]
+    sub = {"name": "kept", "mode": "ALL", "destinations": ["http://h:1"]}
+    meta["databases"][0]["subscriptions"] = [sub]
+    meta["databases"][0]["future_key"] = {"kept": [1, 2]}
     (tmp_path / "meta.json").write_text(json.dumps(meta))
     te = Engine(str(tmp_path), device="cpu", flush_threshold_bytes=1 << 10)
     te.create_database("db2")
@@ -362,7 +365,8 @@ def test_threshold_flush_and_meta_keys(tmp_path):
     assert len(sh.mem) == 0 and len(sh._files) == 1
     te.close()
     meta = json.loads((tmp_path / "meta.json").read_text())
-    assert meta["databases"][0]["subscriptions"] == [{"name": "kept"}]
+    assert meta["databases"][0]["subscriptions"] == [sub]
+    assert meta["databases"][0]["future_key"] == {"kept": [1, 2]}
     assert [d["name"] for d in meta["databases"]] == ["db", "db2"]
 
 

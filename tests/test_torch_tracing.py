@@ -151,7 +151,7 @@ def test_query_stages_rise_per_stage(engines, qname):
     res = TExecutor(te).execute(QUERIES[qname], db="db", now_ns=NOW)
     assert "error" not in res["results"][0]
     after = tstats.GLOBAL.counters("query_stages")
-    for stage in ("parse", *STAGES):
+    for stage in ("parse", "plan", *STAGES):
         assert after[f"{stage}_count"] == before.get(f"{stage}_count", 0) + 1
         assert after[f"{stage}_ns"] > before.get(f"{stage}_ns", 0)
     hist = dict(((n, lab), h) for n, lab, h in tstats.histograms_snapshot())
