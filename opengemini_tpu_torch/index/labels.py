@@ -32,7 +32,7 @@ the influx missing-tag-equals-"" rule. `OGT_LABEL_INDEX=0` disables the
 tier entirely and every caller falls back to the walk.
 
 The port of ``opengemini_tpu/index/labels.py`` for one device: the
-mesh-sharded gather comes with the device mesh (ROADMAP A8). The LUT
+mesh-sharded gather comes with the device mesh (ROADMAP A8.3). The LUT
 gather's device route runs on the device the caller passes (the
 engine's); a caller with no device keeps the host route. A failure of
 the device gather raises: the route decision is a routing rule, not a

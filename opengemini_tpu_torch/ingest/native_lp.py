@@ -126,6 +126,86 @@ class ColumnarBatch:
         return out
 
 
+def keys_read_back(keys: list) -> bool:
+    """Whether one line per key parses back to exactly these keys (a
+    batch's WAL entry is its line-protocol text, and the replay parses
+    it). The native parser is the line parser's equal (storage/engine.py
+    logs a /write body it parsed natively, and its replay parses it in
+    Python)."""
+    from opengemini_tpu_torch.ingest import line_protocol as lp
+
+    if not keys:
+        return True
+    text = "".join(k + " value=0 0\n" for k in keys).encode()
+    try:
+        got = parse_columnar(text, "ns", 0)
+    except lp.ParseError:
+        return False
+    return got is not None and got.series_keys == keys
+
+
+_POINT_DTYPES = {FieldType.FLOAT: np.float64, FieldType.INT: np.int64,
+                 FieldType.BOOL: np.bool_}
+
+
+def points_batch(points: list):
+    """Structured points (measurement, tags, t_ns, {field: (type, v)})
+    as one ColumnarBatch, rows in order, for the engine's columnar write
+    (Engine.write_batch, whose WAL entry is the batch's line protocol);
+    None where the point path must take them: a string field, a float
+    that is not finite, one field with two types, a point without a
+    field, or a series key that does not read back from line protocol as
+    itself."""
+    from opengemini_tpu_torch.ingest.line_protocol import series_key
+
+    keys: list[str] = []
+    ref_of: dict = {}
+    msts: list[str] = []
+    mst_id: dict[str, int] = {}
+    series_mst: list[int] = []
+    refs = np.empty(len(points), np.int64)
+    ts = np.empty(len(points), np.int64)
+    cols: dict[tuple, list] = {}  # (mst id, name) -> [type, rows, values]
+    for i, (mst, tags, t, fields) in enumerate(points):
+        r = ref_of.get((mst, tags))
+        if r is None:
+            r = ref_of[(mst, tags)] = len(keys)
+            keys.append(series_key(mst, tags))
+            m = mst_id.get(mst)
+            if m is None:
+                m = mst_id[mst] = len(msts)
+                msts.append(mst)
+            series_mst.append(m)
+        refs[i] = r
+        ts[i] = t
+        m = series_mst[r]
+        if not fields:
+            return None
+        for name, (ftype, v) in fields.items():
+            col = cols.get((m, name))
+            if col is None:
+                if ftype not in _POINT_DTYPES:
+                    return None
+                col = cols[(m, name)] = [ftype, [], []]
+            elif col[0] != ftype:
+                return None
+            col[1].append(i)
+            col[2].append(v)
+    out = []
+    for (m, name), (ftype, rows, vals) in cols.items():
+        values = np.zeros(len(points), _POINT_DTYPES[ftype])
+        valid = np.zeros(len(points), np.bool_)
+        values[rows] = vals
+        valid[rows] = True
+        if ftype == FieldType.FLOAT and not np.isfinite(values[valid]).all():
+            return None
+        out.append((m, name, ftype, values, valid))
+    if not keys_read_back(keys):
+        return None
+    return ColumnarBatch(ts, refs, keys, np.asarray(series_mst, np.int64),
+                         msts, out)
+
+
 def _offsets_to_strings(arena_ptr, off: np.ndarray) -> list[str]:
     if len(off) <= 1:
         return []

@@ -155,7 +155,7 @@ def series_batch(series):
             t_ms.append(t)
             vals.append(v)
     values = np.asarray(vals, dtype=np.float64)
-    if not np.isfinite(values).all() or not _keys_read_back(keys):
+    if not np.isfinite(values).all() or not native_lp.keys_read_back(keys):
         return None
     ref = np.asarray(refs, dtype=np.int64)
     smst = np.asarray(series_mst, dtype=np.int64)
@@ -164,24 +164,6 @@ def series_batch(series):
             for m in range(len(msts))]
     return native_lp.ColumnarBatch(np.asarray(t_ms, dtype=np.int64) * MS,
                                    ref, keys, smst, msts, cols)
-
-
-def _keys_read_back(keys: list) -> bool:
-    """Whether one line per key parses back to exactly these keys (the
-    WAL replay reads the batch's line-protocol entry). The native parser
-    is the line parser's equal (storage/engine.py logs a /write body
-    it parsed natively, and its replay parses it in Python)."""
-    from opengemini_tpu_torch.ingest import line_protocol as lp
-    from opengemini_tpu_torch.ingest import native_lp
-
-    if not keys:
-        return True
-    text = "".join(k + " value=0 0\n" for k in keys).encode()
-    try:
-        got = native_lp.parse_columnar(text, "ns", 0)
-    except lp.ParseError:
-        return False
-    return got is not None and got.series_keys == keys
 
 
 def decode_read_request(body: bytes) -> list[dict]:

@@ -174,6 +174,12 @@ class GridBatch:
         return (np.concatenate(self._times) if self._times
                 else np.empty(0, np.int64))
 
+    def host_value_multiset(self, num_segments: int):
+        """Rank aggregates never take the grid locally, but the cluster's
+        merge (query/partials.py) may ask any batch for its multiset."""
+        self._ensure_fallback()
+        return self._fallback.host_value_multiset(num_segments)
+
     # -- freeze ----------------------------------------------------------
 
     def _ensure_fallback(self):

@@ -112,6 +112,34 @@ class AggBatch:
         return (np.concatenate(self.times_ns) if self.times_ns
                 else np.empty(0, np.int64))
 
+    def host_value_multiset(self, num_segments: int):
+        """Per-segment (value, count) multiset of the masked rows: (values
+        f64, counts i64, offsets i64[num_segments + 1]), values ascending
+        within each segment. Rank aggregates (percentile, median,
+        count_distinct) recompute exactly from merged multisets, so the
+        cluster's pushdown ships O(groups x distinct) for them
+        (query/partials.py)."""
+        if not self.values:
+            return (np.empty(0, np.float64), np.empty(0, np.int64),
+                    np.zeros(num_segments + 1, np.int64))
+        v = np.concatenate([np.asarray(x, np.float64) for x in self.values])
+        s = np.concatenate([np.asarray(x, np.int64) for x in self.seg_ids])
+        m = np.concatenate(self.mask)
+        keep = m & (s >= 0) & (s < num_segments)
+        v, s = v[keep], s[keep]
+        if len(v) == 0:
+            return (v, np.empty(0, np.int64),
+                    np.zeros(num_segments + 1, np.int64))
+        order = np.lexsort((v, s))
+        v, s = v[order], s[order]
+        new = np.empty(len(v), np.bool_)
+        new[0] = True
+        new[1:] = (s[1:] != s[:-1]) | (v[1:] != v[:-1])
+        starts = np.flatnonzero(new)
+        counts = np.diff(np.append(starts, len(v)))
+        offs = np.searchsorted(s[starts], np.arange(num_segments + 1))
+        return v[starts], counts.astype(np.int64), offs.astype(np.int64)
+
     def counts(self, num_segments: int) -> np.ndarray:
         """Per-segment valid-row counts (cached per batch)."""
         got = self._counts_cache.get(num_segments)

@@ -83,8 +83,10 @@ _KERNELS = {
 }
 
 # launches of each kernel since the last reset_launches(); only the
-# wrappers' kernel branches add to it
+# wrappers' kernel branches add to it, under a lock (a cluster's peers
+# launch from their HTTP handler threads in one process)
 LAUNCHES = {name: 0 for name in _KERNELS}
+_launch_lock = threading.Lock()
 
 _libs: dict = {}
 _build_lock = threading.Lock()
@@ -232,7 +234,8 @@ def _launch(name: str, fn, lib, device: torch.device, *args) -> None:
     if code != 0:
         raise RuntimeError(
             f"{name} launch failed: {lib.ogt_error_string(code).decode()}")
-    LAUNCHES[name] += 1
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _require_cuda_or_cpu(name: str, v: torch.Tensor) -> bool:

@@ -1,7 +1,7 @@
 """PromQL range-vector functions: tiled interval reductions + dense kernels.
 
 The port of ``opengemini_tpu/ops/prom.py`` for one device (the
-mesh-sharded tiled kernels come with the device mesh, ROADMAP A8), with
+mesh-sharded tiled kernels come with the device mesh, ROADMAP A8.3), with
 the rule engine's tile partials (bottom of the module: host numpy
 float64, as the reference keeps them). Reference: the
 store-side prom cursors + reducers (engine/prom_range_vector_cursor.go,

@@ -15,7 +15,7 @@ tiled kernels on the host (numpy) or on the device (torch) as the
 offload planner routes them, where a CPU engine's static route is the
 host and a CUDA engine's the device; the dense kernels (torch) on the
 engine's device. The mesh paths come with the device mesh (ROADMAP
-A8). An evaluation is noted in the slow-query log (utils/slowlog.py);
+A8.3). An evaluation is noted in the slow-query log (utils/slowlog.py);
 the governor's admission is taken by the HTTP routes (server/http.py).
 Knobs: OGT_PROM_TILED, OGT_PROM_BULK_SIDS, OGT_PROM_TILE_CELLS and the
 offload planner's host-kernels switch (OGT_PROM_HOST_KERNELS,

@@ -6,8 +6,8 @@ The port of ``opengemini_tpu/promql/rules.py``, whole, with plain
 A9's). The fold and merge stay host numpy float64, as the reference
 keeps them; the matcher probes (promql/engine.py ``_match_sids``) and
 the fallback leg (``PromEngine.query_instant``) run on the engine's
-device. On one node every group ticks (the cluster's leader-only tick
-is ROADMAP A8's).
+device. In a data-routed cluster only the meta leader's service ticks
+(services/rules.py).
 
 Reference: the Prometheus rule manager (rules/manager.go — groups on an
 interval, recording rules written back as series, alert rules with

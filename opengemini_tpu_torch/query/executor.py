@@ -47,8 +47,21 @@ declared rollup is spliced (query/rollupplan.py, a ``rollup`` span and
 stage): its clean windows below the watermark come from rollup rows,
 inside the result cache's stale set, and only the rest is scanned.
 
-Not in this port yet: cluster routing and auth (ROADMAP A8: the shard
-list is the local one).
+Clustered (``Executor.router``, a parallel/cluster.py ``DataRouter``),
+the shard list is the local one plus the peers': an aggregate whose
+calls all merge (query/partials.py ``MERGEABLE`` and
+``MULTISET_MERGEABLE``) pushes down, each peer computing its
+per-(group, window) partials on its own device (``select_meta`` then
+``select_partials``, merged under a ``remote_partials`` span), retried
+against a fresh live set when a peer dies between the two rounds and
+taken by the raw column exchange when a peer cannot serve partials;
+everything else reads the peers' columns over /internal/scan
+(``RemoteShard``) and aggregates here. With a replication factor above
+1 each shard group is read once, from its primary among the live nodes.
+The result cache, the rollup splice, the device tier and slices stay
+local-only. With ``auth_enabled`` every statement is authorized against
+``users`` (meta/users.py; ``_authorize``), and DDL replicates through
+``meta_store`` (meta/service.py) when one is set.
 
 Every stage of an aggregate SELECT runs in a span (utils/tracing.py):
 ``select: <mst>`` around ``map_shards`` (shard mapping and series
@@ -91,10 +104,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from opengemini_tpu_torch.meta.users import AuthError as _AuthError
+from opengemini_tpu_torch.meta.users import UserStore
 from opengemini_tpu_torch.models import grid as _grid
 from opengemini_tpu_torch.models import ragged, templates
 from opengemini_tpu_torch.ops import aggregates as aggmod
 from opengemini_tpu_torch.ops import window as winmod
+from opengemini_tpu_torch.parallel import cluster as pcluster
 from opengemini_tpu_torch.query import condition as cond
 from opengemini_tpu_torch.query.hostpath import HostPathMixin
 from opengemini_tpu_torch.query.qhelpers import (
@@ -144,6 +160,7 @@ class ScanContext:
     group_tags: list
     group_keys: list
     scan_plan: list
+    live: list | None = None  # the cluster's live set, pinned by the peers
 
 
 # sliced-scan tuning: slice when the estimated scan exceeds this many
@@ -401,17 +418,29 @@ class _ScanStager:
 
 
 class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
-    def __init__(self, engine):
+    def __init__(self, engine, users=None, auth_enabled: bool = False,
+                 meta_store=None):
         self.engine = engine
         self.device = engine.device
+        self.users = users if users is not None else UserStore(
+            os.path.join(engine.root, "users.json"))
+        self.auth_enabled = auth_enabled
+        # clustered: database, RP and user DDL replicates through raft
+        self.meta_store = meta_store
+        # the cluster's data plane (parallel/cluster.DataRouter), or None
+        self.router = None
+        # leader-side user DDL: check-then-propose must not race across
+        # HTTP threads (a second CREATE USER would replace credentials)
+        self._user_ddl_lock = threading.Lock()
         # incremental GROUP BY time() result cache (query/resultcache.py)
         self._inc_cache = rcache.IncrementalCache()
         # per-thread stack of the CTE names being expanded (cycle check)
         self._cte_state = threading.local()
 
     def execute(self, text: str, db: str = "", now_ns: int | None = None,
-                read_only: bool = False) -> dict:
-        """read_only=True (HTTP GET) rejects mutating statements."""
+                read_only: bool = False, user=None) -> dict:
+        """read_only=True (HTTP GET) rejects mutating statements. `user`
+        is the authenticated user when auth is on (privilege checks)."""
         if now_ns is None:
             now_ns = _time.time_ns()
         t0 = _time.perf_counter_ns()
@@ -449,8 +478,9 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 TRACKER.set_trace(qid, trace)
                 with tracing.activate(trace):
                     return self._execute_statements(stmts, db, now_ns,
-                                                    read_only)
-            return self._execute_statements(stmts, db, now_ns, read_only)
+                                                    read_only, user)
+            return self._execute_statements(stmts, db, now_ns, read_only,
+                                            user)
         finally:
             dur_ns = _time.perf_counter_ns() - t1
             if trace is not None:
@@ -465,7 +495,7 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             token.release()
 
     def _execute_statements(self, stmts, db: str, now_ns: int,
-                            read_only: bool) -> dict:
+                            read_only: bool, user=None) -> dict:
         results = []
         for i, stmt in enumerate(stmts):
             try:
@@ -475,20 +505,125 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 if read_only and not _is_readonly(stmt):
                     raise QueryError(
                         f"{type(stmt).__name__} queries must be sent via POST")
+                if self.auth_enabled:
+                    if len(self.users) == 0:
+                        # bootstrap: only creating the first admin is open
+                        if not (isinstance(stmt, ast.CreateUser)
+                                and stmt.admin):
+                            raise _AuthError(
+                                "create an admin user first: CREATE USER "
+                                "<name> WITH PASSWORD '<pw>' WITH ALL "
+                                "PRIVILEGES")
+                    else:
+                        self._authorize(stmt, user, db)
                 if self.engine.read_disabled and isinstance(
                         stmt, (ast.SelectStatement, ast.ExplainStatement)):
                     raise QueryError("reads are disabled (syscontrol)")
-                res = self.execute_statement(stmt, db, now_ns)
+                res = self.execute_statement(stmt, db, now_ns, user=user)
             except (QueryError, cond.ConditionError, KeyError, ValueError,
                     re.error, FieldTypeConflict, WriteError,
                     QueryKilled, FileQuarantined) as e:
                 # FileQuarantined too: the query that found the damage
                 # fails as a statement error (the file is out of the read
-                # set already; a retry answers without it)
+                # set already; a retry answers without it). _AuthError is
+                # not caught: it surfaces as HTTP 401/403
                 res = {"error": str(e)}
             res["statement_id"] = i
             results.append(res)
         return {"results": results}
+
+    def _authorize(self, stmt, user, db: str) -> None:
+        """Privilege checks: READ for selects and SHOWs, WRITE for SELECT
+        INTO, admin for DDL and user management; SET PASSWORD for
+        oneself."""
+        if user is None:
+            raise _AuthError("authorization required")
+        if user.admin:
+            return
+        if isinstance(stmt, ast.SetPassword) and stmt.name == user.name:
+            return
+        if isinstance(stmt, ast.ShowDatabases):
+            return  # any user; the rows are filtered to their databases
+        select = None
+        if isinstance(stmt, ast.ExplainStatement):
+            select = stmt.select
+        elif isinstance(stmt, ast.SelectStatement):
+            select = stmt
+        elif isinstance(stmt, ast.UnionStatement):
+            for sel in stmt.selects:
+                self._authorize(sel, user, db)
+            return
+        if select is not None:
+            # READ on every source database (per-source overrides and
+            # subquery sources too); WRITE on the INTO target's, checked
+            # on the SELECT whether bare or under EXPLAIN ANALYZE
+            for sdb in sorted(self._select_source_dbs(select, db)):
+                if not user.can("READ", sdb):
+                    raise _AuthError(
+                        f"user {user.name!r} lacks READ on {sdb!r}")
+            if select.into is not None:
+                tdb = select.into.database or db
+                if not user.can("WRITE", tdb):
+                    raise _AuthError(
+                        f"user {user.name!r} lacks WRITE on {tdb!r}")
+            return
+        if isinstance(
+            stmt,
+            (ast.ShowMeasurements, ast.ShowTagKeys, ast.ShowTagValues,
+             ast.ShowFieldKeys, ast.ShowSeries, ast.ShowRetentionPolicies,
+             ast.ShowContinuousQueries, ast.ShowMeasurementCardinality,
+             ast.ShowSeriesCardinality, ast.ShowSeriesExactCardinality),
+        ):
+            if user.can("READ", getattr(stmt, "database", "") or db):
+                return
+            raise _AuthError(f"user {user.name!r} lacks READ on {db!r}")
+        raise _AuthError(
+            f"user {user.name!r} is not authorized (admin required)")
+
+    @staticmethod
+    def _select_source_dbs(select, default_db: str) -> set:
+        """Every database a SELECT reads from, subqueries included."""
+        dbs = set()
+        seen: set[int] = set()
+
+        def walk(s):
+            if s is None or id(s) in seen:
+                return
+            seen.add(id(s))
+            if isinstance(s, ast.UnionStatement):
+                for sel in s.selects:
+                    walk(sel)
+                return
+            if not s.sources:
+                dbs.add(default_db)
+            for src in s.sources:
+                walk_src(src, s)
+            walk_cond(s.condition)
+
+        def walk_src(src, owner):
+            if isinstance(src, ast.SubQuery):
+                walk(src.stmt)
+            elif isinstance(src, ast.JoinSource):
+                walk_src(src.left, owner)
+                walk_src(src.right, owner)
+            elif owner.ctes and src.name in owner.ctes:
+                walk(owner.ctes[src.name])
+            else:
+                dbs.add(src.database or default_db)
+
+        def walk_cond(e):
+            if e is None:
+                return
+            if isinstance(e, ast.InSubquery):
+                walk(e.stmt)
+            elif isinstance(e, ast.BinaryExpr):
+                walk_cond(e.lhs)
+                walk_cond(e.rhs)
+            elif isinstance(e, (ast.ParenExpr, ast.UnaryExpr)):
+                walk_cond(e.expr)
+
+        walk(select)
+        return dbs
 
     def _explain(self, stmt: ast.ExplainStatement, db: str,
                  now_ns: int) -> dict:
@@ -845,6 +980,12 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
         for sh in self.engine.shards_for_range(db, src.rp or None,
                                                cond.MIN_TIME, cond.MAX_TIME):
             names.update(m for m in sh.measurements() if rx.search(m))
+        if self.router is not None:
+            try:
+                remote = self.router.remote_measurements(db, src.rp or None)
+            except Exception as e:  # noqa: BLE001
+                raise QueryError(str(e)) from e
+            names.update(m for m in remote if rx.search(m))
         return sorted(names)
 
     def _measurement_schema(self, db, rp, mst) -> dict:
@@ -877,21 +1018,57 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
         if kind == "raw":
             return self._select_raw(stmt, db, rp, mst, now_ns)
         if kind == "device":
-            return self._select_agg_run(stmt, db, rp, mst, now_ns, trace)
+            return self._select_agg(stmt, db, rp, mst, now_ns, trace)
         return self._select_host(stmt, db, rp, mst, now_ns)
 
     # -- shared scan planning ----------------------------------------------
 
-    def _scan_context(self, stmt, db, rp, mst, now_ns):
+    def _all_shards_with_remote(self, db, rp, mst, condition, now_ns,
+                                remote_mode="raw"):
+        """The local shards and, clustered, the peers' data. remote_mode
+        "raw": RemoteShard row proxies (the column exchange); "meta": one
+        MetaShard with the peers' tag keys, schema and extent, the rows
+        arriving later as partials (the pushdown). Returns (shards,
+        live node list | None)."""
+        shards = self.engine.shards_for_range(db, rp, cond.MIN_TIME,
+                                              cond.MAX_TIME)
+        live = None
+        if self.router is not None:
+            pre = cond.split(condition, set(), now_ns)
+            try:
+                if remote_mode == "meta":
+                    meta, live = self.router.select_meta(
+                        db, rp, mst, pre.tmin, pre.tmax)
+                    remote = []
+                    if meta is not None and meta["dmin"] is not None:
+                        remote = [pcluster.MetaShard(
+                            mst, meta["tag_keys"], meta["schema"],
+                            meta["dmin"], meta["dmax"])]
+                else:
+                    remote, live = self.router.scan_shards(
+                        db, rp, mst, pre.tmin, pre.tmax)
+            except pcluster.PartialsUnavailable:
+                # a live peer refused the metadata round: the pushdown
+                # driver falls back to the raw column exchange
+                raise
+            except Exception as e:  # noqa: BLE001 — partial data is wrong
+                raise QueryError(str(e)) from e
+            if self.router.rf > 1:
+                # replicated groups: keep those this node is primary for
+                # among the live set, or replicas would count twice
+                shards = [sh for sh in shards
+                          if self.router.is_primary(db, rp, sh.tmin, live)]
+            shards = shards + remote
+        return shards, live
+
+    def _scan_context(self, stmt, db, rp, mst, now_ns, remote_mode="raw"):
         """Shared prologue: schema/tag keys, WHERE split, shard mapping,
         data-driven range clamp, window grid, group construction. Returns
         None when nothing matches."""
         if self.engine.is_measurement_dropped(db, mst):
             return None  # mark-deleted: hidden from SELECT before a purge
-        # the local shards: the port is single-node (the reference's
-        # remote shard proxies are ROADMAP A8)
-        shards_all = self.engine.shards_for_range(db, rp, cond.MIN_TIME,
-                                                  cond.MAX_TIME)
+        shards_all, live = self._all_shards_with_remote(
+            db, rp, mst, stmt.condition, now_ns, remote_mode)
         tag_keys: set[str] = set()
         schema: dict[str, FieldType] = {}
         for sh in shards_all:
@@ -979,23 +1156,59 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 scan_plan.append((sh, sid, gid))
         if hinted:
             sc.mixed_series_level = True  # consumed at the series level
-        if not scan_plan:
+        if not scan_plan and not (remote_mode == "meta" and live is not None):
+            # a clustered "meta" scan goes on with an empty local plan:
+            # the groups may exist only as the peers' partials
             return None
         return ScanContext(sc, shards, tmin, tmax, schema, tag_keys,
                            group_time, aligned, W, group_tags, group_keys,
-                           scan_plan)
+                           scan_plan, live)
 
     # -- aggregate path -----------------------------------------------------
 
-    def _select_agg_run(self, stmt, db, rp, mst, now_ns,
-                        trace=tracing.NOOP) -> list[dict]:
+    def _select_agg(self, stmt, db, rp, mst, now_ns,
+                    trace=tracing.NOOP) -> list[dict]:
+        """An aggregate SELECT, pushed down to the peers when clustered
+        and every call merges from partials."""
+        from opengemini_tpu_torch.query import partials as pmod
+
         aggs = []  # (call, spec, params, field_name)
         for f in stmt.fields:
             for call in _calls_in(f.expr):
                 spec, params, field_name = _resolve_call(call)
                 aggs.append((call, spec, params, field_name))
+        pushdown = (
+            self.router is not None
+            # getattr: a stub router without the full surface keeps the
+            # raw column exchange
+            and getattr(self.router, "has_peers", lambda: False)()
+            and all(spec.name in pmod.MERGEABLE
+                    or spec.name in pmod.MULTISET_MERGEABLE
+                    for _c, spec, _p, _f in aggs)
+            and not any(f.lower() == "time" for _c, _s, _p, f in aggs)
+        )
+        attempts = max(self.router.rf, 1) if pushdown else 1
+        for attempt in range(attempts):
+            try:
+                return self._select_agg_run(stmt, db, rp, mst, now_ns, aggs,
+                                            pushdown, trace)
+            except pcluster.PartialsUnavailable:
+                # a live peer cannot serve partials: the raw exchange can
+                return self._select_agg_run(stmt, db, rp, mst, now_ns, aggs,
+                                            False, trace)
+            except pcluster.PartialsRetry as e:
+                # a peer died mid-query: the primaries moved, so the whole
+                # plan (live set, local primary filter) is stale
+                if attempt == attempts - 1:
+                    raise QueryError(str(e)) from e
+        raise AssertionError("unreachable")
+
+    def _select_agg_run(self, stmt, db, rp, mst, now_ns, aggs,
+                        pushdown=False, trace=tracing.NOOP) -> list[dict]:
         with trace.span("map_shards") as sp:
-            ctx = self._scan_context(stmt, db, rp, mst, now_ns)
+            ctx = self._scan_context(
+                stmt, db, rp, mst, now_ns,
+                remote_mode="meta" if pushdown else "raw")
             if ctx is not None:
                 sp.add_field("shards", len(ctx.shards))
                 sp.add_field("series", len(ctx.scan_plan))
@@ -1060,6 +1273,8 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             # OGT_RESULT_CACHE=0 opts out (A/B runs must see every
             # execution, not one per panel)
             and os.environ.get("OGT_RESULT_CACHE", "1") not in ("", "0")
+            and self.router is None
+            and ctx.live is None
             and not time_aggs
             and len(group_keys) <= 20_000  # cache growth gate
             and W <= 16_384  # > _MAX_WINDOWS would evict itself every run
@@ -1094,6 +1309,8 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             and group_time is not None
             and aggs
             and not time_aggs
+            and self.router is None
+            and ctx.live is None
             and self.engine.rollup_mgr is not None
         ):
             rollup_plan = rplan.try_plan(
@@ -1161,7 +1378,9 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
         # local GROUP BY time() scan signs its grid buffers so identical
         # scans reuse them (a sliced scan signs each slice)
         device_token = None
-        if group_time is not None and colcache_mod.GLOBAL.device_enabled():
+        if (group_time is not None and self.router is None
+                and ctx.live is None
+                and colcache_mod.GLOBAL.device_enabled()):
             device_token = _device_scan_token(
                 db, rp, mst, sc, group_time, ctx.group_tags,
                 stmt.group_by_all_tags, tmin, tmax, aligned, W, dtype,
@@ -1179,6 +1398,8 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             and not time_aggs
             and not pre_eligible
             and not no_scan
+            and self.router is None
+            and ctx.live is None
             and W >= 8
         ):
             slice_plan = _plan_scan_slices(
@@ -1347,6 +1568,14 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 sp.add_field("compile_wall_ms", round(
                     dv_after["compile_wall_ms"]
                     - dv_before["compile_wall_ms"], 3))
+        if pushdown and ctx.live is not None and any(
+                isinstance(sh, pcluster.MetaShard) for sh in shards):
+            # the pushdown: the peers computed the same grid over their
+            # shards; merge their O(groups x windows) partial arrays
+            group_keys = list(group_keys)
+            self._merge_peer_partials(
+                db, rp, mst, ctx, sc, aligned, W, group_time, group_keys,
+                per_field_aggs, agg_results, aggs, batches, trace)
         if rollup_plan is not None:
             # before the cache merge: the cache persists the spliced
             # windows (they sit in its stale set) from these arrays
@@ -1359,6 +1588,43 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
         with trace.span("render"):
             return self._render_agg(stmt, mst, ctx.group_tags, group_keys,
                                     aligned, W, agg_results, batches, schema)
+
+    def _merge_peer_partials(self, db, rp, mst, ctx, sc, aligned, W,
+                             group_time, group_keys, per_field_aggs,
+                             agg_results, aggs, batches, trace) -> None:
+        """The remote_partials round: send the coordinator's plan to the
+        live peers, graft their span subtrees, and fold their partials
+        into agg_results (group_keys gains the peers' own groups)."""
+        from opengemini_tpu_torch.query import partials as pmod
+        from opengemini_tpu_torch.sql import astjson
+
+        with trace.span("remote_partials") as sp:
+            req = {
+                "db": db, "rp": rp, "mst": mst,
+                "tmin": ctx.tmin, "tmax": ctx.tmax, "aligned": aligned,
+                "every_ns": group_time.every_ns if group_time else 0,
+                "offset_ns": group_time.offset_ns if group_time else 0,
+                "W": W, "group_tags": ctx.group_tags,
+                "aggs": per_field_aggs,
+                "tag_expr": astjson.to_json(sc.tag_expr),
+                "field_expr": astjson.to_json(sc.field_expr),
+                "mixed_expr": astjson.to_json(sc.mixed_expr),
+                "mixed_series_level": sc.mixed_series_level,
+                # the coordinator's tag keys: a peer evaluates mixed trees
+                # against the same classification (a tag its own index
+                # lacks still injects as an empty string)
+                "tag_keys": sorted(sc.tag_keys),
+            }
+            peer_docs = self.router.select_partials(req, ctx.live)
+            for doc in peer_docs:
+                # each peer's subtree (shipped in its partials header)
+                # under this span: the wire ctx fixed its parentage
+                trace.graft(doc.pop("trace", None))
+            if peer_docs:
+                pmod.merge_remote_partials(
+                    agg_results, aggs, batches, group_keys, W, peer_docs,
+                    ctx.group_tags)
+            sp.add_field("peers", len(peer_docs))
 
     def _scan_monolithic(self, scan_plan, scan_ranges, sc, mst, group_time,
                          tmin, W, needed_fields, read_fields, dtype, aligned,
@@ -1397,7 +1663,8 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             by_shard.setdefault(id(sh), (sh, []))[1].append((sid, gid))
         remaining_plan = []
         for sh, pairs in by_shard.values():
-            if len(pairs) < 64:
+            # a peer's RemoteShard has no bulk read: per series
+            if len(pairs) < 64 or not hasattr(sh, "read_series_bulk"):
                 remaining_plan.extend((sh, sid, gid) for sid, gid in pairs)
                 continue
             sid_list = np.asarray([p[0] for p in pairs], np.int64)

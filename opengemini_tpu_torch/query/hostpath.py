@@ -32,8 +32,9 @@ quarantined through its shard (``FileQuarantined``). ``detect(field,
 '<name>')`` reads a fitted model of that name once per query (the
 engine's model store, services/castor.py).
 
-Not in this port yet: remote shards (ROADMAP A8: the shard list is the
-local one).
+Clustered, a raw select and the host functions read the peers' columns
+too (``_all_shards_with_remote``: RemoteShard proxies over
+/internal/scan), per series, since a proxy has no bulk read.
 """
 
 from __future__ import annotations
@@ -295,7 +296,7 @@ class HostPathMixin:
         bulk: dict[tuple, np.ndarray] = {}
         bulk_shards = set()
         for sh, sids in merged.values():
-            if len(sids) < _BULK_SERIES:
+            if len(sids) < _BULK_SERIES or not hasattr(sh, "read_series_bulk"):
                 continue
             TRACKER.check()
             bulk_shards.add(id(sh))
@@ -1177,8 +1178,8 @@ class HostPathMixin:
         with trace.span("map_shards"):
             if self.engine.is_measurement_dropped(db, mst):
                 return []  # mark-deleted: hidden from SELECT pre-purge
-            shards_all = self.engine.shards_for_range(
-                db, rp, cond.MIN_TIME, cond.MAX_TIME)
+            shards_all, _live = self._all_shards_with_remote(
+                db, rp, mst, stmt.condition, now_ns)
             tag_keys: set[str] = set()
             schema: dict[str, FieldType] = {}
             for sh in shards_all:
@@ -1323,7 +1324,8 @@ class HostPathMixin:
             parts: dict[tuple, tuple] = {}
             for sh, entries in by_shard.values():
                 TRACKER.check()  # KILL QUERY cancellation point
-                if bulk_ok and len(entries) >= _BULK_SERIES:
+                if (bulk_ok and len(entries) >= _BULK_SERIES
+                        and hasattr(sh, "read_series_bulk")):
                     parts.update(_raw_bulk(sh, entries, mst, sc,
                                            read_fields, spec, keep,
                                            stmt.ascending))

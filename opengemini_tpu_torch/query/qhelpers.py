@@ -935,6 +935,14 @@ def _series_needs_merged_decode(sh, mst, sid, tmin, tmax):
     return False, srcs
 
 
+def _shard_mem_time_range(sh):
+    """(min, max) of a shard's in-memory rows, frozen flush snapshots
+    included; a peer's stand-in (parallel/cluster.py) carries its data
+    extent as ``mem``."""
+    f = getattr(sh, "mem_time_range", None)
+    return f() if f is not None else (sh.mem.min_time, sh.mem.max_time)
+
+
 def _data_time_range(shards, mst):
     """(min, max) ns over the shards' rows: chunk metadata of the files,
     then the memtables."""
@@ -943,7 +951,7 @@ def _data_time_range(shards, mst):
         for _r, c in sh.file_chunks(mst):
             dmin = c.tmin if dmin is None else min(dmin, c.tmin)
             dmax = c.tmax if dmax is None else max(dmax, c.tmax)
-        m_lo, m_hi = sh.mem_time_range()
+        m_lo, m_hi = _shard_mem_time_range(sh)
         if m_lo is not None:
             dmin = m_lo if dmin is None else min(dmin, m_lo)
             dmax = m_hi if dmax is None else max(dmax, m_hi)

@@ -21,13 +21,17 @@ MODEL fits services/castor.py's detector on its SELECT's values and
 keeps it in the engine's model store; ``detect(field, '<model>')``
 scores against it).
 
-The port is single-node, so the reference's raft replication of DDL
-(``_replicate_ddl``, ``_check_fsm_db``) becomes the local engine call.
-Every other statement of the reference answers a "not supported by this
-port yet" error naming the ROADMAP item that owns it (``_NOT_PORTED``):
-users, grants and SHOW CLUSTER (A8); SHOW STATS and SHOW DIAGNOSTICS
-(A9). UNION statements run
-through query/join.py's ``execute_union``.
+CREATE, DROP and SET PASSWORD of users, GRANT, REVOKE, SHOW USERS and
+SHOW GRANTS act on the executor's ``users`` (meta/users.py); SHOW
+CLUSTER lists the meta members and the data nodes with the router's
+failure view. Clustered (``meta_store`` set), the database, retention
+policy, CQ, stream, subscription, downsample, model and user DDL is
+proposed through the raft meta store on its leader (``_replicate_ddl``,
+``_user_ddl``; a follower answers "not the meta leader") and reaches
+each node's engine through the store's listener; single-node it is the
+local call. SHOW STATS and SHOW DIAGNOSTICS answer a "not supported by
+this port yet" error naming ROADMAP A9 (``_NOT_PORTED``). UNION
+statements run through query/join.py's ``execute_union``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import re
 import numpy as np
 
 from opengemini_tpu_torch.ingest.line_protocol import series_key
+from opengemini_tpu_torch.meta.users import AuthError, UserStore
 from opengemini_tpu_torch.query import condition as cond
 from opengemini_tpu_torch.ops import aggregates as aggmod
 from opengemini_tpu_torch.query.qhelpers import (
@@ -49,7 +54,7 @@ from opengemini_tpu_torch.services.stream import validate_stream_select
 from opengemini_tpu_torch.services.subscriber import Subscription
 from opengemini_tpu_torch.sql import ast
 from opengemini_tpu_torch.storage.engine import (
-    ContinuousQuery, DownsamplePolicy, StreamTask,
+    ContinuousQuery, DownsamplePolicy, StreamTask, _auto_shard_duration,
 )
 from opengemini_tpu_torch.utils import tracing
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
@@ -68,14 +73,6 @@ _SHOW_STMTS = (
 
 # statement type -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    ast.CreateUser: "A8",
-    ast.DropUser: "A8",
-    ast.SetPassword: "A8",
-    ast.GrantStatement: "A8",
-    ast.RevokeStatement: "A8",
-    ast.ShowUsers: "A8",
-    ast.ShowGrants: "A8",
-    ast.ShowCluster: "A8",
     ast.ShowStats: "A9",
     ast.ShowDiagnostics: "A9",
 }
@@ -103,7 +100,157 @@ class ShowDdlMixin:
         "boolean": {"first", "last"},
     }
 
-    def execute_statement(self, stmt, db: str, now_ns: int) -> dict:
+    # -- the meta plane ------------------------------------------------------
+
+    def _replicate_ddl(self, cmd: dict) -> bool:
+        """Propose a DDL command through the raft meta store when
+        clustered: True when proposed and applied (the engine change
+        arrives through the store's listener), False single-node (the
+        caller makes the local call). A follower raises."""
+        if self.meta_store is None:
+            return False
+        self._require_leader()
+        if not self.meta_store.propose_and_wait(cmd):
+            raise QueryError("meta proposal failed (no quorum?)")
+        return True
+
+    def _check_fsm_db(self, name: str) -> None:
+        """Clustered: the leader's FSM must hold the database before a
+        db-scoped command is proposed (the FSM ignores an unknown one).
+        Leadership first: a lagging follower redirects, never answers
+        "not found" from its stale FSM."""
+        if self.meta_store is None:
+            return
+        self._require_leader()
+        if name not in self.meta_store.fsm.databases:
+            raise QueryError(f"database not found: {name}")
+
+    def _require_leader(self) -> None:
+        if self.meta_store is not None and not self.meta_store.is_leader():
+            leader = self.meta_store.leader_hint() or "unknown"
+            raise QueryError(
+                f"not the meta leader; retry against node {leader!r}")
+
+    def _require_user(self, name: str) -> None:
+        if name not in self.users.users:
+            raise AuthError(f"user not found: {name}")
+
+    def _user_ddl(self, validate_fn, cmd_fn) -> bool:
+        """Replicated user DDL: leadership first, then validation and the
+        proposal under one lock (check-then-propose across HTTP threads
+        would overwrite credentials). False single-node."""
+        if self.meta_store is None:
+            return False
+        with self._user_ddl_lock:
+            self._require_leader()
+            validate_fn()
+            if not self.meta_store.propose_and_wait(cmd_fn()):
+                raise QueryError("meta proposal failed (no quorum?)")
+        return True
+
+    def _show_cluster(self) -> dict:
+        """SHOW CLUSTER: the meta members (leader or follower) and the
+        registered data nodes with the router's failure view (the quorum
+        view over the local probe)."""
+        rows = []
+        if self.meta_store is None:
+            rows.append(["local", "", "meta,data", "leader", ""])
+        else:
+            leader = self.meta_store.leader_hint()
+            members = self.meta_store.meta_members()
+            for nid in sorted(members):
+                status = "leader" if nid == leader else "follower"
+                rows.append([nid, members[nid], "meta", status, ""])
+            router = self.router
+            health = getattr(router, "health", {}) if router else {}
+            shared = getattr(router, "shared_health", {}) if router else {}
+            down_since = getattr(router, "down_since", {}) if router else {}
+            for nid, info in sorted(self.meta_store.fsm.nodes.items()):
+                status = "registered"
+                if nid in shared:
+                    status = "up" if shared[nid] else "down"
+                elif nid in health:
+                    status = "up" if health[nid] else "down"
+                since = down_since.get(nid)
+                rows.append([nid, info.get("addr", ""),
+                             info.get("role", "data"), status,
+                             cond.format_rfc3339(int(since * 1e9))
+                             if since else ""])
+        return {"series": [_series(
+            "cluster", None, ["id", "addr", "role", "status", "down_since"],
+            rows)]}
+
+    def _user_statement(self, stmt) -> dict:
+        """CREATE/DROP USER, SET PASSWORD, GRANT, REVOKE, SHOW USERS and
+        SHOW GRANTS (credentials hashed at the proposal, so a snapshot
+        rebuilds every replica's store)."""
+        if isinstance(stmt, ast.CreateUser):
+            def _validate_create():
+                if stmt.name in self.users.users:
+                    raise AuthError(f"user already exists: {stmt.name}")
+
+            def _cmd_create():
+                salt, pw_hash = UserStore.make_credentials(stmt.password)
+                return {"op": "create_user", "name": stmt.name,
+                        "salt": salt, "hash": pw_hash, "admin": stmt.admin}
+
+            if not self._user_ddl(_validate_create, _cmd_create):
+                self.users.create(stmt.name, stmt.password, stmt.admin)
+            return {}
+        if isinstance(stmt, ast.DropUser):
+            if not self._user_ddl(
+                    lambda: self._require_user(stmt.name),
+                    lambda: {"op": "drop_user", "name": stmt.name}):
+                self.users.drop(stmt.name)
+            return {}
+        if isinstance(stmt, ast.SetPassword):
+            def _cmd_setpw():
+                salt, pw_hash = UserStore.make_credentials(stmt.password)
+                return {"op": "set_password", "name": stmt.name,
+                        "salt": salt, "hash": pw_hash}
+
+            if not self._user_ddl(lambda: self._require_user(stmt.name),
+                                  _cmd_setpw):
+                self.users.set_password(stmt.name, stmt.password)
+            return {}
+        if isinstance(stmt, ast.GrantStatement):
+            admin_grant = not stmt.database and stmt.privilege == "ALL"
+            cmd = ({"op": "grant_admin", "user": stmt.user, "admin": True}
+                   if admin_grant
+                   else {"op": "grant", "user": stmt.user,
+                         "db": stmt.database, "privilege": stmt.privilege})
+            if not self._user_ddl(lambda: self._require_user(stmt.user),
+                                  lambda: cmd):
+                if admin_grant:
+                    self.users.grant_admin(stmt.user)
+                else:
+                    self.users.grant(stmt.user, stmt.database,
+                                     stmt.privilege)
+            return {}
+        if isinstance(stmt, ast.RevokeStatement):
+            admin_revoke = not stmt.database and stmt.privilege == "ALL"
+            cmd = ({"op": "grant_admin", "user": stmt.user, "admin": False}
+                   if admin_revoke
+                   else {"op": "revoke", "user": stmt.user,
+                         "db": stmt.database})
+            if not self._user_ddl(lambda: self._require_user(stmt.user),
+                                  lambda: cmd):
+                if admin_revoke:
+                    self.users.grant_admin(stmt.user, admin=False)
+                else:
+                    self.users.revoke(stmt.user, stmt.database)
+            return {}
+        if isinstance(stmt, ast.ShowUsers):
+            rows = [[u.name, u.admin] for u in self.users.users.values()]
+            return _series_result("", None, ["user", "admin"], sorted(rows))
+        u = self.users.users.get(stmt.user)  # ShowGrants
+        if u is None:
+            raise QueryError(f"user not found: {stmt.user}")
+        rows = [[db_, p] for db_, p in sorted(u.privileges.items())]
+        return _series_result("", None, ["database", "privilege"], rows)
+
+    def execute_statement(self, stmt, db: str, now_ns: int,
+                          user=None) -> dict:
         if isinstance(stmt, ast.SelectStatement):
             STATS.incr("executor", "selects")
             res = self._select(stmt, db, now_ns)
@@ -123,38 +270,73 @@ class ShowDdlMixin:
         if isinstance(stmt, _SHOW_STMTS):
             # the index and metadata reads of a SHOW, one query stage
             with tracing.current().span("show"):
-                return self._show(stmt, db)
+                return self._show(stmt, db, user)
         if isinstance(stmt, ast.CreateMeasurement):
             return {}  # schema-on-write engine: accept and record nothing
         if isinstance(stmt, ast.CreateDatabase):
-            self.engine.create_database(stmt.name)
+            if not self._replicate_ddl({"op": "create_database",
+                                        "name": stmt.name}):
+                self.engine.create_database(stmt.name)
             if stmt.has_rp_clause:
-                self.engine.create_retention_policy(
-                    stmt.name, stmt.rp_name or "autogen", stmt.duration_ns,
-                    stmt.shard_duration_ns, default=True)
+                rp_name = stmt.rp_name or "autogen"
+                cmd = {"op": "create_rp", "db": stmt.name, "name": rp_name,
+                       "duration_ns": stmt.duration_ns,
+                       "shard_duration_ns": stmt.shard_duration_ns,
+                       "default": True}
+                if not self._replicate_ddl(cmd):
+                    self.engine.create_retention_policy(
+                        stmt.name, rp_name, stmt.duration_ns,
+                        stmt.shard_duration_ns, default=True)
             return {}
         if isinstance(stmt, ast.DropDatabase):
-            self.engine.drop_database(stmt.name)
+            if not self._replicate_ddl({"op": "drop_database",
+                                        "name": stmt.name}):
+                self.engine.drop_database(stmt.name)
             return {}
         if isinstance(stmt, ast.CreateRetentionPolicy):
             tgt = stmt.database or db
+            self._check_fsm_db(tgt)
             _check_rp_min_duration(stmt.duration_ns)
-            self.engine.create_retention_policy(
-                tgt, stmt.name, stmt.duration_ns, stmt.shard_duration_ns,
-                stmt.default)
+            cmd = {"op": "create_rp", "db": tgt, "name": stmt.name,
+                   "duration_ns": stmt.duration_ns,
+                   "shard_duration_ns": stmt.shard_duration_ns,
+                   "default": stmt.default}
+            if not self._replicate_ddl(cmd):
+                self.engine.create_retention_policy(
+                    tgt, stmt.name, stmt.duration_ns, stmt.shard_duration_ns,
+                    stmt.default)
             return {}
         if isinstance(stmt, ast.AlterRetentionPolicy):
+            tgt = stmt.database or db
+            self._check_fsm_db(tgt)
             _check_rp_min_duration(stmt.duration_ns)
-            try:
-                self.engine.alter_retention_policy(
-                    stmt.database or db, stmt.name, stmt.duration_ns,
-                    stmt.shard_duration_ns, stmt.default)
-            except ValueError as e:
-                raise QueryError(str(e)) from None
+            if self.meta_store is not None:
+                self._check_fsm_alter(tgt, stmt)
+            cmd = {"op": "alter_rp", "db": tgt, "name": stmt.name,
+                   "duration_ns": stmt.duration_ns,
+                   "shard_duration_ns": stmt.shard_duration_ns,
+                   "default": stmt.default}
+            if not self._replicate_ddl(cmd):
+                try:
+                    self.engine.alter_retention_policy(
+                        tgt, stmt.name, stmt.duration_ns,
+                        stmt.shard_duration_ns, stmt.default)
+                except ValueError as e:
+                    raise QueryError(str(e)) from None
             return {}
         if isinstance(stmt, ast.DropRetentionPolicy):
-            self.engine.drop_retention_policy(stmt.database or db, stmt.name)
+            cmd = {"op": "drop_rp", "db": stmt.database or db,
+                   "name": stmt.name}
+            if not self._replicate_ddl(cmd):
+                self.engine.drop_retention_policy(stmt.database or db,
+                                                  stmt.name)
             return {}
+        if isinstance(stmt, (ast.CreateUser, ast.DropUser, ast.SetPassword,
+                             ast.GrantStatement, ast.RevokeStatement,
+                             ast.ShowUsers, ast.ShowGrants)):
+            return self._user_statement(stmt)
+        if isinstance(stmt, ast.ShowCluster):
+            return self._show_cluster()
         if isinstance(stmt, ast.DropMeasurement):
             # mark + deferred purge (the reference's MarkMeasurementDelete)
             self.engine.mark_measurement_delete(db, stmt.name)
@@ -176,12 +358,19 @@ class ShowDdlMixin:
             return {}
         if isinstance(stmt, ast.CreateContinuousQuery):
             tgt = stmt.database or db
-            self.engine.create_continuous_query(tgt, ContinuousQuery(
-                stmt.name, stmt.select_text,
-                stmt.resample_every_ns, stmt.resample_for_ns))
+            self._check_fsm_db(tgt)
+            cq = ContinuousQuery(stmt.name, stmt.select_text,
+                                 stmt.resample_every_ns,
+                                 stmt.resample_for_ns)
+            if not self._replicate_ddl({"op": "create_cq", "db": tgt,
+                                        "cq": cq.to_json()}):
+                self.engine.create_continuous_query(tgt, cq)
             return {}
         if isinstance(stmt, ast.DropContinuousQuery):
-            self.engine.drop_continuous_query(stmt.database or db, stmt.name)
+            tgt = stmt.database or db
+            if not self._replicate_ddl({"op": "drop_cq", "db": tgt,
+                                        "name": stmt.name}):
+                self.engine.drop_continuous_query(tgt, stmt.name)
             return {}
         if isinstance(stmt, ast.ShowContinuousQueries):
             series = []
@@ -196,11 +385,16 @@ class ShowDdlMixin:
                 validate_stream_select(stmt.select)
             except ValueError as e:
                 raise QueryError(str(e)) from None
-            self.engine.create_stream(db, StreamTask(
-                stmt.name, stmt.select_text, stmt.delay_ns))
+            self._check_fsm_db(db)
+            task = StreamTask(stmt.name, stmt.select_text, stmt.delay_ns)
+            if not self._replicate_ddl({"op": "create_stream", "db": db,
+                                        "task": task.to_json()}):
+                self.engine.create_stream(db, task)
             return {}
         if isinstance(stmt, ast.DropStream):
-            self.engine.drop_stream(db, stmt.name)
+            if not self._replicate_ddl({"op": "drop_stream", "db": db,
+                                        "name": stmt.name}):
+                self.engine.drop_stream(db, stmt.name)
             return {}
         if isinstance(stmt, ast.ShowStreams):
             series = []
@@ -212,8 +406,10 @@ class ShowDdlMixin:
         if isinstance(stmt, ast.CreateDownsample):
             return self._create_downsample(stmt, db)
         if isinstance(stmt, ast.DropDownsample):
-            self.engine.drop_downsample_policies(stmt.database or db,
-                                                 stmt.rp or None)
+            tgt = stmt.database or db
+            cmd = {"op": "drop_downsample", "db": tgt, "rp": stmt.rp or None}
+            if not self._replicate_ddl(cmd):
+                self.engine.drop_downsample_policies(tgt, stmt.rp or None)
             return {}
         if isinstance(stmt, ast.ShowDownsamples):
             return self._show_downsamples(stmt, db)
@@ -226,12 +422,18 @@ class ShowDdlMixin:
                     raise QueryError(
                         "subscription destination must be an http(s) "
                         f"URL: {dest!r}")
-            self.engine.create_subscription(
-                stmt.database or db,
-                Subscription(stmt.name, stmt.mode, stmt.destinations))
+            tgt = stmt.database or db
+            self._check_fsm_db(tgt)
+            sub = Subscription(stmt.name, stmt.mode, stmt.destinations)
+            if not self._replicate_ddl({"op": "create_subscription",
+                                        "db": tgt, "sub": sub.to_json()}):
+                self.engine.create_subscription(tgt, sub)
             return {}
         if isinstance(stmt, ast.DropSubscription):
-            self.engine.drop_subscription(stmt.database or db, stmt.name)
+            tgt = stmt.database or db
+            if not self._replicate_ddl({"op": "drop_subscription", "db": tgt,
+                                        "name": stmt.name}):
+                self.engine.drop_subscription(tgt, stmt.name)
             return {}
         if isinstance(stmt, ast.ShowSubscriptions):
             series = []
@@ -279,7 +481,10 @@ class ShowDdlMixin:
                 raise QueryError(str(e)) from e
             doc["name"] = stmt.name
             doc["source"] = stmt.select_text
-            self.engine.models.save(stmt.name, doc)
+            # clustered, the fitted artifact replicates like other DDL
+            if not self._replicate_ddl(
+                    {"op": "save_model", "name": stmt.name, "doc": doc}):
+                self.engine.models.save(stmt.name, doc)
             return {}
         if isinstance(stmt, ast.ShowModels):
             rows = []
@@ -298,7 +503,8 @@ class ShowDdlMixin:
                 rows)
         if stmt.name not in self.engine.models.names():
             raise QueryError(f"model not found: {stmt.name}")
-        self.engine.models.drop(stmt.name)
+        if not self._replicate_ddl({"op": "drop_model", "name": stmt.name}):
+            self.engine.models.drop(stmt.name)
         return {}
 
     def _delete(self, stmt, db: str, now_ns: int) -> dict:
@@ -377,20 +583,57 @@ class ShowDdlMixin:
                     f"downsample aggregate {agg!r} is not supported for "
                     f"{tname} fields (one of: {', '.join(sorted(allowed))})")
             aggmod.get(agg)  # registry sanity; the allow-list is a subset
-        d = self.engine.databases.get(tgt)
-        if d is None:
-            raise QueryError(f"database not found: {tgt}")
-        if stmt.rp not in d.rps:
-            raise QueryError(f"retention policy not found: {tgt}.{stmt.rp}")
-        if d.downsample.get(stmt.rp):
+        self._check_fsm_db(tgt)
+        if self.meta_store is not None:
+            fsm_db = self.meta_store.fsm.databases[tgt]
+            if stmt.rp not in fsm_db.get("rps", {}):
+                raise QueryError(
+                    f"retention policy not found: {tgt}.{stmt.rp}")
+            if stmt.rp in fsm_db.get("downsample", {}):
+                raise QueryError(
+                    f"downsample already exists on {tgt}.{stmt.rp}")
+            d = None
+        else:
+            d = self.engine.databases.get(tgt)
+            if d is None:
+                raise QueryError(f"database not found: {tgt}")
+            if stmt.rp not in d.rps:
+                raise QueryError(
+                    f"retention policy not found: {tgt}.{stmt.rp}")
+        if d is not None and d.downsample.get(stmt.rp):
             raise QueryError(f"downsample already exists on {tgt}.{stmt.rp}")
         policies = [
             DownsamplePolicy(samples[i], times[i], dict(stmt.type_aggs))
             for i in range(len(samples))
         ]
-        self.engine.set_downsample_policies(tgt, stmt.rp, policies,
-                                            ttl_ns=stmt.ttl_ns)
+        cmd = {"op": "add_downsample", "db": tgt, "rp": stmt.rp,
+               "ttl_ns": stmt.ttl_ns,
+               "policies": [p.to_json() for p in policies]}
+        if not self._replicate_ddl(cmd):
+            self.engine.set_downsample_policies(tgt, stmt.rp, policies,
+                                                ttl_ns=stmt.ttl_ns)
         return {}
+
+    def _check_fsm_alter(self, tgt: str, stmt) -> None:
+        """Clustered ALTER RETENTION POLICY: validate against the FSM
+        before proposing (a bad alter would apply as a silent no-op)."""
+        fsm_db = self.meta_store.fsm.databases[tgt]
+        rp = fsm_db.get("rps", {}).get(stmt.name)
+        if rp is None:
+            raise QueryError(f"retention policy not found: {stmt.name}")
+        cur_dur = rp.get("duration_ns", 0)
+        new_dur = cur_dur if stmt.duration_ns is None else stmt.duration_ns
+        new_sd = stmt.shard_duration_ns
+        if new_sd is None:
+            # the FSM keeps None when CREATE RP had no SHARD DURATION: the
+            # engine computed one, mirrored here
+            new_sd = rp.get("shard_duration_ns") or _auto_shard_duration(
+                cur_dur)
+        elif not new_sd:  # an explicit 0 recomputes the layout
+            new_sd = _auto_shard_duration(new_dur)
+        if new_dur and new_dur < new_sd:
+            raise QueryError("retention policy duration must be greater "
+                             "than the shard duration")
 
     def _show_downsamples(self, stmt, db: str) -> dict:
         tgt = stmt.database or db
@@ -411,10 +654,13 @@ class ShowDdlMixin:
 
     # -- metadata SHOWs -----------------------------------------------------
 
-    def _show(self, stmt, db: str) -> dict:
+    def _show(self, stmt, db: str, user=None) -> dict:
         if isinstance(stmt, ast.ShowDatabases):
+            names = self.engine.database_names()
+            if self.auth_enabled and user is not None and not user.admin:
+                names = [n for n in names if user.privileges.get(n)]
             return _series_result("databases", None, ["name"],
-                                  [[n] for n in self.engine.database_names()])
+                                  [[n] for n in names])
         if isinstance(stmt, ast.ShowMeasurements):
             return self._show_measurements(stmt, db)
         if isinstance(stmt, ast.ShowTagKeys):
@@ -455,6 +701,11 @@ class ShowDdlMixin:
         names: set[str] = set()
         for sh in self._all_shards_db(db):
             names.update(m for m in sh.measurements() if self._visible(db, m))
+        if self.router is not None:
+            try:
+                names.update(self.router.remote_measurements(db, None))
+            except Exception as e:  # noqa: BLE001
+                raise QueryError(str(e)) from e
         if stmt.regex:
             rx = re.compile(stmt.regex)
             names = {n for n in names if rx.search(n)}

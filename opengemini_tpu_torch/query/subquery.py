@@ -9,9 +9,9 @@ caller's device, and the outer select runs on it through the port's own
 ``Executor``, so the inner and the outer aggregates both go through
 ``pick_batch`` and the device kernels. The chunk loop checks for KILL
 QUERY before each chunk, and a killed query closes and removes its
-spill engine on the way out. One difference from the reference: INTO
-writes locally (the reference routes them to a cluster's shard owners,
-ROADMAP A8).
+spill engine on the way out. Clustered, SELECT INTO's rows go through
+the router's ``routed_write`` to their shard groups' owners, as any
+write does.
 """
 
 from __future__ import annotations
@@ -267,8 +267,16 @@ class SubqueryMixin:
                                    row[0], fields))
         if not points:
             return 0
-        # local write: the reference routes INTO rows to a cluster's shard
-        # owners (self.router), which is ROADMAP A8's
+        if self.router is not None:
+            # INTO rows go to their shard groups' owners like any write:
+            # rows kept only here would count twice in merged scans
+            from opengemini_tpu_torch.parallel.cluster import RemoteScanError
+
+            try:
+                return self.router.routed_write(
+                    tgt_db, target.rp or None, points)
+            except (OSError, RemoteScanError) as e:
+                raise QueryError(f"INTO forward failed: {e}") from e
         return self.engine.write_rows(tgt_db, points, rp=target.rp or None)
 
     def _select_from_subquery(self, stmt, src: ast.SubQuery, db: str,

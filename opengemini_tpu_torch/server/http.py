@@ -72,6 +72,34 @@ standard library's threading HTTP server:
   POST     /api/v1/prom/write  Prometheus remote write (snappy prompb)
   POST     /api/v1/prom/read   Prometheus remote read (snappy answer)
   POST     /api/v1/otlp/metrics  OTLP/HTTP metrics (protobuf, gzip ok)
+and, clustered (``meta_store``, ``router`` set by whoever wires the
+node; parallel/cluster.py, meta/service.py), the JAX server's
+cluster routes with its bodies, so a node of either package serves the
+other:
+  POST     /raft/msg    a raft message for the meta store
+  GET      /raft/status the meta store's status (credentials stripped)
+  POST     /raft/join, /raft/remove  membership changes (leader only)
+  GET      /cluster/health  this node's probe view (X-Ogt-Token)
+  POST     /cluster/register, /cluster/deregister, /cluster/placement
+                        roster and placement proposals (leader only)
+  POST     /internal/write  structured points from a coordinator
+  POST     /internal/select_meta, /internal/select_partials  the
+                        aggregate pushdown (query/partials.py: the
+                        partials computed on this engine's device)
+  POST     /internal/scan, /internal/measurements, /internal/groups
+                        raw columns (JSON or the binary wire), names
+  POST     /debug/ctrl  mod=netfault (src, dst, path, action; clear=1)
+                        and mod=cluster (probe_timeout_s, rpc_retries,
+                        cb_threshold, cb_cooldown_s; op=hints|health)
+With a router, /write splits the body by shard-group owner
+(``routed_write``, param ``consistency=any|one|quorum|all``). Every
+/internal/* and /cluster/* body carries the cluster token
+(``meta_store.token``). With ``auth_enabled`` the client routes take
+Basic auth or u/p (meta/users.py): /query through the executor's
+privilege checks (403), the writes WRITE and the PromQL routes READ on
+their database (401 without a user); with no user yet only the first
+admin's CREATE USER is open. ``tls`` ({"certfile", "keyfile"}) serves
+every route over TLS, the handshake on the connection's thread.
 The resource governor (utils/governor.py) sheds /query, the PromQL
 query routes and remote read with 503 and ``Retry-After`` when its
 admission queue is full or its wait deadline passes, and /write,
@@ -90,6 +118,7 @@ from the other files.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 import math
@@ -100,6 +129,7 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from opengemini_tpu_torch import __version__
+from opengemini_tpu_torch.meta.users import AuthError
 from opengemini_tpu_torch.ingest.line_protocol import ParseError
 from opengemini_tpu_torch.promql.engine import PromEngine, PromError
 from opengemini_tpu_torch.promql.parser import PromParseError
@@ -180,16 +210,46 @@ def _prom_step(s: str | None) -> float:
         return parse_duration_s(s)
 
 
+class _TLSThreadingServer(ThreadingHTTPServer):
+    """The TLS handshake runs on the connection's own thread: accept()
+    hands back the raw connection (do_handshake_on_connect=False), and
+    finish_request, already on the per-connection thread, shakes hands
+    with a bound, so one stalled client cannot block new connections."""
+
+    def finish_request(self, request, client_address):
+        import socket
+        import ssl
+
+        try:
+            request.settimeout(30)
+            request.do_handshake()
+            request.settimeout(None)
+        except (ssl.SSLError, OSError, socket.timeout):
+            try:
+                request.close()
+            except OSError:
+                pass
+            return
+        super().finish_request(request, client_address)
+
+
 class HttpService:
     """Owns the HTTP listener; one Engine + Executor behind it. Port 0
     binds a free port (read it back from ``.port``)."""
 
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 8086,
-                 prom_db: str = "prom"):
+                 prom_db: str = "prom", auth_enabled: bool = False,
+                 tls: dict | None = None):
         self.engine = engine
-        self.executor = Executor(engine)
+        self.auth_enabled = auth_enabled
+        self.executor = Executor(engine, auth_enabled=auth_enabled)
+        self.users = self.executor.users
         self.prom = PromEngine(engine)
         self.prom_db = prom_db
+        # clustered: the raft meta store and the data router, set by
+        # whoever wires the node (the executor holds the same two)
+        self.meta_store = None
+        self.router = None
         # the rule manager (promql/rules.py) and the integrity scrub
         # (services/scrub.py): set by whoever starts them, or at the first
         # /debug/ctrl declare or scrub call
@@ -198,7 +258,19 @@ class HttpService:
         # SHOW QUERIES and /debug/queries pair the running queries with
         # the engine's acknowledged-against-durable ledger
         TRACKER.set_durability_provider(engine.durability_snapshot)
-        self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
+        handler = _make_handler(self)
+        if tls:
+            import ssl
+
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(tls["certfile"], tls["keyfile"])
+            self.httpd = _TLSThreadingServer((host, port), handler)
+            self.httpd.socket = ctx.wrap_socket(
+                self.httpd.socket, server_side=True,
+                do_handshake_on_connect=False)
+        else:
+            self.httpd = ThreadingHTTPServer((host, port), handler)
+        self.tls_enabled = bool(tls)
         self.port = self.httpd.server_address[1]
         self._thread: threading.Thread | None = None
 
@@ -305,6 +377,112 @@ def _make_handler(svc: HttpService):
                 body.update(extra)
             self._send_json(status, body, headers={"X-Ogt-Errno": str(code)})
 
+        def _authenticate(self, params: dict):
+            """Basic auth or the u/p params (influx 1.x): the user, None
+            when auth is off or no user exists yet (the bootstrap), or
+            False after answering 401."""
+            if not svc.auth_enabled or len(svc.users) == 0:
+                return None
+            import base64
+
+            name = params.get("u")
+            pw = params.get("p")
+            header = self.headers.get("Authorization", "")
+            if name is None and header.startswith("Basic "):
+                try:
+                    raw = base64.b64decode(header[6:]).decode("utf-8")
+                    name, _, pw = raw.partition(":")
+                except Exception:  # noqa: BLE001
+                    name = None
+            if name is None:
+                self._send_json(401, {"error": "unable to parse "
+                                               "authentication credentials"})
+                return False
+            try:
+                return svc.users.authenticate(name, pw or "")
+            except AuthError as e:
+                self._send_err(401, e)
+                return False
+
+        def _check_write_auth(self, params: dict, db: str) -> bool:
+            """WRITE on `db` (401 without a user, 403 without the
+            privilege) and a database named; False after answering."""
+            user = self._authenticate(params)
+            if user is False:
+                return False
+            if svc.auth_enabled and not (user and user.can("WRITE", db)):
+                self._send_json(401 if user is None else 403,
+                                {"error": f"write not authorized on {db!r}"})
+                return False
+            if not db:
+                self._send_json(400, {"error": "database is required"})
+                return False
+            return True
+
+        def _check_read_auth(self, params: dict, db: str) -> bool:
+            """READ on `db` for the PromQL routes; False after answering."""
+            user = self._authenticate(params)
+            if user is False:
+                return False
+            if svc.auth_enabled and not (user and user.can("READ", db)):
+                self._send_json(401 if user is None else 403,
+                                {"status": "error",
+                                 "error": "read not authorized"})
+                return False
+            return True
+
+        def _cluster_token_ok(self, sent, token=None) -> bool:
+            """The shared cluster token (the meta store's, or `token`)
+            vouches for a peer's call; with auth on and no token, peer
+            routes are closed. Answers 403 and returns False on a
+            refusal."""
+            if token is None:
+                token = (getattr(svc.meta_store, "token", "")
+                         if svc.meta_store is not None else "")
+            if token and sent != token:
+                self._send_json(403, {"error": "bad cluster token"})
+                return False
+            if not token and svc.auth_enabled:
+                self._send_json(403, {"error": "cluster token required"})
+                return False
+            return True
+
+        def _internal_request(self, body: bytes) -> dict | None:
+            """A peer's /internal/* body, parsed and its token checked;
+            None after answering the refusal."""
+            try:
+                req = json.loads(body)
+            except ValueError:
+                req = None
+            if not isinstance(req, dict) or not req.get("db"):
+                self._send_json(400, {"error": "db required"})
+                return None
+            if not self._cluster_token_ok(req.get("token")):
+                return None
+            return req
+
+        def _primary_filter(self, req):
+            """rf > 1: serve only the groups this node is primary for
+            among the caller's live set, so each counts once."""
+            live = req.get("live")
+            if (int(req.get("rf", 1)) > 1 and live
+                    and svc.router is not None):
+                return lambda sh: svc.router.is_primary(
+                    req["db"], req.get("rp"), sh.tmin, live)
+            return None
+
+        def _not_leader(self) -> bool:
+            """Answer 409 with the leader's id and address when this
+            node is not the meta leader."""
+            if svc.meta_store.is_leader():
+                return False
+            hint = svc.meta_store.leader_hint()
+            self._send_json(409, {
+                "error": "not the meta leader", "leader": hint,
+                "leader_addr": svc.meta_store.meta_members().get(
+                    hint or "", "")})
+            return True
+
         def _send_chunked(self, result: dict, chunk_size: int):
             """Influx chunked answer: newline-delimited JSON documents,
             one per series (or per chunk_size rows of one), each
@@ -406,6 +584,25 @@ def _make_handler(svc: HttpService):
             elif path.startswith("/api/v1/"):
                 self._form_pairs = ()
                 self._handle_prom(path, self._params())
+            elif path == "/raft/status" and svc.meta_store is not None:
+                if self._authenticate(self._params()) is False:
+                    return
+                self._send_json(200, svc.meta_store.status())
+            elif path == "/cluster/health" and svc.router is not None:
+                # this node's probe view for the quorum failure view
+                # (DataRouter.exchange_health), token-gated
+                if not self._cluster_token_ok(
+                        self.headers.get("X-Ogt-Token", ""),
+                        getattr(svc.router, "token", "")):
+                    return
+                ts = svc.router.health_ts
+                self._send_json(200, {
+                    "id": svc.router.self_id,
+                    "health": svc.router.health,
+                    # the probe's relative age: the voters' staleness cut
+                    # must not depend on the nodes' clocks agreeing
+                    "age_s": (time.time() - ts) if ts else None,
+                })
             else:
                 self._send_json(404, {"error": "not found"})
 
@@ -483,16 +680,269 @@ def _make_handler(svc: HttpService):
                     for k, v in urllib.parse.parse_qs(text).items():
                         params.setdefault(k, v[-1])
                 self._handle_prom(path, params)
+            elif path == "/raft/msg" and svc.meta_store is not None:
+                self._handle_raft_msg(body)
+            elif path == "/internal/write":
+                self._handle_internal_write(body)
+            elif path in ("/internal/select_meta",
+                          "/internal/select_partials"):
+                self._handle_internal_select(path, body)
+            elif path == "/internal/groups":
+                if self._internal_request(body) is None:
+                    return
+                self._send_json(200, {"groups": [
+                    [db, rp, start]
+                    for (db, rp, start) in sorted(svc.engine._shards)]})
+            elif path in ("/internal/scan", "/internal/measurements"):
+                self._handle_internal_scan(path, body)
+            elif path in ("/cluster/register", "/cluster/deregister",
+                          "/cluster/placement") \
+                    and svc.meta_store is not None:
+                self._handle_cluster_roster(path, body)
+            elif path in ("/raft/join", "/raft/remove") \
+                    and svc.meta_store is not None:
+                self._handle_raft_conf(path, body)
             else:
                 self._send_json(404, {"error": "not found"})
+
+        # -- the cluster's routes ------------------------------------------
+
+        def _handle_raft_msg(self, body: bytes) -> None:
+            from opengemini_tpu_torch.meta.raft import RaftNode
+
+            try:
+                msg = json.loads(body)
+            except ValueError:
+                msg = None
+            if not RaftNode.valid_message(msg):
+                self._send_json(400, {"error": "bad raft message"})
+                return
+            token = getattr(svc.meta_store, "token", "")
+            if token and msg.pop("token", None) != token:
+                self._send_json(403, {"error": "bad cluster token"})
+                return
+            msg.pop("token", None)
+            sender_addr = msg.pop("addr", None)
+            if sender_addr:
+                # learn the sender's address (its token checked): a
+                # joiner must answer a leader it has never been told of
+                addr_of = getattr(svc.meta_store.node.transport, "addr_of",
+                                  None)
+                if addr_of is not None:
+                    addr_of[msg["from"]] = sender_addr
+            svc.meta_store.node.deliver(msg)
+            self._send(204)
+
+        def _handle_internal_write(self, body: bytes) -> None:
+            """A coordinator's structured points for this replica, applied
+            under a child span shipped back in the answer."""
+            from opengemini_tpu_torch.parallel.cluster import (
+                decode_points, write_points,
+            )
+
+            req = self._internal_request(body)
+            if req is None:
+                return
+            # a shed here is transient for the coordinator: the copy is
+            # hinted, never lost
+            if self._shed_write_if_backpressured():
+                return
+            rtrace = tracing.start_remote(
+                "internal_write", req.get("trace"),
+                node=getattr(svc.router, "self_id", "") or "")
+            failpoint.inject("internal-write-before-apply")
+            try:
+                points = decode_points(req.get("points", []))
+                if rtrace is not None:
+                    with tracing.activate(rtrace), \
+                            rtrace.span("apply") as sp:
+                        n_rows = write_points(svc.engine, req["db"], points,
+                                              req.get("rp") or None)
+                        sp.add_field("rows", n_rows)
+                else:
+                    write_points(svc.engine, req["db"], points,
+                                 req.get("rp") or None)
+            except DatabaseNotFound as e:
+                # a replica behind on the meta plane: 404 keeps the copy
+                # hinted until the database arrives
+                self._send_err(404, e)
+                return
+            except (FieldTypeConflict, KeyError, TypeError,
+                    ValueError) as e:
+                self._send_json(400, {"error": f"bad points: {e}"})
+                return
+            except WriteError as e:
+                # a deterministic refusal of this payload: 400 (poison to
+                # the coordinator); 403 stays the token's
+                self._send_err(400, e)
+                return
+            # durable here, but the answer may still die: the coordinator
+            # then hints a duplicate (last-write-wins)
+            failpoint.inject("internal-write-before-reply")
+            out = {"ok": True}
+            sub = tracing.ship_subtree(rtrace)
+            if sub is not None:
+                out["trace"] = sub
+            self._send_json(200, out)
+
+        def _handle_internal_select(self, path: str, body: bytes) -> None:
+            """The pushdown's two rounds: the metadata of the measurement
+            here, then the partials computed on this engine's device.
+            Both take an admission slot (a 503 is PartialsUnavailable to
+            the coordinator, not a dead node)."""
+            from opengemini_tpu_torch.parallel.cluster import (
+                serialize_select_meta,
+            )
+            from opengemini_tpu_torch.query.partials import compute_partials
+
+            req = self._internal_request(body)
+            if req is None:
+                return
+            try:
+                with GOVERNOR.admitted():
+                    if path == "/internal/select_meta":
+                        self._send_json(200, serialize_select_meta(
+                            svc.engine, req["db"], req.get("rp"),
+                            req.get("mst", ""),
+                            int(req.get("tmin", -(2**62))),
+                            int(req.get("tmax", 2**62)),
+                            shard_filter=self._primary_filter(req)))
+                        return
+                    try:
+                        out = compute_partials(svc.engine, svc.router, req)
+                    except (KeyError, TypeError, ValueError) as e:
+                        self._send_json(
+                            400, {"error": f"bad partials request: {e}"})
+                        return
+            except AdmissionRejected as e:
+                self._send_json(
+                    503, {"error": str(e)},
+                    headers={"Retry-After": str(e.retry_after_s)})
+                return
+            self._send(200, out, ctype="application/octet-stream")
+
+        def _handle_internal_scan(self, path: str, body: bytes) -> None:
+            """Raw columns of a measurement for a coordinator (JSON, or
+            the binary wire with fmt=bin), or its names here."""
+            from opengemini_tpu_torch.parallel import cluster as pcluster
+            from opengemini_tpu_torch.storage.shard import FileQuarantined
+
+            req = self._internal_request(body)
+            if req is None:
+                return
+            if path == "/internal/measurements":
+                names = set()
+                for sh in svc.engine.shards_for_range(
+                        req["db"], req.get("rp"), -(2**62), 2**62):
+                    names.update(sh.measurements())
+                self._send_json(200, {"measurements": sorted(names)})
+                return
+            try:
+                # the heaviest remote read: it takes an admission slot,
+                # and a 503 is a clean error to the coordinator
+                with GOVERNOR.admitted():
+                    args = (svc.engine, req["db"], req.get("rp"),
+                            req.get("mst", ""),
+                            int(req.get("tmin", -(2**62))),
+                            int(req.get("tmax", 2**62)))
+                    kw = {"shard_filter": self._primary_filter(req),
+                          "trace_ctx": req.get("trace"),
+                          "node": getattr(svc.router, "self_id", "") or ""}
+                    if req.get("fmt") == "bin":
+                        out = pcluster.serialize_series_binary(*args, **kw)
+                        self._send(200, out,
+                                   ctype="application/octet-stream")
+                        return
+                    payload = pcluster.serialize_series(*args, **kw)
+            except AdmissionRejected as e:
+                self._send_json(
+                    503, {"error": str(e)},
+                    headers={"Retry-After": str(e.retry_after_s)})
+                return
+            except FileQuarantined as e:
+                # quarantined mid-scan: a clean 500, and the coordinator
+                # reads these groups from a replica this round
+                self._send_err(500, e)
+                return
+            self._send_json(200, payload)
+
+        def _handle_cluster_roster(self, path: str, body: bytes) -> None:
+            """Register or deregister a data node, or place a group's
+            owners: proposed on the meta leader (409 elsewhere)."""
+            try:
+                req = json.loads(body)
+            except ValueError:
+                req = None
+            if not isinstance(req, dict):
+                self._send_json(400, {"error": "json body required"})
+                return
+            if not self._cluster_token_ok(req.get("token")):
+                return
+            if self._not_leader():
+                return
+            if path == "/cluster/register":
+                if not req.get("id") or not req.get("addr"):
+                    self._send_json(400, {"error": "id and addr required"})
+                    return
+                cmd = {"op": "register_node", "id": req["id"],
+                       "addr": req["addr"], "role": req.get("role", "data")}
+            elif path == "/cluster/deregister":
+                if not req.get("id"):
+                    self._send_json(400, {"error": "id required"})
+                    return
+                cmd = {"op": "remove_node", "id": req["id"]}
+            else:  # /cluster/placement
+                owners_l = req.get("owners")
+                if (not req.get("key") or not isinstance(owners_l, list)
+                        or not owners_l
+                        or not all(isinstance(o, str) for o in owners_l)):
+                    self._send_json(400,
+                                    {"error": "key and owners[] required"})
+                    return
+                cmd = {"op": "set_placement", "key": req["key"],
+                       "owners": owners_l}
+            ok = svc.meta_store.propose_and_wait(cmd)
+            self._send_json(200 if ok else 503,
+                            {"ok": True} if ok else {"error": "no quorum"})
+
+        def _handle_raft_conf(self, path: str, body: bytes) -> None:
+            """Add or remove a meta member (one change at a time, on the
+            leader)."""
+            try:
+                req = json.loads(body)
+            except ValueError:
+                req = None
+            if not isinstance(req, dict) or not req.get("id"):
+                self._send_json(400, {"error": "id required"})
+                return
+            token = getattr(svc.meta_store, "token", "")
+            if token and req.get("token") != token:
+                self._send_json(403, {"error": "bad cluster token"})
+                return
+            if self._not_leader():
+                return
+            if path == "/raft/join":
+                if not req.get("addr"):
+                    self._send_json(400, {"error": "addr required"})
+                    return
+                ok = svc.meta_store.propose_conf_change(
+                    "add", req["id"], req["addr"])
+            else:
+                ok = svc.meta_store.propose_conf_change("remove", req["id"])
+            if ok:
+                self._send_json(200, {"ok": True})
+            else:
+                self._send_json(503, {"error": "conf change failed"})
 
         # -- Prometheus HTTP API, remote write/read, OTLP ------------------
 
         def _handle_prom(self, path: str, params: dict):
             """Prometheus HTTP API v1 (reference: handler_prom.go). The
-            query routes take an admission slot like /query; auth is not
-            ported yet (ROADMAP A8)."""
+            query routes take an admission slot like /query; with auth on
+            every route needs READ on its database."""
             db = params.get("db", svc.prom_db)
+            if not self._check_read_auth(params, db):
+                return
             try:
                 if path == "/api/v1/query_range":
                     with GOVERNOR.admitted():
@@ -642,8 +1092,7 @@ def _make_handler(svc: HttpService):
             from opengemini_tpu_torch.ingest.protowire import WireError
 
             db = params.get("db", "")
-            if not db:
-                self._send_json(400, {"error": "database is required"})
+            if not self._check_write_auth(params, db):
                 return
             if self._shed_write_if_backpressured():
                 return
@@ -669,6 +1118,8 @@ def _make_handler(svc: HttpService):
             from opengemini_tpu_torch.ingest import protowire as pw
 
             db = params.get("db", "")
+            if not self._check_read_auth(params, db):
+                return
             if not db:
                 self._send_json(400, {"error": "database is required"})
                 return
@@ -749,8 +1200,7 @@ def _make_handler(svc: HttpService):
             from opengemini_tpu_torch.ingest.protowire import WireError
 
             db = params.get("db", "")
-            if not db:
-                self._send_json(400, {"error": "database is required"})
+            if not self._check_write_auth(params, db):
                 return
             if self._shed_write_if_backpressured():
                 return
@@ -814,6 +1264,12 @@ def _make_handler(svc: HttpService):
             elif mod == "obs":
                 self._ctrl_obs(params)
                 return
+            elif mod == "netfault":
+                self._ctrl_netfault(params)
+                return
+            elif mod == "cluster":
+                self._ctrl_cluster(params)
+                return
             elif mod == "failpoint":
                 name = params.get("name", "")
                 action = params.get("action", "")
@@ -832,6 +1288,86 @@ def _make_handler(svc: HttpService):
                     400, {"error": f"unknown syscontrol mod {mod!r}"})
                 return
             self._send_json(200, {"status": "ok", "mod": mod, "switchon": on})
+
+        def _ctrl_netfault(self, params: dict):
+            """The transport's fault rules for this process's outbound
+            peer calls (parallel/netfault.py): no action lists them and
+            their hits, action=off clears one, clear=1 heals all."""
+            from opengemini_tpu_torch.parallel import netfault
+
+            if params.get("clear", "").lower() in ("1", "true", "all"):
+                netfault.clear_all()
+                self._send_json(200, {"status": "ok", "rules": []})
+                return
+            action = params.get("action", "")
+            if not action:
+                self._send_json(200, {"rules": netfault.rules(),
+                                      "hits": netfault.hits()})
+                return
+            src = params.get("src", "*")
+            dst = params.get("dst", "*")
+            pat = params.get("path", "*")
+            if action == "off":
+                netfault.clear_rule(src, dst, pat)
+            else:
+                try:
+                    netfault.set_rule(src, dst, pat, action)
+                except ValueError as e:
+                    self._send_json(400, {"error": str(e)})
+                    return
+            self._send_json(200, {"status": "ok", "rules": netfault.rules()})
+
+        def _ctrl_cluster(self, params: dict):
+            """The router's RPC knobs and its synchronous rounds (op=hints
+            replays the hint queue, op=health exchanges the failure
+            view); the operations' rounds are ROADMAP A8.2's."""
+            router = svc.router
+            if router is None:
+                self._send_json(400, {"error": "no data router"})
+                return
+            for key, conv in (("cb_threshold", int),
+                              ("cb_cooldown_s", float),
+                              ("probe_timeout_s", float),
+                              ("rpc_retries", int)):
+                if key not in params:
+                    continue
+                try:
+                    val = conv(params[key])
+                except ValueError:
+                    self._send_json(
+                        400, {"error": f"bad {key}={params[key]!r}"})
+                    return
+                # the constructor's clamps: a negative retry count would
+                # run _post_raw's attempt loop zero times
+                if key == "cb_threshold":
+                    router.breaker.threshold = val
+                elif key == "cb_cooldown_s":
+                    router.breaker.cooldown_s = max(0.0, val)
+                elif key == "rpc_retries":
+                    router.rpc_retries = max(0, val)
+                else:
+                    router.probe_timeout_s = max(0.05, val)
+            op = params.get("op", "")
+            out: dict = {"status": "ok"}
+            try:
+                if op == "hints":
+                    out["delivered"] = router.replay_hints()
+                elif op == "health":
+                    out["health"] = router.exchange_health()
+                elif op:
+                    self._send_json(
+                        400, {"error": f"unknown cluster op {op!r}"})
+                    return
+            except Exception as e:  # noqa: BLE001 — report, never drop
+                self._send_json(500, {"error": f"{op} failed: {e}"})
+                return
+            out["breaker"] = router.breaker.snapshot()
+            # migration staging is ROADMAP A8.2's: nothing is ever staged
+            out["staging"] = []
+            out["pending_hints"] = sorted(router.pending_hint_nodes())
+            out["nodes"] = sorted(router.data_nodes())
+            out["decommission_state"] = router.decommission_state
+            self._send_json(200, out)
 
         def _ctrl_governor(self, params: dict):
             """Runtime tuning of the resource governor: each knob changes
@@ -1165,6 +1701,9 @@ def _make_handler(svc: HttpService):
             self._send_json(200, doc)
 
         def _handle_query(self, params: dict, read_only: bool = False):
+            user = self._authenticate(params)
+            if user is False:
+                return
             q = params.get("q", "")
             if not q:
                 self._send_json(400, {"error": "missing required parameter \"q\""})
@@ -1175,7 +1714,10 @@ def _make_handler(svc: HttpService):
                                  time.perf_counter_ns() - self._t_request)
             try:
                 result = svc.executor.execute(q, db=params.get("db", ""),
-                                              read_only=read_only)
+                                              read_only=read_only, user=user)
+            except AuthError as e:
+                self._send_err(403, e)
+                return
             except AdmissionRejected as e:
                 # an admission shed: 503 with Retry-After, so clients back
                 # off instead of retrying into the same overload
@@ -1218,14 +1760,27 @@ def _make_handler(svc: HttpService):
             return True
 
         def _handle_write(self, params: dict, db: str, rp, body: bytes):
-            if not db:
-                self._send_json(400, {"error": "database is required"})
+            internal = bool(self.headers.get("X-Ogt-Internal"))
+            if internal:
+                # a peer's forward: the cluster token vouches for it (the
+                # coordinator authenticated the client)
+                if not self._cluster_token_ok(
+                        self.headers.get("X-Ogt-Token", "")):
+                    return
+                if not db:
+                    self._send_json(400, {"error": "database is required"})
+                    return
+            elif not self._check_write_auth(params, db):
                 return
             if self._shed_write_if_backpressured():
                 return
             precision = params.get("precision", "ns")
             if precision == "n":
                 precision = "ns"
+            if svc.router is not None and not internal:
+                self._routed_write(db, rp, body, precision,
+                                   params.get("consistency"))
+                return
             try:
                 svc.engine.write_lines(db, body, precision=precision, rp=rp)
             except DatabaseNotFound as e:
@@ -1237,6 +1792,59 @@ def _make_handler(svc: HttpService):
             except WriteError as e:
                 self._send_err(403, e)
                 return
+            self._send(204)
+
+        def _routed_write(self, db: str, rp, body: bytes, precision: str,
+                          consistency=None):
+            """The coordinator's write: parse, then the router's
+            routed_write (split by owner, the local slice written here,
+            the rest forwarded as structured points). A write traced
+            (OGT_TRACE=1) keeps its tree with the replicas' apply spans
+            in the trace ring."""
+            from opengemini_tpu_torch.ingest import native_lp
+            from opengemini_tpu_torch.ingest.line_protocol import parse_lines
+            from opengemini_tpu_torch.parallel.cluster import RemoteScanError
+
+            if consistency is not None and consistency not in (
+                    "any", "one", "quorum", "all"):
+                self._send_json(400, {
+                    "error": f"invalid consistency {consistency!r} "
+                             "(any, one, quorum, all)"})
+                return
+            wtrace = None
+            if tracing.trace_enabled():
+                wtrace = tracing.Trace("write")
+                wtrace.root.add_field("database", db)
+            try:
+                with (tracing.activate(wtrace) if wtrace is not None
+                      else contextlib.nullcontext()):
+                    now = time.time_ns()
+                    # the native parser where it takes the body (the
+                    # line parser's equal), else the line parser
+                    batch = native_lp.parse_columnar(body, precision, now)
+                    points = (batch.to_points() if batch is not None
+                              else parse_lines(body, precision, now))
+                    svc.router.routed_write(db, rp, points,
+                                            consistency=consistency)
+            except RemoteScanError as e:
+                self._send_json(503, {"error": f"forward failed: {e}"})
+                return
+            except DatabaseNotFound as e:
+                self._send_err(404, e)
+                return
+            except (ParseError, FieldTypeConflict, ValueError) as e:
+                self._send_err(400, e, extra={"error": f"partial write: {e}"})
+                return
+            except WriteError as e:
+                self._send_err(403, e)
+                return
+            except OSError as e:
+                self._send_json(503, {"error": f"forward failed: {e}"})
+                return
+            finally:
+                if wtrace is not None:
+                    wtrace.finish()
+                    tracing.note_finished(None, wtrace, {"database": db})
             self._send(204)
 
     return Handler

@@ -1,8 +1,10 @@
 """Continuous query scheduler.
 
-The port of ``opengemini_tpu/services/continuous.py``, less the cluster
-lease (the reference runs CQs only on the raft meta leader when its
-data is routed; ROADMAP A8). On each tick every CQ whose next window has
+The port of ``opengemini_tpu/services/continuous.py``. In a cluster
+whose data is routed only the raft meta leader runs CQs (each node's CQ
+reads the whole cluster, so every runner would write every result row
+again); without routing every node runs its own. On each tick every CQ
+whose next window has
 closed runs its SELECT ... INTO over the newly closed GROUP BY time
 windows through the executor (query/subquery.py's SELECT INTO, the grid
 and its kernels on the engine's device). A CQ takes a background
@@ -40,12 +42,19 @@ class ContinuousQueryService(Service):
     # compaction/downsample
     governed = True
 
-    def __init__(self, engine, executor, interval_s: float = 10.0):
+    def __init__(self, engine, executor, interval_s: float = 10.0,
+                 meta_store=None):
         super().__init__(interval_s)
         self.engine = engine
         self.executor = executor
+        # the lease: with data routing, only the meta leader runs CQs
+        self.meta_store = meta_store
 
     def handle(self, now_ns: int | None = None) -> int:
+        if (self.meta_store is not None
+                and getattr(self.executor, "router", None) is not None
+                and not self.meta_store.is_leader()):
+            return 0
         if now_ns is None:
             now_ns = _time.time_ns()
         ran = 0

@@ -11,9 +11,9 @@ whose groups are skipped because the background gate closed mid-tick
 gets a shed mark (the Taurus per-tenant governance argument,
 arXiv:2506.20010).
 
-On one node every group ticks here; the clustered service's lease (only
-the meta leader ticks when a data router reads the whole cluster) is
-ROADMAP A8's.
+In a cluster with a data router only the meta leader ticks (each
+node's rules read the whole cluster, so every node ticking would write
+every recording again); without one every node ticks its own groups.
 
 The actual evaluation — incremental tile maintenance, durable claim/
 final-save ordering, the verify leg — lives in promql/rules.py
@@ -33,7 +33,8 @@ class RulesService(Service):
     name = "rules"
     governed = True
 
-    def __init__(self, engine, interval_s: float = 5.0, manager=None):
+    def __init__(self, engine, interval_s: float = 5.0, manager=None,
+                 meta_store=None, router=None):
         super().__init__(interval_s)
         self.engine = engine
         # manager may be constructed lazily (the OGT_RULES gate, the
@@ -41,6 +42,9 @@ class RulesService(Service):
         # keeps ctrl-declared groups ticking even when the service was
         # built first
         self._manager = manager
+        # the lease: with a data router, only the meta leader ticks
+        self.meta_store = meta_store
+        self.router = router
 
     @property
     def manager(self):
@@ -50,6 +54,9 @@ class RulesService(Service):
     def handle(self, now_ns: int | None = None) -> int:
         mgr = self.manager
         if mgr is None:
+            return 0
+        if (self.meta_store is not None and self.router is not None
+                and not self.meta_store.is_leader()):
             return 0
         if now_ns is None:
             now_ns = _time.time_ns()

@@ -2,8 +2,9 @@
 trigger replica repair.
 
 The port of ``opengemini_tpu/services/scrub.py``, whole, with a plain
-``threading`` lock. On one node no router is attached, so ``_repair``
-does nothing (the anti-entropy round behind it is ROADMAP A8's).
+``threading`` lock. ``_repair`` does nothing yet: the anti-entropy
+round behind it is ROADMAP A8.2's (the port's ``DataRouter`` raises for
+it).
 
 The third leg of the media-fault tier (storage/diskfault.py injects,
 TSF block CRCs detect, shard quarantine contains): latent corruption in

@@ -2,8 +2,9 @@
 
 The port of ``opengemini_tpu/services/subscriber.py``, whole: the
 subscriptions live in the engine's meta.json (the reference's keys, so
-either package reopens them); their replication through the cluster's
-meta service is ROADMAP A8's.
+either package reopens them); in a cluster CREATE and DROP SUBSCRIPTION
+replicate through the meta service (query/showddl.py ``_replicate_ddl``)
+and reach every node's engine.
 
 Reference: coordinator/subscriber.go SubscriberManager — written line
 protocol is pushed to subscription destinations. Here a write observer

@@ -58,7 +58,7 @@ in step with its bytes and dropped with it.
 
 Not in this port yet: the mesh layouts of the device tier (the
 reference reshards retained entries when its device mesh changes; they
-come with the device mesh, ROADMAP A8). Both tiers' resident bytes are
+come with the device mesh, ROADMAP A8.3). Both tiers' resident bytes are
 components of the resource governor's memory ledger (``colcache_host``,
 ``colcache_device``; utils/governor.py).
 """

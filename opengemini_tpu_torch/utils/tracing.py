@@ -16,10 +16,13 @@ objects, no ids, one perf_counter_ns pair per stage. OGT_TRACE=1 arms a
 per-query tree (``trace_enabled``), kept in a bounded ring of finished
 traces (``note_finished``, ``recent_traces``, ``get_trace``).
 
-Not in this port yet: the cross-node half (``start_remote``,
-``start_remote_activated``, ``ship_subtree``, ``Trace.ctx`` and
-``Trace.graft``, and a span's node), which stitches a replica's subtree
-into the coordinator's tree; the port runs on one node.
+Across nodes: a coordinator attaches ``current_ctx()`` ({trace_id,
+span_id} of its innermost open span) to /internal/* bodies; the peer
+runs under a child Trace from ``start_remote`` (or
+``start_remote_activated``) and ships ``ship_subtree`` back in its
+answer, and the coordinator ``Trace.graft``s it under the span that
+issued the call, so EXPLAIN ANALYZE shows one tree with each peer's
+spans marked by its node id. The wire shape is the JAX package's.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import os
 import random
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 from opengemini_tpu_torch.utils.stats import observe_ns as _observe_ns
@@ -58,13 +61,15 @@ def _new_id() -> str:
 
 
 class Span:
-    __slots__ = ("name", "span_id", "parent_id", "fields", "children",
-                 "start_ns", "elapsed_ns", "_t0")
+    __slots__ = ("name", "span_id", "parent_id", "node", "fields",
+                 "children", "start_ns", "elapsed_ns", "_t0")
 
-    def __init__(self, name: str, span_id: str, parent_id: str):
+    def __init__(self, name: str, span_id: str, parent_id: str,
+                 node: str = ""):
         self.name = name
         self.span_id = span_id
         self.parent_id = parent_id
+        self.node = node
         self.fields: list[tuple[str, object]] = []
         self.children: list[Span] = []
         self.start_ns = time.time_ns()
@@ -80,22 +85,38 @@ class Span:
     def to_dict(self) -> dict:
         return {
             "name": self.name, "span_id": self.span_id,
-            "parent_id": self.parent_id,
+            "parent_id": self.parent_id, "node": self.node,
             "start_ns": self.start_ns, "elapsed_ns": self.elapsed_ns,
             "fields": [[k, v] for k, v in self.fields],
             "children": [c.to_dict() for c in self.children],
         }
 
+    @classmethod
+    def from_dict(cls, doc: dict) -> "Span":
+        s = cls.__new__(cls)
+        s.name = str(doc.get("name", ""))
+        s.span_id = str(doc.get("span_id", ""))
+        s.parent_id = str(doc.get("parent_id", ""))
+        s.node = str(doc.get("node", ""))
+        s.fields = [(k, v) for k, v in doc.get("fields", ())]
+        s.start_ns = int(doc.get("start_ns", 0))
+        s._t0 = 0
+        s.elapsed_ns = int(doc.get("elapsed_ns", 0))
+        s.children = [cls.from_dict(c) for c in doc.get("children", ())]
+        return s
+
 
 class Trace:
-    def __init__(self, name: str):
-        self.trace_id = _new_id()
-        self.root = Span(name, _new_id(), "")
+    def __init__(self, name: str, trace_id: str | None = None,
+                 parent_span_id: str = "", node: str = ""):
+        self.trace_id = trace_id or _new_id()
+        self.node = node
+        self.root = Span(name, _new_id(), parent_span_id, node)
         self._stack = [self.root]
 
     @contextmanager
     def span(self, name: str):
-        s = Span(name, _new_id(), self._stack[-1].span_id)
+        s = Span(name, _new_id(), self._stack[-1].span_id, self.node)
         self._stack[-1].children.append(s)
         self._stack.append(s)
         try:
@@ -111,8 +132,29 @@ class Trace:
     def finish(self) -> None:
         self.root.finish()
 
+    def ctx(self) -> dict:
+        """Wire context of the innermost open span: /internal/* bodies
+        carry it so the peer's subtree parents here."""
+        return {"trace_id": self.trace_id,
+                "span_id": self._stack[-1].span_id}
+
+    def graft(self, subtree: dict | None) -> None:
+        """Attach a peer's subtree (its Trace.to_dict(), shipped in its
+        answer) under the innermost open span. A malformed or missing
+        subtree is ignored: stitching is observability, never an error."""
+        if not subtree or not isinstance(subtree, dict):
+            return
+        root = subtree.get("root")
+        if not isinstance(root, dict):
+            return
+        try:
+            self._stack[-1].children.append(Span.from_dict(root))
+        except (TypeError, ValueError):
+            pass
+
     def to_dict(self) -> dict:
-        return {"trace_id": self.trace_id, "root": self.root.to_dict()}
+        return {"trace_id": self.trace_id, "node": self.node,
+                "root": self.root.to_dict()}
 
     def render(self) -> list[str]:
         """Indented tree lines (the EXPLAIN ANALYZE payload)."""
@@ -120,7 +162,9 @@ class Trace:
 
         def walk(span: Span, depth: int):
             pad = "    " * depth
-            lines.append(f"{pad}{span.name}: {_fmt_ns(span.elapsed_ns)}")
+            where = f" [{span.node}]" if span.node else ""
+            lines.append(
+                f"{pad}{span.name}{where}: {_fmt_ns(span.elapsed_ns)}")
             for k, v in span.fields:
                 lines.append(f"{pad}    {k}: {v}")
             for c in span.children:
@@ -130,10 +174,44 @@ class Trace:
         return lines
 
 
+def start_remote(name: str, ctx: dict | None, node: str = ""):
+    """Peer side: a child Trace parented at the coordinator's wire ctx;
+    None when the ctx is absent or malformed (an untraced caller)."""
+    if not isinstance(ctx, dict):
+        return None
+    tid, sid = ctx.get("trace_id"), ctx.get("span_id")
+    if not tid or not sid:
+        return None
+    return Trace(name, trace_id=str(tid), parent_span_id=str(sid),
+                 node=node)
+
+
+def start_remote_activated(name: str, ctx: dict | None, node: str = ""):
+    """(trace | None, context manager): the peer's entry in one call; the
+    manager activates the trace, or does nothing for an untraced caller.
+    Pair with ship_subtree(trace) on the way out."""
+    t = start_remote(name, ctx, node=node)
+    return t, (activate(t) if t is not None else nullcontext())
+
+
+def ship_subtree(trace) -> dict | None:
+    """Peer side, on the way out: finish the child trace and give the
+    subtree for the answer (None when untraced). The failpoint
+    obs-before-span-ship arms the computed-but-unshipped window."""
+    if trace is None:
+        return None
+    from opengemini_tpu_torch.utils.failpoint import inject as _fp
+
+    _fp("obs-before-span-ship")
+    trace.finish()
+    return trace.to_dict()
+
+
 # -- thread-local activation -------------------------------------------------
 # The executor binds its per-query Trace here so callees reach it
 # without a trace parameter in every signature. Worker threads (scan
-# pool) never inherit the binding.
+# pool, the cluster's fan-out) never inherit the binding: a fan-out
+# captures current_ctx() on the query thread before it dispatches.
 
 
 @contextmanager
@@ -150,6 +228,13 @@ def current():
     """The calling thread's active Trace, or NOOP."""
     t = getattr(_ACTIVE, "trace", None)
     return t if t is not None else NOOP
+
+
+def current_ctx() -> dict | None:
+    """Wire ctx of the active trace (None when untraced): what the
+    cluster's RPC bodies carry."""
+    t = getattr(_ACTIVE, "trace", None)
+    return t.ctx() if isinstance(t, Trace) else None
 
 
 # -- finished-trace ring -------------------------------------------------------
@@ -227,6 +312,12 @@ class NoopTrace:
         pass
 
     def finish(self) -> None:
+        pass
+
+    def ctx(self) -> None:
+        return None
+
+    def graft(self, subtree) -> None:
         pass
 
 
