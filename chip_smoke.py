@@ -76,7 +76,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    the trace holds no record of.
 4. The kernels again, at the shapes the end-to-end phase gave them:
    checked and timed (CUDA events, median of 20 launches).
-5. Cold scan from disk (TSBS devops cpu + diskio, 4000 hosts, 12 h, the
+5. Cold scan from disk (TSBS devops cpu + diskio, 4000 hosts, 6 h
+   (COLD_HOURS, cut from 12), the
    device profile OGT_DEVICE_PROFILE=1): loaded in time order, one hour
    of every host at a time, the first minute through /write and the rest
    through convert.load_columnar, under the default 64 MiB flush
@@ -86,16 +87,18 @@ Phases, in order; any failure ends the run with a nonzero exit:
    decoded-column cache is off in this phase (its disabled path), so
    every run decodes. C1 (Q1's shape),
    C2 (Q2's) and C3 (count/min/max of the diskio read_bytes counter
-   GROUP BY time(1m)) run twice each, C2 once (COLD_RUNS, cut for phase
-   15), plus one traced run; every answer
+   GROUP BY time(1m)) run once each (COLD_RUNS, C2 cut for phase 15, C1
+   and C3 for phase 16's operations; phase 6 times them warm), plus one
+   traced run; every answer
    equals the numpy oracle; each must take the fused device decode
    (executor/grid_decode_fused up, device/decode_fallbacks_total not),
    C1 and C2 launch unpack_bits and grid_window_agg, C3 widen_packed, and
    the phase launches probe_count once. Launches per run are exact, in
    every timed run and in the traced run: widen_packed once in C3 (one
    launch for all of the plan's FOR-delta blocks), unpack_bits once per
-   gorilla chunk of the plan in C1 (at most 17) and five times that in
-   C2; they print beside the per-block decode's 132, 133 and 665, with
+   gorilla chunk of the plan in C1 (at most MAX_C1_CHUNKS, 9) and five
+   times that in C2; they print beside the per-block decode's (the
+   blocks of each run: 132, 133 and 665 at 12 h), with
    each cold query's device kernel count and time in its traced run. The
    phase's device-memory peak prints and must stay within 6 GiB. The
    stage split prints per query as in phase 3, and EXPLAIN ANALYZE of
@@ -107,10 +110,10 @@ Phases, in order; any failure ends the run with a nonzero exit:
    checked and timed.
 6. The decoded-column cache's device tier, on phase 5's root after a
    restart (and a flush of the replayed minute): both tiers on (2 GiB
-   host, 1 GiB device), C1 and C3 three times each (CACHE_RUNS). The
+   host, 1 GiB device), C1 and C3 twice each (CACHE_RUNS). The
    first run fills (a device-tier miss; the fused decode's grid is
-   retained); the two warm runs must each hit the device tier, answer
-   as the oracle,
+   retained); the warm run must hit the device tier, answer as the
+   oracle,
    launch kernel 3 on the retained tensors and neither kernel 4 nor 5;
    their stage split prints. A traced warm run of each must copy at
    most 1 MiB to the card. Then
@@ -119,8 +122,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    Device memory within 6 GiB.
 7. Compaction of the same root: Shard.compact_level until it merges
    nothing, then Shard.compact, each call's wall, the files and bytes
-   on disk before and after; C1 and C3 twice each (COMPACT_RUNS) on
-   the merged
+   on disk before and after; C1 and C3 once each (COMPACT_RUNS, cut
+   from 2 for phase 16's operations) on the merged
    file (cache off: the fused decode on every run, no fallback) equal
    to the oracle (C1 with phase 6's row), with their stage split, then
    a restart and C3 again. The stage splits of phases 6 and 7 are held
@@ -139,17 +142,18 @@ Phases, in order; any failure ends the run with a nonzero exit:
    every series; groupby-orderby-limit, which must launch kernel 3),
    SHOW TAG VALUES of hostname and SHOW SERIES CARDINALITY, each checked
    against the oracle, run five times (lastpoint and
-   groupby-orderby-limit twice: HOST_RUNS; once, with a progress line
+   groupby-orderby-limit once: HOST_RUNS, cut from 2 for phase 16's
+   operations; fewer, with a progress line
    saying so, when the first run shows five would not fit the budget)
    with its p50 and its stage split (raw selects: map_shards, scan and
    render; SHOW: show); then the same root reopened with device="cpu"
    must give the same five answers. The kernels 1-3 are checked and
    timed again at the largest new shapes the phase gave them.
 9. Subqueries, joins, unions and SELECT INTO, with a budget of its own
-   (SUBQUERY_PHASE_S, 150 s, shortened if the script's 1200 s would
+   (SUBQUERY_PHASE_S, 60 s, shortened if the script's 1200 s would
    not leave AFTER_PHASE9_S after it), on phase 7's compacted root with
-   the decoded-column cache off, over the span's first 6 h
-   (SUBQUERY_HOURS, cut from 12): S1, the mean and
+   the decoded-column cache off, over the span's first 4 h
+   (SUBQUERY_HOURS, cut from 12 to 6, then to 4): S1, the mean and
    max per hour of the per-host 10-minute maxima (a Grafana panel: a
    FROM subquery whose inner select must take the chunked path, its
    chunk count printed, and launch kernel 3, and whose outer aggregate
@@ -172,20 +176,22 @@ Phases, in order; any failure ends the run with a nonzero exit:
    checked and timed again at the largest new shapes the phase gave
    them.
 
-10. A 24 h dashboard panel, with a budget of its own (DASHBOARD_PHASE_S,
-   180 s), on phase 7's compacted root: (a) day 2 of TSBS devops cpu
-   (hours 12-24 of the same 4000 hosts but the first minute, which
+10. A dashboard panel over twice the cold span (12 h at COLD_HOURS 6,
+   24 h before the cut), with a budget of its own (DASHBOARD_PHASE_S,
+   90 s), on phase 7's compacted root: (a) day 2 of TSBS devops cpu
+   (hours 6-12 of the same 4000 hosts but the first minute, which
    phase 5 wrote; the device profile on) loaded hour by hour through
    convert.load_columnar and flushed, with the
    decoded-column cache's host tier at its default 256 MiB (the device
-   tier off, as deployed); (b) R0, Grafana's "last 24 hours" panel
+   tier off, as deployed); (b) R0, Grafana's "last 12 hours" panel
    (mean, max and count of usage_user GROUP BY time(1m)) with the
-   incremental result cache on: a window-aligned sliced scan (34.56 M
-   rows by the chunk metadata, above SLICE_THRESHOLD_ROWS) that must
+   incremental result cache on: a window-aligned sliced scan (17.28 M
+   rows by the chunk metadata, above the slice threshold, which the
+   phase scales with the span: DASH_SLICE_ROWS, 12 M) that must
    take at least 2 slices and launch kernel 3 once per slice; (c) R1,
    R0 again, which must scan 0 rows, launch nothing and answer the same;
    then the next minute of every host through /write and R2, the panel
-   a minute on, which must reuse 1439 cached windows and scan the 24 000
+   a minute on, which must reuse 719 cached windows and scan the 24 000
    rows of the new one (one slice), equal to the oracle and to its
    cache-off run in one pass (counts and maxima bit for bit, means
    within rel 1e-12); (d) P1, per-host count and mean over day 2
@@ -242,10 +248,13 @@ Phases, in order; any failure ends the run with a nonzero exit:
    armed at the reference's default knobs (PLANNER_KNOBS) and devobs
    armed; C3 runs PLANNER_RUNS (5) times. Each run prints the decision
    ring's record (route, reason, est_ms, uses), the routes
-   /debug/queries showed while it ran, its wall and kernels 4 and 5's
-   launches, and is checked: the answer equals the oracle; a device run
-   launches kernel 4 once, a host run neither 4 nor 5, both kernel 3
-   once; the decision is the one the reference's rules
+   /debug/queries showed while it ran, its wall, the fused decode's
+   blocks by codec and kernels 4 and 5's launches, and is checked: the
+   answer equals the oracle; a device run decodes blocks, no gorilla
+   one, and launches kernel 4 once if they hold FOR-delta blocks (at
+   COLD_HOURS 6 the compacted read_bytes is varint only: none), a host
+   run neither 4 nor 5, both kernel 3 once; the decision is the one the
+   reference's rules
    (planner_expected, the ladder of opengemini_tpu/query/offload.py
    written out) give from the inputs it had (the static route, the
    samples, the uses, the estimates, the family's measured first-run
@@ -283,8 +292,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    decode_rows_matrix, kernel 5 must launch, and the device-decode H2D
    bytes print beside the padded (S, N) matrix each decode replaces;
    decode_rows_matrix against materialize_enc bit for bit at PQ3's
-   geometry. Then each PQ 3 times (PROM_RUNS, cut from 5 for phase 16;
-   twice when the first run passes 5 s)
+   geometry. Then each PQ twice (PROM_RUNS, cut from 5 to 3 for phase
+   16, then to 2; once when the deadline leaves under PROM_ROOM_S)
    with its p50, its stage split (prom_collect, prom_prepare,
    prom_kernel, render, encode) and launches, the forced answers equal
    to these; PQ1 (max) and PQ3 (mean) against numpy; every PQ once on
@@ -361,7 +370,7 @@ Phases, in order; any failure ends the run with a nonzero exit:
    from scratch (R1, R2 and A1 bit for bit, F1 within rel 1e-12). Each
    step's wall and the memory peak print.
 16. A three-node cluster on the card, with a budget of its own
-   (CLUSTER_PHASE_S, 75 s), on roots of its own (build/cluster/n1-n3),
+   (CLUSTER_PHASE_S, 100 s), on roots of its own (build/cluster/n1-n4),
    in this process: openGemini's cluster mode with every node meta and
    data (the JAX package's [meta] node-id/peers and [cluster]
    data-routing, replication-factor 2, write-consistency "one"), each
@@ -407,12 +416,36 @@ Phases, in order; any failure ends the run with a nonzero exit:
    the oracle (hour 2 local on n1, hours 0-1 n2's partials). (e) n3
    restarts on its root and address and rejoins; n1's replay drains the
    hints (rows and wall); n3's engine counts 4000 x 6 rows in the
-   minute; K1 and K3 through n3 equal the oracle. (f) The three nodes
-   flush, stop and reopen with device="cpu" on the same roots and
-   addresses: K1 and K3
-   on n1 give the card's answers (counts, min, max, first, last and
-   spread bit for bit, means and stddev within rel 1e-12). Each step's
-   wall and the device memory peak print. `--phases 16` runs it alone.
+   minute; K1 and K3 through n3 equal the oracle. (g)-(k) The cluster
+   operations on the card (cluster_operations), in a database of their
+   own, `ops` (1 h groups), whose moved group holds one TSBS minute of
+   every host (24 000 points: cut from an hour, 1.44 M points, because
+   the migration's wire is one JSON point at a time): the benchmark
+   groups pinned by placement overrides; the minute through n1's
+   /write; n4 joins the meta group and op=add registers it (SHOW
+   CLUSTER lists four data nodes); op=move&dest=n4 and op=migrate stage
+   the group on n4 (n1, the retained owner, holds the same digest and
+   takes no push), commit it there (its committed marker) and drop it at
+   its source (owners before and after, no staging left, the
+   migration's points/s); n4 is named
+   the group's primary and K1 over the minute through n1 takes n4's
+   partials (kernel 3 on n4); rows rewritten in the other owner's copy
+   alone make the content digests differ until op=antientropy on n4
+   repairs the pair (K1 then shows them); with DataReplication attached
+   to every router, the next minute through n1's /write answers 204
+   once its owners' raft group committed it (read at the answer: the
+   entry in the leader's log, committed, applied and matched by the
+   follower, and in the follower's log; the leader's engine counts the
+   rows, the follower's within a heartbeat); op=decommission on n4 drains its group back to owners
+   among n1-n3 and leaves the roster (SHOW CLUSTER lists three; K1 over
+   the minute equals numpy); no migrate_round moves a benchmark group.
+   /internal/load is read through collect_loads (the balancer's input;
+   balance_round is not driven: it could move a 1.44 M-point hour). (f)
+   The three nodes flush, stop and reopen with device="cpu" on the same
+   roots and addresses: K1 and K3 on n1, and K1 over ops, give the
+   card's answers (counts, min, max, first, last and spread bit for
+   bit, means and stddev within rel 1e-12). Each step's wall and the
+   device memory peak print. `--phases 16` runs it alone.
 
 The incremental result cache (OGT_RESULT_CACHE) is off in phases 3-9,
 12, 13, 14, 15 and 16, so their repeated runs measure every execution;
@@ -436,7 +469,17 @@ it within 1100 s, in this order: phase 9's span 12 h -> 6 h
 (SUBQUERY_HOURS), PQ runs 5 -> 3 (PROM_RUNS), phase 15's verified ticks
 every tick -> the cold, the late, the last before the restart and the
 first after it (RULES_VERIFY_TICKS), phase 12's C3 runs 8 -> 5
-(PLANNER_RUNS) and phase 6's runs 4 -> 3 (CACHE_RUNS).
+(PLANNER_RUNS) and phase 6's runs 4 -> 3 (CACHE_RUNS); for phase 16's
+operations (its budget 75 s -> 100 s), phase 8's lastpoint and
+groupby-orderby-limit 2 -> 1 (HOST_RUNS), phase 7's C1 and C3 2 -> 1
+(COMPACT_RUNS), phase 5's C1 and C3 2 -> 1 (COLD_RUNS) and phase 6's
+runs 3 -> 2 (CACHE_RUNS); then, the script having taken 1011.7-1167.3
+s on an H100 against its 1200 s limit, the cold span of phases 5-10 and
+12 12 h -> 6 h (COLD_HOURS; phase 10's panel 24 h -> 12 h and its slice
+threshold with it, DASH_SLICE_ROWS), phase 9's span 6 h -> 4 h
+(SUBQUERY_HOURS) and its budget 150 s -> 60 s (SUBQUERY_PHASE_S), so
+that repeats do not take back what the spans give, and PQ runs 3 -> 2
+(PROM_RUNS).
 
 Output: progress lines, then a {"kernels": [...]} line, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without CUDA (or without
@@ -447,6 +490,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -472,9 +516,10 @@ KERNEL_RTOL = 1e-10
 # than the plain version's, over up to 2048 terms (f32 epsilon 1.2e-7)
 F32_SSD_RTOL = 1e-5
 N_HOSTS = 4000
-# the cold-scan span: 12 h, uncut (below about 6 h the byte gate keeps C1
-# on the host)
-COLD_HOURS = 12
+# the cold-scan span of phases 5-10 and 12: cut from 12 h to 6 h when the
+# script, at 1011.7-1167.3 s on an H100, had outgrown its 1200 s limit
+# (below about 6 h the byte gate keeps C1 on the host)
+COLD_HOURS = 6
 # H100 SXM peaks (NVIDIA data sheet): device memory bytes/s and fp64
 # (non-tensor) flop/s
 H100_PEAKS = (3.35e12, 34e12)
@@ -496,25 +541,30 @@ E2E_KERNELS = ("bucket_stats_basic", "bucket_stats_selectors",
 COLD_KERNELS = ("grid_window_agg", "widen_packed", "unpack_bits",
                 "probe_count")
 # timed runs of a query where not five: C2 takes about 20 s a run after
-# an 80 s first one (NVIDIA H100 80GB HBM3 at 700 W); C1, C3, Q1, Q2 and
-# Q4 (phase 3), phase 7's queries and phase 8's two slowest run twice
-# (their p50 the faster run: p50_of), C2 once (cut from 2 so that the
-# script with phase 15 stays within 1050 s), and phase 6 runs each
-# query three times (CACHE_RUNS, cut from 4 for phase 16)
-COLD_RUNS = {"C1": 2, "C2": 1, "C3": 2}
+# an 80 s first one (NVIDIA H100 80GB HBM3 at 700 W); Q1, Q2 and Q4
+# (phase 3) run twice (their p50 the faster run: p50_of); C2 once (cut
+# from 2 so that the script with phase 15 stays within 1050 s); C1 and
+# C3 (phase 5, whose first-run walls they keep: phase 6 times them
+# warm), phase 7's queries and phase 8's two slowest once each (cut
+# from 2 to pay for phase 16's operations); phase 6 runs each query
+# twice, a fill and a warm run (CACHE_RUNS, cut from 4 for phase 16's
+# cluster, then from 3 for its operations)
+COLD_RUNS = {"C1": 1, "C2": 1, "C3": 1}
 E2E_RUNS = {"Q1": 2, "Q2": 2, "Q4": 2}
-CACHE_RUNS = 3
-COMPACT_RUNS = 2
-HOST_RUNS = {"lastpoint": 2, "groupby-orderby-limit": 2}
-# C1's gorilla chunks per run: 17.28 M values in chunks of at most 2^20
-# (ops/device_decode._CHUNK_VALUES) whole blocks of 131072
-MAX_C1_CHUNKS = 17
+CACHE_RUNS = 2
+COMPACT_RUNS = 1
+HOST_RUNS = {"lastpoint": 1, "groupby-orderby-limit": 1}
+# C1's gorilla chunks per run: its values (8.64 M at COLD_HOURS 6, 17.28 M
+# at 12) in chunks of at most 2^20 (ops/device_decode._CHUNK_VALUES)
+# whole blocks of 131072: 9 (17 at 12 h)
+MAX_C1_CHUNKS = -(-N_HOSTS * COLD_HOURS * 360 // (1 << 20))
 # phase 5's device-memory budget: a gorilla chunk's (2^20, 64) gather
 # temporaries, a few at once, beside C2's five grids
 COLD_PEAK_LIMIT = 6 << 30
 # phase 6's cache budgets (MiB): the host tier holds C1's and C3's decoded
 # chunk columns (times, sids, values; about 0.4 GiB each), the device tier
-# their two (5680, 6, 768) grids of values and mask (236 MB each)
+# their two (5680, 6, 384) grids of values and mask (118 MB each; 236 MB
+# at 12 h)
 CC_HOST_MB = 2048
 CC_DEVICE_MB = 1024
 # a warm device-tier run copies nothing to the card; allow for stray
@@ -660,7 +710,8 @@ def _offset(t):
     return out
 
 
-# the main path's layouts at 4000 hosts x 12 h (models/grid.py _pad_rows
+# the main path's layouts at 4000 hosts x 12 h, phase 5's span before its
+# cut to 6 h, kept as the larger (models/grid.py _pad_rows
 # and _pad_lanes; models/ragged.py pow2 rows of 1024): real rows and
 # lanes of the grids, and samples per host of the bucket rows
 PATH_LAYOUTS = {(5680, 6, 768): (4000, 720), (5680, 360, 16): (4000, 12),
@@ -2111,9 +2162,17 @@ def decode_summary(per_query: dict, traced: dict) -> None:
     c1 = per_query["C1"]["per_run"]["unpack_bits"]
     c2 = per_query["C2"]["per_run"]["unpack_bits"]
     check(c2 == 5 * c1, f"C2 unpack launches per run {c2}, not 5 x {c1}")
+
+    def blocks(qn: str, codec: str) -> int:
+        """A run's blocks of `codec`: the per-block decode's launches."""
+        pq = per_query[qn]
+        return (pq["counters"].get(f"device/decode_blocks_{codec}_total", 0)
+                // len(pq["runs_ms"]))
+
     log(f"[cold] launches per run: widen_packed C3 "
-        f"{per_query['C3']['per_run']['widen_packed']} (per block: 132), "
-        f"unpack_bits C1 {c1} (133), C2 {c2} (665)")
+        f"{per_query['C3']['per_run']['widen_packed']} (per block: "
+        f"{blocks('C3', 'delta')}), unpack_bits C1 {c1} "
+        f"({blocks('C1', 'gorilla')}), C2 {c2} ({blocks('C2', 'gorilla')})")
     for qn, tr in traced.items():
         dev = tr.get("device") or {}
         log(f"[cold] {qn} traced run: {dev.get('kernels')} device kernels, "
@@ -2877,7 +2936,7 @@ def phase_host(cold: dict) -> dict:
 
 # phase 9's budget of its own (s), as phase 8's: a query whose run shows
 # that five would not fit runs fewer times, and a progress line says so
-SUBQUERY_PHASE_S = 150.0
+SUBQUERY_PHASE_S = 60.0
 # held back from that budget for the CPU comparison: at least this, and
 # 1.5 x the card's first runs of the queries it repeats (the queries are
 # host-bound, so the CPU takes about as long)
@@ -2891,20 +2950,21 @@ PROM_PHASE_S = 100.0
 # the reserve after phase 16 (the later phases' kernel checks and the
 # output), and the budgets of phases 16, 15 and 14 before it
 AFTER_PHASE16_S = 60.0
-AFTER_PHASE15_S = AFTER_PHASE16_S + 75.0  # phase 16's CLUSTER_PHASE_S
+AFTER_PHASE15_S = AFTER_PHASE16_S + 100.0  # phase 16's CLUSTER_PHASE_S
 AFTER_PHASE14_S = AFTER_PHASE15_S + 60.0  # phase 15's RULES_PHASE_S
 AFTER_PHASE13_S = AFTER_PHASE14_S + 60.0  # phase 14's CONT_PHASE_S
 AFTER_PHASE12_S = AFTER_PHASE13_S + PROM_PHASE_S
 AFTER_PHASE11_S = AFTER_PHASE12_S + 90.0  # phase 12's PLANNER_PHASE_S
 AFTER_PHASE10_S = AFTER_PHASE11_S + 120.0  # phase 11's LIFECYCLE_PHASE_S
-AFTER_PHASE9_S = AFTER_PHASE10_S + 180.0  # phase 10's DASHBOARD_PHASE_S
+AFTER_PHASE9_S = AFTER_PHASE10_S + 90.0  # phase 10's DASHBOARD_PHASE_S
 # the span stages of a subquery: the inner select, and the inner chunks
 # with their materialization; they nest around the executor's stages
 SUBQUERY_STAGES = ("subquery", "subquery(chunked)")
-# phase 9's span (h) of the cold phase's 12: cut from 12 for phase 16
-# (S1 must still take the chunked inner path and launch on the spill
+# phase 9's span (h) of the cold phase's COLD_HOURS: cut from 12 to 6 for
+# phase 16, to 4 with COLD_HOURS (S1 must still take the chunked inner
+# path, above subquery.SUBQUERY_CHUNK_ROWS, and launch on the spill
 # engine)
-SUBQUERY_HOURS = 6
+SUBQUERY_HOURS = 4
 
 
 def subquery_queries(n_t: int) -> dict:
@@ -3208,11 +3268,15 @@ def phase_subquery(cold: dict, deadline: float) -> dict:
             stop_server(svc, engine)
 
 
-# -- phase 10: a 24 h dashboard panel, refreshed --------------------------------
+# -- phase 10: a dashboard panel over twice the cold span, refreshed ----------
 
 # phase 10's budget: the day-2 load and one run of each statement; it is
 # printed beside the phase's wall
-DASHBOARD_PHASE_S = 180.0
+DASHBOARD_PHASE_S = 90.0
+# phase 10's slice threshold (rows): the executor's default
+# (SLICE_THRESHOLD_ROWS, 24 M) scaled by COLD_HOURS / 12, so that the
+# panel over twice the cold span slices as the 24 h panel did at 12 h
+DASH_SLICE_ROWS = 24_000_000 * COLD_HOURS // 12
 # the percentile P1 asks for (sketch.py bounds its error by one global
 # bin width of the exact nearest-rank percentile)
 P1_PERCENTILE = 95
@@ -3367,8 +3431,9 @@ class DashboardProbe:
 
 
 def phase_dashboard(cold: dict, seed: int, deadline: float) -> dict:
-    """On phase 7's compacted root (12 h): day 2 of TSBS devops cpu
-    written and flushed, then a Grafana "last 24 hours" panel (R0) with
+    """On phase 7's compacted root (COLD_HOURS): day 2 of TSBS devops cpu
+    (as many hours again) written and flushed, then a Grafana panel over
+    both (R0, "last 12 hours" at COLD_HOURS 6) with
     the result cache on: a sliced scan, kernel 3 once per slice; R1, the
     same panel again, from the cache alone; the next minute written and
     R2, the panel moved on by a minute, scanning that minute only; P1,
@@ -3460,6 +3525,8 @@ def phase_dashboard(cold: dict, seed: int, deadline: float) -> dict:
         per_query[qn] = {k: v for k, v in got.items() if k != "result"}
         return got
 
+    slice_rows = ex.SLICE_THRESHOLD_ROWS
+    ex.SLICE_THRESHOLD_ROWS = DASH_SLICE_ROWS
     try:
         torch.cuda.synchronize()
         cs.reset_launches()
@@ -3486,7 +3553,8 @@ def phase_dashboard(cold: dict, seed: int, deadline: float) -> dict:
         load_s = time.perf_counter() - t_load
         log(f"[dashboard] day 2: {n_hosts * (n_t - 6)} cpu rows in "
             f"{load_s:.1f} s (its first minute is phase 5's); "
-            f"{files} TSF files; cpu over 24 h: {rows} rows in {chunks} "
+            f"{files} TSF files; cpu over {2 * n_t // 360} h: {rows} rows in "
+            f"{chunks} "
             "chunks by their metadata")
 
         # (b) R0: the sliced scan, the cache on (and empty for it)
@@ -3517,7 +3585,7 @@ def phase_dashboard(cold: dict, seed: int, deadline: float) -> dict:
               f"R2 reused {r2['inc_cache_windows_reused']} windows and "
               f"scanned {r2['rows_scanned']} rows")
         # one slice holds the new window; its 24 000 rows fill one of
-        # the slice's 83 windows, and the grid may refuse so sparse a
+        # the slice's 80 or so windows, and the grid may refuse so sparse a
         # layout for the bucketed batch (kernel 1)
         check(r2["slices"] == 1 and 0 < sum(r2["launches"].values()) <= 2,
               f"R2: {r2['slices']} slices, launches {r2['launches']}")
@@ -3585,6 +3653,7 @@ def phase_dashboard(cold: dict, seed: int, deadline: float) -> dict:
                 "shapes": rec.seen, "wall_s": wall_s, "load_s": load_s,
                 "files": files}
     finally:
+        ex.SLICE_THRESHOLD_ROWS = slice_rows
         os.environ["OGT_RESULT_CACHE"] = "0"
         os.environ.pop("OGT_DEVICE_PROFILE", None)
         probe.__exit__()
@@ -4335,7 +4404,7 @@ def phase_planner(cold: dict) -> dict:
         n_dec = len(decisions)
         n_noted = len(noted)
         l0 = dict(cs.LAUNCHES)
-        f0 = decode_counters()["executor/grid_decode_fused"]
+        c0 = decode_counters()
         st0 = stage_ns(port)
         poller.start()
         try:
@@ -4350,10 +4419,17 @@ def phase_planner(cold: dict) -> dict:
         st1 = stage_ns(port)
         stages = {k: (st1.get(f"{k}_ns", 0) - st0.get(f"{k}_ns", 0)) / 1e6
                   for k in ("scan", "device_compute")}
-        fused = decode_counters()["executor/grid_decode_fused"] - f0
+        c1 = decode_counters()
+        fused = c1["executor/grid_decode_fused"] - c0[
+            "executor/grid_decode_fused"]
+        # the fused decode's blocks by codec: kernel 4 takes the FOR-delta
+        # blocks (one launch for all of them), kernel 5 the gorilla ones
+        blocks = {k.split("_")[2]: v - c0.get(k, 0) for k, v in c1.items()
+                  if k.startswith("device/decode_blocks_")
+                  and v > c0.get(k, 0)}
         ring = offload.GLOBAL.decisions()
         return {"label": label, "wall_ms": wall, "launches": got,
-                "fused": fused, "stages_ms": stages,
+                "fused": fused, "blocks": blocks, "stages_ms": stages,
                 "answer": res, "decided": len(decisions) - n_dec,
                 "record": ring[0] if ring else None,
                 "noted": noted[n_noted:],
@@ -4418,9 +4494,15 @@ def phase_planner(cold: dict) -> dict:
             check(r["fused"] == (dec_route == "device"),
                   f"C3 run {i + 1} on the {dec_route}: fused decodes "
                   f"+{r['fused']}")
+            # on the device, kernel 4 once if the plan holds FOR-delta
+            # blocks (a compacted root of COLD_HOURS 6 holds none of
+            # read_bytes: varint only) and kernel 5 never (no gorilla)
             if dec_route == "device":
-                check(k4 == 1 and k5 == 0, f"C3 run {i + 1} on the device: "
-                      f"kernels 4 and 5 launched {k4} and {k5} times")
+                check(r["blocks"] and "gorilla" not in r["blocks"]
+                      and k4 == int("delta" in r["blocks"]) and k5 == 0,
+                      f"C3 run {i + 1} on the device: blocks by codec "
+                      f"{r['blocks']}, kernels 4 and 5 launched {k4} and "
+                      f"{k5} times")
             else:
                 check(k4 == 0 and k5 == 0, f"C3 run {i + 1} on the host: "
                       f"kernels 4 and 5 launched {k4} and {k5} times")
@@ -4437,8 +4519,8 @@ def phase_planner(cold: dict) -> dict:
                 f"{json.dumps(rc['est_ms'])}; /debug/queries routes "
                 f"{json.dumps(r['routes'])}; wall {r['wall_ms']:.1f} ms "
                 f"(scan {r['stages_ms']['scan']:.1f}, device_compute "
-                f"{r['stages_ms']['device_compute']:.1f}); kernel 4 x{k4}, "
-                f"kernel 5 x{k5}")
+                f"{r['stages_ms']['device_compute']:.1f}); blocks by codec "
+                f"{json.dumps(r['blocks'])}, kernel 4 x{k4}, kernel 5 x{k5}")
         check(any(r["routes"] for r in runs),
               "/debug/queries never showed a C3 run's routes")
         # PLANNER_RUNS was cut from 8 on this condition: the runs reach
@@ -4453,8 +4535,9 @@ def phase_planner(cold: dict) -> dict:
             ctrl({"mod": "offload", "force": route})
             r = run_c3(f"forced {route}")
             k4 = r["launches"]["widen_packed"]
-            check((k4 == 1) == (route == "device")
-                  and r["fused"] == (route == "device")
+            on_dev = route == "device"
+            check(k4 == int(on_dev and "delta" in r["blocks"])
+                  and r["fused"] == on_dev
                   and r["launches"]["unpack_bits"] == 0,
                   f"C3 forced to the {route}: launches {r['launches']}")
             forced[route] = r
@@ -4650,8 +4733,8 @@ PROM_OTLP_HOSTS = 100
 # PROM_SHORT_RUNS when fewer than PROM_ROOM_S seconds are left before the
 # phase's deadline as the PQs start (a slow machine: the script's 1200 s
 # comes first)
-PROM_RUNS = 3  # cut from 5 for phase 16
-PROM_SHORT_RUNS = 3
+PROM_RUNS = 2  # cut from 5 to 3 for phase 16, to 2 for the 1200 s limit
+PROM_SHORT_RUNS = 1
 PROM_ROOM_S = 90.0
 PROM_SLOW_MS = 5000.0
 # the remote-written minute: samples per series
@@ -6621,8 +6704,9 @@ def phase_rules(prom: dict, seed: int, deadline: float) -> dict:
 # -- phase 16: a three-node cluster on the card -------------------------------
 
 # phase 16's budget (s): bring-up, the load and flush, K1-K4, EXPLAIN
-# ANALYZE, the failover, the recovery and the CPU reopen
-CLUSTER_PHASE_S = 75.0
+# ANALYZE, the failover, the recovery, the cluster operations and the
+# CPU reopen
+CLUSTER_PHASE_S = 100.0
 # the span loaded (h): 2 h of TSBS cpu at rf 2 is 2.88 M rows stored twice
 CLUSTER_HOURS = 2
 CLUSTER_NODES = ("n1", "n2", "n3")
@@ -6638,9 +6722,10 @@ CLUSTER_RAW_STEPS = (330, 390)
 # default RP at 1 h shard groups (hour 2 is the minute written in (d));
 # the phase asserts the router agrees
 CLUSTER_PLACEMENT = {0: ["n2", "n1"], 1: ["n3", "n2"], 2: ["n3", "n1"]}
-# what the steps after (c) take (s; 27.5 in a slow call of the H100's
-# host): the repeated K runs end before CLUSTER_PHASE_S less this
-CLUSTER_AFTER_QUERIES_S = 33.0
+# what the steps after (c) take (s): 27.5 in a slow call of the H100's
+# host for (d)-(f), and 23-37 for the operations (g)-(k) on that host;
+# the repeated K runs end before CLUSTER_PHASE_S less this
+CLUSTER_AFTER_QUERIES_S = 70.0
 # the wait for a meta leader and for replicated state (s)
 CLUSTER_WAIT_S = 15.0
 # kernel launches a serving peer makes for one run of a K query (its
@@ -6703,7 +6788,7 @@ def card_equals_cpu(qn: str, card: dict, cpu: dict) -> None:
     last and spread bit for bit, means and stddev within rel 1e-12."""
     import math
 
-    exact = {"K1": (0, 2, 3), "K3": (0, 1, 2, 3, 4, 7)}[qn]
+    exact = {"K1": (0, 2, 3), "K3": (0, 1, 2, 3, 4, 7)}[qn.split()[0]]
     sa, sb = card.get("series", []), cpu.get("series", [])
     check(len(sa) == len(sb), f"{qn}: {len(sa)} series on the card, "
           f"{len(sb)} on the CPU")
@@ -6738,7 +6823,9 @@ class ClusterNode:
         self.addr = f"127.0.0.1:{self.port}"
         self.ms = self.router = self.hints = None
 
-    def wire(self, addrs: dict) -> None:
+    def wire(self, addrs: dict, learner: bool = False) -> None:
+        """With `learner`, the node joins a running meta group: passive
+        until the leader's conf-add (/raft/join) commits."""
         from opengemini_tpu_torch.meta.service import HttpTransport, MetaStore
         from opengemini_tpu_torch.parallel.cluster import DataRouter
         from opengemini_tpu_torch.services.hintreplay import (
@@ -6761,6 +6848,7 @@ class ClusterNode:
         # its ticks are driven by the phase (handle()): one probe round
         # and one replay at the step that needs them
         self.hints = HintReplayService(self.router, 3600.0)
+        self.ms.node.learner = learner
         self.ms.start()
         self.svc.start()
 
@@ -6798,14 +6886,14 @@ def cluster_http(port: int, method: str, path: str, params: dict,
     return r.status, doc
 
 
-def cluster_query(port: int, q: str, user=CLUSTER_ADMIN, method="GET"
-                  ) -> tuple[dict, float, float]:
+def cluster_query(port: int, q: str, user=CLUSTER_ADMIN, method="GET",
+                  db: str = "benchmark") -> tuple[dict, float, float]:
     """(result, request ms, wall ms) of one /query with auth."""
     import torch
 
     t0 = time.perf_counter()
     status, doc = cluster_http(port, method, "/query",
-                               {"db": "benchmark", "q": q, "epoch": "ns"},
+                               {"db": db, "q": q, "epoch": "ns"},
                                user=user)
     t1 = time.perf_counter()
     check(status == 200, f"/query status {status}: {doc}")
@@ -6928,6 +7016,495 @@ class RpcBytes:
         for (addr, path), n in sorted(self.got.items()):
             out.setdefault(name.get(addr, addr), {})[path] = n
         return out
+
+
+# phase 16's steps (g)-(k), the cluster operations, move a database of
+# its own: `ops`, 1 h shard groups, one TSBS minute of every host in one
+# group (24 000 points and 240 000 values at 4000 hosts). The migration's
+# wire is one JSON point at a time (the reference's), so a benchmark hour
+# (1.44 M points) would take minutes: the moved group is cut from an hour
+# to a minute by the phase's budget
+OPS_DB = "ops"
+OPS_NODE = "n4"
+OPS_NODES = CLUSTER_NODES + (OPS_NODE,)
+# the anti-entropy step overwrites usage_user of this many hosts at the
+# minute's first sample in one owner's copy alone (full rows, the other
+# fields unchanged), at 1000 + host: above every TSBS value, so K1's max
+# shows whose copy answered
+OPS_DIVERGED = 100
+
+
+def ops_hours(owners) -> tuple[int, int]:
+    """The first two hours after the benchmark span whose ops group the
+    reference's owners() over n1-n4 at rf 2 places on n1 and one of n2
+    and n3: the first takes the moved minute (n4 gets it only by the
+    forced move, and n1's routed /write keeps one copy local), the second
+    the strict minute (n1, the coordinator, is a member of its replica
+    group)."""
+    found = []
+    h = CLUSTER_HOURS + 1
+    while len(found) < 2:
+        got = owners(list(OPS_NODES), OPS_DB, "autogen",
+                     T0_NS + h * 3600 * 10**9, CLUSTER_RF)
+        if "n1" in got and OPS_NODE not in got:
+            found.append(h)
+        h += 1
+    return found[0], found[1]
+
+
+def verify_ops(res: dict, u, t0: int) -> None:
+    """K1's shape over ops against numpy: one window a minute of
+    count, max (exact) and mean (rel 1e-9) of usage_user `u` (hosts,
+    6 x minutes) from t0."""
+    import numpy as np
+
+    series = res.get("series", [])
+    check(len(series) == 1, f"K1 over ops: {len(series)} series")
+    rows = series[0]["values"]
+    n_min = u.shape[1] // 6
+    v = u.reshape(u.shape[0], n_min, 6)
+    check([r[0] for r in rows] == [t0 + m * 60 * 10**9
+                                   for m in range(n_min)],
+          "K1 over ops: window times")
+    check([r[3] for r in rows] == [u.shape[0] * 6] * n_min,
+          "K1 over ops: counts")
+    check(np.array_equal(np.array([r[2] for r in rows]),
+                         v.max(axis=(0, 2))), "K1 over ops: max")
+    check(close([r[1] for r in rows], v.sum(axis=(0, 2)) / (u.shape[0] * 6)),
+          "K1 over ops: mean")
+
+
+def cluster_operations(nodes: dict, base: str, leader, step, by_node, rec,
+                       keys: list, n_hosts: int, seed: int,
+                       bench_groups: list, per_query: dict,
+                       walls: dict) -> dict:
+    """Phase 16's steps (g)-(k) on the running three-node cluster, on the
+    card. (g) The benchmark groups are pinned to their owners (placement
+    overrides through the meta leader); CREATE DATABASE ops through the
+    leader; a minute of every host through n1's /write into a group owned
+    by n1 and one of n2 and n3 (ops_hours); n4 starts on build/cluster/n4,
+    joins the meta group (/raft/join on the leader) and op=add registers
+    it: SHOW CLUSTER on n1 lists four data nodes. (h) op=move&db=ops&
+    dest=n4 on the owner that is not n1, then op=migrate there: the group
+    stages on n4, commits (n4 writes its committed marker; n1, the
+    retained owner, holds the source's digest and takes no push) and
+    drops at its source; the owners before and after, the nodes that
+    committed, the staging left on every node (none) and the migration's
+    wall and points/s print; the meta leader then names n4 the group's primary (a placement
+    override: both owners hold the rows, nothing moves), and K1's shape
+    over the minute through n1 equals numpy with n4's partials (kernel 3
+    on n4). (i) OPS_DIVERGED rows rewritten in n1's engine alone make the
+    two copies' content digests differ; op=antientropy on n4 repairs one
+    (group, measurement) pair, the digests are then equal and K1 through
+    n1 (n4's copy) shows the rewritten values. (j) With DataReplication
+    on every node's router, the next minute, into the second hour's group
+    (n1 and one of n2 and n3), through n1's /write answers 204 once the
+    owners' raft group committed it (a majority of two: both logged it,
+    the leader applied it). Read at the answer: the owner set's group on
+    both owners with one leader, the write's entry in the leader's log,
+    committed and applied there, in the follower's log at the same term
+    and in the leader's match index for it, and the leader's engine
+    holding all the rows (counted directly); the follower's engine holds
+    them within a heartbeat (its apply waits for the next append, as the
+    reference's). The group's raft status and the wall print, then the
+    replication stops. (k) op=decommission on n4: an
+    anti-entropy round, drain passes moving its group back to owners
+    among n1-n3, the roster and meta removal, its decommission_state at
+    "done"; SHOW CLUSTER on n1 lists three nodes, K1 over the minute
+    equals numpy, n4 stops. No migrate_round moves a benchmark group
+    (checked after each). Returns the steps' numbers and K1's answer for
+    the CPU reopen."""
+    import numpy as np
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.parallel.cluster import owners
+    from opengemini_tpu_torch.meta.raft import LEADER
+    from opengemini_tpu_torch.parallel.datarep import (
+        DataReplication, gid_of,
+    )
+    from opengemini_tpu_torch.storage.engine import shard_group_start
+
+    out: dict = {}
+    rng = np.random.default_rng(seed + 16)
+    ops_vals = make_values(n_hosts, 12, rng)  # two minutes
+    hour, hour2 = ops_hours(owners)
+    gs = shard_group_start(T0_NS + hour * 3600 * 10**9, 3600 * 10**9)
+    gs2 = shard_group_start(T0_NS + hour2 * 3600 * 10**9, 3600 * 10**9)
+    t_ops = gs  # each minute starts at its group's start
+    key = f"{OPS_DB}|autogen|{gs}"
+    r1 = nodes["n1"].router
+
+    def minute_body(m: int, t0: int, first=None) -> bytes:
+        """Ops minute m of every host from t0; with `first` (host ->
+        usage_user), only the minute's first sample of hosts
+        0..OPS_DIVERGED-1, their usage_user replaced."""
+        lines = []
+        for h in range(n_hosts if first is None else OPS_DIVERGED):
+            for i in (range(6 * m, 6 * m + 6) if first is None
+                      else (6 * m,)):
+                fv = {f: float(ops_vals[f][h, i]) for f in FIELDS}
+                if first is not None:
+                    fv["usage_user"] = first(h)
+                lines.append(f"{keys[h]} "
+                             + ",".join(f"{f}={v!r}" for f, v in fv.items())
+                             + f" {t0 + (i - 6 * m) * STEP_NS}")
+        return "\n".join(lines).encode()
+
+    def ctrl(nid: str, **params) -> dict:
+        status, doc = cluster_http(nodes[nid].port, "POST", "/debug/ctrl",
+                                   {"mod": "cluster", **params}, user=None)
+        check(status == 200, f"{params.get('op')} on {nid}: {status} {doc}")
+        return doc
+
+    def held_bench() -> dict:
+        """The benchmark groups by the nodes that hold any."""
+        got = {nid: sorted(k for k in n.engine._shards
+                           if k[0] == "benchmark")
+               for nid, n in sorted(nodes.items())}
+        return {nid: v for nid, v in got.items() if v}
+
+    def ops_owners() -> list:
+        return r1.group_owners(OPS_DB, "autogen", gs)
+
+    def placed(want: list) -> None:
+        wait_for(f"the ops group's owners {want} on every node", lambda: all(
+            n.router.group_owners(OPS_DB, "autogen", gs) == want
+            for n in nodes.values()))
+
+    def staging_left() -> dict:
+        return {nid: n.engine.staging_ids()
+                for nid, n in sorted(nodes.items())}
+
+    def committed_markers() -> dict:
+        """The committed markers in each node's staging directory."""
+        out = {}
+        for nid, n in sorted(nodes.items()):
+            d = os.path.join(n.engine.root, "staging")
+            out[nid] = sorted(f for f in (os.listdir(d) if os.path.isdir(d)
+                                          else ()) if f.endswith(".committed"))
+        return out
+
+    def count_on(nid: str, g: int) -> int:
+        """Rows of the ops minute at group g in one node's engine, read
+        directly."""
+        sh = nodes[nid].engine._shards.get((OPS_DB, "autogen", g))
+        if sh is None:
+            return 0
+        sids = np.array(sorted(sh.index.series_ids("cpu")), np.int64)
+        _sid, got = sh.read_series_bulk("cpu", sids, g, g + 6 * STEP_NS,
+                                        ["usage_user"])
+        return len(got)
+
+    def k1_ops(label: str, u, n_min: int):
+        """K1's shape over the first n_min ops minutes through n1, against
+        numpy; the group's primary launches its partials' kernel 3 once,
+        no other node anything."""
+        q = ("SELECT mean(usage_user), max(usage_user), count(usage_user) "
+             f"FROM cpu WHERE time >= {t_ops} AND time < "
+             f"{t_ops + n_min * 60 * 10**9} GROUP BY time(1m)")
+        l0 = dict(cs.LAUNCHES)
+        rec.now = {}
+        by_node.coord = "n1"
+        by_node.take()
+        res, _req_ms, ms = cluster_query(nodes["n1"].port, q, db=OPS_DB)
+        verify_ops(res, u[:, :6 * n_min], t_ops)
+        got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
+        mine = by_node.take()
+        srv = r1.group_owners(OPS_DB, "autogen", gs, rf=1,
+                              nodes=sorted(nodes))[0]
+        for nid in nodes:
+            have = {k: v for k, v in mine.get(nid, {}).items() if v}
+            if nid == srv == "n1":  # the coordinator's own reduction
+                check(sum(have.values()) >= 1, f"K1 over ops ({label}): "
+                      f"n1, its primary, launched {have}")
+                continue
+            want = CLUSTER_PEER_LAUNCHES["K1"] if nid == srv else {}
+            check(have == want, f"K1 over ops ({label}): {nid} launched "
+                  f"{have}, not {want}")
+        check(all(got[k] == sum(m.get(k, 0) for m in mine.values())
+                  for k in E2E_KERNELS),
+              f"K1 over ops ({label}): launches {got}, by node {mine}")
+        log(f"[cluster] K1 over ops ({label}) through n1 ok in {ms:.1f} ms, "
+            f"served by {srv}: launches by node {json.dumps(mine)} at "
+            f"{json.dumps({k: sorted(v) for k, v in rec.now.items()})}")
+        rec.now = None
+        per_query[f"K1 ops {label}"] = {
+            "runs_ms": [ms], "p50_ms": ms, "launches": got,
+            "launches_by_node": mine, "served_by": [srv]}
+        return res
+
+    # (g) ops, a minute through n1, n4 added
+    lead = leader(CLUSTER_NODES)
+    for gkey, own in bench_groups:
+        check(lead.ms.propose_and_wait({"op": "set_placement", "key": gkey,
+                                        "owners": own}),
+              f"pin {gkey} to {own}")
+    status, doc = cluster_http(lead.port, "POST", "/query", {
+        "q": f"CREATE DATABASE {OPS_DB} WITH SHARD DURATION 1h"})
+    check(status == 200 and "error" not in doc["results"][0],
+          f"CREATE DATABASE {OPS_DB}: {status} {doc}")
+
+    def ops_ready(n) -> bool:
+        d = n.engine.databases.get(OPS_DB)
+        rp = d.rps.get(d.default_rp) if d is not None else None
+        return (rp is not None and rp.shard_duration_ns == 3600 * 10**9
+                and all(n.ms.fsm.placement.get(k) == o
+                        for k, o in bench_groups))
+
+    wait_for("the ops database and the pinned groups on every node",
+             lambda: all(ops_ready(n) for n in nodes.values()))
+    bench0 = held_bench()
+    body = minute_body(0, gs)
+    t_w = time.perf_counter()
+    status, doc = cluster_http(nodes["n1"].port, "POST", "/write",
+                               {"db": OPS_DB, "precision": "ns"}, body)
+    t_w = time.perf_counter() - t_w
+    check(status == 204, f"the ops minute's /write: {status} {doc}")
+    before = ops_owners()
+    check(all(count_on(nid, gs) == n_hosts * 6 for nid in before),
+          f"the ops minute on its owners {before}")
+    log(f"[cluster] ops (1 h groups): hour {hour}'s group on {before}; "
+        f"{n_hosts * 6} points through n1's /write in {t_w * 1e3:.1f} ms")
+    nodes[OPS_NODE] = ClusterNode(OPS_NODE, os.path.join(base, OPS_NODE))
+    n4 = nodes[OPS_NODE]
+    n4.wire({nid: n.addr for nid, n in nodes.items()}, learner=True)
+    status, doc = cluster_http(lead.port, "POST", "/raft/join", {},
+                               json.dumps({"id": OPS_NODE, "addr": n4.addr,
+                                           "token": CLUSTER_TOKEN}).encode(),
+                               user=None)
+    check(status == 200, f"/raft/join {OPS_NODE}: {status} {doc}")
+    add = ctrl("n1", op="add", id=OPS_NODE, addr=n4.addr)["add"]
+    check(add["ok"], f"op=add: {add}")
+
+    def joined() -> bool:
+        return all(OPS_NODE in n.ms.fsm.nodes for n in nodes.values()) \
+            and ops_ready(n4) and len(n4.svc.users) == 2 \
+            and "benchmark" in n4.engine.databases
+
+    wait_for("n4 in every roster, with the databases, users and pins",
+             joined)
+    for n in nodes.values():
+        n.hints.handle()  # a probe round: n4 up in every failure view
+    res = cluster_query(nodes["n1"].port, "SHOW CLUSTER", method="POST")[0]
+    rows = [r for r in res["series"][0]["values"] if r[2] == "data"]
+    check(sorted(r[0] for r in rows) == list(OPS_NODES)
+          and all(r[3] == "up" for r in rows),
+          f"SHOW CLUSTER on n1 after op=add: {rows}")
+    check(ops_owners() == before and OPS_NODE not in before,
+          f"ops owners {ops_owners()} after the add")
+    # the balancer's input, every node's /internal/load (balance_round is
+    # not driven: it could move a 1.44 M-point benchmark hour)
+    loads = r1.collect_loads()
+    check(sorted(loads) == list(OPS_NODES), f"collect_loads: {loads}")
+    out["loads"] = {nid: d["total"] for nid, d in loads.items()}
+    step("ops and add")
+    log(f"[cluster] n4 joined the meta group and op=add registered it: "
+        f"SHOW CLUSTER on n1 {json.dumps(rows)}; ops owners {before}; "
+        f"bytes by node (collect_loads) {json.dumps(out['loads'])}")
+
+    # (h) the forced move onto n4 and the two-phase migration: from the
+    # owner that is not n1, to n4 (n1 keeps its copy, whose digest is the
+    # source's, and takes no push)
+    src = next(n for n in before if n != "n1")
+    kept = "n1"
+    move = ctrl(src, op="move", db=OPS_DB, dest=OPS_NODE)["move"]
+    check(move is not None and move["group"] == key
+          and move["owners"] == [kept, OPS_NODE],
+          f"op=move on {src}: {move}")
+    placed([kept, OPS_NODE])
+    marks0 = committed_markers()
+    t_m = time.perf_counter()
+    doc = ctrl(src, op="migrate")
+    t_m = time.perf_counter() - t_m
+    check(doc["moved"] == 1, f"op=migrate on {src}: {doc}")
+    marks1 = committed_markers()
+    committed = sorted(nid for nid in nodes
+                       if len(marks1[nid]) > len(marks0[nid]))
+    check(committed == [OPS_NODE],
+          f"the migration committed on {committed}: markers {marks1}")
+    held = {nid: (OPS_DB, "autogen", gs) in n.engine._shards
+            for nid, n in sorted(nodes.items())}
+    check(held == {nid: nid in (kept, OPS_NODE) for nid in nodes},
+          f"the ops group held by {held}")
+    left = staging_left()
+    check(not any(left.values()) and doc["staging"] == [],
+          f"staging left {left}")
+    check(held_bench() == bench0, "a migrate_round moved a benchmark group")
+    pts = n_hosts * 6 * len(committed)  # the minute, to n4
+    out["migration"] = {"s": t_m, "points": pts, "points_per_s": pts / t_m,
+                        "from": src, "owners_before": before,
+                        "owners_after": [kept, OPS_NODE],
+                        "committed_on": committed}
+    status, doc = cluster_http(
+        leader(OPS_NODES).port, "POST", "/cluster/placement", {},
+        json.dumps({"key": key, "owners": [OPS_NODE, kept],
+                    "token": CLUSTER_TOKEN}).encode(), user=None)
+    check(status == 200, f"/cluster/placement: {status} {doc}")
+    placed([OPS_NODE, kept])
+    step("move and migrate")
+    log(f"[cluster] op=move on {src}: ops owners {before} -> "
+        f"{move['owners']}; op=migrate on {src}: staged, committed on "
+        f"{committed} (its marker; {kept} held the same digest and took no "
+        f"push) and dropped at {src} in "
+        f"{t_m * 1e3:.1f} ms ({pts} points pushed, {pts / t_m:.0f} "
+        f"points/s); staging left "
+        f"{json.dumps(left)}; no benchmark group moved; the meta leader "
+        f"names {OPS_NODE} primary: owners {[OPS_NODE, kept]}")
+    u = ops_vals["usage_user"].copy()
+    k1_ops("after the move", u, 1)
+
+    # (i) anti-entropy: the retained owner's copy alone rewritten
+    nodes[kept].engine.write_lines(OPS_DB, minute_body(
+        0, gs, first=lambda h: 1000.0 + h))
+    u[:OPS_DIVERGED, 0] = 1000.0 + np.arange(OPS_DIVERGED)
+    shard = {nid: nodes[nid].engine._shards[(OPS_DB, "autogen", gs)]
+             for nid in (kept, OPS_NODE)}
+    d0 = {nid: sh.content_digest() for nid, sh in shard.items()}
+    check(d0[kept] != d0[OPS_NODE], f"the digests agree: {d0}")
+    t_a = time.perf_counter()
+    repaired = ctrl(OPS_NODE, op="antientropy")["repaired"]
+    t_a = time.perf_counter() - t_a
+    check(repaired == 1, f"op=antientropy on n4 repaired {repaired}")
+    d1 = {nid: sh.content_digest() for nid, sh in shard.items()}
+    check(d1[kept] == d1[OPS_NODE], f"the digests differ: {d1}")
+    out["antientropy"] = {"repaired": repaired, "s": t_a,
+                          "digests_before": d0, "digest_after": d1[kept]}
+    step("anti-entropy")
+    log(f"[cluster] anti-entropy: {OPS_DIVERGED} rows rewritten in "
+        f"{kept}'s copy alone, digests {json.dumps(d0)}; op=antientropy on "
+        f"n4 repaired {repaired} (group, measurement) pair in "
+        f"{t_a * 1e3:.1f} ms; digests now {json.dumps(d1[kept])} on both")
+    k1_ops("after anti-entropy", u, 1)
+
+    # (j) strict replication: the next minute, into hour2's group (n1
+    # and one of n2 and n3), commits through raft
+    owners2 = r1.group_owners(OPS_DB, "autogen", gs2)
+    gid = gid_of(tuple(sorted(owners2)))
+    for n in nodes.values():
+        n.router.datarep = DataReplication(n.router, token=CLUSTER_TOKEN)
+    try:
+        check(not any(gid in nodes[nid].router.datarep.groups
+                      for nid in owners2), f"{gid} before the write")
+        body = minute_body(1, gs2)
+        t_s = time.perf_counter()
+        status, doc = cluster_http(nodes["n1"].port, "POST", "/write",
+                                   {"db": OPS_DB, "precision": "ns"}, body)
+        t_s = time.perf_counter() - t_s
+        check(status == 204, f"the strict minute's /write: {status} {doc}")
+        # at the answer: the owners' raft group, then their engines
+        raft = {}
+        for nid in owners2:
+            g = nodes[nid].router.datarep.groups.get(gid)
+            check(g is not None, f"no replica group {gid} on {nid}")
+            with g.node._lock:
+                log_ = [(g.node.snap_index + i + 1, e.term, e.cmd.get("op"))
+                        for i, e in enumerate(g.node.log)]
+                raft[nid] = {
+                    "state": g.node.state, "leader": g.node.leader_id,
+                    "term": g.node.current_term,
+                    "last": g.node.snap_index + len(g.node.log),
+                    "commit": g.node.commit_index,
+                    "applied": g.node.last_applied,
+                    "match": dict(g.node.match_index),
+                    "writes": [(i, t) for i, t, op in log_ if op == "write"]}
+        at_ack = {nid: count_on(nid, gs2) for nid in owners2}
+        # the owner that committed the write (its leader then; a
+        # follower whose election timer ran out during the 17 MB append
+        # may be campaigning already, which raft allows) and the other
+        lead_id = max(owners2, key=lambda nid: raft[nid]["commit"])
+        fol_id = next(nid for nid in owners2 if nid != lead_id)
+        lr, fr = raft[lead_id], raft[fol_id]
+        check(len(lr["writes"]) >= 1, f"{gid}'s writes on {lead_id}: {lr}")
+        w_idx, w_term = lr["writes"][-1]
+        check(lr["commit"] >= w_idx and lr["applied"] >= w_idx,
+              f"the write's entry {w_idx} not committed and applied on "
+              f"{lead_id} at the answer: {raft}")
+        check(lr["state"] != LEADER or lr["term"] != w_term
+              or lr["match"].get(fol_id, 0) >= w_idx,
+              f"{lead_id} leads without {fol_id}'s match: {raft}")
+        # a majority of two: the follower logged the entry before the
+        # commit, so before the answer
+        check((w_idx, w_term) in fr["writes"],
+              f"the write's entry {w_idx} not in {fol_id}'s log at the "
+              f"answer: {raft}")
+        check(at_ack[lead_id] == n_hosts * 6,
+              f"{lead_id} holds {at_ack} at the answer")
+        lag = {nid: wait_for(f"the strict minute on {nid}",
+                             lambda nid=nid: count_on(nid, gs2)
+                             == n_hosts * 6, 10.0)
+               for nid in owners2}
+        # the group keeps (or has re-elected) a leader among its owners
+        groups = []
+
+        def led() -> bool:
+            groups[:] = nodes["n1"].router.datarep.group_status()
+            return any(r[0] == gid and r[3] in owners2 for r in groups)
+
+        wait_for(f"n1's group status listing {gid} with a leader", led, 10.0)
+        check(not any(count_on(nid, gs2) for nid in nodes
+                      if nid not in owners2), "the strict minute off its "
+              f"owners {owners2}")
+    finally:
+        for n in nodes.values():
+            n.router.datarep.stop()
+            n.router.datarep = None
+    out["strict"] = {"s": t_s, "points": n_hosts * 6, "owners": owners2,
+                     "at_ack": at_ack, "follower_lag_s": lag,
+                     "raft_at_ack": raft, "entry": [w_idx, w_term],
+                     "groups": groups}
+    step("strict minute")
+    log(f"[cluster] strict replication: the next minute ({n_hosts * 6} "
+        f"points, hour {hour2}'s group on {owners2}) through n1's /write: "
+        f"204 in {t_s * 1e3:.1f} ms; at the answer the write's entry "
+        f"{w_idx} (term {w_term}) was committed and applied by "
+        f"{lead_id} ({lr['state']}, term {lr['term']}, commit "
+        f"{lr['commit']}, match of {fol_id} {lr['match'].get(fol_id)}) and "
+        f"logged by {fol_id} ({fr['state']}, term {fr['term']}, last "
+        f"{fr['last']}, commit {fr['commit']}); rows at the answer "
+        f"{json.dumps(at_ack)}, each owner's all within "
+        f"{json.dumps({k: round(v, 3) for k, v in lag.items()})} s; raft "
+        f"group [id, owners, state, leader, log, applied] "
+        f"{json.dumps(groups)}")
+
+    # (k) n4 decommissions itself
+    t_d = time.perf_counter()
+    st = ctrl(OPS_NODE, op="decommission", deadline_s=60)["decommission"]
+    t_d = time.perf_counter() - t_d
+    check(st["phase"] == "done" and st["roster_removed"]
+          and st["conf_removed"], f"op=decommission on n4: {st}")
+    wait_for("n4 out of every roster", lambda: all(
+        OPS_NODE not in n.ms.fsm.nodes for nid, n in nodes.items()
+        if nid != OPS_NODE))
+    n4_state = nodes[OPS_NODE].router.decommission_state
+    check(n4_state.get("phase") == "done", f"n4's state {n4_state}")
+    nodes.pop(OPS_NODE).stop()
+    after = ops_owners()
+    placed(after)
+    check(OPS_NODE not in after and all(
+        (OPS_DB, "autogen", gs) in nodes[nid].engine._shards
+        for nid in after), f"ops owners {after} after the decommission")
+    check(all(count_on(nid, gs) == n_hosts * 6 for nid in after),
+          f"the minute on {after}")
+    check(held_bench() == bench0, "a migrate_round moved a benchmark group")
+    left = staging_left()
+    check(not any(left.values()), f"staging left {left}")
+    res = cluster_query(nodes["n1"].port, "SHOW CLUSTER", method="POST")[0]
+    rows = [r for r in res["series"][0]["values"] if r[2] == "data"]
+    check(sorted(r[0] for r in rows) == list(CLUSTER_NODES),
+          f"SHOW CLUSTER on n1 after the decommission: {rows}")
+    out["decommission"] = {"s": t_d, "state": st, "owners_after": after,
+                           "roster": sorted(r[0] for r in rows)}
+    step("decommission")
+    log(f"[cluster] op=decommission on n4 in {t_d * 1e3:.1f} ms: phase "
+        f"{st['phase']}, {st['rounds']} drain round(s), "
+        f"{st['migrated']} group(s) migrated, {st.get('repaired')} "
+        f"repaired first; ops owners {after}; SHOW CLUSTER on n1 "
+        f"{json.dumps(rows)}; staging left {json.dumps(left)}; no "
+        "benchmark group moved in any round")
+    out["k1"] = k1_ops("after the decommission", u, 1)
+    out["u"] = u[:, :6]
+    out["t_ops"] = t_ops
+    return out
 
 
 def phase_cluster(seed: int, deadline: float,
@@ -7374,6 +7951,23 @@ def phase_cluster(seed: int, deadline: float,
                 qn, q_min[qn], "n3", n_t + 6, live,
                 range(CLUSTER_HOURS + 1), 1, keep=True)
         step("queries on n3")
+
+        # (g)-(k) the cluster operations, on the card. The four nodes
+        # share this process: their heaps, built by the load, go to the
+        # cyclic collector's permanent generation once, as a server's
+        # would after its engines open, so that the operations' JSON
+        # conversions set off collections over new objects only
+        gc.freeze()
+        try:
+            ops = cluster_operations(
+                nodes, base, leader, step, by_node, rec, keys, n_hosts,
+                seed, [(f"benchmark|autogen|{group_start(h)}", own)
+                       for h, own in CLUSTER_PLACEMENT.items()],
+                per_query, walls)
+        finally:
+            gc.unfreeze()
+        steps["operations"] = {k: v for k, v in ops.items()
+                               if k not in ("k1", "u")}
         peak = torch.cuda.max_memory_allocated()
         launches = dict(cs.LAUNCHES)
 
@@ -7399,9 +7993,18 @@ def phase_cluster(seed: int, deadline: float,
             card_equals_cpu(qn, card[qn], res)
             verify_cluster(qn, res, vals, tags, n_hosts, n_t + 6)
             cpu_ms[qn] = round(ms, 1)
+        t0_ops = ops["t_ops"]
+        res, _req, ms = cluster_query(
+            nodes["n1"].port, "SELECT mean(usage_user), max(usage_user), "
+            f"count(usage_user) FROM cpu WHERE time >= {t0_ops} AND time < "
+            f"{t0_ops + 60 * 10**9} GROUP BY time(1m)", db=OPS_DB)
+        card_equals_cpu("K1 over ops", ops["k1"], res)
+        verify_ops(res, ops["u"], t0_ops)
+        cpu_ms["K1 over ops"] = round(ms, 1)
         step("cpu queries")
-        log(f"[cluster] reopened with device=\"cpu\": K1 and K3 on n1 give "
-            f"the card's answers (cpu ms {json.dumps(cpu_ms)})")
+        log(f"[cluster] reopened with device=\"cpu\": K1 and K3 on n1, and "
+            f"K1 over ops, give the card's answers (cpu ms "
+            f"{json.dumps(cpu_ms)})")
         wall_s = time.perf_counter() - t_phase
         steps["walls_s"] = walls
         steps["cpu_ms"] = cpu_ms

@@ -1,18 +1,20 @@
 """Multi-node data plane: shard-group placement, write routing, remote
 scans.
 
-The port of ``opengemini_tpu/parallel/cluster.py``: everything up to
-``replay_hints`` and from ``forward_points`` on, with plain
-``threading`` locks; every body and file (the points, hints, scan
-payloads and health views) is the JAX package's, so a port node and a
-JAX node serve each other. The cluster operations between (load
-balancing, forced moves, node add, drain and decommission, two-phase
-migration, anti-entropy) and strict data replication are ROADMAP A8.2's:
-their entry points raise. Beyond the reference, the same rows reach the
-same engines faster: a write's local slice and a replica's
-/internal/write go to the engine as one columnar batch where
-``write_points`` can, and a write's group owners are computed once per
-group.
+The port of ``opengemini_tpu/parallel/cluster.py``, whole, with plain
+``threading`` locks: placement, routed writes, hinted handoff, remote
+scans, and the cluster operations (load balancing, forced moves, node
+add, drain and decommission, the two-phase migration, anti-entropy);
+strict data replication hooks in through ``datarep``
+(parallel/datarep.py). Every body and file (the points, hints, scan
+payloads, migration phases, digests and health views) is the JAX
+package's, so a port node and a JAX node serve, migrate to and repair
+each other. Beyond the reference, the same rows reach the same engines
+faster: a write's local slice and a replica's /internal/write go to the
+engine as one columnar batch where ``write_points`` can, a write's
+group owners are computed once per group, and a migration pushes
+nothing to a retained owner whose copy has the source's digest
+(``_lacking``).
 
 Reference: coordinator/points_writer.go (MapShards + WritePointRows shard
 routing) and the coordinator select exchange (remote readers feeding the
@@ -363,6 +365,10 @@ class MetaShard:
         return Record.empty()
 
 
+def _as_list(xs):
+    return xs.tolist() if hasattr(xs, "tolist") else xs
+
+
 def payload_to_points(mst: str, payload: dict) -> list:
     """/internal/scan payload -> engine points (structured write shape)."""
     from opengemini_tpu_torch.record import FieldType
@@ -375,15 +381,13 @@ def payload_to_points(mst: str, payload: dict) -> list:
         for name, col in s["fields"].items():
             ftype = FieldType[col["type"]] if isinstance(col["type"], str) \
                 else FieldType(col["type"])
-            per_field.append((name, ftype, col["values"], col["valid"]))
-        for i, t in enumerate(times):
-            fields = {}
-            for name, ftype, values, valid in per_field:
-                if valid[i]:
-                    v = values[i]
-                    if hasattr(v, "item"):
-                        v = v.item()
-                    fields[name] = (ftype, v)
+            # the binary wire's arrays as Python scalars, as .item() gives
+            per_field.append((name, ftype, _as_list(col["values"]),
+                              _as_list(col["valid"])))
+        for i, t in enumerate(_as_list(times)):
+            fields = {name: (ftype, values[i])
+                      for name, ftype, values, valid in per_field
+                      if valid[i]}
             if fields:
                 points.append((mst, tags, int(t), fields))
     return points
@@ -657,6 +661,9 @@ class DataRouter:
             raise ValueError(
                 f"bad write consistency {write_consistency!r}")
         self.write_consistency = write_consistency
+        # strict replication (parallel/datarep.DataReplication) under the
+        # "replication" HA policy; None is the write-available default
+        self.datarep = None
         # RPC hardening knobs (cluster torture forces all of these):
         # liveness-probe timeout (was hardcoded 2s), transient-retry
         # count + jittered exponential backoff base for data-plane
@@ -915,6 +922,11 @@ class DataRouter:
         level = consistency or self.write_consistency
         if level not in ("any", "one", "quorum", "all"):
             raise ValueError(f"bad consistency level {level!r}")
+        if self.datarep is not None:
+            # strict replication: every batch commits through its owner
+            # set's raft group before the answer (parallel/datarep.py);
+            # the raft majority takes the place of the consistency level
+            return self.datarep.write(db, rp, points)
         local, remote = self.split_points(db, rp, points)
         n = 0
         if local:
@@ -1154,38 +1166,654 @@ class DataRouter:
                     pass
         return delivered
 
-    # -- cluster operations (ROADMAP A8.2) ----------------------------------
-    # load balancing, forced moves, node add, drain and decommission,
-    # two-phase migration and anti-entropy are not in this port yet: each
-    # entry point raises, so a caller cannot mistake a no-op for a move
+    # -- shard migration / rebalancing --------------------------------------
 
-    def _not_ported(self, what: str):
-        raise NotImplementedError(
-            f"{what} is not supported by this port yet (ROADMAP A8.2)")
+    MIGRATE_CHUNK = 20_000  # points per forwarded batch
+
+    # -- load-aware balancing (reference: balance_manager.go) --------------
 
     def collect_loads(self, deadline: float | None = None) -> dict[str, dict]:
-        self._not_ported("collect_loads")
+        """{node_id: disk_usage doc} for every reachable data node
+        (local node measured directly).  `deadline` is an absolute
+        time.perf_counter() stamp: once past it the poll stops early so
+        one slow peer cannot stretch a balance pass past its budget
+        (breaker-open peers already fail fast via CircuitOpen)."""
+        import time as _time
+        out: dict[str, dict] = {}
+        for nid, addr in sorted(self.data_nodes().items()):
+            if nid == self.self_id:
+                out[nid] = self.engine.disk_usage()
+                continue
+            if deadline is not None and _time.perf_counter() >= deadline:
+                break  # budget spent: decide on what we have
+            try:
+                out[nid] = self._post(addr, "/internal/load", {"db": "_"})
+            except (OSError, RemoteScanError, ValueError):
+                continue  # unreachable node: skip this round
+        return out
 
-    def balance_round(self, *args, **kwargs):
-        self._not_ported("balance_round")
+    def balance_round(self, min_skew_bytes: int = 64 << 20,
+                      skew_ratio: float = 1.3,
+                      budget_s: float | None = None) -> dict | None:
+        """ONE load-balancing decision (meta-leader only): when the
+        heaviest data node carries skew_ratio x the lightest (and at
+        least min_skew_bytes more), move the largest group whose PRIMARY
+        is the heavy node to the light one via a raft-replicated
+        placement override — every node's group_owners() then excludes
+        the heavy node and its own migrate_round() streams the data over
+        the existing two-phase machinery. Returns the decision or None.
+        Reference: app/ts-meta/meta/balance_manager.go /
+        master_pt_balance_manager.go (load-reactive PT moves; rendezvous
+        handles membership-change moves already)."""
+        import time as _time
+        deadline = (None if budget_s is None
+                    else _time.perf_counter() + budget_s)
+        loads = self.collect_loads(deadline)
+        if len(loads) < 2:
+            return None
+        self._prune_placements(loads)
+        hot = max(loads, key=lambda n: loads[n].get("total", 0))
+        cold = min(loads, key=lambda n: loads[n].get("total", 0))
+        hot_b = loads[hot].get("total", 0)
+        cold_b = loads[cold].get("total", 0)
+        if hot == cold or hot_b < cold_b * skew_ratio + min_skew_bytes:
+            return None
+        ids = sorted(self.data_nodes())
+        over = getattr(self.meta_store.fsm, "placement", {}) or {}
+        best = None
+        for key, size in sorted(loads[hot].get("groups", {}).items(),
+                                key=lambda kv: -kv[1]):
+            try:
+                db, rp, start = key.split("|")
+                start_i = int(start)
+            except ValueError:
+                continue  # name containing '|' (legacy data): skip
+            cur = self.group_owners(db, rp, start_i, nodes=ids)
+            if cur and cur[0] == hot and cold not in cur:
+                # moving more than half the skew would just flip it
+                if size <= (hot_b - cold_b) * 0.75 and size > 0:
+                    best = (key, size, cur)
+                    break
+        if best is None:
+            return None
+        key, size, cur = best
+        if cold != self.self_id and self.breaker.enabled():
+            cold_addr = self.data_nodes().get(cold, "")
+            if cold_addr and self.breaker.is_open(cold_addr):
+                # the chosen destination stopped answering since its load
+                # report: proposing the override would strand the group
+                # behind migrate_round retries against a dead peer
+                return None
+        new_owners = self._propose_owner_swap(key, cur, hot, cold)
+        if new_owners is None:
+            return None
+        STATS.incr("cluster", "balance_moves")
+        return {"group": key, "bytes": size, "from": hot, "to": cold,
+                "owners": new_owners, "prior": over.get(key)}
 
-    def force_move(self, *args, **kwargs):
-        self._not_ported("force_move")
+    def _propose_owner_swap(self, key: str, cur: list[str], out_node: str,
+                            dest: str) -> list[str] | None:
+        """Raft-propose a placement override moving group `key` off
+        `out_node` onto `dest`.  Retained current owners stay FIRST:
+        with rf>1 the primary must keep holding the data while migration
+        is still in flight, or the primary-filtered reads would
+        black-hole the group until out_node's next migrate_round (the
+        new owner has no rows yet); with rf=1 the list is just [dest]
+        and unfiltered reads keep serving out_node's copy until the move
+        commits.  Returns the new owner list, or None (rf already
+        saturated by data-holding owners, or the proposal failed)."""
+        new_owners = [n for n in cur if n != out_node] + [dest]
+        new_owners = new_owners[: max(1, self.rf)]
+        if dest not in new_owners:
+            return None
+        if not self._propose_placement(key, new_owners):
+            return None
+        return new_owners
 
-    def add_node(self, *args, **kwargs):
-        self._not_ported("add_node")
+    def _prune_placements(self, loads: dict) -> None:
+        """Overrides must not pin groups forever: drop entries whose group
+        no longer exists on any reporting node (retention expired /
+        dropped) or whose owner list already equals plain rendezvous
+        (membership change caught up). Without this, the placement map
+        grows monotonically and defeats rendezvous self-balancing."""
+        over = dict(getattr(self.meta_store.fsm, "placement", {}) or {})
+        if not over:
+            return
+        held: set[str] = set()
+        for doc in loads.values():
+            held.update(doc.get("groups", {}))
+        ids = sorted(self.data_nodes())
+        for key, owner_list in over.items():
+            try:
+                db, rp, start = key.split("|")
+                start_i = int(start)
+            except ValueError:
+                continue
+            stale = key not in held or \
+                owner_list == owners(ids, db, rp, start_i, self.rf)
+            if stale:
+                self.meta_store.propose_and_wait(
+                    {"op": "drop_placement", "key": key})
+
+    def force_move(self, db: str | None = None,
+                   dest: str | None = None) -> dict | None:
+        """Deterministic balancer decision for operators and the cluster
+        torture harness (POST /debug/ctrl?mod=cluster&op=move): pick the
+        largest shard group this node owns and propose a placement
+        override moving it to a node outside the current owner set — no
+        byte skew required.  `dest` pins the destination (elastic node
+        add: rebalance onto a JOINING node instead of whichever node
+        sorts first); default is the first non-owner.  Like
+        balance_round, retained data-holding owners stay FIRST so rf>1
+        primary-filtered reads never black-hole the group mid-move; the
+        data streams when this node's next migrate_round observes the
+        lost ownership.  Returns the decision or None (nothing movable /
+        unknown dest / not the meta leader)."""
+        ids = sorted(self.data_nodes())
+        if len(ids) < 2:
+            return None
+        if dest is not None and dest not in ids:
+            return None  # unknown destination: not in the roster (yet)
+        usage = self.engine.disk_usage()
+        best = None
+        for key, _size in sorted(usage.get("groups", {}).items(),
+                                 key=lambda kv: (-kv[1], kv[0])):
+            try:
+                gdb, rp, start = key.split("|")
+                start_i = int(start)
+            except ValueError:
+                continue
+            if db and gdb != db:
+                continue
+            cur = self.group_owners(gdb, rp, start_i, nodes=ids)
+            if self.self_id not in cur:
+                continue
+            if dest is not None:
+                if dest in cur:
+                    continue  # already an owner of this group
+                best = (key, cur, dest)
+                break
+            others = [n for n in ids if n not in cur]
+            if not others:
+                continue
+            best = (key, cur, others[0])
+            break
+        if best is None:
+            return None
+        key, cur, dest = best
+        new_owners = self._propose_owner_swap(key, cur, self.self_id, dest)
+        if new_owners is None:
+            return None
+        STATS.incr("cluster", "forced_moves")
+        return {"group": key, "from": self.self_id, "to": dest,
+                "owners": new_owners}
+
+    # -- elastic membership (online node add / decommission) ----------------
+
+    def _leader_post(self, path: str, body: dict) -> bool:
+        """Forward a roster/placement mutation to the meta leader over
+        HTTP (any node may initiate; raft serializes at the leader).
+        True on a 200 — anything else, including no known leader, is a
+        clean False for the caller to retry."""
+        hint = self.meta_store.leader_hint()
+        addr = self.meta_store.meta_members().get(hint or "", "")
+        if not addr:
+            return False
+        doc = dict(body)
+        doc["token"] = self.token
+        req = urllib.request.Request(
+            peers.url(addr, path), data=json.dumps(doc).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        try:
+            with peers.urlopen(req, timeout=self.timeout_s) as r:
+                return r.status == 200
+        except OSError:
+            return False
+
+    def _propose_placement(self, key: str, new_owners: list[str]) -> bool:
+        """Raft-replicate one placement override, proposing locally on
+        the leader and forwarding through /cluster/placement otherwise
+        (drain and force_move must work when issued on a follower)."""
+        if self.meta_store.is_leader():
+            return bool(self.meta_store.propose_and_wait(
+                {"op": "set_placement", "key": key, "owners": new_owners}))
+        return self._leader_post("/cluster/placement",
+                                 {"key": key, "owners": new_owners})
+
+    def add_node(self, node_id: str, addr: str, role: str = "data") -> dict:
+        """Operator-driven roster add (POST /debug/ctrl?mod=cluster&
+        op=add).  A node started with [meta] join registers itself
+        (server/app.py joiner + registrar); this op covers
+        pre-registration, repair after a lost registration, and tests.
+        Placement onto the new node follows from rendezvous plus
+        balancer moves — data streams over the ordinary two-phase
+        migration, nothing special-cased for joins."""
+        if not node_id or not addr:
+            return {"ok": False, "error": "id and addr required"}
+        if self.meta_store.is_leader():
+            ok = bool(self.meta_store.propose_and_wait(
+                {"op": "register_node", "id": node_id, "addr": addr,
+                 "role": role}))
+        else:
+            ok = self._leader_post("/cluster/register", {
+                "id": node_id, "addr": addr, "role": role})
+        if ok:
+            STATS.incr("cluster", "nodes_added")
+        return {"ok": ok, "node": node_id, "addr": addr,
+                "nodes": sorted(self.data_nodes())}
+
+    def _roster_remove(self, node_id: str) -> bool:
+        if self.meta_store.is_leader():
+            return bool(self.meta_store.propose_and_wait(
+                {"op": "remove_node", "id": node_id}))
+        return self._leader_post("/cluster/deregister", {"id": node_id})
+
+    def _conf_remove(self, node_id: str) -> bool:
+        """Drop a node from the raft voter set (no-op for data-only
+        nodes that never joined the meta group)."""
+        if node_id not in self.meta_store.meta_members():
+            return True
+        if self.meta_store.is_leader():
+            return bool(
+                self.meta_store.propose_conf_change("remove", node_id))
+        return self._leader_post("/raft/remove", {"id": node_id})
 
     def drain_round(self) -> dict:
-        self._not_ported("drain_round")
+        """ONE drain pass moving this node's data off (POST /debug/ctrl?
+        mod=cluster&op=drain): (1) raft-replicated placement overrides
+        disown every locally-held group — every coordinator re-routes at
+        the same committed index, so no peer's migrate_round can push
+        the group BACK mid-drain; (2) migrate_round streams the disowned
+        groups over the existing durable two-phase machinery; (3)
+        replay_hints drains copies owed to peers.  Writes that land here
+        mid-pass (the old placement still routed them) are picked up by
+        the next pass — they re-route or hint, never vanish.  Returns
+        progress counters; repeat until remaining_groups == 0 and
+        pending_hints is empty."""
+        ids = sorted(self.data_nodes())
+        others = [n for n in ids if n != self.self_id]
+        doc: dict = {"overridden": 0, "migrated": 0, "hints_replayed": 0,
+                     "dead_dests": []}
+        if not others:
+            doc["error"] = "cannot drain the last data node"
+            doc["remaining_groups"] = len(self.engine._shards)
+            doc["pending_hints"] = sorted(self.pending_hint_nodes())
+            return doc
+        for (db, rp, start) in sorted(self.engine._shards):
+            cur = self.group_owners(db, rp, start, nodes=ids)
+            if self.self_id not in cur:
+                continue
+            # retained data-holding owners stay FIRST (primary-filtered
+            # reads keep a data-holding primary mid-move), then fill
+            # from the post-removal rendezvous order so the override
+            # equals plain rendezvous once the roster drops this node —
+            # _prune_placements then retires it automatically
+            post = owners(others, db, rp, start, self.rf)
+            new = [n for n in cur if n != self.self_id]
+            new += [n for n in post if n not in new]
+            new = new[: max(1, min(self.rf, len(others)))]
+            if new and self._propose_placement(f"{db}|{rp}|{start}", new):
+                doc["overridden"] += 1
+        if self.breaker.enabled():
+            # migration already fails fast against these (CircuitOpen is
+            # never retried in _commit_with_retry); surfacing them lets
+            # the decommission loop stop early instead of spinning
+            doc["dead_dests"] = sorted(
+                n for n, a in self.data_nodes().items()
+                if n != self.self_id and a and self.breaker.is_open(a))
+        doc["migrated"] = self.migrate_round()
+        doc["hints_replayed"] = self.replay_hints()
+        doc["remaining_groups"] = len(self.engine._shards)
+        doc["pending_hints"] = sorted(self.pending_hint_nodes())
+        STATS.incr("cluster", "drain_rounds")
+        return doc
 
-    def decommission(self, *args, **kwargs):
-        self._not_ported("decommission")
+    def decommission(self, node: str | None = None,
+                     deadline_s: float = 60.0) -> dict:
+        """Drain-then-remove (POST /debug/ctrl?mod=cluster&
+        op=decommission).  For THIS node: (0) with rf>1, one
+        anti-entropy round repairs this node's replicas while it still
+        owns them, so the copies it sheds are complete even if a peer
+        replica dies later; (1) drain passes under a perf_counter
+        deadline — each pass re-disowns any NEW groups full traffic
+        created meanwhile; (2) roster removal (remove_node through the
+        meta store): every coordinator's rendezvous excludes this node
+        from the committed index on, and late hints for it re-route
+        through replay_hints; (3) raft conf-change removal when this
+        node is a meta voter; (4) final drain passes for in-flight
+        writes that raced the removal.  Idempotent — re-issue after a
+        mid-drain crash or partition and it resumes from the durable
+        state (placements, staging, hint queues).
+
+        With `node` set to a PEER id, this is the forced path for a
+        node that died and cannot drain itself: roster + conf-change
+        removal only.  Acked rows survive on their rf>1 replicas;
+        anti-entropy re-replicates them to the new owners and local
+        hints for the dead node re-route on the next replay."""
+        import time as _time
+
+        if node and node != self.self_id:
+            return self._force_remove(node)
+        t0 = _time.perf_counter()
+        deadline = t0 + max(1.0, deadline_s)
+        state: dict = {"phase": "draining", "node": self.self_id,
+                       "rounds": 0, "overridden": 0, "migrated": 0,
+                       "done": False}
+        self.decommission_state = state
+        if self.rf > 1:
+            try:
+                state["repaired"] = self.anti_entropy_round()
+            except Exception as e:  # noqa: BLE001 — repair best-effort
+                state["repair_error"] = str(e)
+        drained = False
+        while _time.perf_counter() < deadline:
+            doc = self.drain_round()
+            state["rounds"] += 1
+            state["overridden"] += doc["overridden"]
+            state["migrated"] += doc["migrated"]
+            state["last_round"] = doc
+            if doc.get("error"):
+                state["phase"] = "failed"
+                state["error"] = doc["error"]
+                return state
+            if doc["remaining_groups"] == 0 and not doc["pending_hints"]:
+                drained = True
+                break
+            if doc["dead_dests"] and not doc["migrated"]:
+                # every blocked group waits on a breaker-open dest: fail
+                # fast rather than pinning the drain until the deadline
+                state["phase"] = "blocked"
+                state["blocked_on"] = doc["dead_dests"]
+                return state
+            _time.sleep(
+                min(0.2, max(0.0, deadline - _time.perf_counter())))
+        if not drained:
+            state["phase"] = "deadline"
+            return state
+        state["phase"] = "removing"
+        state["roster_removed"] = self._roster_remove(self.self_id)
+        state["conf_removed"] = self._conf_remove(self.self_id)
+        # in-flight writes that the pre-removal placement routed here
+        # land in fresh local groups: push them off too (bounded — the
+        # write sources saw the roster change at the commit index)
+        for _ in range(3):
+            final = self.drain_round()
+            state["final_round"] = final
+            if (final["remaining_groups"] == 0
+                    and not final["pending_hints"]):
+                break
+            if _time.perf_counter() >= deadline:
+                break
+        state["done"] = bool(state["roster_removed"])
+        state["phase"] = "done" if state["done"] else "failed"
+        state["elapsed_s"] = round(_time.perf_counter() - t0, 3)
+        if state["done"]:
+            STATS.incr("cluster", "decommissions")
+        return state
+
+    def _force_remove(self, node_id: str) -> dict:
+        """Forced removal of a peer that cannot drain itself (died
+        mid-drain, lost hardware).  See decommission()."""
+        state: dict = {"phase": "removing", "node": node_id,
+                       "forced": True, "done": False}
+        self.decommission_state = state
+        known = node_id in self.data_nodes()
+        state["roster_removed"] = (
+            self._roster_remove(node_id) if known else True)
+        state["conf_removed"] = self._conf_remove(node_id)
+        state["hints_replayed"] = self.replay_hints()
+        state["done"] = bool(state["roster_removed"])
+        state["phase"] = "done" if state["done"] else "failed"
+        if state["done"]:
+            STATS.incr("cluster", "decommissions")
+        return state
 
     def migrate_round(self) -> int:
-        self._not_ported("migrate_round")
+        """Rebalancing after membership change — TWO-PHASE (reference:
+        app/ts-meta/meta/migrate_state_machine.go + engine/engine_ha.go
+        PreAssign/Assign/Rollback): for each shard group held locally
+        whose rendezvous owners no longer include this node, every
+        destination opens an INVISIBLE staging area (begin), rows stream
+        into it, and only a commit folds them into the live shard —
+        queries never observe a half-migrated copy. Any failure aborts
+        the staging best-effort; a pusher that dies mid-stream leaves
+        staging dirs that the destinations TTL-expire (the rollback that
+        survives coordinator death). The local copy drops only after
+        every destination commits. Beyond the reference, a destination
+        already holding our digest of the group (a retained owner) takes
+        no push (`_lacking`). Returns groups migrated."""
+        import uuid
+
+        ids = sorted(self.data_nodes())
+        moved = 0
+        for (db, rp, start), sh in sorted(self.engine._shards.items()):
+            dest = self.group_owners(db, rp, start, nodes=ids)
+            if self.self_id in dest:
+                continue
+            if not all(self.node_up(peer) for peer in dest):
+                continue  # owner down (quorum view): retry when healed
+            # a retained owner whose copy already has our digest takes
+            # no push (the reference re-folds the same rows into it: last
+            # write wins); it counts as committed
+            dest = self._lacking(dest, db, rp, start, sh)
+            mig_id = f"mig-{self.self_id}-{uuid.uuid4().hex[:12]}"
+            begun: list[str] = []
+            try:
+                for peer in dest:
+                    _fp("cluster-migrate-before-begin")
+                    self._migrate_rpc(peer, {
+                        "phase": "begin", "mig_id": mig_id, "db": db,
+                        "rp": rp, "group_start": start})
+                    begun.append(peer)
+                for peer in dest:
+                    self._push_shard(peer, db, rp, sh, mig_id)
+                for peer in dest:
+                    _fp("cluster-migrate-before-commit")
+                    self._commit_with_retry(peer, mig_id, db)
+                _fp("cluster-migrate-after-commit")  # all acks in, local
+            except Exception:                        # copy still present
+                # Rollback: ANY failure — transport, a peer's rejection,
+                # or a payload encode/decode fault (ValueError/KeyError,
+                # which previously ESCAPED this handler and left staging
+                # un-rolled-back until TTL) — aborts every begun peer
+                # best-effort; TTL expiry covers peers the abort cannot
+                # reach.  The local copy stays, so nothing is lost.
+                STATS.incr("cluster", "migrate_aborts")
+                for peer in begun:
+                    try:
+                        _fp("cluster-migrate-before-abort")
+                        self._migrate_rpc(peer, {
+                            "phase": "abort", "mig_id": mig_id, "db": db})
+                    except Exception:  # noqa: BLE001 — best-effort
+                        pass
+                continue
+            # drop-local ONLY here, after every destination acked its
+            # commit — a kill at the site above leaves the group held by
+            # a non-owner, which the next migrate_round re-pushes (LWW
+            # fold into the already-live rows: convergent, no dupes)
+            _fp("cluster-migrate-before-drop-local")
+            self.engine.drop_shard(db, rp, start)
+            moved += 1
+            STATS.incr("cluster", "groups_migrated")
+        return moved
+
+    def _lacking(self, dest: list, db: str, rp, start: int, sh) -> list:
+        """The destinations whose copy of the group differs from ours
+        (/internal/digest, anti-entropy's digest); a peer that cannot
+        answer counts as lacking."""
+        mine = None
+        out = []
+        for peer in dest:
+            addr = self.data_nodes().get(peer, "")
+            try:
+                theirs = self._post(addr, "/internal/digest", {
+                    "db": db, "rp": rp, "group_start": start})["digest"]
+            except (OSError, KeyError, TypeError, ValueError):
+                theirs = None
+            if theirs:
+                if mine is None:
+                    mine = sh.content_digest()
+                if theirs == mine:
+                    continue
+            out.append(peer)
+        return out
+
+    COMMIT_RETRIES = 3
+
+    def _commit_with_retry(self, peer: str, mig_id: str, db: str) -> None:
+        """Commit with bounded retries: the server side is idempotent (a
+        committed-marker answers a re-commit with ok), so a commit whose
+        ACK was lost in transit is safely retried here instead of
+        aborting — and then re-streaming — a fully staged migration."""
+        import random as _random
+        import time as _time
+
+        last: Exception | None = None
+        for i in range(self.COMMIT_RETRIES):
+            try:
+                self._migrate_rpc(peer, {
+                    "phase": "commit", "mig_id": mig_id, "db": db})
+                return
+            except urllib.error.HTTPError:
+                raise  # the peer ANSWERED (e.g. 400 unknown migration):
+                       # its classification is final, never retried
+            except CircuitOpen:
+                raise  # fail fast means fail fast: backing off against
+                       # a peer the breaker already classified dead
+                       # would just burn the migrate round's time
+            except (OSError, RemoteScanError) as e:
+                last = e
+                if i + 1 < self.COMMIT_RETRIES:
+                    base = max(self.rpc_backoff_ms, 20.0) / 1000.0
+                    _time.sleep(min(base * (2 ** i) * (1 + _random.random()),
+                                    2.0))
+        raise last
+
+    def _migrate_rpc(self, peer: str, body: dict) -> None:
+        addr = self.data_nodes().get(peer, "")
+        if not addr:
+            raise RemoteScanError(f"no address for data node {peer!r}")
+        try:
+            # commit folds the whole staged group into the live shard
+            # synchronously — far longer than a data-plane RPC
+            timeout = 300.0 if body.get("phase") == "commit" else None
+            got = self._post(addr, "/internal/migrate", body,
+                             timeout=timeout)
+        except OSError as e:
+            raise RemoteScanError(
+                f"data node {peer!r} ({addr}) migrate "
+                f"{body.get('phase')} failed: {e}") from e
+        if not got.get("ok"):
+            raise RemoteScanError(
+                f"data node {peer!r} rejected migrate {body.get('phase')}")
+
+    def _push_shard(self, peer: str, db: str, rp, sh, mig_id: str) -> None:
+        """Stream every row of one local shard into `peer`'s staging area
+        in bounded structured-write batches (extraction shared with
+        engine.commit_staging via iter_structured_batches)."""
+        from opengemini_tpu_torch.storage.shard import iter_structured_batches
+
+        for batch in iter_structured_batches(sh, self.MIGRATE_CHUNK):
+            _fp("cluster-migrate-before-push")
+            self._migrate_rpc(peer, {
+                "phase": "write", "mig_id": mig_id, "db": db,
+                "points": encode_points(batch)})
+
+    # -- anti-entropy (rf>1 replica convergence) ----------------------------
 
     def anti_entropy_round(self) -> int:
-        self._not_ported("anti_entropy_round")
+        """One digest-exchange round (reference raft-replicated shards
+        keep replicas consistent by construction,
+        engine/engine_replication.go; the rendezvous+LWW data plane needs
+        this read-repair instead): for every shard group this node owns,
+        compare per-measurement content digests with the other live
+        owners and pull any diverged measurement's rows back for LWW
+        merge.  Symmetric rounds on each owner converge both ways.
+        Returns the number of repaired (group, measurement) pairs."""
+        if self.rf <= 1:
+            return 0
+        ids = sorted(self.data_nodes())
+        nodes = self.data_nodes()
+        pending = self.pending_hint_nodes()
+        repaired = 0
+
+        # candidate groups: everything held locally PLUS groups the other
+        # owners hold that we should — a replica that lost its whole
+        # shard directory must still notice and re-pull
+        candidates: dict[tuple, object] = {
+            key: sh for key, sh in self.engine._shards.items()
+        }
+        peer_addrs: dict[str, str] = {}
+        for peer in ids:
+            if peer == self.self_id:
+                continue
+            if peer in pending or not self.node_up(peer):
+                continue  # hints still owed / peer down: not divergence
+            addr = nodes.get(peer, "")
+            if not addr:
+                continue
+            peer_addrs[peer] = addr
+            try:
+                got = self._post(addr, "/internal/groups", {"db": "_"})
+            except (OSError, ValueError):
+                peer_addrs.pop(peer, None)
+                continue
+            for db, rp, start in got.get("groups", []):
+                candidates.setdefault((db, rp, int(start)), None)
+
+        for (db, rp, start), sh in sorted(candidates.items()):
+            dest = self.group_owners(db, rp, start, nodes=ids)
+            if self.self_id not in dest:
+                continue
+            local_digest = sh.content_digest() if sh is not None else {}
+            if sh is not None:
+                tmin, tmax = sh.tmin, sh.tmax
+            else:
+                d = self.engine.databases.get(db)
+                rp_meta = d.rps.get(rp) if d else None
+                dur = rp_meta.shard_duration_ns if rp_meta else 0
+                tmin, tmax = start, start + (dur or 2**62 - start)
+            for peer in dest:
+                if peer == self.self_id or peer not in peer_addrs:
+                    continue
+                addr = peer_addrs[peer]
+                try:
+                    _fp("cluster-antientropy-before-digest")
+                    got = self._post(addr, "/internal/digest", {
+                        "db": db, "rp": rp, "group_start": start,
+                    })
+                except (OSError, ValueError):
+                    continue
+                theirs = got.get("digest", {})
+                for mst in sorted(set(theirs) | set(local_digest)):
+                    if theirs.get(mst) == local_digest.get(mst):
+                        continue
+                    if mst not in theirs:
+                        continue  # peer missing data: ITS round pulls ours
+                    try:
+                        _fp("cluster-antientropy-before-pull")
+                        n = self._pull_measurement(
+                            addr, db, rp, mst, tmin, tmax)
+                    except (OSError, RemoteScanError, ValueError):
+                        continue
+                    if n:
+                        repaired += 1
+                        STATS.incr("cluster", "anti_entropy_repairs")
+        return repaired
+
+    def _pull_measurement(self, addr: str, db: str, rp, mst: str,
+                          tmin: int, tmax: int) -> int:
+        """Fetch a peer's rows for one (group, measurement) and LWW-merge
+        them locally via the structured write path."""
+        payload = self._post_scan(addr, {
+            "db": db, "rp": rp, "mst": mst, "tmin": tmin, "tmax": tmax,
+            "fmt": "bin",
+        })
+        points = payload_to_points(mst, payload)
+        if not points:
+            return 0
+        _fp("cluster-antientropy-before-merge")  # pulled, not yet merged
+        return write_points(self.engine, db, points, rp)
 
     def forward_points(self, node_id: str, db: str, rp: str | None,
                        points: list) -> None:

@@ -88,9 +88,19 @@ other:
                         partials computed on this engine's device)
   POST     /internal/scan, /internal/measurements, /internal/groups
                         raw columns (JSON or the binary wire), names
+  POST     /internal/migrate  a two-phase migration's begin, write,
+                        commit or abort (the engine's staging)
+  POST     /internal/load, /internal/digest  this node's bytes by group
+                        (the balancer), a group's content digest
+                        (anti-entropy)
+  POST     /internal/raftdata, /internal/raftdata_propose  strict
+                        replication's raft messages and proposals
+                        (parallel/datarep.py; 404 without it)
   POST     /debug/ctrl  mod=netfault (src, dst, path, action; clear=1)
                         and mod=cluster (probe_timeout_s, rpc_retries,
-                        cb_threshold, cb_cooldown_s; op=hints|health)
+                        cb_threshold, cb_cooldown_s; op=migrate|balance|
+                        move|hints|antientropy|health|add|drain|
+                        decommission)
 With a router, /write splits the body by shard-group owner
 (``routed_write``, param ``consistency=any|one|quorum|all``). Every
 /internal/* and /cluster/* body carries the cluster token
@@ -693,6 +703,27 @@ def _make_handler(svc: HttpService):
                 self._send_json(200, {"groups": [
                     [db, rp, start]
                     for (db, rp, start) in sorted(svc.engine._shards)]})
+            elif path in ("/internal/raftdata", "/internal/raftdata_propose"):
+                self._handle_raftdata(path, body)
+            elif path == "/internal/migrate":
+                self._handle_internal_migrate(body)
+            elif path == "/internal/load":
+                # the balancer: this node's bytes by shard group
+                if self._internal_request(body) is None:
+                    return
+                self._send_json(200, svc.engine.disk_usage())
+            elif path == "/internal/digest":
+                # anti-entropy: the content digest of one shard group here
+                req = self._internal_request(body)
+                if req is None:
+                    return
+                group = int(req.get("group_start", 0))
+                digest: dict = {}
+                for sh in svc.engine.shards_for_range(
+                        req["db"], req.get("rp"), group, group + 1):
+                    if sh.tmin == group:
+                        digest = sh.content_digest()
+                self._send_json(200, {"digest": digest})
             elif path in ("/internal/scan", "/internal/measurements"):
                 self._handle_internal_scan(path, body)
             elif path in ("/cluster/register", "/cluster/deregister",
@@ -732,6 +763,87 @@ def _make_handler(svc: HttpService):
                     addr_of[msg["from"]] = sender_addr
             svc.meta_store.node.deliver(msg)
             self._send(204)
+
+        def _handle_raftdata(self, path: str, body: bytes) -> None:
+            """Strict replication (parallel/datarep.py): a replica
+            group's raft message, or a write proposed to a member. The
+            replication's token vouches for the caller; 404 while the
+            router runs without replication."""
+            from opengemini_tpu_torch.meta.raft import RaftNode
+
+            dr = getattr(svc.router, "datarep", None)
+            if dr is None:
+                self._send_json(404, {"error": "replication mode off"})
+                return
+            try:
+                msg = json.loads(body)
+            except ValueError:
+                msg = None
+            propose = path == "/internal/raftdata_propose"
+            if not isinstance(msg, dict) or (propose and not msg.get("db")):
+                self._send_json(400, {"error": "db required" if propose
+                                      else "bad raft message"})
+                return
+            if not self._cluster_token_ok(msg.pop("token", None), dr.token):
+                return
+            if propose:
+                self._send_json(200, dr.handle_propose(msg))
+                return
+            msg.pop("addr", None)
+            core = {k: v for k, v in msg.items()
+                    if k not in ("group", "owners")}
+            if not RaftNode.valid_message(core):
+                self._send_json(400, {"error": "bad raft message"})
+                return
+            dr.deliver(msg)
+            self._send(204)
+
+        def _handle_internal_migrate(self, body: bytes) -> None:
+            """The two-phase migration's receiving side: begin opens an
+            invisible staging area, write stages rows, commit folds them
+            into the live shard (idempotent through its marker), abort
+            drops the area (always ok: nothing staged means nothing to
+            undo)."""
+            from opengemini_tpu_torch.parallel.cluster import decode_points
+
+            req = self._internal_request(body)
+            if req is None:
+                return
+            op = req.get("phase")
+            mig = str(req.get("mig_id", ""))
+            try:
+                if op == "begin":
+                    failpoint.inject("internal-migrate-begin")
+                    svc.engine.begin_staging(
+                        req["db"], req.get("rp") or None,
+                        int(req["group_start"]), mig)
+                    out = {"ok": True}
+                elif op == "write":
+                    failpoint.inject("internal-migrate-write")
+                    n = svc.engine.write_staging(
+                        mig, decode_points(req.get("points", [])))
+                    out = {"ok": True, "rows": n}
+                elif op == "commit":
+                    failpoint.inject("internal-migrate-commit")
+                    out = {"ok": True,
+                           "rows": svc.engine.commit_staging(mig)}
+                    # folded and marked, the answer not yet sent: the
+                    # pusher's retried commit reads the marker
+                    failpoint.inject("internal-migrate-commit-before-reply")
+                elif op == "abort":
+                    failpoint.inject("internal-migrate-abort")
+                    out = {"ok": True,
+                           "aborted": svc.engine.abort_staging(mig)}
+                else:
+                    self._send_json(400, {"error": f"bad phase {op!r}"})
+                    return
+            except (KeyError, TypeError, ValueError) as e:
+                self._send_json(400, {"error": f"bad migrate request: {e}"})
+                return
+            except WriteError as e:
+                self._send_err(403, e)
+                return
+            self._send_json(200, out)
 
         def _handle_internal_write(self, body: bytes) -> None:
             """A coordinator's structured points for this replica, applied
@@ -1318,9 +1430,11 @@ def _make_handler(svc: HttpService):
             self._send_json(200, {"status": "ok", "rules": netfault.rules()})
 
         def _ctrl_cluster(self, params: dict):
-            """The router's RPC knobs and its synchronous rounds (op=hints
-            replays the hint queue, op=health exchanges the failure
-            view); the operations' rounds are ROADMAP A8.2's."""
+            """The router's RPC knobs and its synchronous rounds: migrate
+            (after expiring staging older than staging_ttl_s), balance,
+            move (db, dest), hints, antientropy, health, add (id, addr,
+            role), drain and decommission (node: the forced removal of a
+            dead peer; deadline_s)."""
             router = svc.router
             if router is None:
                 self._send_json(400, {"error": "no data router"})
@@ -1350,10 +1464,32 @@ def _make_handler(svc: HttpService):
             op = params.get("op", "")
             out: dict = {"status": "ok"}
             try:
-                if op == "hints":
+                if op == "migrate":
+                    out["expired"] = svc.engine.expire_staging(
+                        float(params.get("staging_ttl_s", 900)))
+                    out["moved"] = router.migrate_round()
+                elif op == "balance":
+                    out["move"] = router.balance_round()
+                elif op == "move":
+                    out["move"] = router.force_move(
+                        params.get("db") or None,
+                        dest=params.get("dest") or None)
+                elif op == "hints":
                     out["delivered"] = router.replay_hints()
+                elif op == "antientropy":
+                    out["repaired"] = router.anti_entropy_round()
                 elif op == "health":
                     out["health"] = router.exchange_health()
+                elif op == "add":
+                    out["add"] = router.add_node(
+                        params.get("id", ""), params.get("addr", ""),
+                        params.get("role", "data"))
+                elif op == "drain":
+                    out["drain"] = router.drain_round()
+                elif op == "decommission":
+                    out["decommission"] = router.decommission(
+                        node=params.get("node") or None,
+                        deadline_s=float(params.get("deadline_s", 60.0)))
                 elif op:
                     self._send_json(
                         400, {"error": f"unknown cluster op {op!r}"})
@@ -1362,8 +1498,7 @@ def _make_handler(svc: HttpService):
                 self._send_json(500, {"error": f"{op} failed: {e}"})
                 return
             out["breaker"] = router.breaker.snapshot()
-            # migration staging is ROADMAP A8.2's: nothing is ever staged
-            out["staging"] = []
+            out["staging"] = svc.engine.staging_ids()
             out["pending_hints"] = sorted(router.pending_hint_nodes())
             out["nodes"] = sorted(router.data_nodes())
             out["decommission_state"] = router.decommission_state

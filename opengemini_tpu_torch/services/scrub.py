@@ -2,9 +2,9 @@
 trigger replica repair.
 
 The port of ``opengemini_tpu/services/scrub.py``, whole, with a plain
-``threading`` lock. ``_repair`` does nothing yet: the anti-entropy
-round behind it is ROADMAP A8.2's (the port's ``DataRouter`` raises for
-it).
+``threading`` lock. With a router at rf > 1, ``_repair`` pulls a
+quarantined file's rows back from a replica through the router's
+anti-entropy round.
 
 The third leg of the media-fault tier (storage/diskfault.py injects,
 TSF block CRCs detect, shard quarantine contains): latent corruption in

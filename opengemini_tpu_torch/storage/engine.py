@@ -28,6 +28,15 @@ and series (storage/shard.py ``delete_data``); a write to a database
 with marks purges first, so old rows never resurface under a recreated
 name.
 
+Cluster operations: ``disk_usage`` (the balancer's load), the
+two-phase migration's staging (``begin_``, ``write_``, ``commit_``,
+``abort_``, ``close_`` and ``expire_staging``, ``staging_ids``: an
+invisible shard under ``<root>/staging/<mig_id>`` and a durable
+``<mig_id>.committed`` marker, the reference's layout) and
+``drop_shard``. Every flush a write or ``flush_all`` starts goes through
+``_flush_tolerating_drop``: a shard a concurrent DROP removed may fail
+its flush, a live one raises.
+
 Media damage: ``quarantine_snapshot`` lists every shard's quarantined
 files (``/debug/vars`` serves it), ``purge_quarantined`` deletes them,
 and the ``quarantine`` stats provider reports ``files_current``. The
@@ -305,6 +314,13 @@ class Engine:
         self._shards: dict[tuple[str, str, int], Shard] = {}
         self._load_meta()
         self._models = None  # lazy ModelStore (services/castor.py)
+        # inbound two-phase migrations: mig_id -> [db, rp, start, Shard,
+        # idle clock]; a staging shard is never in _shards, so no query
+        # sees its rows before the commit folds them in
+        self._staging: dict[str, list] = {}
+        # mig_ids whose commit is folding now (popped from _staging, the
+        # marker not yet durable): a retried commit waits for the marker
+        self._folding: set[str] = set()
         self._load_shards()
         # the rollup manager (storage/rollup.py): built only when a spec
         # is declared and OGT_ROLLUP is not 0; None keeps every write
@@ -512,6 +528,25 @@ class Engine:
                 d.default_rp = name
             self._save_meta()
 
+    def disk_usage(self) -> dict:
+        """{"total": bytes, "groups": {"db|rp|start": bytes}} of the live
+        shard directories: the load the balancer compares across nodes."""
+        groups: dict[str, int] = {}
+        total = 0
+        with self._lock:
+            items = list(self._shards.items())
+        for (db, rp, start), sh in items:
+            n = 0
+            for dirpath, _dirs, files in os.walk(os.path.realpath(sh.path)):
+                for f in files:
+                    try:
+                        n += os.path.getsize(os.path.join(dirpath, f))
+                    except OSError:
+                        pass
+            groups[f"{db}|{rp}|{start}"] = n
+            total += n
+        return {"total": total, "groups": groups}
+
     def database_names(self) -> list[str]:
         return sorted(self.databases)
 
@@ -631,6 +666,193 @@ class Engine:
             self._shards[key] = shard
         return shard
 
+    # -- two-phase migration staging (the reference's engine_ha.go) ----------
+
+    def _staging_root(self) -> str:
+        return os.path.join(self.root, "staging")
+
+    def begin_staging(self, db: str, rp: str, group_start: int,
+                      mig_id: str) -> None:
+        """Open an invisible staging shard, <root>/staging/<mig_id>, for
+        an inbound migration. A retried begin reuses it."""
+        if not mig_id or "/" in mig_id or mig_id.startswith("."):
+            raise WriteError(f"bad migration id {mig_id!r}")
+        d = self.databases.get(db)
+        if d is None:
+            raise DatabaseNotFound(db)
+        rp_meta = d.rps.get(rp or d.default_rp)
+        if rp_meta is None:
+            raise WriteError(f"retention policy not found: {db}.{rp}")
+        with self._lock:
+            if mig_id in self._staging:
+                return
+            dur = rp_meta.shard_duration_ns
+            sh = Shard(os.path.join(self._staging_root(), mig_id),
+                       group_start, group_start + dur, self.sync_wal)
+            self._staging[mig_id] = [db, rp or d.default_rp, group_start, sh,
+                                     _time.perf_counter()]
+
+    def write_staging(self, mig_id: str, points: list) -> int:
+        """Stage a migration's points (one columnar slab where
+        ingest/native_lp.points_batch takes them)."""
+        with self._lock:
+            got = self._staging.get(mig_id)
+            if got is None:
+                raise WriteError(f"unknown migration {mig_id!r}")
+            got[4] = _time.perf_counter()  # the idle clock of the TTL
+            sh = got[3]
+            batch = native_lp.points_batch(points) if len(points) > 1 \
+                else None
+            if batch is None:
+                n, ticket = sh.write_points_structured(points,
+                                                       defer_commit=True)
+            else:  # the same rows, as one columnar slab
+                n, ticket = sh.write_columnar(
+                    batch, None, LineWriter(batch).lines(
+                        np.arange(len(batch), dtype=np.int64)),
+                    "ns", _time.time_ns(), defer_commit=True)
+        # the sync-WAL wait runs off the engine lock, as a write's does
+        sh.wal.commit(ticket)
+        return n
+
+    def commit_staging(self, mig_id: str) -> int:
+        """Fold the staged rows into the live shard (last write wins on
+        (series, time), so a re-fold adds nothing; as columnar batches
+        where ingest/native_lp.points_batch takes them, the rows the
+        reference's structured writes store) and discard the staging
+        area; returns the rows folded. A durable committed marker
+        makes a re-commit of the same id answer 0 rather than fail, and a
+        re-commit that arrives while the first still folds waits for it."""
+        with self._lock:
+            got = self._staging.pop(mig_id, None)
+            if got is not None:
+                self._folding.add(mig_id)
+        if got is None:
+            while True:
+                with self._lock:
+                    inflight = mig_id in self._folding
+                if not inflight:
+                    break
+                _time.sleep(0.05)
+            if os.path.exists(self._committed_marker(mig_id)):
+                return 0  # folded already; the first answer was lost
+            raise WriteError(f"unknown migration {mig_id!r}")
+        try:
+            db, rp, _start, sh, _ts = got
+            from opengemini_tpu_torch.storage.shard import (
+                iter_structured_batches,
+            )
+
+            rows = 0
+            for points in iter_structured_batches(sh, 20_000):
+                batch = native_lp.points_batch(points) if len(points) > 1 \
+                    else None
+                rows += (self.write_rows(db, points, rp=rp) if batch is None
+                         else self.write_batch(db, batch, rp=rp))
+            # folded and in the WAL, no marker yet: a retry re-folds
+            _fp("engine-staging-commit-before-marker")
+            self._write_committed_marker(mig_id, rows)
+            self._discard_staging_dir(sh)
+        finally:
+            with self._lock:
+                self._folding.discard(mig_id)
+        return rows
+
+    def _committed_marker(self, mig_id: str) -> str:
+        return os.path.join(self._staging_root(), mig_id + ".committed")
+
+    def _write_committed_marker(self, mig_id: str, rows: int) -> None:
+        """<mig_id>.committed, fsynced and renamed into place: the token
+        of an idempotent commit, expired with the staging dirs."""
+        os.makedirs(self._staging_root(), exist_ok=True)
+        path = self._committed_marker(mig_id)
+        tmp = path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            # a wall stamp for an operator; the TTL reads the file's mtime
+            f.write(json.dumps({"rows": rows, "ts": _time.time()}))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    def staging_ids(self) -> list[str]:
+        """The migrations staged here now."""
+        with self._lock:
+            return sorted(self._staging)
+
+    def abort_staging(self, mig_id: str) -> bool:
+        """Drop a staging area; the live data was never touched."""
+        with self._lock:
+            got = self._staging.pop(mig_id, None)
+        if got is None:
+            return False
+        self._discard_staging_dir(got[3])
+        return True
+
+    def close_staging(self) -> None:
+        with self._lock:
+            for entry in self._staging.values():
+                entry[3].close()
+            self._staging.clear()
+
+    def _discard_staging_dir(self, sh) -> None:
+        sh.close()
+        shutil.rmtree(sh.path, ignore_errors=True)
+
+    def expire_staging(self, ttl_s: float = 900.0) -> int:
+        """Discard staging a pusher left behind: a registration idle for
+        `ttl_s` (by the in-process clock of its last write), and, on
+        disk, a staging dir with no registration (a restart) or a
+        committed marker whose newest mtime is `ttl_s` old. Returns the
+        areas dropped."""
+        root = self._staging_root()
+        if not os.path.isdir(root):
+            return 0
+        now_pc = _time.perf_counter()
+        now = _time.time()  # file mtimes are wall stamps
+        dropped = 0
+        with self._lock:
+            for name, entry in list(self._staging.items()):
+                if now_pc - entry[4] >= ttl_s:
+                    self._staging.pop(name, None)
+                    self._discard_staging_dir(entry[3])
+                    dropped += 1
+            for name in os.listdir(root):
+                if name in self._staging or name in self._folding:
+                    continue  # a fold in flight still reads its dir
+                path = os.path.join(root, name)
+                if name.endswith(".committed") and os.path.isfile(path):
+                    try:
+                        if now - os.path.getmtime(path) >= ttl_s:
+                            os.remove(path)
+                    except OSError:
+                        pass
+                    continue
+                try:
+                    newest = max(
+                        (os.path.getmtime(os.path.join(path, f))
+                         for f in os.listdir(path)),
+                        default=os.path.getmtime(path))
+                except OSError:
+                    continue
+                if now - newest < ttl_s:
+                    continue
+                shutil.rmtree(path, ignore_errors=True)
+                dropped += 1
+        return dropped
+
+    def drop_shard(self, db: str, rp: str, group_start: int) -> bool:
+        """Remove one shard group whose data now lives on its new owners
+        (a migration's last step). A write that routed rows here before
+        the drop finishes its flush through _flush_tolerating_drop."""
+        with self._lock:
+            shard = self._shards.pop((db, rp, group_start), None)
+            if shard is None:
+                return False
+            shard.close()
+            self._save_meta()
+            _remove_shard_dir(shard.path)
+        return True
+
     def shards_for_range(self, db: str, rp: str | None, tmin: int,
                          tmax: int) -> list[Shard]:
         """Shards overlapping [tmin, tmax) — the shard-mapping step."""
@@ -643,6 +865,12 @@ class Engine:
         return [sh for (sdb, srp, _s), sh in items
                 if sdb == db and srp == rp and sh.tmin < tmax
                 and sh.tmax > tmin]
+
+    def shards_of_db(self, db: str) -> list[Shard]:
+        """Every shard of a database, across its retention policies."""
+        with self._lock:
+            items = sorted(self._shards.items(), key=lambda kv: kv[0])
+        return [sh for (sdb, _rp, _s), sh in items if sdb == db]
 
     # -- write path ---------------------------------------------------------
 
@@ -844,8 +1072,26 @@ class Engine:
         for shard, ticket in tickets:
             shard.wal.commit(ticket)
         _fp("engine-before-threshold-flush")  # engine lock released
-        for shard in {id(sh): sh for sh in shards}.values():
-            shard.flush_if_over(self.flush_threshold_bytes)
+        self._flush_tolerating_drop(
+            shards, lambda sh: sh.flush_if_over(self.flush_threshold_bytes))
+
+    def _flush_tolerating_drop(self, shards, flush_fn) -> None:
+        """Flush each distinct shard off the engine lock. A failure is
+        swallowed only where a concurrent DROP (database, retention
+        policy, a migrated group) removed the shard: its rows are gone
+        on purpose. A live shard's failure raises."""
+        seen: set[int] = set()
+        for shard in shards:
+            if id(shard) in seen:
+                continue
+            seen.add(id(shard))
+            try:
+                flush_fn(shard)
+            except Exception:  # noqa: BLE001 — re-raised for a live shard
+                with self._lock:
+                    alive = any(s is shard for s in self._shards.values())
+                if alive:
+                    raise
 
     def write_rows(self, db: str, points: list, rp: str | None = None) -> int:
         """Structured write path: points are (measurement, tags tuple,
@@ -1226,8 +1472,7 @@ class Engine:
     def flush_all(self) -> None:
         with self._lock:
             shards = list(self._shards.values())
-        for shard in shards:
-            shard.flush()
+        self._flush_tolerating_drop(shards, lambda sh: sh.flush())
 
     # -- the durability ledger ----------------------------------------------
 
@@ -1279,6 +1524,9 @@ class Engine:
             for shard in self._shards.values():
                 shard.close()
             self._shards.clear()
+            for entry in self._staging.values():
+                entry[3].close()
+            self._staging.clear()
 
 
 def _remove_shard_dir(path: str) -> None:

@@ -46,6 +46,9 @@ The data lifecycle and media damage:
   like the delete rewrite.
 - **Backlog** (``mem_backlog_bytes``): the memtables and the live WAL,
   the resource governor's write watermark input.
+- **Cluster operations**: ``iter_structured_batches`` (a migration's
+  pushes and a staging commit) and ``content_digest`` (anti-entropy's
+  per-measurement digest, equal to the reference's for the same rows).
 - **Durability ledger** (``DurabilityLedger``, ``ledger_snapshot``):
   the rows the shard accepted (acknowledged, or replayed from the WAL
   at open) against the rows in its memtables and published files,
@@ -154,6 +157,51 @@ def _write_measurement_chunks(w: TSFWriter, tidx: "_TextSidecar", mst: str,
         sids, packed = _pack_entries(buffer)
         w.add_packed_chunk(mst, sids, packed)
     return rows
+
+
+def iter_structured_batches(sh, chunk_rows: int):
+    """A shard's whole content as structured-point batches (measurement,
+    tags, t_ns, {field: (type, value)}) of at most chunk_rows points: the
+    one extraction loop of a migration's pushes
+    (parallel/cluster._push_shard) and of a staging commit
+    (engine.commit_staging). The reference reads each series alone; here
+    one bulk read takes a slice of a measurement's series, sized to about
+    chunk_rows rows by the longest series read so far (the first slice is
+    one series, and a slice at most doubles the one before), and gives
+    the same points in the same order (series by
+    id, each in time order, its valid fields only). Memory stays bounded
+    by the slice, as the reference's by its series."""
+    batch: list = []
+    for mst in sh.measurements():
+        sids = sorted(sh.index.series_ids(mst))
+        at, step, longest = 0, 1, 1
+        while at < len(sids):
+            part = np.asarray(sids[at:at + step], np.int64)
+            at += len(part)
+            sid_arr, rec = sh.read_series_bulk(mst, part)
+            if len(rec):
+                longest = max(longest, int(
+                    np.unique(sid_arr, return_counts=True)[1].max()))
+                cols = [(name, col.ftype, col.values.tolist(),
+                         col.valid.tolist())
+                        for name, col in rec.columns.items()]
+                times = rec.times.tolist()
+                tags_of: dict = {}
+                for i, sid in enumerate(sid_arr.tolist()):
+                    tags = tags_of.get(sid)
+                    if tags is None:
+                        tags = tags_of[sid] = sh.index.series_entry(sid)[1]
+                    fields = {name: (ftype, vals[i])
+                              for name, ftype, vals, valid in cols
+                              if valid[i]}
+                    if fields:
+                        batch.append((mst, tags, times[i], fields))
+                    if len(batch) >= chunk_rows:
+                        yield batch
+                        batch = []
+            step = max(1, min(2 * len(part), chunk_rows // longest))
+    if batch:
+        yield batch
 
 
 class FileQuarantined(Exception):
@@ -1407,6 +1455,59 @@ class Shard:
             for sid_arr, mem_rec in m.bulk_parts(measurement, sids):
                 parts.append((sid_arr, _keep_fields(mem_rec, fields)))
         return merge_bulk_parts(parts, lo_t, hi_t)
+
+    def content_digest(self) -> dict:
+        """{measurement: [rows, hash64]} of the shard's logical rows: a
+        crc32 chain per series over its key (never its sid, which differs
+        between replicas), times, field names, values and validity,
+        folded over the series with XOR. Two replicas holding the same
+        rows give the same digest whatever their files, and so do the two
+        packages. Cached until the file set or a memtable changes."""
+        import zlib
+
+        from opengemini_tpu_torch.ingest.line_protocol import series_key
+
+        with self._lock:
+            state = (
+                tuple((r.path, os.path.getsize(r.path)) for r in self._files
+                      if os.path.exists(r.path)),
+                tuple(len(m) for m, _seg in self._frozen),
+                len(self.mem),
+            )
+            cached = getattr(self, "_digest_cache", None)
+            if cached is not None and cached[0] == state:
+                return cached[1]
+        out: dict[str, list] = {}
+        for mst in self.measurements():
+            rows = 0
+            acc = 0
+            for sid in sorted(self.index.series_ids(mst)):
+                rec = self.read_series(mst, sid)
+                if not len(rec):
+                    continue
+                rows += len(rec)
+                _m, tags = self.index.series_entry(sid)
+                h = zlib.crc32(series_key(mst, tags).encode())
+                h = zlib.crc32(np.ascontiguousarray(rec.times).tobytes(), h)
+                for name in sorted(rec.columns):
+                    col = rec.columns[name]
+                    h = zlib.crc32(name.encode(), h)
+                    vals = col.values
+                    if vals.dtype == object:
+                        payload = "\x00".join(
+                            "" if v is None else str(v) for v in vals
+                        ).encode()
+                    else:
+                        payload = np.ascontiguousarray(vals).tobytes()
+                    h = zlib.crc32(payload, h)
+                    h = zlib.crc32(
+                        np.ascontiguousarray(col.valid).tobytes(), h)
+                acc ^= h
+            if rows:
+                out[mst] = [rows, acc]
+        with self._lock:
+            self._digest_cache = (state, out)
+        return out
 
     def close(self) -> None:
         # _flush_lock first: an in-flight flush finishes before handles

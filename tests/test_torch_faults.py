@@ -815,3 +815,134 @@ def test_quarantine_counters(tmp_path):
     assert STATS.snapshot()["quarantine"]["files_current"] >= 1
     assert eng.purge_quarantined() == 1
     eng.close()
+
+
+# -- a write that races DROP DATABASE (ROADMAP C5) ---------------------------
+
+C5_POINTS = 20_000
+
+
+def _c5_lines():
+    return "\n".join(f"m,host=h{i % 50} v={i} {BASE + i * NS}"
+                     for i in range(C5_POINTS))
+
+
+def _c5_wait_for(fp, site):
+    deadline = time.monotonic() + 30
+    while not fp.hits(site):
+        assert time.monotonic() < deadline, f"{site} never reached"
+        time.sleep(0.005)
+
+
+def _c5_engine(pkg, tmp_path):
+    eng = PKGS[pkg][4](str(tmp_path / "d"), flush_threshold_bytes=1024,
+                       **PKGS[pkg][6])
+    eng.create_database("db")
+    return eng
+
+
+@pytest.mark.parametrize("pkg", sorted(PKGS))
+def test_a_routed_write_racing_drop_database_answers_204(tmp_path, pkg):
+    """ROADMAP C5's schedule through /write: the threshold flush waits
+    at engine-before-threshold-flush, DROP DATABASE removes the shard,
+    then the flush goes on; the write still answers 204."""
+    import urllib.request
+
+    from opengemini_tpu.server.http import HttpService as JHttp
+    from opengemini_tpu_torch.server.http import HttpService as THttp
+
+    fp = PKGS[pkg][2]
+    eng = _c5_engine(pkg, tmp_path)
+    svc = {"jax": JHttp, "torch": THttp}[pkg](eng, "127.0.0.1", 0)
+    svc.start()
+    fp.enable("engine-before-threshold-flush", "wait:go")
+    got = {}
+
+    def post():
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{svc.port}/write?db=db",
+            data=_c5_lines().encode(), method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                got["status"] = r.status
+        except Exception as e:  # noqa: BLE001 — the assertion shows it
+            got["error"] = repr(e)
+
+    t = threading.Thread(target=post)
+    t.start()
+    try:
+        _c5_wait_for(fp, "engine-before-threshold-flush")
+        res = svc.executor.execute("DROP DATABASE db")
+        assert "error" not in res["results"][0], res
+        fp.set_event("go")
+        t.join(60)
+        assert not t.is_alive()
+        assert got == {"status": 204}
+        assert "db" not in eng.databases
+    finally:
+        fp.set_event("go")
+        svc.stop()
+        eng.close()
+
+
+@pytest.mark.parametrize("pkg", sorted(PKGS))
+def test_write_lines_racing_drop_database_counts_its_points(tmp_path, pkg):
+    """The same schedule on the engine: write_lines returns 20000."""
+    fp = PKGS[pkg][2]
+    eng = _c5_engine(pkg, tmp_path)
+    fp.enable("engine-before-threshold-flush", "wait:go")
+    got = {}
+    t = threading.Thread(
+        target=lambda: got.update(n=eng.write_lines("db", _c5_lines())))
+    t.start()
+    try:
+        _c5_wait_for(fp, "engine-before-threshold-flush")
+        eng.drop_database("db")
+        fp.set_event("go")
+        t.join(60)
+        assert got == {"n": C5_POINTS}
+        assert eng.all_shards() == []
+    finally:
+        fp.set_event("go")
+        eng.close()
+
+
+@pytest.mark.parametrize("pkg", sorted(PKGS))
+def test_flush_all_racing_drop_database(tmp_path, pkg):
+    """flush_all snapshots its shards, then DROP DATABASE removes one
+    before its turn (the first shard's flush drops it): flush_all
+    returns, and the other database's rows are flushed."""
+    fp = PKGS[pkg][2]
+    eng = PKGS[pkg][4](str(tmp_path / "d"), **PKGS[pkg][6])
+    for db in ("a", "db"):
+        eng.create_database(db)
+        eng.write_lines(db, f"m v=1 {BASE}")
+    fp.enable("shard-flush-before-encode",
+              lambda: eng.drop_database("db"))
+    try:
+        eng.flush_all()
+        fp.disable_all()
+        assert "db" not in eng.databases
+        [sh] = eng.all_shards()
+        assert sh.file_count() == 1
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("pkg", sorted(PKGS))
+def test_a_live_shards_failing_flush_still_raises(tmp_path, pkg):
+    """Only a dropped shard's flush failure is swallowed: a live shard's
+    raises, from the threshold flush of a write and from flush_all."""
+    fp = PKGS[pkg][2]
+    eng = _c5_engine(pkg, tmp_path)
+    fp.enable("shard-flush-before-encode", "error")
+    try:
+        with pytest.raises(fp.FailpointError):
+            eng.write_lines("db", _c5_lines())
+        with pytest.raises(fp.FailpointError):
+            eng.flush_all()
+        fp.disable_all()
+        eng.flush_all()
+        assert sum(sh.file_count() for sh in eng.all_shards()) >= 1
+    finally:
+        eng.close()

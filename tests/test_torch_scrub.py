@@ -7,8 +7,9 @@ a data block, or a disk-fault bitflip rule of each package's own
 storage/diskfault.py): the verified bytes of every tick, the pace of a
 budgeted sweep (its cursor and passes), the quarantined files and the
 scrub counters' deltas are equal, and the ctrl surface answers alike.
-A root with no router attached repairs nothing (the anti-entropy round
-behind the repair is ROADMAP A8's).
+A root with no router attached repairs nothing; with a router at rf 2
+the scrub's repair pulls a quarantined file's rows back from the other
+replica through the anti-entropy round, alike in both packages.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ import os
 import pytest
 import torch
 
+from opengemini_tpu.parallel import cluster as jcluster
 from opengemini_tpu.server import http as jhttp
 from opengemini_tpu.services import scrub as jscrub
 from opengemini_tpu.storage import diskfault as jdf
 from opengemini_tpu.storage import engine as jeng
 from opengemini_tpu.utils.stats import GLOBAL as JSTATS
+from opengemini_tpu_torch.parallel import cluster as tcluster
 from opengemini_tpu_torch.server import http as thttp
 from opengemini_tpu_torch.services import scrub as tscrub
 from opengemini_tpu_torch.storage import diskfault as tdf
@@ -256,5 +259,66 @@ def test_ctrl_endpoints(tmp_path):
         finally:
             svc.stop()
             e.close()
+
+    both(tmp_path, scenario)
+
+
+class _Fsm:
+    def __init__(self, addrs):
+        self.nodes = {n: {"addr": a, "role": "data"}
+                      for n, a in addrs.items()}
+
+
+class _Store:
+    token = ""
+
+    def __init__(self, addrs):
+        self.fsm = _Fsm(addrs)
+
+
+def test_quarantined_file_repaired_from_its_replica(tmp_path):
+    """Two nodes at rf 2 hold the same rows; a flipped byte in one
+    node's file is quarantined by its scrub tick, whose repair round
+    pulls the measurement back from the replica: the node's rows and
+    digest equal the replica's again, and the scrub counters say so."""
+    def scenario(p, root):
+        cluster = jcluster if p is JAX else tcluster
+        engines, svcs, addrs = {}, {}, {}
+        for nid in ("nA", "nB"):
+            e = _mk(p, root / nid, rows=300, series=3, files=2)
+            svc = p.http.HttpService(e, "127.0.0.1", 0)
+            svc.start()
+            engines[nid], svcs[nid] = e, svc
+            addrs[nid] = f"127.0.0.1:{svc.port}"
+        try:
+            for nid, svc in svcs.items():
+                svc.router = cluster.DataRouter(
+                    engines[nid], _Store(addrs), nid, addrs[nid], rf=2)
+                svc.executor.router = svc.router
+                svc.router.probe_health()
+            eA, eB = engines["nA"], engines["nB"]
+            victim = _files(eA)[1]
+            _flip_byte(victim.path, victim.data_locs()[0][0] + 3)
+            c0 = dict(p.stats.counters("scrub"))
+            s = p.scrub.ScrubService(eA, 3600.0, router=svcs["nA"].router,
+                                     mb_per_tick=64)
+            s.tick_now()
+            assert eA.quarantine_snapshot()["total"] == 1
+            d = _deltas(c0, p.stats.counters("scrub"))
+            assert d.get("repairs_triggered_total") == 1
+            assert d.get("repaired_divergences_total") == 1
+            [shA] = eA.all_shards()
+            [shB] = eB.all_shards()
+            assert shA.content_digest() == shB.content_digest()
+            rows = {sid_key: shA.read_series("m", sid).times.tolist()
+                    for sid_key, sid in (
+                        (shA.index.series_entry(x)[1], x)
+                        for x in shA.index.series_ids("m"))}
+            assert sum(map(len, rows.values())) == 300 * 3
+            return d, shA.content_digest(), sorted(rows.items())
+        finally:
+            for nid in svcs:
+                svcs[nid].stop()
+                engines[nid].close()
 
     both(tmp_path, scenario)
