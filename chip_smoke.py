@@ -446,6 +446,36 @@ Phases, in order; any failure ends the run with a nonzero exit:
    card's answers (counts, min, max, first, last and spread bit for
    bit, means and stddev within rel 1e-12). Each step's wall and the
    device memory peak print. `--phases 16` runs it alone.
+17. The device mesh (ROADMAP A8.3) through the port's ts-server main,
+   with a budget of its own (MESH_PHASE_S, 60 s), on phase 7's compacted
+   root (no load of its own; `--phases 5,6,7,17` runs it on a fresh
+   one). (a) server/app.build() from a TOML whose [device] section
+   (mesh-axes = ["shard"]) lays a mesh over the visible cards, one
+   shard on an H100; C1, C3 and B1 (Q4's selectors by host over the
+   span's second hour: the bucketed layout, kernels 1 and 2) over HTTP,
+   each against the oracle, C1 and C3 through the mesh's fused decode
+   (kernel 3 once per shard); then PQ3 on phase 13's root through a
+   second server built from the same TOML with the mesh turned off and
+   on (_apply_mesh_config): the two answers equal within rel 1e-9, the
+   mesh's through the sharded tiled kernels. (b) Four shards on the one
+   card (runtime.set_mesh(make_mesh(4, devices=[cuda:0] * 4))) with the
+   decoded-column cache's device tier on: C1 and C3 cold, each shard
+   decoding its own rows (kernel 5 once per gorilla chunk of its plan,
+   kernel 4 where its plan has FOR-delta blocks: none in the compacted
+   C3 at 6 h, whose read_bytes is varint only) and kernel 3 once per
+   shard, then warm (kernel 3 once per shard, neither 4 nor 5, and no
+   mesh_h2d_bytes), B1 (kernels 1 and 2 once per shard per bucket),
+   every answer equal to step (a)'s (means within rel 1e-9). (c) Hot
+   reload through _apply_mesh_config: 4 shards -> 1 -> off -> 4, C1
+   after each: the retained entry reshards in place (one reshard, its
+   wall printed), the device tier's resident bytes do not grow, no
+   decode and no mesh transfer, the answer equal. (d) Kernels 1-3 and 5
+   at the shard shapes come back for the kernel checks after the
+   phases. `[mesh]` lines print each query's p50 at 1 and 4 shards, its
+   launches by kernel, mesh_h2d_bytes, the reshard walls and the ledger
+   bytes. C2 is cut from the phase: 20 s a run on the card would take
+   it past its budget (and after phase 6's row its answer holds a
+   4001st series).
 
 The incremental result cache (OGT_RESULT_CACHE) is off in phases 3-9,
 12, 13, 14, 15 and 16, so their repeated runs measure every execution;
@@ -455,11 +485,12 @@ off in phases 3-11 and 13-16 (each disarms it through
 gate's, so their launches per run are exact); phase 12 arms it. Phase 5
 arms devobs for its transfer histogram (the decode's H2D bytes), and
 phase 12 for the planner's walls. Launch counters start at 0 before
-each main path (phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16) and are
-read after it; the {"kernels": [...]} line sums them, with
+each main path (phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
+and are read after it; the {"kernels": [...]} line sums them, with
 launches_per_phase, launches_per_query and launches_parity_on_card.
 `--phases` runs only the named phases after 2 (for a short call that
-checks one path; 15 needs 13); the default runs all.
+checks one path; 15 needs 13, 17 needs 5, 6 and 7); the default runs
+all.
 
 Cuts made (listed in PERF.md): for phases 13-15, to keep the script
 within 1050 s, phase 3's span 12 h -> 6 h -> 4 h, phase 13's span 6 h
@@ -479,7 +510,8 @@ s on an H100 against its 1200 s limit, the cold span of phases 5-10 and
 threshold with it, DASH_SLICE_ROWS), phase 9's span 6 h -> 4 h
 (SUBQUERY_HOURS) and its budget 150 s -> 60 s (SUBQUERY_PHASE_S), so
 that repeats do not take back what the spans give, and PQ runs 3 -> 2
-(PROM_RUNS).
+(PROM_RUNS); for phase 17, C2 (its queries are C1, C3, B1 and PQ3) and
+a second warm run at 4 shards.
 
 Output: progress lines, then a {"kernels": [...]} line, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without CUDA (or without
@@ -2947,9 +2979,10 @@ SCRIPT_LIMIT_S = 1200.0
 # phase 13's budget (s): the load, the seven PQs, both routes, a traced
 # run, the encoded decode, the read-backs and the CPU reopen
 PROM_PHASE_S = 100.0
-# the reserve after phase 16 (the later phases' kernel checks and the
-# output), and the budgets of phases 16, 15 and 14 before it
-AFTER_PHASE16_S = 60.0
+# the reserve after phase 17 (the later phases' kernel checks and the
+# output), and the budgets of phases 17, 16, 15 and 14 before it
+AFTER_PHASE17_S = 60.0
+AFTER_PHASE16_S = AFTER_PHASE17_S + 60.0  # phase 17's MESH_PHASE_S
 AFTER_PHASE15_S = AFTER_PHASE16_S + 100.0  # phase 16's CLUSTER_PHASE_S
 AFTER_PHASE14_S = AFTER_PHASE15_S + 60.0  # phase 15's RULES_PHASE_S
 AFTER_PHASE13_S = AFTER_PHASE14_S + 60.0  # phase 14's CONT_PHASE_S
@@ -5394,7 +5427,7 @@ def phase_prom(seed: int, deadline: float, n_hosts: int = N_HOSTS) -> dict:
         return {"launches": launches, "per_query": per_query,
                 "routes": routes, "steps": steps, "shapes": rec.seen,
                 "peak_bytes": peak, "wall_s": wall_s, "cpu_s": cpu_s,
-                "root": root,
+                "root": root, "queries": queries,
                 "data": {"tags": tags, "usage": usage, "reads": reads,
                          "n_hosts": n_hosts, "n_all": n_all}}
     finally:
@@ -8027,6 +8060,414 @@ def phase_cluster(seed: int, deadline: float,
                 pass
 
 
+# -- phase 17: the device mesh through the ts-server main ----------------------
+
+# phase 17's budget (s), taken from the reserve after phase 16
+MESH_PHASE_S = 60.0
+# the shards of step (b), laid over the one card
+MESH_SHARDS = 4
+# the ts-server config of step (a): the [device] section switches the
+# mesh on (a mesh of every visible card: one on an H100)
+MESH_TOML = """[data]
+dir = "{root}"
+[http]
+bind-address = "127.0.0.1:0"
+[services]
+store-monitor = false
+[device]
+mesh-axes = ["shard"]
+"""
+
+
+def mesh_queries(cold: dict) -> dict:
+    """C1 and C3 of the cold phase, and B1: Q4's selectors by host over
+    the span's second hour (phase 6's host_extra row lies in its first),
+    the bucketed layout that launches kernels 1 and 2."""
+    lo, hi = T0_NS + 3600 * 10**9, T0_NS + 7200 * 10**9
+    return {
+        "C1": cold["queries"]["C1"], "C3": cold["queries"]["C3"],
+        "B1": "SELECT first(usage_user), last(usage_user), "
+              "min(usage_user), max(usage_user), mean(usage_user), "
+              "stddev(usage_user), spread(usage_user) FROM cpu "
+              f"WHERE time >= {lo} AND time < {hi} GROUP BY hostname",
+    }
+
+
+def verify_mesh(qn: str, res: dict, o: dict) -> None:
+    if qn == "B1":
+        vals = {"usage_user": o["vals"]["usage_user"][:, 360:720]}
+        verify("Q4", res, vals, o["tags"], o["n_hosts"], 360)
+        return
+    verify_cold(qn, res, o["vals"], o["counters"], o["tags"], o["n_hosts"],
+                o["n_t"], extra=EXTRA_VALUE if qn == "C1" else None)
+
+
+def mesh_same(qn: str, a: dict, b: dict) -> None:
+    """Equal answers: exact, but means within MEAN_RTOL."""
+    import math
+
+    def same(x, y):
+        if isinstance(x, float) and isinstance(y, float):
+            return math.isclose(x, y, rel_tol=MEAN_RTOL, abs_tol=0)
+        if isinstance(x, dict) and isinstance(y, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, list) and isinstance(y, list):
+            return len(x) == len(y) and all(map(same, x, y))
+        return x == y
+
+    check(same(a, b), f"{qn}: the answer at {MESH_SHARDS} shards differs "
+          "from one device's")
+
+
+class MeshProbe:
+    """Records the mesh decode plans a run executes and the walls of the
+    colcache reshards: each shard plan's blocks give the launches of
+    kernels 4 and 5 its shard must make."""
+
+    def __init__(self):
+        from opengemini_tpu_torch.ops import device_decode as dd
+        from opengemini_tpu_torch.parallel import distributed
+
+        self.dd, self.dist = dd, distributed
+        self.plans: list = []
+        self.reshard_ms: list = []
+        self._run, self._reshard = dd.run_mesh_grid_plan, \
+            distributed.donate_reshard
+
+    def __enter__(self):
+        import torch
+
+        def run(plan):
+            self.plans.append(plan)
+            return self._run(plan)
+
+        def reshard(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._reshard(*args)
+            torch.cuda.synchronize()
+            self.reshard_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self.dd.run_mesh_grid_plan = run
+        self.dist.donate_reshard = reshard
+        return self
+
+    def __exit__(self, *exc):
+        self.dd.run_mesh_grid_plan = self._run
+        self.dist.donate_reshard = self._reshard
+
+    def decode_launches(self, plans) -> dict:
+        """Per shard of each plan: kernel 5 once per gorilla chunk that
+        carries bytes, kernel 4 once when a width-1/2 FOR-delta or
+        strdict block carries values."""
+        per, data = [], 0
+        for mplan in plans:
+            for p in mplan.shards:
+                data += p.n > 0
+                sig = p.geom[0]
+                gor = [(0, w, bn, 0, 0) for kind, bn, w in sig
+                       if kind == "gorilla" and bn]
+                k5 = sum(1 for ch in self.dd._gorilla_chunks(gor)
+                         if sum(r[1] for r in ch))
+                k4 = int(any(
+                    (kind == "delta" and w in (1, 2) and bn > 1)
+                    or (kind == "strdict" and w in (1, 2) and bn)
+                    for kind, bn, w in sig))
+                per.append((k5, k4))
+        return {"unpack_bits": sum(k for k, _ in per),
+                "widen_packed": sum(k for _, k in per),
+                "shards": len(per), "data_shards": data, "per_shard": per}
+
+
+def mesh_counters() -> dict:
+    from opengemini_tpu_torch.storage import colcache
+    from opengemini_tpu_torch.utils import stats
+
+    snap = stats.GLOBAL.snapshot()
+    dev = snap.get("device", {})
+    cc = colcache.GLOBAL.counters()
+    return {"mesh_h2d_bytes": dev.get("mesh_h2d_bytes", 0),
+            "h2d_bytes_total": dev.get("h2d_bytes_total", 0),
+            "fused": snap.get("executor", {}).get("grid_decode_fused", 0),
+            "device_hits": cc["device_hits"],
+            "device_reshards": cc["device_reshards"],
+            "ledger_bytes": colcache.GLOBAL.device_ledger_bytes()}
+
+
+def phase_mesh(cold: dict, prom: dict | None, deadline: float) -> dict:
+    """The device mesh (ROADMAP A8.3) on the card, through the port's
+    ts-server main, on phase 7's compacted root (no load of its own).
+    (a) server/app.build() from a TOML whose [device] section asks for a
+    mesh over the visible cards (one shard on an H100); C1, C3 and B1
+    over HTTP, each against the oracle, the grid queries through the
+    mesh's fused decode; then PQ3 on phase 13's root through a second
+    server built from the same TOML, with the mesh off and on, the two
+    answers equal (rel 1e-9). (b) runtime.set_mesh(make_mesh(4,
+    devices=[cuda:0] * 4)) with the decoded-column cache's device tier
+    on: C1 and C3 cold (each shard decodes its rows: kernel 5 per
+    gorilla chunk, kernel 4 where FOR-delta blocks, kernel 3 once per
+    shard, as the shard plans say), then warm (kernel 3 once per shard,
+    no kernel 4 or 5 and no mesh_h2d_bytes), B1 (kernels 1 and 2 once
+    per shard), every answer equal to step (a)'s; the cold runs with the
+    planner's force=device (a shard's cost gate alone vetoes C1's). (c) _apply_mesh_config
+    from 4 shards to 1, to off and back to 4, C1 after each: the
+    retained entry reshards in place, the device tier's resident bytes
+    do not grow and the answer stays equal. (d) The kernels at the
+    shard shapes come back in `shapes` for main()'s checks. C2 is not
+    run here: 20 s a run on the card would take the phase past its
+    budget, and after phase 6's row it has a 4001st series."""
+    import torch
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.parallel import distributed, runtime
+    from opengemini_tpu_torch.query import offload
+    from opengemini_tpu_torch.server import app
+    from opengemini_tpu_torch.storage import colcache
+
+    t_phase = time.perf_counter()
+    o = cold["oracle"]
+    queries = mesh_queries(cold)
+    cc = colcache.GLOBAL
+    cc.clear()
+    cc.configure(budget_mb=0)  # step (a) decodes on every run
+    os.environ["OGT_DEVICE_PROFILE"] = "1"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs.reset_launches()
+    toml = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "mesh.toml")
+    with open(toml, "w", encoding="utf-8") as f:
+        f.write(MESH_TOML.format(root=cold["root"]))
+    per_query: dict = {}
+    p50 = {1: {}, MESH_SHARDS: {}}
+    answers = {}
+    svc = None
+    rec = ShapeRecorder().__enter__()
+    probe = MeshProbe().__enter__()
+
+    def run(qn: str, label: str, port: int, shards: int):
+        rec.now = {}
+        l0, c0 = dict(cs.LAUNCHES), mesh_counters()
+        n_plans = len(probe.plans)
+        res, _req, ms = query_timed(port, queries[qn])
+        verify_mesh(qn, res, o)
+        got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
+        d = {k: v - c0[k] for k, v in mesh_counters().items()}
+        entry = {"runs_ms": [ms], "p50_ms": ms, "launches": got,
+                 "counters": d, "shards": shards,
+                 "shard_shapes": {k: sorted(map(str, v))
+                                  for k, v in rec.now.items()},
+                 "decode": probe.decode_launches(probe.plans[n_plans:])}
+        per_query[f"{qn} {label}"] = entry
+        rec.now = None
+        log(f"[mesh] {qn} {label} ok {ms:.1f} ms; launches "
+            f"{json.dumps({k: v for k, v in got.items() if v})}; "
+            f"mesh_h2d_bytes +{d['mesh_h2d_bytes']}, h2d_bytes_total "
+            f"+{d['h2d_bytes_total']}, fused +{d['fused']}, device-tier "
+            f"hits +{d['device_hits']}, reshards +{d['device_reshards']}; "
+            f"shard shapes {json.dumps(entry['shard_shapes'])}")
+        return res, entry
+
+    try:
+        # (a) through the main: a one-card mesh from the [device] section
+        cfg = app.load_config(toml)
+        svc = app.build(cfg)
+        mesh1 = runtime.get_mesh()
+        check(mesh1 is not None and mesh1.size == torch.cuda.device_count()
+              and svc.engine.device.type == "cuda",
+              f"the [device] section built mesh {mesh1!r} on "
+              f"{svc.engine.device}")
+        svc.start()
+        disarm_planner(svc.port)
+        s0 = mesh_counters()
+        for qn in queries:
+            answers[qn], e = run(qn, "1 shard", svc.port, 1)
+            p50[1][qn] = e["p50_ms"]
+            if qn != "B1":
+                check(e["counters"]["fused"] == 1
+                      and e["launches"]["grid_window_agg"]
+                      == mesh1.size,
+                      f"{qn} at 1 shard: fused +{e['counters']['fused']}, "
+                      f"launches {e['launches']}")
+        check(mesh_counters()["mesh_h2d_bytes"] > s0["mesh_h2d_bytes"],
+              "step (a) moved no byte through the mesh's transfers")
+        base = {qn: per_query[f"{qn} 1 shard"]["launches"]
+                for qn in queries}
+
+        # (b) four shards on the one card, the device tier on
+        cc.configure(budget_mb=CC_HOST_MB, device=True,
+                     device_budget_mb=CC_DEVICE_MB)
+        cc.clear()
+        card = svc.engine.device
+        mesh4 = distributed.make_mesh(MESH_SHARDS,
+                                      devices=[card] * MESH_SHARDS)
+        runtime.set_mesh(mesh4)
+        # each shard's plan passes the decode's cost gate on its own: its
+        # encoded bytes against its own grid's. At TSBS geometry only the
+        # padding rows (5680 for 4001 series) let C1's gorilla bytes pass
+        # against a whole grid, so a shard of data rows alone is vetoed
+        # and scatters on the host. The planner's force switch, as phase
+        # 13 uses it for its decode, puts the cold runs on the card
+        status, _ = http(svc.port, "POST", "/debug/ctrl",
+                         {"mod": "offload", "force": "device"})
+        check(status == 200, f"force=device: {status}")
+        for qn in queries:
+            for label in (("cold", "warm") if qn != "B1" else ("cold",)):
+                res, e = run(qn, f"{MESH_SHARDS} shards {label}", svc.port,
+                             MESH_SHARDS)
+                mesh_same(qn, res, answers[qn])
+                got, dec = e["launches"], e["decode"]
+                if qn == "B1":
+                    for k in ("bucket_stats_basic",
+                              "bucket_stats_selectors"):
+                        check(got[k] == MESH_SHARDS * base[qn][k],
+                              f"B1 at {MESH_SHARDS} shards: {k} "
+                              f"{got[k]}, one shard {base[qn][k]}")
+                    continue
+                check(got["grid_window_agg"] == MESH_SHARDS,
+                      f"{qn} {label}: kernel 3 launched "
+                      f"{got['grid_window_agg']} times")
+                if label == "cold":
+                    # C1's gorilla column: kernel 5 on every shard that
+                    # holds rows (the grid's padding rows, 5680 for 4001
+                    # series, leave the last of 4 shards none); C3's
+                    # compacted read_bytes at 6 h is varint only, which
+                    # decodes with no kernel of its own (kernel 4 takes
+                    # FOR-delta blocks where a plan has them)
+                    check(e["counters"]["fused"] == 1
+                          and dec["shards"] == MESH_SHARDS
+                          and got["unpack_bits"] == dec["unpack_bits"]
+                          and got["widen_packed"] == dec["widen_packed"]
+                          and (qn != "C1" or got["unpack_bits"]
+                               >= dec["data_shards"] > 1),
+                          f"{qn} cold: launches {got} against the shard "
+                          f"plans' {dec}")
+                    p50[MESH_SHARDS][qn] = e["p50_ms"]
+                else:
+                    check(got["unpack_bits"] == 0
+                          and got["widen_packed"] == 0
+                          and e["counters"]["mesh_h2d_bytes"] == 0
+                          and e["counters"]["device_hits"] >= 1,
+                          f"{qn} warm: launches {got}, counters "
+                          f"{e['counters']}")
+                    p50[MESH_SHARDS][qn + " warm"] = e["p50_ms"]
+            if qn == "B1":
+                p50[MESH_SHARDS][qn] = per_query[
+                    f"B1 {MESH_SHARDS} shards cold"]["p50_ms"]
+        http(svc.port, "POST", "/debug/ctrl", {"mod": "offload",
+                                               "force": "none"})
+        resident = cc.device_ledger_bytes()
+        check(resident > 0, "the device tier retained nothing")
+
+        # (c) hot reload: 4 -> 1 -> off -> 4, C1 after each
+        steps = (({"mesh-axes": ["shard"], "mesh-devices": 1}, None),
+                 ({}, None),
+                 ({"mesh-axes": ["shard"], "mesh-devices": MESH_SHARDS},
+                  [card] * MESH_SHARDS))
+        reloads = []
+        for dev_cfg, devices in steps:
+            n_resh = len(probe.reshard_ms)
+            changed = app._apply_mesh_config(dev_cfg, devices=devices)
+            check(bool(changed), f"reload {dev_cfg}: no change")
+            mesh = runtime.get_mesh()
+            shards = 1 if mesh is None else mesh.size
+            label = ("off" if mesh is None
+                     else f"{shards} shard" + ("s" if shards > 1 else ""))
+            res, e = run("C1", f"reloaded to {label}", svc.port, shards)
+            mesh_same("C1", res, answers["C1"])
+            check(e["counters"]["device_reshards"] == 1
+                  and e["counters"]["device_hits"] >= 1
+                  and e["launches"]["unpack_bits"] == 0
+                  and e["counters"]["mesh_h2d_bytes"] == 0
+                  and e["launches"]["grid_window_agg"] == shards,
+                  f"C1 after the reload to {label}: {e['counters']}, "
+                  f"launches {e['launches']}")
+            ledger = cc.device_ledger_bytes()
+            check(ledger <= resident, f"the device tier grew to {ledger} B "
+                  f"from {resident} B at the reload to {label}")
+            walls = probe.reshard_ms[n_resh:]
+            reloads.append({"to": label, "changed": changed,
+                            "reshard_ms": walls, "ledger_bytes": ledger,
+                            "query_ms": e["p50_ms"]})
+            log(f"[mesh] reload to {label} ({', '.join(changed)}): reshard "
+                f"{', '.join(f'{w:.3f}' for w in walls)} ms, device-tier "
+                f"ledger {ledger} B (after step (b): {resident} B)")
+        stop_app(svc)
+        svc = None
+
+        # (a), PromQL: PQ3 on phase 13's root with the mesh off and on
+        prom_ms = {}
+        if prom is not None:
+            cc.configure(budget_mb=0)
+            cfg = dict(app.load_config(toml), data={"dir": prom["root"]})
+            svc = app.build(cfg)
+            svc.start()
+            disarm_planner(svc.port)
+            path, params = prom["queries"]["PQ3"]
+            got = {}
+            for label, dev_cfg in (("off", {}),
+                                   ("1 shard", {"mesh-axes": ["shard"]})):
+                app._apply_mesh_config(dev_cfg)
+                l0 = dict(cs.LAUNCHES)
+                k0 = prom_mesh_kernels()
+                got[label], _req, ms = prom_get(svc.port, path, params)
+                prom_ms[label] = ms
+                k1 = prom_mesh_kernels()
+                log(f"[mesh] PQ3 mesh {label}: {ms:.1f} ms; tiled mesh "
+                    f"kernels +{k1 - k0}; launches "
+                    f"{json.dumps({k: cs.LAUNCHES[k] - l0[k] for k in l0 if cs.LAUNCHES[k] - l0[k]})}")
+                if label == "1 shard":
+                    check(k1 > k0, "PQ3 did not take the mesh route")
+            worst = prom_same("PQ3 on the mesh", got["1 shard"], got["off"],
+                              PROM_EXACT["PQ3"])
+            log(f"[mesh] PQ3 on the mesh equals it off (largest relative "
+                f"difference {worst!r})")
+            stop_app(svc)
+            svc = None
+        else:
+            log("[mesh] PQ3 not run: phase 13 did not run")
+        launches = dict(cs.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(peak <= COLD_PEAK_LIMIT, f"phase 17 device memory peak {peak} B")
+        wall_s = time.perf_counter() - t_phase
+        log(f"[mesh] p50 ms at 1 shard {json.dumps(p50[1])}, at "
+            f"{MESH_SHARDS} shards {json.dumps(p50[MESH_SHARDS])}; PQ3 "
+            f"{json.dumps(prom_ms)}")
+        log(f"[mesh] phase 17 took {wall_s:.1f} s (budget "
+            f"{MESH_PHASE_S:.0f} s, {deadline - time.perf_counter():.0f} s "
+            f"left of the script's); launches {json.dumps(launches)}; "
+            f"device memory peak {peak / 2**20:.1f} MiB; card {smi_line()}")
+        return {"launches": launches, "per_query": per_query,
+                "shapes": rec.seen, "p50_ms": p50, "reloads": reloads,
+                "prom_ms": prom_ms, "wall_s": wall_s, "peak_bytes": peak}
+    finally:
+        probe.__exit__()
+        rec.__exit__()
+        offload.set_force(None)
+        runtime.set_mesh(None)
+        cc.clear()
+        cc.configure(budget_mb=0)
+        os.environ.pop("OGT_DEVICE_PROFILE", None)
+        if svc is not None:
+            stop_app(svc)
+
+
+def stop_app(svc) -> None:
+    """Stop a server app.build() made (its services never started)."""
+    svc.subscriber.stop()
+    if svc.rules_manager is not None:
+        svc.rules_manager.close()
+    stop_server(svc, svc.engine)
+
+
+def prom_mesh_kernels() -> int:
+    from opengemini_tpu_torch.utils import stats
+
+    return stats.GLOBAL.snapshot().get("prom", {}).get("tiled_mesh_kernels",
+                                                       0)
+
+
 def build_all(verbose: bool = True) -> float:
     """nvcc for the six kernels and g++ for the six host libraries, all
     at once; returns the seconds it took."""
@@ -8082,17 +8523,21 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--phases", default="all",
                     help="the phases after 2 to run, comma separated "
-                         "(3-16; 6-10 and 12 need 5, 15 needs 13), for a "
-                         "short call that checks one path; default all")
+                         "(3-17; 6-10 and 12 need 5, 15 needs 13, 17 "
+                         "needs 5, 6 and 7), for a short call that checks "
+                         "one path; default all")
     args = ap.parse_args()
     if args.hours < 3:
         ap.error("--hours may not be cut below 3")
-    wanted = (set(range(3, 17)) if args.phases == "all"
+    wanted = (set(range(3, 18)) if args.phases == "all"
               else {int(x) for x in args.phases.split(",")})
     if wanted & {6, 7, 8, 9, 10, 12} and 5 not in wanted:
         ap.error("phases 6-10 and 12 run on phase 5's root")
     if 15 in wanted and 13 not in wanted:
         ap.error("phase 15 runs on phase 13's root")
+    if 17 in wanted and not {5, 6, 7} <= wanted:
+        ap.error("phase 17 runs on phase 7's compacted root (with phase "
+                 "6's row)")
 
     import torch
 
@@ -8217,13 +8662,22 @@ def main() -> int:
         ran.append(("16", clustered, " cluster"))
         later.append(clustered)
         lap("phase 16")
+    meshed = None
+    if 17 in wanted:
+        meshed = phase_mesh(cold, prom, t_start + SCRIPT_LIMIT_S
+                            - AFTER_PHASE17_S)
+        ran.append(("17", meshed, " mesh"))
+        later.append(meshed)
+        lap("phase 17")
     # kernels 1-3 at the later phases' new shapes, and kernels 4-6 too
-    # at phase 11's, 12's, 13's, 14's and 15's (the decode of rewritten
-    # and compacted files, and PromQL's rows matrices)
+    # at phase 11's, 12's, 13's, 14's, 15's and 17's (the decode of
+    # rewritten and compacted files, PromQL's rows matrices and the mesh
+    # shards' chunks)
     for i, name in enumerate(E2E_KERNELS + COLD_KERNELS[1:]):
         for j, phase in enumerate(later):
             if name not in E2E_KERNELS and not any(
-                    phase is x for x in (life, planned, prom, cont, ruled)):
+                    phase is x for x in (life, planned, prom, cont, ruled,
+                                         meshed)):
                 continue
             new = {sh for sh in phase["shapes"][name] - seen[name]
                    if all(d > 0 for d in shape_json(name, sh)

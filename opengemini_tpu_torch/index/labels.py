@@ -31,12 +31,13 @@ goes stale. Results are bit-identical to the set-returning index walk
 the influx missing-tag-equals-"" rule. `OGT_LABEL_INDEX=0` disables the
 tier entirely and every caller falls back to the walk.
 
-The port of ``opengemini_tpu/index/labels.py`` for one device: the
-mesh-sharded gather comes with the device mesh (ROADMAP A8.3). The LUT
-gather's device route runs on the device the caller passes (the
-engine's); a caller with no device keeps the host route. A failure of
-the device gather raises: the route decision is a routing rule, not a
-fallback.
+The port of ``opengemini_tpu/index/labels.py``. The LUT gather's device
+route runs on the device the caller passes (the engine's); a caller
+with no device keeps the host route. With a device mesh configured
+(parallel/runtime.py) the planner also weighs the "mesh" route: rows
+hash-partitioned by series id over the shards, each part gathered on
+its shard's device (``_gather_mesh``). A failure of a device gather
+raises: the route decision is a routing rule, not a fallback.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import numpy as np
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
 EMPTY_SIDS = np.empty(0, np.int64)
+_FNV = np.uint64(0x9E3779B97F4A7C15)  # Fibonacci hashing multiplier
 
 # below this row count the LUT gather is memcpy-bound on the host and
 # the device round-trip can never win — don't even ask the planner
@@ -155,7 +157,8 @@ class _Snapshot:
     """One measurement's columnar view at a recorded generation. All
     match_* methods return sorted unique int64 sid arrays."""
 
-    __slots__ = ("gen", "measurement", "sids", "cols", "n", "_rx_luts")
+    __slots__ = ("gen", "measurement", "sids", "cols", "n", "_mesh_parts",
+                 "_rx_luts")
 
     def __init__(self, gen, measurement: str, sids: np.ndarray, cols: dict):
         self.gen = gen
@@ -163,6 +166,7 @@ class _Snapshot:
         self.sids = sids
         self.cols = cols
         self.n = len(sids)
+        self._mesh_parts = None  # (epoch, nparts, [row arrays])
         # (key, pattern) -> bool LUT over distinct values; the snapshot
         # is immutable per generation, so entries never go stale —
         # repeated dashboard selectors skip the automaton entirely
@@ -304,9 +308,64 @@ class _Snapshot:
         if route == "host":
             return lut_ext[col_idx]
         t0 = time.perf_counter()
-        mask = _gather_device(col_idx, lut_ext, device)
+        if route == "mesh":
+            mask = self._gather_mesh(col_idx, lut_ext)
+        else:
+            mask = _gather_device(col_idx, lut_ext, device)
         _observe_gather(self.n, nvals, route, time.perf_counter() - t0)
         return mask
+
+    def _gather_mesh(self, col_idx: np.ndarray,
+                     lut_ext: np.ndarray) -> np.ndarray:
+        """Hash-partition rows by series id over the mesh's shards and
+        gather each part on its shard's device — the series-axis split
+        the scan kernels use, applied to index probes. The mask scattered
+        back is bit-identical to the host gather."""
+        import torch
+
+        from opengemini_tpu_torch.parallel import runtime
+        from opengemini_tpu_torch.utils import devobs
+
+        mesh = runtime.get_mesh()
+        parts = self._hash_parts(mesh.size)
+        mask = np.empty(self.n, np.bool_)
+        shipped = 0
+        outs = []
+        for rows, dev in zip(parts, mesh.shard_devices):
+            if not len(rows):
+                outs.append(None)
+                continue
+            sub = np.ascontiguousarray(col_idx[rows])
+            cd = torch.from_numpy(sub).to(dev)
+            ld = torch.from_numpy(np.ascontiguousarray(lut_ext)).to(dev)
+            shipped += int(sub.nbytes) + int(lut_ext.nbytes)
+            idx = cd.to(torch.int64).clamp_(0, ld.shape[0] - 1)
+            outs.append(ld[idx])
+        devobs.note_transfer("h2d", "label-match", shipped, mesh=True)
+        got = 0
+        for rows, out in zip(parts, outs):
+            if out is None:
+                continue
+            res = out.cpu().numpy()
+            got += res.nbytes
+            mask[rows] = res
+        devobs.note_transfer("d2h", "label-match", got, mesh=True)
+        return mask
+
+    def _hash_parts(self, nparts: int) -> list:
+        """The snapshot's rows split into `nparts` parts by a hash of
+        their series ids, cached per (mesh epoch, part count)."""
+        from opengemini_tpu_torch.parallel import runtime
+
+        epoch = runtime.mesh_epoch()
+        cached = self._mesh_parts
+        if cached is not None and cached[0] == epoch and cached[1] == nparts:
+            return cached[2]
+        h = (self.sids.astype(np.uint64) * _FNV) >> np.uint64(33)
+        part = (h % np.uint64(nparts)).astype(np.int64)
+        rows = [np.flatnonzero(part == p) for p in range(nparts)]
+        self._mesh_parts = (epoch, nparts, rows)
+        return rows
 
 
 def _materialized(kc: _KeyCol) -> np.ndarray:
@@ -343,13 +402,21 @@ def _route_gather(n_rows: int, n_vals: int, device) -> str:
     mode = _device_mode()
     if device is None or mode == "0" or n_rows < _DEVICE_MIN_ROWS:
         return "host"
+    from opengemini_tpu_torch.parallel import runtime
     from opengemini_tpu_torch.query import offload
 
-    static = "device" if mode == "1" else "host"
+    mesh = runtime.get_mesh()
+    candidates = ["host", "device"]
+    if mesh is not None:
+        candidates.append("mesh")
+    static = "host"
+    if mode == "1":
+        static = "mesh" if mesh is not None else "device"
     return offload.GLOBAL.decide(
-        "label_match", (n_rows, n_vals), ["host", "device"], static,
+        "label_match", (n_rows, n_vals), candidates, static,
         stage="label-match",
-        bytes_hint={"device": n_rows * 4 + n_vals + 1})
+        bytes_hint={"device": n_rows * 4 + n_vals + 1,
+                    "mesh": n_rows * 4 + n_vals + 1})
 
 
 def _observe_gather(n_rows: int, n_vals: int, route: str,

@@ -44,6 +44,21 @@ hit runs kernel 3 on the retained tensors, with no host scatter, no
 decode and no transfer. A miss builds the grid as above and retains it:
 the fused decode's output, or the host grid after one transfer
 (``colcache-fill``).
+
+With a device mesh configured (parallel/runtime.py) and at least as many
+grid rows as shards, the row axis is padded to a multiple of the mesh
+size and split over its shards (parallel/distributed.py ``Sharded``):
+kernel 3 and the ssd and selector groups run once per shard on its
+rows, and the host concatenates the shards' per-row outputs (series
+runs are independent rows, so nothing merges across shards). The
+encoded cold scan's route is then "mesh": each shard decodes its own
+contiguous row range (ops/device_decode.py ``build_mesh_grid_plan``).
+The retained device-tier entry is sharded; without the tier the sharded
+grid is the batch's own, keyed by the mesh epoch and a row of the
+device-memory ledger (owner ``grid_mesh``). A reload that changes the
+mesh reshards the retained entry (colcache ``device_get``) or rebuilds
+the batch's layout from its rows; a layout of a dead mesh is never
+served.
 """
 
 from __future__ import annotations
@@ -55,6 +70,7 @@ import torch
 
 from opengemini_tpu_torch.models import ragged, templates
 from opengemini_tpu_torch.ops import cuda_segment, device_decode
+from opengemini_tpu_torch.parallel import distributed, runtime
 from opengemini_tpu_torch.query import offload
 from opengemini_tpu_torch.storage import colcache
 from opengemini_tpu_torch.utils import devobs
@@ -243,6 +259,12 @@ class GridBatch:
         S = len(bnd_idx)
         S_pad = _pad_rows(S, _MIN_S)
         W_pad = _pad_lanes(W, _MIN_W)
+        mesh = self._mesh_for_rows(S_pad)
+        if mesh is not None and S_pad % mesh.size:
+            # pad the row axis to a mesh multiple up front: the grid
+            # scatters straight into the splittable shape, and the device
+            # tier's shape is the same for cold and warm scans
+            S_pad += mesh.size - S_pad % mesh.size
         cells = S_pad * k * W_pad  # padded = what actually allocates
         if cells > _MAX_GRID_CELLS or cells > max(_MAX_EXPANSION * n, 1 << 20):
             return None
@@ -260,10 +282,12 @@ class GridBatch:
         dev_entry = None
         if self.device_cache_token is not None:
             dev_entry = colcache.GLOBAL.device_get(
-                self.device_cache_token, shape=shape, dtype=str(self.dtype))
+                self.device_cache_token, shape=shape, dtype=str(self.dtype),
+                mesh=mesh)
         enc_plan = arrays = host_s = None
         if dev_entry is None:
-            enc_plan = self._encoded_plan(shape, flat, rel, bnd_idx, dt)
+            enc_plan = self._encoded_plan(shape, flat, mesh, rel, bnd_idx,
+                                          dt)
             if enc_plan is None:
                 # the host route: its decode (through
                 # _EncodedVals.__array__) and scatter wall; each launch
@@ -284,6 +308,12 @@ class GridBatch:
             "arrays": arrays,
             "dev": (None if dev_entry is None
                     else (dev_entry["vt"], dev_entry["mt"])),
+            # the layout "dev" has: its mesh (None: one device) and the
+            # mesh epoch it was made under
+            "dev_mesh": mesh, "dev_epoch": runtime.mesh_epoch(),
+            # the selector index grid of that layout when no retained
+            # entry holds it, and the layout's ledger row
+            "imat_dev": None, "ledger": None,
             "device_entry": dev_entry,
             "encoded_plan": enc_plan, "flat_dev": None,
             "host_route_s": host_s,
@@ -366,12 +396,14 @@ class GridBatch:
             out2d[gids] = vals2d
         return out, sel, counts
 
-    def _encoded_plan(self, shape, flat, rel, starts, dt):
+    def _encoded_plan(self, shape, flat, mesh, rel, starts, dt):
         """Fused device-decode plan for a fully-encoded cold scan, or
         None: every add must still carry its encoded blocks, the offload
-        planner must route the scan to the device and the decoder must
-        accept every block. None means the freeze decodes and scatters
-        on the host."""
+        planner must route the scan to the device (or the mesh) and the
+        decoder must accept every block. Under a mesh the plan is split
+        by output row shard, so each shard decodes only its own rows'
+        bytes. None means the freeze decodes and scatters on the
+        host."""
         views = []
         any_decoded = False
         for v in self._vals:
@@ -387,18 +419,24 @@ class GridBatch:
         # decoded, which a cold or disabled planner answers verbatim.
         # "host" skips the plan (a routing choice, not a decode
         # fallback)
-        static = "host" if any_decoded else "device"
+        dev_route = "mesh" if mesh is not None else "device"
+        static = "host" if any_decoded else dev_route
         geo = (tuple(shape), str(self.dtype))
         route = offload.GLOBAL.decide("grid_decode", geo,
-                                      ("host", "device"), static,
+                                      ("host", dev_route), static,
                                       stage="grid_decode")
         if route == "host" and not offload.wants_prewarm("grid_decode",
                                                          geo):
             return None
-        plan = device_decode.build_grid_plan(
-            views, flat, np.concatenate(self._mask), shape, self.dtype,
-            self.device, rel=rel, starts=starts, every_ns=self.every_ns,
-            dt=dt)
+        mask = np.concatenate(self._mask)
+        if mesh is not None:
+            plan = device_decode.build_mesh_grid_plan(
+                views, flat, mask, shape, self.dtype, mesh, rel=rel,
+                starts=starts, every_ns=self.every_ns, dt=dt)
+        else:
+            plan = device_decode.build_grid_plan(
+                views, flat, mask, shape, self.dtype, self.device, rel=rel,
+                starts=starts, every_ns=self.every_ns, dt=dt)
         if route == "host":
             # flagged for pre-warming: hand the fused site's first run to
             # the background pre-warmer (the plan build is host work);
@@ -420,47 +458,120 @@ class GridBatch:
         mt.reshape(-1)[flat] = np.concatenate(self._mask)
         return vt, mt
 
-    def _device_arrays(self):
+    @staticmethod
+    def _mesh_for_rows(rows: int):
+        """The configured mesh when ``rows`` grid rows can split over it,
+        else None (one device, exactly as before)."""
+        mesh = runtime.get_mesh()
+        if mesh is None or rows < mesh.size:
+            return None
+        return mesh
+
+    def _drop_layout(self) -> None:
+        """Forget the device layout (a reload changed the mesh)."""
         st = self._state
+        st["dev"] = None
+        st["imat_dev"] = None
+        devobs.LEDGER.drop(st["ledger"])
+        st["ledger"] = None
+
+    def _set_layout(self, vt, mt, mesh) -> None:
+        """Adopt (vt, mt) as the batch's layout for `mesh`: retained in
+        the device tier when the scan carries a signature, else the
+        batch's own (a ledger row when sharded)."""
+        st = self._state
+        st["dev"] = (vt, mt)
+        st["dev_mesh"] = mesh
+        st["dev_epoch"] = runtime.mesh_epoch()
+        if self.device_cache_token is not None:
+            ent = colcache.GLOBAL.device_put_grid(
+                self.device_cache_token, vt, mt, shape=st["shape"],
+                dtype=str(self.dtype), mesh=mesh)
+            st["device_entry"] = ent
+            st["dev"] = (ent["vt"], ent["mt"])
+        elif mesh is not None:
+            st["ledger"] = devobs.LEDGER.register(
+                "grid_mesh", vt.nbytes + mt.nbytes,
+                mesh_epoch=st["dev_epoch"], label="grid", anchor=self)
+
+    def _device_arrays(self):
+        """(vt, mt) in the layout the current mesh asks for: Sharded row
+        splits under a mesh, tensors on the batch's device otherwise. A
+        layout made for another mesh is resharded in the device tier (a
+        retained entry) or rebuilt from the batch's rows."""
+        st = self._state
+        mesh = self._mesh_for_rows(st["shape"][0])
+        if st["dev"] is not None and (
+                st["dev_mesh"] is not mesh
+                or (mesh is not None
+                    and st["dev_epoch"] != runtime.mesh_epoch())):
+            self._drop_layout()
+            if st["device_entry"] is not None:
+                ent = colcache.GLOBAL.device_get(
+                    self.device_cache_token, shape=st["shape"],
+                    dtype=str(self.dtype), mesh=mesh)
+                st["device_entry"] = ent
+                if ent is not None:
+                    st["dev"] = (ent["vt"], ent["mt"])
+                    st["dev_mesh"] = mesh
+                    st["dev_epoch"] = runtime.mesh_epoch()
         if st["dev"] is None:
+            if st["arrays"] is None:
+                # the layout of a device-tier hit or of a fused decode
+                # was for another mesh and could not follow it: rebuild
+                # the grid from the raw rows (encoded adds decode through
+                # _EncodedVals.__array__)
+                st["arrays"] = self._scatter_grid(st["shape"], st["flat"])
+                st["encoded_plan"] = None
             vt, mt = st["arrays"]
-            st["dev"] = (templates.to_device(vt, self.device),
-                         templates.to_device(mt, self.device))
-            if self.device_cache_token is not None:
-                # a cold scan with the device tier on: this one transfer
-                # lands in the retained entry, which later kernel groups
-                # of this scan and identically signed scans reuse
-                devobs.note_transfer("h2d", "colcache-fill",
-                                     vt.nbytes + mt.nbytes)
-                self._retain(*st["dev"])
+            retain = self.device_cache_token is not None
+            if mesh is not None:
+                vt_d, mt_d = distributed.shard_leading_axis(
+                    mesh, vt, mt,
+                    xfer_site="colcache-fill" if retain else "grid-shard")
+            else:
+                vt_d = templates.to_device(vt, self.device)
+                mt_d = templates.to_device(mt, self.device)
+                if retain:
+                    # a cold scan with the device tier on: this one
+                    # transfer lands in the retained entry, which later
+                    # kernel groups of this scan and identically signed
+                    # scans reuse
+                    devobs.note_transfer("h2d", "colcache-fill",
+                                         vt.nbytes + mt.nbytes)
+            self._set_layout(vt_d, mt_d, mesh)
         return st["dev"]
 
-    def _retain(self, vt: torch.Tensor, mt: torch.Tensor) -> None:
-        """Put fresh grid tensors into the device tier; this scan goes on
-        with the entry the tier hands back."""
-        st = self._state
-        ent = colcache.GLOBAL.device_put_grid(
-            self.device_cache_token, vt, mt, shape=st["shape"],
-            dtype=str(self.dtype))
-        st["device_entry"] = ent
-        st["dev"] = (ent["vt"], ent["mt"])
-
     def _device_imat(self) -> torch.Tensor:
+        """The selector index grid in the current layout."""
         st = self._state
+        self._device_arrays()
         ent = st["device_entry"]
         if ent is not None and ent["imat"] is not None:
             return ent["imat"]
-        if st["flat_dev"] is not None:
+        if st["imat_dev"] is not None:
+            return st["imat_dev"]
+        mesh = st["dev_mesh"]
+        if st["flat_dev"] is not None and mesh is None:
             # the fused decode left its scatter slots on the card
             imat = device_decode.imat_from_flat(st["flat_dev"], st["shape"])
         else:
             imat_np = np.zeros(st["shape"], dtype=np.int32)
             imat_np.reshape(-1)[st["flat"]] = np.arange(st["n"],
                                                         dtype=np.int32)
-            imat = templates.to_device(imat_np, self.device)
+            if mesh is not None:
+                (imat,) = distributed.shard_leading_axis(
+                    mesh, imat_np, xfer_site=(
+                        "grid-shard" if ent is None else "colcache-fill"))
+            else:
+                imat = templates.to_device(imat_np, self.device)
         if ent is not None:
-            imat = colcache.GLOBAL.device_add_imat(
-                self.device_cache_token, ent, imat)
+            return colcache.GLOBAL.device_add_imat(
+                self.device_cache_token, ent, imat, mesh=mesh)
+        st["imat_dev"] = imat
+        if st["ledger"] is not None:
+            devobs.LEDGER.update(st["ledger"], sum(
+                distributed.nbytes_of(t) for t in (*st["dev"], imat)))
         return imat
 
     def _wall_now(self) -> float:
@@ -478,17 +589,22 @@ class GridBatch:
         geo = (st["shape"], str(self.dtype))
         if plan is not None:
             # fused cold path: encoded bytes -> card -> decode -> scatter
-            # -> basic reduce; the decoded grid stays on the card for the
-            # ssd and selector groups (no second transfer)
+            # -> basic reduce (per shard under a mesh); the decoded grid
+            # stays on the card for the ssd and selector groups (no
+            # second transfer)
+            mesh = getattr(plan, "mesh", None)
             t0 = time.perf_counter()
-            stats, vt, mt, flat_d = device_decode.run_grid_plan(plan)
-            offload.GLOBAL.observe("grid_decode", geo, "device",
-                                   self._wall_now() - t0)
+            if mesh is not None:
+                stats, vt, mt, flat_d = device_decode.run_mesh_grid_plan(
+                    plan)
+            else:
+                stats, vt, mt, flat_d = device_decode.run_grid_plan(plan)
+            offload.GLOBAL.observe(
+                "grid_decode", geo, "device" if mesh is None else "mesh",
+                self._wall_now() - t0)
             st["encoded_plan"] = None
-            st["dev"] = (vt, mt)
             st["flat_dev"] = flat_d
-            if self.device_cache_token is not None:
-                self._retain(vt, mt)
+            self._set_layout(vt, mt, mesh)
             STATS.incr("executor", "grid_decode_fused")
             if kind == "basic":
                 return stats
@@ -496,11 +612,12 @@ class GridBatch:
         vt, mt = self._device_arrays()
         with devobs.first_run("grid_" + kind, geo, vt.device):
             if kind == "basic":
-                out = cuda_segment.grid_window_agg(vt, mt)
+                out = _each_shard(cuda_segment.grid_window_agg, vt, mt)
             elif kind == "ssd":
-                out = {"ssd": _grid_ssd(vt, mt)}
+                out = {"ssd": _each_shard(_grid_ssd, vt, mt)}
             else:
-                out = _grid_selectors(vt, mt, self._device_imat())
+                out = _each_shard(_grid_selectors, vt, mt,
+                                  self._device_imat())
         if st["arrays"] is not None or st["host_route_s"] is not None:
             # a host-route sample per kernel group: the first carries the
             # decode and scatter wall (freeze), each its own transfer and
@@ -516,7 +633,7 @@ class GridBatch:
 
         def settle(kind):
             got = self._launch(kind)
-            self._raw.update({k: devobs.fetch_np(t)[:S, : self.W]
+            self._raw.update({k: distributed.fetch_np(t)[:S, : self.W]
                               for k, t in got.items()})
 
         if "count" not in self._raw:
@@ -593,6 +710,13 @@ class GridBatch:
         sel = np.zeros(num_segments, dtype=np.int64)
         sel.reshape(G, self.W)[gids] = np.take_along_axis(sel_sub, pick, axis=0)
         return vals2d, sel
+
+
+def _each_shard(fn, *args):
+    """fn on the grid tensors, once per shard when they are Sharded."""
+    if isinstance(args[0], distributed.Sharded):
+        return distributed.per_shard(fn, *args)
+    return fn(*args)
 
 
 def _grid_ssd(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,16 @@ Per bucket, the basic statistics run in the CUDA kernel
 device). Segments live in exactly one bucket; per-bucket results scatter
 back into (num_segments,) outputs on the host. A kernel group's first run
 in the process is its compile (utils/devobs.py: ``bucket_basic``,
-``bucket_selectors``); the mesh-sharded bucket copies (and their ledger
-entries, owner ``bucket_mesh``) come with the device mesh.
+``bucket_selectors``).
+
+With a device mesh configured (parallel/runtime.py) and at least as many
+bucket rows as shards, a bucket's matrices are split by rows over the
+mesh's shards (parallel/distributed.py ``shard_leading_axis``, site
+``bucket-shard``) and kernels 1 and 2 launch once per shard on its
+rows; the host concatenates the shards' per-row outputs. Bucket rows
+are independent, so the shards need no merge. The sharded copy is keyed
+by the mesh epoch (a reload reshards it) and is a row of the
+device-memory ledger (owner ``bucket_mesh``).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import numpy as np
 
 from opengemini_tpu_torch.models import templates
 from opengemini_tpu_torch.ops import cuda_segment
+from opengemini_tpu_torch.parallel import distributed, runtime
 from opengemini_tpu_torch.utils import devobs
 
 _REL_LO_BITS = 30
@@ -259,29 +268,57 @@ class _Bucket:
         self.n_sub = None
         self.rel = None
         self._dev = None
+        self._mesh_arrays = None
+        self._mesh_epoch = None
+        self._ledger = None
         self._raw: dict = {}
         self._combined: dict = {}
 
-    def _device_arrays(self):
-        """(v, hi, lo, idx, m) on the device, moved once per bucket."""
-        if self._dev is None:
-            self._dev = tuple(templates.to_device(a, self.device)
-                              for a in self.arrays)
-        return self._dev
+    def _device_arrays(self, mesh):
+        """(v, hi, lo, idx, m) for the kernels: with a configured mesh
+        and at least mesh.size rows, Sharded row splits over its shards
+        (keyed by the mesh epoch, so a reload reshards instead of
+        serving a dead mesh); otherwise tensors on the bucket's device,
+        moved once."""
+        if mesh is None or self.g < mesh.size:
+            if self._dev is None:
+                self._dev = tuple(templates.to_device(a, self.device)
+                                  for a in self.arrays)
+            return self._dev
+        epoch = runtime.mesh_epoch()
+        if self._mesh_arrays is None or self._mesh_epoch != epoch:
+            devobs.LEDGER.drop(self._ledger)
+            self._mesh_arrays = distributed.shard_leading_axis(
+                mesh, *self.arrays, xfer_site="bucket-shard")
+            self._mesh_epoch = epoch
+            self._ledger = devobs.LEDGER.register(
+                "bucket_mesh",
+                sum(a.nbytes for a in self._mesh_arrays),
+                mesh_epoch=epoch, label="bucket", anchor=self)
+        return self._mesh_arrays
 
     def _raw_stats(self, need_selectors: bool) -> dict:
         """Per-sub-row device stats, computed lazily per group: the
-        selector kernel runs only for selector queries."""
-        v, hi, lo, idx, m = self._device_arrays()
+        selector kernel runs only for selector queries. Sharded inputs
+        launch each kernel once per shard."""
+        v, hi, lo, idx, m = self._device_arrays(runtime.get_mesh())
+        sharded = isinstance(v, distributed.Sharded)
+
+        def launch(fn, *args):
+            if sharded:
+                return distributed.per_shard(fn, *args)
+            return fn(*args)
+
         if "count" not in self._raw:
             with devobs.first_run("bucket_basic", (), v.device):
-                got = cuda_segment.bucket_stats_basic(v, m)
-            self._raw.update({k: devobs.fetch_np(t)[: self.g]
+                got = launch(cuda_segment.bucket_stats_basic, v, m)
+            self._raw.update({k: distributed.fetch_np(t)[: self.g]
                               for k, t in got.items()})
         if need_selectors and "sel_first" not in self._raw:
             with devobs.first_run("bucket_selectors", (), v.device):
-                got = cuda_segment.bucket_stats_selectors(v, hi, lo, idx, m)
-            self._raw.update({k: devobs.fetch_np(t)[: self.g]
+                got = launch(cuda_segment.bucket_stats_selectors,
+                             v, hi, lo, idx, m)
+            self._raw.update({k: distributed.fetch_np(t)[: self.g]
                               for k, t in got.items()})
         return self._raw
 

@@ -9,6 +9,12 @@ no compile cache to key: an aggregate's first run at (function, padded
 segments, params) in the process is its "compile" (utils/devobs.py,
 ``agg_batch``). The padded batch's copy counts on the ``agg-batch``
 transfer site and every result fetch on ``result-fetch``.
+
+With a device mesh configured (parallel/runtime.py), the aggregates the
+mesh can serve (``distributed.MESH_AGGS``) run over its shards: rows
+split over the shards, per-shard partials, one merge
+(``distributed.build_batch_agg``). The sel contract is the same (global
+row indices), so selector times resolve as on one device.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 from opengemini_tpu_torch.ops import window as winmod
 from opengemini_tpu_torch.ops import segment as seg
 from opengemini_tpu_torch.ops.aggregates import AggSpec
+from opengemini_tpu_torch.parallel import distributed, runtime
 from opengemini_tpu_torch.utils import devobs
 
 _REL_LO_BITS = 30
@@ -67,6 +74,7 @@ class AggBatch:
         self.n = 0
         self._dev = None
         self._counts_cache: dict[int, np.ndarray] = {}
+        self._mesh_outs: dict = {}
 
     def add(self, values, rel_ns, seg_ids, mask, times_ns, sids=None):
         self.values.append(np.asarray(values, dtype=self.dtype))
@@ -78,11 +86,8 @@ class AggBatch:
         self.times_ns.append(np.asarray(times_ns, dtype=np.int64))
         self.n += len(values)
 
-    def _device_arrays(self):
-        """(values, rel_hi, rel_lo, seg_ids, mask) padded and on the
-        device, built once per batch."""
-        if self._dev is not None:
-            return self._dev
+    def _host_padded(self):
+        """(values, rel_hi, rel_lo, seg_ids, mask) padded on the host."""
         npad = winmod.pad_to(max(self.n, 1))
         values = np.zeros(npad, dtype=self.dtype)
         rel_hi = np.zeros(npad, dtype=np.int32)
@@ -99,7 +104,14 @@ class AggBatch:
             seg_ids[off: off + k] = s
             mask[off: off + k] = m
             off += k
-        padded = (values, rel_hi, rel_lo, seg_ids, mask)
+        return values, rel_hi, rel_lo, seg_ids, mask
+
+    def _device_arrays(self):
+        """(values, rel_hi, rel_lo, seg_ids, mask) padded and on the
+        device, built once per batch."""
+        if self._dev is not None:
+            return self._dev
+        padded = self._host_padded()
         devobs.note_transfer("h2d", "agg-batch",
                              sum(a.nbytes for a in padded))
         self._dev = tuple(to_device(a, self.device) for a in padded)
@@ -155,7 +167,14 @@ class AggBatch:
 
     def run(self, spec: AggSpec, num_segments: int, params: tuple = ()):
         """Execute one aggregate; returns (values[num_segments],
-        sel_idx[num_segments] | None, counts[num_segments])."""
+        sel_idx[num_segments] | None, counts[num_segments]). With a
+        configured mesh, the aggregates it serves run over its shards
+        (_run_mesh)."""
+        mesh = runtime.get_mesh()
+        if mesh is not None and not params:
+            got = self._run_mesh(mesh, spec, num_segments)
+            if got is not None:
+                return got
         seg_pad = winmod.pad_to(max(num_segments, 1), 256)
         values, rel_hi, rel_lo, seg_ids, mask = self._device_arrays()
         with devobs.first_run(
@@ -166,3 +185,30 @@ class AggBatch:
         out_np = to_host(out)[:num_segments]
         sel_np = to_host(sel)[:num_segments] if sel is not None else None
         return out_np, sel_np, self.counts(num_segments)
+
+    def _run_mesh(self, mesh, spec: AggSpec, num_segments: int):
+        """One aggregate over the mesh's shards, or None for one it does
+        not serve. The merged outputs of one (segments, selector) program
+        are kept, so the batch's other aggregates reuse them."""
+        if spec.name not in distributed.MESH_AGGS:
+            return None
+        seg_pad = winmod.pad_to(max(num_segments, 1), 256)
+        # the winner merge runs only for the selector this spec needs;
+        # value-only aggregates share one program
+        sel = ((spec.name,) if spec.name in ("min", "max", "first", "last")
+               else ())
+        key = (seg_pad, sel)
+        outs = self._mesh_outs.get(key)
+        if outs is None:
+            values, rel_hi, rel_lo, seg_ids, mask = self._host_padded()
+            gidx = np.arange(len(values), dtype=np.int32)
+            step = distributed.batch_agg_jit(mesh, seg_pad, sel)
+            sharded = distributed.shard_rows(
+                mesh, values, rel_hi, rel_lo, seg_ids, mask, gidx)
+            outs = {k: to_host(v) for k, v in step(*sharded).items()}
+            self._mesh_outs[key] = outs
+        out = outs[spec.name][:num_segments]
+        sel_np = outs.get(spec.name + "_sel")
+        if sel_np is not None:
+            sel_np = sel_np[:num_segments]
+        return out, sel_np, outs["count"][:num_segments]

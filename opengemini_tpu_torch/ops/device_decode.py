@@ -1,8 +1,7 @@
 """Device-side decode of TSF device-profile blocks, fused into the grid
 aggregation data path.
 
-The port of ``opengemini_tpu/ops/device_decode.py`` for one device (the
-mesh-sharded plans are not ported yet). A cold scan over files written
+The port of ``opengemini_tpu/ops/device_decode.py``. A cold scan over files written
 with the device profile (storage/encoding.py, ``OGT_DEVICE_PROFILE=1``)
 ships the ENCODED value bytes — plus the scatter slots (or per-run
 scalars that rebuild them) and packed mask bits — to the card, and one
@@ -63,8 +62,20 @@ to decode on the card; unset means all). They are routes, not
 fallbacks: a kernel that fails to build or launch raises.
 
 The cost gate is the offload planner's zero-sample prior
-(query/offload.py ``gate_prior``). The mesh-sharded plans come with
-the device mesh.
+(query/offload.py ``gate_prior``).
+
+Under a device mesh (parallel/runtime.py) a plan splits by output row
+shard (``build_mesh_grid_plan``): the scatter rows are in order, so each
+shard owns one contiguous span of rows, blocks and payload bytes. A
+block that spans two shards is cut at value granularity
+(``_slice_block``), each piece carrying its seed: gorilla the decoded
+bit pattern of the value before the cut (XORed into the piece's scan),
+varint that value (added to its cumsum), FOR-delta its first value.
+Each shard's plan is an ordinary single-device plan on its shard's
+device, so each shard decodes its rows with kernels 5 and 4 and reduces
+them with kernel 3, straight into its piece of the sharded grid
+(``run_mesh_grid_plan``; its transfers count on ``mesh_h2d_bytes`` and
+carry the ``mesh="on"`` label).
 
 The PromQL tiled kernels take their (series, samples) value matrix from
 ``decode_rows_matrix``: the same decode, each series' slice of the
@@ -77,6 +88,7 @@ from __future__ import annotations
 
 import functools
 import os
+import struct
 import time
 
 import numpy as np
@@ -180,11 +192,16 @@ def classify(blocks) -> list | None:
     allowed = codecs_enabled()
     out = []
     for buf in blocks:
-        db = encoding.device_block(buf)
+        if isinstance(buf, encoding.DeviceBlock):
+            db = buf  # a block a mesh shard cut; the knob still applies
+        else:
+            db = encoding.device_block(buf)
         if db is None or db.kind not in allowed:
             return None
         if db.kind == "gorilla":
-            if _gorilla_scan(bytes(db.payload), db.n) is None:
+            # a cut block carries its scan (aux); whole blocks scan here
+            if db.aux is None and \
+                    _gorilla_scan(bytes(db.payload), db.n) is None:
                 return None
         elif db.kind == "varint":
             if not _varint_ok(bytes(db.payload), db.n):
@@ -211,11 +228,15 @@ def _pack_blocks(dbs):
         for b in dbs:
             if b.kind != "gorilla":
                 continue
-            bitpos, mbits, shift, _ = _gorilla_scan(bytes(b.payload), b.n)
+            if b.aux is not None:
+                bitpos, mbits, shift = b.aux
+            else:
+                bitpos, mbits, shift, _ = _gorilla_scan(bytes(b.payload),
+                                                        b.n)
             p32.append(bitpos)
             p8.append(np.stack([mbits, shift], axis=1).reshape(-1))
-        aux32 = np.concatenate(p32)
-        aux8 = np.concatenate(p8)
+        aux32 = np.concatenate(p32) if p32 else np.zeros(0, np.int32)
+        aux8 = np.concatenate(p8) if p8 else np.zeros(0, np.uint8)
     return sig, payload, scalars, aux32, aux8
 
 
@@ -479,6 +500,9 @@ def plan_builder(plan: GridPlan):
     runs (which index the decoded blocks), not the payload. In the
     zeros, each varint block's bytes end in exactly its value count of
     terminators and the scatter slots stay inside the grid."""
+    if isinstance(plan, MeshGridPlan):
+        builders = [plan_builder(p) for p in plan.shards]
+        return lambda: [b() for b in builders]
     pw_geo = _prewarm_geo(plan.geom)
     geom, n, device, consts = plan.geom, plan.n, plan.device, plan.consts
     sizes = {k: None if a is None else a.shape
@@ -538,6 +562,240 @@ def imat_from_flat(flat_dev: torch.Tensor, shape) -> torch.Tensor:
         imat[flat_dev] = torch.arange(n, dtype=torch.int32,
                                       device=flat_dev.device)
     return imat.reshape(shape)
+
+
+class MeshGridPlan:
+    """One fused-decode plan per mesh shard, plus the global geometry the
+    assembly needs. Each shard's GridPlan is self-contained (its own
+    blocks, scatter slots rebased to the shard's first row, per-shard
+    affine runs) on its shard's device, so a shard runs exactly the
+    single-device fused path: the split is pure input partitioning."""
+
+    __slots__ = ("mesh", "shards", "shape", "dtype_str", "n")
+
+    def __init__(self, mesh, shards, shape, dtype_str, n):
+        self.mesh = mesh
+        self.shards = shards
+        self.shape = shape
+        self.dtype_str = dtype_str
+        self.n = n
+
+    def transfer_nbytes(self) -> int:
+        return sum(p.transfer_nbytes() for p in self.shards)
+
+
+@functools.lru_cache(maxsize=1024)
+def _varint_scan(payload: bytes, n: int):
+    """Host byte structure and values of one varint block: (ends, vals),
+    ends[i] the byte index of value i's terminator byte and vals[i] its
+    decoded int64. A shard cuts the byte stream at ends and seeds the
+    device cumsum with vals[lo-1]."""
+    b = np.frombuffer(payload, np.uint8)
+    ends = np.flatnonzero((b & 0x80) == 0).astype(np.int64)
+    vals = encoding.decode_ints(
+        struct.pack("<BI", encoding._T_VARINT, n) + payload)
+    return ends, np.asarray(vals, np.int64)
+
+
+@functools.lru_cache(maxsize=1024)
+def _delta_vals(payload: bytes, n: int, first: int, step: int,
+                width: int):
+    """Host-decoded int64 values of one FOR-delta block (the host
+    decode's arithmetic: zero-extended widen, +step, wrapping cumsum,
+    +first); a shard's cut reseeds its `first` from vals[lo]."""
+    dt = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}[width]
+    d = np.frombuffer(payload[:(n - 1) * width], dtype=dt).astype(np.int64)
+    out = np.empty(n, np.int64)
+    out[0] = first
+    if n > 1:
+        np.cumsum(d + step, out=out[1:])
+        out[1:] += first
+    return out
+
+
+def _wrap_i64(v) -> int:
+    v = int(v) & 0xFFFFFFFFFFFFFFFF
+    return v - (1 << 64) if v >= (1 << 63) else v
+
+
+def _slice_block(db, lo: int, hi: int):
+    """A DeviceBlock of values [lo, hi) of `db` that ships ONLY the
+    payload bytes those values need, so a shard whose span ends inside a
+    block does not carry the whole stream. Stateful codecs carry their
+    seed in `first` (gorilla: the decoded bit pattern of value lo-1,
+    XORed into the device scan; varint: the int64 value lo-1, added to
+    the device cumsum), and gorilla pieces carry their part of the
+    structural scan as `aux` (the control bits are sequential, so a
+    mid-stream payload cannot be scanned again). None when the codec
+    cannot cut (the caller decodes on the host)."""
+    n = hi - lo
+    if lo == 0 and hi == db.n:
+        return db
+    if db.kind == "const":
+        return encoding.DeviceBlock(
+            "const", n, _wrap_i64(db.first + db.step * lo), db.step)
+    if db.kind == "raw64":
+        return encoding.DeviceBlock(
+            "raw64", n, payload=db.payload[8 * lo:8 * hi])
+    if db.kind == "strdict":
+        w = db.width
+        return encoding.DeviceBlock(
+            "strdict", n, width=w, payload=db.payload[w * lo:w * hi],
+            table=db.table)
+    if db.kind == "delta":
+        vals = _delta_vals(bytes(db.payload), db.n, db.first, db.step,
+                           db.width)
+        # the payload keeps deltas for piece indices 1..n-1 = global
+        # lo+1..hi-1; delta j lives at payload[(j-1)*width:]
+        return encoding.DeviceBlock(
+            "delta", n, int(vals[lo]), db.step, db.width,
+            db.payload[lo * db.width:(hi - 1) * db.width])
+    if db.kind == "varint":
+        ends, vals = _varint_scan(bytes(db.payload), db.n)
+        b0 = 0 if lo == 0 else int(ends[lo - 1]) + 1
+        sub = db.payload[b0:int(ends[hi - 1]) + 1]
+        seed = 0 if lo == 0 else int(vals[lo - 1])
+        return encoding.DeviceBlock(
+            "varint", n, seed, width=len(sub), payload=sub)
+    if db.kind == "gorilla":
+        scan = _gorilla_scan(bytes(db.payload), db.n)
+        if scan is None:
+            return None
+        bitpos, mbits, shift, vals = scan
+        mb = mbits[lo:hi].astype(np.int32)
+        sel = mb > 0
+        if sel.any():
+            bp = bitpos[lo:hi].astype(np.int64)
+            b0 = int(bp[sel].min()) >> 3
+            b1 = (int((bp[sel] + mb[sel]).max()) + 7) >> 3
+            sub = db.payload[b0:b1]
+            bp = np.where(sel, bp - 8 * b0, 0).astype(np.int32)
+        else:  # a pure repeat run: every value IS the seed
+            sub = b""
+            bp = np.zeros(n, np.int32)
+        seed = 0 if lo == 0 else _wrap_i64(vals[lo - 1])
+        return encoding.DeviceBlock(
+            "gorilla", n, seed, width=len(sub), payload=sub,
+            aux=(bp, mbits[lo:hi].copy(), shift[lo:hi].copy()))
+    return None
+
+
+def build_mesh_grid_plan(views, flat, mask, shape, dtype, mesh, rel=None,
+                         starts=None, every_ns=None,
+                         dt=None) -> MeshGridPlan | None:
+    """Split one fused grid-decode plan by output row shard. The scatter
+    rows (flat // (k*W_pad)) never decrease (series runs come in row
+    order), so each shard owns one CONTIGUOUS span of data rows, which
+    maps to a contiguous span of view rows, blocks and payload bytes:
+    every shard's input is a slice and rebase of the whole plan's, built
+    through build_grid_plan on the shard's device (same checks, same
+    per-shard cost gate). None when the rows cannot split cleanly or any
+    shard refuses: the caller then scatters on the host."""
+    if not enabled():
+        return None
+    S_pad, k, w_pad = shape
+    nsh = int(mesh.size)
+    if S_pad % nsh:
+        return None
+    rows_per = S_pad // nsh
+    blocks, viewruns, n_view, n_full = combine_views(views)
+    dbs = classify(blocks)
+    if dbs is None or sum(b.n for b in dbs) != n_full \
+            or n_view != len(flat):
+        note_fallback()
+        return None
+    flat = np.asarray(flat, np.int64)
+    row_of = flat // (k * w_pad)
+    if len(row_of) and (np.diff(row_of) < 0).any():
+        note_fallback()
+        return None  # rows out of order: no contiguous shard spans
+    cuts = np.concatenate((
+        [0], np.searchsorted(row_of, np.arange(1, nsh) * rows_per),
+        [n_view])).astype(np.int64)
+    mask = None if mask is None else np.asarray(mask, bool)
+    rel = None if rel is None else np.asarray(rel, np.int64)
+    starts = None if starts is None else np.asarray(starts, np.int64)
+    # block offsets in FULL (concatenated-decode) coordinates, and the
+    # view runs as explicit [lo, hi) full-coordinate spans
+    boffs = np.cumsum([0] + [b.n for b in dbs]).astype(np.int64)
+    vruns = (np.array([[0, n_full]], np.int64) if viewruns is None
+             else np.asarray(viewruns, np.int64))
+    run_len = vruns[:, 1] - vruns[:, 0]
+    run_end_v = np.cumsum(run_len)  # view-coordinate run ends
+    run_start_v = run_end_v - run_len
+    shards = []
+    for s, device in enumerate(mesh.shard_devices):
+        a, b = int(cuts[s]), int(cuts[s + 1])
+        sub_views: list = []
+        if a < b:
+            i0 = int(np.searchsorted(run_end_v, a, side="right"))
+            i1 = int(np.searchsorted(run_start_v, b, side="left"))
+            lo_f = vruns[i0:i1, 0] + np.maximum(a - run_start_v[i0:i1], 0)
+            hi_f = vruns[i0:i1, 0] + np.minimum(b - run_start_v[i0:i1],
+                                                run_len[i0:i1])
+            span_lo, span_hi = int(lo_f[0]), int(hi_f[-1])
+            jmin = int(np.searchsorted(boffs, span_lo, side="right")) - 1
+            jmax = int(np.searchsorted(boffs, span_hi - 1,
+                                       side="right")) - 1
+            # cut boundary blocks at value granularity: a block over
+            # several shards must not ship whole to each
+            sub_blocks = []
+            for j in range(jmin, jmax + 1):
+                o = int(boffs[j])
+                sb = _slice_block(dbs[j], max(span_lo - o, 0),
+                                  min(span_hi, int(boffs[j + 1])) - o)
+                if sb is None:
+                    note_fallback()
+                    return None
+                sub_blocks.append(sb)
+            segs = np.stack([lo_f - span_lo, hi_f - span_lo], axis=1)
+            sub_views = [(sub_blocks, segs, span_hi - span_lo)]
+        plan = build_grid_plan(
+            sub_views, flat[a:b] - s * rows_per * k * w_pad,
+            None if mask is None else mask[a:b],
+            (rows_per, k, w_pad), dtype, device,
+            rel=None if rel is None else rel[a:b],
+            starts=None if starts is None else
+            starts[(starts >= a) & (starts < b)] - a,
+            every_ns=every_ns, dt=dt)
+        if plan is None:
+            note_fallback()
+            return None
+        shards.append(plan)
+    return MeshGridPlan(mesh, shards, tuple(shape), np.dtype(dtype).str,
+                        n_view)
+
+
+def run_mesh_grid_plan(mplan: MeshGridPlan):
+    """Run each shard's fused decode on its device: one host-to-device
+    copy of each shard's encoded inputs (only its own bytes), then the
+    same decode, scatter and grid reduce as run_grid_plan. Returns
+    (stats, vt, mt, None), each a Sharded over the mesh: vt/mt ready for
+    the mesh layout of the colcache device tier and the per-shard ssd
+    and selector groups."""
+    from opengemini_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter_ns()
+    shard_in = [_plan_to_dev(plan) for plan in mplan.shards]
+    nbytes = mplan.transfer_nbytes()
+    # every byte here is a cold transfer a warm mesh repeat must NOT pay
+    # (the sharded device tier retains vt/mt)
+    STATS.incr("device", "mesh_h2d_bytes", nbytes)
+    devobs.note_transfer("h2d", _XFER_SITE, nbytes,
+                         (time.perf_counter_ns() - t0) / 1e9, mesh=True)
+    outs = []
+    for plan, ins in zip(mplan.shards, shard_in):
+        _note_decode_stats(plan.geom[0], plan.n)
+        pw_geo = _prewarm_geo(plan.geom)
+        devobs.note_use("grid_decode_fused", pw_geo)
+        with devobs.first_run("grid_decode_fused", pw_geo, plan.device):
+            outs.append(_run_fused(plan, *ins))
+    mesh = mplan.mesh
+    stats = {key: distributed.Sharded(mesh, [o[0][key] for o in outs])
+             for key in outs[0][0]}
+    vt = distributed.Sharded(mesh, [o[1] for o in outs])
+    mt = distributed.Sharded(mesh, [o[2] for o in outs])
+    return stats, vt, mt, None
 
 
 def decode_to_device(blocks, device, dtype=None) -> torch.Tensor:
@@ -666,7 +924,7 @@ def _prefix_xor(planes: torch.Tensor) -> torch.Tensor:
 
 def _gorilla_chunk(payload, rows, aux32, aux8):
     """Data-parallel gorilla reconstruction of a chunk of whole blocks
-    (rows of (src, nbytes, n, aux offset), consecutive in the aux
+    (rows of (src, nbytes, n, aux offset, seed), consecutive in the aux
     vectors) from one unpack launch (kernel 5) of their payloads plus
     the host structural scan's vectors. Value i's XOR delta is its mbits
     meaningful bits, read MSB first from bitpos (moved by 8 x its
@@ -676,7 +934,10 @@ def _gorilla_chunk(payload, rows, aux32, aux8):
     delta 0; a block's value 0 has mbits=64 -> its raw bits). The deltas
     are built as bit planes, which the prefix XOR over the chunk scans
     directly; then scan[i] ^ scan[start of i's block - 1] (XOR is its
-    own inverse) yields every block's decoded words."""
+    own inverse) yields every block's decoded words. A block a mesh
+    shard cut starts mid-stream: its seed, the decoded bit pattern of
+    the value before the cut (0 for a whole block), XORs into each of
+    its words."""
     dev = payload.device
     devobs.probe(dev)
     bits = cuda_segment.unpack_bits_segments(payload, [r[:2] for r in rows])
@@ -700,6 +961,8 @@ def _gorilla_chunk(payload, rows, aux32, aux8):
     if len(rows) > 1:
         start = torch.cumsum(meta[1], 0) - meta[1]
         words = words ^ torch.cat([words.new_zeros(1), words])[start][blk]
+    if any(r[4] for r in rows):
+        words = words ^ _meta_to_dev([[r[4] for r in rows]], dev)[0][blk]
     return words.view(torch.float64)
 
 
@@ -783,12 +1046,16 @@ def _decode(sig, out_dt, payload, scalars, aux32=None, aux8=None):
         elif kind == "gorilla":
             m = width  # payload byte length rides in the signature
             order.append(("gorilla", len(gor_rows)))
-            gor_rows.append((off, m, bn, aoff))
+            # `first` seeds a block a mesh shard cut (0 for whole ones)
+            gor_rows.append((off, m, bn, aoff, first))
             off += m
             aoff += bn
         elif kind == "varint":
             m = width
-            order.append(_varint_piece(payload[off:off + m], m, bn))
+            # `first` seeds a block a mesh shard cut (a wrapping int64
+            # add, like the host's mod-2^64 walk); 0 for whole blocks
+            piece = _varint_piece(payload[off:off + m], m, bn)
+            order.append(piece + first if first else piece)
             off += m
         else:  # strdict: min-width indices, table stays host-side
             m = bn * width

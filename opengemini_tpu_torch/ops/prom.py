@@ -1,8 +1,8 @@
 """PromQL range-vector functions: tiled interval reductions + dense kernels.
 
-The port of ``opengemini_tpu/ops/prom.py`` for one device (the
-mesh-sharded tiled kernels come with the device mesh, ROADMAP A8.3), with
-the rule engine's tile partials (bottom of the module: host numpy
+The port of ``opengemini_tpu/ops/prom.py``, with the mesh-sharded tiled
+kernels (``ShardedTiled``: the series axis split over a device mesh's
+shards) and the rule engine's tile partials (bottom of the module: host numpy
 float64, as the reference keeps them). Reference: the
 store-side prom cursors + reducers (engine/prom_range_vector_cursor.go,
 prom_function_reducers.go:633) which walk samples per series per step.
@@ -1198,6 +1198,123 @@ class TiledPrepared:
         intercept = sv / denom_n - slope * (st / denom_n)
         has2 = A.has2 & (A.t_last > A.t_first)
         return slope, intercept, has2
+
+    def sharded(self, mesh) -> "ShardedTiled":
+        """The mesh view of this prepared state (cached per mesh: one
+        sharding transfer per query however many kernels run)."""
+        cached = getattr(self, "_sharded_view", None)
+        if cached is not None and cached[0] is mesh:
+            return cached[1]
+        view = ShardedTiled(self, mesh)
+        self._sharded_view = (mesh, view)
+        return view
+
+
+# ---------------------------------------------------------------------------
+# Multi-shard tiled kernels: series-axis sharding over a device mesh.
+#
+# Every TiledPrepared array is either per-series (leading axis S: the
+# values/times matrices, the covered-tile gather and its masks, the
+# per-window prefix lookups and boundary gathers) or per-window (the
+# compact range positions ca/cb and the window edges). Series are
+# independent — no kernel combines two series rows — so splitting the S
+# axis over the shards partitions every kernel with no merge: each shard
+# runs the unmodified kernel method on its rows, on its device, once the
+# flat covered-tile gather is rebased to the shard's rows.
+# ---------------------------------------------------------------------------
+
+# per-series arrays (leading axis S: split over the shards)
+_TILED_SHARD_ATTRS = (
+    "values", "counts", "times", "ownmask", "pairmask", "fmask",
+    "has1", "has2", "n_samp", "safe_f", "safe_l", "safe_fm1", "safe_lm1",
+    "t_first", "t_last", "t_lm1",
+)
+# per-window arrays (whole on every shard: each shard answers all K
+# windows of its own series rows)
+_TILED_REPL_ATTRS = ("ca2", "cb2", "starts_rel", "ends_rel")
+
+
+class _ShardArrays:
+    """One shard's kernel arrays on its device (what _DeviceArrays is on
+    one device)."""
+
+    def __init__(self, device, arrays: dict):
+        self._device = device
+        self.__dict__.update(arrays)
+
+
+class ShardedTiled:
+    """Mesh execution of one TiledPrepared: per-series arrays split over
+    the shards (rows padded to a multiple of mesh.size; padding rows
+    carry all-False masks, answer as empty windows and are sliced off by
+    the caller), per-window arrays on every shard. Each kernel method
+    runs TiledPrepared's on every shard and concatenates the shards'
+    (rows, K) outputs on the first shard's device: (S_pad, K), which the
+    caller slices to [:prep.S, :prep.k_real]."""
+
+    def __init__(self, prep: TiledPrepared, mesh):
+        from opengemini_tpu_torch.parallel import distributed, runtime
+        from opengemini_tpu_torch.utils import devobs
+
+        self.prep = prep
+        self.mesh = mesh
+        n_dev = mesh.size
+        self.S_pad = max(1, (prep.S + n_dev - 1) // n_dev * n_dev)
+        rows_per = self.S_pad // n_dev
+        # the covered-tile gather rebased from (S, N)-flat to the
+        # shard's (rows_per, N)-flat positions
+        row = np.arange(prep.S, dtype=np.int64)
+        gidx = (prep.gidx - (row - row % rows_per)[:, None, None] * prep.N)
+        series = {name: (prep._host_values() if name == "values"
+                         else getattr(prep, name))
+                  for name in _TILED_SHARD_ATTRS}
+        series["gidx"] = gidx
+        sharded = distributed.shard_leading_axis(
+            mesh, *series.values(), xfer_site="prom-shard")
+        self.arrays = dict(zip(series.keys(), sharded))
+        repl = {name: np.ascontiguousarray(getattr(prep, name))
+                for name in _TILED_REPL_ATTRS}
+        self._views = []
+        nbytes = sum(a.nbytes for a in self.arrays.values())
+        for i, dev in enumerate(mesh.shard_devices):
+            arrays = {name: a.parts[i] for name, a in self.arrays.items()}
+            for name, host in repl.items():
+                arrays[name] = torch.from_numpy(host).to(dev)
+                nbytes += int(host.nbytes)
+            view = object.__new__(TiledPrepared)
+            view.__dict__.update({
+                "plan": prep.plan, "dtype": prep.dtype, "S": rows_per,
+                "N": prep.N, "K": prep.K, "k_real": prep.k_real,
+                "C": prep.C, "pmax": prep.pmax, "device": dev,
+                "values": None, "_enc": None,
+                "_dev_values": arrays["values"],
+                "_dev_arrays": _ShardArrays(dev, arrays)})
+            self._views.append(view)
+        devobs.LEDGER.register(
+            "prom_sharded", nbytes, mesh_epoch=runtime.mesh_epoch(),
+            label="sharded-tiled", anchor=self)
+
+    def _run(self, kernel: str, **opts):
+        outs = [getattr(TiledPrepared, kernel)(view, torch, **opts)
+                for view in self._views]
+        dev = self.mesh.shard_devices[0]
+        return tuple(torch.cat([o[j].to(dev) for o in outs])
+                     for j in range(len(outs[0])))
+
+    def rate(self, *, is_counter: bool, is_rate: bool):
+        return self._run("rate", is_counter=is_counter, is_rate=is_rate)
+
+    def instant_rate(self, *, per_second: bool):
+        return self._run("instant_rate", per_second=per_second)
+
+    def over_time(self, *, func: str):
+        return self._run("over_time", func=func)
+
+    def changes_resets(self, *, kind: str):
+        return self._run("changes_resets", kind=kind)
+
+    def linear_regression(self):
+        return self._run("linear_regression")
 
 
 class TileBudgetExceeded(ValueError):

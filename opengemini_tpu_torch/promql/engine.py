@@ -14,8 +14,10 @@ kernels run on the device of the Engine the PromEngine serves: the
 tiled kernels on the host (numpy) or on the device (torch) as the
 offload planner routes them, where a CPU engine's static route is the
 host and a CUDA engine's the device; the dense kernels (torch) on the
-engine's device. The mesh paths come with the device mesh (ROADMAP
-A8.3). An evaluation is noted in the slow-query log (utils/slowlog.py);
+engine's device. With a device mesh configured (parallel/runtime.py)
+the tiled kernels' static route is "mesh": their series axis splits
+over the mesh's shards (ops/prom.py ``ShardedTiled``), which
+OGT_PROM_MESH=0 opts out of. An evaluation is noted in the slow-query log (utils/slowlog.py);
 the governor's admission is taken by the HTTP routes (server/http.py).
 Knobs: OGT_PROM_TILED, OGT_PROM_BULK_SIDS, OGT_PROM_TILE_CELLS and the
 offload planner's host-kernels switch (OGT_PROM_HOST_KERNELS,
@@ -138,6 +140,19 @@ def _host_kernels(device) -> bool:
     if v == "0":
         return False
     return torch.device(device).type == "cpu"
+
+
+def _mesh_for_tiled():
+    """The configured device mesh when the tiled kernels should split
+    their series axis over it (ops/prom.py ShardedTiled). A set mesh
+    overrides the host-kernel CPU shortcut — running over the mesh is
+    the point of configuring one; OGT_PROM_MESH=0 opts the PromQL engine
+    out (grid and bucketed batches keep their own mesh paths)."""
+    if os.environ.get("OGT_PROM_MESH", "1") == "0":
+        return None
+    from opengemini_tpu_torch.parallel import runtime
+
+    return runtime.get_mesh()
 
 
 @contextmanager
@@ -923,6 +938,36 @@ class PromEngine:
             return (devobs.fetch_np(out)[:, :kr],
                     devobs.fetch_np(valid)[:, :kr])
 
+    def _run_mesh_kernel(self, spec, kind, prep, mesh):
+        """Multi-shard tiled kernels: the series axis split over the
+        mesh, each kernel run on every shard; results sliced back to the
+        real (S, k) window grid on the host."""
+        STATS.incr("prom", "tiled_mesh_kernels")
+        # the sharding transfer counts in the prepare stage (it builds
+        # this query's device state)
+        with _stage("prom_prepare"):
+            sharded = prep.sharded(mesh)
+        with _stage("prom_kernel"):
+            if kind == "rate":
+                out, valid = sharded.rate(
+                    is_counter=spec["is_counter"],
+                    is_rate=spec["is_rate"])
+            elif kind == "instant_rate":
+                out, valid = sharded.instant_rate(
+                    per_second=spec["per_second"])
+            elif kind == "changes_resets":
+                out, valid = sharded.changes_resets(kind=spec["which"])
+            elif kind == "deriv":
+                out, _icept, valid = sharded.linear_regression()
+            elif kind == "predict":
+                slope, icept, valid = sharded.linear_regression()
+                out = icept + slope * spec["dur"]
+            else:
+                out, valid = sharded.over_time(func=spec["func"])
+            kr = prep.k_real
+            return (devobs.fetch_np(out)[:prep.S, :kr],
+                    devobs.fetch_np(valid)[:prep.S, :kr])
+
     def _run_range_kernel(self, spec, t_ms_all, v_all, lens, eval_times,
                           w, enc=None):
         """Dispatch one range-vector spec: tiled interval reductions when
@@ -938,11 +983,13 @@ class PromEngine:
             from opengemini_tpu_torch.ops import device_decode
 
             v_all = device_decode.materialize_enc(enc)
+        mesh = _mesh_for_tiled() if prep is not None else None
         if prep is not None:
             # route through the offload planner (query/offload.py): the
-            # static prior is host numpy per _host_kernels(), and the
-            # OGT_PROM_HOST_KERNELS override prunes the candidate set,
-            # so the pin and the planner are ONE mechanism
+            # static prior is the mesh when one is configured, else host
+            # numpy per _host_kernels(), and the OGT_PROM_HOST_KERNELS
+            # override prunes the candidate set, so the pin and the
+            # planner are ONE mechanism
             from opengemini_tpu_torch.query import offload
 
             geo = (prep.S, prep.N, prep.k_real)
@@ -950,13 +997,20 @@ class PromEngine:
             candidates = [c for c in ("host", "device")
                           if not (mode == "1" and c == "device")
                           and not (mode == "0" and c == "host")]
-            static = "host" if _host_kernels(self.device) else "device"
+            if mesh is not None:
+                candidates.append("mesh")
+            static = ("mesh" if mesh is not None
+                      else "host" if _host_kernels(self.device)
+                      else "device")
             route = offload.GLOBAL.decide(
                 "prom_" + kind, geo, tuple(candidates), static,
                 stage="prom_kernel")
             t_route = _time.perf_counter()
-            out, valid = self._run_tiled_kernel(
-                spec, kind, prep, host=(route == "host"))
+            if route == "mesh":
+                out, valid = self._run_mesh_kernel(spec, kind, prep, mesh)
+            else:
+                out, valid = self._run_tiled_kernel(
+                    spec, kind, prep, host=(route == "host"))
             offload.GLOBAL.observe("prom_" + kind, geo, route,
                                    _time.perf_counter() - t_route)
             return out, valid

@@ -1376,7 +1376,10 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
 
         # the device tier of the decoded-column cache: a deterministic
         # local GROUP BY time() scan signs its grid buffers so identical
-        # scans reuse them (a sliced scan signs each slice)
+        # scans reuse them (a sliced scan signs each slice). Under a
+        # device mesh the retained grid is sharded (models/grid.py puts
+        # the cold grid straight into the mesh's layout), so a warm mesh
+        # scan copies nothing to the shards
         device_token = None
         if (group_time is not None and self.router is None
                 and ctx.live is None

@@ -46,8 +46,11 @@ Decisions land in the per-query tracker (routes per stage in
 /debug/queries), the bounded decision ring and the model in
 /debug/device's `planner` section, and `ogt_offload_*` counters in
 /metrics. `POST /debug/ctrl?mod=offload` arms, clears, freezes, forces
-and tunes it live. The "mesh" route joins the candidates with the
-device mesh.
+and tunes it live. The "mesh" route joins a site's candidates once a
+device mesh is set (parallel/runtime.py): the grid decode
+(models/grid.py), the tiled PromQL kernels (promql/engine.py) and the
+label gather (index/labels.py) offer it, and it is their static prior
+where the reference's is.
 
 Knobs: OGT_OFFLOAD (0 = static gates), OGT_OFFLOAD_MIN_SAMPLES (2),
 OGT_OFFLOAD_EXPLORE_AFTER (3), OGT_OFFLOAD_AMORTIZE (4.0),

@@ -85,9 +85,9 @@ class IncrementalCache:
 def fingerprint(db, rp, mst, sc, group_time, group_tags, all_tags,
                 agg_specs) -> str:
     """The time-less statement key. The condition subtrees enter by
-    their dataclass repr, which is deterministic (the port has no
-    ``sql/astjson``, ROADMAP A9; executor._device_scan_token does the
-    same)."""
+    their dataclass repr, which is deterministic and as fine-grained
+    as the reference's ``sql/astjson.to_json`` form (the port has that
+    module too; executor._device_scan_token keys the same way)."""
     return repr((
         db, rp or "", mst,
         repr(sc.tag_expr), repr(sc.field_expr), repr(sc.mixed_expr),

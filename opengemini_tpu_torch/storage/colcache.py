@@ -48,7 +48,7 @@ Knobs:
 
 Counters (utils/stats.py, module "colcache"): hits, misses, fills,
 evictions, invalidations, bytes, device_hits, device_misses,
-device_bytes, time_ns. Cache time is also attributed to the running
+device_reshards, device_reshard_drops, device_bytes, time_ns. Cache time is also attributed to the running
 query (utils/querytracker.py stages) and shown in the executor's
 ``colcache`` span.
 
@@ -56,11 +56,16 @@ Every retained device entry is a row of the device-memory ledger
 (utils/devobs.py ``LEDGER``, owner ``colcache_device``; armed only), kept
 in step with its bytes and dropped with it.
 
-Not in this port yet: the mesh layouts of the device tier (the
-reference reshards retained entries when its device mesh changes; they
-come with the device mesh, ROADMAP A8.3). Both tiers' resident bytes are
-components of the resource governor's memory ledger (``colcache_host``,
-``colcache_device``; utils/governor.py).
+Entries also record the device MESH they were laid out for
+(parallel/runtime.py): under a mesh the cold scan puts the padded grid
+straight into the sharded layout (one transfer), warm scans reuse the
+sharded tensors with no transfer, and a ``runtime.set_mesh()`` change
+reshards a retained entry device to device on its next use, its stale
+tensors donated (parallel/distributed.py ``donate_reshard``): the entry
+swaps them out, so they are freed and both layouts are never retained.
+Both tiers' resident bytes are components of the resource governor's
+memory ledger (``colcache_host``, ``colcache_device``;
+utils/governor.py).
 """
 
 from __future__ import annotations
@@ -104,8 +109,10 @@ def _nbytes(val) -> int:
 
 
 def tensor_nbytes(t) -> int:
-    """Bytes a retained device tensor holds."""
-    return int(t.numel()) * int(t.element_size())
+    """Bytes a retained device tensor (or a sharded one) holds."""
+    from opengemini_tpu_torch.parallel import distributed
+
+    return distributed.nbytes_of(t)
 
 
 class ColumnCache:
@@ -119,6 +126,9 @@ class ColumnCache:
                  device: bool | None = None,
                  device_budget_mb: int | None = None):
         self._lock = threading.Lock()
+        # serializes mesh reshards of device entries (never held with
+        # _lock across the relayout itself)
+        self._reshard_lock = threading.Lock()
         self._host: OrderedDict = OrderedDict()  # key -> (value, nbytes)
         self._by_gen: dict[int, set] = {}
         self._host_bytes = 0
@@ -289,10 +299,16 @@ class ColumnCache:
 
     # -- device tier ------------------------------------------------------
 
-    def device_get(self, token, shape, dtype: str):
+    def device_get(self, token, shape, dtype: str, mesh=None):
         """The retained grid entry of a scan signature, or None. Shape
         and dtype are checked defensively (the signature pins them; a
-        mismatch is a miss, never an error)."""
+        mismatch is a miss, never an error).
+
+        ``mesh`` is the caller's CURRENT layout (the configured mesh, or
+        None for one device). A hit laid out for another mesh (a
+        runtime.set_mesh() since, a config reload) is resharded in place
+        device to device, its stale tensors donated, so the swap never
+        decodes or transfers from the host again."""
         if not self.device_enabled():
             return None
         t0 = time.perf_counter_ns()
@@ -304,16 +320,86 @@ class ColumnCache:
         if ent is not None and (ent["shape"] != tuple(shape)
                                 or ent["dtype"] != dtype):
             ent = None
+        if ent is not None and ent.get("mesh") is not mesh:
+            ent = self._device_reshard(token, ent, mesh)
         _STATS.incr("colcache",
                     "device_hits" if ent is not None else "device_misses")
         self._note_time(time.perf_counter_ns() - t0)
         return ent
 
-    def device_put_grid(self, token, vt, mt, shape, dtype: str) -> dict:
+    def _device_reshard(self, token, ent, mesh):
+        """Relayout a retained entry onto ``mesh`` (None = one device),
+        donating its stale tensors. Returns the updated entry, or None
+        (dropped: a miss) when its rows cannot split evenly over the new
+        mesh; the caller then rebuilds from host rows.
+
+        Serialized by ``_reshard_lock`` and re-checked under the cache
+        lock, so threads chasing one mesh swap never relayout the same
+        tensors twice."""
+        from opengemini_tpu_torch.parallel import distributed
+
+        with self._reshard_lock:
+            with self._lock:
+                got = self._dev.get(token)
+                live = got[0] if got is not None else None
+                if live is not ent:
+                    # replaced while we waited: usable only if the
+                    # replacement already has the requested layout
+                    return (live if live is not None
+                            and live.get("mesh") is mesh else None)
+                if ent.get("mesh") is mesh:
+                    return ent  # another thread finished the swap
+                arrays = [ent["vt"], ent["mt"]]
+                if ent.get("imat") is not None:
+                    arrays.append(ent["imat"])
+            rows = ent["shape"][0]
+            if mesh is not None and (rows < mesh.size or rows % mesh.size):
+                with self._lock:
+                    got = self._dev.get(token)
+                    if got is not None and got[0] is ent:
+                        del self._dev[token]
+                        self._dev_bytes -= got[1]
+                        devobs.LEDGER.drop(ent.pop("_ledger", None))
+                        self._publish_locked()
+                _STATS.incr("colcache", "device_reshard_drops")
+                return None
+            out = distributed.donate_reshard(
+                ent["home"] if mesh is None else mesh, *arrays)
+            del arrays
+            with self._lock:
+                ent["vt"], ent["mt"] = out[0], out[1]
+                if len(out) > 2:
+                    ent["imat"] = out[2]
+                elif ent.get("imat") is not None:
+                    # an imat attached between the snapshot and the swap
+                    # carries the OLD layout: drop it (the next selector
+                    # query rebuilds it) and give its bytes back
+                    stale = tensor_nbytes(ent["imat"])
+                    ent["imat"] = None
+                    got = self._dev.get(token)
+                    if got is not None and got[0] is ent:
+                        self._dev[token] = (ent, got[1] - stale)
+                        self._dev_bytes -= stale
+                        devobs.LEDGER.update(ent.get("_ledger"),
+                                             got[1] - stale)
+                        self._publish_locked()
+                ent["mesh"] = mesh
+                devobs.LEDGER.update(ent.get("_ledger"),
+                                     mesh_epoch=self._mesh_epoch(mesh))
+        _STATS.incr("colcache", "device_reshards")
+        return ent
+
+    def device_put_grid(self, token, vt, mt, shape, dtype: str,
+                        mesh=None) -> dict:
         """Retain freshly built grid tensors and return the entry (callers
-        use the returned dict, so concurrent puts converge on one)."""
+        use the returned dict, so concurrent puts converge on one).
+        ``mesh`` is the layout they were built for (None = one device);
+        device_get reshards the entry when the process mesh changes."""
         ent = {"vt": vt, "mt": mt, "imat": None,
-               "shape": tuple(shape), "dtype": dtype}
+               "shape": tuple(shape), "dtype": dtype, "mesh": mesh,
+               # the one device a single-device layout returns to
+               "home": (vt.device if mesh is None
+                        else mesh.shard_devices[0])}
         nb = tensor_nbytes(vt) + tensor_nbytes(mt)
         if not self.device_enabled() or nb > self._dev_budget:
             return ent  # still usable by the caller, just not retained
@@ -321,25 +407,40 @@ class ColumnCache:
             got = self._dev.get(token)
             if got is not None:
                 if (got[0]["shape"] == ent["shape"]
-                        and got[0]["dtype"] == ent["dtype"]):
+                        and got[0]["dtype"] == ent["dtype"]
+                        and got[0].get("mesh") is mesh):
                     self._dev.move_to_end(token)
                     return got[0]
-                # same token, other geometry: replace
+                # same token, other geometry or layout: replace
                 del self._dev[token]
                 self._dev_bytes -= got[1]
                 devobs.LEDGER.drop(got[0].pop("_ledger", None))
             self._dev[token] = (ent, nb)
             self._dev_bytes += nb
             ent["_ledger"] = devobs.LEDGER.register(
-                "colcache_device", nb, label=str(token)[:120])
+                "colcache_device", nb, mesh_epoch=self._mesh_epoch(mesh),
+                label=str(token)[:120])
             self._evict_dev_locked()
             self._publish_locked()
         return ent
 
-    def device_add_imat(self, token, ent, imat):
+    @staticmethod
+    def _mesh_epoch(mesh):
+        """Ledger epoch stamp: the live mesh epoch for sharded entries,
+        None for single-device ones (not mesh-dependent)."""
+        if mesh is None:
+            return None
+        from opengemini_tpu_torch.parallel import runtime
+
+        return runtime.mesh_epoch()
+
+    def device_add_imat(self, token, ent, imat, mesh=None):
         """Attach the lazily built selector index grid to a retained
         entry and return the winning one: a thread that lost the race
-        gets the attached one, whose bytes count once."""
+        gets the attached one, whose bytes count once. ``mesh`` is the
+        layout the caller built ``imat`` for: if a reshard moved the
+        entry meanwhile, the caller uses its imat and it is not
+        attached."""
         with self._lock:
             got = self._dev.get(token)
             if got is None or got[0] is not ent:
@@ -349,6 +450,8 @@ class ColumnCache:
                 return ent["imat"]
             if ent.get("imat") is not None:
                 return ent["imat"]
+            if ent.get("mesh") is not mesh:
+                return imat  # the entry was resharded since
             ent["imat"] = imat
             nb = got[1] + tensor_nbytes(imat)
             self._dev[token] = (ent, nb)
@@ -380,7 +483,8 @@ class ColumnCache:
             snap["entries"] = len(self._host)
             snap["device_entries"] = len(self._dev)
         for k in ("hits", "misses", "fills", "evictions", "invalidations",
-                  "device_hits", "device_misses", "time_ns"):
+                  "device_hits", "device_misses", "device_reshards",
+                  "device_reshard_drops", "time_ns"):
             snap.setdefault(k, 0)
         return snap
 

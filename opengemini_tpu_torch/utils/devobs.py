@@ -59,8 +59,8 @@ run time. Answers are the same armed or not.
 a background thread (one at a time; the profiler starts and stops on
 that thread) and writes a Chrome trace into its directory.
 ``debug_doc`` is the GET /debug/device payload; its ``mesh`` section
-answers ``{"configured": false, "size": null, "epoch": 0}`` until the
-device mesh is ported.
+says whether a device mesh is configured (parallel/runtime.py), its
+size and its epoch.
 
 Knobs: OGT_DEVOBS (1 = armed), OGT_DEVOBS_RING (recent-compile ring
 bound, default 256).
@@ -156,8 +156,10 @@ def _hist(family: str, site: str, unit: str, mesh: bool = False):
 
 
 def _mesh_epoch() -> int:
-    """The device mesh's epoch: 0 until the mesh is ported."""
-    return 0
+    """The device mesh's epoch (parallel/runtime.py)."""
+    from opengemini_tpu_torch.parallel import runtime
+
+    return runtime.mesh_epoch()
 
 
 def note_compile(kernel: str, geometry=()) -> None:
@@ -728,6 +730,9 @@ def device_table() -> list[dict]:
 
 def debug_doc() -> dict:
     """The GET /debug/device payload."""
+    from opengemini_tpu_torch.parallel import runtime
+
+    mesh = runtime.get_mesh()
     with _lock:
         warm = {"marked": _warm_marked,
                 "compiles_since_warm": _compiles_since_warm}
@@ -737,8 +742,9 @@ def debug_doc() -> dict:
         # cache only: a scrape never runs the probe inline
         "capabilities": backend_capabilities(probe_now=False),
         "devices": device_table(),
-        "mesh": {"configured": False, "size": None,
-                 "epoch": _mesh_epoch()},
+        "mesh": {"configured": mesh is not None,
+                 "size": getattr(mesh, "size", None),
+                 "epoch": runtime.mesh_epoch()},
         "counters": _STATS.counters("device"),
         "compile_wall_ms": wall_ms,
         "jit_cache": jit_inventory(),

@@ -10,9 +10,9 @@ hold it to that.
 
 Key mapping of /debug/device (port <- reference): ``capabilities``
 carries ``cuda_kernels`` (kernel 6's probe) where the reference carries
-``pallas``, with the same {"supported", "reason"} shape; ``mesh`` is
-{"configured": false, "size": null, "epoch": 0} in the port (no device
-mesh yet); ``devices`` rows carry the same keys, and the port's
+``pallas``, with the same {"supported", "reason"} shape; ``mesh``
+answers as the reference's, from the port's own mesh runtime
+(parallel/runtime.py), with and without a mesh set; ``devices`` rows carry the same keys, and the port's
 ``memory_stats`` are the caching allocator's figures (null on the CPU).
 """
 
@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from opengemini_tpu.parallel import distributed as jdist
+from opengemini_tpu.parallel import runtime as jrt
 from opengemini_tpu.query import offload as joff
 from opengemini_tpu.query.executor import Executor as JExecutor
 from opengemini_tpu.server.http import HttpService as JHttpService
@@ -34,6 +36,8 @@ from opengemini_tpu.storage import colcache as jcc
 from opengemini_tpu.storage.engine import Engine as JEngine
 from opengemini_tpu.utils import devobs as jdevobs
 from opengemini_tpu.utils.stats import GLOBAL as JSTATS
+from opengemini_tpu_torch.parallel import distributed as tdist
+from opengemini_tpu_torch.parallel import runtime as trt
 from opengemini_tpu_torch.query import offload as toff
 from opengemini_tpu_torch.query.executor import Executor as TExecutor
 from opengemini_tpu_torch.server.http import HttpService as THttpService
@@ -78,22 +82,40 @@ def _ring(d):
             for e in d.recent_compiles()]
 
 
+def _live_epoch(doc, epoch: int):
+    """`doc` with every mesh epoch, each of which must be the package's
+    live one, as "live": each package counts its own mesh assignments,
+    and the other tests of a worker set the two meshes unequally often."""
+    if isinstance(doc, dict):
+        out = {}
+        for k, v in doc.items():
+            if k == "mesh_epoch":
+                assert v == epoch, (v, epoch)
+                v = "live"
+            out[k] = _live_epoch(v, epoch)
+        return out
+    if isinstance(doc, (list, tuple)):
+        return [_live_epoch(v, epoch) for v in doc]
+    return doc
+
+
 # -- compile accounting and the tripwire ---------------------------------------
 
 
 def test_inventory_ring_and_repeats_match():
     got = []
-    for d, stats in ((jdevobs, JSTATS), (tdevobs, TSTATS)):
+    for d, stats, rt in ((jdevobs, JSTATS, jrt), (tdevobs, TSTATS, trt)):
         c0 = stats.counters("device")
         d.note_compile("grid_basic", ((8, 4, 16), "float64"))
         d.note_compile("grid_basic", ((16, 4, 16), "float64"))
         d.note_compile("grid_basic", ((8, 4, 16), "float64"))  # repeat
         d.note_use("grid_basic", ((8, 4, 16), "float64"))
         c1 = stats.counters("device")
-        got.append((d.jit_inventory(), d.inventory(), _ring(d),
-                    {k: c1.get(k, 0) - c0.get(k, 0)
-                     for k in ("compiles_total", "compile_cache_misses",
-                               "repeat_compiles_total")}))
+        got.append(_live_epoch(
+            (d.jit_inventory(), d.inventory(), _ring(d),
+             {k: c1.get(k, 0) - c0.get(k, 0)
+              for k in ("compiles_total", "compile_cache_misses",
+                        "repeat_compiles_total")}), rt.mesh_epoch()))
     assert got[1] == got[0]
     inv = got[1][0]["grid_basic"]
     assert (inv["compiles"], inv["distinct_geometries"],
@@ -438,8 +460,10 @@ def test_debug_device_document_like_jax(services):
     tcap["pallas"] = tcap.pop("cuda_kernels")
     assert set(tcap) == set(jdoc["capabilities"])
     assert set(tcap["pallas"]) == set(jdoc["capabilities"]["pallas"])
-    assert tdoc["mesh"] == {"configured": False, "size": None, "epoch": 0}
+    assert tdoc["mesh"] == {"configured": False, "size": None,
+                            "epoch": trt.mesh_epoch()}
     assert set(tdoc["mesh"]) == set(jdoc["mesh"])
+    assert jdoc["mesh"]["configured"] is False and jdoc["mesh"]["size"] is None
     assert set(tdoc["devices"][0]) == set(jdoc["devices"][0])
     assert tdoc["devices"][0]["platform"] == "cpu"
     for doc in docs:
@@ -449,6 +473,32 @@ def test_debug_device_document_like_jax(services):
         assert _shape(tdoc[key]) == _shape(jdoc[key]), key
     assert (tdoc["ledger"]["total_bytes"]
             == sum(o["bytes"] for o in tdoc["ledger"]["by_owner"].values()))
+
+
+def test_debug_device_mesh_section_with_a_mesh_like_jax(services):
+    """With a mesh set in both packages, /debug/device says so alike:
+    configured, its size, and each package's live epoch; the inventory
+    keeps its records per (geometry, mesh epoch)."""
+    js, ts = services
+    trt.set_mesh(tdist.make_mesh(8, devices=["cpu"] * 8))
+    jrt.set_mesh(jdist.make_mesh(8))
+    try:
+        tdevobs.note_compile("zz-mesh-site", ("g",))
+        docs = []
+        for svc in (js, ts):
+            status, body, _e = _req(svc.port, "GET", "/debug/device")
+            assert status == 200
+            docs.append(json.loads(body))
+        jdoc, tdoc = docs
+        assert tdoc["mesh"] == {"configured": True, "size": 8,
+                                "epoch": trt.mesh_epoch()}
+        assert jdoc["mesh"] == {"configured": True, "size": 8,
+                                "epoch": jrt.mesh_epoch()}
+        recs = tdevobs.inventory()["zz-mesh-site"]["geometries"]
+        assert any(r["mesh_epoch"] == trt.mesh_epoch() for r in recs)
+    finally:
+        trt.set_mesh(None)
+        jrt.set_mesh(None)
 
 
 DEVOBS_CTRL = [{}, {"arm": "1"}, {"op": "mark_warm"}, {"op": "clear_warm"},
