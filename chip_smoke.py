@@ -51,7 +51,7 @@ Phases, in order; any failure ends the run with a nonzero exit:
    lies above the data's size, so the queries read the memtable (the
    script checks that no TSF file was written). A bad /write body must
    answer 400 with errno 2001, module "write" and the X-Ogt-Errno
-   header. Four queries run 5 times each (Q1, Q2 and Q4 3 times:
+   header. Four queries run 5 times each (Q1, Q2 and Q4 once:
    E2E_RUNS) through
    /query (on one
    kept-alive HTTP/1.1 connection, as client libraries keep it; every
@@ -292,8 +292,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
    decode_rows_matrix, kernel 5 must launch, and the device-decode H2D
    bytes print beside the padded (S, N) matrix each decode replaces;
    decode_rows_matrix against materialize_enc bit for bit at PQ3's
-   geometry. Then each PQ twice (PROM_RUNS, cut from 5 to 3 for phase
-   16, then to 2; once when the deadline leaves under PROM_ROOM_S)
+   geometry. Then each PQ once (PROM_RUNS, cut from 5 to 3 for phase
+   16, then to 2, then to 1 for phase 18; twice when the first run
+   passes PROM_SLOW_MS)
    with its p50, its stage split (prom_collect, prom_prepare,
    prom_kernel, render, encode) and launches, the forced answers equal
    to these; PQ1 (max) and PQ3 (mean) against numpy; every PQ once on
@@ -313,7 +314,7 @@ Phases, in order; any failure ends the run with a nonzero exit:
    of 1 h shards; the rollup cpu_1m (usage_user, 1 min, with its sketches)
    declared through /debug/ctrl?mod=rollup and folded by one governed
    service tick (its wall and rows); D1, mean and max of usage_user by 5
-   min and host over the span, 3 runs: 21 windows from rollup rows and a
+   min and host over the span, 2 runs (CONT_DASH_RUNS): 21 windows from rollup rows and a
    raw tail of 15 min through the grid on the card (windows_spliced,
    rows, launches and the route print; the rollup rows read from the
    `rollup` span of an EXPLAIN ANALYZE), against the oracle and against
@@ -392,9 +393,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
    n1 is the primary of no loaded group. (c) On n1 with the admin's
    credentials on one kept-alive connection, K1 (Q1's shape), K2
    (Q2's), K3 (Q4's) and K4 (a raw select of host_7's usage_user over
-   the ten minutes around hour 0's end) once each, then again up to
-   three runs each while the phase's budget lasts (a line says so where
-   it does not), against the
+   the ten minutes around hour 0's end) once each (CLUSTER_RUNS, cut
+   from 3 for phase 18; more runs, where set, only while the phase's
+   budget lasts, and a line says so where it does not), against the
    oracle; each prints its p50, its stage split beside the
    remote_partials span (the stages are process-wide: the peers' scans
    count in them), the bytes each peer's answers carried, and its
@@ -476,6 +477,47 @@ Phases, in order; any failure ends the run with a nonzero exit:
    bytes. C2 is cut from the phase: 20 s a run on the card would take
    it past its budget (and after phase 6's row its answer holds a
    4001st series).
+18. The edges (ROADMAP A9) through the port's ts-server main, with a
+   budget of its own (EDGES_PHASE_S, 45 s), last, on phase 7's compacted
+   root (`--phases 5,6,7,18` runs it on a fresh one). server/app.build()
+   from a TOML with [data] enable-tag-array, [services] obs-dir
+   (build/edges_bucket) and, where pyarrow.flight exists, [flight] on
+   port 0. (a) Log mode at fleet width: POST /repo/fleet, the logstream
+   app (a TTL), 15 minutes of ndjson from every TSBS host (one line each
+   EDGE_STEP_S, 120 000 lines at 4000 hosts, in bodies of
+   EDGE_BODY_LINES; cut from an hour, EDGE_LINES_PER_HOST) with the tags
+   host, service and level (90/8/2%), a message from fixed templates and
+   the fields latency_ms and status, flushed (the .tidx sidecars exist);
+   L1 (full text "error AND timeout", every scroll page), L2 (histogram
+   by minute), L3 (mean latency by service per 5 minutes), L4 (max
+   latency by host), L5 (the context of one host's row) and L6
+   (consume/cursor-time and consume/logs over the first minute), each
+   twice against a numpy oracle (counts, extremes and rows exact, means
+   rtol 1e-9) with its p50, stage split and launches; L3 and L4 must
+   launch kernel 3 or 1 (count(content) takes the bucketed batch, kernel
+   1, as the reference's does). (e) The root backed up (tools/backup.py)
+   and restored into build/edges_restored; then DELETE of the logstream
+   and the repository, and DELETE /query answers 404 JSON. (b) The
+   object store: benchmark's group offloaded through
+   engine.offload_shard (its wall and bytes), C1 and C3 over the span's
+   first hour (force=device) hydrate it (the download's wall) and
+   cold-decode it on the card (kernels 5 and 3 in C1, 3 in C3, whose
+   compacted read_bytes is varint only), each equal to its answer before
+   the offload; the group stays local after. (c) 4000 /write lines with
+   host=[a,b,c] (12 000 points), GROUP BY host against the expanded
+   oracle; Arrow Flight where pyarrow.flight exists (every host's value
+   by DoPut, their count, max and sum by DoGet; a line says so where it
+   does not); a restart that replays the WAL, the same answer. (d) SHOW
+   STATS and SHOW DIAGNOSTICS answer; their section names print. (e)
+   Engine(build/edges_restored) on the card answers L2 as before; the
+   tag-array measurement is exported (tools/export.py) where pyarrow
+   exists, its rows equal to the points, and a line says so where it
+   does not. (f) /api/v1/consume over one minute of benchmark: the
+   span's first minute of cpu written again as edge_cpu (the memtable; a
+   consume page decodes every series from its cursor on, and the
+   compacted file's packed chunks hold each series' whole span), the
+   page against the oracle. Lockdep stays unarmed. `[edges]` lines print
+   each step's wall.
 
 The incremental result cache (OGT_RESULT_CACHE) is off in phases 3-9,
 12, 13, 14, 15 and 16, so their repeated runs measure every execution;
@@ -485,12 +527,13 @@ off in phases 3-11 and 13-16 (each disarms it through
 gate's, so their launches per run are exact); phase 12 arms it. Phase 5
 arms devobs for its transfer histogram (the decode's H2D bytes), and
 phase 12 for the planner's walls. Launch counters start at 0 before
-each main path (phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
+each main path (phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17,
+18)
 and are read after it; the {"kernels": [...]} line sums them, with
 launches_per_phase, launches_per_query and launches_parity_on_card.
 `--phases` runs only the named phases after 2 (for a short call that
-checks one path; 15 needs 13, 17 needs 5, 6 and 7); the default runs
-all.
+checks one path; 15 needs 13, 17 and 18 need 5, 6 and 7); the default
+runs all.
 
 Cuts made (listed in PERF.md): for phases 13-15, to keep the script
 within 1050 s, phase 3's span 12 h -> 6 h -> 4 h, phase 13's span 6 h
@@ -511,7 +554,12 @@ threshold with it, DASH_SLICE_ROWS), phase 9's span 6 h -> 4 h
 (SUBQUERY_HOURS) and its budget 150 s -> 60 s (SUBQUERY_PHASE_S), so
 that repeats do not take back what the spans give, and PQ runs 3 -> 2
 (PROM_RUNS); for phase 17, C2 (its queries are C1, C3, B1 and PQ3) and
-a second warm run at 4 shards.
+a second warm run at 4 shards; for phase 18, in this order, phase 16's
+K runs 3 -> 1 (CLUSTER_RUNS), phase 13's PQ runs 2 -> 1 (PROM_RUNS),
+phase 3's Q1, Q2 and Q4 runs 2 -> 1 (E2E_RUNS) and phase 14's dashboard
+runs 3 -> 2 (CONT_DASH_RUNS), then phase 18's own span: 120 -> 30
+log lines per host (EDGE_LINES_PER_HOST: an hour -> 15 minutes, all
+4000 hosts).
 
 Output: progress lines, then a {"kernels": [...]} line, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without CUDA (or without
@@ -574,7 +622,7 @@ COLD_KERNELS = ("grid_window_agg", "widen_packed", "unpack_bits",
                 "probe_count")
 # timed runs of a query where not five: C2 takes about 20 s a run after
 # an 80 s first one (NVIDIA H100 80GB HBM3 at 700 W); Q1, Q2 and Q4
-# (phase 3) run twice (their p50 the faster run: p50_of); C2 once (cut
+# (phase 3) once (cut from 2 to pay for phase 18); C2 once (cut
 # from 2 so that the script with phase 15 stays within 1050 s); C1 and
 # C3 (phase 5, whose first-run walls they keep: phase 6 times them
 # warm), phase 7's queries and phase 8's two slowest once each (cut
@@ -582,7 +630,7 @@ COLD_KERNELS = ("grid_window_agg", "widen_packed", "unpack_bits",
 # twice, a fill and a warm run (CACHE_RUNS, cut from 4 for phase 16's
 # cluster, then from 3 for its operations)
 COLD_RUNS = {"C1": 1, "C2": 1, "C3": 1}
-E2E_RUNS = {"Q1": 2, "Q2": 2, "Q4": 2}
+E2E_RUNS = {"Q1": 1, "Q2": 1, "Q4": 1}
 CACHE_RUNS = 2
 COMPACT_RUNS = 1
 HOST_RUNS = {"lastpoint": 1, "groupby-orderby-limit": 1}
@@ -2979,9 +3027,10 @@ SCRIPT_LIMIT_S = 1200.0
 # phase 13's budget (s): the load, the seven PQs, both routes, a traced
 # run, the encoded decode, the read-backs and the CPU reopen
 PROM_PHASE_S = 100.0
-# the reserve after phase 17 (the later phases' kernel checks and the
-# output), and the budgets of phases 17, 16, 15 and 14 before it
-AFTER_PHASE17_S = 60.0
+# the reserve after phase 18 (the later phases' kernel checks and the
+# output), and the budgets of phases 18, 17, 16, 15 and 14 before it
+AFTER_PHASE18_S = 60.0
+AFTER_PHASE17_S = AFTER_PHASE18_S + 45.0  # phase 18's EDGES_PHASE_S
 AFTER_PHASE16_S = AFTER_PHASE17_S + 60.0  # phase 17's MESH_PHASE_S
 AFTER_PHASE15_S = AFTER_PHASE16_S + 100.0  # phase 16's CLUSTER_PHASE_S
 AFTER_PHASE14_S = AFTER_PHASE15_S + 60.0  # phase 15's RULES_PHASE_S
@@ -4766,7 +4815,9 @@ PROM_OTLP_HOSTS = 100
 # PROM_SHORT_RUNS when fewer than PROM_ROOM_S seconds are left before the
 # phase's deadline as the PQs start (a slow machine: the script's 1200 s
 # comes first)
-PROM_RUNS = 2  # cut from 5 to 3 for phase 16, to 2 for the 1200 s limit
+# cut from 5 to 3 for phase 16, to 2 for the 1200 s limit, to 1 for
+# phase 18
+PROM_RUNS = 1
 PROM_SHORT_RUNS = 1
 PROM_ROOM_S = 90.0
 PROM_SLOW_MS = 5000.0
@@ -5448,7 +5499,7 @@ CONT_HOURS = 2
 # span stay a raw tail through the grid
 CONT_WM_MIN = 105
 CONT_BODY_STEPS = 60  # samples of every host in one /write body (10 min)
-CONT_DASH_RUNS = 3
+CONT_DASH_RUNS = 2  # cut from 3 for phase 18
 CONT_CONCURRENT = 8
 CONT_LATE = 1000.0  # the late point's value, above every walk's range
 
@@ -6748,7 +6799,7 @@ CLUSTER_CONSISTENCY = "one"
 CLUSTER_TOKEN = "chip-smoke-cluster"
 CLUSTER_ADMIN = ("admin", "admin-secret")
 CLUSTER_READER = ("reader", "reader-secret")
-CLUSTER_RUNS = 3
+CLUSTER_RUNS = 1  # cut from 3 for phase 18
 # K4's samples: the ten minutes around the end of hour 0
 CLUSTER_RAW_STEPS = (330, 390)
 # the reference's owners() over these ids, database `benchmark` and its
@@ -7845,7 +7896,7 @@ def phase_cluster(seed: int, deadline: float,
         for qn, q in queries.items():
             per_query[qn] = k_query(qn, q, "n1", n_t, live,
                                     range(CLUSTER_HOURS), 1)
-        for qn, q in queries.items():
+        for qn, q in (queries.items() if CLUSTER_RUNS > 1 else ()):
             first = per_query[qn]
             if time.perf_counter() + first["runs_ms"][0] / 1e3 > q_deadline:
                 log(f"[cluster] {qn}: 1 run, not {CLUSTER_RUNS}: the "
@@ -8453,6 +8504,619 @@ def phase_mesh(cold: dict, prom: dict | None, deadline: float) -> dict:
             stop_app(svc)
 
 
+# -- phase 18: the edges --------------------------------------------------
+
+# phase 18's budget (s): the log load, L1-L6, the offload and hydration,
+# the tag arrays with a restart, SHOW STATS/DIAGNOSTICS, the backup,
+# restore and export, and a consume page
+EDGES_PHASE_S = 45.0
+# the log fleet: every TSBS host logs one line each EDGE_STEP_S from T0,
+# EDGE_LINES_PER_HOST lines (cut from 120, an hour: the upload's
+# structured writes ran at 11880 lines/s on the H100's host, 40.4 s for
+# the hour; the lines per host are the span's to cut, never hosts)
+EDGE_STEP_S = 30
+EDGE_LINES_PER_HOST = 30
+EDGE_BODY_LINES = 10_000
+EDGE_SERVICES = tuple(f"svc{i}" for i in range(10))
+EDGE_LEVELS = ("info", "warn", "error")
+EDGE_LEVEL_P = (0.90, 0.08, 0.02)
+# the message templates of each level; "error AND timeout" matches the
+# first error template only
+EDGE_TEMPLATES = {
+    "info": ("GET /api/{svc}/items 200 in {ms} ms",
+             "user {n} signed in from 10.0.{a}.{b}",
+             "cache hit key k{n} on {svc}"),
+    "warn": ("slow query on {svc} took {ms} ms",
+             "upstream {svc} timeout budget low, retry {n}"),
+    "error": ("error upstream {svc} timeout after {ms} ms",
+              "error writing block {n} to disk",
+              "error parsing request {n} on {svc}",
+              "error closing session {n}",
+              "error reading config {n} of {svc}",
+              "error in handler {svc} code {n}"),
+}
+# the tag-array lines of step (c): each expands into EDGE_TAG_VALUES
+EDGE_TAG_LINES = 4000
+EDGE_TAG_VALUES = ("a", "b", "c")
+EDGE_TOML = """[data]
+dir = "{root}"
+enable-tag-array = true
+[http]
+bind-address = "127.0.0.1:0"
+[services]
+store-monitor = false
+obs-dir = "{obs}"
+"""
+
+
+def edge_logs(n_hosts: int, seed: int) -> dict:
+    """The fleet's log lines (time-major, host-minor) and the columns a
+    numpy oracle reads."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 18)
+    names = [f"host_{h}" for h in range(n_hosts)]
+    n_k = EDGE_LINES_PER_HOST
+    host = np.tile(np.arange(n_hosts), n_k)
+    k = np.repeat(np.arange(n_k), n_hosts)
+    svc = host % len(EDGE_SERVICES)
+    level = rng.choice(3, size=host.size, p=EDGE_LEVEL_P)
+    pick = rng.integers(0, 6, size=host.size)
+    tmpl = np.array([pick[i] % len(EDGE_TEMPLATES[EDGE_LEVELS[lv]])
+                     for i, lv in enumerate(level.tolist())])
+    lat = np.round(rng.lognormal(3.0, 0.8, size=host.size), 3)
+    status = np.where(level == 2, 500, 200)
+    nums = rng.integers(0, 10_000, size=host.size)
+    t_ms = T0_NS // 10**6 + k * EDGE_STEP_S * 1000
+    content = []
+    for i in range(host.size):
+        lv = EDGE_LEVELS[level[i]]
+        content.append(EDGE_TEMPLATES[lv][tmpl[i]].format(
+            svc=EDGE_SERVICES[svc[i]], ms=f"{lat[i]:.3f}", n=int(nums[i]),
+            a=int(nums[i]) % 256, b=int(nums[i]) // 256 % 256))
+    lines = [json.dumps({"time": int(t_ms[i]), "host": names[host[i]],
+                         "service": EDGE_SERVICES[svc[i]],
+                         "level": EDGE_LEVELS[level[i]],
+                         "content": content[i], "latency_ms": float(lat[i]),
+                         "status": int(status[i])})
+             for i in range(host.size)]
+    return {"names": names, "host": host, "k": k, "svc": svc,
+            "level": level, "tmpl": tmpl, "lat": lat, "status": status,
+            "content": content, "t_ms": t_ms, "lines": lines}
+
+
+def edge_row(lg: dict, i: int) -> dict:
+    """Oracle row i as the log store answers it (timestamp in ms)."""
+    return {"host": lg["names"][lg["host"][i]],
+            "service": EDGE_SERVICES[lg["svc"][i]],
+            "level": EDGE_LEVELS[lg["level"][i]],
+            "content": lg["content"][i],
+            "latency_ms": float(lg["lat"][i]),
+            "status": float(lg["status"][i]),
+            "timestamp": int(lg["t_ms"][i])}
+
+
+def _row_key(r: dict) -> str:
+    return json.dumps(r, sort_keys=True)
+
+
+def phase_edges(cold: dict, seed: int, deadline: float,
+                n_hosts: int = N_HOSTS) -> dict:
+    """The edges (ROADMAP A9) on the card, through the port's ts-server
+    main on phase 7's compacted root. (a) Log mode at fleet width: a
+    repository, a logstream with a TTL, n_hosts hosts' ndjson over
+    EDGE_LINES_PER_HOST steps, flushed; L1-L6 against a numpy oracle,
+    each twice; then the logstream's and the repository's DELETE and
+    DELETE /query's 404.
+    (b) The object store: one group of benchmark offloaded, C1 and C3
+    over its first hour hydrate and cold-decode it on the card, equal to
+    their answers before. (c) Tag arrays through /write, GROUP BY host
+    against the expanded oracle before and after a restart that
+    replays the WAL. (d) SHOW STATS and SHOW DIAGNOSTICS. (e) The
+    repository backed up before its DELETE, restored into a fresh root
+    that Engine() reopens on the card (L2 equal), and the tag-array
+    measurement exported where pyarrow exists. (f) /api/v1/consume over
+    one minute of benchmark (cpu's first minute again, as edge_cpu)."""
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.query import offload
+    from opengemini_tpu_torch.server import app
+    from opengemini_tpu_torch.storage import colcache
+    from opengemini_tpu_torch.storage.engine import Engine
+    from opengemini_tpu_torch.tools import backup as bk
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    obs_dir = fresh_root("edges_bucket")
+    backup_dir = fresh_root("edges_backup")
+    restored = fresh_root("edges_restored")
+    try:
+        import pyarrow.flight as fl
+    except ImportError:
+        fl = None
+    toml = os.path.join(here, "build", "edges.toml")
+    with open(toml, "w", encoding="utf-8") as f:
+        f.write(EDGE_TOML.format(root=cold["root"], obs=obs_dir))
+        if fl is not None:
+            f.write('[flight]\nbind-address = "127.0.0.1:0"\n')
+    cfg = app.load_config(toml)
+    cc = colcache.GLOBAL
+    cc.clear()
+    cc.configure(budget_mb=0)  # every run decodes
+    # the logs flush in the default profile: a device-profile packed
+    # chunk read one series at a time with the cache off decodes whole
+    # for each series (a consume page of 12000 series took over 600 s)
+    os.environ.pop("OGT_DEVICE_PROFILE", None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs.reset_launches()
+    per_query: dict = {}
+    walls: dict = {}
+    svc = None
+    rec = ShapeRecorder().__enter__()
+
+    def lap(what: str, t0: float) -> float:
+        walls[what] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    def repo_get(port, path, params, runs=2, qn=None):
+        """One log-store read `runs` times: the answer, p50, stage split
+        and launches."""
+        l0 = dict(cs.LAUNCHES)
+        before = stage_ns(port)
+        ms = []
+        out = None
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            status, doc = http(port, "GET", path, params)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"{qn}: {status} {doc}")
+            check(out is None or doc == out or "took_ms" in doc,
+                  f"{qn}: the second run's answer differs")
+            out = doc
+        got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
+        if qn is not None:
+            split = stage_split(port, before, ms, qn)
+            per_query[qn] = {"runs_ms": ms, "p50_ms": p50_of(ms),
+                             "launches": got, "stages_ms": split}
+            log(f"[edges] {qn} ok p50 {p50_of(ms):.1f} ms over {runs}; "
+                f"launches {json.dumps({k: v for k, v in got.items() if v})}")
+        return out, got
+
+    try:
+        svc = app.build(cfg)
+        check(svc.engine.device.type == "cuda" and svc.engine.tag_arrays
+              and svc.engine.obs_store is not None,
+              f"the edges' config built an engine on {svc.engine.device}, "
+              f"tag arrays {svc.engine.tag_arrays}, store "
+              f"{svc.engine.obs_store!r}")
+        svc.start()
+        if svc.flight is not None:
+            svc.flight.start()
+        port = svc.port
+        disarm_planner(port)
+
+        # (a) log mode at fleet width
+        t0 = time.perf_counter()
+        lg = edge_logs(n_hosts, seed)
+        t0 = lap("log lines made", t0)
+        status, doc = http(port, "POST", "/repo/fleet", {})
+        check(status == 200, f"POST /repo/fleet: {status} {doc}")
+        status, doc = http(port, "POST", "/repo/fleet/logstreams/app", {},
+                           json.dumps({"ttl": 36500}).encode())
+        check(status == 200, f"POST the logstream: {status} {doc}")
+        mapping = json.dumps({"timestamp": "time",
+                              "tags": ["host", "service", "level"]})
+        written = 0
+        for off in range(0, len(lg["lines"]), EDGE_BODY_LINES):
+            body = "\n".join(lg["lines"][off:off + EDGE_BODY_LINES])
+            status, doc = http(port, "POST",
+                               "/repo/fleet/logstreams/app/upload",
+                               {"mapping": mapping}, body.encode())
+            check(status == 200 and doc["failed"] == 0,
+                  f"upload at line {off}: {status} {doc}")
+            written += doc["written"]
+        check(written == len(lg["lines"]), f"uploaded {written} of "
+              f"{len(lg['lines'])} lines")
+        t0 = lap("log upload", t0)
+        status, _ = http(port, "POST", "/debug/ctrl", {"mod": "flush"})
+        check(status == 200, f"flush: {status}")
+        tidx = [os.path.join(d, f) for d, _s, fs in os.walk(
+            os.path.join(cold["root"], "data", "fleet")) for f in fs
+            if f.endswith(".tidx")]
+        check(bool(tidx), "the flush wrote no .tidx sidecar")
+        t0 = lap("log flush", t0)
+        log(f"[edges] {len(lg['lines'])} log lines of {n_hosts} hosts in "
+            f"{len(lg['lines']) // EDGE_BODY_LINES} bodies: upload "
+            f"{walls['log upload']:.2f} s "
+            f"({len(lg['lines']) / walls['log upload']:.0f} lines/s), "
+            f"flush {walls['log flush']:.2f} s, {len(tidx)} .tidx")
+        span = {"from": str(T0_NS // 10**6),
+                "to": str(T0_NS // 10**6 + EDGE_LINES_PER_HOST
+                          * EDGE_STEP_S * 1000)}
+        base = "/repo/fleet/logstreams/app/"
+        levels = lg["level"]
+        # L1: full text with a scroll cursor, every page
+        want = [i for i in np.nonzero((levels == 2) & (lg["tmpl"] == 0))[0]]
+        l0 = dict(cs.LAUNCHES)
+        before = stage_ns(port)
+        ms, got_rows, scroll, pages = [], [], "", 0
+        for _run in range(2):
+            got_rows, scroll, pages = [], "", 0
+            t_run = time.perf_counter()
+            while True:
+                params = dict(span, q="error AND timeout", limit="500")
+                if scroll:
+                    params["scroll_id"] = scroll
+                status, doc = http(port, "GET", base + "logs", params)
+                check(status == 200, f"L1 page {pages}: {status} {doc}")
+                got_rows += doc["logs"]
+                pages += 1
+                scroll = doc["scroll_id"]
+                if not scroll:
+                    break
+                check(pages < 50, "L1 did not end")
+            ms.append((time.perf_counter() - t_run) * 1e3)
+        ts = [r["timestamp"] for r in got_rows]
+        check(ts == sorted(ts, reverse=True), "L1 is not newest first")
+        check(sorted(map(_row_key, got_rows))
+              == sorted(_row_key(edge_row(lg, i)) for i in want),
+              f"L1: {len(got_rows)} rows, the oracle {len(want)}")
+        got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
+        per_query["L1"] = {"runs_ms": ms, "p50_ms": p50_of(ms),
+                           "launches": got, "pages": pages,
+                           "rows": len(got_rows),
+                           "stages_ms": stage_split(port, before, ms, "L1")}
+        log(f"[edges] L1 ok {len(got_rows)} rows in {pages} pages, p50 "
+            f"{p50_of(ms):.1f} ms over 2; launches "
+            f"{json.dumps({k: v for k, v in got.items() if v})}")
+        # L2: the histogram at 1 m
+        l2, _ = repo_get(port, base + "histogram",
+                         dict(span, q="*", interval="1m"), qn="L2")
+        per_min = np.bincount(lg["k"] // 2, minlength=EDGE_LINES_PER_HOST
+                              // 2)
+        check(l2["count"] == len(lg["lines"])
+              and [b["count"] for b in l2["histograms"]] == per_min.tolist()
+              and l2["histograms"][0]["from"] == T0_NS // 10**6,
+              f"L2: {l2['count']} in {len(l2['histograms'])} buckets")
+        # L3: mean latency by service per 5 minutes
+        l3, _ = repo_get(port, base + "analytics", dict(
+            span, q="*", agg="mean", field="latency_ms", group_by="service",
+            interval="5m"), qn="L3")
+        bucket = lg["k"] // 10
+        n_b = EDGE_LINES_PER_HOST // 10
+        key = lg["svc"] * n_b + bucket
+        sums = np.bincount(key, weights=lg["lat"],
+                           minlength=len(EDGE_SERVICES) * n_b)
+        cnts = np.bincount(key, minlength=len(EDGE_SERVICES) * n_b)
+        bad = []
+        for r in l3["analytics"]:
+            s = EDGE_SERVICES.index(r["service"])
+            b = (r["from"] - T0_NS // 10**6) // 300_000
+            ref = sums[s * n_b + b] / cnts[s * n_b + b]
+            if not abs(r["mean"] - ref) <= MEAN_RTOL * abs(ref):
+                bad.append((r, ref))
+        check(len(l3["analytics"]) == len(EDGE_SERVICES) * n_b and not bad,
+              f"L3: {len(l3['analytics'])} rows, {bad[:3]}")
+        # L4: max latency by host
+        l4, _ = repo_get(port, base + "analytics", dict(
+            span, q="*", agg="max", field="latency_ms", group_by="host"),
+            qn="L4")
+        mx = np.full(n_hosts, -np.inf)
+        np.maximum.at(mx, lg["host"], lg["lat"])
+        check(sorted((r["host"], r["max"]) for r in l4["analytics"])
+              == sorted((lg["names"][h], float(mx[h]))
+                        for h in range(n_hosts)),
+              f"L4: {len(l4['analytics'])} rows")
+        for qn in ("L3", "L4"):
+            got = per_query[qn]["launches"]
+            check(got["grid_window_agg"] + got["bucket_stats_basic"] >= 2,
+                  f"{qn} launched neither kernel 3 nor kernel 1: {got}")
+        # L5: the context of one host's row mid-hour
+        h5, k5 = 17 % n_hosts, EDGE_LINES_PER_HOST // 2
+        ts5 = T0_NS // 10**6 + k5 * EDGE_STEP_S * 1000
+        l5, _ = repo_get(port, base + "context", dict(
+            span, q=f"host: {lg['names'][h5]}", timestamp=str(ts5),
+            backward="5", forward="5"), qn="L5")
+        idx = [h5 + kk * n_hosts for kk in range(k5 - 5, k5 + 5)]
+        check(l5["logs"] == [edge_row(lg, i) for i in idx],
+              f"L5: {[r['timestamp'] for r in l5['logs']]}")
+        # L6: a consume cursor at T0 and the first minute's page
+        c6, _ = repo_get(port, base + "consume/cursor-time",
+                         {"from": span["from"]}, runs=1)
+        check(c6["cursor"] == f"{T0_NS}:0", f"L6 cursor {c6}")
+        n6 = 2 * n_hosts
+        l6, _ = repo_get(port, base + "consume/logs",
+                         {"cursor": c6["cursor"], "limit": str(n6)},
+                         qn="L6")
+        first = [i for i in range(len(lg["lines"])) if lg["k"][i] < 2]
+        want6 = sorted(
+            _row_key(dict(time=int(lg["t_ms"][i]) * 10**6, tags={
+                "host": lg["names"][lg["host"][i]],
+                "service": EDGE_SERVICES[lg["svc"][i]],
+                "level": EDGE_LEVELS[lg["level"][i]]}, fields={
+                "content": lg["content"][i],
+                "latency_ms": float(lg["lat"][i]),
+                "status": float(lg["status"][i])})) for i in first)
+        got6 = sorted(_row_key(r) for r in l6["rows"])
+        check(got6 == want6 and not l6["exhausted"]
+              and l6["cursor"] == f"{T0_NS + 30 * 10**9}:{n_hosts}",
+              f"L6: {len(l6['rows'])} rows, cursor {l6['cursor']}")
+        t0 = lap("L1-L6", t0)
+
+        # (e) the backup of the repository, before its DELETE
+        bk_manifest = bk.backup(cold["root"], backup_dir)
+        n_restored = bk.restore(backup_dir, restored)
+        t0 = lap("backup and restore", t0)
+        # the repository's DELETEs, and DELETE off /repo
+        for path in ("/repo/fleet/logstreams/app", "/repo/fleet"):
+            status, doc = http_raw(port, "DELETE", path, {})[::2]
+            check(status == 200, f"DELETE {path}: {status} {doc!r}")
+        status, _h, body = http_raw(port, "DELETE", "/query", {})
+        check(status == 404 and json.loads(body) == {"error": "not found"},
+              f"DELETE /query: {status} {body!r}")
+        status, doc = http(port, "GET", "/repo", {})
+        check("fleet" not in doc["repositories"],
+              f"the repository survived its DELETE: {doc}")
+
+        # (b) the object store: one group of benchmark offloaded, C1 and
+        # C3 over its first hour hydrate it
+        hour = (f"time >= {T0_NS} AND time < {T0_NS + 3600 * 10**9}")
+        hq = {qn: re.sub(r"time >= \d+ AND time < \d+", hour,
+                         cold["queries"][qn]) for qn in ("C1", "C3")}
+        status, _ = http(port, "POST", "/debug/ctrl",
+                         {"mod": "offload", "force": "device"})
+        check(status == 200, f"force=device: {status}")
+        os.environ["OGT_DEVICE_PROFILE"] = "1"  # phase 5's files' profile
+        local = {}
+        for qn, q in hq.items():
+            local[qn] = query_timed(port, q)[0]
+        eng = svc.engine
+        key = next(k for k in sorted(eng._shards)
+                   if k[0] == "benchmark"
+                   and eng._shards[k].tmin <= T0_NS < eng._shards[k].tmax)
+        t_off = time.perf_counter()
+        check(eng.offload_shard(*key), f"offload_shard{key} refused")
+        off_s = time.perf_counter() - t_off
+        off_bytes = sum(os.path.getsize(os.path.join(d, f))
+                        for d, _s, fs in os.walk(obs_dir) for f in fs)
+        check(key in eng.obs_shards and not os.path.exists(
+            eng._shard_dir(*key)), f"{key} is not offloaded")
+        log(f"[edges] offloaded {key} in {off_s:.3f} s: {off_bytes} B "
+            f"({off_bytes / off_s / 2**20:.1f} MiB/s) into {obs_dir}")
+        t_hyd = time.perf_counter()
+        orig_dl = eng._download_group
+        hyd_s = []
+
+        def timed_download(*args):
+            t = time.perf_counter()
+            orig_dl(*args)
+            hyd_s.append(time.perf_counter() - t)
+
+        eng._download_group = timed_download
+        try:
+            for qn, q in hq.items():
+                l0 = dict(cs.LAUNCHES)
+                res, _req_ms, ms = query_timed(port, q)
+                got = {k: cs.LAUNCHES[k] - l0[k] for k in l0}
+                check(res == local[qn], f"{qn} over the hydrated hour "
+                      "differs from its answer before the offload")
+                per_query[qn + " hydrated"] = {"runs_ms": [ms],
+                                               "p50_ms": ms, "launches": got}
+                log(f"[edges] {qn} over the hydrated hour ok {ms:.1f} ms; "
+                    f"launches {json.dumps({k: v for k, v in got.items() if v})}")
+        finally:
+            del eng._download_group
+        check(len(hyd_s) == 1 and key not in eng.obs_shards
+              and key in eng._shards,
+              f"hydration: {len(hyd_s)} downloads, registry "
+              f"{sorted(eng.obs_shards)}")
+        log(f"[edges] the hydration took {hyd_s[0]:.3f} s (of the first "
+            f"query's {time.perf_counter() - t_hyd:.3f} s for both)")
+        c1, c3 = (per_query[f"{qn} hydrated"]["launches"]
+                  for qn in ("C1", "C3"))
+        check(c1["unpack_bits"] >= 1 and c1["grid_window_agg"] == 1
+              and c3["grid_window_agg"] == 1,
+              f"the hydrated decode: C1 {c1}, C3 {c3}")
+        http(port, "POST", "/debug/ctrl", {"mod": "offload", "force": "none"})
+        os.environ.pop("OGT_DEVICE_PROFILE", None)
+        t0 = lap("offload and hydration", t0)
+
+        # (c) tag arrays through /write, and a restart's WAL replay
+        status, doc = http(port, "POST", "/query",
+                           {"q": "CREATE DATABASE tags"})
+        check(status == 200, f"CREATE DATABASE tags: {status} {doc}")
+        tv = np.round(np.random.default_rng(seed + 180).uniform(
+            0, 100, EDGE_TAG_LINES), 2)
+        tag_lines = "\n".join(
+            f"edge,host=[{','.join(EDGE_TAG_VALUES)}],rack=r{i % 10} "
+            f"v={tv[i]} {T0_NS + i * 10**9}" for i in range(EDGE_TAG_LINES))
+        status, _ = http(port, "POST", "/write", {"db": "tags"},
+                         tag_lines.encode())
+        check(status == 204, f"the tag-array /write: {status}")
+        tq = "SELECT count(v), max(v), sum(v) FROM edge GROUP BY host"
+
+        def tag_check(label):
+            status, doc = http(port, "GET", "/query",
+                               {"db": "tags", "q": tq})
+            series = doc["results"][0]["series"]
+            got = {s["tags"]["host"]: s["values"][0][1:] for s in series}
+            ok = (set(got) == set(EDGE_TAG_VALUES) and all(
+                v[0] == EDGE_TAG_LINES and v[1] == float(tv.max())
+                and abs(v[2] - float(tv.sum())) <= MEAN_RTOL
+                * float(tv.sum()) for v in got.values()))
+            check(ok, f"tag arrays {label}: {got}")
+            return sum(v[0] for v in got.values())
+
+        n_pts = tag_check("after /write")
+        if svc.flight is not None:
+            # Arrow Flight: every host's value by DoPut, read back by DoGet
+            import pyarrow as pa
+
+            t_fl = time.perf_counter()
+            client = fl.connect(f"grpc://127.0.0.1:{svc.flight.port}")
+            try:
+                fv = np.round(np.random.default_rng(seed + 181).uniform(
+                    0, 100, n_hosts), 2)
+                table = pa.table({
+                    "time": pa.array([T0_NS] * n_hosts, pa.int64()),
+                    "host": pa.array([f"host_{h}" for h in range(n_hosts)]),
+                    "v": pa.array(fv)})
+                writer, _ = client.do_put(
+                    fl.FlightDescriptor.for_command(json.dumps(
+                        {"db": "tags", "measurement": "flight",
+                         "tag_columns": ["host"]}).encode()), table.schema)
+                writer.write_table(table)
+                writer.close()
+                got = client.do_get(fl.Ticket(json.dumps(
+                    {"db": "tags", "q": "SELECT count(v), max(v), sum(v) "
+                     "FROM flight"}).encode())).read_all().to_pydict()
+            finally:
+                client.close()
+            check(got["count"] == [n_hosts] and got["max"] == [fv.max()]
+                  and abs(got["sum"][0] - fv.sum()) <= MEAN_RTOL * fv.sum(),
+                  f"Arrow Flight: {got}")
+            log(f"[edges] Arrow Flight: {n_hosts} rows by DoPut and their "
+                f"count, max and sum by DoGet in "
+                f"{(time.perf_counter() - t_fl) * 1e3:.1f} ms")
+            svc.flight.stop()
+        stop_app(svc)
+        # the restart serves no Flight: its port was the first run's
+        cfg = {k: v for k, v in cfg.items() if k != "flight"}
+        svc = app.build(cfg)
+        svc.start()
+        port = svc.port
+        disarm_planner(port)
+        check(tag_check("after the restart's WAL replay") == n_pts,
+              "the replay lost points")
+        log(f"[edges] tag arrays: {EDGE_TAG_LINES} lines -> {n_pts} points "
+            f"in {len(EDGE_TAG_VALUES)} series, equal after the restart")
+        t0 = lap("tag arrays and the restart", t0)
+
+        # (d) SHOW STATS and SHOW DIAGNOSTICS
+        sections = {}
+        for q in ("SHOW STATS", "SHOW DIAGNOSTICS"):
+            status, doc = http(port, "GET", "/query", {"q": q})
+            res = doc["results"][0]
+            check(status == 200 and "error" not in res and res["series"],
+                  f"{q}: {status} {res}")
+            sections[q] = [s["name"] for s in res["series"]]
+            log(f"[edges] {q}: {', '.join(sections[q])}")
+        diag = dict(doc["results"][0]["series"][0]["values"])
+        check(diag["backend"] == "cuda", f"SHOW DIAGNOSTICS: {diag}")
+
+        # (e) the restored root on the card: L2 equal; the export
+        e2 = Engine(restored)
+        try:
+            check(e2.device.type == "cuda", f"Engine() on {e2.device}")
+            from opengemini_tpu_torch.server.http import HttpService
+
+            s2 = HttpService(e2, port=0)
+            s2.start()
+            try:
+                l2b, _ = repo_get(s2.port, base + "histogram",
+                                  dict(span, q="*", interval="1m"), runs=1)
+            finally:
+                s2.stop()
+        finally:
+            e2.close()
+        check(l2b == l2, "L2 on the restored root differs")
+        try:
+            import pyarrow  # noqa: F401
+            has_arrow = True
+        except ImportError:
+            has_arrow = False
+        if has_arrow:
+            from opengemini_tpu_torch.tools import export as texp
+
+            n_exp = texp.export_measurement(
+                svc.engine, "tags", "edge",
+                os.path.join(backup_dir, "edge.parquet"))
+            check(n_exp == n_pts, f"export wrote {n_exp} rows of {n_pts}")
+            log(f"[edges] export: {n_exp} rows of edge")
+        else:
+            log("[edges] export not driven: pyarrow is not installed "
+                "here (the parquet writer needs it)")
+        log(f"[edges] backup: {len(bk_manifest['files'])} files, restored "
+            f"{n_restored} into {restored}; L2 equal on Engine() there")
+        t0 = lap("restore check and export", t0)
+
+        # (f) /api/v1/consume over one minute of benchmark: the span's
+        # first minute of cpu again, as edge_cpu in the memtable (a
+        # consume page decodes every series' rows from its cursor on, and
+        # the compacted file's packed chunks hold every series' whole
+        # span: the 6 h of cpu would cost minutes on the host)
+        o = cold["oracle"]
+        minute = "\n".join(
+            "edge_" + ln for ln in lp_lines(o["tags"], o["vals"],
+                                            o["counters"], 0, 6,
+                                            o["n_hosts"]).split("\n")
+            if ln.startswith("cpu,"))
+        status, _ = http(port, "POST", "/write", {"db": "benchmark"},
+                         minute.encode())
+        check(status == 204, f"the edge_cpu minute: {status}")
+        n_f = min(10_000, 6 * o["n_hosts"])
+        t_f = time.perf_counter()
+        status, doc = http(port, "GET", "/api/v1/consume", {
+            "db": "benchmark", "measurement": "edge_cpu",
+            "cursor": f"{T0_NS}:0", "limit": str(n_f)})
+        ms_f = (time.perf_counter() - t_f) * 1e3
+        rows = doc.get("rows", [])
+        times = [r["time"] for r in rows]
+        host_of = {tg["hostname"]: h for h, tg in enumerate(
+            dict(t) for t in o["tags"])}
+        bad = [r for r in rows if any(
+            r["fields"][f] != float(o["vals"][f][
+                host_of[r["tags"]["hostname"]],
+                (r["time"] - T0_NS) // STEP_NS]) for f in FIELDS)]
+        check(status == 200 and len(rows) == n_f and times == sorted(times)
+              and T0_NS <= times[0] and times[-1] < T0_NS + 60 * 10**9
+              and not bad
+              and doc["exhausted"] == (n_f == 6 * o["n_hosts"]),
+              f"consume: {status} {len(rows)} rows of {n_f}, "
+              f"{len(bad)} unequal")
+        per_query["F1"] = {"runs_ms": [ms_f], "p50_ms": ms_f,
+                           "launches": {k: 0 for k in cs.LAUNCHES}}
+        log(f"[edges] /api/v1/consume: {n_f} rows of benchmark's first "
+            f"minute (edge_cpu) in {ms_f:.1f} ms, cursor {doc['cursor']}")
+        status, _ = http(port, "POST", "/query", {"q": "DROP DATABASE tags"})
+        check(status == 200, f"DROP DATABASE tags: {status}")
+        t0 = lap("consume", t0)
+        if fl is None:
+            log("[edges] Arrow Flight is not driven: pyarrow.flight is not "
+                "installed on this machine")
+        launches = dict(cs.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(peak <= COLD_PEAK_LIMIT, f"phase 18 device memory peak {peak} B")
+        wall_s = time.perf_counter() - t_phase
+        log(f"[edges] steps {json.dumps({k: round(v, 3) for k, v in walls.items()})}")
+        log(f"[edges] phase 18 took {wall_s:.1f} s (budget "
+            f"{EDGES_PHASE_S:.0f} s, {deadline - time.perf_counter():.0f} s "
+            f"left of the script's); launches {json.dumps(launches)}; "
+            f"device memory peak {peak / 2**20:.1f} MiB; card {smi_line()}")
+        return {"launches": launches, "per_query": per_query,
+                "shapes": rec.seen, "walls": walls, "wall_s": wall_s,
+                "sections": sections, "peak_bytes": peak,
+                "offload": {"s": off_s, "bytes": off_bytes,
+                            "hydrate_s": hyd_s[0]}}
+    finally:
+        rec.__exit__()
+        offload.set_force(None)
+        cc.clear()
+        os.environ.pop("OGT_DEVICE_PROFILE", None)
+        if svc is not None:
+            if svc.flight is not None:
+                svc.flight.stop()
+            stop_app(svc)
+        for d in (backup_dir, restored, obs_dir):
+            shutil.rmtree(d, ignore_errors=True)
+
+
 def stop_app(svc) -> None:
     """Stop a server app.build() made (its services never started)."""
     svc.subscriber.stop()
@@ -8523,13 +9187,13 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--phases", default="all",
                     help="the phases after 2 to run, comma separated "
-                         "(3-17; 6-10 and 12 need 5, 15 needs 13, 17 "
-                         "needs 5, 6 and 7), for a short call that checks "
-                         "one path; default all")
+                         "(3-18; 6-10 and 12 need 5, 15 needs 13, 17 and "
+                         "18 need 5, 6 and 7), for a short call that "
+                         "checks one path; default all")
     args = ap.parse_args()
     if args.hours < 3:
         ap.error("--hours may not be cut below 3")
-    wanted = (set(range(3, 18)) if args.phases == "all"
+    wanted = (set(range(3, 19)) if args.phases == "all"
               else {int(x) for x in args.phases.split(",")})
     if wanted & {6, 7, 8, 9, 10, 12} and 5 not in wanted:
         ap.error("phases 6-10 and 12 run on phase 5's root")
@@ -8538,6 +9202,8 @@ def main() -> int:
     if 17 in wanted and not {5, 6, 7} <= wanted:
         ap.error("phase 17 runs on phase 7's compacted root (with phase "
                  "6's row)")
+    if 18 in wanted and not {5, 6, 7} <= wanted:
+        ap.error("phase 18 runs on phase 7's compacted root")
 
     import torch
 
@@ -8669,15 +9335,22 @@ def main() -> int:
         ran.append(("17", meshed, " mesh"))
         later.append(meshed)
         lap("phase 17")
+    edged = None
+    if 18 in wanted:
+        edged = phase_edges(cold, args.seed, t_start + SCRIPT_LIMIT_S
+                            - AFTER_PHASE18_S)
+        ran.append(("18", edged, " edges"))
+        later.append(edged)
+        lap("phase 18")
     # kernels 1-3 at the later phases' new shapes, and kernels 4-6 too
-    # at phase 11's, 12's, 13's, 14's, 15's and 17's (the decode of
-    # rewritten and compacted files, PromQL's rows matrices and the mesh
-    # shards' chunks)
+    # at phase 11's, 12's, 13's, 14's, 15's, 17's and 18's (the decode of
+    # rewritten, compacted and hydrated files, PromQL's rows matrices and
+    # the mesh shards' chunks)
     for i, name in enumerate(E2E_KERNELS + COLD_KERNELS[1:]):
         for j, phase in enumerate(later):
             if name not in E2E_KERNELS and not any(
                     phase is x for x in (life, planned, prom, cont, ruled,
-                                         meshed)):
+                                         meshed, edged)):
                 continue
             new = {sh for sh in phase["shapes"][name] - seen[name]
                    if all(d > 0 for d in shape_json(name, sh)

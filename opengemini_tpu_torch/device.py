@@ -22,3 +22,11 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
     return dev
+
+
+def runtime_rows(device: torch.device) -> list[list[str]]:
+    """SHOW DIAGNOSTICS' rows of the tensor runtime: its version, the
+    device type and how many devices of that type the process sees."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    return [["torch", torch.__version__], ["backend", device.type],
+            ["devices", str(n)]]

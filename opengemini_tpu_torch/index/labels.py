@@ -49,6 +49,7 @@ import time
 
 import numpy as np
 
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
 EMPTY_SIDS = np.empty(0, np.int64)
@@ -480,7 +481,7 @@ class LabelTier:
 
     def __init__(self, index):
         self._index = index
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         self._snaps: dict[str, _Snapshot] = {}
         self._building: dict = {}  # measurement -> (gen, Event)
 

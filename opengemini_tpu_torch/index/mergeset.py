@@ -28,6 +28,7 @@ import numpy as np
 from opengemini_tpu_torch import native
 from opengemini_tpu_torch.index.inverted import SeriesIndex, parse_series_key
 from opengemini_tpu_torch.ingest.line_protocol import series_key
+from opengemini_tpu_torch.utils import lockdep
 
 _LIB = None
 _lib_lock = threading.Lock()
@@ -118,7 +119,7 @@ class MergesetIndex:
         self._h = lib.msi_open(path.encode())
         if not self._h:
             raise OSError(f"msi_open failed for {path!r}")
-        self._lock = threading.RLock()
+        self._lock = lockdep.RLock()
         # sid -> (mst, tags): bounded decode cache for the render path
         self._tags_cache: dict[int, tuple] = {}
         # series key -> sid: ingest is overwhelmingly repeat series

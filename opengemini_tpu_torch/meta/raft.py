@@ -29,6 +29,8 @@ import struct
 import threading
 import zlib
 
+from opengemini_tpu_torch.utils import lockdep
+
 FOLLOWER = "follower"
 CANDIDATE = "candidate"
 LEADER = "leader"
@@ -56,7 +58,7 @@ class RaftNode:
         self.apply_fn = apply_fn
         self.restore_fn = restore_fn  # state-machine full restore (snapshots)
         self.storage_path = storage_path
-        self._lock = threading.RLock()
+        self._lock = lockdep.RLock()
 
         # persistent state
         self.current_term = 0

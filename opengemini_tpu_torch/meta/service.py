@@ -22,6 +22,7 @@ import urllib.request
 
 from opengemini_tpu_torch.utils import peers
 from opengemini_tpu_torch.meta.raft import LEADER, RaftNode
+from opengemini_tpu_torch.utils import lockdep
 
 
 # db-scoped registry commands (CQ / stream / subscription): FSM state key
@@ -294,17 +295,17 @@ class MetaStore:
         self._compact_threshold = compact_threshold
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
-        self._drain_lock = threading.Lock()
+        self._drain_lock = lockdep.Lock()
         self._inflight = 0  # propose_and_wait calls awaiting confirmation
-        self._inflight_lock = threading.Lock()
+        self._inflight_lock = lockdep.Lock()
         self.listener_applied = 0
         # live meta membership: seed config ± committed raft_conf changes
-        self._addr_lock = threading.Lock()
+        self._addr_lock = lockdep.Lock()
         self._meta_addrs: dict[str, str] = dict(
             getattr(transport, "addr_of", {}) or {p: "" for p in peers}
         )
         self._meta_addrs.setdefault(node_id, "")
-        self._conf_lock = threading.Lock()  # one membership change at a time
+        self._conf_lock = lockdep.Lock()  # one membership change at a time
         self.fsm.listeners.append(self._on_conf_change)
 
     def meta_members(self) -> dict[str, str]:
@@ -699,7 +700,7 @@ class HttpTransport:
         # leader's appends — without this, catch-up deadlocks
         self.self_addr = self_addr
         self._queues: dict[str, queue.Queue] = {}
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         self._max_queue = max_queue
 
     def send(self, peer: str, msg: dict) -> None:

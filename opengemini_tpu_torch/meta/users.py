@@ -17,6 +17,8 @@ import os
 import secrets
 import threading
 
+from opengemini_tpu_torch.utils import lockdep
+
 READ = "READ"
 WRITE = "WRITE"
 ALL = "ALL"
@@ -61,7 +63,7 @@ class User:
 class UserStore:
     def __init__(self, path: str | None = None):
         self.path = path
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         self.users: dict[str, User] = {}
         if path and os.path.exists(path):
             with open(path, encoding="utf-8") as f:

@@ -46,6 +46,7 @@ import numpy as np
 from opengemini_tpu_torch.index.inverted import SeriesIndex
 from opengemini_tpu_torch.record import Column, FieldType, Record
 from opengemini_tpu_torch.utils import tracing
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.failpoint import inject as _fp
 from opengemini_tpu_torch.utils.governor import _env_float, _env_int
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
@@ -77,7 +78,7 @@ class CircuitBreaker:
     def __init__(self, threshold: int = 0, cooldown_s: float = 5.0):
         self.threshold = int(threshold)
         self.cooldown_s = float(cooldown_s)
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         # peer key -> [consecutive failures, opened-at walltime,
         #              half-open trial in flight]
         self._peers: dict[str, list] = {}
@@ -675,7 +676,7 @@ class DataRouter:
         self.breaker = CircuitBreaker(
             threshold=_env_int("OGT_CB_THRESHOLD", 0),
             cooldown_s=_env_float("OGT_CB_COOLDOWN_S", 5.0))
-        self._hint_lock = threading.Lock()
+        self._hint_lock = lockdep.Lock()
         # last health-probe results: node id -> bool (True = reachable)
         self.health: dict[str, bool] = {}
         self.health_ts: float = 0.0  # walltime of the last local probe

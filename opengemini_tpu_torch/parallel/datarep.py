@@ -58,6 +58,7 @@ from opengemini_tpu_torch.parallel.cluster import (
     RemoteScanError, decode_points, encode_points, write_points,
 )
 from opengemini_tpu_torch.utils import peers
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 logger = logging.getLogger("opengemini_tpu_torch.datarep")
@@ -257,7 +258,7 @@ class DataReplication:
         self.engine = router.engine
         self.token = token
         self.groups: dict[str, ReplicaGroup] = {}
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         # live address book shared (by reference) with every group
         # transport; refreshed from the roster on ensure/deliver
         self._addr_of: dict[str, str] = {}

@@ -53,7 +53,9 @@ import os
 import threading
 import time
 
-_lock = threading.Lock()
+from opengemini_tpu_torch.utils import lockdep
+
+_lock = lockdep.Lock()
 # armed rules: (src, dst, path, action) — first match wins, in arming order
 _rules: list[tuple[str, str, str, str]] = []
 _hits: dict[str, int] = {}
@@ -168,7 +170,8 @@ def check(src: str, path: str, *dsts: str) -> None:
     if action.startswith("delay:"):
         # audited blocking: delay: exists to stall RPCs mid-flight,
         # deliberately wherever the consult point sits
-        time.sleep(float(action.split(":", 1)[1]))
+        with lockdep.allow_blocking("netfault delay action"):
+            time.sleep(float(action.split(":", 1)[1]))
         return
     # error[:status]
     import io

@@ -1,12 +1,12 @@
 """Continuous PromQL rule engine: recording + alerting rules as
 incremental tile maintenance.
 
-The port of ``opengemini_tpu/promql/rules.py``, whole, with plain
-``threading`` locks (the reference's lock-order checker is ROADMAP
-A9's). The fold and merge stay host numpy float64, as the reference
-keeps them; the matcher probes (promql/engine.py ``_match_sids``) and
-the fallback leg (``PromEngine.query_instant``) run on the engine's
-device. In a data-routed cluster only the meta leader's service ticks
+The port of ``opengemini_tpu/promql/rules.py``, whole, its locks
+``utils/lockdep``'s as the reference's. The fold and merge stay host
+numpy float64, as the reference keeps them; the matcher probes
+(promql/engine.py ``_match_sids``) and the fallback leg
+(``PromEngine.query_instant``) run on the engine's device. In a
+data-routed cluster only the meta leader's service ticks
 (services/rules.py).
 
 Reference: the Prometheus rule manager (rules/manager.go — groups on an
@@ -63,7 +63,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import threading
 import time as _time
 from contextlib import contextmanager
 
@@ -73,6 +72,7 @@ from opengemini_tpu_torch.ops import prom as promops
 from opengemini_tpu_torch.promql import parser as pp
 from opengemini_tpu_torch.record import FieldType
 from opengemini_tpu_torch.utils import tracing
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.failpoint import inject as _fp
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
@@ -318,8 +318,8 @@ class RuleGroup:
         self.rules: list[Rule] = []
         # serializes ticks (and ctrl-forced ticks) per group; the
         # manager-wide lock is never held across a storage scan
-        self.m_lock = threading.Lock()
-        self.io_lock = threading.Lock()
+        self.m_lock = lockdep.Lock()
+        self.io_lock = lockdep.Lock()
         self.ver = 0
         self._saved_ver = -1
         self.g_ms = max(1, int(round(self.interval_s * 1000.0)))
@@ -458,7 +458,7 @@ class RuleManager:
 
         self.engine = engine
         self.prom = prom if prom is not None else PromEngine(engine)
-        self._lock = threading.RLock()
+        self._lock = lockdep.mark_hot(lockdep.RLock(), "rules.manager_lock")
         self._groups: dict[tuple[str, str], RuleGroup] = {}
         self._watched: dict[str, set[str]] = {}  # db -> metric names
         self._closed = False

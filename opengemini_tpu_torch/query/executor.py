@@ -141,6 +141,7 @@ from opengemini_tpu_torch.utils.governor import GOVERNOR
 from opengemini_tpu_torch.utils.slowlog import GLOBAL as SLOWLOG
 from opengemini_tpu_torch.utils.querytracker import (
     GLOBAL as TRACKER, QueryKilled, redact as _redact)
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 
@@ -431,7 +432,7 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
         self.router = None
         # leader-side user DDL: check-then-propose must not race across
         # HTTP threads (a second CREATE USER would replace credentials)
-        self._user_ddl_lock = threading.Lock()
+        self._user_ddl_lock = lockdep.Lock()
         # incremental GROUP BY time() result cache (query/resultcache.py)
         self._inc_cache = rcache.IncrementalCache()
         # per-thread stack of the CTE names being expanded (cycle check)
@@ -1560,6 +1561,7 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 # fallen back, or not run at all on a full cache hit)
                 sp.add_field("layouts",
                              {f: b.layout_name() for f, b in batches.items()})
+            STATS.incr("executor", "device_batches", len(aggs))
             if dv_before is not None:
                 # devobs deltas (armed): the compiles and transfer bytes
                 # of this span; concurrent queries can bleed in, the

@@ -66,6 +66,7 @@ import os
 import threading
 from collections import OrderedDict, deque
 
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
 ROUTES = ("host", "device", "mesh")
@@ -215,7 +216,7 @@ class Planner:
     """The process-wide offload planner (GLOBAL below)."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         self._geo: OrderedDict[tuple, dict] = OrderedDict()
         self._kernel_routes: dict[str, dict[str, _Route]] = {}
         self._ring: deque = deque(
@@ -570,7 +571,7 @@ GLOBAL = Planner()
 
 # -- pre-warmer ---------------------------------------------------------------
 
-_pw_lock = threading.Lock()
+_pw_lock = lockdep.Lock()
 _builders: OrderedDict[tuple, object] = OrderedDict()
 _BUILDERS_MAX = 256
 _pw_thread: threading.Thread | None = None

@@ -1,9 +1,9 @@
 """Incremental query result cache for GROUP BY time() aggregates.
 
-The port of ``opengemini_tpu/query/resultcache.py``, whole, with a plain
-``threading.Lock`` (the reference's ``utils/lockdep`` is ROADMAP A9's).
-The executor reads the reference's switch, ``OGT_RESULT_CACHE`` (default
-on; ``0`` turns it off), at query time.
+The port of ``opengemini_tpu/query/resultcache.py``, whole, its lock a
+``utils/lockdep`` lock as the reference's. The executor reads the
+reference's switch, ``OGT_RESULT_CACHE`` (default on; ``0`` turns it
+off), at query time.
 
 The reference serves repeated dashboard queries from cached partials with
 incremental append (engine/executor/inc_agg_transform.go,
@@ -31,11 +31,11 @@ start time).
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 
 import numpy as np
 
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 
 # bounds: fingerprints (distinct dashboard panels) and windows per panel
@@ -47,7 +47,7 @@ class IncrementalCache:
     def __init__(self, max_queries: int = _MAX_QUERIES,
                  max_windows: int = _MAX_WINDOWS):
         self._store: OrderedDict[str, dict] = OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         self.max_queries = max_queries
         self.max_windows = max_windows
 

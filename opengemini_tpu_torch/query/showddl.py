@@ -29,9 +29,12 @@ policy, CQ, stream, subscription, downsample, model and user DDL is
 proposed through the raft meta store on its leader (``_replicate_ddl``,
 ``_user_ddl``; a follower answers "not the meta leader") and reaches
 each node's engine through the store's listener; single-node it is the
-local call. SHOW STATS and SHOW DIAGNOSTICS answer a "not supported by
-this port yet" error naming ROADMAP A9 (``_NOT_PORTED``). UNION
-statements run through query/join.py's ``execute_union``.
+local call. SHOW STATS lists every statistics module (utils/stats.py)
+as a series of (statistic, value) rows; SHOW DIAGNOSTICS the system
+(the reference's rows, with ``torch`` where it has ``jax`` and the
+engine's device type as ``backend``) and, with strict replication, its
+groups. UNION statements run through query/join.py's
+``execute_union``.
 """
 
 from __future__ import annotations
@@ -70,13 +73,6 @@ _SHOW_STMTS = (
     ast.ShowShards, ast.ShowMeasurementCardinality,
     ast.ShowSeriesCardinality,
 )
-
-# statement type -> the ROADMAP item that ports it
-_NOT_PORTED = {
-    ast.ShowStats: "A9",
-    ast.ShowDiagnostics: "A9",
-}
-
 
 def _check_rp_min_duration(duration_ns: int | None) -> None:
     """Influx rejects retention durations below 1h (0 = INF is allowed):
@@ -446,11 +442,41 @@ class ShowDdlMixin:
             return {"series": series} if series else {}
         if isinstance(stmt, (ast.CreateModel, ast.ShowModels, ast.DropModel)):
             return self._model_ddl(stmt, db, now_ns)
-        item = _NOT_PORTED.get(type(stmt))
-        if item is not None:
-            raise QueryError(f"{type(stmt).__name__} is not supported by "
-                             f"this port yet (ROADMAP {item})")
+        if isinstance(stmt, ast.ShowStats):
+            series = []
+            for module, vals in sorted(STATS.snapshot().items()):
+                rows = [[k, v] for k, v in sorted(vals.items())]
+                series.append(_series(module, None, ["statistic", "value"],
+                                      rows))
+            return {"series": series} if series else {}
+        if isinstance(stmt, ast.ShowDiagnostics):
+            return self._show_diagnostics()
         raise QueryError(f"unsupported statement: {type(stmt).__name__}")
+
+    def _show_diagnostics(self) -> dict:
+        import platform
+        import sys as _sys
+
+        from opengemini_tpu_torch import __version__
+        from opengemini_tpu_torch.device import runtime_rows
+
+        rows = [
+            ["version", __version__],
+            ["python", _sys.version.split()[0]],
+            *runtime_rows(self.engine.device),
+            ["platform", platform.platform()],
+            ["data_dir", self.engine.root],
+        ]
+        out = [_series("system", None, ["name", "value"], rows)]
+        router = getattr(self, "router", None)
+        dr = getattr(router, "datarep", None) if router else None
+        if dr is not None:
+            grows = dr.group_status()
+            out.append(_series(
+                "replication_groups", None,
+                ["group", "members", "state", "leader", "log_len",
+                 "applied"], grows or [["(none yet)", "", "", "", 0, 0]]))
+        return {"series": out}
 
     def _model_ddl(self, stmt, db: str, now_ns: int) -> dict:
         """CREATE MODEL fits a detector on its SELECT's numeric values

@@ -36,12 +36,15 @@ the probe fails. The port never falls back to the CPU: without a working
 CUDA device ``main`` exits non-zero with a message naming the device,
 unless ``-device cpu`` asked for the CPU (ROADMAP C).
 
-Not in this port yet, each raising "not supported by this port yet" when
-configured: ``[flight] bind-address`` (server/flight), the object-store
-tier (``[services] obs-dir``/``obs-url``: storage/objstore and
-services/obstier) and ``[data] enable-tag-array`` (ROADMAP A9); and
-``[device] coordinator-address``, a mesh over several processes
-(ROADMAP A8.4).
+``[data] enable-tag-array`` opens the engine in the tag-array write
+mode; ``[flight] bind-address`` serves Arrow Flight (server/flight.py,
+started by ``main``; pyarrow is imported when it is built); ``[services]
+obs-dir`` or ``obs-url`` attaches an object store (a directory, or an
+S3-compatible bucket with ``obs-token``) and runs services/obstier.py.
+
+Not in this port yet, raising "not supported by this port yet" when
+configured: ``[device] coordinator-address``, a mesh over several
+processes (ROADMAP A8.4).
 """
 
 from __future__ import annotations
@@ -141,19 +144,12 @@ def build(cfg: dict, device=None) -> HttpService:
     which raises without one)."""
     hint_service = None
     data = cfg["data"]
-    if data.get("enable-tag-array"):
-        raise NotPorted("[data] enable-tag-array", "A9")
-    if cfg.get("flight", {}).get("bind-address"):
-        raise NotPorted("[flight] bind-address (server/flight)", "A9")
-    sc = cfg.get("services", {})
-    if sc.get("obs-dir") or sc.get("obs-url"):
-        raise NotPorted("[services] obs-dir/obs-url (storage/objstore, "
-                        "services/obstier)", "A9")
     _configure_device_mesh(cfg.get("device", {}), device)
     engine = Engine(
         data["dir"], device=device,
         sync_wal=bool(data.get("wal-fsync", False)),
         flush_threshold_bytes=int(data.get("flush-threshold-mb", 64)) << 20,
+        tag_arrays=bool(data.get("enable-tag-array", False)),
     )
     host, _, port = cfg["http"]["bind-address"].partition(":")
     http_cfg = cfg["http"]
@@ -221,6 +217,16 @@ def build(cfg: dict, device=None) -> HttpService:
                 meta_cfg["join"], node_id,
                 meta_cfg.get("advertise", cfg["http"]["bind-address"]), token,
             )
+    flight_cfg = cfg.get("flight", {})
+    if flight_cfg.get("bind-address"):
+        from opengemini_tpu_torch.server.flight import FlightService
+
+        fhost, _, fport = flight_cfg["bind-address"].partition(":")
+        svc.flight = FlightService(
+            engine, svc.executor, fhost or "127.0.0.1", int(fport or 8087),
+            users=svc.users,
+            auth_enabled=bool(cfg["http"].get("auth-enabled", False)),
+        )
     cluster_cfg = cfg.get("cluster", {})
     if cluster_cfg.get("data-routing") and svc.meta_store is not None:
         from opengemini_tpu_torch.parallel.cluster import DataRouter
@@ -242,6 +248,8 @@ def build(cfg: dict, device=None) -> HttpService:
 
             svc.router.datarep = DataReplication(
                 svc.router, token=meta_cfg.get("token", ""))
+        if svc.flight is not None:
+            svc.flight.router = svc.router
         _spawn_registrar(svc.meta_store, meta_cfg["node-id"], advertise,
                          meta_cfg.get("token", ""))
         from opengemini_tpu_torch.services.hintreplay import HintReplayService
@@ -438,6 +446,25 @@ def _build_services(cfg: dict, svc: HttpService) -> list:
         names = load_udfs(sc["castor-udf-dir"])
         if names:
             print(f"castor udfs loaded: {', '.join(names)}", flush=True)
+    if sc.get("obs-dir") or sc.get("obs-url"):
+        from opengemini_tpu_torch.services.obstier import ObsTierService
+
+        if sc.get("obs-url"):
+            # an S3-compatible bucket endpoint
+            from opengemini_tpu_torch.storage.objstore import HTTPObjectStore
+
+            store = HTTPObjectStore(
+                sc["obs-url"], token=sc.get("obs-token") or None)
+        else:
+            from opengemini_tpu_torch.storage.objstore import FSObjectStore
+
+            store = FSObjectStore(sc["obs-dir"])
+        svc.engine.attach_object_store(store)
+        out.append(ObsTierService(
+            svc.engine,
+            int(float(sc.get("obs-age-days", 90)) * 86400e9),
+            float(sc.get("obs-interval-s", 3600)),
+        ))
     if sc.get("cold-dir"):
         from opengemini_tpu_torch.services.hierarchical import HierarchicalService
 
@@ -564,6 +591,8 @@ def main(argv=None) -> int:
     _require_device(args.device)
     svc = build(load_config(args.config), device=args.device)
     svc.start()
+    if svc.flight is not None:
+        svc.flight.start()
     for s in svc.services:
         s.start()
     stop_event = threading.Event()
@@ -594,6 +623,8 @@ def main(argv=None) -> int:
     for s in svc.services:
         s.stop()
     svc.subscriber.stop()
+    if svc.flight is not None:
+        svc.flight.stop()
     if svc.meta_store is not None:
         svc.meta_store.stop()
     if getattr(svc.router, "datarep", None) is not None:

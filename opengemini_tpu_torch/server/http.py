@@ -53,6 +53,11 @@ standard library's threading HTTP server:
                         its violations) and mod=obs (trace, hist,
                         slow_ms, slow_max, clear)
   GET      /debug/slow  the slow-query log (utils/slowlog.py)
+  GET      /api/v1/consume  cursor reads over a measurement (db,
+                        measurement, cursor "t:k", limit)
+  GET/POST/DELETE /repo/...  the log-mode surface (server/logstore.py:
+                        repositories, logstreams, ndjson upload, logs,
+                        histogram, context, analytics, consume)
   GET      /debug/queries  the running queries (utils/querytracker.py
                         ``full_snapshot``) with the engine's durability
                         ledger
@@ -119,9 +124,9 @@ pass-through while the governor is disabled.
 Answers use the JAX server's JSON shapes, and error answers carry the
 stable errno taxonomy (utils/errno.py: ``errno`` and ``module`` fields,
 ``X-Ogt-Errno`` header): a write while writes are disabled answers 403
-with errno 2003. Other routes answer 404. A query whose scan meets a
-damaged file answers as the reference's /query does: the file is
-quarantined and the statement carries the error "file quarantined
+with errno 2003. A DELETE off /repo and every other route answer 404
+JSON. A query whose scan meets a damaged file answers as the
+reference's /query does: the file is quarantined and the statement carries the error "file quarantined
 after media fault: <path>: <why>" (query/executor.py); a retry answers
 from the other files.
 """
@@ -137,6 +142,8 @@ import threading
 import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
 
 from opengemini_tpu_torch import __version__
 from opengemini_tpu_torch.meta.users import AuthError
@@ -265,6 +272,10 @@ class HttpService:
         # /debug/ctrl declare or scrub call
         self.rules_manager = None
         self.scrub_service = None
+        self.flight = None  # FlightService when [flight] is configured
+        from opengemini_tpu_torch.server.logstore import LogStoreAPI
+
+        self.logstore = LogStoreAPI(self)  # the /repo log-mode surface
         # SHOW QUERIES and /debug/queries pair the running queries with
         # the engine's acknowledged-against-durable ledger
         TRACKER.set_durability_provider(engine.durability_snapshot)
@@ -347,10 +358,17 @@ def _make_handler(svc: HttpService):
             return {k: v[-1] for k, v in qs.items()}
 
         def _body(self) -> bytes:
+            """The request body, read once per request: a later call
+            (the log store after the POST dispatch) gets the same
+            bytes."""
+            cached = getattr(self, "_body_cache", None)
+            if cached is not None:
+                return cached
             length = int(self.headers.get("Content-Length", 0))
             data = self.rfile.read(length) if length else b""
             if self.headers.get("Content-Encoding") == "gzip":
                 data = gzip.decompress(data)
+            self._body_cache = data
             return data
 
         def _send(self, code: int, payload: bytes = b"",
@@ -542,10 +560,14 @@ def _make_handler(svc: HttpService):
         def do_POST(self):
             self._observed("POST", self._do_post)
 
+        def do_DELETE(self):
+            self._observed("DELETE", self._do_delete)
+
         def _observed(self, method: str, dispatch) -> None:
             """The endpoint latency histograms (http_request_seconds by
             route class and method); one flag read when histograms are
             off (OGT_TRACE=0)."""
+            self._body_cache = None  # per request (keep-alive reuse)
             if not _stats.obs_enabled():
                 dispatch()
                 return
@@ -591,6 +613,10 @@ def _make_handler(svc: HttpService):
                 self._handle_debug_trace(self._params())
             elif path == "/debug/slow":
                 self._send_json(200, SLOWLOG.snapshot())
+            elif path == "/api/v1/consume":
+                self._handle_consume(self._params())
+            elif path == "/repo" or path.startswith("/repo/"):
+                self._logstore("GET", path, self._params())
             elif path.startswith("/api/v1/"):
                 self._form_pairs = ()
                 self._handle_prom(path, self._params())
@@ -681,6 +707,8 @@ def _make_handler(svc: HttpService):
                 self._handle_prom_remote_read(params, body)
             elif path == "/api/v1/otlp/metrics":
                 self._handle_otlp_metrics(params, body)
+            elif path == "/repo" or path.startswith("/repo/"):
+                self._logstore("POST", path, params)
             elif path.startswith("/api/v1/"):
                 self._form_pairs = ()
                 text = body.decode("utf-8", errors="replace")
@@ -1879,6 +1907,129 @@ def _make_handler(svc: HttpService):
                 self._send_chunked(result, chunk_size)
                 return
             self._send_json(200, result, params.get("pretty") in ("true", "1"))
+
+        def _do_delete(self):
+            path = urllib.parse.urlparse(self.path).path
+            if path.startswith("/repo/"):
+                self._logstore("DELETE", path, self._params())
+            else:
+                self._send_json(404, {"error": "not found"})
+
+        def _handle_consume(self, params: dict):
+            """Cursor reads over a measurement: GET /api/v1/consume?db=
+            &measurement=&cursor=&limit=. The cursor "t:k" means every
+            row before time t and k rows at t were taken (an exact resume
+            across equal timestamps)."""
+            user = self._authenticate(params)
+            if user is False:
+                return
+            db = params.get("db", "")
+            mst = params.get("measurement", "")
+            if svc.auth_enabled and not (user and user.can("READ", db)):
+                self._send_json(403, {"error": "read not authorized"})
+                return
+            if getattr(svc.engine, "read_disabled", False):
+                self._send_json(
+                    403, {"error": "reads are disabled (syscontrol)"})
+                return
+            if not db or not mst:
+                self._send_json(
+                    400, {"error": "db and measurement are required"})
+                return
+            try:
+                limit = int(params.get("limit", 1000))
+            except ValueError:
+                self._send_json(400, {"error": "bad limit"})
+                return
+            limit = max(1, min(limit, 10_000))
+            cursor = params.get("cursor", "")
+            from_t, skip_at_t = 0, 0
+            if cursor:
+                try:
+                    a, _, b = cursor.partition(":")
+                    from_t, skip_at_t = int(a), int(b)
+                except ValueError:
+                    self._send_json(400, {"error": "bad cursor"})
+                    return
+            try:
+                with GOVERNOR.admitted():  # a read like any other
+                    rows, total = self._consume_gather(
+                        db, mst, from_t, skip_at_t + limit)
+            except AdmissionRejected as e:
+                self._send_json(
+                    503, {"error": str(e)},
+                    headers={"Retry-After": str(e.retry_after_s)})
+                return
+            pos = 0
+            remaining_skip = skip_at_t
+            while (pos < len(rows) and rows[pos][0] == from_t
+                   and remaining_skip > 0):
+                pos += 1
+                remaining_skip -= 1
+            out = rows[pos:pos + limit]
+            if out:
+                last_t = out[-1][0]
+                taken_at_last = sum(1 for r in out if r[0] == last_t)
+                if last_t == from_t:
+                    taken_at_last += skip_at_t - remaining_skip
+                next_cursor = f"{last_t}:{taken_at_last}"
+            else:
+                next_cursor = cursor or "0:0"
+            self._send_json(200, {
+                "rows": [{"time": t, "tags": tags, "fields": fields}
+                         for t, tags, fields in out],
+                "cursor": next_cursor,
+                "exhausted": (total - (skip_at_t - remaining_skip)
+                              - len(out) <= 0),
+            })
+
+        def _consume_gather(self, db: str, mst: str, from_t: int,
+                            need: int) -> tuple[list, int]:
+            """One consume page: each series' rows from `from_t`, turned
+            into Python rows only up to the `need`-th smallest time (ties
+            included). Returns (rows by time, rows matched in all)."""
+            from opengemini_tpu_torch.query.functions import py_value
+
+            series_recs = []
+            all_times = []
+            for sh in svc.engine.shards_of_db(db):
+                for sid in sorted(sh.index.series_ids(mst)):
+                    rec = sh.read_series(mst, sid, from_t, 2**62)
+                    if not len(rec):
+                        continue
+                    series_recs.append((sh.index.tags_of(sid), rec))
+                    all_times.append(rec.times)
+            total = sum(len(t) for t in all_times)
+            page_tmax = None
+            if total and need < total:
+                merged = np.concatenate(all_times)
+                page_tmax = int(np.partition(merged, need - 1)[need - 1])
+            rows = []
+            for tags, rec in series_recs:
+                sel = (np.nonzero(rec.times <= page_tmax)[0]
+                       if page_tmax is not None else range(len(rec)))
+                for i in sel:
+                    fields = {name: py_value(col.values[i])
+                              for name, col in rec.columns.items()
+                              if col.valid[i]}
+                    rows.append((int(rec.times[i]), tags, fields))
+            rows.sort(key=lambda r: r[0])
+            return rows, total
+
+        def _logstore(self, method: str, path: str, params: dict) -> None:
+            """The /repo log-mode surface (server/logstore.py); its
+            queries are admitted like /query's, so a shed answers 503
+            with Retry-After."""
+            try:
+                handled = svc.logstore.handle(self, method, path, params)
+            except AdmissionRejected as e:
+                self._body()  # drain the unread body: keep-alive
+                self._send_json(
+                    503, {"error": str(e)},
+                    headers={"Retry-After": str(e.retry_after_s)})
+                return
+            if not handled:
+                self._send_json(404, {"error": "not found"})
 
         def _shed_write_if_backpressured(self) -> bool:
             """Write-path backpressure: while the memtable and WAL backlog

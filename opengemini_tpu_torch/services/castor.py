@@ -286,8 +286,9 @@ def detect(values: np.ndarray, algorithm: str, threshold: float | None = None) -
 
 import json as _json
 import os as _os
-import threading as _threading
 import time as _time
+
+from opengemini_tpu_torch.utils import lockdep
 
 
 def fit(algorithm: str, values: np.ndarray, threshold: float | None = None) -> dict:
@@ -363,7 +364,7 @@ class ModelStore:
 
     def __init__(self, path: str):
         self.path = path
-        self._lock = _threading.Lock()
+        self._lock = lockdep.Lock()
         _os.makedirs(path, exist_ok=True)
 
     def _file(self, name: str) -> str:

@@ -1,8 +1,7 @@
 """Hierarchical (tiered) storage service.
 
 The port of ``opengemini_tpu/services/hierarchical.py``, whole; the
-object-store tiers (the reference's obstier and objstore) are ROADMAP
-A9's.
+object-store tier is services/obstier.py with storage/objstore.py.
 
 Reference: services/hierarchical/service.go:32-76 — warm shards move to
 cold storage after an age threshold. Here: the shard directory moves to

@@ -42,6 +42,7 @@ import threading
 import time as _time
 
 from opengemini_tpu_torch.services.base import Service, logger
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 from opengemini_tpu_torch.utils.stats import histogram as _histogram
 
@@ -85,7 +86,7 @@ class ScrubService(Service):
         # a ctrl op=tick racing the background service tick must not
         # interleave cursor/done mutations (regressed cursors, double
         # verification charged twice, double pass counts)
-        self._tick_lock = threading.Lock()
+        self._tick_lock = lockdep.Lock()
 
     # -- one tick ----------------------------------------------------------
 

@@ -21,6 +21,7 @@ import time as _time
 import traceback
 
 from opengemini_tpu_torch.services.base import Service, logger
+from opengemini_tpu_torch.utils import lockdep
 
 
 def _rss_mb() -> float:
@@ -50,7 +51,7 @@ class SherlockService(Service):
         # serializes the cooldown check+commit AND the dump itself: the
         # governor burst hook (diagnose, its own thread) races the
         # service tick (handle), and one window must yield ONE dump
-        self._dump_lock = threading.Lock()
+        self._dump_lock = lockdep.Lock()
         if enable_tracemalloc:  # ~2x alloc overhead; opt-in like pprof heap
             import tracemalloc
 

@@ -21,6 +21,7 @@ from opengemini_tpu_torch.record import FieldType
 from opengemini_tpu_torch.services.base import Service, logger
 from opengemini_tpu_torch.sql import ast
 from opengemini_tpu_torch.sql.parser import parse_one
+from opengemini_tpu_torch.utils import lockdep
 
 ACCUMULABLE = {"count", "sum", "min", "max", "mean"}
 
@@ -91,7 +92,7 @@ class StreamService(Service):
     def __init__(self, engine, interval_s: float = 5.0):
         super().__init__(interval_s)
         self.engine = engine
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         self._flushing = threading.local()
         self._states: dict[tuple[str, str], _TaskState] = {}
         engine.add_write_observer(self.on_write)

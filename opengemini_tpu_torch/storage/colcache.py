@@ -71,11 +71,11 @@ utils/governor.py).
 from __future__ import annotations
 
 import os
-import threading
 import time
 from collections import OrderedDict
 
 from opengemini_tpu_torch.utils import devobs
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.governor import GOVERNOR
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as _TRACKER
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
@@ -125,10 +125,10 @@ class ColumnCache:
     def __init__(self, budget_mb: int | None = None,
                  device: bool | None = None,
                  device_budget_mb: int | None = None):
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         # serializes mesh reshards of device entries (never held with
         # _lock across the relayout itself)
-        self._reshard_lock = threading.Lock()
+        self._reshard_lock = lockdep.Lock()
         self._host: OrderedDict = OrderedDict()  # key -> (value, nbytes)
         self._by_gen: dict[int, set] = {}
         self._host_bytes = 0

@@ -39,9 +39,10 @@ from __future__ import annotations
 
 import fnmatch
 import os
-import threading
 
-_lock = threading.Lock()
+from opengemini_tpu_torch.utils import lockdep
+
+_lock = lockdep.Lock()
 # armed rules: (glob, action) — first applicable match wins, arming order
 _rules: list[tuple[str, str]] = []
 _hits: dict[str, int] = {}

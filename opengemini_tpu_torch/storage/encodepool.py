@@ -22,10 +22,10 @@ not ported: the defaults are constants here.
 from __future__ import annotations
 
 import os
-import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.governor import GOVERNOR, InflightGauge
 
 
@@ -41,7 +41,7 @@ WORKERS = _auto_workers()
 INFLIGHT_BYTES = 256 << 20
 
 _pool: ThreadPoolExecutor | None = None
-_pool_lock = threading.Lock()
+_pool_lock = lockdep.Lock()
 
 # encode-input bytes in flight across every open pipe: the resource
 # governor's ledger component "encodepool"

@@ -76,9 +76,15 @@ do not conserve rows, and the ``durability`` stats provider serves the
 totals. A shard directory that hierarchical storage moved to the cold
 tier (a symlink) is removed with its cold copy.
 
-Not in this port yet: the tag-array write mode (the reference's
-``tag_arrays``, which sends such bodies to the Python parser; ROADMAP
-A9).
+The tag-array write mode (``tag_arrays``, the reference's per-database
+enableTagArray) expands ``host=[a,b]`` into one point per value: such
+bodies take the Python parser, and every shard's WAL replay expands them
+alike. The object-store tier (storage/objstore.py): ``offload_shard``
+moves an idle group into the attached store and registers it in
+``meta.json``'s ``obs_shards``; a query or a write over that range
+hydrates it back (``shards_for_range``, ``_get_or_create_shard``), and
+DROP DATABASE, DROP RETENTION POLICY, ``drop_shard`` and retention
+delete its objects after the registry, outside the engine lock.
 
 ``Engine(root, device=None)`` holds the device every query on it runs
 on: CUDA unless the caller names another (``device="cpu"`` in the
@@ -91,7 +97,6 @@ import json
 import logging
 import os
 import shutil
-import threading
 import time as _time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -104,6 +109,7 @@ from opengemini_tpu_torch.ingest.native_lp import LineWriter
 from opengemini_tpu_torch.record import FieldTypeConflict
 from opengemini_tpu_torch.storage import diskfault
 from opengemini_tpu_torch.storage.shard import Shard
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.failpoint import inject as _fp
 from opengemini_tpu_torch.utils.governor import GOVERNOR
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as TRACKER
@@ -128,7 +134,7 @@ _INGEST_WORKERS = int(os.environ.get("OGT_INGEST_WORKERS", "0")) or (
 _INGEST_SEGMENT_BYTES = 1 << 20  # split target; bodies below 2 MiB stay whole
 _NEEDS_PYTHON_PARSER = object()  # _write_segmented: skip the native re-parse
 _ingest_pool_obj = None
-_ingest_pool_lock = threading.Lock()
+_ingest_pool_lock = lockdep.Lock()
 
 
 def _ingest_pool():
@@ -296,18 +302,28 @@ class Engine:
     """Single-node storage engine with embedded metadata."""
 
     def __init__(self, root: str, device=None, sync_wal: bool = False,
-                 flush_threshold_bytes: int = 64 << 20):
+                 flush_threshold_bytes: int = 64 << 20,
+                 tag_arrays: bool = False):
         self.root = root
         self.device = resolve_device(device)
         self.sync_wal = sync_wal
         self.flush_threshold_bytes = flush_threshold_bytes
+        # expand `host=[a,b]` tag arrays (opt-in: brackets are literal
+        # tag bytes when off)
+        self.tag_arrays = tag_arrays
         os.makedirs(root, exist_ok=True)
-        self._lock = threading.RLock()
+        # hot: every write and query path takes it (lockdep holds no
+        # blocking call inside it)
+        self._lock = lockdep.mark_hot(lockdep.RLock(), "engine._lock")
         # syscontrol switches (/debug/ctrl?mod=disablewrite|disableread|
         # readonly): refuse writes, or SELECT and EXPLAIN
         self.write_disabled = False
         self.read_disabled = False
         self._write_observers: list = []
+        # the object-store tier: groups offloaded to the store, hydrated
+        # back when a query or a write reaches their range
+        self.obs_store = None
+        self.obs_shards: set[tuple[str, str, int]] = set()
         self.databases: dict[str, Database] = {}
         self._meta_extra: dict = {}
         # (db, rp, group_start) -> Shard
@@ -394,11 +410,14 @@ class Engine:
                     db.rollups[spec.name] = spec
             db.extra = {k: v for k, v in dbj.items() if k not in _DB_KEYS}
             self.databases[db.name] = db
-        self._meta_extra = {k: v for k, v in j.items() if k != "databases"}
+        self.obs_shards = {(d, r, int(s))
+                           for d, r, s in j.get("obs_shards", [])}
+        self._meta_extra = {k: v for k, v in j.items()
+                            if k not in ("databases", "obs_shards")}
 
     def _save_meta(self) -> None:
-        j = dict(self._meta_extra)
-        j.setdefault("obs_shards", [])
+        j = {"obs_shards": sorted(list(k) for k in self.obs_shards)}
+        j.update(self._meta_extra)
         # the reference's layout, key for key; the uninterpreted keys are
         # written back as read
         j["databases"] = [
@@ -419,7 +438,10 @@ class Engine:
         if diskfault.armed():
             diskfault.check("write", self._meta_path(),
                             site="meta-save-write")
-        with open(tmp, "w", encoding="utf-8") as f:
+        # the meta fsync runs under the engine lock on purpose: DDL is
+        # rare, and the lock keeps the change and its record atomic
+        with lockdep.allow_blocking("engine meta save under DDL lock"), \
+                open(tmp, "w", encoding="utf-8") as f:
             json.dump(j, f)
             f.flush()
             if diskfault.armed():
@@ -446,6 +468,8 @@ class Engine:
                 shard = self._shards.pop(key)
                 shard.close()
                 _remove_shard_dir(shard.path)  # follows cold-tier links
+            # a recreated database must not hydrate the old offloads
+            obs_purge = self._purge_obs(lambda k: k[0] == name)
             del self.databases[name]
             self._save_meta()
             shutil.rmtree(os.path.join(self.root, "data", name),
@@ -465,6 +489,7 @@ class Engine:
             else:
                 shutil.rmtree(os.path.join(self.root, "rules", name),
                               ignore_errors=True)
+        self._delete_obs_prefixes(obs_purge)
 
     def drop_retention_policy(self, db: str, name: str) -> None:
         with self._lock:
@@ -478,10 +503,13 @@ class Engine:
                 shard = self._shards.pop(key)
                 shard.close()
                 _remove_shard_dir(shard.path)
+            obs_purge = self._purge_obs(
+                lambda k: k[0] == db and k[1] == name)
             if d.default_rp == name:
                 d.default_rp = ("autogen" if "autogen" in d.rps
                                 else next(iter(d.rps), "autogen"))
             self._save_meta()
+        self._delete_obs_prefixes(obs_purge)
 
     def create_retention_policy(self, db: str, name: str, duration_ns: int,
                                 shard_duration_ns: int | None = None,
@@ -591,6 +619,11 @@ class Engine:
                     continue
                 if not d.dropped_msts:
                     continue
+                # offloaded groups hold rows too: hydrate them first, or
+                # the next hydration brings the dropped rows back
+                for (sdb, rp, g) in sorted(self.obs_shards):
+                    if sdb == name:
+                        self._hydrate_shard(sdb, rp, g)
                 for mst in sorted(d.dropped_msts):
                     for (sdb, _rp, _g), sh in list(self._shards.items()):
                         if sdb == name:
@@ -647,7 +680,7 @@ class Engine:
                     start = int(g)
                     self._shards[(db, rp, start)] = Shard(
                         self._shard_dir(db, rp, start), start, start + dur,
-                        self.sync_wal)
+                        self.sync_wal, tag_arrays=self.tag_arrays)
 
     def _get_or_create_shard(self, db: str, rp: str, t_ns: int) -> Shard:
         d = self.databases.get(db)
@@ -661,8 +694,16 @@ class Engine:
         key = (db, rp, group_start)
         shard = self._shards.get(key)
         if shard is None:
+            if key in self.obs_shards:
+                # a write into an offloaded range lands in the hydrated
+                # group: a fresh shard here would be replaced by the
+                # hydration later, and its rows lost
+                shard = self._hydrate_shard(db, rp, group_start)
+                if shard is not None:
+                    return shard
             shard = Shard(self._shard_dir(db, rp, group_start), group_start,
-                          group_start + dur, self.sync_wal)
+                          group_start + dur, self.sync_wal,
+                          tag_arrays=self.tag_arrays)
             self._shards[key] = shard
         return shard
 
@@ -688,7 +729,8 @@ class Engine:
                 return
             dur = rp_meta.shard_duration_ns
             sh = Shard(os.path.join(self._staging_root(), mig_id),
-                       group_start, group_start + dur, self.sync_wal)
+                       group_start, group_start + dur, self.sync_wal,
+                       tag_arrays=self.tag_arrays)
             self._staging[mig_id] = [db, rp or d.default_rp, group_start, sh,
                                      _time.perf_counter()]
 
@@ -844,22 +886,221 @@ class Engine:
         """Remove one shard group whose data now lives on its new owners
         (a migration's last step). A write that routed rows here before
         the drop finishes its flush through _flush_tolerating_drop."""
+        key = (db, rp, group_start)
         with self._lock:
-            shard = self._shards.pop((db, rp, group_start), None)
+            shard = self._shards.pop(key, None)
             if shard is None:
                 return False
             shard.close()
+            obs_purge = self._purge_obs(lambda k: k == key)
             self._save_meta()
             _remove_shard_dir(shard.path)
+        self._delete_obs_prefixes(obs_purge)
         return True
+
+    # -- the object-store tier (storage/objstore.py) -------------------------
+
+    def attach_object_store(self, store) -> None:
+        """Use `store` for offloads. A group both local and registered
+        (a crash between the registry save and the local removal) keeps
+        its local copy; the store copy is deleted."""
+        from opengemini_tpu_torch.storage.objstore import shard_prefix
+
+        self.obs_store = store
+        with self._lock:
+            stale = [k for k in self.obs_shards if k in self._shards]
+        # bucket deletes are round trips: outside the engine lock
+        for db, rp, start in stale:
+            store.delete_prefix(shard_prefix(db, rp, start))
+        with self._lock:
+            for k in stale:
+                self.obs_shards.discard(k)
+            if stale:
+                self._save_meta()
+
+    def offload_shard(self, db: str, rp: str, group_start: int) -> bool:
+        """Move one whole shard group into the object store; it hydrates
+        back at the next query over its range. False when there is no
+        store or no such group, or when a write landed during the upload
+        (the group then stays local)."""
+        from opengemini_tpu_torch.storage.objstore import shard_prefix
+
+        if self.obs_store is None:
+            return False
+        key = (db, rp, group_start)
+        with self._lock:
+            shard = self._shards.get(key)
+            if shard is None:
+                return False
+        # upload under the shard's flush lock only: it freezes the file
+        # set while writes stay live; a write during the upload bumps
+        # data_version and the swap below gives up
+        with shard._flush_lock:
+            shard.flush()
+            with shard._lock:
+                v0 = shard.data_version
+            if shard.mem_backlog_bytes() != 0:
+                return False  # a write raced the flush: not idle
+            prefix = shard_prefix(db, rp, group_start)
+            # an aborted earlier upload may have left objects here:
+            # clear them, or a hydration would bring retired files back
+            self.obs_store.delete_prefix(prefix)
+            real = os.path.realpath(shard.path)  # a cold-tier symlink
+            for dirpath, _dirs, files in os.walk(real):
+                for fname in sorted(files):
+                    full = os.path.join(dirpath, fname)
+                    rel = os.path.relpath(full, real)
+                    self.obs_store.put(f"{prefix}/{rel}", full)
+        # swap: revalidate and retire under the engine lock
+        with self._lock:
+            if self._shards.get(key) is not shard:
+                return False  # dropped or replaced during the upload
+            with shard._lock:
+                dirty = (shard.data_version != v0
+                         or shard.mem_backlog_bytes() != 0)
+            if dirty:
+                return False  # the store copy is stale: stay local
+            with lockdep.allow_blocking("cold-tier retire of idle shard"), \
+                    shard._flush_lock, shard._lock:
+                shard.wal.close()
+                shard.index.close()
+                shard.drop_cached_columns()
+            del self._shards[key]
+            # registry first: a crash before the removal leaves both
+            # copies, which attach_object_store reconciles
+            self.obs_shards.add(key)
+            self._save_meta()
+            _remove_shard_dir(shard.path)
+            return True
+
+    def _purge_obs(self, match) -> list[tuple]:
+        """Unregister the offloaded groups whose key satisfies `match`.
+        The caller holds the lock and saves meta, then passes the result
+        to _delete_obs_prefixes with the lock released."""
+        from opengemini_tpu_torch.storage.objstore import shard_prefix
+
+        purged = []
+        for key in [k for k in self.obs_shards if match(k)]:
+            if self.obs_store is not None:
+                purged.append((key, shard_prefix(*key)))
+            self.obs_shards.discard(key)
+        return purged
+
+    def _delete_obs_prefixes(self, purged: list[tuple]) -> None:
+        """Delete _purge_obs's bucket prefixes, with no engine lock held.
+        A prefix that a recreated namespace registered again meanwhile
+        is kept."""
+        for key, prefix in purged:
+            with self._lock:
+                if key in self.obs_shards or key in self._shards:
+                    continue
+            if self.obs_store is not None:
+                self.obs_store.delete_prefix(prefix)
+
+    def _download_group(self, db: str, rp: str, group_start: int) -> None:
+        """Download an offloaded group, with no engine lock held, into a
+        staging directory outside data/ that swaps in whole: a torn
+        download never becomes a live shard."""
+        import uuid
+
+        from opengemini_tpu_torch.storage.objstore import shard_prefix
+
+        prefix = shard_prefix(db, rp, group_start)
+        keys = self.obs_store.list(prefix)
+        if not keys:
+            raise WriteError(
+                f"offloaded group {db}/{rp}/{group_start} has no objects "
+                "in the bucket")
+        tmp = os.path.join(self.root, ".hydrate-tmp",
+                           f"{db}_{rp}_{group_start}.{uuid.uuid4().hex[:8]}")
+        try:
+            for key in keys:
+                rel = key[len(prefix) + 1:]  # may be nested (seriesidx/)
+                target = os.path.join(tmp, rel)
+                os.makedirs(os.path.dirname(target), exist_ok=True)
+                self.obs_store.get(key, target)
+            dest = self._shard_dir(db, rp, group_start)
+            # the loser of two concurrent hydrations drops its copy
+            with self._lock:
+                if (db, rp, group_start) in self._shards:
+                    shutil.rmtree(tmp, ignore_errors=True)
+                    return
+                shutil.rmtree(dest, ignore_errors=True)
+                os.makedirs(os.path.dirname(dest), exist_ok=True)
+                os.replace(tmp, dest)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+
+    def _install_hydrated(self, db: str, rp: str, group_start: int,
+                          save: bool = True) -> Shard:
+        """Open a downloaded group and register it (the caller holds the
+        lock); a live shard is returned as it is. The store copy stays."""
+        key = (db, rp, group_start)
+        existing = self._shards.get(key)
+        if existing is not None:
+            self.obs_shards.discard(key)
+            return existing
+        dur = self.databases[db].rps[rp].shard_duration_ns
+        shard = Shard(self._shard_dir(db, rp, group_start), group_start,
+                      group_start + dur, self.sync_wal,
+                      tag_arrays=self.tag_arrays)
+        self._shards[key] = shard
+        self.obs_shards.discard(key)
+        if save:
+            self._save_meta()
+        return shard
+
+    def _hydrate_shard(self, db: str, rp: str, group_start: int
+                       ) -> Shard | None:
+        """Download and install in one step (the write path, under the
+        engine lock: a backfill into an offloaded group is rare)."""
+        if self.obs_store is None:
+            return None
+        if (db, rp, group_start) in self._shards:
+            return self._install_hydrated(db, rp, group_start)
+        with lockdep.allow_blocking("write-path cold hydration"):
+            self._download_group(db, rp, group_start)
+        return self._install_hydrated(db, rp, group_start)
+
+    def _hydrate_range(self, db: str, rp: str, tmin: int, tmax: int) -> None:
+        """Hydrate the offloaded groups of (db, rp) overlapping [tmin,
+        tmax): download outside the lock, install under it. A group that
+        cannot be hydrated fails the query."""
+        d = self.databases.get(db)
+        with self._lock:
+            rp_meta = d.rps.get(rp) if d else None
+            dur = rp_meta.shard_duration_ns if rp_meta else 0
+            todo = [k for k in sorted(self.obs_shards)
+                    if k[0] == db and k[1] == rp and dur
+                    and k[2] + dur > tmin and k[2] < tmax]
+        for odb, orp, start in todo:
+            try:
+                if (odb, orp, start) not in self._shards:
+                    self._download_group(odb, orp, start)
+                with self._lock:
+                    self._install_hydrated(odb, orp, start, save=False)
+            except Exception as e:  # noqa: BLE001
+                logging.getLogger("opengemini_tpu_torch.engine").exception(
+                    "hydration of %s/%s/%d failed", odb, orp, start)
+                # an answer without the offloaded group would be wrong
+                raise WriteError(
+                    f"shard {odb}/{orp}/{start} is in the object "
+                    f"store and could not be hydrated: {e}") from e
+        if todo:
+            with self._lock:
+                self._save_meta()
 
     def shards_for_range(self, db: str, rp: str | None, tmin: int,
                          tmax: int) -> list[Shard]:
-        """Shards overlapping [tmin, tmax) — the shard-mapping step."""
+        """Shards overlapping [tmin, tmax) — the shard-mapping step.
+        Offloaded groups in range hydrate back first."""
         d = self.databases.get(db)
         if d is None:
             return []
         rp = rp or d.default_rp
+        if self.obs_shards and self.obs_store is not None:
+            self._hydrate_range(db, rp, tmin, tmax)
         with self._lock:
             items = sorted(self._shards.items(), key=lambda kv: kv[0])
         return [sh for (sdb, srp, _s), sh in items
@@ -898,16 +1139,19 @@ class Engine:
             now_ns = _time.time_ns()
         raw = lines.encode("utf-8") if isinstance(lines, str) else lines
         batch = None
-        n = self._write_segmented(db, rp, raw, precision, now_ns)
-        if n is _NEEDS_PYTHON_PARSER:
-            pass  # the segments already showed the body needs it
-        elif n is not None:
-            return n
-        else:
-            batch = native_lp.parse_columnar(raw, precision, now_ns)
+        # a tag-array body takes the Python parser, which expands it
+        if not (self.tag_arrays and b"=[" in raw):
+            n = self._write_segmented(db, rp, raw, precision, now_ns)
+            if n is _NEEDS_PYTHON_PARSER:
+                pass  # the segments already showed the body needs it
+            elif n is not None:
+                return n
+            else:
+                batch = native_lp.parse_columnar(raw, precision, now_ns)
         if batch is not None:
             return self._write_batch(db, rp, batch, raw, precision, now_ns)
-        points = lp.parse_lines(lines, precision, now_ns)
+        points = lp.parse_lines(lines, precision, now_ns,
+                                expand_tag_arrays=self.tag_arrays)
         if not points:
             return 0
         return self._write_points(db, rp, points, lambda sh, pts: (
@@ -1375,8 +1619,28 @@ class Engine:
                     _remove_shard_dir(shard.path)
                     del self._shards[key]
                     dropped.append(key)
+            # offloaded groups age out too; their bucket deletes run
+            # outside the lock below
+            purged = []
+            for key in sorted(self.obs_shards):
+                db, rp, start = key
+                d = self.databases.get(db)
+                rp_meta = d.rps.get(rp) if d else None
+                if rp_meta is None or rp_meta.duration_ns == 0:
+                    continue
+                if (start + rp_meta.shard_duration_ns
+                        <= now_ns - rp_meta.duration_ns):
+                    from opengemini_tpu_torch.storage.objstore import (
+                        shard_prefix,
+                    )
+
+                    self.obs_shards.discard(key)
+                    dropped.append(key)
+                    if self.obs_store is not None:
+                        purged.append((key, shard_prefix(*key)))
             if dropped:
                 self._save_meta()
+        self._delete_obs_prefixes(purged)
         return dropped
 
     # -- materialized rollups (storage/rollup.py) ---------------------------
@@ -1520,7 +1784,8 @@ class Engine:
         # engine's ledger: a closed engine must neither serve frozen
         # durability state nor stay pinned in memory
         TRACKER.detach_durability_provider(self.durability_snapshot)
-        with self._lock:
+        with self._lock, \
+                lockdep.allow_blocking("engine.close shutdown fsyncs"):
             for shard in self._shards.values():
                 shard.close()
             self._shards.clear()

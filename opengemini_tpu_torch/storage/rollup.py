@@ -56,6 +56,7 @@ import numpy as np
 
 from opengemini_tpu_torch.ops import window as winmod
 from opengemini_tpu_torch.record import Column, FieldType, Record
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.failpoint import inject as _fp
 from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
 from opengemini_tpu_torch.utils.stats import observe_ns as _observe_ns
@@ -158,14 +159,14 @@ class _State:
         # service tick racing a ctrl-flush must not interleave claim /
         # restore bookkeeping.  Ordering: m_lock OUTSIDE the manager
         # lock; write-path marks never take it.
-        self.m_lock = threading.Lock()
+        self.m_lock = lockdep.Lock()
         # save() runs OUTSIDE the manager-wide lock (an fsync under it
         # would stall every concurrent splice/note across all specs):
         # mutators bump `ver` under the manager lock and snapshot; the
         # io_lock-serialized writer skips snapshots an already-persisted
         # newer version supersedes (a newer snapshot always contains
         # every older mutation)
-        self.io_lock = threading.Lock()
+        self.io_lock = lockdep.Lock()
         self.ver = 0
         self._saved_ver = -1
         self.watermark_ns: int | None = None
@@ -423,7 +424,7 @@ class RollupManager:
         self.engine = engine
         # state fsyncs run off this lock: a late write's mark must not
         # stall every splice and note behind a disk
-        self._lock = threading.RLock()
+        self._lock = lockdep.mark_hot(lockdep.RLock(), "rollup.manager_lock")
         self._states: dict[tuple[str, str], _State] = {}
         # read_enabled=False forces raw scans (bench A/B, fuzz oracle)
         # without touching maintenance

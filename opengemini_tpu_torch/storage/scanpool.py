@@ -16,10 +16,10 @@ knobs are not ported.
 from __future__ import annotations
 
 import os
-import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.governor import GOVERNOR, InflightGauge
 from opengemini_tpu_torch.utils.querytracker import GLOBAL as _TRACKER
 
@@ -38,7 +38,7 @@ INFLIGHT_BYTES = 256 << 20
 MIN_POOL_JOBS = 4
 
 _pool: ThreadPoolExecutor | None = None
-_pool_lock = threading.Lock()
+_pool_lock = lockdep.Lock()
 
 # decoded bytes in flight across every scan: the resource governor's
 # ledger component "scanpool"

@@ -63,7 +63,6 @@ import json
 import logging
 import math
 import os
-import threading
 import time
 
 import numpy as np
@@ -80,6 +79,7 @@ from opengemini_tpu_torch.storage.tsf import (
     PACK_MIN_SERIES, PACK_ROWS, CorruptFile, TSFReader, TSFWriter,
 )
 from opengemini_tpu_torch.storage.wal import WAL, WALCorruption, frame
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.failpoint import inject as _fp
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
@@ -271,8 +271,9 @@ class Shard:
     supports_preagg = True  # chunk metadata is local: pre-agg and sketches
 
     def __init__(self, path: str, tmin: int, tmax: int,
-                 sync_wal: bool = False):
+                 sync_wal: bool = False, tag_arrays: bool = False):
         self.path = path
+        self.tag_arrays = tag_arrays  # WAL replay expands as ingest did
         self.tmin = tmin  # inclusive ns
         self.tmax = tmax  # exclusive ns
         os.makedirs(path, exist_ok=True)
@@ -296,11 +297,12 @@ class Shard:
         # memtable generations and is seeded from the files on open
         self.schemas: dict[str, dict] = {}
         self.mem = MemTable(self.schemas)
-        self._lock = threading.RLock()
+        self._lock = lockdep.mark_hot(lockdep.RLock(), "shard._lock")
         # flush serialization. Lock ORDER: _flush_lock before _lock —
         # flush holds _flush_lock across its off-lock encode and takes
         # _lock only to freeze and to publish
-        self._flush_lock = threading.RLock()
+        self._flush_lock = lockdep.name_class(
+            lockdep.RLock(), "shard._flush_lock")
         # snapshot-and-swap flush state: (frozen memtable, rotated WAL
         # segment | None), oldest first. Readers merge frozen snapshots
         # between the files and the live memtable until the TSF that
@@ -525,11 +527,15 @@ class Shard:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, wal_path)
+        _STATS.incr("wal", "interior_corruptions")
+        _STATS.incr("wal", "salvaged_frames", len(e.salvaged_frames))
+        _STATS.incr("quarantine", "wal_salvages_total")
 
     def _replay_entry(self, entry) -> None:
         if entry[0] == "lines":
             _, lines, precision, now_ns = entry
-            points = lp.parse_lines(lines, precision, now_ns)
+            points = lp.parse_lines(lines, precision, now_ns,
+                                    expand_tag_arrays=self.tag_arrays)
         else:
             points = entry[1]
         replayed = 0
@@ -1068,8 +1074,10 @@ class Shard:
         rewrite does (the retired files leave the decoded-column cache)."""
         from opengemini_tpu_torch.storage.downsample import downsample_records
 
-        # _flush_lock first (the lock order): see delete_data
-        with self._flush_lock, self._lock:
+        # _flush_lock first (the lock order): see delete_data. The
+        # rewrite reads live state, so it excludes ingest throughout
+        with lockdep.allow_blocking("downsample rewrite under shard lock"), \
+                self._flush_lock, self._lock:
             self.flush()
             path = os.path.join(self.path, f"{self._next_file_seq:08d}.tsf")
             w = TSFWriter(path)
@@ -1124,7 +1132,8 @@ class Shard:
         # _flush_lock first (the lock order): the inline flush re-enters
         # it, and holding it for the whole rewrite keeps a concurrent
         # flush from publishing a pre-rewrite snapshot after the swap
-        with self._flush_lock, self._lock:
+        with lockdep.allow_blocking("delete rewrite under shard lock"), \
+                self._flush_lock, self._lock:
             self.flush()
             if measurement not in self.measurements():
                 return
@@ -1511,8 +1520,9 @@ class Shard:
 
     def close(self) -> None:
         # _flush_lock first: an in-flight flush finishes before handles
-        # close
-        with self._flush_lock, self._lock:
+        # close; the final WAL fsync runs under the shard lock
+        with lockdep.allow_blocking("shard.close shutdown fsyncs"), \
+                self._flush_lock, self._lock:
             self.wal.flush()
             self.wal.close()
             self.index.flush()

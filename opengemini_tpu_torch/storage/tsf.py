@@ -38,7 +38,6 @@ import itertools
 import json
 import os
 import struct
-import threading
 import time
 import zlib
 from collections import OrderedDict
@@ -49,6 +48,7 @@ from opengemini_tpu_torch.record import Column, EncodedColumn, FieldType, Record
 from opengemini_tpu_torch.storage import (
     chunkmeta, colcache, diskfault, encodepool, encoding,
 )
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.bloom import BloomFilter
 
 MAGIC = b"OGTSF01\n"   # revision 1: CRC-less blocks (read-only legacy)
@@ -304,7 +304,7 @@ class TSFReader:
         # the per-file LRU that serves while colcache is disabled
         self._col_cache: OrderedDict = OrderedDict()
         self._cache_bytes = 0
-        self._cache_lock = threading.Lock()
+        self._cache_lock = lockdep.Lock()
         self._f = open(path, "rb")
         try:
             self._open(path)

@@ -41,13 +41,14 @@ from __future__ import annotations
 import json
 import os
 import struct
-import threading
 import time
 import zlib
 
 from opengemini_tpu_torch.record import FieldType
 from opengemini_tpu_torch.storage import diskfault
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.failpoint import inject as _fp
+from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
 _KIND_RAW_LINES = 1
 _KIND_POINTS = 2
@@ -100,7 +101,7 @@ class WAL:
         # group-commit state: appended-entry tickets vs the highest ticket
         # a completed fsync covers. _cond also fences rotate() against an
         # in-flight leader fsync.
-        self._cond = threading.Condition()
+        self._cond = lockdep.Condition()
         self._seq = 0
         self._synced = 0
         self._syncing = False
@@ -117,6 +118,8 @@ class WAL:
         """Write one entry; return its commit ticket (0 when sync is off).
         Appends are serialized by the owning shard's lock."""
         data = frame(kind, payload)
+        _STATS.incr("wal", "appends")
+        _STATS.incr("wal", "bytes", len(data))
         if diskfault.armed():  # torn/flipped appends surface at replay
             data = diskfault.on_write(self.path, data,
                                       site="wal-append-write")
@@ -179,7 +182,12 @@ class WAL:
                 if diskfault.armed():
                     diskfault.on_fsync(self.path, site="wal-fsync")
                 os.fsync(self._f.fileno())
+                _STATS.incr("wal", "syncs")
                 with self._cond:
+                    if target - self._synced > 1:
+                        _STATS.incr("wal", "group_commits")
+                        _STATS.incr("wal", "group_coalesced",
+                                    target - self._synced - 1)
                     self._synced = max(self._synced, target)
             finally:
                 # on error: wake everyone; each retries as its own leader
@@ -202,7 +210,11 @@ class WAL:
                 pass
             if diskfault.armed():
                 diskfault.on_fsync(self.path, site="wal-fsync")
-            os.fsync(self._f.fileno())
+            # rotate runs under the shard lock, which fences the appends:
+            # the fsync covers every entry before the rename
+            with lockdep.allow_blocking(
+                    "wal-rotate fsync fenced by shard lock"):
+                os.fsync(self._f.fileno())
             self._f.close()
             _fp("wal-rotate-before-rename")  # fsynced, still the live log
             os.replace(self.path, seg_path)
@@ -210,6 +222,7 @@ class WAL:
             self._f = open(self.path, "wb")
             self._synced = self._seq  # the segment fsync covered them all
             self.backlog_bytes = 0  # the frozen memtable carries them now
+            _STATS.incr("wal", "rotations")
             return seg_path
 
     @staticmethod
@@ -336,6 +349,9 @@ class WAL:
         for kind, payload in clean:
             if kind in _KINDS:  # forward compat: skip newer-version kinds
                 yield WAL._decode_entry(kind, payload)
-        if corrupt_off is None or not salvaged:
-            return  # clean, or a torn tail: nothing acked lives past it
+        if corrupt_off is None:
+            return
+        if not salvaged:
+            _STATS.incr("wal", "torn_tails")
+            return  # a torn tail: nothing acked lives past it
         raise WALCorruption(path, corrupt_off, clean, salvaged)

@@ -78,6 +78,7 @@ from contextlib import contextmanager
 import numpy as _np
 import torch
 
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
 _ON = os.environ.get("OGT_DEVOBS", "") in ("1", "true")
@@ -95,7 +96,7 @@ _RING_MAX = max(16, _env_int("OGT_DEVOBS_RING", 256))
 # geometry-inventory bound per kernel: past this only the count grows
 _GEOMETRIES_MAX = 512
 
-_lock = threading.Lock()
+_lock = lockdep.Lock()
 _ring: deque = deque(maxlen=_RING_MAX)
 _inventory: dict[str, dict] = {}   # kernel -> {compiles, geometries: {},
 #                                    geometry_overflow, repeats}
@@ -449,7 +450,7 @@ class DeviceLedger:
     register() answers None disarmed."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         self._next = 1
         self._entries: dict[int, dict] = {}
         self._pending_drops: deque = deque()
@@ -584,7 +585,7 @@ def reset_probe() -> None:
         _probed.clear()
 
 
-_caps_lock = threading.Lock()
+_caps_lock = lockdep.Lock()
 _caps: dict | None = None
 
 
@@ -631,7 +632,7 @@ def cuda_kernels_supported() -> tuple[bool, str]:
 
 # -- on-demand profiler capture ----------------------------------------------
 
-_profile_lock = threading.Lock()
+_profile_lock = lockdep.Lock()
 _profile = {"active": False, "dir": None, "started_uptime_s": None,
             "seconds": None, "last": None}
 

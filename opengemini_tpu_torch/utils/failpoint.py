@@ -46,7 +46,9 @@ import os
 import threading
 import time
 
-_lock = threading.Lock()
+from opengemini_tpu_torch.utils import lockdep
+
+_lock = lockdep.Lock()
 _active: dict[str, object] = {}
 _hits: dict[str, int] = {}
 _events: dict[str, threading.Event] = {}
@@ -158,7 +160,7 @@ def _barrier_wait(site: str, parties: int) -> None:
     with _lock:
         st = _barriers.get(site)
         if st is None:
-            st = _barriers[site] = [0, threading.Condition(_lock), False]
+            st = _barriers[site] = [0, lockdep.Condition(_lock), False]
         st[0] += 1
         cond = st[1]
         if st[0] % parties == 0:
@@ -207,7 +209,8 @@ def inject(name: str) -> None:
         if action.startswith("sleep:"):
             # a sleep: action exists to WIDEN race windows, deliberately
             # also under hot locks
-            time.sleep(float(action.split(":", 1)[1]))
+            with lockdep.allow_blocking("failpoint sleep action"):
+                time.sleep(float(action.split(":", 1)[1]))
             return
         if action.startswith("wait:"):
             ev = _event(action.split(":", 1)[1])

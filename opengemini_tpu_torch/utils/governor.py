@@ -1,12 +1,12 @@
 """Process-wide resource governor: the unified memory ledger, query
 admission control, write-path backpressure and background throttling.
 
-The port of ``opengemini_tpu/utils/governor.py``, whole, with plain
-``threading`` locks and conditions (the reference's lock-order checker
-is ROADMAP A9's). Every piece is pass-through while
-``OGT_MEM_BUDGET_MB`` is unset (or ``budget_mb=0`` through
-/debug/ctrl?mod=governor): each hook checks ``enabled()`` first and
-does nothing, so every answer is bit-identical to an ungoverned engine.
+The port of ``opengemini_tpu/utils/governor.py``, whole, its locks and
+conditions ``utils/lockdep``'s as the reference's. Every piece is
+pass-through while ``OGT_MEM_BUDGET_MB`` is unset (or ``budget_mb=0``
+through /debug/ctrl?mod=governor): each hook checks ``enabled()`` first
+and does nothing, so every answer is bit-identical to an ungoverned
+engine.
 
   Unified memory ledger
       Byte providers registered under one ceiling: the engines'
@@ -56,6 +56,7 @@ import threading
 import time
 from collections import deque
 
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.failpoint import inject as _fp
 
 _INTERACTIVE = "interactive"
@@ -142,8 +143,8 @@ class _BgToken:
 
 class ResourceGovernor:
     def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._cond = threading.Condition(self._lock)
+        self._lock = lockdep.Lock()
+        self._cond = lockdep.Condition(self._lock)
         self._local = threading.local()
         # -- config (runtime-tunable via configure()) --
         self._budget = _env_int("OGT_MEM_BUDGET_MB", 0) << 20
@@ -751,7 +752,7 @@ class InflightGauge:
     __slots__ = ("_lock", "_total")
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         self._total = 0
 
     def note(self, delta: int) -> None:

@@ -20,6 +20,8 @@ import re
 import threading
 import time
 
+from opengemini_tpu_torch.utils import lockdep
+
 # redact password literals before storing query text (the reference
 # renders [REDACTED] in SHOW QUERIES/logs for these statements)
 _PASSWORD_RE = re.compile(
@@ -39,7 +41,7 @@ class QueryKilled(Exception):
 
 class QueryTracker:
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         self._next = 1
         self._running: dict[int, dict] = {}
         self._killed: set[int] = set()

@@ -20,6 +20,8 @@ import threading
 import time
 from collections import deque
 
+from opengemini_tpu_torch.utils import lockdep
+
 
 def _env_float(name: str):
     v = os.environ.get(name, "")
@@ -33,7 +35,7 @@ def _env_float(name: str):
 
 class SlowLog:
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         self.threshold_ms = _env_float("OGT_SLOW_QUERY_MS")  # None = off
         try:
             self.max_records = max(

@@ -36,14 +36,15 @@ from __future__ import annotations
 
 import os
 import re
-import threading
 import time
 from collections import defaultdict
+
+from opengemini_tpu_torch.utils import lockdep
 
 
 class Statistics:
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         self._counters: dict[str, dict[str, int]] = defaultdict(
             lambda: defaultdict(int))
         self._providers: dict[str, list] = defaultdict(list)
@@ -127,6 +128,10 @@ def _governor_gauges() -> dict:
 
 GLOBAL.register_provider("governor", _governor_gauges)
 
+# the lock-order validator's findings (OGT_LOCKDEP=1 only)
+if lockdep.enabled():
+    GLOBAL.register_provider("lockdep", lockdep.stats_snapshot)
+
 
 # -- latency histograms ------------------------------------------------------
 # Fixed log2 buckets over nanoseconds: bounds 2^10 ns (~1us) .. 2^35 ns
@@ -170,7 +175,7 @@ class Histogram:
         self.name = name
         self.labels = labels  # sorted ((k, v), ...): the family identity
         self.unit = unit
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock()
         self.counts = [0] * (_NBOUNDS + 1)  # [+Inf] last
         self.count = 0
         self.sum_ns = 0
@@ -232,7 +237,7 @@ def snapshot_percentile(hsnap: dict, q: float) -> float:
     return bounds[-1] * 2
 
 
-_HIST_LOCK = threading.Lock()
+_HIST_LOCK = lockdep.Lock()
 _HISTOGRAMS: dict[tuple, Histogram] = {}
 
 

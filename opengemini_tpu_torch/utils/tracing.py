@@ -33,6 +33,7 @@ import threading
 import time
 from contextlib import contextmanager, nullcontext
 
+from opengemini_tpu_torch.utils import lockdep
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 from opengemini_tpu_torch.utils.stats import observe_ns as _observe_ns
 
@@ -42,7 +43,7 @@ _TRACE_ON = os.environ.get("OGT_TRACE", "") in ("1", "true")
 # finished traces kept for lookup by query id (bounded; newest wins)
 _RECENT_MAX = 256
 _RECENT: dict[object, dict] = {}
-_RECENT_LOCK = threading.Lock()
+_RECENT_LOCK = lockdep.Lock()
 
 _ACTIVE = threading.local()
 

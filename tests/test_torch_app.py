@@ -15,6 +15,7 @@ port never does.
 
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -211,10 +212,6 @@ def test_ha_policy_replication_attaches_data_replication(tmp_path):
 
 
 @pytest.mark.parametrize("section,key,value,item", [
-    ("flight", "bind-address", "127.0.0.1:0", "A9"),
-    ("services", "obs-dir", "/nonexistent/obs", "A9"),
-    ("services", "obs-url", "http://127.0.0.1:1/b", "A9"),
-    ("data", "enable-tag-array", True, "A9"),
     ("device", "coordinator-address", "127.0.0.1:1234", "A8.4"),
 ])
 def test_features_not_ported_yet_raise(tmp_path, section, key, value, item):
@@ -327,3 +324,133 @@ def test_main_without_cuda_refuses_to_start(tmp_path):
     assert "'cuda'" in r.stderr and "-device cpu" in r.stderr
     assert "listening" not in r.stdout
     assert not (tmp_path / "data").exists()
+
+
+BASE_NS = 1_600_000_000 * 10**9  # old enough for any age threshold
+
+
+def _edge_case_flight(port, extra):
+    fl = pytest.importorskip("pyarrow.flight")
+    pa = pytest.importorskip("pyarrow")
+    assert _post(port, "/query", b"", q="CREATE DATABASE db")[0] == 200
+    client = fl.connect(f"grpc://127.0.0.1:{extra['flight']}")
+    try:
+        for _ in range(100):
+            try:
+                list(client.do_action(fl.Action("ping", b"")))
+                break
+            except fl.FlightError:
+                time.sleep(0.05)
+        table = pa.table({"time": pa.array([BASE_NS, BASE_NS + 1], pa.int64()),
+                          "host": pa.array(["a", "b"]),
+                          "v": pa.array([1.5, 2.5])})
+        desc = fl.FlightDescriptor.for_command(json.dumps(
+            {"db": "db", "measurement": "m", "tag_columns": ["host"]}
+        ).encode())
+        writer, _ = client.do_put(desc, table.schema)
+        writer.write_table(table)
+        writer.close()
+        got = client.do_get(fl.Ticket(json.dumps(
+            {"db": "db", "q": "SELECT sum(v) FROM m"}).encode())).read_all()
+        assert got.column("sum").to_pylist() == [4.0]
+    finally:
+        client.close()
+
+
+def _edge_case_obs(port, extra):
+    assert _post(port, "/query", b"", q="CREATE DATABASE db")[0] == 200
+    lines = "\n".join(f"m,host=h{i % 2} v={i} {BASE_NS + i * 86400 * 10**9}"
+                      for i in range(4)).encode()
+    assert _post(port, "/write", lines, db="db")[0] == 204
+    assert _post(port, "/debug/ctrl", b"", mod="flush")[0] == 200
+    deadline = time.monotonic() + 30
+    while not extra["objects"]():
+        assert time.monotonic() < deadline, "nothing was offloaded"
+        time.sleep(0.1)
+
+
+def _edge_case_hydrate(port, extra):
+    """A query over the offloaded range hydrates it (the service does
+    not tick in this run: its interval is an hour)."""
+    status, body = _get(port, "/query", db="db",
+                        q="SELECT count(v), sum(v) FROM m")
+    assert status == 200
+    row = json.loads(body)["results"][0]["series"][0]["values"][0]
+    assert row[1:] == [4, 6]
+
+
+def _edge_case_tag_array(port, extra):
+    assert _post(port, "/query", b"", q="CREATE DATABASE db")[0] == 200
+    assert _post(port, "/write", f"cpu,host=[a,b,c] v=2 {BASE_NS}".encode(),
+                 db="db")[0] == 204
+    status, body = _get(port, "/query", db="db",
+                        q="SELECT count(v) FROM cpu GROUP BY host")
+    series = json.loads(body)["results"][0]["series"]
+    assert sorted(s["tags"]["host"] for s in series) == ["a", "b", "c"]
+
+
+def _serve_main(tmp_path, text, run, extra):
+    """Start ``main`` on the config `text`, call run(port, extra), stop
+    it with SIGTERM; it must exit 0."""
+    port = int(re.search(r'bind-address = "127.0.0.1:(\d+)"', text)[1])
+    cfg = tmp_path / "x.toml"
+    cfg.write_text(text)
+    pidfile = tmp_path / "pid"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "opengemini_tpu_torch.server.app",
+         "-config", str(cfg), "-device", "cpu", "-pidfile", str(pidfile)],
+        cwd=str(tmp_path), env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        _wait_listening(proc, port, pidfile)
+        run(port, extra)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, out
+    assert "shutting down" in out
+
+
+@pytest.mark.parametrize("case", ["flight", "obs-dir", "obs-url",
+                                  "enable-tag-array"])
+def test_a9_settings_start_with_the_main_and_serve(tmp_path, case):
+    """The settings the main refused before the edges were ported: each
+    starts with ``main`` and serves what it configures. The object
+    store: one run's service offloads the groups, the next run's query
+    hydrates them."""
+    from opengemini_tpu_torch.storage.objstore import MiniBucketServer
+
+    text = TOML.format(dir=tmp_path / "data", port=_free_port())
+    extra, bucket = {}, None
+    try:
+        if case == "flight":
+            extra["flight"] = _free_port()
+            text += ('[flight]\nbind-address = '
+                     f'"127.0.0.1:{extra["flight"]}"\n')
+            _serve_main(tmp_path, text, _edge_case_flight, extra)
+        elif case in ("obs-dir", "obs-url"):
+            if case == "obs-dir":
+                obs = tmp_path / "bucket"
+                line = f'obs-dir = "{obs}"'
+                extra["objects"] = lambda: obs.exists() and any(
+                    obs.rglob("*.tsf"))
+            else:
+                bucket = MiniBucketServer().start()
+                line = f'obs-url = "{bucket.url}"'
+                extra["objects"] = lambda: any(
+                    k.endswith(".tsf") for k in list(bucket.objects))
+            for interval, run in (("0.2", _edge_case_obs),
+                                  ("3600", _edge_case_hydrate)):
+                _serve_main(tmp_path, text.replace(
+                    "[services]\n", f"[services]\n{line}\nobs-age-days = 1"
+                    f"\nobs-interval-s = {interval}\n"), run, extra)
+        else:
+            _serve_main(tmp_path, text.replace(
+                "[data]\n", "[data]\nenable-tag-array = true\n"),
+                _edge_case_tag_array, extra)
+    finally:
+        if bucket is not None:
+            bucket.stop()

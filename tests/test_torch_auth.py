@@ -5,7 +5,8 @@ against the JAX package, on the CPU.
 The auth cases of the reference's tests/test_auth_delete.py and its
 union case of tests/test_join_union.py run on the port
 (test_torch_raft.mirror_reference; the DELETE cases are
-tests/test_torch_delete.py's, and /api/v1/consume is ROADMAP A9's).
+tests/test_torch_delete.py's, and /api/v1/consume's are
+tests/test_torch_edges.py's).
 Besides: a users.json written by either package authenticates in the
 other, PBKDF2 with the same salt gives the same hash, and both
 ``HttpService``s answer the same status for each credential and route.

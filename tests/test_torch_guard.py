@@ -38,7 +38,7 @@ def test_every_module_is_found():
                  *TENTH_SLICE_MODULES, *ELEVENTH_SLICE_MODULES,
                  *TWELFTH_SLICE_MODULES, *THIRTEENTH_SLICE_MODULES,
                  *FOURTEENTH_SLICE_MODULES, *FIFTEENTH_SLICE_MODULES,
-                 *SEVENTEENTH_SLICE_MODULES):
+                 *SEVENTEENTH_SLICE_MODULES, *EIGHTEENTH_SLICE_MODULES):
         assert must in mods
 
 
@@ -273,6 +273,22 @@ SEVENTEENTH_SLICE_MODULES = [
     "opengemini_tpu_torch.utils.devobs",
 ]
 BLOCKED_IMPORT_MODULES += SEVENTEENTH_SLICE_MODULES
+# the edges: log mode, the object-store tier, Arrow Flight, the tools and
+# the lock-order validator
+EIGHTEENTH_SLICE_MODULES = [
+    "opengemini_tpu_torch.server.flight",
+    "opengemini_tpu_torch.server.logstore",
+    "opengemini_tpu_torch.sql.logparser",
+    "opengemini_tpu_torch.storage.objstore",
+    "opengemini_tpu_torch.services.obstier",
+    "opengemini_tpu_torch.utils.lockdep",
+    "opengemini_tpu_torch.tools",
+    "opengemini_tpu_torch.tools.backup",
+    "opengemini_tpu_torch.tools.export",
+    "opengemini_tpu_torch.tools.mcp_server",
+    "opengemini_tpu_torch.tools.monitor_agent",
+]
+BLOCKED_IMPORT_MODULES += EIGHTEENTH_SLICE_MODULES
 # the script that times a query's request outside its stages
 BLOCKED_IMPORT_MODULES += ["stage_timeline"]
 

@@ -22,6 +22,7 @@ from opengemini_tpu.ops import prom as jprom
 from opengemini_tpu.parallel import distributed as jdist
 from opengemini_tpu.parallel import runtime as jrt
 from opengemini_tpu.promql.engine import PromEngine as JPromEngine
+from opengemini_tpu.query import offload as joffload
 from opengemini_tpu.query.executor import Executor as JExecutor
 from opengemini_tpu.storage.engine import Engine as JEngine
 from opengemini_tpu_torch.index import labels as tlabels
@@ -34,6 +35,7 @@ from opengemini_tpu_torch.ops.aggregates import get as agg_get
 from opengemini_tpu_torch.parallel import distributed as tdist
 from opengemini_tpu_torch.parallel import runtime as trt
 from opengemini_tpu_torch.promql import engine as tpengine
+from opengemini_tpu_torch.query import offload as toffload
 from opengemini_tpu_torch.query.executor import Executor as TExecutor
 from opengemini_tpu_torch.storage import colcache as tcolcache
 from opengemini_tpu_torch.storage import encoding as tenc
@@ -61,11 +63,17 @@ def _counter(module, name):
 
 @pytest.fixture(autouse=True)
 def _no_leaked_mesh():
-    """The mesh is process-global in both packages; other files run in
-    the same worker."""
+    """The mesh and the offload planner are process-global in both
+    packages; other files run in the same worker. The planner keeps the
+    walls this file's decodes observed per grid shape: left behind, the
+    JAX planner routes a later test's grid of the same shape to the host
+    (tests/test_multichip.py's TestMeshShardedDecode then sees no fused
+    decode)."""
     yield
     trt.set_mesh(None)
     jrt.set_mesh(None)
+    joffload.reset()
+    toffload.reset()
 
 
 def _same(a, b, what=""):
