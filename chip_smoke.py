@@ -518,6 +518,23 @@ Phases, in order; any failure ends the run with a nonzero exit:
    compacted file's packed chunks hold each series' whole span), the
    page against the oracle. Lockdep stays unarmed. `[edges]` lines print
    each step's wall.
+19. The mesh across processes and cards (ROADMAP A8.4), with a budget
+   of its own (MESHX_PHASE_S, 45 s), last, on phase 7's compacted root
+   (`--phases 5,6,7,17,19`; a copy of the root for each rank after the
+   first). One process of the port's ts-server main per visible card
+   (CUDA_VISIBLE_DEVICES), each with the [device] keys
+   coordinator-address, num-processes and process-id: one NCCL group,
+   one global mesh, a shard a card. Each rank disarms its planner and
+   forces the device decode; C1, C3 and B1 go to every rank at once, one
+   query after the other, and every rank's answer must equal the oracle
+   and phase 17's one-process answer. `[meshx]` lines print the world
+   size, per rank and query the launches by kernel and the collectives'
+   calls, bytes sent and wall (the rank's /debug/device mesh section),
+   and per rank its local shards; every rank must issue as many
+   collectives, launch kernel 3 in C1 and C3 and kernels 1 and 2 in B1,
+   and C1 kernel 5 on some rank. On one card it is a world of one
+   process: no byte crosses a card, and the group's init, the global
+   mesh and every collective call still run.
 
 The incremental result cache (OGT_RESULT_CACHE) is off in phases 3-9,
 12, 13, 14, 15 and 16, so their repeated runs measure every execution;
@@ -528,12 +545,12 @@ gate's, so their launches per run are exact); phase 12 arms it. Phase 5
 arms devobs for its transfer histogram (the decode's H2D bytes), and
 phase 12 for the planner's walls. Launch counters start at 0 before
 each main path (phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17,
-18)
+18; phase 19's ranks count from their start)
 and are read after it; the {"kernels": [...]} line sums them, with
 launches_per_phase, launches_per_query and launches_parity_on_card.
 `--phases` runs only the named phases after 2 (for a short call that
-checks one path; 15 needs 13, 17 and 18 need 5, 6 and 7); the default
-runs all.
+checks one path; 15 needs 13, 17, 18 and 19 need 5, 6 and 7); the
+default runs all.
 
 Cuts made (listed in PERF.md): for phases 13-15, to keep the script
 within 1050 s, phase 3's span 12 h -> 6 h -> 4 h, phase 13's span 6 h
@@ -1360,6 +1377,46 @@ def probe_host_stages(seed: int, calls: int = 1000, rounds: int = 5) -> dict:
     return got
 
 
+def probe_against_floor(seed: int, reps: int = 50,
+                        back_to_back: int = 200) -> dict:
+    """Kernel 6 at (8, 8) beside the launch floor: the ms of a lone call
+    (time_ms, median of `reps`) and of a call back to back (device_ms,
+    `back_to_back` calls) of its wrapper (cuda_segment.probe_count), of
+    its ctypes entry point alone (ogt_probe_count), of the empty kernel
+    its library holds (ogt_probe_empty, through the same ctypes
+    binding: what any launch costs) and of torch.count_nonzero(m, dim=1).
+    The entry point's counts are checked against the plain version; these
+    launches count nowhere."""
+    import torch
+
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+
+    (m,) = decode_inputs("probe_count", (8, 8), seed)
+    lib, fn = cs._entry("probe_count")
+    rows, cols = m.shape
+    out = torch.full((rows, 1), -1, dtype=torch.int32, device=m.device)
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    calls = {
+        "wrapper": lambda: cs.probe_count(m),
+        "entry": lambda: fn(m.data_ptr(), rows, cols, out.data_ptr(),
+                            stream),
+        "empty": lambda: lib.ogt_probe_empty(stream),
+        "count_nonzero": lambda: torch.count_nonzero(m, dim=1),
+    }
+    check(calls["entry"]() == 0 and calls["empty"]() == 0,
+          "probe_count's entry points did not launch")
+    torch.cuda.synchronize()
+    check(torch.equal(out, cs.probe_count_plain(m)),
+          "ogt_probe_count differs from the plain version")
+    got = {k: {"ms": time_ms(f, reps), "device_ms": device_ms(f, back_to_back)}
+           for k, f in calls.items()}
+    log("[kernel] probe_count(8, 8) against the launch floor, ms lone / "
+        "back to back: " + ", ".join(
+            f"{k} {v['ms']:.4f} / {v['device_ms']:.4f}"
+            for k, v in got.items()))
+    return got
+
+
 def phase_kernels(dev_name: str, seed: int) -> dict:
     results = {}
     for i, (name, shapes) in enumerate(CHECK_SHAPES.items()):
@@ -1392,6 +1449,7 @@ def phase_kernels(dev_name: str, seed: int) -> dict:
             f"bound_ms={rec['bound_ms']:.4f} (masked-in values only)")
     results["one_buffer"] = one_buffer_against_separate(seed)
     results["probe_host"] = probe_host_stages(seed)
+    results["probe_floor"] = probe_against_floor(seed)
     for shape in CHECK_SHAPES["probe_count"]:  # an all-zero mask counts 0
         decode_kernel_case("probe_count", shape, seed, dev_name, timed=False,
                            zero_mask=True)
@@ -3029,7 +3087,8 @@ SCRIPT_LIMIT_S = 1200.0
 PROM_PHASE_S = 100.0
 # the reserve after phase 18 (the later phases' kernel checks and the
 # output), and the budgets of phases 18, 17, 16, 15 and 14 before it
-AFTER_PHASE18_S = 60.0
+AFTER_PHASE19_S = 60.0
+AFTER_PHASE18_S = AFTER_PHASE19_S + 45.0  # phase 19's MESHX_PHASE_S
 AFTER_PHASE17_S = AFTER_PHASE18_S + 45.0  # phase 18's EDGES_PHASE_S
 AFTER_PHASE16_S = AFTER_PHASE17_S + 60.0  # phase 17's MESH_PHASE_S
 AFTER_PHASE15_S = AFTER_PHASE16_S + 100.0  # phase 16's CLUSTER_PHASE_S
@@ -8153,7 +8212,7 @@ def verify_mesh(qn: str, res: dict, o: dict) -> None:
                 o["n_t"], extra=EXTRA_VALUE if qn == "C1" else None)
 
 
-def mesh_same(qn: str, a: dict, b: dict) -> None:
+def mesh_same(qn: str, a: dict, b: dict, what: str | None = None) -> None:
     """Equal answers: exact, but means within MEAN_RTOL."""
     import math
 
@@ -8166,8 +8225,8 @@ def mesh_same(qn: str, a: dict, b: dict) -> None:
             return len(x) == len(y) and all(map(same, x, y))
         return x == y
 
-    check(same(a, b), f"{qn}: the answer at {MESH_SHARDS} shards differs "
-          "from one device's")
+    check(same(a, b), what or f"{qn}: the answer at {MESH_SHARDS} shards "
+          "differs from one device's")
 
 
 class MeshProbe:
@@ -8331,6 +8390,12 @@ def phase_mesh(cold: dict, prom: dict | None, deadline: float) -> dict:
               f"{svc.engine.device}")
         svc.start()
         disarm_planner(svc.port)
+        if mesh1.size > 1:
+            # a mesh of several cards: each card's shard plan meets the
+            # decode's cost gate alone, as step (b)'s shards do
+            status, _ = http(svc.port, "POST", "/debug/ctrl",
+                             {"mod": "offload", "force": "device"})
+            check(status == 200, f"force=device: {status}")
         s0 = mesh_counters()
         for qn in queries:
             answers[qn], e = run(qn, "1 shard", svc.port, 1)
@@ -8372,7 +8437,8 @@ def phase_mesh(cold: dict, prom: dict | None, deadline: float) -> dict:
                 if qn == "B1":
                     for k in ("bucket_stats_basic",
                               "bucket_stats_selectors"):
-                        check(got[k] == MESH_SHARDS * base[qn][k],
+                        check(got[k] * mesh1.size
+                              == MESH_SHARDS * base[qn][k],
                               f"B1 at {MESH_SHARDS} shards: {k} "
                               f"{got[k]}, one shard {base[qn][k]}")
                     continue
@@ -8491,7 +8557,8 @@ def phase_mesh(cold: dict, prom: dict | None, deadline: float) -> dict:
             f"device memory peak {peak / 2**20:.1f} MiB; card {smi_line()}")
         return {"launches": launches, "per_query": per_query,
                 "shapes": rec.seen, "p50_ms": p50, "reloads": reloads,
-                "prom_ms": prom_ms, "wall_s": wall_s, "peak_bytes": peak}
+                "prom_ms": prom_ms, "wall_s": wall_s, "peak_bytes": peak,
+                "answers": answers}
     finally:
         probe.__exit__()
         rec.__exit__()
@@ -9117,6 +9184,266 @@ def phase_edges(cold: dict, seed: int, deadline: float,
             shutil.rmtree(d, ignore_errors=True)
 
 
+# -- phase 19: the mesh across processes and cards ---------------------------
+
+# phase 19's budget (s): the ranks' start (the process group's init, the
+# engine's open on the root), C1, C3 and B1 on every rank at once, and
+# the ranks' stop
+MESHX_PHASE_S = 45.0
+# the longest a rank may take from its start to listening
+MESHX_START_S = 40.0
+# the process group's timeout (OGT_DIST_TIMEOUT_S): a rank out of step
+# raises after it
+MESHX_DIST_TIMEOUT_S = 60
+# the ranks' device and number: None for one rank per visible card over
+# NCCL (a CPU rehearsal sets "cpu" and a number: gloo, one shard a rank)
+MESHX_DEVICE = None
+MESHX_WORLD = None
+# a rank's ts-server config: the [device] keys of the reference
+MESHX_TOML = """[data]
+dir = "{root}"
+[http]
+bind-address = "127.0.0.1:{port}"
+[services]
+store-monitor = false
+[device]
+mesh-axes = ["shard"]
+coordinator-address = "127.0.0.1:{coord}"
+num-processes = {world}
+process-id = {rank}
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_mesh(port: int) -> dict:
+    """A rank's /debug/device mesh section: its place in the world, its
+    shards, its collectives and its kernels' launches."""
+    status, doc = http(port, "GET", "/debug/device", {})
+    check(status == 200, f"/debug/device on port {port}: {status}")
+    return doc["mesh"]
+
+
+def start_ranks(roots: list, base: str, deadline: float) -> list:
+    """One process of the port's ts-server main per root, rank r on the
+    r-th visible card (CUDA_VISIBLE_DEVICES), each with the [device]
+    keys; returns [(process, port, log path)] once every rank listens."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    world = len(roots)
+    coord = free_port()
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = (visible.split(",") if visible
+             else [str(i) for i in range(world)])
+    env = dict(os.environ, OGT_RESULT_CACHE="0", OGT_DEVICE_PROFILE="1",
+               OGT_DIST_TIMEOUT_S=str(MESHX_DIST_TIMEOUT_S),
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    ranks = []
+    for r, root in enumerate(roots):
+        port = free_port()
+        toml = os.path.join(base, f"rank{r}.toml")
+        with open(toml, "w", encoding="utf-8") as f:
+            f.write(MESHX_TOML.format(root=root, port=port, coord=coord,
+                                      world=world, rank=r))
+        cmd = [sys.executable, "-m", "opengemini_tpu_torch.server.app",
+               "-config", toml]
+        rank_env = dict(env)
+        if MESHX_DEVICE is None:
+            rank_env["CUDA_VISIBLE_DEVICES"] = cards[r]
+        else:
+            cmd += ["-device", MESHX_DEVICE]
+        path = os.path.join(base, f"rank{r}.log")
+        with open(path, "w", encoding="utf-8") as log_f:
+            proc = subprocess.Popen(cmd, cwd=repo, env=rank_env,
+                                    stdout=log_f, stderr=subprocess.STDOUT)
+        ranks.append((proc, port, path))
+    pending = set(range(world))
+    while pending:
+        for r in sorted(pending):
+            proc, _port, path = ranks[r]
+            with open(path, encoding="utf-8", errors="replace") as f:
+                text = f.read()
+            if "listening on" in text:
+                pending.discard(r)
+            elif proc.poll() is not None or time.perf_counter() > deadline:
+                check(False, f"rank {r} of {world} did not start "
+                      f"(exit {proc.poll()}): ...{text[-2000:]}")
+        time.sleep(0.2)
+    return ranks
+
+
+def stop_ranks(ranks: list) -> None:
+    """SIGTERM every rank (its main stops its server and closes its
+    engine), then kill what is left after 20 s."""
+    for proc, _port, _path in ranks:
+        if proc.poll() is None:
+            proc.terminate()
+    end = time.perf_counter() + 20
+    for proc, port, _path in ranks:
+        conn = _CONNS.pop(port, None)
+        if conn is not None:
+            conn.close()
+        try:
+            proc.wait(timeout=max(0.1, end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def phase_meshx(cold: dict, meshed: dict, deadline: float) -> dict:
+    """The mesh across processes and cards (ROADMAP A8.4) through the
+    port's ts-server main, last, on phase 7's compacted root (a copy per
+    rank after the first). One process per visible card, each started as
+    `python -m opengemini_tpu_torch.server.app -config rank<r>.toml` with
+    CUDA_VISIBLE_DEVICES set to its card and the [device] keys
+    coordinator-address, num-processes and process-id, so that the ranks
+    join one NCCL process group and lay one global mesh, one shard a
+    card. Every rank disarms its planner and forces the device decode
+    (each rank's shard plan meets the cost gate alone, as phase 17's
+    shards do). C1, C3 and B1 go to every rank at once, one query after
+    the other (multi-controller SPMD: every rank runs the same mesh
+    programs in the same order); every rank's answer must equal the
+    oracle and phase 17's one-process answer. Each rank's /debug/device
+    mesh section gives its place (process_id, num_processes, backend,
+    local_shards), its kernels' launches (its counts start at 0 with the
+    process: its startup probe and these queries) and its collectives'
+    calls, bytes and wall, read around each query. On one card that is a
+    world of one process over NCCL: no byte crosses a card, and init,
+    the global mesh and every collective call still run. The kernels'
+    shapes are phase 17's (one shard a card: its step (a) shapes at one
+    rank, its step (b) shapes at four)."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    t_phase = time.perf_counter()
+    o = cold["oracle"]
+    queries = mesh_queries(cold)
+    world = MESHX_WORLD or torch.cuda.device_count()
+    backend = "gloo" if MESHX_DEVICE == "cpu" else "nccl"
+    log(f"[meshx] world size {world} ({backend}, one process a "
+        + ("card" if MESHX_DEVICE is None else "CPU shard") + ")"
+        + (": one process on the one card, so no byte crosses a card; "
+           "the process group's init, the global mesh and every "
+           "collective call still run" if world == 1 else ""))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(repo, "build", "meshx")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    roots = [cold["root"]] + [os.path.join(base, f"root{r}")
+                              for r in range(1, world)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max(world - 1, 1)) as pool:
+        list(pool.map(lambda d: shutil.copytree(cold["root"], d),
+                      roots[1:]))
+    copy_s = time.perf_counter() - t0
+    ranks = []
+    per_query: dict = {}
+    walls: dict = {}
+    try:
+        ranks = start_ranks(roots, base,
+                            time.perf_counter() + MESHX_START_S)
+        start_s = time.perf_counter() - t0 - copy_s
+        ports = [port for _p, port, _l in ranks]
+        for r, port in enumerate(ports):
+            disarm_planner(port)
+            status, _ = http(port, "POST", "/debug/ctrl",
+                             {"mod": "offload", "force": "device"})
+            check(status == 200, f"rank {r}: force=device: {status}")
+            doc = rank_mesh(port)
+            check(doc.get("process_id") == r
+                  and doc.get("num_processes") == world
+                  and doc.get("backend") == backend
+                  and doc.get("size") == world
+                  and doc.get("local_shards") == [r],
+                  f"rank {r}: the mesh section {doc}")
+        log(f"[meshx] {world} rank(s) listening in {start_s:.1f} s (root "
+            f"copies {copy_s:.1f} s); ports {ports}")
+        first = [rank_mesh(p) for p in ports]
+        with ThreadPoolExecutor(world) as pool:
+            for qn, q in queries.items():
+                before = [rank_mesh(p) for p in ports]
+                t1 = time.perf_counter()
+                got = list(pool.map(lambda p: query_timed(p, q), ports))
+                walls[qn] = (time.perf_counter() - t1) * 1e3
+                after = [rank_mesh(p) for p in ports]
+                ranks_q = []
+                for r, (res, _req, ms) in enumerate(got):
+                    verify_mesh(qn, res, o)
+                    if meshed is not None:
+                        mesh_same(qn, res, meshed["answers"][qn],
+                                  f"{qn} on rank {r} of {world} differs "
+                                  "from phase 17's one-process answer")
+                    a, b = after[r], before[r]
+                    launched = {k: a["launches"][k] - b["launches"][k]
+                                for k in a["launches"]}
+                    coll = {k: a["collectives"][k] - b["collectives"][k]
+                            for k in a["collectives"]}
+                    check(coll["calls"] > 0,
+                          f"{qn} on rank {r}: no collective ran")
+                    ranks_q.append({"ms": ms, "launches": launched,
+                                    "collectives": coll})
+                    log(f"[meshx] {qn} rank {r}/{world} ok {ms:.1f} ms; "
+                        f"launches {json.dumps({k: v for k, v in launched.items() if v})}; "
+                        f"collectives {coll['calls']} calls, "
+                        f"{coll['bytes']} B, {coll['wall_ms']:.3f} ms")
+                calls = {rq["collectives"]["calls"] for rq in ranks_q}
+                check(len(calls) == 1, f"{qn}: the ranks issued "
+                      f"{[rq['collectives']['calls'] for rq in ranks_q]} "
+                      "collectives")
+                total = {k: sum(rq["launches"][k] for rq in ranks_q)
+                         for k in ranks_q[0]["launches"]}
+                per_query[qn] = {"launches": total, "ranks": ranks_q,
+                                 "wall_ms": walls[qn]}
+        last = [rank_mesh(p) for p in ports]
+        for r in range(world):
+            a, b = last[r], first[r]
+            ql = {k: a["launches"][k] - b["launches"][k]
+                  for k in a["launches"]}
+            coll = {k: a["collectives"][k] - b["collectives"][k]
+                    for k in a["collectives"]}
+            log(f"[meshx] rank {r}/{world}: local shards "
+                f"{a['local_shards']} of {a['size']}; launches since its "
+                f"start {json.dumps(a['launches'])} (C1, C3, B1: "
+                f"{json.dumps(ql)}); collectives {coll['calls']} calls, "
+                f"{coll['bytes']} B sent, {coll['wall_ms']:.3f} ms")
+            # kernel 6 probes the card at the process's first device
+            # decode: once on a rank whose shard decodes C1's rows
+            check(ql["grid_window_agg"] >= 2
+                  and ql["bucket_stats_basic"] >= 1
+                  and ql["bucket_stats_selectors"] >= 1
+                  and a["launches"]["probe_count"]
+                  == (1 if per_query["C1"]["ranks"][r]["launches"][
+                      "unpack_bits"] else a["launches"]["probe_count"])
+                  and a["launches"]["probe_count"] <= 1,
+                  f"rank {r}: launches {a['launches']}, in the queries "
+                  f"{ql}")
+        c1 = per_query["C1"]["launches"]["unpack_bits"]
+        check(c1 >= 1, f"C1 launched kernel 5 {c1} times over the ranks")
+        launches = {k: sum(last[r]["launches"][k] for r in range(world))
+                    for k in last[0]["launches"]}
+    finally:
+        stop_ranks(ranks)
+        for r in range(1, world):
+            shutil.rmtree(os.path.join(base, f"root{r}"), ignore_errors=True)
+    wall_s = time.perf_counter() - t_phase
+    log(f"[meshx] walls ms (every rank at once) {json.dumps(walls)}")
+    log(f"[meshx] phase 19 took {wall_s:.1f} s (budget "
+        f"{MESHX_PHASE_S:.0f} s, {deadline - time.perf_counter():.0f} s "
+        f"left of the script's); launches over the ranks "
+        f"{json.dumps(launches)}; card {smi_line()}")
+    return {"launches": launches, "per_query": per_query, "world": world,
+            "walls_ms": walls, "wall_s": wall_s, "start_s": start_s,
+            "copy_s": copy_s}
+
+
 def stop_app(svc) -> None:
     """Stop a server app.build() made (its services never started)."""
     svc.subscriber.stop()
@@ -9187,13 +9514,13 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--phases", default="all",
                     help="the phases after 2 to run, comma separated "
-                         "(3-18; 6-10 and 12 need 5, 15 needs 13, 17 and "
-                         "18 need 5, 6 and 7), for a short call that "
+                         "(3-19; 6-10 and 12 need 5, 15 needs 13, 17, 18 "
+                         "and 19 need 5, 6 and 7), for a short call that "
                          "checks one path; default all")
     args = ap.parse_args()
     if args.hours < 3:
         ap.error("--hours may not be cut below 3")
-    wanted = (set(range(3, 19)) if args.phases == "all"
+    wanted = (set(range(3, 20)) if args.phases == "all"
               else {int(x) for x in args.phases.split(",")})
     if wanted & {6, 7, 8, 9, 10, 12} and 5 not in wanted:
         ap.error("phases 6-10 and 12 run on phase 5's root")
@@ -9204,6 +9531,8 @@ def main() -> int:
                  "6's row)")
     if 18 in wanted and not {5, 6, 7} <= wanted:
         ap.error("phase 18 runs on phase 7's compacted root")
+    if 19 in wanted and not {5, 6, 7} <= wanted:
+        ap.error("phase 19 runs on phase 7's compacted root")
 
     import torch
 
@@ -9342,6 +9671,12 @@ def main() -> int:
         ran.append(("18", edged, " edges"))
         later.append(edged)
         lap("phase 18")
+    if 19 in wanted:
+        # its ranks' kernels run at phase 17's shard shapes, in processes
+        # of their own: their shapes are checked with phase 17's
+        ran.append(("19", phase_meshx(cold, meshed, t_start + SCRIPT_LIMIT_S
+                                      - AFTER_PHASE19_S), " meshx"))
+        lap("phase 19")
     # kernels 1-3 at the later phases' new shapes, and kernels 4-6 too
     # at phase 11's, 12's, 13's, 14's, 15's, 17's and 18's (the decode of
     # rewritten, compacted and hydrated files, PromQL's rows matrices and
@@ -9401,6 +9736,7 @@ def main() -> int:
             kernels[-1]["library_comparison"] = checked["widen_host"]
         if name == "probe_count":
             kernels[-1]["host_stages_us"] = checked["probe_host"]
+            kernels[-1]["launch_floor"] = checked["probe_floor"]
         buffers = {k: r for k, r in checked["one_buffer"].items()
                    if k.startswith(name)}
         if buffers:

@@ -321,18 +321,21 @@ class _Snapshot:
         """Hash-partition rows by series id over the mesh's shards and
         gather each part on its shard's device — the series-axis split
         the scan kernels use, applied to index probes. The mask scattered
-        back is bit-identical to the host gather."""
+        back is bit-identical to the host gather. Across processes a
+        rank gathers its own shards' parts and the ranks' masks merge by
+        an all_reduce MAX (each row's bit comes from its one owner)."""
         import torch
 
-        from opengemini_tpu_torch.parallel import runtime
+        from opengemini_tpu_torch.parallel import distributed, runtime
         from opengemini_tpu_torch.utils import devobs
 
         mesh = runtime.get_mesh()
-        parts = self._hash_parts(mesh.size)
-        mask = np.empty(self.n, np.bool_)
+        every = self._hash_parts(mesh.size)
+        parts = [every[s] for s in mesh.local_shards]
+        mask = np.zeros(self.n, np.bool_)
         shipped = 0
         outs = []
-        for rows, dev in zip(parts, mesh.shard_devices):
+        for rows, dev in zip(parts, mesh.local_devices):
             if not len(rows):
                 outs.append(None)
                 continue
@@ -351,6 +354,9 @@ class _Snapshot:
             got += res.nbytes
             mask[rows] = res
         devobs.note_transfer("d2h", "label-match", got, mesh=True)
+        if mesh.world is not None:
+            mask = distributed.all_reduce(
+                torch.from_numpy(mask), "max", mesh.world).numpy()
         return mask
 
     def _hash_parts(self, nparts: int) -> list:

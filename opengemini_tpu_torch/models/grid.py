@@ -50,7 +50,10 @@ grid rows as shards, the row axis is padded to a multiple of the mesh
 size and split over its shards (parallel/distributed.py ``Sharded``):
 kernel 3 and the ssd and selector groups run once per shard on its
 rows, and the host concatenates the shards' per-row outputs (series
-runs are independent rows, so nothing merges across shards). The
+runs are independent rows, so nothing merges across shards). Across
+processes a rank places, decodes and reduces its own shards' rows only,
+and the per-row outputs come back whole on every rank
+(``distributed.fetch_np``'s all_gather). The
 encoded cold scan's route is then "mesh": each shard decodes its own
 contiguous row range (ops/device_decode.py ``build_mesh_grid_plan``).
 The retained device-tier entry is sharded; without the tier the sharded

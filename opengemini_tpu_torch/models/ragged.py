@@ -24,7 +24,9 @@ bucket rows as shards, a bucket's matrices are split by rows over the
 mesh's shards (parallel/distributed.py ``shard_leading_axis``, site
 ``bucket-shard``) and kernels 1 and 2 launch once per shard on its
 rows; the host concatenates the shards' per-row outputs. Bucket rows
-are independent, so the shards need no merge. The sharded copy is keyed
+are independent, so the shards need no merge. Across processes a rank
+places and computes its own shards' rows only, and the per-row outputs
+come back whole on every rank (``distributed.fetch_np``'s all_gather). The sharded copy is keyed
 by the mesh epoch (a reload reshards it) and is a row of the
 device-memory ledger (owner ``bucket_mesh``).
 """

@@ -14,7 +14,9 @@ With a device mesh configured (parallel/runtime.py), the aggregates the
 mesh can serve (``distributed.MESH_AGGS``) run over its shards: rows
 split over the shards, per-shard partials, one merge
 (``distributed.build_batch_agg``). The sel contract is the same (global
-row indices), so selector times resolve as on one device.
+row indices), so selector times resolve as on one device. Across
+processes a rank places its own shards' rows only and the merge ends in
+collectives, so every rank gets the same merged outputs.
 """
 
 from __future__ import annotations

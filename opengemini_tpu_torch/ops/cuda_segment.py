@@ -19,7 +19,10 @@ capability probe in ``opengemini_tpu/utils/devobs.py``. Six kernels:
                                  gorilla decode, one launch for a table
                                  of segments (csrc/unpack_bits.cu)
   - ``probe_count``            — masked row count of an int8 matrix, the
-                                 capability probe (csrc/probe_count.cu)
+                                 capability probe (csrc/probe_count.cu;
+                                 its library also holds an empty
+                                 kernel, ``ogt_probe_empty``, the launch
+                                 floor its time is held against)
 
 Dispatch is by the device of the input tensor and nothing else: a CUDA
 tensor launches the kernel (and counts the launch in ``LAUNCHES``), a
@@ -79,7 +82,8 @@ _KERNELS = {
     "unpack_bits": ("unpack_bits.cu", {
         "ogt_unpack_bits_segments": [_P, _P, _I, _P, _P]}),
     "probe_count": ("probe_count.cu", {
-        "ogt_probe_count": [_P, _LL, _I, _P, _P]}),
+        "ogt_probe_count": [_P, _LL, _I, _P, _P],
+        "ogt_probe_empty": [_P]}),
 }
 
 # launches of each kernel since the last reset_launches(); only the
@@ -194,7 +198,7 @@ def _entry(name: str, dtype: torch.dtype | None = None):
 def _resolve(name: str, dtype: torch.dtype | None):
     lib = build([name])[name]
     symbols = list(_KERNELS[name][1])
-    if len(symbols) == 1:
+    if not symbols[0].endswith("_f32"):
         return lib, getattr(lib, symbols[0])
     suffix = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
     if suffix is None:

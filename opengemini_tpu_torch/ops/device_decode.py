@@ -565,11 +565,13 @@ def imat_from_flat(flat_dev: torch.Tensor, shape) -> torch.Tensor:
 
 
 class MeshGridPlan:
-    """One fused-decode plan per mesh shard, plus the global geometry the
-    assembly needs. Each shard's GridPlan is self-contained (its own
-    blocks, scatter slots rebased to the shard's first row, per-shard
-    affine runs) on its shard's device, so a shard runs exactly the
-    single-device fused path: the split is pure input partitioning."""
+    """One fused-decode plan per mesh shard of this process, plus the
+    global geometry the assembly needs. Each shard's GridPlan is
+    self-contained (its own blocks, scatter slots rebased to the shard's
+    first row, per-shard affine runs) on its shard's device, so a shard
+    runs exactly the single-device fused path: the split is pure input
+    partitioning. Across processes a rank plans and decodes only its own
+    shards' rows (their blocks cut mid-stream with their seeds)."""
 
     __slots__ = ("mesh", "shards", "shape", "dtype_str", "n")
 
@@ -724,7 +726,7 @@ def build_mesh_grid_plan(views, flat, mask, shape, dtype, mesh, rel=None,
     run_end_v = np.cumsum(run_len)  # view-coordinate run ends
     run_start_v = run_end_v - run_len
     shards = []
-    for s, device in enumerate(mesh.shard_devices):
+    for s, device in zip(mesh.local_shards, mesh.local_devices):
         a, b = int(cuts[s]), int(cuts[s + 1])
         sub_views: list = []
         if a < b:
@@ -767,10 +769,11 @@ def build_mesh_grid_plan(views, flat, mask, shape, dtype, mesh, rel=None,
 
 
 def run_mesh_grid_plan(mplan: MeshGridPlan):
-    """Run each shard's fused decode on its device: one host-to-device
-    copy of each shard's encoded inputs (only its own bytes), then the
-    same decode, scatter and grid reduce as run_grid_plan. Returns
-    (stats, vt, mt, None), each a Sharded over the mesh: vt/mt ready for
+    """Run each local shard's fused decode on its device: one
+    host-to-device copy of each shard's encoded inputs (only its own
+    bytes), then the same decode, scatter and grid reduce as
+    run_grid_plan. Returns (stats, vt, mt, None), each a Sharded over
+    the mesh: vt/mt ready for
     the mesh layout of the colcache device tier and the per-shard ssd
     and selector groups."""
     from opengemini_tpu_torch.parallel import distributed

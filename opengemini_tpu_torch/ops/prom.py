@@ -1248,9 +1248,12 @@ class ShardedTiled:
     the shards (rows padded to a multiple of mesh.size; padding rows
     carry all-False masks, answer as empty windows and are sliced off by
     the caller), per-window arrays on every shard. Each kernel method
-    runs TiledPrepared's on every shard and concatenates the shards'
-    (rows, K) outputs on the first shard's device: (S_pad, K), which the
-    caller slices to [:prep.S, :prep.k_real]."""
+    runs TiledPrepared's on every local shard and concatenates the
+    shards' (rows, K) outputs on the first local shard's device:
+    (S_pad, K), which the caller slices to [:prep.S, :prep.k_real].
+    Across processes each rank runs its own shards and the outputs come
+    back whole on every rank through the mesh's all_gather
+    (distributed.Sharded.gather)."""
 
     def __init__(self, prep: TiledPrepared, mesh):
         from opengemini_tpu_torch.parallel import distributed, runtime
@@ -1276,7 +1279,7 @@ class ShardedTiled:
                 for name in _TILED_REPL_ATTRS}
         self._views = []
         nbytes = sum(a.nbytes for a in self.arrays.values())
-        for i, dev in enumerate(mesh.shard_devices):
+        for i, dev in enumerate(mesh.local_devices):
             arrays = {name: a.parts[i] for name, a in self.arrays.items()}
             for name, host in repl.items():
                 arrays[name] = torch.from_numpy(host).to(dev)
@@ -1295,11 +1298,13 @@ class ShardedTiled:
             label="sharded-tiled", anchor=self)
 
     def _run(self, kernel: str, **opts):
+        from opengemini_tpu_torch.parallel import distributed
+
         outs = [getattr(TiledPrepared, kernel)(view, torch, **opts)
                 for view in self._views]
-        dev = self.mesh.shard_devices[0]
-        return tuple(torch.cat([o[j].to(dev) for o in outs])
-                     for j in range(len(outs[0])))
+        return tuple(
+            distributed.Sharded(self.mesh, [o[j] for o in outs]).gather()
+            for j in range(len(outs[0])))
 
     def rate(self, *, is_counter: bool, is_rate: bool):
         return self._run("rate", is_counter=is_counter, is_rate=is_rate)

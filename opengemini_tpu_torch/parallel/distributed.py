@@ -1,41 +1,63 @@
-"""Row-sharded aggregation over a device mesh.
+"""Row-sharded aggregation over a device mesh, in one process or across
+several.
 
 The port of ``opengemini_tpu/parallel/distributed.py``. The reference
 lays a scan batch's rows over a JAX device mesh and lets XLA merge the
 devices' partials with collectives. The port's mesh is a small class of
 its own (``Mesh``): axis names, a shape, and one ``torch.device`` per
 shard. A shard's work runs on its own device; the cross-shard merge is
-PyTorch code on the first shard's device:
+PyTorch code on this process's first shard's device, then, across
+processes, a ``torch.distributed`` collective (NCCL on the card, gloo
+on the CPU):
 
-  sum/count   add
-  min/max     reduce
+  sum/count   add, then all_reduce SUM
+  min/max     reduce, then all_reduce MIN / MAX
   first/last  the lexicographic (hi, lo) time winner, exact-time ties to
-              the larger value, then the lowest shard (the shards hold
-              contiguous row ranges, so that is the lowest global row)
+              the larger value, then the lowest global shard (the
+              shards hold contiguous row ranges, so that is the lowest
+              global row): each key a MIN or MAX round, the value taken
+              by a masked SUM, as the reference's psum of one-hot
+              winners; tied values are never averaged
 
-A sharded tensor (``Sharded``) is a list of per-shard pieces, each on
-its shard's device, with the reference's padding (rows padded with
-zeros to a multiple of the shard count, masked out by the callers) and
-row split (equal consecutive row ranges). ``make_mesh`` lays the shards
-over every visible CUDA device by default, one on an H100; a caller may
-lay ``n`` shards over fewer devices by passing ``devices`` explicitly,
+A sharded tensor (``Sharded``) is a list of this process's pieces, each
+on its shard's device, with the reference's global padding (rows padded
+with zeros to a multiple of the shard count, masked out by the callers)
+and row split (equal consecutive row ranges, shard ``i`` holding rows
+``[i * rows, (i + 1) * rows)``). ``make_mesh`` lays the shards over
+every visible CUDA device by default, one on an H100; a caller may lay
+``n`` shards over fewer devices by passing ``devices`` explicitly,
 ``[torch.device("cpu")] * 8`` in the tests or ``[cuda:0] * 4`` on one
 card. That is the port's counterpart of XLA's forced host device count.
 
-Meshes over more than one GPU (NCCL) and over more than one process
-(the reference's ``[device] coordinator-address``) are not in this
-port yet (ROADMAP A8.4): a mesh here lives in one process.
+Across processes (a ``runtime.World``, set by server/app.py's
+``_init_distributed`` from the ``[device]`` keys, one process per card)
+the mesh is global, as the reference's ``jax.devices()`` spans every
+process after ``jax.distributed.initialize``: its shard list is
+rank-major, each rank's card count comes from an ``all_gather``, and
+``local_shards`` are this process's. The model is multi-controller
+SPMD: every rank holds the same data, places only its own shards' rows
+on its own cards and runs every mesh program in the same order, so the
+host arrays every rank passes to ``shard_leading_axis`` are the same
+and each rank ships its own rows only. A row-sharded result comes back
+whole on every rank (``fetch_np``, ``Sharded.gather``) through an
+``all_gather`` of the ranks' equal padded parts: where the reference
+raises ("Fetching value for jax.Array that spans non-addressable
+devices is not possible"), the port gives the answer of the
+reference's own one-process mesh of the same shard count. Every rank
+holds the same number of shards.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 import time
 
 import numpy as np
 import torch
 
 from opengemini_tpu_torch.ops import segment as seg
+from opengemini_tpu_torch.parallel import runtime
 from opengemini_tpu_torch.utils import devobs
 from opengemini_tpu_torch.utils.stats import GLOBAL as _STATS
 
@@ -43,13 +65,16 @@ _BIG_I32 = 2**31 - 1
 
 
 class Mesh:
-    """A device mesh of one process: ``size`` shards named by
-    ``axis_names``, laid out as ``devices`` (an object array of
-    ``torch.device`` of the mesh's shape, the reference's meaning);
-    ``shard_devices`` is the same devices as a flat list, one per
-    shard, in the row split's order."""
+    """A device mesh: ``size`` shards named by ``axis_names``, laid out
+    as ``devices`` (an object array of ``torch.device`` of the mesh's
+    shape, the reference's meaning); ``shard_devices`` is the same
+    devices as a flat list, one per shard, in the row split's order,
+    each as the process that holds it names it, and ``shard_ranks`` the
+    rank of that process. ``world`` is the runtime.World the mesh spans
+    (None: this process alone); ``local_shards`` are the global indices
+    of this process's shards, ``local_devices`` their devices."""
 
-    def __init__(self, devices, axis_names, shape):
+    def __init__(self, devices, axis_names, shape, ranks=None, world=None):
         self.shard_devices = [_indexed(torch.device(d)) for d in devices]
         self.axis_names = tuple(axis_names)
         flat = np.empty(len(self.shard_devices), dtype=object)
@@ -57,10 +82,20 @@ class Mesh:
         self.devices = flat.reshape(tuple(shape))
         self.shape = dict(zip(self.axis_names, self.devices.shape))
         self.size = len(self.shard_devices)
+        self.shard_ranks = (list(ranks) if ranks is not None
+                            else [0] * self.size)
+        self.world = world
+        rank = 0 if world is None else world.rank
+        self.local_shards = [i for i, r in enumerate(self.shard_ranks)
+                             if r == rank]
+        self.local_devices = [self.shard_devices[i]
+                              for i in self.local_shards]
 
     def __repr__(self) -> str:
+        ranks = ("" if self.world is None
+                 else f", ranks {self.shard_ranks}")
         return (f"Mesh({self.shape}, "
-                f"{[str(d) for d in self.shard_devices]})")
+                f"{[str(d) for d in self.shard_devices]}{ranks})")
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -75,9 +110,15 @@ def make_mesh(n_devices: int | None = None,
               axes: tuple[str, ...] = ("shard",),
               shape: tuple[int, ...] | None = None,
               devices=None) -> Mesh:
-    """A mesh of ``n_devices`` shards over ``axes``. ``devices`` defaults
-    to every visible CUDA device (and raises without one: nothing falls
-    back to the CPU); ``n_devices`` defaults to all of them."""
+    """A mesh of ``n_devices`` shards over ``axes``. ``devices`` are this
+    process's: every visible CUDA device by default (and it raises
+    without one: nothing falls back to the CPU). Under a world every
+    rank calls this with the same arguments (an ``all_gather`` of the
+    ranks' device counts), ``n_devices`` defaults to all of every
+    rank's devices, and every rank holds the same number of shards,
+    rank r the global shards [r * k, (r + 1) * k) on its first k
+    devices (rank-major, the order of jax.devices()): the ranks' pieces,
+    their resident bytes and their caches' evictions are then alike."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -87,20 +128,39 @@ def make_mesh(n_devices: int | None = None,
                 for i in range(torch.cuda.device_count())]
     else:
         devs = [torch.device(d) for d in devices]
+    world = runtime.get_world()
+    size = 1 if world is None else world.size
+    counts = ([len(devs)] if world is None
+              else [int(c) for c in all_gather(
+                  torch.tensor([len(devs)], dtype=torch.int64), world)])
     if n_devices is None:
-        n_devices = len(devs)
+        n_devices = sum(counts)
     n_devices = int(n_devices)
-    if not 1 <= n_devices <= len(devs):
-        raise ValueError(f"a mesh of {n_devices} shards needs as many "
-                         f"devices, {len(devs)} given")
-    devs = devs[:n_devices]
+    per_rank = n_devices // size
+    if n_devices % size or not 1 <= per_rank <= min(counts):
+        raise ValueError(
+            f"a mesh of {n_devices} shards needs as many devices, "
+            + (f"{counts[0]} given" if world is None else
+               f"the same number on each of {size} processes, which "
+               f"have {counts}"))
+    rank = 0 if world is None else world.rank
+    shard_devs = []
+    for r in range(size):
+        shard_devs += (devs[:per_rank] if r == rank
+                       else [_remote(devs[0], i) for i in range(per_rank)])
     if shape is None:
         shape = ((n_devices,) if len(axes) == 1
                  else _factor(n_devices, len(axes)))
     if math.prod(shape) != n_devices or len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} does not hold {n_devices} "
                          f"shards over axes {axes}")
-    return Mesh(devs, axes, shape)
+    return Mesh(shard_devs, axes, shape,
+                [r for r in range(size) for _ in range(per_rank)], world)
+
+
+def _remote(like: torch.device, i: int) -> torch.device:
+    """Another process's i-th device, as that process names it."""
+    return torch.device(like.type, i) if like.type == "cuda" else like
 
 
 def _factor(n: int, k: int) -> tuple[int, ...]:
@@ -118,10 +178,86 @@ def _factor(n: int, k: int) -> tuple[int, ...]:
     return tuple(shape)
 
 
+# -- collectives across processes -------------------------------------------
+
+_coll_lock = threading.Lock()
+COLLECTIVES = {"calls": 0, "bytes": 0, "wall_ns": 0}
+
+
+def collective_stats() -> dict:
+    """This process's collectives since start: calls, the bytes it sent
+    and their wall (each up to its result being ready)."""
+    with _coll_lock:
+        return dict(COLLECTIVES)
+
+
+def _note_collective(nbytes: int, t0: int) -> None:
+    with _coll_lock:
+        COLLECTIVES["calls"] += 1
+        COLLECTIVES["bytes"] += int(nbytes)
+        COLLECTIVES["wall_ns"] += time.perf_counter_ns() - t0
+
+
+def _to_wire(t: torch.Tensor, world) -> torch.Tensor:
+    """t as the collective's buffer: contiguous, on the world's device,
+    bools as bytes."""
+    if t.dtype == torch.bool:
+        t = t.to(torch.uint8)
+    return t.to(world.device).contiguous()
+
+
+def _finish(world) -> None:
+    """Wait for the collective's result: NCCL runs on the card's
+    stream, and its wall is the time to the result."""
+    if world.backend == "nccl":
+        torch.cuda.current_stream(world.device).synchronize()
+
+
+_OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
+
+
+def all_reduce(t: torch.Tensor, op: str, world) -> torch.Tensor:
+    """t reduced elementwise over every rank (op: sum, min or max), on
+    t's device."""
+    import torch.distributed as tdist
+
+    t0 = time.perf_counter_ns()
+    buf = _to_wire(t, world)
+    tdist.all_reduce(buf, op=getattr(tdist.ReduceOp, _OPS[op]),
+                     group=world.group)
+    _finish(world)
+    _note_collective(buf.numel() * buf.element_size(), t0)
+    return buf.to(t.device).to(t.dtype)
+
+
+def all_gather(t: torch.Tensor, world) -> list:
+    """Every rank's t (equal shapes), in rank order, on t's device."""
+    import torch.distributed as tdist
+
+    t0 = time.perf_counter_ns()
+    buf = _to_wire(t, world)
+    outs = [torch.empty_like(buf) for _ in range(world.size)]
+    tdist.all_gather(outs, buf, group=world.group)
+    _finish(world)
+    _note_collective(buf.numel() * buf.element_size(), t0)
+    return [o.to(t.device).to(t.dtype) for o in outs]
+
+
+def _reduce(stacked: torch.Tensor, op: str, mesh: Mesh) -> torch.Tensor:
+    """(local shards, ...) partials reduced over every shard of the
+    mesh: over this process's shards, then across the processes."""
+    local = {"sum": lambda x: x.sum(0), "min": lambda x: x.amin(0),
+             "max": lambda x: x.amax(0)}[op](stacked)
+    if mesh.world is None:
+        return local
+    return all_reduce(local, op, mesh.world)
+
+
 class Sharded:
     """A tensor whose leading axis is split over a mesh's shards: one
-    piece per shard, each on its shard's device (the port's counterpart
-    of a row-sharded NamedSharding array)."""
+    piece per shard of this process, each on its shard's device (the
+    port's counterpart of a row-sharded NamedSharding array). Every
+    shard holds the same number of rows."""
 
     __slots__ = ("mesh", "parts")
 
@@ -131,56 +267,67 @@ class Sharded:
 
     @property
     def shape(self) -> tuple:
-        return ((sum(int(p.shape[0]) for p in self.parts),)
+        return ((int(self.parts[0].shape[0]) * self.mesh.size,)
                 + tuple(self.parts[0].shape[1:]))
 
     @property
     def device(self) -> torch.device:
-        """The first shard's device (where cross-shard merges run)."""
+        """This process's first shard's device (where its cross-shard
+        merges run)."""
         return self.parts[0].device
 
     @property
     def nbytes(self) -> int:
+        """The bytes resident in this process."""
         return sum(int(p.numel()) * int(p.element_size())
                    for p in self.parts)
 
     def gather(self, device=None) -> torch.Tensor:
-        """The whole tensor on `device` (default: the first shard's)."""
+        """The whole tensor on `device` (default: the first local
+        shard's); across processes an all_gather of every rank's
+        pieces (every rank holds as many, rank-major), so every rank
+        calls it."""
         dev = self.device if device is None else torch.device(device)
-        return torch.cat([p.to(dev) for p in self.parts])
+        world = self.mesh.world
+        if world is None:
+            return torch.cat([p.to(dev) for p in self.parts])
+        mine = torch.cat([p.to(world.device) for p in self.parts])
+        return torch.cat(all_gather(mine, world)).to(dev)
 
 
 def nbytes_of(x) -> int:
-    """Bytes of a tensor or a Sharded one."""
+    """Bytes of a tensor or of this process's pieces of a Sharded one."""
     if isinstance(x, Sharded):
         return x.nbytes
     return int(x.numel()) * int(x.element_size())
 
 
 def fetch_np(x) -> np.ndarray:
-    """devobs.fetch_np of a tensor, or of every piece of a Sharded one
-    concatenated in row order."""
+    """devobs.fetch_np of a tensor, or of the whole of a Sharded one in
+    row order (across processes, after its all_gather)."""
     if isinstance(x, Sharded):
+        if x.mesh.world is not None:
+            return devobs.fetch_np(x.gather())
         return np.concatenate([devobs.fetch_np(p) for p in x.parts])
     return devobs.fetch_np(x)
 
 
 def per_shard(fn, *args):
-    """Run ``fn`` once per shard on that shard's pieces of the Sharded
-    arguments (other arguments go to every call as they are). A dict
-    result becomes a dict of Sharded."""
+    """Run ``fn`` once per shard of this process on that shard's pieces
+    of the Sharded arguments (other arguments go to every call as they
+    are). A dict result becomes a dict of Sharded."""
     mesh = next(a.mesh for a in args if isinstance(a, Sharded))
     outs = [fn(*[a.parts[i] if isinstance(a, Sharded) else a
-                 for a in args]) for i in range(mesh.size)]
+                 for a in args]) for i in range(len(mesh.local_shards))]
     if isinstance(outs[0], dict):
         return {k: Sharded(mesh, [o[k] for o in outs]) for k in outs[0]}
     return Sharded(mesh, outs)
 
 
 def _stack(mesh: Mesh, pieces) -> torch.Tensor:
-    """Per-shard partials stacked on the first shard's device:
-    (shards, ...)."""
-    dev = mesh.shard_devices[0]
+    """This process's per-shard partials stacked on its first shard's
+    device: (local shards, ...)."""
+    dev = mesh.local_devices[0]
     return torch.stack([p.to(dev) for p in pieces])
 
 
@@ -205,58 +352,64 @@ def _local_partials(values, rel_hi, rel_lo, seg_ids, mask, num_segments):
     return s, c, mn, mx, (fv, f_hi, f_lo), (lv, l_hi, l_lo)
 
 
-def _merge_time_extreme(value, hi, lo, earliest: bool):
-    """Cross-shard lexicographic (hi, lo) winner over (shards, G)
-    partials: exact int32 compares, exact-time ties to the larger value,
-    remaining ties to the lowest shard — one actual row's value, never
-    an average of tied rows."""
-    red = torch.amin if earliest else torch.amax
+def _merge_time_extreme(value, hi, lo, earliest: bool, mesh: Mesh):
+    """Cross-shard lexicographic (hi, lo) winner over (local shards, G)
+    partials: exact int32 compares (MIN/MAX on hi, then on lo among the
+    hi-winners), exact-time ties to the larger value, remaining ties to
+    the lowest global shard — one actual row's value, never an average
+    of tied rows."""
+    red = "min" if earliest else "max"
     big = _BIG_I32 if earliest else -_BIG_I32
-    cand = hi == red(hi, 0)
-    lo_best = red(torch.where(cand, lo, big), 0)
+    cand = hi == _reduce(hi, red, mesh)
+    lo_best = _reduce(torch.where(cand, lo, big), red, mesh)
     cand &= lo == lo_best
-    v_best = torch.where(cand, value, -math.inf).amax(0)
+    v_best = _reduce(torch.where(cand, value, -math.inf), "max", mesh)
     cand &= value == v_best
-    return _pick(value, _lowest_rank(cand))
+    return _pick(value, _lowest_shard(cand, mesh), mesh)
 
 
-def _lowest_rank(cand: torch.Tensor) -> torch.Tensor:
-    """One-hot (shards, G) of the lowest shard among the candidates."""
-    rank = torch.arange(cand.shape[0], device=cand.device)[:, None]
-    best = torch.where(cand, rank, _BIG_I32).amin(0)
-    return cand & (rank == best)
+def _lowest_shard(cand: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """One-hot (local shards, G) of the lowest global shard among the
+    candidates of every process."""
+    shard = torch.tensor(mesh.local_shards, device=cand.device)[:, None]
+    best = _reduce(torch.where(cand, shard, _BIG_I32), "min", mesh)
+    return cand & (shard == best)
 
 
-def _pick(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The winning shard's x per segment (w: winner one-hot). where, not
-    a product: inf * 0 would poison the sum with NaN."""
-    return torch.where(w, x, torch.zeros((), dtype=x.dtype,
-                                          device=x.device)).sum(0)
+def _pick(x: torch.Tensor, w: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The winning shard's x per segment (w: winner one-hot), a masked
+    SUM over every shard. where, not a product: inf * 0 would poison the
+    sum with NaN."""
+    return _reduce(torch.where(w, x, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device)),
+                   "sum", mesh)
 
 
 def build_dist_agg(mesh: Mesh, num_segments: int):
     """The distributed query step: sharded batch -> {sum, count, mean,
-    min, max, first, last} per segment on the first shard's device.
+    min, max, first, last} per segment on this process's first shard's
+    device, the same on every rank.
 
     The returned function takes Sharded (values, rel_hi, rel_lo,
     seg_ids, mask), padded to a multiple of the mesh size, computes each
-    shard's partials on its device and merges them."""
+    local shard's partials on its device and merges them over every
+    shard."""
 
     def step(values, rel_hi, rel_lo, seg_ids, mask):
         locs = [_local_partials(*[a.parts[i] for a in
                                   (values, rel_hi, rel_lo, seg_ids, mask)],
                                 num_segments)
-                for i in range(mesh.size)]
-        s = _stack(mesh, [p[0] for p in locs]).sum(0)
-        c = _stack(mesh, [p[1] for p in locs]).sum(0)
-        mn = _stack(mesh, [p[2] for p in locs]).amin(0)
-        mx = _stack(mesh, [p[3] for p in locs]).amax(0)
+                for i in range(len(mesh.local_shards))]
+        s = _reduce(_stack(mesh, [p[0] for p in locs]), "sum", mesh)
+        c = _reduce(_stack(mesh, [p[1] for p in locs]), "sum", mesh)
+        mn = _reduce(_stack(mesh, [p[2] for p in locs]), "min", mesh)
+        mx = _reduce(_stack(mesh, [p[3] for p in locs]), "max", mesh)
         fv = _merge_time_extreme(
             *[_stack(mesh, [p[4][j] for p in locs]) for j in range(3)],
-            earliest=True)
+            earliest=True, mesh=mesh)
         lv = _merge_time_extreme(
             *[_stack(mesh, [p[5][j] for p in locs]) for j in range(3)],
-            earliest=False)
+            earliest=False, mesh=mesh)
         mean = s / c.clamp(min=1).to(s.dtype)
         return {"sum": s, "count": c, "mean": mean, "min": mn, "max": mx,
                 "first": fv, "last": lv}
@@ -270,10 +423,11 @@ def build_dist_agg(mesh: Mesh, num_segments: int):
 MESH_AGGS = {"count", "sum", "mean", "min", "max", "first", "last", "spread"}
 
 
-def _winner(keys, valid: torch.Tensor) -> torch.Tensor:
-    """Cross-shard lexicographic winner one-hot over (shards, G). keys:
-    [(stacked array, minimize)], narrowed key by key; ties resolve to
-    the lowest shard, so exactly one shard wins per segment."""
+def _winner(keys, valid: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Cross-shard lexicographic winner one-hot over (local shards, G).
+    keys: [(stacked array, minimize)], narrowed key by key over every
+    shard; ties resolve to the lowest global shard, so exactly one shard
+    wins per segment."""
     cand = valid
     for arr, minimize in keys:
         if arr.dtype.is_floating_point:
@@ -281,9 +435,9 @@ def _winner(keys, valid: torch.Tensor) -> torch.Tensor:
         else:
             sent = _BIG_I32 if minimize else -_BIG_I32
         masked = torch.where(cand, arr, sent)
-        best = masked.amin(0) if minimize else masked.amax(0)
+        best = _reduce(masked, "min" if minimize else "max", mesh)
         cand = cand & (masked == best)
-    return _lowest_rank(cand)
+    return _lowest_shard(cand, mesh)
 
 
 def build_batch_agg(mesh: Mesh, num_segments: int, sel_names: tuple = ()):
@@ -291,11 +445,11 @@ def build_batch_agg(mesh: Mesh, num_segments: int, sel_names: tuple = ()):
     equivalent of templates.AggBatch's single-device aggregates.
 
     Takes Sharded (values, rel_hi, rel_lo, seg_ids, mask, global_idx)
-    and returns per-segment outputs on the first shard's device.
-    count/sum/mean and min/max/spread values merge by adding and
-    reducing; the winner merge runs only for the selectors in
-    `sel_names`, whose ``<name>_sel`` outputs are global row indices, the
-    single-device sel contract."""
+    and returns per-segment outputs on this process's first shard's
+    device, the same on every rank. count/sum/mean and min/max/spread
+    values merge by adding and reducing; the winner merge runs only for
+    the selectors in `sel_names`, whose ``<name>_sel`` outputs are global
+    row indices, the single-device sel contract."""
 
     def local(values, rel_hi, rel_lo, seg_ids, mask, gidx):
         n_rows = values.shape[0]
@@ -320,8 +474,10 @@ def build_batch_agg(mesh: Mesh, num_segments: int, sel_names: tuple = ()):
     def step(values, rel_hi, rel_lo, seg_ids, mask, gidx):
         part = per_shard(local, values, rel_hi, rel_lo, seg_ids, mask, gidx)
         st = {k: _stack(mesh, v.parts) for k, v in part.items()}
-        totc, tots = st["count"].sum(0), st["sum"].sum(0)
-        mn, mx = st["min"].amin(0), st["max"].amax(0)
+        totc = _reduce(st["count"], "sum", mesh)
+        tots = _reduce(st["sum"], "sum", mesh)
+        mn = _reduce(st["min"], "min", mesh)
+        mx = _reduce(st["max"], "max", mesh)
         out = {
             "count": totc,
             "sum": tots,
@@ -342,9 +498,9 @@ def build_batch_agg(mesh: Mesh, num_segments: int, sel_names: tuple = ()):
                 keys = [(th, True), (tl, True), (v, False)]
             else:
                 keys = [(th, False), (tl, False), (v, False)]
-            w = _winner(keys, valid)
-            out[name] = _pick(v, w)
-            out[name + "_sel"] = _pick(st[name + "_gsel"], w)
+            w = _winner(keys, valid, mesh)
+            out[name] = _pick(v, w, mesh)
+            out[name + "_sel"] = _pick(st[name + "_gsel"], w, mesh)
         return out
 
     return step
@@ -378,12 +534,13 @@ def shard_leading_axis(mesh: Mesh, *arrays, xfer_site: str = "mesh-shard"):
     the mesh's shards (the remaining axes whole on each shard). This is
     how the dense layouts (models/ragged.py bucket matrices,
     models/grid.py grids) go multi-shard: their rows are independent, so
-    each shard's kernels need no merge, and the host concatenates the
-    shards' (rows,)-shaped outputs.
+    each shard's kernels need no merge, and the shards' (rows,)-shaped
+    outputs come back whole (``fetch_np``).
 
     Rows are padded with zeros (masked out by the kernels' mask plane or
     sliced off by the [:g] caller convention) to a multiple of
-    mesh.size."""
+    mesh.size. Every rank passes the same host arrays and ships only its
+    own shards' rows."""
     n_dev = mesh.size
     n = arrays[0].shape[0]
     npad = (n + n_dev - 1) // n_dev * n_dev
@@ -398,9 +555,10 @@ def shard_leading_axis(mesh: Mesh, *arrays, xfer_site: str = "mesh-shard"):
             a = np.concatenate([a, pad])
         parts = [torch.from_numpy(np.ascontiguousarray(
             a[i * rows:(i + 1) * rows])).to(dev, copy=True)
-            for i, dev in enumerate(mesh.shard_devices)]
+            for i, dev in zip(mesh.local_shards, mesh.local_devices)]
         out.append(Sharded(mesh, parts))
-        nbytes += int(a.nbytes)
+        nbytes += sum(int(p.numel()) * int(p.element_size())
+                      for p in parts)
     _STATS.incr("device", "mesh_dense_batches")
     # every byte here is a host->device transfer a warm mesh query must
     # NOT repeat (the colcache device tier retains the sharded tensors)
@@ -419,7 +577,10 @@ def donate_reshard(target, *arrays):
     layout is freed as soon as the new one has landed, and nothing goes
     through the host. A piece that already lies on its target device
     moves as a view of the gathered tensor, with no copy; a gather onto
-    one device holds both layouts only while it copies."""
+    one device holds both layouts only while it copies. Across processes
+    the rows move between ranks over the process group (an all_gather
+    of the old layout, of which each rank keeps its new shards' rows and
+    drops the rest), so every rank reshards in step."""
     _STATS.incr("device", "mesh_reshards")
     nbytes = sum(nbytes_of(a) for a in arrays)
     t0 = time.perf_counter_ns()
@@ -442,4 +603,5 @@ def _relayout(a, target):
         raise ValueError(f"{n} rows do not split over {mesh.size} shards")
     rows = n // mesh.size
     return Sharded(mesh, [whole.narrow(0, i * rows, rows).to(dev)
-                          for i, dev in enumerate(mesh.shard_devices)])
+                          for i, dev in zip(mesh.local_shards,
+                                            mesh.local_devices)])

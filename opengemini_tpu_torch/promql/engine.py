@@ -384,11 +384,15 @@ class PromEngine:
         """Register the PromQL evaluation with the running-query registry
         (shows in /debug/queries with per-stage attribution, KILL QUERY
         cancels it between shard scans) and note it in the slow-query
-        log."""
+        log. On a rank of a mesh across processes the evaluation holds
+        the process's mesh lock (parallel/runtime.py mesh_program)."""
+        from opengemini_tpu_torch.parallel import runtime
+
         t0 = _time.perf_counter_ns()
         qid = TRACKER.register(text, db)
         try:
-            yield
+            with runtime.mesh_program():
+                yield
         finally:
             dur_ns = _time.perf_counter_ns() - t0
             if SLOWLOG.enabled():

@@ -111,6 +111,7 @@ from opengemini_tpu_torch.models import ragged, templates
 from opengemini_tpu_torch.ops import aggregates as aggmod
 from opengemini_tpu_torch.ops import window as winmod
 from opengemini_tpu_torch.parallel import cluster as pcluster
+from opengemini_tpu_torch.parallel import runtime
 from opengemini_tpu_torch.query import condition as cond
 from opengemini_tpu_torch.query.hostpath import HostPathMixin
 from opengemini_tpu_torch.query.qhelpers import (
@@ -477,11 +478,13 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 trace.root.add_field("statement", _redact(text))
                 trace.root.add_field("database", db)
                 TRACKER.set_trace(qid, trace)
-                with tracing.activate(trace):
-                    return self._execute_statements(stmts, db, now_ns,
-                                                    read_only, user)
-            return self._execute_statements(stmts, db, now_ns, read_only,
-                                            user)
+            # on a rank of a mesh across processes, one query's mesh
+            # programs reach the collectives at a time
+            with runtime.mesh_program(), (
+                    tracing.activate(trace) if trace is not None
+                    else contextlib.nullcontext()):
+                return self._execute_statements(stmts, db, now_ns,
+                                                read_only, user)
         finally:
             dur_ns = _time.perf_counter_ns() - t1
             if trace is not None:

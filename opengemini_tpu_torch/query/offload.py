@@ -50,7 +50,9 @@ and tunes it live. The "mesh" route joins a site's candidates once a
 device mesh is set (parallel/runtime.py): the grid decode
 (models/grid.py), the tiled PromQL kernels (promql/engine.py) and the
 label gather (index/labels.py) offer it, and it is their static prior
-where the reference's is.
+where the reference's is. On a rank of a mesh across processes a site
+that offers "mesh" takes its static route: every rank must take the
+same route's collectives, which each rank's own walls could not ensure.
 
 Knobs: OGT_OFFLOAD (0 = static gates), OGT_OFFLOAD_MIN_SAMPLES (2),
 OGT_OFFLOAD_EXPLORE_AFTER (3), OGT_OFFLOAD_AMORTIZE (4.0),
@@ -170,6 +172,14 @@ def _geo_cells(geometry) -> int:
             if v > 0:
                 n *= v
     return n
+
+
+def _world_set() -> bool:
+    """Whether this process is one rank of a mesh across processes
+    (parallel/runtime.py)."""
+    from opengemini_tpu_torch.parallel import runtime
+
+    return runtime.get_world() is not None
 
 
 class _Route:
@@ -325,6 +335,11 @@ class Planner:
             self._note_tracker(stage or kernel, _FORCE)
             return _FORCE
         if not _ON or len(candidates) <= 1:
+            return static
+        if "mesh" in candidates and _world_set():
+            # across processes every rank must take a mesh route's
+            # collectives, and each rank's own walls could route it
+            # apart from the others: the static route, on every rank
             return static
         geo = geo_key(geometry)
         cells = _geo_cells(geometry)

@@ -25,6 +25,9 @@ package's ts-server reads):
     [device]
     mesh-axes = ["shard"]           # enables the multi-shard aggregate path
     mesh-devices = 0                # 0/absent = every visible CUDA device
+    coordinator-address = "10.0.0.1:9999"  # a mesh across processes
+    num-processes = 4
+    process-id = 0
 
 SIGHUP re-reads the file and hot-applies the reloadable subset: the
 services' intervals and watermarks and the ``[device]`` mesh
@@ -42,9 +45,18 @@ started by ``main``; pyarrow is imported when it is built); ``[services]
 obs-dir`` or ``obs-url`` attaches an object store (a directory, or an
 S3-compatible bucket with ``obs-token``) and runs services/obstier.py.
 
-Not in this port yet, raising "not supported by this port yet" when
-configured: ``[device] coordinator-address``, a mesh over several
-processes (ROADMAP A8.4).
+``[device] coordinator-address``, ``num-processes`` and ``process-id``
+make this process one rank of a mesh across processes
+(``_init_distributed``, the port of the reference's
+``_init_jax_distributed``): one process per card (each sees its own
+through ``CUDA_VISIBLE_DEVICES``), every rank started with the same
+``[data]`` and the same writes, the mesh global over every rank's cards
+(``mesh-devices`` counts all of them) and its merges ``torch.distributed``
+collectives, NCCL for a server on the card and gloo for one started with
+``-device cpu``. Every rank must receive the same queries in the same
+order (multi-controller SPMD, as the reference); ``OGT_DIST_TIMEOUT_S``
+(default 120) bounds a collective, so a rank out of step raises rather
+than hangs.
 """
 
 from __future__ import annotations
@@ -73,14 +85,6 @@ DEFAULTS = {
 }
 
 
-class NotPorted(ValueError):
-    """A configured feature this port does not have yet."""
-
-    def __init__(self, what: str, item: str):
-        super().__init__(
-            f"{what} is not supported by this port yet (ROADMAP {item})")
-
-
 def load_config(path: str | None) -> dict:
     cfg = {k: dict(v) for k, v in DEFAULTS.items()}
     if path:
@@ -105,23 +109,95 @@ def _configure_device_mesh(dev_cfg: dict, device=None) -> None:
     process)."""
     from opengemini_tpu_torch.parallel import runtime
 
-    if dev_cfg.get("coordinator-address"):
-        raise NotPorted("[device] coordinator-address (a mesh over "
-                        "several processes)", "A8.4")
+    # joining the process group is independent of the mesh config: a
+    # coordinator address alone still makes this process a rank
+    _init_distributed(dev_cfg, device)
     if not dev_cfg.get("mesh-axes"):
         runtime.set_mesh(None)
         return
-    mesh = _build_mesh(dev_cfg, _mesh_devices(dev_cfg, device))
-    runtime.set_mesh(mesh)
-    print(f"device mesh: {dict(zip(mesh.axis_names, mesh.devices.shape))}",
-          flush=True)
+    with runtime.mesh_program():
+        mesh = _build_mesh(dev_cfg, _mesh_devices(dev_cfg, device))
+        runtime.set_mesh(mesh)
+    print(f"device mesh: {dict(zip(mesh.axis_names, mesh.devices.shape))}"
+          + ("" if mesh.world is None else
+             f", shards {mesh.local_shards} of {mesh.size} on process "
+             f"{mesh.world.rank}/{mesh.world.size}"), flush=True)
+
+
+_DISTRIBUTED_UP = False
+
+
+def _init_distributed(dev_cfg: dict, device=None) -> None:
+    """[device] coordinator-address + num-processes + process-id -> this
+    process joins the mesh's process group (torch.distributed, rank
+    0 hosting its store at the coordinator address), so that make_mesh
+    builds a global mesh over every rank's cards and the mesh's merges
+    run as collectives. The backend follows the server's device: NCCL on
+    the card (torch.cuda.set_device first), gloo on the CPU; a failed
+    NCCL init raises, nothing retries on gloo. Idempotent per process."""
+    global _DISTRIBUTED_UP
+    coord = dev_cfg.get("coordinator-address")
+    if not coord or _DISTRIBUTED_UP:
+        return
+    missing = [k for k in ("num-processes", "process-id")
+               if dev_cfg.get(k) is None]
+    if missing:
+        raise SystemExit(
+            "[device] coordinator-address requires "
+            + " and ".join(missing))
+    import datetime
+
+    import torch
+    import torch.distributed as tdist
+
+    from opengemini_tpu_torch.parallel import runtime
+
+    size = int(dev_cfg["num-processes"])
+    rank = int(dev_cfg["process-id"])
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cpu":
+        backend, coll_dev = "gloo", torch.device("cpu")
+    else:
+        torch.cuda.set_device(torch.cuda.current_device()
+                              if dev.index is None else dev.index)
+        backend = "nccl"
+        coll_dev = torch.device("cuda", torch.cuda.current_device())
+        # a collective a peer never joins raises in the waiting thread
+        # at the group's timeout instead of hanging it
+        os.environ.setdefault("TORCH_NCCL_BLOCKING_WAIT", "1")
+    timeout_s = float(os.environ.get("OGT_DIST_TIMEOUT_S", "120"))
+    tdist.init_process_group(
+        backend, init_method=f"tcp://{coord}", world_size=size, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    runtime.set_world(runtime.World(rank, size, tdist.group.WORLD, backend,
+                                    coll_dev))
+    _DISTRIBUTED_UP = True
+    print(f"torch.distributed up: process {rank}/{size} via {coord} "
+          f"({backend})", flush=True)
+
+
+def _shutdown_distributed() -> None:
+    """Leave the process group at the main's shutdown (an NCCL
+    communicator is released before the interpreter ends, not after)."""
+    global _DISTRIBUTED_UP
+    if not _DISTRIBUTED_UP:
+        return
+    import torch.distributed as tdist
+
+    from opengemini_tpu_torch.parallel import runtime
+
+    runtime.set_mesh(None)
+    runtime.set_world(None)
+    tdist.destroy_process_group()
+    _DISTRIBUTED_UP = False
 
 
 def _mesh_devices(dev_cfg: dict, device=None):
     """The devices a server on `device` lays its mesh over: every
     visible CUDA device (None, make_mesh's default) for a server on the
     card; for a server on the CPU, mesh-devices shards (default 1), all
-    on the CPU, as the reference's CPU tests fake host devices."""
+    on the CPU, as the reference's CPU tests fake host devices (across
+    processes each rank offers as many, and holds its share of them)."""
     if device is not None and str(device).split(":")[0] == "cpu":
         n = int(dev_cfg.get("mesh-devices", 0)) or 1
         return ["cpu"] * n
@@ -533,7 +609,9 @@ def _apply_mesh_config(dev_cfg: dict, device=None,
     unchanged (rebuilding an identical mesh would bump the epoch and
     make every cache reshard for nothing). `device` is the server's
     (see _mesh_devices); `devices` overrides the devices the mesh lays
-    its shards over, as make_mesh's does."""
+    its shards over, as make_mesh's does. Across processes every rank
+    reloads the same [device] section between the same two queries: the
+    reshards move rows between the ranks over the process group."""
     import torch
 
     from opengemini_tpu_torch.parallel import runtime
@@ -547,12 +625,16 @@ def _apply_mesh_config(dev_cfg: dict, device=None,
         return ["device.mesh=off"]
     if devices is None:
         devices = _mesh_devices(dev_cfg, device)
+    world = runtime.get_world()
     n = int(dev_cfg.get("mesh-devices", 0)) or (
-        len(devices) if devices is not None else torch.cuda.device_count())
+        (len(devices) if devices is not None else torch.cuda.device_count())
+        * (1 if world is None else world.size))
     if cur is not None and tuple(cur.axis_names) == axes and cur.size == n:
         return []
-    mesh = _build_mesh(dev_cfg, devices)
-    runtime.set_mesh(mesh)
+    # make_mesh's all_gather must not cut into a query's collectives
+    with runtime.mesh_program():
+        mesh = _build_mesh(dev_cfg, devices)
+        runtime.set_mesh(mesh)
     return ["device.mesh="
             + str(dict(zip(mesh.axis_names, mesh.devices.shape)))]
 
@@ -633,6 +715,7 @@ def main(argv=None) -> int:
         svc.rules_manager.close()  # final state fsync + hook detach
     svc.stop()
     svc.engine.close()
+    _shutdown_distributed()
     if args.pidfile:
         try:
             os.remove(args.pidfile)

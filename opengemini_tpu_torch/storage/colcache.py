@@ -63,6 +63,10 @@ sharded tensors with no transfer, and a ``runtime.set_mesh()`` change
 reshards a retained entry device to device on its next use, its stale
 tensors donated (parallel/distributed.py ``donate_reshard``): the entry
 swaps them out, so they are freed and both layouts are never retained.
+Across processes only this rank's shards are resident: a reshard moves
+rows between the ranks over the process group, each rank keeps its new
+shards' rows and drops the rest, and the entry's bytes become its new
+local bytes.
 Both tiers' resident bytes are components of the resource governor's
 memory ledger (``colcache_host``, ``colcache_device``;
 utils/governor.py).
@@ -368,21 +372,19 @@ class ColumnCache:
             del arrays
             with self._lock:
                 ent["vt"], ent["mt"] = out[0], out[1]
-                if len(out) > 2:
-                    ent["imat"] = out[2]
-                elif ent.get("imat") is not None:
-                    # an imat attached between the snapshot and the swap
-                    # carries the OLD layout: drop it (the next selector
-                    # query rebuilds it) and give its bytes back
-                    stale = tensor_nbytes(ent["imat"])
-                    ent["imat"] = None
-                    got = self._dev.get(token)
-                    if got is not None and got[0] is ent:
-                        self._dev[token] = (ent, got[1] - stale)
-                        self._dev_bytes -= stale
-                        devobs.LEDGER.update(ent.get("_ledger"),
-                                             got[1] - stale)
-                        self._publish_locked()
+                # an imat attached between the snapshot and the swap
+                # carries the OLD layout: drop it (the next selector
+                # query rebuilds it)
+                ent["imat"] = out[2] if len(out) > 2 else None
+                got = self._dev.get(token)
+                if got is not None and got[0] is ent:
+                    # the entry's bytes are its new layout's (across
+                    # processes a rank keeps only its new shards' rows)
+                    nb = sum(tensor_nbytes(t) for t in out)
+                    self._dev[token] = (ent, nb)
+                    self._dev_bytes += nb - got[1]
+                    devobs.LEDGER.update(ent.get("_ledger"), nb)
+                    self._publish_locked()
                 ent["mesh"] = mesh
                 devobs.LEDGER.update(ent.get("_ledger"),
                                      mesh_epoch=self._mesh_epoch(mesh))
@@ -399,7 +401,7 @@ class ColumnCache:
                "shape": tuple(shape), "dtype": dtype, "mesh": mesh,
                # the one device a single-device layout returns to
                "home": (vt.device if mesh is None
-                        else mesh.shard_devices[0])}
+                        else mesh.local_devices[0])}
         nb = tensor_nbytes(vt) + tensor_nbytes(mt)
         if not self.device_enabled() or nb > self._dev_budget:
             return ent  # still usable by the caller, just not retained

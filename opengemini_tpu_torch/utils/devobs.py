@@ -729,6 +729,36 @@ def device_table() -> list[dict]:
     return out
 
 
+def _mesh_section(mesh) -> dict:
+    """/debug/device's mesh section: the reference's keys, and on a rank
+    of a mesh across processes (parallel/runtime.py's world) this
+    process's place in it under the reference's config names
+    (process-id, num-processes), its shards, its collectives (calls,
+    bytes sent, wall) and its kernels' launches."""
+    from opengemini_tpu_torch.parallel import runtime
+
+    doc = {"configured": mesh is not None,
+           "size": getattr(mesh, "size", None),
+           "epoch": runtime.mesh_epoch()}
+    world = runtime.get_world()
+    if world is not None:
+        from opengemini_tpu_torch.ops import cuda_segment
+        from opengemini_tpu_torch.parallel import distributed
+
+        coll = distributed.collective_stats()
+        doc.update({
+            "process_id": world.rank, "num_processes": world.size,
+            "backend": world.backend,
+            "local_shards": (None if mesh is None
+                             else list(mesh.local_shards)),
+            "collectives": {"calls": coll["calls"],
+                            "bytes": coll["bytes"],
+                            "wall_ms": coll["wall_ns"] / 1e6},
+            "launches": dict(cuda_segment.LAUNCHES),
+        })
+    return doc
+
+
 def debug_doc() -> dict:
     """The GET /debug/device payload."""
     from opengemini_tpu_torch.parallel import runtime
@@ -743,9 +773,7 @@ def debug_doc() -> dict:
         # cache only: a scrape never runs the probe inline
         "capabilities": backend_capabilities(probe_now=False),
         "devices": device_table(),
-        "mesh": {"configured": mesh is not None,
-                 "size": getattr(mesh, "size", None),
-                 "epoch": runtime.mesh_epoch()},
+        "mesh": _mesh_section(mesh),
         "counters": _STATS.counters("device"),
         "compile_wall_ms": wall_ms,
         "jit_cache": jit_inventory(),

@@ -5,8 +5,10 @@ Both packages read the same TOML into the same config and build the
 same services from it; the SIGHUP reload applies the same changes
 (services, tests/test_services.py:977-1005; the device mesh,
 tests/test_multichip.py:471-486). ``ha-policy = "replication"`` attaches
-the port's DataReplication. The services the port does not have yet
-raise when configured. ``python -m opengemini_tpu_torch.server.app
+the port's DataReplication. ``[device] coordinator-address`` joins a
+process group (``_init_distributed``): its missing-key messages are the
+reference's, its backend follows the device (gloo on the CPU, NCCL on
+the card, never gloo for a card). ``python -m opengemini_tpu_torch.server.app
 -device cpu`` serves /ping, /write and /query in a subprocess and stops
 on SIGTERM. Without CUDA and without ``-device cpu`` the port refuses to
 start: the reference degrades to the CPU (tests/test_http.py:552), the
@@ -211,18 +213,116 @@ def test_ha_policy_replication_attaches_data_replication(tmp_path):
         _close(svc)
 
 
-@pytest.mark.parametrize("section,key,value,item", [
-    ("device", "coordinator-address", "127.0.0.1:1234", "A8.4"),
-])
-def test_features_not_ported_yet_raise(tmp_path, section, key, value, item):
+@pytest.fixture
+def no_world(monkeypatch):
+    """The process group state of server/app.py and the world of
+    parallel/runtime.py, restored after the test."""
+    monkeypatch.setattr(tapp, "_DISTRIBUTED_UP", False)
+    yield
+    trt.set_world(None)
+
+
+@pytest.mark.parametrize("missing", [
+    ("num-processes",), ("process-id",), ("num-processes", "process-id")])
+def test_coordinator_without_its_keys_exits_like_the_reference(
+        no_world, missing):
+    dev_cfg = {"coordinator-address": "127.0.0.1:1234",
+               "num-processes": 2, "process-id": 0}
+    for k in missing:
+        del dev_cfg[k]
+    msgs = []
+    for init in (tapp._init_distributed, japp._init_jax_distributed):
+        with pytest.raises(SystemExit) as e:
+            init(dev_cfg)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] == (
+        "[device] coordinator-address requires " + " and ".join(missing))
+    assert trt.get_world() is None
+
+
+def _record_init(monkeypatch, fail: bool = False) -> list:
+    """torch.distributed.init_process_group recording its calls (and
+    raising when `fail`), with a card to set for the NCCL case."""
+    import torch
+    import torch.distributed as tdist
+
+    calls = []
+
+    def init(backend, **kw):
+        calls.append(dict(kw, backend=backend))
+        if fail:
+            raise RuntimeError(f"{backend} init failed")
+
+    monkeypatch.setattr(tdist, "init_process_group", init)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda i: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    return calls
+
+
+@pytest.mark.parametrize("device,backend", [("cpu", "gloo"),
+                                            ("cuda", "nccl")])
+def test_init_distributed_backend_follows_the_device(
+        monkeypatch, no_world, device, backend):
+    calls = _record_init(monkeypatch)
+    monkeypatch.setenv("OGT_DIST_TIMEOUT_S", "7")
+    tapp._init_distributed({"coordinator-address": "10.0.0.1:9999",
+                            "num-processes": 4, "process-id": 3}, device)
+    assert len(calls) == 1
+    got = calls[0]
+    assert got["backend"] == backend
+    assert got["init_method"] == "tcp://10.0.0.1:9999"
+    assert (got["world_size"], got["rank"]) == (4, 3)
+    assert got["timeout"].total_seconds() == 7
+    world = trt.get_world()
+    assert (world.rank, world.size, world.backend) == (3, 4, backend)
+    assert world.device.type == device
+
+
+def test_a_failed_nccl_init_raises_and_never_tries_gloo(monkeypatch,
+                                                       no_world):
+    calls = _record_init(monkeypatch, fail=True)
+    with pytest.raises(RuntimeError, match="nccl init failed"):
+        tapp._init_distributed({"coordinator-address": "127.0.0.1:1",
+                                "num-processes": 2, "process-id": 0},
+                               "cuda")
+    assert [c["backend"] for c in calls] == ["nccl"]
+    assert trt.get_world() is None and not tapp._DISTRIBUTED_UP
+
+
+def test_init_distributed_is_idempotent(monkeypatch, no_world):
+    calls = _record_init(monkeypatch)
+    dev_cfg = {"coordinator-address": "127.0.0.1:1", "num-processes": 2,
+               "process-id": 1}
+    tapp._init_distributed(dev_cfg, "cpu")
+    tapp._init_distributed(dev_cfg, "cpu")
+    tapp._init_distributed({}, "cpu")
+    assert len(calls) == 1 and trt.get_world().rank == 1
+
+
+def test_build_joins_the_group_before_the_mesh(tmp_path, no_world):
+    """build() with the [device] keys on the CPU: a gloo group of one
+    process, then a global mesh over it (make_mesh's all_gather of the
+    ranks' device counts), as one process on one card is under NCCL."""
+    import torch.distributed as tdist
+
     cfg = {"data": {"dir": str(tmp_path / "x")},
-           "http": {"bind-address": "127.0.0.1:0"}}
-    cfg.setdefault(section, {})[key] = value
-    with pytest.raises(tapp.NotPorted,
-                       match=f"not supported by this port yet "
-                             rf"\(ROADMAP {item}\)"):
-        tapp.build(cfg, device="cpu")
-    assert not os.path.exists(tmp_path / "x" / "meta.json")
+           "http": {"bind-address": "127.0.0.1:0"},
+           "services": {"store-monitor": False},
+           "device": {"mesh-axes": ["shard"], "mesh-devices": 2,
+                      "coordinator-address": f"127.0.0.1:{_free_port()}",
+                      "num-processes": 1, "process-id": 0}}
+    svc = tapp.build(cfg, device="cpu")
+    try:
+        world, mesh = trt.get_world(), trt.get_mesh()
+        assert (world.size, world.backend) == (1, "gloo")
+        assert mesh.world is world and mesh.size == 2
+        assert mesh.local_shards == [0, 1] and mesh.shard_ranks == [0, 0]
+    finally:
+        _close(svc)
+        # the main's shutdown leaves the group
+        tapp._shutdown_distributed()
+    assert not tdist.is_initialized() and not tapp._DISTRIBUTED_UP
+    assert trt.get_world() is None and trt.get_mesh() is None
 
 
 def _get(port, path, **params):

@@ -19,6 +19,7 @@ answers as the reference's, from the port's own mesh runtime
 import gc
 import json
 import os
+import time
 import urllib.error
 import urllib.parse
 import urllib.request
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from opengemini_tpu import native as jnative
 from opengemini_tpu.parallel import distributed as jdist
 from opengemini_tpu.parallel import runtime as jrt
 from opengemini_tpu.query import offload as joff
@@ -55,6 +57,23 @@ NS = 10**9
 BASE = 1_700_000_000
 DEVOBS = (jdevobs, tdevobs)
 OFFLOAD = (joff, toff)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_codecs():
+    """The JAX package encodes with native/libogtcodecs.so only when the
+    library exists at its first load in the process
+    (opengemini_tpu/native/__init__.py:26-34); without it the
+    pure-Python encoders write other blocks (a gorilla header byte
+    0x80 where the library writes 0x05), and under xdist that depends
+    on whether another worker built the library first. Build and load
+    it as test_torch_clusterops.py does, retrying while another
+    worker's make may still be writing it."""
+    deadline = time.monotonic() + 120
+    while jnative.load() is None and not jnative.build():
+        assert time.monotonic() < deadline, \
+            "g++ build of native/codecs.cpp failed"
+        time.sleep(1)
 
 
 @pytest.fixture(autouse=True)

@@ -291,6 +291,9 @@ EIGHTEENTH_SLICE_MODULES = [
 BLOCKED_IMPORT_MODULES += EIGHTEENTH_SLICE_MODULES
 # the script that times a query's request outside its stages
 BLOCKED_IMPORT_MODULES += ["stage_timeline"]
+# the mesh across processes: the rank worker tests/test_torch_multiproc.py
+# spawns (from tests/; the port modules its main imports are above)
+BLOCKED_IMPORT_MODULES += ["torch_multiproc_worker"]
 
 
 @pytest.mark.parametrize("module", BLOCKED_IMPORT_MODULES)
@@ -304,6 +307,7 @@ def test_module_imports_with_jax_blocked(module):
         "            raise ImportError(f'blocked: {name}')\n"
         "        return None\n"
         "sys.meta_path.insert(0, Block())\n"
+        f"sys.path.append({os.path.join(REPO, 'tests')!r})\n"
         f"importlib.import_module({module!r})\n"
         "print('ok')\n"
     )

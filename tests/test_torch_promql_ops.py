@@ -16,11 +16,14 @@ package's, on the CPU, over the same seeded ragged series.
   materialize_enc (the host decode), bit for bit.
 """
 
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from opengemini_tpu import native as jnative
 from opengemini_tpu.ops import device_decode as jdd
 from opengemini_tpu.ops import prom as jprom
 from opengemini_tpu.record import FieldType as JFieldType
@@ -35,6 +38,23 @@ torch.set_num_threads(1)
 
 BASE_MS = 1_700_000_000_000
 RTOL = 1e-9
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_codecs():
+    """The JAX package encodes with native/libogtcodecs.so only when the
+    library exists at its first load in the process
+    (opengemini_tpu/native/__init__.py:26-34); without it the
+    pure-Python encoders write other blocks (a gorilla header byte
+    0x80 where the library writes 0x05), and under xdist that depends
+    on whether another worker built the library first. Build and load
+    it as test_torch_clusterops.py does, retrying while another
+    worker's make may still be writing it."""
+    deadline = time.monotonic() + 120
+    while jnative.load() is None and not jnative.build():
+        assert time.monotonic() < deadline, \
+            "g++ build of native/codecs.cpp failed"
+        time.sleep(1)
 
 
 def _np(x):
