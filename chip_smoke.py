@@ -178,7 +178,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
 
 10. A dashboard panel over twice the cold span (12 h at COLD_HOURS 6,
    24 h before the cut), with a budget of its own (DASHBOARD_PHASE_S,
-   90 s), on phase 7's compacted root: (a) day 2 of TSBS devops cpu
+   135 s, 45 s of it step (f)'s), on phase 7's compacted root: (a)
+   day 2 of TSBS devops cpu
    (hours 6-12 of the same 4000 hosts but the first minute, which
    phase 5 wrote; the device profile on) loaded hour by hour through
    convert.load_columnar and flushed, with the
@@ -205,7 +206,23 @@ Phases, in order; any failure ends the run with a nonzero exit:
    and maxima bit for bit, means within rel 1e-12; whether they are
    bit for bit prints). Each run prints its wall, slices, rows scanned,
    windows from the cache, decoded-column cache hits and misses and
-   resident bytes, launches, stages and device memory peak. The kernels
+   resident bytes, launches, stages and device memory peak. (f) The scan
+   pipeline (PIPE_STEPS_S, 45 s of the phase's budget), through the
+   Executor on the script's thread, the result cache off: R0 sliced with
+   the pipeline (each slice's kernels dispatched before the next slice
+   decodes) and under scanpool.forced_serial(), each against the oracle
+   and the other, with its wall, its device-memory peak (the pipelined
+   one at most the serial one plus two slices' outputs), the slices
+   dispatched ahead (slices - 1, and 0 serial) and kernel 3 once a slice;
+   then PIPE_HOURS (2) of day 1 loaded into PIPE_DB (hourly shards) and
+   C1 over them through the monolithic scan, cold, pipelined (the next
+   shard's bulk read on the producer thread: 2 units prefetched) and
+   serial in turns, each against the oracle; then the same hours cold
+   and sliced a shard a slice, on the device route, pipelined and
+   serial: bit for bit alike, against the oracle, with every launch of
+   kernels 5, 4 and 3 in the pipelined run made from GridBatch.prefetch
+   and as many as in the serial run. PIPE_DB is dropped after the
+   steps. The kernels
    1-3 are checked and timed again at the largest new shapes of phases
    8, 9 and 10.
 11. The data lifecycle at TSBS devops width, with a budget of its own
@@ -3097,7 +3114,7 @@ AFTER_PHASE13_S = AFTER_PHASE14_S + 60.0  # phase 14's CONT_PHASE_S
 AFTER_PHASE12_S = AFTER_PHASE13_S + PROM_PHASE_S
 AFTER_PHASE11_S = AFTER_PHASE12_S + 90.0  # phase 12's PLANNER_PHASE_S
 AFTER_PHASE10_S = AFTER_PHASE11_S + 120.0  # phase 11's LIFECYCLE_PHASE_S
-AFTER_PHASE9_S = AFTER_PHASE10_S + 90.0  # phase 10's DASHBOARD_PHASE_S
+AFTER_PHASE9_S = AFTER_PHASE10_S + 135.0  # phase 10's DASHBOARD_PHASE_S
 # the span stages of a subquery: the inner select, and the inner chunks
 # with their materialization; they nest around the executor's stages
 SUBQUERY_STAGES = ("subquery", "subquery(chunked)")
@@ -3411,9 +3428,16 @@ def phase_subquery(cold: dict, deadline: float) -> dict:
 
 # -- phase 10: a dashboard panel over twice the cold span, refreshed ----------
 
-# phase 10's budget: the day-2 load and one run of each statement; it is
-# printed beside the phase's wall
-DASHBOARD_PHASE_S = 90.0
+# phase 10's pipeline steps (f): their budget (s), printed beside their
+# wall, and the hours of day 1 they load into a database of hourly shards
+# (one bulk read of the monolithic scan per shard) for their cold C1;
+# two hours, not three, keep the steps inside their budget on a slow call
+PIPE_STEPS_S = 45.0
+PIPE_HOURS = 2
+PIPE_DB = "benchmark_1h"
+# phase 10's budget: the day-2 load, one run of each statement and the
+# pipeline steps; it is printed beside the phase's wall
+DASHBOARD_PHASE_S = 90.0 + PIPE_STEPS_S
 # phase 10's slice threshold (rows): the executor's default
 # (SLICE_THRESHOLD_ROWS, 24 M) scaled by COLD_HOURS / 12, so that the
 # panel over twice the cold span slices as the 24 h panel did at 12 h
@@ -3580,7 +3604,8 @@ def phase_dashboard(cold: dict, seed: int, deadline: float) -> dict:
     R2, the panel moved on by a minute, scanning that minute only; P1,
     per-host count and mean and percentile_approx over day 2; K1, a
     cache-off R0 killed from a second connection, then R0 again in one
-    pass, equal to the sliced R0. Every answer against the oracle."""
+    pass, equal to the sliced R0; then the scan pipeline's steps
+    (pipeline_steps). Every answer against the oracle."""
     import numpy as np
     import torch
 
@@ -3784,6 +3809,8 @@ def phase_dashboard(cold: dict, seed: int, deadline: float) -> dict:
             + ("bit for bit" if bitwise else "(counts and maxima bit for "
                "bit, means within rel 1e-12)"))
         per_query["R0"]["bitwise_to_one_pass"] = bitwise
+        # (f) the scan pipeline, and its serial switch
+        pipe = pipeline_steps(svc, engine, o, usage, q_day, cc, probe)
         launches = dict(cs.LAUNCHES)
         wall_s = time.perf_counter() - t_phase
         log(f"[dashboard] phase 10 took {wall_s:.1f} s (budget "
@@ -3791,8 +3818,8 @@ def phase_dashboard(cold: dict, seed: int, deadline: float) -> dict:
             f" s left of the script's); launches {json.dumps(launches)}; "
             f"card {smi_line()}")
         return {"launches": launches, "per_query": per_query, "kill": k1,
-                "shapes": rec.seen, "wall_s": wall_s, "load_s": load_s,
-                "files": files}
+                "pipeline": pipe, "shapes": rec.seen, "wall_s": wall_s,
+                "load_s": load_s, "files": files}
     finally:
         ex.SLICE_THRESHOLD_ROWS = slice_rows
         os.environ["OGT_RESULT_CACHE"] = "0"
@@ -3801,6 +3828,233 @@ def phase_dashboard(cold: dict, seed: int, deadline: float) -> dict:
         rec.__exit__()
         if svc is not None:
             stop_server(svc, engine)
+
+
+def pipeline_steps(svc, engine, o: dict, usage, q_day: str, cc,
+                   probe) -> dict:
+    """Phase 10's pipeline steps, through the port's Executor on this
+    thread (``scanpool.forced_serial()`` switches the calling thread),
+    the result cache off. R0 sliced with the pipeline (each slice's
+    kernels dispatched before the next slice decodes, settled a slice
+    later) and under forced_serial(): each against the oracle and the
+    other, with its wall, its device-memory peak, the slices dispatched
+    ahead (slices - 1 with the pipeline, 0 without) and kernel 3's
+    launches (one a slice); the pipelined peak may exceed the serial one
+    by two slices' outputs at most. Then PIPE_HOURS of day 1 loaded into
+    PIPE_DB (hourly shards) under the device profile, and C1 over them
+    through the monolithic scan, cold (the decoded-column cache off),
+    with the pipeline (each shard's bulk read a unit, the next one read
+    on the producer thread) and under forced_serial(), in turns
+    (pipelined, serial, serial, pipelined), each against the oracle,
+    with the units prefetched. Then R0's cold device route: C1 over the
+    same hours sliced a shard a slice (each slice reads whole chunks, so
+    its batch keeps an encoded plan), the cache off, pipelined and under
+    forced_serial(): bit for bit alike, against the oracle, and every
+    launch of the fused decode (kernels 5 and 4) and of kernel 3 in the
+    pipelined run made from prefetch, as many as the serial run makes.
+    PIPE_DB is dropped at the end."""
+    import torch
+
+    from opengemini_tpu_torch import convert
+    from opengemini_tpu_torch.models import grid
+    from opengemini_tpu_torch.ops import cuda_segment as cs
+    from opengemini_tpu_torch.parallel import distributed
+    from opengemini_tpu_torch.query import executor as exmod
+    from opengemini_tpu_torch.storage import scanpool
+    from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
+
+    t0 = time.perf_counter()
+    ex = svc.executor
+    n_hosts, n_t = o["n_hosts"], o["n_t"]
+    os.environ["OGT_RESULT_CACHE"] = "0"
+    slice_bytes = []
+    prefetch0 = grid.GridBatch.prefetch
+
+    def prefetch(batch, *a, **k):
+        """The bytes of the outputs a slice's dispatch leaves in flight."""
+        got = prefetch0(batch, *a, **k)
+        slice_bytes.append(sum(distributed.nbytes_of(t)
+                                for out in batch._pending.values()
+                                for t in out.values()))
+        return got
+
+    def stat(module: str, name: str) -> int:
+        return STATS.counters(module).get(name, 0)
+
+    def timed(q: str, db: str, serial: bool) -> dict:
+        probe.reset()
+        l0 = dict(cs.LAUNCHES)
+        a0 = stat("executor", "sliced_dispatched_ahead")
+        u0 = stat("scanpool", "prefetched_units")
+        c0 = cc.counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        if serial:
+            with scanpool.forced_serial():
+                doc = ex.execute(q, db=db)
+        else:
+            doc = ex.execute(q, db=db)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        res = doc["results"][0]
+        check("error" not in res, f"pipeline step: {res.get('error')}")
+        c1 = cc.counters()
+        return {"result": res, "wall_ms": ms,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "slices": sum(probe.ran),
+                "ahead": stat("executor", "sliced_dispatched_ahead") - a0,
+                "units_prefetched": stat("scanpool", "prefetched_units") - u0,
+                "launches": {k: v - l0[k] for k, v in cs.LAUNCHES.items()
+                             if v - l0[k]},
+                "colcache": {k: c1[k] - c0[k] for k in ("hits", "misses")}}
+
+    def show(qn: str, r: dict) -> None:
+        log(f"[pipeline] {qn} {r['wall_ms']:.1f} ms: {r['slices']} slices, "
+            f"{r['ahead']} dispatched ahead, {r['units_prefetched']} bulk "
+            f"units prefetched, launches {json.dumps(r['launches'])}, "
+            f"colcache hits/misses {r['colcache']['hits']}/"
+            f"{r['colcache']['misses']}, device memory peak "
+            f"{r['peak_bytes'] / 2**20:.1f} MiB")
+
+    check(scanpool.enabled(), f"the scan pipeline is off "
+          f"({scanpool.WORKERS} scan workers)")
+    grid.GridBatch.prefetch = prefetch
+    try:
+        r0 = timed(q_day, "benchmark", serial=False)
+    finally:
+        grid.GridBatch.prefetch = prefetch0
+    r0s = timed(q_day, "benchmark", serial=True)
+    show("R0 pipelined", r0)
+    show("R0 serial", r0s)
+    for qn, r in (("R0 pipelined", r0), ("R0 serial", r0s)):
+        verify_panel(qn, r["result"], usage, 0, True)
+        check(r["slices"] >= 2, f"{qn}: {r['slices']} slices")
+        check(r["launches"].get("grid_window_agg") == r["slices"],
+              f"{qn}: kernel 3 launched {r['launches']} over "
+              f"{r['slices']} slices")
+    check(r0["ahead"] == r0["slices"] - 1 and r0s["ahead"] == 0,
+          f"dispatched ahead: {r0['ahead']} pipelined, {r0s['ahead']} "
+          f"serial, of {r0['slices']} slices")
+    ok, bitwise = same_bits(r0["result"], r0s["result"])
+    check(ok, "the pipelined R0 differs from the serial R0")
+    two = 2 * max(slice_bytes, default=0)
+    check(r0["peak_bytes"] <= r0s["peak_bytes"] + two,
+          f"pipelined R0 peak {r0['peak_bytes']} B > serial "
+          f"{r0s['peak_bytes']} B + two slices' outputs {two} B")
+    log(f"[pipeline] R0 pipelined equals R0 serial "
+        + ("bit for bit" if bitwise else "(means within rel 1e-12)")
+        + f"; peaks {r0['peak_bytes']} B and {r0s['peak_bytes']} B, a "
+        f"slice's outputs in flight at most {max(slice_bytes, default=0)} B")
+
+    # C1 over hourly shards: one bulk unit a shard
+    status, doc = http(svc.port, "POST", "/query", {
+        "q": f"CREATE DATABASE {PIPE_DB} WITH SHARD DURATION 1h"})
+    check(status == 200 and "error" not in doc["results"][0],
+          f"CREATE DATABASE {PIPE_DB}: {status} {doc}")
+    try:
+        os.environ["OGT_DEVICE_PROFILE"] = "1"
+        t_load = time.perf_counter()
+        try:
+            for hr in range(PIPE_HOURS):
+                n = convert.load_columnar(engine, PIPE_DB, {
+                    "cpu": cpu_table(o["tags"], o["vals"], hr * 360,
+                                     (hr + 1) * 360, n_hosts, 0)})
+                check(n == n_hosts * 360, f"{PIPE_DB} hour {hr}: wrote {n}")
+            engine.flush_all()
+        finally:
+            os.environ.pop("OGT_DEVICE_PROFILE", None)
+        load_s = time.perf_counter() - t_load
+        shards = engine.shards_for_range(PIPE_DB, None, 0, 2**62)
+        check(len(shards) == PIPE_HOURS,
+              f"{PIPE_DB}: {len(shards)} shards")
+        q_c1 = panel(T0_NS, T0_NS + PIPE_HOURS * 360 * STEP_NS)
+        cc_prev = cc.config()
+        cc.configure(budget_mb=0)  # cold: every run decodes
+        try:
+            c1 = [timed(q_c1, PIPE_DB, serial=s)
+                  for s in (False, True, True, False)]
+        finally:
+            cc.configure(**cc_prev)
+        for i, r in enumerate(c1):
+            way = "serial" if i in (1, 2) else "pipelined"
+            qn = f"C1 {PIPE_DB} {way}"
+            show(qn, r)
+            verify_panel(qn, r["result"], o["vals"]["usage_user"][
+                :, :PIPE_HOURS * 360], 0, False)
+            want = 0 if i in (1, 2) else PIPE_HOURS
+            check(r["units_prefetched"] == want,
+                  f"{qn}: {r['units_prefetched']} units prefetched, not "
+                  f"{want}")
+            check(r["result"] == c1[0]["result"],
+                  f"{qn} differs from the first")
+
+        # R0's cold device route: the same hours sliced a shard (an hour)
+        # a slice, so each slice reads whole chunks and its batch keeps
+        # an encoded plan; prefetch dispatches the fused decode (kernels
+        # 5 and 4, then kernel 3) and fetches nothing
+        in_prefetch = dict.fromkeys(cs.LAUNCHES, 0)
+
+        def prefetch_counted(batch, *a, **k):
+            l0 = dict(cs.LAUNCHES)
+            got = prefetch0(batch, *a, **k)
+            for name, v in cs.LAUNCHES.items():
+                in_prefetch[name] += v - l0[name]
+            return got
+
+        keep = (exmod.SLICE_THRESHOLD_ROWS, exmod.SLICE_TARGET_ROWS)
+        exmod.SLICE_THRESHOLD_ROWS = 1
+        exmod.SLICE_TARGET_ROWS = n_hosts * 360  # an hour's rows
+        cc.configure(budget_mb=0)
+        grid.GridBatch.prefetch = prefetch_counted
+        try:
+            cold = timed(q_c1, PIPE_DB, serial=False)
+            grid.GridBatch.prefetch = prefetch0
+            cold_s = timed(q_c1, PIPE_DB, serial=True)
+        finally:
+            grid.GridBatch.prefetch = prefetch0
+            exmod.SLICE_THRESHOLD_ROWS, exmod.SLICE_TARGET_ROWS = keep
+            cc.configure(**cc_prev)
+        show("C1 sliced cold pipelined", cold)
+        show("C1 sliced cold serial", cold_s)
+        for qn, r in (("C1 sliced cold pipelined", cold),
+                      ("C1 sliced cold serial", cold_s)):
+            verify_panel(qn, r["result"], o["vals"]["usage_user"][
+                :, :PIPE_HOURS * 360], 0, False)
+            check(r["slices"] == PIPE_HOURS,
+                  f"{qn}: {r['slices']} slices, not {PIPE_HOURS}")
+        check(cold["ahead"] == PIPE_HOURS - 1 and cold_s["ahead"] == 0,
+              f"cold dispatched ahead: {cold['ahead']} pipelined, "
+              f"{cold_s['ahead']} serial")
+        check(cold["result"] == cold_s["result"],
+              "the pipelined cold sliced C1 differs from the serial one")
+        fused = ("unpack_bits", "widen_packed", "grid_window_agg")
+        got = {k: (cold["launches"].get(k, 0), in_prefetch[k],
+                   cold_s["launches"].get(k, 0)) for k in fused}
+        check(got["unpack_bits"][0] > 0
+              and got["grid_window_agg"][0] == PIPE_HOURS
+              and all(a == b == c for a, b, c in got.values()),
+              f"cold sliced launches (run, from prefetch, serial): {got}")
+        log(f"[pipeline] cold sliced C1 pipelined equals serial bit for "
+            f"bit; launches (run, from prefetch, serial) {json.dumps(got)}")
+    finally:
+        status, _ = http(svc.port, "POST", "/query",
+                         {"q": f"DROP DATABASE {PIPE_DB}"})
+        check(status == 200, f"DROP DATABASE {PIPE_DB}: {status}")
+    wall_s = time.perf_counter() - t0
+    log(f"[pipeline] {PIPE_HOURS} h of day 1 into {PIPE_DB} "
+        f"({len(shards)} shards) in {load_s:.1f} s; the pipeline steps "
+        f"took {wall_s:.1f} s (budget {PIPE_STEPS_S:.0f} s); card "
+        f"{smi_line()}")
+
+    def bare(r: dict) -> dict:
+        return {k: v for k, v in r.items() if k != "result"}
+
+    return {"R0": bare(r0), "R0 serial": bare(r0s), "R0_bitwise": bitwise,
+            "slice_output_bytes": max(slice_bytes, default=0),
+            "C1": [bare(r) for r in c1], "C1 sliced cold": bare(cold),
+            "C1 sliced cold serial": bare(cold_s), "load_s": load_s,
+            "wall_s": wall_s}
 
 
 def kill_panel(port: int, q: str, cc) -> dict:

@@ -37,6 +37,13 @@ group's transfer and launch, each up to the card's finishing (the
 fetch that follows waits for it anyway). A host decision the planner
 flags for pre-warming registers the fused site's builder.
 
+The sliced scan (query/executor.py ``_scan_sliced``) calls ``prefetch``
+once a slice has decoded: the freeze, then every kernel group the
+slice's aggregates need, dispatched without waiting for the card, and
+the slice's host rows and device inputs dropped. ``run`` later settles
+the outputs still in flight (``_pending``); a kernel group or a bucketed
+fallback that was not declared then raises, since its rows are gone.
+
 With the device tier of the decoded-column cache on
 (storage/colcache.py), the executor stamps a scan signature on the
 batch (``device_cache_token``). The freeze consults the tier first: a
@@ -137,6 +144,9 @@ class GridBatch:
         self._state = None  # grid state dict after a successful freeze
         self._fallback = None  # BucketedBatch when the grid refuses
         self._raw: dict = {}  # lazy per-(row, window) device stats
+        # kernel group -> its outputs still in flight on the card
+        # (prefetch), settled by _raw_stats
+        self._pending: dict = {}
         # scan signature for the decoded-column cache's device tier: the
         # executor stamps it when the scan is deterministic, and the
         # grid tensors are then retained and reused across identical
@@ -203,6 +213,11 @@ class GridBatch:
 
     def _ensure_fallback(self):
         if self._fallback is None:
+            if self._vals is None:
+                raise RuntimeError(
+                    "bucketed fallback requested after prefetch() dropped "
+                    "the raw rows — prefetch callers must keep aggs "
+                    "within GRID_AGGS")
             fb = ragged.BucketedBatch(self.dtype, self.device)
             for v, r, s, m, t in zip(self._vals, self._rel, self._seg,
                                      self._mask, self._times):
@@ -471,7 +486,8 @@ class GridBatch:
         return mesh
 
     def _drop_layout(self) -> None:
-        """Forget the device layout (a reload changed the mesh)."""
+        """Forget the device layout (a reload changed the mesh, or
+        prefetch dispatched every kernel group that reads it)."""
         st = self._state
         st["dev"] = None
         st["imat_dev"] = None
@@ -523,7 +539,11 @@ class GridBatch:
                 # the layout of a device-tier hit or of a fused decode
                 # was for another mesh and could not follow it: rebuild
                 # the grid from the raw rows (encoded adds decode through
-                # _EncodedVals.__array__)
+                # _EncodedVals.__array__), unless prefetch dropped them
+                if self._vals is None or st["flat"] is None:
+                    raise RuntimeError(
+                        "grid device entry lost after prefetch dropped the "
+                        "host rows (device mesh changed mid-query?)")
                 st["arrays"] = self._scatter_grid(st["shape"], st["flat"])
                 st["encoded_plan"] = None
             vt, mt = st["arrays"]
@@ -559,6 +579,11 @@ class GridBatch:
             # the fused decode left its scatter slots on the card
             imat = device_decode.imat_from_flat(st["flat_dev"], st["shape"])
         else:
+            if st["flat"] is None:
+                raise RuntimeError(
+                    "selector index grid needed after prefetch dropped the "
+                    "host rows — prefetch callers must declare selector "
+                    "aggs")
             imat_np = np.zeros(st["shape"], dtype=np.int32)
             imat_np.reshape(-1)[st["flat"]] = np.arange(st["n"],
                                                         dtype=np.int32)
@@ -577,16 +602,21 @@ class GridBatch:
                 distributed.nbytes_of(t) for t in (*st["dev"], imat)))
         return imat
 
-    def _wall_now(self) -> float:
+    def _wall_now(self, wait: bool = True) -> float:
         """perf_counter once the card has finished the work queued so far,
-        while the planner is on (its samples are whole walls, not launch
-        walls; the fetch that follows waits for the card anyway)."""
+        while the planner is on and `wait` (its samples are whole walls,
+        not launch walls; the fetch that follows waits for the card
+        anyway). prefetch passes wait=False: a synchronize there would
+        serialize the overlap it exists for."""
         dev = torch.device(self.device)
-        if offload.enabled() and dev.type == "cuda":
+        if wait and offload.enabled() and dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return time.perf_counter()
 
-    def _launch(self, kind: str) -> dict:
+    def _launch(self, kind: str, wait: bool = True) -> dict:
+        """Dispatch one kernel group; returns its outputs, still in
+        flight on the card (the launches go to the current stream and
+        return at once). `wait` as in _wall_now."""
         st = self._state
         plan = st["encoded_plan"]
         geo = (st["shape"], str(self.dtype))
@@ -604,7 +634,7 @@ class GridBatch:
                 stats, vt, mt, flat_d = device_decode.run_grid_plan(plan)
             offload.GLOBAL.observe(
                 "grid_decode", geo, "device" if mesh is None else "mesh",
-                self._wall_now() - t0)
+                self._wall_now(wait) - t0)
             st["encoded_plan"] = None
             st["flat_dev"] = flat_d
             self._set_layout(vt, mt, mesh)
@@ -628,14 +658,60 @@ class GridBatch:
             base = st["host_route_s"]
             st["host_route_s"] = None
             offload.GLOBAL.observe("grid_decode", geo, "host",
-                                   (base or 0.0) + (self._wall_now() - tw))
+                                   (base or 0.0) + (self._wall_now(wait) - tw))
         return out
 
+    def prefetch(self, num_segments: int, agg_names,
+                 want_sel: bool = False) -> bool:
+        """Sliced-scan overlap: freeze the grid and dispatch every kernel
+        group this batch's aggregates will need, then drop the host rows,
+        the host grid and the device inputs; run() settles the outputs
+        in flight later. The card reduces this batch while the host
+        decodes the next slice, and the caching allocator frees a dropped
+        input in stream order, after the kernels that read it. The
+        planner's samples taken here do not wait for the card: they
+        measure the host's side (decode, scatter, transfer, launch), the
+        reference's dispatch wall. No collective runs here: under a mesh
+        each shard's kernels launch on its own rows, and the gathers stay
+        in the settle. Returns False, and does nothing, when the grid
+        refuses (the bucketed fallback keeps its rows) or an aggregate
+        outside GRID_AGGS is coming."""
+        names = set(agg_names)
+        if not names or not names <= GRID_AGGS:
+            return False
+        st = self._freeze(num_segments)
+        if st is None:
+            return False
+        groups = ["basic"]
+        if "stddev" in names:
+            groups.append("ssd")
+        if names & {"first", "last"} or (want_sel and names & {"min", "max"}):
+            groups.append("selectors")
+        for kind in groups:
+            if kind not in self._pending:
+                self._pending[kind] = self._launch(kind, wait=False)
+        # the inputs are on the card: free the host copies, and the
+        # device inputs unless the device tier retains them for
+        # identically signed scans
+        st["arrays"] = st["flat"] = st["flat_dev"] = None
+        if st["device_entry"] is None:
+            self._drop_layout()
+        self._vals = self._rel = self._seg = self._mask = self._sids = None
+        self._bnds = None
+        return True
+
     def _raw_stats(self, need_ssd: bool, need_selectors: bool) -> dict:
-        S = self._state["S"]
+        st = self._state
+        S = st["S"]
 
         def settle(kind):
-            got = self._launch(kind)
+            got = self._pending.pop(kind, None)
+            if got is None:
+                if self._vals is None and st["dev"] is None:
+                    raise RuntimeError(
+                        f"grid kernel {kind!r} needed after prefetch "
+                        "dropped the host arrays")
+                got = self._launch(kind)
             self._raw.update({k: distributed.fetch_np(t)[:S, : self.W]
                               for k, t in got.items()})
 

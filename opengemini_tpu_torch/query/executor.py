@@ -21,8 +21,9 @@ were cached are served from it, and only the stale windows are scanned;
 ``OGT_RESULT_CACHE=0`` turns it off, read at query time). A scan whose
 chunk metadata estimates ``SLICE_THRESHOLD_ROWS`` rows or more runs in
 window-aligned slices (``_scan_sliced``): each slice decodes into its
-own batches, runs its kernels and frees its device buffers before the
-next slice decodes, and the slices' windows are placed into one answer
+own batches and dispatches its kernels before the next slice decodes
+(settling them one slice later, so the card works while the host
+decodes), and the slices' windows are placed into one answer
 (``_stitch_sliced``: each window is computed in one slice only, so the
 answer is the single scan's; a mean or stddev sums in its slice batch's
 shape and may differ from it in the last bits). A whole-range
@@ -134,6 +135,7 @@ from opengemini_tpu_torch.record import (
 from opengemini_tpu_torch.sql import ast
 from opengemini_tpu_torch.sql.parser import parse
 from opengemini_tpu_torch.storage import colcache as colcache_mod
+from opengemini_tpu_torch.storage import scanpool
 from opengemini_tpu_torch.storage.engine import WriteError
 from opengemini_tpu_torch.storage.shard import FileQuarantined
 from opengemini_tpu_torch.storage.tsf import CorruptFile
@@ -1640,8 +1642,11 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                          pre_eligible=False, pre_count=None, pre_sum=None,
                          sum_fields=(), tmax=None) -> tuple[int, bool]:
         """Decode every series in range into `batches`: one bulk read per
-        shard when many series are scanned, else per-series reads staged
-        into one contiguous add per field. With `time_segs` (aggregates
+        shard and range when many series are scanned, else per-series
+        reads staged into one contiguous add per field. The bulk reads
+        are pipelined (storage/scanpool.py ``prefetch_ordered``): unit
+        N+1 decodes on a producer thread while unit N's rows feed the
+        batches. With `time_segs` (aggregates
         over time) each row's segment and time are kept there and in
         `time_vals`. With `pre_eligible` every series tries the
         pre-aggregation path first, and the series it does not serve
@@ -1670,6 +1675,7 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
         for sh, sid, gid in scan_plan:
             by_shard.setdefault(id(sh), (sh, []))[1].append((sid, gid))
         remaining_plan = []
+        units = []  # thunks: () -> (sh, sid_sorted, gid_sorted, sid_arr, rec)
         for sh, pairs in by_shard.values():
             # a peer's RemoteShard has no bulk read: per series
             if len(pairs) < 64 or not hasattr(sh, "read_series_bulk"):
@@ -1680,32 +1686,37 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
             o = np.argsort(sid_list)
             sid_sorted, gid_sorted = sid_list[o], gid_list[o]
             for rlo, rhi in scan_ranges:
-                TRACKER.check()  # KILL QUERY cancellation point
-                sid_arr, rec = sh.read_series_bulk(
-                    mst, sid_sorted, rlo, rhi, fields=read_fields)
-                if len(rec) == 0:
-                    continue
-                rows_scanned += len(rec)
-                fmask = (cond.eval_row_filter(sc, rec, sid_arr=sid_arr,
-                                              index=sh.index)
-                         if sc.has_row_filter else None)
-                gid_rows = gid_sorted[np.searchsorted(sid_sorted,
-                                                      sid_arr)]
-                if group_time:
-                    widx, _ = winmod.window_index(
-                        rec.times, tmin, group_time.every_ns,
-                        group_time.offset_ns)
-                    seg = (gid_rows * W + widx.astype(np.int64)
-                           ).astype(np.int32)
-                else:
-                    seg = gid_rows.astype(np.int32)
-                if time_segs is not None:
-                    m = fmask if fmask is not None else slice(None)
-                    time_segs.append(seg[m])
-                    time_vals.append(rec.times[m])
-                _add_record_to_batches(rec, seg, aligned, needed_fields,
-                                       batches, dtype, fmask,
-                                       sids=sid_arr)
+                units.append(
+                    lambda sh=sh, ss=sid_sorted, gs=gid_sorted, rlo=rlo,
+                    rhi=rhi: (sh, ss, gs) + sh.read_series_bulk(
+                        mst, ss, rlo, rhi, fields=read_fields))
+        # double-buffered: unit N+1 decodes on the pipeline's producer
+        # thread (fanning its chunks over the pool) while unit N's rows
+        # feed the batches here
+        for sh, sid_sorted, gid_sorted, sid_arr, rec in \
+                scanpool.prefetch_ordered(units):
+            TRACKER.check()  # KILL QUERY cancellation point
+            if len(rec) == 0:
+                continue
+            rows_scanned += len(rec)
+            fmask = (cond.eval_row_filter(sc, rec, sid_arr=sid_arr,
+                                          index=sh.index)
+                     if sc.has_row_filter else None)
+            gid_rows = gid_sorted[np.searchsorted(sid_sorted, sid_arr)]
+            if group_time:
+                widx, _ = winmod.window_index(
+                    rec.times, tmin, group_time.every_ns,
+                    group_time.offset_ns)
+                seg = (gid_rows * W + widx.astype(np.int64)
+                       ).astype(np.int32)
+            else:
+                seg = gid_rows.astype(np.int32)
+            if time_segs is not None:
+                m = fmask if fmask is not None else slice(None)
+                time_segs.append(seg[m])
+                time_vals.append(rec.times[m])
+            _add_record_to_batches(rec, seg, aligned, needed_fields,
+                                   batches, dtype, fmask, sids=sid_arr)
         # per-series tail: stage rows and materialize ONE contiguous
         # array set per field at the end
         stager = (_ScanStager(needed_fields, dtype, batches, aligned,
@@ -1738,16 +1749,46 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                      per_field_aggs, aggs, num_groups, device_token=None
                      ) -> tuple[int, list]:
         """Window-aligned sliced scan: each slice decodes into its own
-        batch set, then its aggregates run (a batch's ``run`` returns
-        host arrays, so the slice's kernels finish before the next slice
-        decodes) and the slice's batches, with their device buffers, are
-        dropped. Returns (rows_scanned, [(w0, W_s, {id(call): (out,
-        counts)}, {field: (rows, layout)})]). Overlapping one slice's
-        kernels with the next slice's decode (the reference's
-        ``prefetch``) is not ported."""
+        batch set, and its kernels are DISPATCHED (``prefetch``: the
+        launches return before the card finishes, and the slice's inputs
+        are dropped) before the next slice decodes, so the card reduces
+        slice k while the host decodes slice k+1. Slice k's aggregates
+        settle to host arrays (``run``, one fetch) once slice k+1's
+        kernels are in flight, and its batches go then: at most two
+        slices' outputs are on the card at once. A batch the grid
+        refuses, or one without ``prefetch``, runs its aggregates at
+        that settle. Under ``scanpool.forced_serial()`` each slice
+        settles before the next one decodes; the overlap needs no host
+        thread, so the decode pool's size does not select it. Under a
+        device mesh the dispatch launches each shard's kernels on its own
+        rows; the gathers, collectives across processes, stay in the
+        settle, in the same order on every rank. Returns (rows_scanned,
+        [(w0, W_s, {id(call): (out, counts)}, {field: (rows,
+        layout)})])."""
         rows_scanned = 0
         out = []
+        overlap = not scanpool.serial_forced()
         STATS.incr("executor", "sliced_scans")
+
+        def settle(w0, W_s, sbatches, dispatched):
+            outs = {}
+            for call, spec, params, fname in aggs:
+                b = sbatches[fname]
+                if b.n == 0:
+                    continue
+                TRACKER.check()
+                if getattr(b, "supports_want_sel", False):
+                    o, _sel, c = b.run(spec, num_groups * W_s, params,
+                                       want_sel=False)
+                else:
+                    o, _sel, c = b.run(spec, num_groups * W_s, params)
+                outs[id(call)] = (o, c)
+            info = {f: (b.n, b.layout_name()) for f, b in sbatches.items()}
+            out.append((w0, W_s, outs, info))
+            if dispatched:
+                STATS.incr("executor", "sliced_dispatched_ahead")
+
+        ahead = None  # the slice whose kernels are in flight
         for (w0, W_s, lo, hi) in slice_plan:
             TRACKER.check()
             ranges = [(max(lo, rlo), min(hi, rhi))
@@ -1769,21 +1810,21 @@ class Executor(ShowDdlMixin, SubqueryMixin, HostPathMixin):
                 scan_plan, ranges, sc, mst, group_time, lo, W_s,
                 needed_fields, read_fields, dtype, lo, sbatches)
             rows_scanned += got
-            outs = {}
-            for call, spec, params, fname in aggs:
-                b = sbatches[fname]
-                if b.n == 0:
-                    continue
-                TRACKER.check()
-                if getattr(b, "supports_want_sel", False):
-                    o, _sel, c = b.run(spec, num_groups * W_s, params,
-                                       want_sel=False)
-                else:
-                    o, _sel, c = b.run(spec, num_groups * W_s, params)
-                outs[id(call)] = (o, c)
-            info = {f: (b.n, b.layout_name()) for f, b in sbatches.items()}
-            out.append((w0, W_s, outs, info))
-            del sbatches  # the slice's device buffers go before the next
+            if not overlap:
+                settle(w0, W_s, sbatches, False)
+                continue
+            dispatched = False
+            for f, b in sbatches.items():
+                prefetch = getattr(b, "prefetch", None)
+                if prefetch is not None and b.n:
+                    TRACKER.check()
+                    dispatched |= prefetch(num_groups * W_s,
+                                           per_field_aggs[f])
+            if ahead is not None:
+                settle(*ahead)
+            ahead = (w0, W_s, sbatches, dispatched)
+        if ahead is not None:  # the last slice went ahead of none
+            settle(*ahead[:3], False)
         return rows_scanned, out
 
     def _scan_preagg(self, sh, mst, sid, gid, tmin, tmax, needed_fields,

@@ -90,8 +90,9 @@ def _env_float(name: str, default: float) -> float:
         return default
 
 
-# resolved ONCE at import, for the PromQL engine (not ported yet): "" =
-# auto (a CPU backend answers host), "1"/"0" force.  Hot-reloadable via /debug/ctrl?mod=offload.
+# resolved ONCE at import, for the PromQL engine (promql/engine.py
+# ``_host_kernels``): "" = auto (a CPU backend answers host), "1"/"0"
+# force. Hot-reloadable via /debug/ctrl?mod=offload.
 _PROM_HOST_KERNELS = os.environ.get("OGT_PROM_HOST_KERNELS", "")
 
 # forced route for A/B work (bench legs, forced-all-host vs

@@ -12,16 +12,20 @@ a shared thread pool:
       order — into `consume` on the submitting thread (which owns the
       file offsets), so output files are byte-identical to a serial
       encode. In-flight encode-input bytes are bounded by a 256 MiB
-      budget (submission stalls and drains until under it). On one core
-      the job runs inline.
+      budget (submission stalls and drains until under it). On one core,
+      or on a thread inside ``forced_serial()`` (the A-B switch, as
+      storage/scanpool.py has for the scan), the job runs inline: the
+      exact serial encode-and-write order, the same bytes.
 
 The reference's OGT_ENCODE_WORKERS / OGT_ENCODE_INFLIGHT_MB knobs are
-not ported: the defaults are constants here.
+not ported: the defaults are constants here (tests patch ``WORKERS``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -42,6 +46,9 @@ INFLIGHT_BYTES = 256 << 20
 
 _pool: ThreadPoolExecutor | None = None
 _pool_lock = lockdep.Lock()
+# thread-local, not process-wide: an A-B block must not degrade a
+# concurrent flush on another thread to the serial encode
+_serial_local = threading.local()
 
 # encode-input bytes in flight across every open pipe: the resource
 # governor's ledger component "encodepool"
@@ -55,7 +62,19 @@ def total_inflight_bytes() -> int:
 
 
 def enabled() -> bool:
-    return WORKERS >= 2
+    return WORKERS >= 2 and not getattr(_serial_local, "forced", False)
+
+
+@contextlib.contextmanager
+def forced_serial():
+    """Degrade the CALLING THREAD to the serial encode path (the A-B
+    switch; one worker is the same process-wide)."""
+    prev = getattr(_serial_local, "forced", False)
+    _serial_local.forced = True
+    try:
+        yield
+    finally:
+        _serial_local.forced = prev
 
 
 def pool() -> ThreadPoolExecutor | None:
@@ -79,10 +98,14 @@ class OrderedEncodePipe:
 
     def __init__(self, consume):
         self._consume = consume
-        self._p = pool()
+        self._p = pool()  # captured once: a switch mid-file mixes no modes
         self._pending: deque = deque()
         self._inflight = 0
         self._max_pending = 4 * WORKERS
+
+    @property
+    def pooled(self) -> bool:
+        return self._p is not None
 
     def submit(self, job, est_bytes: int) -> None:
         """Queue one encode job; may drain older completed jobs into

@@ -22,6 +22,13 @@ bucketed and tiled PromQL paths raise at the fetch of a row-sharded
 result that spans another process's devices (ROADMAP C), where the port
 answers as the reference's one-process mesh.
 
+The sliced C1 (10 window-aligned slices) with the scan pipeline on, its
+kernels dispatched a slice ahead of the next slice's decode and its
+gathers in the settle, answers on a one-process mesh of 4 CPU shards
+and on both ranks of a world of 2 as the serial sliced scan does (bit
+for bit) and as the one-process C1 does, with every slice but the last
+dispatched ahead; the ranks issue the same collectives.
+
 Also: a [device] reload 4 -> 2 -> off -> 4 on both ranks of a world of
 2 (the device tier's entry reshards over the process group, and a
 rank's resident bytes never grow), and a rank out of step (one more
@@ -129,7 +136,7 @@ def runs(tmp_path_factory):
         jobs[world] = _start(
             "torch_multiproc_worker.py", os.path.join(base, f"w{world}"),
             world, {"shards": shards, "queries": list(QNAMES),
-                    "steps": ["reload"] if world == 2 else [],
+                    "steps": ["reload", "sliced"] if world == 2 else [],
                     "timeout_s": 120.0})
     jobs["step"] = _start(
         "torch_multiproc_worker.py", os.path.join(base, "step"), 2,
@@ -176,6 +183,9 @@ def one_process(tmp_path_factory):
             jrt.set_mesh(jdist.make_mesh(shards))
             try:
                 got[shards] = (_answers(tx, tp), _answers(jx, jp))
+                if shards == WORLDS[2]:
+                    got["sliced"] = json.loads(json.dumps(
+                        W.sliced_answers(tx)))
             finally:
                 trt.set_mesh(None)
                 jrt.set_mesh(None)
@@ -282,6 +292,25 @@ def test_reload_reshards_across_the_ranks(runs, one_process):
         assert held[0] < held[1] and held[2] < held[1], held
         first = held if first is None else first
         assert held == first  # the ranks hold alike
+
+
+def test_sliced_overlap_on_the_mesh(runs, one_process):
+    """The sliced C1 with the pipeline, in one process on 4 shards and
+    on both ranks of 2: the serial sliced answer bit for bit, the
+    one-process C1 within RTOL for the means, every slice but the last
+    dispatched ahead, none under forced_serial."""
+    solo = one_process[WORLDS[2]][0]["C1"]
+    outs = [("one process", one_process["sliced"])] + [
+        (f"rank {o['rank']}/2", o.get("sliced")) for o in runs[2]]
+    for what, got in outs:
+        assert got is not None, [o.get("error") for o in runs[2]]
+        n = got["slices"][0]
+        assert n > 2 and got["slices"] == [n, n], what
+        assert got["ahead"] == [n - 1, 0], what
+        assert "error" not in json.dumps(got["overlap"]), what
+        assert got["overlap"] == got["serial"], what
+        _same(json.loads(json.dumps(got["overlap"])), solo,
+              what=f"sliced C1 ({what})")
 
 
 def test_a_rank_out_of_step_raises_within_the_timeout(runs):

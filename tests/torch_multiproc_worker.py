@@ -12,7 +12,9 @@ the Executor (or the PromEngine) and through its own HttpService, every
 rank in the same order; and writes its answers, its place in the mesh
 and its collectives' counts to the job's output file. Steps a job may
 add: ``reload`` (the [device] mesh 4 -> 2 -> off -> 4 through
-``_apply_mesh_config``, C1 after each, with the device tier's bytes) and
+``_apply_mesh_config``, C1 after each, with the device tier's bytes),
+``sliced`` (C1 in window-aligned slices, with the scan pipeline's
+dispatch-ahead and under ``scanpool.forced_serial()``) and
 ``out_of_step`` (rank 0 runs one more mesh query than the others).
 
 The data and the queries are functions of this module that import only
@@ -58,6 +60,49 @@ PROM = {
     "PQ3": ("avg by (host) (avg_over_time(reqs[1m]))",
             BASE + 120, BASE + (N_PTS - 1) * STEP_S, 60),
 }
+
+
+# the sliced step's thresholds (rows): C1's windows in slices of two
+SLICE_THRESHOLD_ROWS = 1
+SLICE_TARGET_ROWS = 1000
+
+
+def sliced_answers(executor) -> dict:
+    """C1 through the port's sliced scan, with the pipeline (each
+    slice's kernels dispatched before the next slice decodes) and under
+    ``scanpool.forced_serial()``; each run's slices and the slices it
+    dispatched ahead."""
+    from opengemini_tpu_torch.query import executor as ex
+    from opengemini_tpu_torch.storage import scanpool
+    from opengemini_tpu_torch.utils.stats import GLOBAL as STATS
+
+    keep = (ex.SLICE_THRESHOLD_ROWS, ex.SLICE_TARGET_ROWS,
+            ex._plan_scan_slices)
+    plans = []
+
+    def plan(*a):
+        plans.append(keep[2](*a))
+        return plans[-1]
+
+    def ahead() -> int:
+        return STATS.counters("executor").get("sliced_dispatched_ahead", 0)
+
+    ex.SLICE_THRESHOLD_ROWS = SLICE_THRESHOLD_ROWS
+    ex.SLICE_TARGET_ROWS = SLICE_TARGET_ROWS
+    ex._plan_scan_slices = plan
+    try:
+        a0 = ahead()
+        overlap = executor.execute(QUERIES["C1"], db="db")
+        a1 = ahead()
+        with scanpool.forced_serial():
+            serial = executor.execute(QUERIES["C1"], db="db")
+        a2 = ahead()
+    finally:
+        (ex.SLICE_THRESHOLD_ROWS, ex.SLICE_TARGET_ROWS,
+         ex._plan_scan_slices) = keep
+    return {"overlap": overlap, "serial": serial,
+            "slices": [len(p or ()) for p in plans],
+            "ahead": [a1 - a0, a2 - a1]}
 
 
 def lines() -> str:
@@ -164,6 +209,8 @@ def main(job_path: str) -> None:
                     - c0["device_reshards"],
                     "hits": c1["device_hits"] - c0["device_hits"],
                     "device_bytes": colcache.GLOBAL.device_ledger_bytes()})
+        if "sliced" in job["steps"]:
+            out["sliced"] = sliced_answers(svc.executor)
         out["debug_mesh"] = devobs.debug_doc()["mesh"]
         out["collectives"] = distributed.collective_stats()
         if "out_of_step" in job["steps"]:
